@@ -1,0 +1,191 @@
+"""Typed configuration tree of the PyTorch port: the JAX package's
+`core/config.py` without JAX and without the sections and fields the
+ported slice never reads (enrichment, simulation, mesh, training, MXU
+channel padding, LoRA, the fused-morphology switch).
+
+Every magic number that is inlined in the reference implementation
+(src/circuit_analyzer.py and src/analysis_pipeline.py of the reference
+app) is promoted to a named, typed field here so the whole pipeline is
+configurable and testable.
+
+Reference provenance (file:line in the reference app):
+  - NMS IoU 0.6                      src/analysis_pipeline.py:106
+  - crop padding 80                  src/analysis_pipeline.py:181
+  - cluster multipliers 2.0 / 2.5    src/circuit_analyzer.py:1009,1017
+  - cluster minima 30 / 20           src/circuit_analyzer.py:1009,1017
+  - skip-crop area fraction 0.90     src/circuit_analyzer.py:1177
+  - text inclusion padding 20        src/circuit_analyzer.py:1194
+  - text far-check padding 150       src/circuit_analyzer.py:1203
+  - analysis resize height 600       src/circuit_analyzer.py:787
+  - contour area threshold 4e-4      src/circuit_analyzer.py:388
+  - prelim contour threshold 1e-4    src/circuit_analyzer.py:2254
+  - terminal pixel thresholds 6/8/20 src/circuit_analyzer.py:1407-1415
+  - reclass threshold 10             src/circuit_analyzer.py:2277
+  - VLM crop padding 15              src/circuit_analyzer.py:2176
+  - LoRA r=4 alpha=16 dropout=0.3    src/circuit_analyzer.py:209-211
+  - SAM2 resolution 1024             models/configs/sam2.1_hiera_l.yaml:89
+  - loss weights                     src/circuit_analyzer.py:218-222
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectorConfig:
+    """YOLOv11 detector configuration (reference: ultralytics YOLOv11-L)."""
+
+    num_classes: int = 62
+    img_size: int = 640
+    # 'n' | 's' | 'm' | 'l' | 'x' compound-scaling preset.
+    scale: str = "l"
+    reg_max: int = 16  # DFL bins per box side.
+    conf_threshold: float = 0.25
+    iou_threshold: float = 0.7  # device NMS inside decode (ultralytics default)
+    max_detections: int = 128  # static padding bound under jit
+    dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
+class SAM2Config:
+    """SAM 2.1 Hiera-Large image-path configuration.
+
+    Mirrors models/configs/sam2.1_hiera_l.yaml in the reference (the
+    memory attention/encoder sections of that config are bypassed by the
+    image-only wrapper, src/sam2_infer.py:191-275, and are not built).
+    """
+
+    resolution: int = 1024
+    # Hiera trunk (yaml:10-16)
+    embed_dim: int = 144
+    num_heads: int = 2
+    stages: Sequence[int] = (2, 6, 36, 4)
+    global_att_blocks: Sequence[int] = (23, 33, 43)
+    window_pos_embed_bkg_spatial_size: Sequence[int] = (7, 7)
+    window_spec: Sequence[int] = (8, 4, 16, 8)
+    # FPN neck (yaml:17-28)
+    d_model: int = 256
+    backbone_channel_list: Sequence[int] = (1152, 576, 288, 144)
+    fpn_top_down_levels: Sequence[int] = (2, 3)
+    scalp: int = 1
+    # Mask decoder
+    decoder_mlp_dim: int = 2048
+    num_multimask_outputs: int = 3
+    iou_head_depth: int = 3
+    iou_head_hidden_dim: int = 256
+    pred_obj_scores: bool = True
+    pred_obj_scores_mlp: bool = True
+    use_high_res_features: bool = True
+    dynamic_multimask_via_stability: bool = True
+    dynamic_multimask_stability_delta: float = 0.05
+    dynamic_multimask_stability_thresh: float = 0.98
+    # Prompt-free wrapper extras (src/sam2_infer.py:206-218)
+    trainable_embedding_r: int = 4
+    sparse_embedding_len: int = 32
+    use_refinement: bool = True
+    refinement_kernels: Sequence[int] = (3, 5, 7, 11)
+    refinement_channels: int = 4
+    mask_threshold: float = 0.0
+    dtype: str = "bfloat16"
+
+
+# Hiera family presets, from the published facebookresearch/sam2
+# sam2.1_hiera_{t,s,b+,l}.yaml configs (the reference ships only the L
+# yaml, models/configs/sam2.1_hiera_l.yaml — it is the default above).
+# The whole trunk is parametric, so the other family members are pure
+# config: non-divisible window specs (14 over a 64-wide stage-3 map)
+# route through window_partition's padding path, and the fused-kernel
+# gates fall back to the module path where their preconditions fail.
+_SAM2_HIERA_PRESETS: dict[str, dict] = {
+    "t": dict(
+        embed_dim=96, num_heads=1, stages=(1, 2, 7, 2),
+        global_att_blocks=(5, 7, 9), window_spec=(8, 4, 14, 7),
+        window_pos_embed_bkg_spatial_size=(7, 7),
+        backbone_channel_list=(768, 384, 192, 96),
+    ),
+    "s": dict(
+        embed_dim=96, num_heads=1, stages=(1, 2, 11, 2),
+        global_att_blocks=(7, 10, 13), window_spec=(8, 4, 14, 7),
+        window_pos_embed_bkg_spatial_size=(7, 7),
+        backbone_channel_list=(768, 384, 192, 96),
+    ),
+    "b+": dict(
+        embed_dim=112, num_heads=2, stages=(2, 3, 16, 3),
+        global_att_blocks=(12, 16, 20), window_spec=(8, 4, 14, 7),
+        window_pos_embed_bkg_spatial_size=(14, 14),
+        backbone_channel_list=(896, 448, 224, 112),
+    ),
+    "l": dict(),  # the dataclass defaults ARE the L config
+}
+
+
+def sam2_hiera_preset(size: str, **overrides) -> "SAM2Config":
+    """SAM2Config for a Hiera family member: 't', 's', 'b+', or 'l'."""
+    if size not in _SAM2_HIERA_PRESETS:
+        raise ValueError(
+            f"unknown Hiera size {size!r}; choose from "
+            f"{sorted(_SAM2_HIERA_PRESETS)}"
+        )
+    return SAM2Config(**{**_SAM2_HIERA_PRESETS[size], **overrides})
+
+
+@dataclasses.dataclass(frozen=True)
+class CropConfig:
+    """YOLO-cluster intelligent crop (src/circuit_analyzer.py:937-1284)."""
+
+    padding: int = 80  # src/analysis_pipeline.py:181
+    cluster_multiplier: float = 2.0  # non-junction avg-diag multiplier
+    cluster_multiplier_junction_only: float = 2.5
+    cluster_min_threshold: int = 30
+    cluster_min_threshold_junction_only: int = 20
+    text_assoc_multiplier: float = 0.75
+    text_assoc_min: int = 25
+    skip_crop_area_fraction: float = 0.90
+    text_inclusion_padding: int = 20
+    text_far_check_padding: int = 150
+
+
+@dataclasses.dataclass(frozen=True)
+class TopologyConfig:
+    """Node extraction (src/circuit_analyzer.py:1286-1605)."""
+
+    resize_height: int = 600  # analysis runs in resized space (:787)
+    contour_area_threshold: float = 4.0e-4  # :388
+    prelim_contour_area_threshold: float = 1.0e-4  # :2254
+    pixel_threshold_default: int = 6  # :1407
+    pixel_threshold_source: int = 20  # :1412
+    pixel_threshold_diode: int = 8  # :1415
+    reclass_pixel_threshold: int = 10  # :2277
+    reclass_min_connections: int = 2  # :2293
+    # enhance_lines (src/circuit_analyzer.py:289-311)
+    blur_kernel: int = 5
+    blur_sigma: float = 1.0
+    morph_kernel: int = 3
+    morph_iterations: int = 2
+    # segment_circuit adaptive threshold (src/circuit_analyzer.py:313-319)
+    adaptive_block: int = 31
+    adaptive_c: int = 21
+
+
+@dataclasses.dataclass(frozen=True)
+class NMSConfig:
+    iou_threshold: float = 0.6  # src/analysis_pipeline.py:106
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Top-level config tree."""
+
+    detector: DetectorConfig = dataclasses.field(default_factory=DetectorConfig)
+    sam2: SAM2Config = dataclasses.field(default_factory=SAM2Config)
+    crop: CropConfig = dataclasses.field(default_factory=CropConfig)
+    topology: TopologyConfig = dataclasses.field(default_factory=TopologyConfig)
+    nms: NMSConfig = dataclasses.field(default_factory=NMSConfig)
+    use_sam2: bool = True
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}[name]

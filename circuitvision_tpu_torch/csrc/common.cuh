@@ -1,0 +1,176 @@
+// Device helpers shared by the Hiera block kernels (mlp_block.cu,
+// window_attn.cu): dtype conversion, a row-tile LayerNorm, a block-wide
+// tiled product against a weight in torch Linear layout, and in-window
+// softmax attention. Everything a block computes lives in shared memory
+// as float32; values that the JAX kernels store in the compute dtype are
+// rounded to it (`rnd`) at the same points, so bf16 results round where
+// the reference's do.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace cvk {
+
+constexpr int kThreads = 256;  // every block kernel runs 256 threads
+constexpr int kRows = 16;      // row group of one block_gemm pass
+constexpr int kTileN = 64;     // output columns per pass
+constexpr int kTileK = 32;     // reduction depth per staged weight tile
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// Round a float32 value to the compute dtype T and back.
+template <typename T>
+__device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
+
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+// LayerNorm of `rows` rows of `src` (row stride c) into `dst`, one warp
+// per row: f32 statistics in the fast-variance form E[x²]−mean², then
+// (x−mean)·rsqrt(var+eps)·scale + bias rounded to T (window_attn.py:40-46
+// in the JAX package).
+template <typename T>
+__device__ void layernorm_rows(const float* src, float* dst, int rows, int c,
+                               const T* scale, const T* bias, float eps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < rows; r += kThreads / 32) {
+    const float* x = src + (size_t)r * c;
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = lane; i < c; i += 32) {
+      float v = x[i];
+      s1 += v;
+      s2 += v * v;
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    float mean = s1 / c;
+    float var = fmaxf(s2 / c - mean * mean, 0.f);
+    float inv = rsqrtf(var + eps);
+    for (int i = lane; i < c; i += 32)
+      dst[(size_t)r * c + i] =
+          rnd<T>((x[i] - mean) * inv * to_f(scale[i]) + to_f(bias[i]));
+  }
+}
+
+// out[r][n] = Σ_k A[r][k] · W[n][k] for r < rows (≤ kRows), n < n_cols,
+// with A in shared memory (row stride lda) and W in global memory in
+// torch Linear layout (row n at W + n·ldw). The accumulated f32 value is
+// handed to epi(r, n, acc). Weight tiles are staged through `ws`
+// (kTileK × (kTileN+1) floats) so the global reads run along k and are
+// coalesced. Callers sync before reading what epi wrote.
+template <typename T, typename Epi>
+__device__ void block_gemm(const float* A, int lda, int rows, int k_dim,
+                           const T* W, int ldw, int n_cols, float* ws,
+                           Epi epi) {
+  const int tid = threadIdx.x;
+  const int tn = tid % kTileN;           // output column in the tile
+  const int tr = tid / kTileN;           // row phase, 0..3
+  constexpr int kPer = kRows / (kThreads / kTileN);  // rows per thread
+  for (int n0 = 0; n0 < n_cols; n0 += kTileN) {
+    float acc[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
+    for (int k0 = 0; k0 < k_dim; k0 += kTileK) {
+      __syncthreads();
+      for (int e = tid; e < kTileK * kTileN; e += kThreads) {
+        int kk = e % kTileK, nn = e / kTileK;
+        int n = n0 + nn, k = k0 + kk;
+        ws[kk * (kTileN + 1) + nn] =
+            (n < n_cols && k < k_dim) ? to_f(W[(size_t)n * ldw + k]) : 0.f;
+      }
+      __syncthreads();
+      const int kmax = min(kTileK, k_dim - k0);
+      for (int kk = 0; kk < kmax; ++kk) {
+        float w = ws[kk * (kTileN + 1) + tn];
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          int r = tr + i * (kThreads / kTileN);
+          if (r < rows) acc[i] += A[(size_t)r * lda + k0 + kk] * w;
+        }
+      }
+    }
+    int n = n0 + tn;
+    if (n < n_cols) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        int r = tr + i * (kThreads / kTileN);
+        if (r < rows) epi(r, n, acc[i]);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Product over row groups of kRows: the whole (rows × n_cols) output.
+template <typename T, typename Epi>
+__device__ void rows_gemm(const float* A, int lda, int rows, int k_dim,
+                          const T* W, int ldw, int n_cols, float* ws,
+                          Epi epi) {
+  for (int r0 = 0; r0 < rows; r0 += kRows) {
+    block_gemm<T>(A + (size_t)r0 * lda, lda, min(kRows, rows - r0), k_dim, W,
+                  ldw, n_cols, ws,
+                  [&](int r, int n, float v) { epi(r0 + r, n, v); });
+  }
+}
+
+// Softmax attention of nq queries over nk keys for every head, with f32
+// scores (scaled by `scale`), f32 softmax, probabilities rounded to T,
+// and p·v accumulated in f32 then rounded to T. q, k, v rows have
+// strides ldq, ldk, ldv; head h uses columns [h·hd, (h+1)·hd). The
+// result goes to o (row stride ldo); s holds nq·nk floats.
+template <typename T>
+__device__ void window_attention(const float* q, int ldq, const float* k,
+                                 int ldk, const float* v, int ldv, float* o,
+                                 int ldo, float* s, int nq, int nk, int heads,
+                                 int hd, float scale) {
+  const int tid = threadIdx.x;
+  for (int h = 0; h < heads; ++h) {
+    const int off = h * hd;
+    for (int e = tid; e < nq * nk; e += kThreads) {
+      int i = e / nk, j = e % nk;
+      const float* qi = q + (size_t)i * ldq + off;
+      const float* kj = k + (size_t)j * ldk + off;
+      float acc = 0.f;
+      for (int d = 0; d < hd; ++d) acc += qi[d] * kj[d];
+      s[e] = acc * scale;
+    }
+    __syncthreads();
+    for (int i = tid; i < nq; i += kThreads) {
+      float* row = s + (size_t)i * nk;
+      float m = -INFINITY;
+      for (int j = 0; j < nk; ++j) m = fmaxf(m, row[j]);
+      float sum = 0.f;
+      for (int j = 0; j < nk; ++j) {
+        float e = expf(row[j] - m);
+        row[j] = e;
+        sum += e;
+      }
+      for (int j = 0; j < nk; ++j) row[j] = rnd<T>(row[j] / sum);
+    }
+    __syncthreads();
+    for (int e = tid; e < nq * hd; e += kThreads) {
+      int i = e / hd, d = e % hd;
+      const float* p = s + (size_t)i * nk;
+      float acc = 0.f;
+      for (int j = 0; j < nk; ++j) acc += p[j] * v[(size_t)j * ldv + off + d];
+      o[(size_t)i * ldo + off + d] = rnd<T>(acc);
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace cvk

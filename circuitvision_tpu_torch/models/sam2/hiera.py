@@ -1,0 +1,262 @@
+"""Hiera image trunk (SAM 2.1) in PyTorch, NHWC.
+
+Counterpart of the JAX package's `models/sam2/hiera.py`, with its
+execution plan kept exactly:
+
+  * layout-persistent windows: consecutive blocks of one window size run
+    on the partitioned (B·nW, win, win, C) tensor, and the map is
+    re-partitioned only at window changes, q-pool blocks, global blocks
+    and stage outputs (JAX hiera.py:676-752);
+  * a q-pool transition block keeps the PREVIOUS stage's window
+    (hiera.py:708-716);
+  * a window that does not divide the map takes the padded-window module
+    path (hiera.py:720-731) — at t@512 stages 3 and 4, whose windows 14
+    and 7 do not divide 32² and 16²;
+  * global blocks use einsum attention (their 1024 tokens are below the
+    2048-token flash threshold, hiera.py:201);
+  * the background positional embedding is resized by torch bicubic
+    (hiera.py:574 emulates exactly this in JAX).
+
+The kernels of the port carry the blocks the JAX package gives to its
+Pallas kernels: `mlp_block` in every block, `window_attn_block` in
+partitioned blocks, `qpool_attn_block` in transition blocks whose even
+window divides the map. Everything else is the plain module path.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ...ops.cuda.mlp_block import mlp_block
+from ...ops.cuda.window_attn import qpool_attn_block, window_attn_block
+
+
+def window_partition(x: torch.Tensor, window: int):
+    """(B, H, W, C) → (B·nW, win, win, C) with bottom/right zero padding."""
+    b, h, w, c = x.shape
+    pad_h = (window - h % window) % window
+    pad_w = (window - w % window) % window
+    if pad_h or pad_w:
+        x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
+    hp, wp = h + pad_h, w + pad_w
+    x = x.reshape(b, hp // window, window, wp // window, window, c)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window, window, c)
+    return x, (hp, wp)
+
+
+def window_unpartition(windows: torch.Tensor, window: int, pad_hw, hw) -> torch.Tensor:
+    hp, wp = pad_hw
+    h, w = hw
+    b = windows.shape[0] // ((hp // window) * (wp // window))
+    x = windows.reshape(b, hp // window, wp // window, window, window, -1)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, -1)
+    return x[:, :h, :w, :].contiguous()
+
+
+def _pool2x(x: torch.Tensor) -> torch.Tensor:
+    """2×2 max-pool of (B, H, W, C)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+
+class TrunkLayerNorm(nn.Module):
+    """LayerNorm with f32 fast-variance statistics (E[x²]−mean²), output
+    in the input dtype (JAX hiera.TrunkLayerNorm at true_dim == C)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
+def einsum_attention(q, k, v, scale: float) -> torch.Tensor:
+    """(B, N, H, D) attention: f32 scores and softmax, probabilities in
+    v's dtype for the p·v product."""
+    attn = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    attn = torch.softmax(attn * scale, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", attn, v)
+
+
+class MultiScaleAttention(nn.Module):
+    def __init__(self, dim: int, dim_out: int, num_heads: int):
+        super().__init__()
+        self.dim_out = dim_out
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, dim_out * 3)
+        self.proj = nn.Linear(dim_out, dim_out)
+
+    def forward(self, x: torch.Tensor, q_pool: bool) -> torch.Tensor:
+        b, h, w, _ = x.shape
+        hd = self.dim_out // self.num_heads
+        qkv = self.qkv(x).reshape(b, h * w, 3, self.num_heads, hd)
+        q, k, v = qkv.unbind(2)
+        if q_pool:
+            q = _pool2x(q.reshape(b, h, w, -1))
+            h, w = q.shape[1], q.shape[2]
+            q = q.reshape(b, h * w, self.num_heads, hd)
+        out = einsum_attention(q, k, v, hd ** -0.5)
+        return self.proj(out.reshape(b, h, w, self.dim_out))
+
+
+class MultiScaleBlock(nn.Module):
+    def __init__(self, dim: int, dim_out: int, num_heads: int, q_stride: bool,
+                 mlp_ratio: float = 4.0):
+        super().__init__()
+        self.dim, self.dim_out, self.num_heads = dim, dim_out, num_heads
+        self.q_stride = q_stride
+        self.norm1 = TrunkLayerNorm(dim)
+        self.attn = MultiScaleAttention(dim, dim_out, num_heads)
+        if dim != dim_out:
+            self.proj = nn.Linear(dim, dim_out)
+        self.norm2 = TrunkLayerNorm(dim_out)
+        hidden = int(dim_out * mlp_ratio)
+        self.mlp_layers_0 = nn.Linear(dim_out, hidden)
+        self.mlp_layers_1 = nn.Linear(hidden, dim_out)
+
+    def forward(self, x: torch.Tensor, window_size: int, partitioned: bool) -> torch.Tensor:
+        """x is (B, H, W, C) in full layout (`window_size` > 0 windows it
+        here, 0 is global) or, when `partitioned`, (B·nW, win, win, C)
+        with each window an image of its own."""
+        heads = self.num_heads
+        qpool_kernel = (
+            self.q_stride and window_size > 0 and window_size % 2 == 0
+            and x.shape[1] % window_size == 0 and x.shape[2] % window_size == 0
+            and self.dim != self.dim_out and self.dim_out % heads == 0
+        )
+        window_kernel = (
+            partitioned and not self.q_stride and self.dim == self.dim_out
+            and self.dim_out % heads == 0
+        )
+        if qpool_kernel:
+            _b, fh, fw, c = x.shape
+            win = window_size
+            xw, _ = window_partition(x, win)
+            nwm = xw.shape[0]
+            out = qpool_attn_block(
+                xw.reshape(nwm * win * win, c).contiguous(),
+                self.norm1.weight, self.norm1.bias, self.proj.weight, self.proj.bias,
+                self.attn.qkv.weight, self.attn.qkv.bias,
+                self.attn.proj.weight, self.attn.proj.bias,
+                heads=heads, win=win,
+            )
+            x = out.reshape(nwm, win // 2, win // 2, self.dim_out)
+            x = window_unpartition(x, win // 2, (fh // 2, fw // 2), (fh // 2, fw // 2))
+        elif window_kernel:
+            b_, wh, ww, c = x.shape
+            x = window_attn_block(
+                x.reshape(b_, wh * ww, c).contiguous(),
+                self.norm1.weight, self.norm1.bias,
+                self.attn.qkv.weight, self.attn.qkv.bias,
+                self.attn.proj.weight, self.attn.proj.bias,
+                heads=heads,
+            ).reshape(b_, wh, ww, c)
+        else:
+            shortcut = x
+            x = self.norm1(x)
+            if self.dim != self.dim_out:
+                shortcut = _pool2x(self.proj(x))
+            window = 0 if partitioned else window_size
+            pad_hw = None
+            hw = (x.shape[1], x.shape[2])
+            if window > 0:
+                x, pad_hw = window_partition(x, window)
+            x = self.attn(x, self.q_stride)
+            if self.q_stride:
+                # q was pooled: windows halve and the padded grid with them
+                window = window // 2
+                hw = (shortcut.shape[1], shortcut.shape[2])
+                if pad_hw is not None:
+                    pad_hw = (pad_hw[0] // 2, pad_hw[1] // 2)
+            if window > 0:
+                x = window_unpartition(x, window, pad_hw, hw)
+            x = shortcut + x
+        shp = x.shape
+        return mlp_block(
+            x.reshape(-1, self.dim_out).contiguous(), self.norm2.weight, self.norm2.bias,
+            self.mlp_layers_0.weight, self.mlp_layers_0.bias,
+            self.mlp_layers_1.weight, self.mlp_layers_1.bias,
+        ).reshape(shp)
+
+
+class Hiera(nn.Module):
+    """Hiera trunk. Input (B, S, S, 3); returns 4 feature maps
+    high-res-first: strides 4/8/16/32, dims d, 2d, 4d, 8d."""
+
+    def __init__(self, embed_dim=144, num_heads=2, stages=(2, 6, 36, 4),
+                 global_att_blocks=(23, 33, 43), window_pos_embed_bkg_spatial_size=(7, 7),
+                 window_spec=(8, 4, 16, 8)):
+        super().__init__()
+        self.stages = tuple(stages)
+        self.global_att_blocks = tuple(global_att_blocks)
+        self.window_spec = tuple(window_spec)
+        self.patch_embed_proj = nn.Conv2d(3, embed_dim, 7, 4, 3)
+        self.pos_embed = nn.Parameter(
+            torch.zeros(1, *window_pos_embed_bkg_spatial_size, embed_dim))
+        self.pos_embed_window = nn.Parameter(
+            torch.zeros(1, window_spec[0], window_spec[0], embed_dim))
+        stage_ends = [sum(self.stages[: i + 1]) - 1 for i in range(len(self.stages))]
+        self.stage_ends = stage_ends
+        self.q_pool_blocks = [e + 1 for e in stage_ends[:-1]]
+        self.depth = sum(self.stages)
+        dim, heads = embed_dim, num_heads
+        for i in range(self.depth):
+            dim_out = dim
+            if i in self.q_pool_blocks:
+                dim_out, heads = dim * 2, heads * 2
+            self.add_module(f"blocks_{i}",
+                            MultiScaleBlock(dim, dim_out, heads, i in self.q_pool_blocks))
+            dim = dim_out
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        dt = self.patch_embed_proj.weight.dtype
+        x = self.patch_embed_proj(x.to(dt).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        _b, h, w, _ = x.shape
+        pos = F.interpolate(self.pos_embed.float().permute(0, 3, 1, 2), size=(h, w),
+                            mode="bicubic", align_corners=False).permute(0, 2, 3, 1)
+        ws0 = self.window_spec[0]
+        pos = pos + self.pos_embed_window.float().repeat(1, h // ws0, w // ws0, 1)
+        x = x + pos.to(x.dtype)
+
+        cur_stage = 0
+        outputs: list[torch.Tensor] = []
+        part_window = 0  # 0 ⇒ full (B, H, W, C) layout
+        full_hw = (x.shape[1], x.shape[2])
+
+        def to_full(x):
+            nonlocal part_window
+            if part_window:
+                x = window_unpartition(x, part_window, full_hw, full_hw)
+                part_window = 0
+            return x
+
+        for i in range(self.depth):
+            # read before the stage bump: a transition block keeps the
+            # previous stage's window
+            window = self.window_spec[cur_stage]
+            is_q_pool = i in self.q_pool_blocks
+            if is_q_pool:
+                cur_stage += 1
+            if i in self.global_att_blocks:
+                window = 0
+            divisible = window > 0 and full_hw[0] % window == 0 and full_hw[1] % window == 0
+            want_part = window if (divisible and not is_q_pool) else 0
+            if part_window != want_part:
+                x = to_full(x)
+                if want_part:
+                    x, _ = window_partition(x, want_part)
+                    part_window = want_part
+            x = getattr(self, f"blocks_{i}")(x, 0 if part_window else window, bool(part_window))
+            if is_q_pool:
+                full_hw = (x.shape[1], x.shape[2])
+            if i in self.stage_ends:
+                x = to_full(x)
+                outputs.append(x)
+        return outputs

@@ -1,0 +1,144 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/<name>.cu` is compiled on its own by `nvcc` into a shared
+library with a plain C interface and loaded with ctypes — no PyTorch
+headers, so a build takes seconds. Libraries land in the package's
+`build/` directory (git-ignored), named by a hash of the sources and
+flags, and are built at first use, never at import: `import
+circuitvision_tpu_torch` works on a machine without nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+PKG = Path(__file__).resolve().parents[2]
+CSRC = PKG / "csrc"
+BUILD = PKG / "build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+#: shared memory one block may use on Hopper (232,448 bytes)
+MAX_SMEM = 227 * 1024
+#: kernel sources; each becomes lib<name>-<hash>.so
+SOURCES = ("mlp_block", "window_attn", "refinement")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+#: C signatures of the exported launchers
+SIGNATURES = {
+    "mlp_block": {
+        "cv_mlp_block": [_P] * 9 + [_I] * 4 + [_F, _I, _P],
+        "cv_mlp_block_smem": [_I],
+        "cv_mlp_block_splits": [_I, _I, _I],
+    },
+    "window_attn": {
+        "cv_window_attn": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+        "cv_qpool_attn": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
+        "cv_window_attn_smem": [_I, _I],
+        "cv_qpool_attn_smem": [_I, _I, _I],
+    },
+    "refinement": {
+        "cv_refinement": [_P] * 12 + [_I] * 4 + [_P],
+    },
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+class KernelError(RuntimeError):
+    """A kernel could not be built or launched, or was given a tensor it
+    does not take. The pipeline's degradation ladders never swallow it."""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise KernelError("nvcc not found (PATH or /usr/local/cuda/bin)")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+        h.update(src.read_bytes())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, Path]:
+    """Compile every source that has no current library, one nvcc per
+    source, all started together. Returns name → library path."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    paths = {n: _lib_path(n) for n in names}
+    procs = []
+    for n, path in paths.items():
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs.append((n, path, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for n, path, tmp, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu:\n{out}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise KernelError("nvcc failed:\n" + "\n".join(failed))
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all((name,))[name]))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_longlong if fn.endswith("_smem") else ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launcher."""
+    if err != 0:
+        raise KernelError(f"{what}: CUDA error {err}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if t.dtype not in codes:
+        raise KernelError(f"unsupported dtype {t.dtype}; kernels take float32 or bfloat16")
+    return codes[t.dtype]
+
+
+def check_operands(what: str, x: torch.Tensor, *others: torch.Tensor) -> None:
+    """All operands on x's CUDA device, contiguous, of x's dtype."""
+    dtype_code(x)
+    for t in (x, *others):
+        if not t.is_cuda or t.device != x.device:
+            raise KernelError(f"{what}: operand on {t.device}, expected {x.device}")
+        if t.dtype != x.dtype:
+            raise KernelError(f"{what}: operand dtype {t.dtype} != {x.dtype}")
+        if not t.is_contiguous():
+            raise KernelError(f"{what}: operand of shape {tuple(t.shape)} is not contiguous")

@@ -1,0 +1,257 @@
+"""CircuitAnalyzerTorch — the image → netlist pipeline on one CUDA device.
+
+Counterpart of `CircuitAnalyzerTPU.analyze()` in the JAX package
+(pipeline/analyzer.py:275-353), stages [1]-[6] with no VLM client:
+
+  [1] detect        — letterbox → YOLOv11 → DFL decode → class-aware NMS,
+                      then the reference's confidence NMS at IoU 0.6
+  [2] crop          — cluster crop (host box math)
+  [2b] segment      — SAM2 forward (Hiera kernels, refinement kernel),
+                      logits resized back like jax.image.resize linear
+  [3] reclassify    — terminal→source reclassification (classical mask)
+  [4] enrich        — no VLM: directions stay unset, as in the JAX ladder
+  [5] nodes         — stage A on the device, contours on the host
+  [6] netlist       — valueless netlist text and visual ids
+
+Degradation ladders stay for failures that come from the data: a
+reclassification or node-analysis error is logged and the pipeline goes
+on, and no nodes gives the components-only netlist. They never swallow a
+kernel fault (`KernelError`) or a CUDA error, and SAM2 is not guarded at
+all: given SAM2 weights, a failed segmentation is an error, not a switch
+to the classical mask.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core import geometry, taxonomy
+from ..core.config import PipelineConfig, compute_dtype
+from ..core.types import AnalysisResult, BBox, StageTimings
+from ..models.sam2.wrapper import SAM2ImageSegmenter
+from ..models.yolo.decode import decode_predictions, postprocess, unletterbox_boxes
+from ..models.yolo.model import YOLOv11
+from ..netlist.generate import (
+    generate_fallback_netlist,
+    generate_netlist_from_nodes,
+    stringify_netlist,
+)
+from ..ops.cuda.build import KernelError
+from ..ops.image import letterbox, resize_linear, sam2_preprocess
+from ..topology.crop import crop_image_and_adjust_bboxes
+from ..topology.enumerate_components import assign_visual_ids
+from ..topology.nodes import extract_nodes
+from ..topology.reclassify import reclassify_terminals, segment_classical
+
+logger = logging.getLogger(__name__)
+
+
+def _is_device_fault(exc: BaseException) -> bool:
+    """Kernel faults and CUDA errors, which no degradation ladder may hide."""
+    accel = getattr(torch, "AcceleratorError", None)
+    return (
+        isinstance(exc, KernelError)
+        or (accel is not None and isinstance(exc, accel))
+        or (isinstance(exc, RuntimeError) and "CUDA" in str(exc))
+    )
+
+
+class CircuitAnalyzerTorch:
+    """Image-of-circuit → SPICE netlist with the PyTorch port.
+
+    yolo_state / sam2_state are the models' state dicts (models/bridge.py
+    makes them from the JAX package's variables or from a seed). Without
+    sam2_state the wire mask is the classical adaptive-threshold mask.
+    Runs on the CUDA device unless `device="cpu"` is asked for; a missing
+    CUDA device raises instead of moving to the CPU.
+    """
+
+    def __init__(self, config: Optional[PipelineConfig] = None, yolo_state: Optional[dict] = None,
+                 sam2_state: Optional[dict] = None, device="cuda"):
+        self.cfg = config or PipelineConfig()
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("CircuitAnalyzerTorch: CUDA is not available; "
+                               "pass device='cpu' to run on the CPU")
+        if yolo_state is None:
+            raise ValueError("CircuitAnalyzerTorch needs YOLO weights (yolo_state)")
+        det = self.cfg.detector
+        self.yolo = YOLOv11(det.num_classes, det.scale, det.reg_max)
+        self.yolo.load_state_dict(yolo_state, strict=True)
+        self.yolo.to(self.device, compute_dtype(det.dtype)).eval()
+        self.sam2 = None
+        if sam2_state is not None and self.cfg.use_sam2:
+            self.sam2 = SAM2ImageSegmenter(self.cfg.sam2)
+            self.sam2.load_state_dict(sam2_state, strict=True)
+            self.sam2.to(self.device, compute_dtype(self.cfg.sam2.dtype)).eval()
+
+    # ------------------------------------------------------------------
+    # Stages
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def yolo_heads(self, image_rgb: np.ndarray):
+        """YOLO's raw per-scale head outputs, (1, H, W, 4·reg_max +
+        num_classes) each, on the letterboxed image, with the letterbox
+        scale and pads."""
+        img = torch.as_tensor(np.ascontiguousarray(image_rgb), device=self.device)
+        canvas, scale, pads = letterbox(img, self.cfg.detector.img_size)
+        return self.yolo((canvas / 255.0)[None]), scale, pads
+
+    def bboxes(self, image_rgb: np.ndarray) -> list[BBox]:
+        """YOLO detections as BBoxes with rounded coords + persistent uids
+        (reference CircuitAnalyzer.bboxes, src/circuit_analyzer.py:267-287)."""
+        det = self.cfg.detector
+        outs, scale, pads = self.yolo_heads(image_rgb)
+        boxes, scores = decode_predictions(outs, det.reg_max, det.num_classes)
+        boxes, scores, classes, valid = postprocess(
+            boxes[0], scores[0], max_detections=det.max_detections,
+            conf_threshold=det.conf_threshold, iou_threshold=det.iou_threshold,
+        )
+        h, w = image_rgb.shape[:2]
+        boxes = unletterbox_boxes(boxes, scale, pads, w, h).cpu().numpy()
+        scores, classes, valid = (t.cpu().numpy() for t in (scores, classes, valid))
+        out = []
+        for i in np.nonzero(valid)[0]:
+            out.append(BBox(
+                class_name=taxonomy.ID_TO_NAME.get(int(classes[i]), "unknown"),
+                confidence=float(scores[i]),
+                xmin=round(float(boxes[i, 0])), ymin=round(float(boxes[i, 1])),
+                xmax=round(float(boxes[i, 2])), ymax=round(float(boxes[i, 3])),
+                class_id=int(classes[i]),
+            ))
+        return out
+
+    @torch.no_grad()
+    def segment_logits(self, image_rgb: np.ndarray) -> torch.Tensor:
+        """SAM2 logits at the image's resolution, (H, W) float32 on the
+        device: the fixed-size forward, then a linear resize that matches
+        jax.image.resize(..., "linear", antialias=False) both ways."""
+        h, w = image_rgb.shape[:2]
+        img = torch.as_tensor(np.ascontiguousarray(image_rgb), device=self.device)
+        x = sam2_preprocess(img, self.cfg.sam2.resolution)[None]
+        high, _low, _iou = self.sam2(x)
+        return resize_linear(high[..., 0], (1, h, w), antialias=False)[0]
+
+    def segment_with_sam2(self, image_rgb: np.ndarray):
+        """Binary wire mask (0/255) + green display copy at the image's
+        resolution (reference segment_with_sam2,
+        src/circuit_analyzer.py:321-386)."""
+        logits = self.segment_logits(image_rgb)
+        mask = ((logits > self.cfg.sam2.mask_threshold).to(torch.uint8) * 255).cpu().numpy()
+        display = np.zeros(mask.shape + (3,), np.uint8)
+        display[:, :, 1] = mask
+        return mask, display
+
+    # ------------------------------------------------------------------
+    # Full pipeline
+    # ------------------------------------------------------------------
+    def analyze(self, image_rgb: np.ndarray) -> AnalysisResult:
+        result = AnalysisResult(original_image=image_rgb, timings=StageTimings())
+        cfg = self.cfg
+        sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" \
+            else (lambda: None)
+
+        # [1] Detection + confidence NMS (src/analysis_pipeline.py:97-115).
+        t0 = time.time()
+        raw = self.bboxes(image_rgb)
+        result.bboxes_orig_nms = geometry.nms_by_confidence(raw, iou_threshold=cfg.nms.iou_threshold)
+        result.timings.record("YOLO Component Detection", time.time() - t0)
+
+        # [2] Cluster crop (src/analysis_pipeline.py:168-195).
+        t0 = time.time()
+        image_for_analysis, bboxes, crop_info = crop_image_and_adjust_bboxes(
+            image_rgb, result.bboxes_orig_nms, cfg.crop
+        )
+        result.image_for_analysis = image_for_analysis
+        result.bboxes = bboxes
+        result.crop_info = crop_info
+        result.timings.record("YOLO-based Image Cropping", time.time() - t0)
+
+        # [2b] SAM2 segmentation on the cropped image (:197-221).
+        t0 = time.time()
+        if self.sam2 is not None:
+            result.sam_mask, result.sam_mask_display = self.segment_with_sam2(image_for_analysis)
+        else:
+            result.sam_mask = segment_classical(image_for_analysis, cfg.topology,
+                                                device=self.device)
+        sync()
+        result.timings.record("SAM2 Segmentation on YOLO-Cropped Image", time.time() - t0)
+
+        # [3] Terminal reclassification (src/analysis_pipeline.py:117-137).
+        t0 = time.time()
+        try:
+            result.bboxes = reclassify_terminals(image_for_analysis, result.bboxes,
+                                                 cfg.topology, device=self.device)
+        except Exception as exc:
+            if _is_device_fault(exc):
+                raise
+            logger.exception("terminal reclassification failed; continuing")
+        result.timings.record("Terminal Reclassification", time.time() - t0)
+
+        # [4] No VLM client: boxes pass through with directions unset
+        # (the JAX ladder's enrich_directions(client=None)).
+        t0 = time.time()
+        result.bboxes = [dataclasses.replace(b) for b in result.bboxes]
+        result.timings.record("VLM Direction Enrichment", time.time() - t0)
+
+        # [5] Node analysis (:227-260).
+        t0 = time.time()
+        try:
+            extraction = extract_nodes(result.sam_mask, result.bboxes, cfg.topology,
+                                       device=self.device)
+            result.nodes = extraction.nodes
+            result.node_mask = extraction.emptied_mask
+            result.enhanced_mask = extraction.enhanced_mask
+        except Exception as exc:
+            if _is_device_fault(exc):
+                raise
+            logger.exception("node analysis failed; continuing")
+        sync()
+        result.timings.record("Node Analysis", time.time() - t0)
+
+        # [6] Initial netlist (:262-326).
+        t0 = time.time()
+        self.netlist_stage(result)
+        result.timings.record("Netlist Generation", time.time() - t0)
+
+        result.component_stats = self._component_stats(result.bboxes_orig_nms)
+        return result
+
+    def netlist_stage(self, result: AnalysisResult) -> None:
+        """Stage [6]: initial netlist, the no-VLM-direction comparison
+        netlist (:280-292), visual ids, and the components-only fallback
+        (:310-323). The cv2-drawn enumeration image is not produced."""
+        if result.nodes:
+            result.netlist = generate_netlist_from_nodes(result.nodes)
+            result.valueless_netlist_text = stringify_netlist(result.netlist)
+            result.netlist_text = result.valueless_netlist_text
+            nodes_unknown = [
+                dataclasses.replace(n, components=[
+                    dataclasses.replace(c, semantic_direction="UNKNOWN") for c in n.components
+                ])
+                for n in result.nodes
+            ]
+            result.valueless_netlist_text_no_vlm_dir = stringify_netlist(
+                generate_netlist_from_nodes(nodes_unknown)
+            )
+            result.enum_bboxes = assign_visual_ids(result.bboxes)
+        else:
+            logger.warning("no nodes; generating components-only fallback netlist")
+            result.netlist = generate_fallback_netlist(result.bboxes)
+            result.valueless_netlist_text = stringify_netlist(result.netlist)
+            result.netlist_text = result.valueless_netlist_text
+
+    @staticmethod
+    def _component_stats(bboxes: list[BBox]) -> dict:
+        """Per-class counts + confidence totals (src/utils.py:410-430)."""
+        stats: dict[str, dict] = {}
+        for b in bboxes:
+            entry = stats.setdefault(b.class_name, {"count": 0, "total_conf": 0.0})
+            entry["count"] += 1
+            entry["total_conf"] += b.confidence
+        return stats

@@ -1,0 +1,273 @@
+"""Node extraction: wire mask + component boxes → electrical node graph.
+
+Counterpart of the single-image path of the JAX package's
+`topology/nodes.py` (reference get_node_connections,
+src/circuit_analyzer.py:1286-1605):
+
+  component subtraction (host) → stage A on the device: cv2-exact resize
+  to H=600 with uint8 rounding, enhance_lines, uint8 quantize,
+  auto-invert, binarize → cv2-exact contour trace / polygon stats /
+  vertex touch on the host (host_cc) → ground selection → renumbering
+
+with the reference's exact tie-breaks:
+
+  - contours filtered at relative area > 4e-4          (:388,410)
+  - ground = source-connected node lowest on screen
+    (max centroid-y, stable order on ties)             (:1472-1498)
+  - fallbacks: max-connection nodes, then lowest node  (:1499-1545)
+  - non-ground nodes renumbered 1..N in old-id order,
+    dropped unless >= 2 components (single-other-node
+    exception preserved)                               (:1547-1582)
+
+The debug visualisations of the JAX stage are not part of this package
+yet; their fields stay None.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core import taxonomy
+from ..core.config import TopologyConfig
+from ..core.types import BBox, Node
+from ..ops.cc import label_components
+from ..ops.image import resize_bilinear
+from ..ops.morphology import enhance_lines
+from .host_cc import contour_touch_stage_host
+
+
+def _cv2_resize_u8(img_f32: torch.Tensor, out_hw) -> torch.Tensor:
+    """cv2.resize INTER_LINEAR on uint8 data: plain bilinear, rounded back
+    to integer grey values — the reference resizes the uint8 emptied mask
+    BEFORE blurring, so the blur must see rounded integers."""
+    return torch.clamp(torch.round(resize_bilinear(img_f32, out_hw, antialias=False)), 0, 255)
+
+
+def subtract_component_boxes(
+    mask: np.ndarray, bboxes: Sequence[BBox], preserve=taxonomy.MASK_PRESERVE_CLASSES
+) -> np.ndarray:
+    """Zero out every bbox not in the preserve set (reference :1328-1341).
+
+    Host-side scatter: the box list is small and dynamic; the result is
+    shipped to device once for the heavy raster stages.
+    """
+    out = np.asarray(mask).copy()
+    h, w = out.shape[:2]
+    for b in bboxes:
+        if b.class_name in preserve:
+            continue
+        y0, y1 = max(0, int(b.ymin)), min(h, int(b.ymax))
+        x0, x1 = max(0, int(b.xmin)), min(w, int(b.xmax))
+        if y0 < y1 and x0 < x1:
+            out[y0:y1, x0:x1] = 0
+    return out
+
+
+@dataclasses.dataclass
+class NodeExtraction:
+    """Full output of the node stage (the reference's 6-tuple return,
+    src/circuit_analyzer.py:1605, minus the visualisations)."""
+
+    nodes: list[Node]
+    emptied_mask: np.ndarray
+    enhanced_mask: np.ndarray
+    label_image: np.ndarray
+    resized_bboxes: list[BBox]
+    raw_node_count: int = 0
+
+
+def enhance_chain(resized: torch.Tensor, cfg: TopologyConfig) -> torch.Tensor:
+    """resize output → enhance_lines → uint8 quantize → auto-invert."""
+    enhanced = torch.round(enhance_lines(
+        resized, blur_ksize=cfg.blur_kernel, blur_sigma=cfg.blur_sigma,
+        morph_ksize=cfg.morph_kernel, iterations=cfg.morph_iterations,
+    ))
+    # cv2 works on rounded uint8: the faint Gaussian halo below 0.5 must
+    # NOT count as foreground
+    enhanced_u8 = torch.clamp(enhanced, 0, 255)
+    # auto-invert when mostly white (reference get_contours :398)
+    return torch.where(enhanced_u8.mean() > 127.0, 255.0 - enhanced_u8, enhanced_u8)
+
+
+def stage_a(emptied: np.ndarray, cfg: TopologyConfig, device) -> torch.Tensor:
+    """Device half of the node stage on the emptied mask: cv2-exact
+    resize to cfg.resize_height rows → enhance chain. Returns the
+    (new_h, new_w) float32 0..255 raster on `device`."""
+    in_h, in_w = emptied.shape[:2]
+    new_h, new_w = cfg.resize_height, int(cfg.resize_height * (in_w / in_h))
+    mask = torch.as_tensor(np.ascontiguousarray(emptied), device=device).to(torch.float32)
+    return enhance_chain(_cv2_resize_u8(mask, (new_h, new_w)), cfg)
+
+
+def _comp_bucket(n: int) -> int:
+    for size in (32, 64, 128, 256):
+        if n <= size:
+            return size
+    return ((n + 255) // 256) * 256
+
+
+def extract_nodes(
+    wire_mask: np.ndarray,
+    bboxes: Sequence[BBox],
+    cfg: Optional[TopologyConfig] = None,
+    device="cpu",
+    with_labels: bool = False,
+) -> NodeExtraction:
+    """Run the full node-extraction stage.
+
+    wire_mask: (H, W) uint8 0/255 segmentation (SAM2 or classical), in the
+        same coordinate space as `bboxes`. Stage A runs on `device`.
+    with_labels: also return the connected-component label image (the
+        JAX stage's visualisation input; no netlist result depends on it).
+    """
+    cfg = cfg or TopologyConfig()
+    if wire_mask is None:
+        return NodeExtraction([], None, None, None, [])
+
+    emptied = subtract_component_boxes(wire_mask, bboxes)
+    in_h, in_w = emptied.shape[:2]
+    enhanced = stage_a(emptied, cfg, device)
+    new_h, new_w = enhanced.shape
+    sx, sy = new_w / in_w, new_h / in_h
+    resized_bboxes = [b.scaled(sx, sy) for b in bboxes]
+    comp_indices, comp_boxes, comp_thr, comp_valid = _component_arrays(resized_bboxes, cfg)
+
+    enhanced_u8 = enhanced.to(torch.uint8).cpu().numpy()
+    fg = enhanced_u8 > 0
+    labels = label_components(fg) if with_labels else None
+
+    centroids, rel_area, touch, _contours = contour_touch_stage_host(
+        fg, float(new_w), cfg, comp_boxes, comp_thr, comp_valid
+    )
+    touch = touch[:, : len(comp_indices)]
+    k = len(rel_area)
+    if not comp_indices or k == 0:
+        return NodeExtraction([], emptied, enhanced_u8, labels, resized_bboxes)
+    nodes, raw_count = _assemble_nodes(
+        resized_bboxes, comp_indices, np.arange(k), centroids, rel_area,
+        np.ones(k, bool), touch,
+    )
+    return NodeExtraction(nodes, emptied, enhanced_u8, labels, resized_bboxes,
+                          raw_node_count=raw_count)
+
+
+def _assemble_nodes(
+    resized_bboxes, comp_indices, uniq, centroids, rel_area, keep, touch
+) -> tuple[list[Node], int]:
+    """Host bookkeeping from fetched device stats: per-label component
+    lists → ground selection → renumbering (reference :1431-1582)."""
+    # 6. Build per-label component lists in bbox-list order with UID dedupe
+    # (reference :1431-1443).
+    kept_label_rows = [k for k in range(len(uniq)) if keep[k]]
+    node_records = []
+    for node_id, k in enumerate(kept_label_rows):
+        comps: list[BBox] = []
+        seen: set[str] = set()
+        for ci, gi in enumerate(comp_indices):
+            if touch[k, ci]:
+                b = resized_bboxes[gi]
+                if b.persistent_uid in seen:
+                    continue
+                seen.add(b.persistent_uid)
+                comps.append(b)
+        cx, cy = centroids[k]
+        node_records.append(
+            {
+                "old_id": node_id,
+                "label": int(uniq[k]),
+                "components": comps,
+                "centroid": (int(cx), int(cy)),
+                "area": float(rel_area[k]),
+            }
+        )
+
+    valid_nodes = [r for r in node_records if r["components"]]
+    if not valid_nodes:
+        return [], len(node_records)
+
+    # 7. Ground selection (reference :1470-1545).
+    ground_old_id = _select_ground(valid_nodes)
+
+    # 8. Renumbering (reference :1547-1582).
+    return _renumber(valid_nodes, ground_old_id), len(node_records)
+
+
+def _select_ground(valid_nodes: list[dict]) -> Optional[int]:
+    """Ground = source-connected node lowest on screen; fallbacks to the
+    max-connection node, then the lowest valid node (reference :1470-1545).
+    Sorts are stable, preserving reference tie-break order."""
+    source_candidates = [
+        r
+        for r in valid_nodes
+        if any(c.class_name in taxonomy.SOURCE_COMPONENTS for c in r["components"])
+    ]
+    if source_candidates:
+        best = sorted(source_candidates, key=lambda r: r["centroid"][1], reverse=True)[0]
+        return best["old_id"]
+
+    max_conn = max(len(r["components"]) for r in valid_nodes)
+    nodes_with_max = [r for r in valid_nodes if len(r["components"]) == max_conn]
+    if nodes_with_max:
+        if len(nodes_with_max) > 1:
+            best = sorted(nodes_with_max, key=lambda r: r["centroid"][1], reverse=True)[0]
+            return best["old_id"]
+        return nodes_with_max[0]["old_id"]
+    best = sorted(valid_nodes, key=lambda r: r["centroid"][1], reverse=True)[0]
+    return best["old_id"]
+
+
+def _renumber(valid_nodes: list[dict], ground_old_id: Optional[int]) -> list[Node]:
+    by_old = {r["old_id"]: r for r in valid_nodes}
+    nodes: list[Node] = []
+    if ground_old_id is not None and ground_old_id in by_old:
+        g = by_old[ground_old_id]
+        nodes.append(
+            Node(id=0, components=g["components"], centroid=g["centroid"],
+                 area=g["area"], label=g["label"])
+        )
+        next_id = 1
+        for old_id in sorted(r["old_id"] for r in valid_nodes if r["old_id"] != ground_old_id):
+            r = by_old[old_id]
+            keep = len(r["components"]) >= 2 or (
+                len(nodes) == 1 and len(valid_nodes) == 2 and len(r["components"]) > 0
+            )
+            if keep:
+                nodes.append(
+                    Node(id=next_id, components=r["components"], centroid=r["centroid"],
+                         area=r["area"], label=r["label"])
+                )
+                next_id += 1
+    else:
+        next_id = 0
+        for old_id in sorted(r["old_id"] for r in valid_nodes):
+            r = by_old[old_id]
+            if r["components"]:
+                nodes.append(
+                    Node(id=next_id, components=r["components"], centroid=r["centroid"],
+                         area=r["area"], label=r["label"])
+                )
+                next_id += 1
+    return nodes
+
+
+def _component_arrays(resized_bboxes, cfg: TopologyConfig):
+    """Electrical-component boxes padded to a bucket of sizes (32, 64, …),
+    as the JAX stage pads them."""
+    comp_indices = [
+        i
+        for i, b in enumerate(resized_bboxes)
+        if b.class_name not in taxonomy.NON_COMPONENTS
+    ]
+    bucket = _comp_bucket(max(1, len(comp_indices)))
+    comp_boxes = np.zeros((bucket, 4), np.float32)
+    comp_thr = np.zeros(bucket, np.float32)
+    comp_valid = np.zeros(bucket, bool)
+    for col, i in enumerate(comp_indices):
+        b = resized_bboxes[i]
+        comp_boxes[col] = (b.xmin, b.ymin, b.xmax, b.ymax)
+        comp_thr[col] = taxonomy.pixel_threshold_for_class(b.class_name, cfg)
+        comp_valid[col] = True
+    return comp_indices, comp_boxes, comp_thr, comp_valid

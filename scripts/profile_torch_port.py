@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""Where one CircuitAnalyzerTorch.analyze() spends its time on the card.
+
+    python3 scripts/profile_torch_port.py [--runs 3]
+
+Builds the t@512 slice as chip_smoke.py does (YOLOv11-s@640 + SAM2
+Hiera-t@512 at the shapes of ckpt/*/meta.json, seeded weights, default
+dtypes, the same drawn schematic), warms up, then prints JSON lines:
+
+  * `stages`: per-stage wall time of each run (host clock, ms);
+  * `device`: device time summed by kernel name under torch.profiler
+    (device-side events only; top 20), the device-busy total and the
+    run's wall time, whence the device's idle share (the profiler's own
+    host overhead lengthens the wall time);
+  * `host`: the host functions with the most cumulative time (cProfile,
+    one run; it slows Python calls, so only the ranking is meaningful).
+
+Needs a CUDA device; writes nothing.
+"""
+from __future__ import annotations
+
+import argparse
+import cProfile
+import json
+import pstats
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--runs", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_port: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from chip_smoke import draw_schematic
+    from circuitvision_tpu_torch.core.config import PipelineConfig
+    from circuitvision_tpu_torch.models.bridge import detector_config, sam2_config, seeded_state
+    from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
+
+    ymeta = json.loads((REPO / "ckpt" / "yolo" / "meta.json").read_text())
+    smeta = json.loads((REPO / "ckpt" / "sam2" / "meta.json").read_text())
+    cfg = PipelineConfig(detector=detector_config(ymeta), sam2=sam2_config(smeta))
+    analyzer = CircuitAnalyzerTorch(cfg, seeded_state("yolo", ymeta, 0),
+                                    seeded_state("sam2", smeta, 1), device="cuda")
+    image = draw_schematic(0)
+    for _ in range(2):
+        analyzer.analyze(image)
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.runs):
+            res = analyzer.analyze(image)
+            print(json.dumps({"stages": {k: v * 1e3 for k, v in res.timings.timings.items()}}))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.runs
+    rows = []
+    busy_us = 0.0
+    # device-side events only (kernels, memcpy, memset): the CPU-side
+    # operator events carry the same device time again
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = evt.self_device_time_total or evt.device_time_total
+        busy_us += dev_us
+        rows.append((dev_us / args.runs / 1e3, evt.count // args.runs, evt.key[:90]))
+    rows.sort(reverse=True)
+    print(json.dumps({"device": {
+        "wall_ms_per_analyze": wall_ms, "device_busy_ms_per_analyze": busy_us / args.runs / 1e3,
+        "idle_share": 1.0 - busy_us / args.runs / 1e3 / wall_ms,
+        "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:20]]}}))
+
+    prof_host = cProfile.Profile()
+    prof_host.enable()
+    analyzer.analyze(image)
+    torch.cuda.synchronize()
+    prof_host.disable()
+    stats = pstats.Stats(prof_host)
+    top = sorted(stats.stats.items(), key=lambda kv: kv[1][3], reverse=True)[:25]
+    print(json.dumps({"host": [{"cum_ms": v[3] * 1e3, "self_ms": v[2] * 1e3, "calls": v[1],
+                                "fn": f"{Path(k[0]).name}:{k[1]}:{k[2]}"} for k, v in top]}))
+    print(json.dumps({"device_name": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,23 +9,36 @@ Phases, in order; any failure raises and the process exits non-zero:
      TF32 off for matmuls and convolutions;
   2. build — nvcc for every kernel source (started together) and g++ for
      the contour tracer, timed;
-  3. kernels — each of the four kernels against its plain PyTorch
-     version on the card, at every shape the t@512 slice launches it
-     with, in bfloat16 and float32: error, tolerance, times, bound;
-  4. main path — CircuitAnalyzerTorch.analyze() at YOLOv11-s@640 +
-     SAM2 Hiera-t@512 (shapes from ckpt/*/meta.json, seeded weights,
-     default dtypes) on a drawn ~1000×750 schematic: one warm-up, three
+  3. kernels at t@512 — the four kernels of that slice against their
+     plain PyTorch versions on the card, at every shape the t@512 slice
+     launches them with, in bfloat16 and float32: error, tolerance,
+     times, bound;
+  4. main path at t@512 — CircuitAnalyzerTorch.analyze() at YOLOv11-s@640
+     + SAM2 Hiera-t@512 (shapes and SAM2's dtype from ckpt/*/meta.json,
+     seeded weights) on a drawn ~1000×750 schematic: one warm-up, three
      timed runs with exact launch counts per call, then the same weights
      in float32 on the card against the CPU: YOLO's head outputs and
      SAM2's logits before any threshold, boxes after NMS, mask, netlist,
      and the topology and netlist of the drawing's classical wire mask
-     with its drawn component boxes.
+     with its drawn component boxes;
+  5. kernels at L@1024 — all seven kernels against their plain versions
+     at every shape the Hiera-L@1024 path launches them with (SDPA timed
+     beside flash attention as its library yardstick), then the window
+     and q-pool blocks at every L@1024 window shape through both routes
+     (one block per window where it fits shared memory, and the tiled
+     route), and the route rule against the kernels' own shared-memory
+     sizes;
+  6. main path at L@1024 — analyze() at YOLOv11-s@640 + SAM2 Hiera-L@1024
+     (the default SAM2Config, bfloat16, seeded weights): one warm-up,
+     three timed runs with exact launch counts, then SAM2's logits in
+     float32 on the card against the CPU at the full 48-block depth.
 
-It prints one JSON line per kernel shape, a `kernels` summary line, the
-card's `nvidia-smi` name/power line, and as its last line
-{"ok": true, "device": {...}}. It reads only ckpt/*/meta.json and writes
-only the package's build/ directory. Without a CUDA device it exits 1
-and prints no result.
+It prints one JSON line per kernel shape and route check, a `kernels`
+summary line (every ported kernel with its launches and times on the
+L@1024 path), the card's `nvidia-smi` name/power line, and as its last
+line {"ok": true, "device": {...}}. It reads only ckpt/*/meta.json and
+writes only the package's build/ directory. Without a CUDA device it
+exits 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -39,23 +52,46 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-#: launches of each kernel in one analyze() at t@512 (12 Hiera blocks;
-#: windowed blocks 0 and 2; q-pool transitions 1 and 3; one head)
-EXPECTED_LAUNCHES = {"mlp_block": 12, "window_attn_block": 2, "qpool_attn_block": 2,
-                     "refinement": 1}
-#: the Pallas kernel each one replaces (function definition)
+#: launches of each kernel in one analyze(), and the window and q-pool
+#: calls that took the tiled route. t@512: 12 Hiera blocks; windowed
+#: blocks 0 and 2; q-pool transitions 1 and 3; global blocks below the
+#: flash threshold; one head. L@1024: 48 blocks; windowed blocks 0-1 and
+#: 3-7 in one block per window, the 32 stage-3 and 3 stage-4 windows
+#: tiled; q-pool 8 in one block, 2 and 44 tiled; global 23, 33, 43. The
+#: tiled calls launch ln_qkv (twice for a q-pool: q/k/v and the
+#: shortcut), flash_attn and attn_proj_residual once each.
+EXPECTED = {
+    "t@512": {"mlp_block": 12, "window_attn_block": 2, "qpool_attn_block": 2, "refinement": 1,
+              "ln_qkv": 0, "flash_attn": 0, "attn_proj_residual": 0,
+              "window_attn_block.tiled": 0, "qpool_attn_block.tiled": 0},
+    "l@1024": {"mlp_block": 48, "window_attn_block": 7, "qpool_attn_block": 1, "refinement": 1,
+               "ln_qkv": 42, "flash_attn": 40, "attn_proj_residual": 40,
+               "window_attn_block.tiled": 35, "qpool_attn_block.tiled": 2},
+}
+#: the TPU kernel each one replaces (function definition; jax's own flash
+#: attention by the line that calls it)
 REPLACES = {
     "mlp_block": "circuitvision_tpu/ops/pallas/mlp_block.py:66",
     "window_attn_block": "circuitvision_tpu/ops/pallas/window_attn.py:264",
     "qpool_attn_block": "circuitvision_tpu/ops/pallas/window_attn.py:181",
     "refinement": "circuitvision_tpu/ops/pallas/refinement_fused.py:128",
+    "ln_qkv": "circuitvision_tpu/ops/pallas/global_attn.py:61",
+    "flash_attn": "circuitvision_tpu/models/sam2/hiera.py:487",
+    "attn_proj_residual": "circuitvision_tpu/ops/pallas/global_attn.py:133",
 }
 SOURCES = {
     "mlp_block": "circuitvision_tpu_torch/csrc/mlp_block.cu",
     "window_attn_block": "circuitvision_tpu_torch/csrc/window_attn.cu",
     "qpool_attn_block": "circuitvision_tpu_torch/csrc/window_attn.cu",
     "refinement": "circuitvision_tpu_torch/csrc/refinement.cu",
+    "ln_qkv": "circuitvision_tpu_torch/csrc/global_attn.cu",
+    "flash_attn": "circuitvision_tpu_torch/csrc/flash_attn.cu",
+    "attn_proj_residual": "circuitvision_tpu_torch/csrc/global_attn.cu",
 }
+#: the window and q-pool block shapes of L@1024: (windows, tokens,
+#: width, heads) and (windows, window side, width in, width out, heads)
+L_WINDOWS = [(1024, 64, 144, 2), (1024, 16, 288, 4), (16, 256, 576, 8), (16, 64, 1152, 16)]
+L_QPOOLS = [(1024, 8, 144, 288, 4), (1024, 4, 288, 576, 8), (16, 16, 576, 1152, 16)]
 #: H100 SXM peaks (NVIDIA data sheet, dense): memory, bf16 tensor, f32
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -112,10 +148,45 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def kernel_cases(torch):
-    """(name, shape label, per-analyze count, make(dtype, gen) → (kernel
-    fn, plain fn, bytes, flops, dtype of the arithmetic)) for every shape
-    of the t@512 slice."""
+def counters():
+    """(reset, read) over every kernel's launch count and the window and
+    q-pool wrappers' tiled-route counts."""
+    from circuitvision_tpu_torch.ops.cuda import flash_attn as fa
+    from circuitvision_tpu_torch.ops.cuda import global_attn as ga
+    from circuitvision_tpu_torch.ops.cuda import mlp_block as mb
+    from circuitvision_tpu_torch.ops.cuda import refinement as rf
+    from circuitvision_tpu_torch.ops.cuda import window_attn as wa
+
+    fns = {"mlp_block": mb.mlp_block, "window_attn_block": wa.window_attn_block,
+           "qpool_attn_block": wa.qpool_attn_block, "refinement": rf.refinement,
+           "ln_qkv": ga.ln_qkv, "flash_attn": fa.flash_attn,
+           "attn_proj_residual": ga.attn_proj_residual}
+    tiled = {"window_attn_block.tiled": wa.window_attn_block,
+             "qpool_attn_block.tiled": wa.qpool_attn_block}
+
+    def reset():
+        for fn in fns.values():
+            fn.launches = 0
+        for fn in tiled.values():
+            fn.tiled = 0
+
+    def read():
+        return {**{k: fn.launches for k, fn in fns.items()},
+                **{k: fn.tiled for k, fn in tiled.items()}}
+
+    return reset, read
+
+
+def case_builders(torch):
+    """Builders of kernel cases: each returns make(dtype, gen), which draws
+    the operands and returns a dict of the kernel and plain calls, the
+    tiled route where one exists, the bytes and FLOPs of one call, the
+    dtype of its arithmetic, and the library call timed beside it where
+    PyTorch has one."""
+    import torch.nn.functional as F
+
+    from circuitvision_tpu_torch.ops.cuda import flash_attn as fa
+    from circuitvision_tpu_torch.ops.cuda import global_attn as ga
     from circuitvision_tpu_torch.ops.cuda import mlp_block as mb
     from circuitvision_tpu_torch.ops.cuda import refinement as rf
     from circuitvision_tpu_torch.ops.cuda import window_attn as wa
@@ -123,15 +194,17 @@ def kernel_cases(torch):
     def rnd(gen, dt, *shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dt)
 
+    def size(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
     def mlp(t, c):
         def make(dt, gen):
             h = 4 * c
             args = (rnd(gen, dt, t, c), 1 + rnd(gen, dt, c, scale=0.1), rnd(gen, dt, c, scale=0.1),
                     rnd(gen, dt, h, c, scale=c ** -0.5), rnd(gen, dt, h, scale=0.02),
                     rnd(gen, dt, c, h, scale=h ** -0.5), rnd(gen, dt, c, scale=0.02))
-            nbytes = sum(a.numel() * a.element_size() for a in args) + args[0].numel() * args[0].element_size()
-            return (lambda: mb.mlp_block(*args), lambda: mb.mlp_block_plain(*args),
-                    nbytes, 4 * t * c * h, dt)
+            return dict(kernel=lambda: mb.mlp_block(*args), plain=lambda: mb.mlp_block_plain(*args),
+                        bytes=size(*args, args[0]), flops=4 * t * c * h, math_dt=dt)
         return make
 
     def window(nw, t, c, heads):
@@ -139,10 +212,11 @@ def kernel_cases(torch):
             args = (rnd(gen, dt, nw, t, c), 1 + rnd(gen, dt, c, scale=0.1), rnd(gen, dt, c, scale=0.1),
                     rnd(gen, dt, 3 * c, c, scale=c ** -0.5), rnd(gen, dt, 3 * c, scale=0.02),
                     rnd(gen, dt, c, c, scale=c ** -0.5), rnd(gen, dt, c, scale=0.02))
-            nbytes = sum(a.numel() * a.element_size() for a in args) + args[0].numel() * args[0].element_size()
             flops = nw * (2 * t * c * 3 * c + 4 * t * t * c + 2 * t * c * c)
-            return (lambda: wa.window_attn_block(*args, heads=heads),
-                    lambda: wa.window_attn_block_plain(*args, heads=heads), nbytes, flops, dt)
+            return dict(kernel=lambda: wa.window_attn_block(*args, heads=heads),
+                        plain=lambda: wa.window_attn_block_plain(*args, heads=heads),
+                        tiled=lambda: wa.window_attn_block_tiled(*args, heads=heads),
+                        bytes=size(*args, args[0]), flops=flops, math_dt=dt)
         return make
 
     def qpool(nw, win, ci, co, heads):
@@ -152,12 +226,14 @@ def kernel_cases(torch):
                     rnd(gen, dt, co, ci, scale=ci ** -0.5), rnd(gen, dt, co, scale=0.02),
                     rnd(gen, dt, 3 * co, ci, scale=ci ** -0.5), rnd(gen, dt, 3 * co, scale=0.02),
                     rnd(gen, dt, co, co, scale=co ** -0.5), rnd(gen, dt, co, scale=0.02))
-            nbytes = sum(a.numel() * a.element_size() for a in args) + nw * t // 4 * co * args[0].element_size()
             flops = nw * (2 * t * ci * co + 2 * t * ci * 3 * co + 4 * (t // 4) * t * co
                           + 2 * (t // 4) * co * co)
-            return (lambda: wa.qpool_attn_block(*args, heads=heads, win=win),
-                    lambda: wa.qpool_attn_block_plain(*args, heads=heads, win=win), nbytes, flops,
-                    dt)
+            kw = dict(heads=heads, win=win)
+            return dict(kernel=lambda: wa.qpool_attn_block(*args, **kw),
+                        plain=lambda: wa.qpool_attn_block_plain(*args, **kw),
+                        tiled=lambda: wa.qpool_attn_block_tiled(*args, **kw),
+                        bytes=size(*args) + nw * t // 4 * co * args[0].element_size(),
+                        flops=flops, math_dt=dt)
         return make
 
     def refine(h, w):
@@ -166,64 +242,191 @@ def kernel_cases(torch):
             bs = [rnd(gen, dt, 4, scale=0.1) for _ in rf.KERNELS]
             args = (rnd(gen, dt, 1, h, w, 1, scale=3.0), ws, bs, rnd(gen, dt, 1, 16, 1, 1, scale=0.25),
                     rnd(gen, dt, 1, scale=0.1))
-            nbytes = args[0].numel() * args[0].element_size() + h * w * 4
             flops = h * w * (2 * 4 * sum(k * k for k in rf.KERNELS) + 2 * 16)
             # the head's arithmetic is float32 whatever the logits' dtype
-            return (lambda: rf.refinement(*args), lambda: rf.refinement_plain(*args), nbytes, flops,
-                    torch.float32)
+            return dict(kernel=lambda: rf.refinement(*args), plain=lambda: rf.refinement_plain(*args),
+                        bytes=size(args[0]) + h * w * 4, flops=flops, math_dt=torch.float32)
         return make
 
+    def ln_qkv(b, n, ci, co, heads, slabs):
+        def make(dt, gen):
+            n_out = slabs * co
+            args = (rnd(gen, dt, b, n, ci), 1 + rnd(gen, dt, ci, scale=0.1), rnd(gen, dt, ci, scale=0.1),
+                    rnd(gen, dt, n_out, ci, scale=ci ** -0.5), rnd(gen, dt, n_out, scale=0.02))
+            return dict(kernel=lambda: ga.ln_qkv(*args, heads, slabs),
+                        plain=lambda: ga.ln_qkv_plain(*args, heads, slabs),
+                        bytes=size(*args) + b * n * n_out * args[0].element_size(),
+                        flops=2 * b * n * ci * n_out, math_dt=dt)
+        return make
+
+    def flash(b, h, nq_in, nk, hd, pool_win=0):
+        def make(dt, gen):
+            q, k, v = (rnd(gen, dt, b, h, n, hd) for n in (nq_in, nk, nk))
+            # SDPA gets q already pooled: the pool is not its work
+            q_lib = ga.pool2x2_windows(q, pool_win) if pool_win else q
+            nq = q_lib.shape[2]
+            return dict(kernel=lambda: fa.flash_attn(q, k, v, pool_win),
+                        plain=lambda: fa.flash_attn_plain(q, k, v, pool_win),
+                        library=lambda: F.scaled_dot_product_attention(q_lib, k, v),
+                        bytes=size(q, k, v) + b * h * nq * hd * q.element_size(),
+                        flops=4 * b * h * nq * nk * hd, math_dt=dt)
+        return make
+
+    def proj(b, n, c, heads, pool_win=0, round_proj=False):
+        def make(dt, gen):
+            rows = pool_win * pool_win if pool_win else n
+            args = (rnd(gen, dt, b, rows, c), rnd(gen, dt, b, heads, n, c // heads),
+                    rnd(gen, dt, c, c, scale=c ** -0.5), rnd(gen, dt, c, scale=0.02))
+            kw = dict(pool_win=pool_win, round_proj=round_proj)
+            return dict(kernel=lambda: ga.attn_proj_residual(*args, **kw),
+                        plain=lambda: ga.attn_proj_residual_plain(*args, **kw),
+                        bytes=size(*args) + b * n * c * args[0].element_size(),
+                        flops=2 * b * n * c * c, math_dt=dt)
+        return make
+
+    return dict(mlp=mlp, window=window, qpool=qpool, refine=refine, ln_qkv=ln_qkv, flash=flash,
+                proj=proj)
+
+
+def kernel_cases(torch, path):
+    """(name, shape label, launches per analyze, make) for every shape the
+    `path` ("t@512" or "l@1024") launches each kernel with."""
+    b = case_builders(torch)
+    if path == "t@512":
+        return [
+            ("mlp_block", "T=16384 C=96", 1, b["mlp"](16384, 96)),
+            ("mlp_block", "T=4096 C=192", 2, b["mlp"](4096, 192)),
+            ("mlp_block", "T=1024 C=384", 7, b["mlp"](1024, 384)),
+            ("mlp_block", "T=256 C=768", 2, b["mlp"](256, 768)),
+            ("window_attn_block", "256 windows x 64 tokens C=96 heads=1", 1, b["window"](256, 64, 96, 1)),
+            ("window_attn_block", "256 windows x 16 tokens C=192 heads=2", 1, b["window"](256, 16, 192, 2)),
+            ("qpool_attn_block", "256 windows win=8 C=96->192 heads=2", 1, b["qpool"](256, 8, 96, 192, 2)),
+            ("qpool_attn_block", "256 windows win=4 C=192->384 heads=4", 1, b["qpool"](256, 4, 192, 384, 4)),
+            ("refinement", "1x512x512", 1, b["refine"](512, 512)),
+        ]
     return [
-        ("mlp_block", "T=16384 C=96", 1, mlp(16384, 96)),
-        ("mlp_block", "T=4096 C=192", 2, mlp(4096, 192)),
-        ("mlp_block", "T=1024 C=384", 7, mlp(1024, 384)),
-        ("mlp_block", "T=256 C=768", 2, mlp(256, 768)),
-        ("window_attn_block", "256 windows x 64 tokens C=96 heads=1", 1, window(256, 64, 96, 1)),
-        ("window_attn_block", "256 windows x 16 tokens C=192 heads=2", 1, window(256, 16, 192, 2)),
-        ("qpool_attn_block", "256 windows win=8 C=96->192 heads=2", 1, qpool(256, 8, 96, 192, 2)),
-        ("qpool_attn_block", "256 windows win=4 C=192->384 heads=4", 1, qpool(256, 4, 192, 384, 4)),
-        ("refinement", "1x512x512", 1, refine(512, 512)),
+        ("mlp_block", "T=65536 C=144", 2, b["mlp"](65536, 144)),
+        ("mlp_block", "T=16384 C=288", 6, b["mlp"](16384, 288)),
+        ("mlp_block", "T=4096 C=576", 36, b["mlp"](4096, 576)),
+        ("mlp_block", "T=1024 C=1152", 4, b["mlp"](1024, 1152)),
+        ("window_attn_block", "1024 windows x 64 tokens C=144 heads=2", 2, b["window"](1024, 64, 144, 2)),
+        ("window_attn_block", "1024 windows x 16 tokens C=288 heads=4", 5, b["window"](1024, 16, 288, 4)),
+        ("qpool_attn_block", "1024 windows win=4 C=288->576 heads=8", 1, b["qpool"](1024, 4, 288, 576, 8)),
+        ("refinement", "1x1024x1024", 1, b["refine"](1024, 1024)),
+        ("ln_qkv", "global 1x4096 C=576 heads=8", 3, b["ln_qkv"](1, 4096, 576, 576, 8, 3)),
+        ("ln_qkv", "16 windows x 256 C=576 heads=8", 32, b["ln_qkv"](16, 256, 576, 576, 8, 3)),
+        ("ln_qkv", "16 windows x 64 C=1152 heads=16", 3, b["ln_qkv"](16, 64, 1152, 1152, 16, 3)),
+        ("ln_qkv", "q-pool 1024 windows x 64 C=144->288 qkv", 1, b["ln_qkv"](1024, 64, 144, 288, 4, 3)),
+        ("ln_qkv", "q-pool 1024 windows x 64 C=144->288 shortcut", 1,
+         b["ln_qkv"](1024, 64, 144, 288, 1, 1)),
+        ("ln_qkv", "q-pool 16 windows x 256 C=576->1152 qkv", 1, b["ln_qkv"](16, 256, 576, 1152, 16, 3)),
+        ("ln_qkv", "q-pool 16 windows x 256 C=576->1152 shortcut", 1,
+         b["ln_qkv"](16, 256, 576, 1152, 1, 1)),
+        ("flash_attn", "global 1x8 heads N=4096 D=72", 3, b["flash"](1, 8, 4096, 4096, 72)),
+        ("flash_attn", "16 windows x 8 heads N=256 D=72", 32, b["flash"](16, 8, 256, 256, 72)),
+        ("flash_attn", "16 windows x 16 heads N=64 D=72", 3, b["flash"](16, 16, 64, 64, 72)),
+        ("flash_attn", "q-pool 1024 windows x 4 heads Nq=16 Nk=64 D=72", 1,
+         b["flash"](1024, 4, 64, 64, 72, pool_win=8)),
+        ("flash_attn", "q-pool 16 windows x 16 heads Nq=64 Nk=256 D=72", 1,
+         b["flash"](16, 16, 256, 256, 72, pool_win=16)),
+        ("attn_proj_residual", "global 1x4096 C=576 heads=8", 3, b["proj"](1, 4096, 576, 8)),
+        ("attn_proj_residual", "16 windows x 256 C=576 heads=8", 32,
+         b["proj"](16, 256, 576, 8, round_proj=True)),
+        ("attn_proj_residual", "16 windows x 64 C=1152 heads=16", 3,
+         b["proj"](16, 64, 1152, 16, round_proj=True)),
+        ("attn_proj_residual", "q-pool 1024 windows x 16 C=288 heads=4", 1,
+         b["proj"](1024, 16, 288, 4, pool_win=8, round_proj=True)),
+        ("attn_proj_residual", "q-pool 16 windows x 64 C=1152 heads=16", 1,
+         b["proj"](16, 64, 1152, 16, pool_win=16, round_proj=True)),
     ]
 
 
-def run_kernels(torch):
-    """Phase 3. Returns per-kernel sums over one analyze()'s launches in
-    bfloat16 (the main path's dtype) and the worst error seen."""
+def run_kernels(torch, path):
+    """Phases 3 and 5. Returns per-kernel sums over one analyze()'s
+    launches on `path` in bfloat16 (the main path's dtype) and the worst
+    error seen in either dtype."""
     summary = {}
-    for name, label, count, make in kernel_cases(torch):
+    for name, label, count, make in kernel_cases(torch, path):
         for dt_name in ("bfloat16", "float32"):
             dt = getattr(torch, dt_name)
             gen = torch.Generator(device="cuda").manual_seed(0)
-            kern, plain, nbytes, flops, math_dt = make(dt, gen)
-            out = kern()
-            got, ref = out.float(), plain().float()
+            case = make(dt, gen)
+            out = case["kernel"]()
+            got, ref = out.float(), case["plain"]().float()
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
             # the tolerance follows what the kernel stores: the refinement
             # head returns float32 whatever its input's dtype
             tol = tolerance(str(out.dtype).removeprefix("torch."), float(ref.abs().max()))
             if not torch.isfinite(got).all() or err > tol:
-                raise AssertionError(f"{name} [{label}, {dt_name}]: max |kernel - plain| "
+                raise AssertionError(f"{name} [{path} {label}, {dt_name}]: max |kernel - plain| "
                                      f"{err:.3e} > tol {tol:.3e}")
-            k_ms, p_ms = cuda_ms(kern), cuda_ms(plain, iters=5)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[str(math_dt).removeprefix("torch.")] * 1e3
-            row = {"kernel": name, "shape": label, "dtype": dt_name, "max_abs_err": err,
-                   "tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
-                   "bound_ms": max(t_bytes, t_ops),
+            k_ms, p_ms = cuda_ms(case["kernel"]), cuda_ms(case["plain"], iters=5)
+            lib_ms = cuda_ms(case["library"]) if case.get("library") else None
+            t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
+            t_ops = case["flops"] / PEAK_FLOPS[str(case["math_dt"]).removeprefix("torch.")] * 1e3
+            row = {"kernel": name, "path": path, "shape": label, "dtype": dt_name,
+                   "max_abs_err": err, "tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms,
+                   "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "launches_per_analyze": count}
             print(json.dumps(row), flush=True)
+            s = summary.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                          "library_ms": None, "t_bytes": 0.0, "t_ops": 0.0,
+                                          "max_abs_err": 0.0})
             if dt_name == "bfloat16":
-                s = summary.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                                              "t_bytes": 0.0, "t_ops": 0.0, "max_abs_err": 0.0})
                 s["ms"] += count * k_ms
                 s["plain_ms"] += count * p_ms
                 s["bound_ms"] += count * row["bound_ms"]
                 s["t_bytes"] += count * t_bytes
                 s["t_ops"] += count * t_ops
-            summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], err)
+                if lib_ms is not None:
+                    s["library_ms"] = (s["library_ms"] or 0.0) + count * lib_ms
+            s["max_abs_err"] = max(s["max_abs_err"], err)
     return summary
+
+
+def run_routes(torch):
+    """Phase 5, second half: the window and q-pool blocks at every L@1024
+    shape through both routes — the one-block kernel where a window fits
+    its shared memory, and the tiled route everywhere — against the plain
+    block; and the route rule against the kernels' own sizes."""
+    from circuitvision_tpu_torch.ops.cuda.build import library
+    from circuitvision_tpu_torch.ops.cuda.window_attn import window_route, window_smem
+
+    lib = library("window_attn")
+    for t, c in [(64, 96), (16, 192)] + [(t, c) for _nw, t, c, _h in L_WINDOWS]:
+        if lib.cv_window_attn_smem(t, c) != window_smem("window", t, c, c):
+            raise AssertionError(f"window_smem disagrees with the kernel at T={t} C={c}")
+    for win, ci, co in [(8, 96, 192), (4, 192, 384)] + [(w, ci, co) for _n, w, ci, co, _h in L_QPOOLS]:
+        if lib.cv_qpool_attn_smem(win, ci, co) != window_smem("qpool", win * win, ci, co):
+            raise AssertionError(f"qpool smem disagrees with the kernel at win={win} {ci}->{co}")
+    b = case_builders(torch)
+    cases = [("window_attn_block", f"{nw} windows x {t} tokens C={c} heads={h}",
+              window_route("window", t, c, c), b["window"](nw, t, c, h)) for nw, t, c, h in L_WINDOWS]
+    cases += [("qpool_attn_block", f"{nw} windows win={w} C={ci}->{co} heads={h}",
+               window_route("qpool", w * w, ci, co), b["qpool"](nw, w, ci, co, h))
+              for nw, w, ci, co, h in L_QPOOLS]
+    for name, label, route, make in cases:
+        for dt_name in ("bfloat16", "float32"):
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            case = make(getattr(torch, dt_name), gen)
+            ref = case["plain"]().float()
+            tol = tolerance(dt_name, float(ref.abs().max()))
+            row = {"route_check": name, "shape": label, "dtype": dt_name, "route": route,
+                   "tol": tol, "plain_ms": cuda_ms(case["plain"], iters=5)}
+            runs = {"tiled": case["tiled"]}
+            if route == "block":
+                runs["block"] = case["kernel"]
+            for which, fn in runs.items():
+                got = fn().float()
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                if not torch.isfinite(got).all() or err > tol:
+                    raise AssertionError(f"{name} [{label}, {dt_name}, {which} route]: "
+                                         f"max |route - plain| {err:.3e} > tol {tol:.3e}")
+                row[f"{which}_err"], row[f"{which}_ms"] = err, cuda_ms(fn)
+            print(json.dumps(row), flush=True)
 
 
 def draw_schematic(seed: int, h: int = 750, w: int = 1000):
@@ -259,8 +462,56 @@ def draw_schematic(seed: int, h: int = 750, w: int = 1000):
     return img, boxes
 
 
+def timed_runs(torch, analyzer, image, path):
+    """One warm-up and three timed analyze() calls on the card, each with
+    every launch count set to 0 just before it and read just after and
+    held to EXPECTED[path]. Returns the counts."""
+    reset, read = counters()
+    t0 = time.perf_counter()
+    analyzer.analyze(image)
+    print(f"   warm-up analyze: {time.perf_counter() - t0:.3f} s", flush=True)
+    for run in range(3):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = analyzer.analyze(image)
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        counts = read()
+        stages = {k: round(v * 1e3, 3) for k, v in res.timings.timings.items()}
+        print(json.dumps({"path": path, "analyze_run": run, "total_ms": total_ms,
+                          "stages_ms": stages, "launches": counts,
+                          "boxes": len(res.bboxes_orig_nms), "nodes": len(res.nodes)}), flush=True)
+        if counts != EXPECTED[path]:
+            raise AssertionError(f"{path}: launches per analyze {counts} != {EXPECTED[path]}")
+        if res.sam_mask is None or res.sam_mask_display is None:
+            raise AssertionError("SAM2 produced no mask")
+        if res.node_mask is None:
+            raise AssertionError("node analysis raised (see the log above)")
+        if res.sam_mask.shape != res.image_for_analysis.shape[:2]:
+            raise AssertionError("SAM2 mask shape differs from the analysed image")
+    return counts
+
+
+def describe(cfg):
+    print(f"   config: YOLOv11-{cfg.detector.scale}@{cfg.detector.img_size} "
+          f"({cfg.detector.num_classes} classes, {cfg.detector.dtype}) + SAM2 Hiera "
+          f"embed {cfg.sam2.embed_dim} stages {tuple(cfg.sam2.stages)}@{cfg.sam2.resolution} "
+          f"({cfg.sam2.dtype})", flush=True)
+
+
+def path_err(torch, name, got, ref):
+    """max |card − cpu| of a continuous output, held to F32_PATH_RTOL."""
+    got, ref = got.float().cpu(), ref.float()
+    err = float((got - ref).abs().max())
+    tol = F32_PATH_RTOL * max(1.0, float(ref.abs().max()))
+    if got.shape != ref.shape or not torch.isfinite(got).all() or err > tol:
+        raise AssertionError(f"{name}: card vs cpu max |diff| {err:.3e} > tol {tol:.3e}")
+    return {"max_abs_err": err, "tol": tol, "ref_max_abs": float(ref.abs().max())}
+
+
 def run_main_path(torch):
-    """Phase 4. Returns the launches of each kernel in one analyze()."""
+    """Phase 4, t@512. Returns the launches of each kernel in one analyze()."""
     import numpy as np
 
     from circuitvision_tpu_torch.core.config import PipelineConfig
@@ -270,52 +521,18 @@ def run_main_path(torch):
     from circuitvision_tpu_torch.netlist.generate import (
         generate_netlist_from_nodes, stringify_netlist,
     )
-    from circuitvision_tpu_torch.ops.cuda import mlp_block as mb
-    from circuitvision_tpu_torch.ops.cuda import refinement as rf
-    from circuitvision_tpu_torch.ops.cuda import window_attn as wa
     from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
     from circuitvision_tpu_torch.topology.nodes import extract_nodes
     from circuitvision_tpu_torch.topology.reclassify import segment_classical
 
-    wrappers = {"mlp_block": mb.mlp_block, "window_attn_block": wa.window_attn_block,
-                "qpool_attn_block": wa.qpool_attn_block, "refinement": rf.refinement}
     ymeta = json.loads((REPO / "ckpt" / "yolo" / "meta.json").read_text())
     smeta = json.loads((REPO / "ckpt" / "sam2" / "meta.json").read_text())
     cfg = PipelineConfig(detector=detector_config(ymeta), sam2=sam2_config(smeta))
-    print(f"   config: YOLOv11-{cfg.detector.scale}@{cfg.detector.img_size} "
-          f"({cfg.detector.num_classes} classes, {cfg.detector.dtype}) + SAM2 Hiera "
-          f"embed {cfg.sam2.embed_dim} stages {tuple(cfg.sam2.stages)}@{cfg.sam2.resolution} "
-          f"({cfg.sam2.dtype})", flush=True)
+    describe(cfg)
     ystate, sstate = seeded_state("yolo", ymeta, 0), seeded_state("sam2", smeta, 1)
     image, drawn_boxes = draw_schematic(0)
-
-    analyzer = CircuitAnalyzerTorch(cfg, ystate, sstate, device="cuda")
-    t0 = time.perf_counter()
-    analyzer.analyze(image)
-    print(f"   warm-up analyze: {time.perf_counter() - t0:.3f} s", flush=True)
-    launches = None
-    for run in range(3):
-        for fn in wrappers.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = analyzer.analyze(image)
-        torch.cuda.synchronize()
-        total_ms = (time.perf_counter() - t0) * 1e3
-        counts = {k: fn.launches for k, fn in wrappers.items()}
-        stages = {k: round(v * 1e3, 3) for k, v in res.timings.timings.items()}
-        print(json.dumps({"analyze_run": run, "total_ms": total_ms, "stages_ms": stages,
-                          "launches": counts, "boxes": len(res.bboxes_orig_nms),
-                          "nodes": len(res.nodes)}), flush=True)
-        if counts != EXPECTED_LAUNCHES:
-            raise AssertionError(f"launches per analyze {counts} != {EXPECTED_LAUNCHES}")
-        if res.sam_mask is None or res.sam_mask_display is None:
-            raise AssertionError("SAM2 produced no mask")
-        if res.node_mask is None:
-            raise AssertionError("node analysis raised (see the log above)")
-        if res.sam_mask.shape != res.image_for_analysis.shape[:2]:
-            raise AssertionError("SAM2 mask shape differs from the analysed image")
-        launches = counts
+    launches = timed_runs(torch, CircuitAnalyzerTorch(cfg, ystate, sstate, device="cuda"),
+                          image, "t@512")
 
     # float32 on the card against float32 on the CPU, same weights and image
     cfg32 = dataclasses.replace(
@@ -331,18 +548,10 @@ def run_main_path(torch):
     # the continuous outputs, before any threshold: every layer of YOLO
     # and of SAM2 (Hiera with its four kernels, neck, decoder, refinement
     # head) shows in them, whatever the seeded weights make of the mask
-    def path_err(name, got, ref):
-        got, ref = got.float().cpu(), ref.float()
-        err = float((got - ref).abs().max())
-        tol = F32_PATH_RTOL * max(1.0, float(ref.abs().max()))
-        if got.shape != ref.shape or not torch.isfinite(got).all() or err > tol:
-            raise AssertionError(f"{name}: card vs cpu max |diff| {err:.3e} > tol {tol:.3e}")
-        return {"max_abs_err": err, "tol": tol, "ref_max_abs": float(ref.abs().max())}
-
     g_heads, c_heads = card32.yolo_heads(image)[0], cpu32.yolo_heads(image)[0]
-    continuous = {f"yolo_head_stride{s}": path_err(f"YOLO head, stride {s}", g, c)
+    continuous = {f"yolo_head_stride{s}": path_err(torch, f"YOLO head, stride {s}", g, c)
                   for s, g, c in zip(STRIDES, g_heads, c_heads)}
-    continuous["sam2_logits"] = path_err("SAM2 logits", card32.segment_logits(image),
+    continuous["sam2_logits"] = path_err(torch, "SAM2 logits", card32.segment_logits(image),
                                          cpu32.segment_logits(image))
 
     key = lambda bs: [(b.class_name, b.xmin, b.ymin, b.xmax, b.ymax) for b in bs]  # noqa: E731
@@ -388,6 +597,37 @@ def run_main_path(torch):
     return launches
 
 
+def run_l_path(torch):
+    """Phase 6: analyze() at YOLOv11-s@640 + SAM2 Hiera-L@1024, the default
+    SAM2Config (bfloat16), on seeded weights; then SAM2's logits in
+    float32 on the card against the CPU at the full depth. Returns the
+    launches of each kernel in one analyze()."""
+    from circuitvision_tpu_torch.core.config import PipelineConfig
+    from circuitvision_tpu_torch.models.bridge import detector_config, seeded_state
+    from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
+
+    ymeta = json.loads((REPO / "ckpt" / "yolo" / "meta.json").read_text())
+    cfg = PipelineConfig(detector=detector_config(ymeta))
+    describe(cfg)
+    ystate = seeded_state("yolo", ymeta, 0)
+    sstate = seeded_state("sam2", {"sam2": {"preset": "l", "overrides": {}}}, 2)
+    image, _boxes = draw_schematic(0)
+    launches = timed_runs(torch, CircuitAnalyzerTorch(cfg, ystate, sstate, device="cuda"),
+                          image, "l@1024")
+
+    cfg32 = dataclasses.replace(cfg, sam2=dataclasses.replace(cfg.sam2, dtype="float32"))
+    card32 = CircuitAnalyzerTorch(cfg32, ystate, sstate, device="cuda")
+    cpu32 = CircuitAnalyzerTorch(cfg32, ystate, sstate, device="cpu")
+    got = card32.segment_logits(image)
+    t0 = time.perf_counter()
+    ref = cpu32.segment_logits(image)
+    print(f"   cpu float32 SAM2-L@1024 logits: {time.perf_counter() - t0:.3f} s", flush=True)
+    print(json.dumps({"f32_card_vs_cpu_l1024": {
+        "sam2_logits": path_err(torch, "SAM2-L logits", got, ref),
+        "shape": list(ref.shape)}}), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -411,23 +651,35 @@ def main() -> int:
     contours.load_library()
     done(t0, "build (nvcc for every kernel, g++ for the contour tracer)")
 
-    t0 = phase("kernels")
-    summary = run_kernels(torch)
-    done(t0, "kernels")
+    t0 = phase("kernels at t@512")
+    summary = {"t@512": run_kernels(torch, "t@512")}
+    done(t0, "kernels at t@512")
 
-    t0 = phase("main path")
-    launches = run_main_path(torch)
-    done(t0, "main path")
+    t0 = phase("main path at t@512")
+    launches = {"t@512": run_main_path(torch)}
+    done(t0, "main path at t@512")
 
-    kernels = []
-    for name, s in summary.items():
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": "bytes" if s["t_bytes"] >= s["t_ops"] else "operations",
-            "library_ms": None,
-        })
+    t0 = phase("kernels and window routes at L@1024")
+    summary["l@1024"] = run_kernels(torch, "l@1024")
+    run_routes(torch)
+    done(t0, "kernels and window routes at L@1024")
+
+    t0 = phase("main path at L@1024")
+    launches["l@1024"] = run_l_path(torch)
+    done(t0, "main path at L@1024")
+
+    def entry(name, s, counts):
+        return {"launches": counts[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                "bound_by": "bytes" if s["t_bytes"] >= s["t_ops"] else "operations",
+                "library_ms": s["library_ms"]}
+
+    print(json.dumps({"kernels_t512": [{"name": n, **entry(n, s, launches["t@512"])}
+                                       for n, s in summary["t@512"].items()]}))
+    # one entry per kernel, on the L@1024 path, which runs all of them
+    kernels = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
+                **entry(n, s, launches["l@1024"]), "launches_t512": launches["t@512"][n]}
+               for n, s in summary["l@1024"].items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

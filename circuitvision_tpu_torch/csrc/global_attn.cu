@@ -1,0 +1,209 @@
+// The shell around attention in the Hiera global blocks: LN1 + a product
+// emitting head-major slabs, and the output projection with the residual.
+//
+// Replaces two Pallas kernels of the JAX package
+// (circuitvision_tpu/ops/pallas/global_attn.py):
+//   * ln_qkv_flash: q, k, v = split_heads(LN1(x)·Wqkvᵀ + b), each
+//     (B, H, N, D), the layout the attention kernel reads;
+//   * attn_proj_residual: out = x + concat_heads(o)·Wprojᵀ + b, reading
+//     the attention output o head-major.
+// The large-window routes of window_attn.cu's blocks use the same two
+// kernels over (n_windows, T, C) windows; for the q-pool block the
+// residual is the 2×2 max-pool of the shortcut, taken as it is read.
+// What bounds them on the H100: at the global blocks (N 4096, C 576) the
+// products are 6·N·C² and 2·N·C² FLOPs against 8·N·C and 6·N·C bytes of
+// bf16 activations, ~430 and ~190 FLOP/byte — about the bf16 ridge
+// (295), so the products are the limit once they run on tensor cores.
+// The design reads each activation row once per block and writes each
+// output once: a block owns 16 rows and a share of the output columns,
+// normalises its rows in shared memory and streams its weight columns
+// through staged tiles (common.cuh block_gemm, f32 FMA). Few rows (1024
+// at stage 4) would leave most SMs idle, so the columns split until
+// about four blocks per SM are in flight. The head split happens in the
+// epilogue's store address, so there is no transpose pass and no 72 →
+// 128 lane pad (the pad only served the MXU). Tensor-core tiles are the
+// next step.
+#include <algorithm>
+
+#include "common.cuh"
+
+namespace {
+
+using namespace cvk;
+
+constexpr int kWs = kTileK * (kTileN + 1);
+
+// x: (rows, c_in) = B·N rows; w: (n_out, c_in), n_out = slabs·heads·hd.
+// out: (slabs, B, heads, N, hd). Block (i, j) takes rows [16·i, 16·i + 16)
+// and output columns [j·cols, (j + 1)·cols).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ln_heads_kernel(const T* __restrict__ x, const T* __restrict__ ln_s,
+                const T* __restrict__ ln_b, const T* __restrict__ w,
+                const T* __restrict__ bias, T* __restrict__ out, int rows_total,
+                int n, int c_in, int n_out, int cols, int heads, int hd,
+                float eps) {
+  extern __shared__ float smem[];
+  float* xn = smem;  // kRows × c_in: the input, normalised in place
+  float* ws = xn + kRows * c_in;
+  const int r0 = blockIdx.x * kRows;
+  const int rows = min(kRows, rows_total - r0);
+  const T* xb = x + (size_t)r0 * c_in;
+  for (int e = threadIdx.x; e < rows * c_in; e += kThreads) xn[e] = to_f(xb[e]);
+  __syncthreads();
+  layernorm_rows<T>(xn, xn, rows, c_in, ln_s, ln_b, eps);
+  const int c_out = heads * hd;
+  const size_t slab = (size_t)rows_total * c_out;
+  const int col0 = blockIdx.y * cols;
+  block_gemm<T>(xn, c_in, rows, c_in, w + (size_t)col0 * c_in, c_in,
+                min(cols, n_out - col0), ws, [&](int r, int j, float v) {
+                  const int col = col0 + j;
+                  const int s = col / c_out, h = (col % c_out) / hd, d = col % hd;
+                  const int row = r0 + r, b = row / n, i = row % n;
+                  out[s * slab + (((size_t)b * heads + h) * n + i) * hd + d] =
+                      from_f<T>(v + to_f(bias[col]));
+                });
+}
+
+// o: (B, heads, N, hd); w: (c, c), c = heads·hd; out: (B·N, c). The
+// residual x is (B·N, c), or with pool_win > 0 the full-resolution
+// window-major rows (B·pool_win², c) whose 2×2 max-pool gives row i.
+// round_proj rounds the projection to T before the residual add (the
+// window kernels' rounding); otherwise one rounding at the end
+// (ln_qkv_flash's companion kernel).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+proj_res_kernel(const T* __restrict__ x, const T* __restrict__ o,
+                const T* __restrict__ w, const T* __restrict__ bias,
+                T* __restrict__ out, int rows_total, int n, int cols, int heads,
+                int hd, int pool_win, int round_proj) {
+  extern __shared__ float smem[];
+  const int c = heads * hd;
+  float* a = smem;  // kRows × c: concat_heads(o)
+  float* ws = a + kRows * c;
+  const int r0 = blockIdx.x * kRows;
+  const int rows = min(kRows, rows_total - r0);
+  for (int e = threadIdx.x; e < rows * c; e += kThreads) {
+    const int r = e / c, col = e % c, h = col / hd, d = col % hd;
+    const int row = r0 + r, b = row / n, i = row % n;
+    a[e] = to_f(o[(((size_t)b * heads + h) * n + i) * hd + d]);
+  }
+  const int col0 = blockIdx.y * cols;
+  block_gemm<T>(a, c, rows, c, w + (size_t)col0 * c, c, min(cols, c - col0),
+                ws, [&](int r, int j, float v) {
+    const int row = r0 + r, col = col0 + j;
+    float res;
+    if (pool_win) {
+      const int m = pool_win / 2, b = row / n, i = row % n;
+      const T* p = x + ((size_t)b * pool_win * pool_win +
+                        (size_t)(2 * (i / m)) * pool_win + 2 * (i % m)) * c + col;
+      res = fmaxf(fmaxf(to_f(p[0]), to_f(p[c])),
+                  fmaxf(to_f(p[(size_t)pool_win * c]),
+                        to_f(p[(size_t)(pool_win + 1) * c])));
+    } else {
+      res = to_f(x[(size_t)row * c + col]);
+    }
+    const float proj = v + to_f(bias[col]);
+    out[(size_t)row * c + col] =
+        from_f<T>(round_proj ? res + rnd<T>(proj) : res + proj);
+  });
+}
+
+// Output columns per block, a multiple of the weight tile: the columns
+// split until about four blocks per SM cover rows_total rows.
+int block_cols(int rows_total, int n_cols) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int row_blocks = (rows_total + kRows - 1) / kRows;
+  const int tiles = (n_cols + kTileN - 1) / kTileN;
+  const int splits =
+      std::max(1, std::min(tiles, (4 * sms + row_blocks - 1) / row_blocks));
+  return (tiles + splits - 1) / splits * kTileN;
+}
+
+size_t ln_heads_smem(int c_in) {
+  return sizeof(float) * ((size_t)kRows * c_in + kWs);
+}
+
+size_t proj_res_smem(int c) {
+  return sizeof(float) * ((size_t)kRows * c + kWs);
+}
+
+template <typename T>
+cudaError_t launch_ln_heads(const void* x, const void* ln_s, const void* ln_b,
+                            const void* w, const void* b, void* out,
+                            int rows_total, int n, int c_in, int n_out,
+                            int heads, int hd, float eps, cudaStream_t stream) {
+  size_t smem = ln_heads_smem(c_in);
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_heads_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int cols = block_cols(rows_total, n_out);
+  dim3 grid((rows_total + kRows - 1) / kRows, (n_out + cols - 1) / cols);
+  ln_heads_kernel<T><<<grid, kThreads, smem, stream>>>(
+      (const T*)x, (const T*)ln_s, (const T*)ln_b, (const T*)w, (const T*)b,
+      (T*)out, rows_total, n, c_in, n_out, cols, heads, hd, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_proj_res(const void* x, const void* o, const void* w,
+                            const void* b, void* out, int rows_total, int n,
+                            int heads, int hd, int pool_win, int round_proj,
+                            cudaStream_t stream) {
+  size_t smem = proj_res_smem(heads * hd);
+  cudaError_t err = cudaFuncSetAttribute(
+      proj_res_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int c = heads * hd, cols = block_cols(rows_total, c);
+  dim3 grid((rows_total + kRows - 1) / kRows, (c + cols - 1) / cols);
+  proj_res_kernel<T><<<grid, kThreads, smem, stream>>>(
+      (const T*)x, (const T*)o, (const T*)w, (const T*)b, (T*)out, rows_total,
+      n, cols, heads, hd, pool_win, round_proj);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" long long cv_ln_heads_smem(int c_in) {
+  return (long long)ln_heads_smem(c_in);
+}
+extern "C" long long cv_proj_res_smem(int c) {
+  return (long long)proj_res_smem(c);
+}
+
+// dtype: 0 = float32, 1 = bfloat16. x (B, N, c_in); w (n_out, c_in) in
+// torch Linear layout with n_out = slabs·heads·hd; out (slabs, B, heads,
+// N, hd).
+extern "C" int cv_ln_heads(const void* x, const void* ln_s, const void* ln_b,
+                           const void* w, const void* b, void* out,
+                           int batch, int n, int c_in, int n_out, int heads,
+                           int hd, float eps, int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_ln_heads<float>(x, ln_s, ln_b, w, b, out, batch * n, n, c_in,
+                                  n_out, heads, hd, eps, s);
+  if (dtype == 1)
+    return launch_ln_heads<__nv_bfloat16>(x, ln_s, ln_b, w, b, out, batch * n,
+                                          n, c_in, n_out, heads, hd, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// o (B, heads, N, hd); w (c, c); out (B, N, c); x (B, N, c), or
+// (B, N·4, c) window-major rows with pool_win > 0 (N = pool_win²/4).
+extern "C" int cv_proj_res(const void* x, const void* o, const void* w,
+                           const void* b, void* out, int batch, int n,
+                           int heads, int hd, int pool_win, int round_proj,
+                           int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_proj_res<float>(x, o, w, b, out, batch * n, n, heads, hd,
+                                  pool_win, round_proj, s);
+  if (dtype == 1)
+    return launch_proj_res<__nv_bfloat16>(x, o, w, b, out, batch * n, n, heads,
+                                          hd, pool_win, round_proj, s);
+  return (int)cudaErrorInvalidValue;
+}

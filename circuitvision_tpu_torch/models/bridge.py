@@ -72,11 +72,15 @@ def detector_config(meta: Mapping) -> DetectorConfig:
                           num_classes=d.get("num_classes", 62), reg_max=d.get("reg_max", 16))
 
 
-def sam2_config(meta: Mapping, dtype: str = "bfloat16") -> SAM2Config:
+def sam2_config(meta: Mapping, dtype: str | None = None) -> SAM2Config:
     """SAM2Config of a checkpoint's meta.json ("sam2" section: a Hiera
-    preset plus overrides)."""
+    preset plus overrides). The compute dtype is `dtype` when given, else
+    the one the checkpoint was trained in ("sam2_config"/"dtype"), else
+    the config's default."""
     s = meta["sam2"]
-    return sam2_hiera_preset(s["preset"], dtype=dtype, **s.get("overrides", {}))
+    dtype = dtype or meta.get("sam2_config", {}).get("dtype")
+    extra = {"dtype": dtype} if dtype else {}
+    return sam2_hiera_preset(s["preset"], **{**s.get("overrides", {}), **extra})
 
 
 def seeded_state(kind: str, meta: Mapping, seed: int) -> dict[str, torch.Tensor]:

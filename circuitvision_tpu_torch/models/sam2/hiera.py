@@ -12,15 +12,18 @@ execution plan kept exactly:
   * a window that does not divide the map takes the padded-window module
     path (hiera.py:720-731) — at t@512 stages 3 and 4, whose windows 14
     and 7 do not divide 32² and 16²;
-  * global blocks use einsum attention (their 1024 tokens are below the
-    2048-token flash threshold, hiera.py:201);
+  * a global block of at least FLASH_MIN_SEQ tokens (the Hiera-L@1024
+    blocks 23/33/43, 4096 tokens) runs LN1 + qkv, flash attention and
+    proj + residual as kernels (hiera.py:454-492); shorter ones (t@512,
+    1024 tokens) use einsum attention on the module path;
   * the background positional embedding is resized by torch bicubic
     (hiera.py:574 emulates exactly this in JAX).
 
 The kernels of the port carry the blocks the JAX package gives to its
 Pallas kernels: `mlp_block` in every block, `window_attn_block` in
 partitioned blocks, `qpool_attn_block` in transition blocks whose even
-window divides the map. Everything else is the plain module path.
+window divides the map, `ln_qkv` → `flash_attn` → `attn_proj_residual`
+in long global blocks. Everything else is the plain module path.
 """
 from __future__ import annotations
 
@@ -28,8 +31,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.cuda.flash_attn import MAX_HEAD_DIM, flash_attn
+from ...ops.cuda.global_attn import attn_proj_residual, ln_qkv
 from ...ops.cuda.mlp_block import mlp_block
 from ...ops.cuda.window_attn import qpool_attn_block, window_attn_block
+
+#: global blocks of at least this many tokens take the flash route (JAX
+#: hiera.py:201)
+FLASH_MIN_SEQ = 2048
 
 
 def window_partition(x: torch.Tensor, window: int):
@@ -135,6 +144,12 @@ class MultiScaleBlock(nn.Module):
             partitioned and not self.q_stride and self.dim == self.dim_out
             and self.dim_out % heads == 0
         )
+        global_kernel = (
+            window_size == 0 and not partitioned and not self.q_stride
+            and self.dim == self.dim_out and self.dim % heads == 0
+            and self.dim // heads <= MAX_HEAD_DIM
+            and x.shape[1] * x.shape[2] >= FLASH_MIN_SEQ
+        )
         if qpool_kernel:
             _b, fh, fw, c = x.shape
             win = window_size
@@ -149,6 +164,13 @@ class MultiScaleBlock(nn.Module):
             )
             x = out.reshape(nwm, win // 2, win // 2, self.dim_out)
             x = window_unpartition(x, win // 2, (fh // 2, fw // 2), (fh // 2, fw // 2))
+        elif global_kernel:
+            b_, fh, fw, c = x.shape
+            xr = x.reshape(b_, fh * fw, c).contiguous()
+            q, k, v = ln_qkv(xr, self.norm1.weight, self.norm1.bias,
+                             self.attn.qkv.weight, self.attn.qkv.bias, heads)
+            x = attn_proj_residual(xr, flash_attn(q, k, v), self.attn.proj.weight,
+                                   self.attn.proj.bias).reshape(b_, fh, fw, c)
         elif window_kernel:
             b_, wh, ww, c = x.shape
             x = window_attn_block(

@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 #: shared memory one block may use on Hopper (232,448 bytes)
 MAX_SMEM = 227 * 1024
 #: kernel sources; each becomes lib<name>-<hash>.so
-SOURCES = ("mlp_block", "window_attn", "refinement")
+SOURCES = ("mlp_block", "window_attn", "refinement", "global_attn", "flash_attn")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +50,15 @@ SIGNATURES = {
     },
     "refinement": {
         "cv_refinement": [_P] * 12 + [_I] * 4 + [_P],
+    },
+    "global_attn": {
+        "cv_ln_heads": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+        "cv_proj_res": [_P] * 5 + [_I] * 7 + [_P],
+        "cv_ln_heads_smem": [_I],
+        "cv_proj_res_smem": [_I],
+    },
+    "flash_attn": {
+        "cv_flash_attn": [_P] * 4 + [_I] * 6 + [_P],
     },
 }
 

@@ -16,6 +16,14 @@ versions beside them compute the same functions with the kernels'
 numerics: f32 LayerNorm statistics, f32 scores and softmax scaled by
 1/sqrt(head width), products accumulated in f32, and values rounded to
 the compute dtype where the kernel stores them.
+
+A window too large for one block's shared memory (`window_route`: the
+Hiera-L stage-3 and stage-4 windows, two of its q-pool transitions)
+takes the tiled route instead, which computes the same function with
+three kernels batched over the windows: `ln_qkv`, `flash_attn` and
+`attn_proj_residual` (ops/cuda/global_attn.py, ops/cuda/flash_attn.py),
+rounding q/k/v, the attention output and the projection where the
+one-block kernels do.
 """
 from __future__ import annotations
 
@@ -24,7 +32,34 @@ import torch
 from .build import (
     MAX_SMEM, KernelError, check, check_operands, dtype_code, library, stream_ptr,
 )
+from .flash_attn import flash_attn
+from .global_attn import attn_proj_residual, ln_qkv, pool2x2_windows
 from .mlp_block import layernorm_f32
+
+#: floats of one staged weight tile (common.cuh: kTileK × (kTileN + 1))
+_WEIGHT_TILE = 32 * 65
+
+
+def window_smem(kind: str, tokens: int, c_in: int, c_out: int) -> int:
+    """Shared-memory bytes of the one-block-per-window kernel for a
+    `tokens`-token window ("window": width c_in == c_out; "qpool":
+    c_in → c_out), as csrc/window_attn.cu's window_smem and qpool_smem
+    compute them."""
+    t = tokens
+    if kind == "window":
+        floats = max(t * c_in, t * t) + 3 * t * c_in
+    elif kind == "qpool":
+        tq = t // 4
+        floats = t * c_in + 2 * t * c_out + 2 * tq * c_out + tq * t
+    else:
+        raise ValueError(f"unknown window kind {kind!r}")
+    return 4 * (floats + _WEIGHT_TILE)
+
+
+def window_route(kind: str, tokens: int, c_in: int, c_out: int) -> str:
+    """"block" where one window fits the one-block kernel's shared
+    memory, else "tiled"."""
+    return "block" if window_smem(kind, tokens, c_in, c_out) <= MAX_SMEM else "tiled"
 
 
 def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dt) -> torch.Tensor:
@@ -38,12 +73,6 @@ def _attention(q, k, v, scale: float, dt) -> torch.Tensor:
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     p = torch.softmax(s, dim=-1).to(dt)
     return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(dt)
-
-
-def _pool2x2(a: torch.Tensor, n_win: int, win: int) -> torch.Tensor:
-    """2×2 max-pool of window-major rows (n_win·win², C) → (n_win·win²/4, C)."""
-    m, c = win // 2, a.shape[-1]
-    return a.view(n_win, m, 2, m, 2, c).amax(dim=(2, 4)).reshape(-1, c)
 
 
 def window_attn_block_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
@@ -60,7 +89,8 @@ def window_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                       heads, eps=1e-6):
     """x (n_windows, T, C); wqkv (3C, C), wproj (C, C) in torch Linear
     layout. CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    one-block kernel or, where a window does not fit it, take the tiled
+    route (counted in `window_attn_block.tiled`)."""
     if x.device.type == "cpu":
         return window_attn_block_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
                                        bproj, heads, eps)
@@ -68,10 +98,11 @@ def window_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     nw, t, c = x.shape
     if wqkv.shape != (3 * c, c) or wproj.shape != (c, c) or c % heads:
         raise KernelError("window_attn_block: weight shapes do not match x")
+    if window_route("window", t, c, c) == "tiled":
+        window_attn_block.tiled += 1
+        return window_attn_block_tiled(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                                       heads, eps)
     lib = library("window_attn")
-    if lib.cv_window_attn_smem(t, c) > MAX_SMEM:
-        raise KernelError(f"window_attn_block: a {t}-token window of width {c} "
-                          "exceeds the kernel's shared memory")
     out = torch.empty_like(x)
     err = lib.cv_window_attn(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wqkv.data_ptr(),
@@ -84,6 +115,15 @@ def window_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
 
 
 window_attn_block.launches = 0
+window_attn_block.tiled = 0
+
+
+def window_attn_block_tiled(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                            heads, eps=1e-6):
+    """window_attn_block as ln_qkv → flash_attn → attn_proj_residual over
+    the (n_windows, T, C) windows."""
+    q, k, v = ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv, heads, eps=eps)
+    return attn_proj_residual(x, flash_attn(q, k, v), wproj, bproj, round_proj=True)
 
 
 def qpool_attn_block_plain(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv,
@@ -93,13 +133,13 @@ def qpool_attn_block_plain(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv,
     nw, c_out = x.shape[0] // t, wproj.shape[0]
     hd = c_out // heads
     xn = layernorm_f32(x, ln_scale, ln_bias, eps).to(dt)
-    skip = _pool2x2(_linear(xn, wskip, bskip, dt), nw, win)
+    skip = pool2x2_windows(_linear(xn, wskip, bskip, dt).view(nw, t, c_out), win)
     qkv = _linear(xn, wqkv, bqkv, dt)
-    q = _pool2x2(qkv[:, :c_out], nw, win).view(nw, t // 4, heads, hd)
+    q = pool2x2_windows(qkv[:, :c_out].reshape(nw, t, c_out), win).view(nw, t // 4, heads, hd)
     k = qkv[:, c_out : 2 * c_out].reshape(nw, t, heads, hd)
     v = qkv[:, 2 * c_out :].reshape(nw, t, heads, hd)
     o = _attention(q, k, v, hd ** -0.5, dt).reshape(nw * t // 4, c_out)
-    return skip + _linear(o, wproj, bproj, dt)
+    return skip.reshape(-1, c_out) + _linear(o, wproj, bproj, dt)
 
 
 def qpool_attn_block(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj,
@@ -108,7 +148,8 @@ def qpool_attn_block(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj,
     window; returns (n_windows·win²/4, C_out) in the same order. Weights
     in torch Linear layout: wskip (C_out, C_in), wqkv (3·C_out, C_in),
     wproj (C_out, C_out). CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the one-block kernel or, where a window does not fit
+    it, take the tiled route (counted in `qpool_attn_block.tiled`)."""
     if x.device.type == "cpu":
         return qpool_attn_block_plain(x, ln_scale, ln_bias, wskip, bskip, wqkv,
                                       bqkv, wproj, bproj, heads, win, eps)
@@ -120,10 +161,11 @@ def qpool_attn_block(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj,
     if win % 2 or rows % t or wskip.shape != (c_out, c_in) \
             or wqkv.shape != (3 * c_out, c_in) or c_out % heads:
         raise KernelError("qpool_attn_block: shapes do not match an even window")
+    if window_route("qpool", t, c_in, c_out) == "tiled":
+        qpool_attn_block.tiled += 1
+        return qpool_attn_block_tiled(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv,
+                                      wproj, bproj, heads, win, eps)
     lib = library("window_attn")
-    if lib.cv_qpool_attn_smem(win, c_in, c_out) > MAX_SMEM:
-        raise KernelError(f"qpool_attn_block: a {win}×{win} window of widths "
-                          f"{c_in}→{c_out} exceeds the kernel's shared memory")
     out = torch.empty((rows // 4, c_out), dtype=x.dtype, device=x.device)
     err = lib.cv_qpool_attn(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wskip.data_ptr(),
@@ -137,3 +179,19 @@ def qpool_attn_block(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj,
 
 
 qpool_attn_block.launches = 0
+qpool_attn_block.tiled = 0
+
+
+def qpool_attn_block_tiled(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj,
+                           bproj, heads, win, eps=1e-6):
+    """qpool_attn_block as ln_qkv (q, k, v; then the shortcut as one
+    slab) → flash_attn with q pooled as it loads → attn_proj_residual
+    onto the shortcut pooled as it is read."""
+    rows, c_in = x.shape
+    t = win * win
+    xw = x.view(rows // t, t, c_in)
+    q, k, v = ln_qkv(xw, ln_scale, ln_bias, wqkv, bqkv, heads, eps=eps)
+    skip = ln_qkv(xw, ln_scale, ln_bias, wskip, bskip, 1, slabs=1, eps=eps)[0, :, 0]
+    o = flash_attn(q, k, v, pool_win=win)
+    out = attn_proj_residual(skip, o, wproj, bproj, pool_win=win, round_proj=True)
+    return out.view(rows // 4, -1)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where one CircuitAnalyzerTorch.analyze() spends its time on the card.
 
-    python3 scripts/profile_torch_port.py [--runs 3]
+    python3 scripts/profile_torch_port.py [--runs 3] [--sam2 t@512|l@1024]
 
-Builds the t@512 slice as chip_smoke.py does (YOLOv11-s@640 + SAM2
-Hiera-t@512 at the shapes of ckpt/*/meta.json, seeded weights, default
-dtypes, the same drawn schematic), warms up, then prints JSON lines:
+Builds a slice as chip_smoke.py does (YOLOv11-s@640 at the shapes of
+ckpt/yolo/meta.json, and SAM2 Hiera-t@512 as ckpt/sam2/meta.json names
+it, dtype included, or Hiera-L@1024, the default SAM2Config; seeded
+weights, the same drawn schematic), warms up, then prints JSON lines:
 
   * `stages`: per-stage wall time of each run (host clock, ms);
   * `device`: device time summed by kernel name under torch.profiler
@@ -35,6 +36,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--sam2", choices=("t@512", "l@1024"), default="t@512")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -46,11 +48,15 @@ def main() -> int:
     from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
 
     ymeta = json.loads((REPO / "ckpt" / "yolo" / "meta.json").read_text())
-    smeta = json.loads((REPO / "ckpt" / "sam2" / "meta.json").read_text())
-    cfg = PipelineConfig(detector=detector_config(ymeta), sam2=sam2_config(smeta))
+    if args.sam2 == "t@512":
+        smeta = json.loads((REPO / "ckpt" / "sam2" / "meta.json").read_text())
+        cfg = PipelineConfig(detector=detector_config(ymeta), sam2=sam2_config(smeta))
+    else:
+        smeta = {"sam2": {"preset": "l", "overrides": {}}}
+        cfg = PipelineConfig(detector=detector_config(ymeta))
     analyzer = CircuitAnalyzerTorch(cfg, seeded_state("yolo", ymeta, 0),
                                     seeded_state("sam2", smeta, 1), device="cuda")
-    image = draw_schematic(0)
+    image, _boxes = draw_schematic(0)
     for _ in range(2):
         analyzer.analyze(image)
     torch.cuda.synchronize()
@@ -88,7 +94,8 @@ def main() -> int:
     top = sorted(stats.stats.items(), key=lambda kv: kv[1][3], reverse=True)[:25]
     print(json.dumps({"host": [{"cum_ms": v[3] * 1e3, "self_ms": v[2] * 1e3, "calls": v[1],
                                 "fn": f"{Path(k[0]).name}:{k[1]}:{k[2]}"} for k, v in top]}))
-    print(json.dumps({"device_name": torch.cuda.get_device_name(0)}))
+    print(json.dumps({"device_name": torch.cuda.get_device_name(0), "sam2": args.sam2,
+                      "sam2_dtype": cfg.sam2.dtype}))
     return 0
 
 

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card: each against its plain version,
-launch counting, operand checks, and a tiny analyze() on the card
-against the CPU.
+"""The port's CUDA kernels on the card: each against its plain version
+(the Hiera-L@1024 shapes of the global-attention kernels and the tiled
+window routes among them), launch counting, operand checks, and a tiny
+analyze() on the card against the CPU.
 
 Marked `cuda`; every test skips where torch finds no CUDA device (the
 check runs inside the fixture, never at import). On the card:
@@ -17,6 +18,8 @@ import pytest
 import torch
 
 from circuitvision_tpu_torch.ops.cuda import build
+from circuitvision_tpu_torch.ops.cuda import flash_attn as fa
+from circuitvision_tpu_torch.ops.cuda import global_attn as ga
 from circuitvision_tpu_torch.ops.cuda import mlp_block as mb
 from circuitvision_tpu_torch.ops.cuda import refinement as rf
 from circuitvision_tpu_torch.ops.cuda import window_attn as wa
@@ -84,6 +87,86 @@ def test_qpool_attn_kernel(gen, dt, win, ci, co, heads):
             _rnd(gen, dt, co, scale=0.02))
     _close(wa.qpool_attn_block(*args, heads=heads, win=win),
            wa.qpool_attn_block_plain(*args, heads=heads, win=win))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b,n,ci,co,heads,slabs", [(1, 4096, 576, 576, 8, 3),
+                                                  (16, 64, 1152, 1152, 16, 3),
+                                                  (64, 64, 144, 288, 1, 1)])
+def test_ln_qkv_kernel(gen, dt, b, n, ci, co, heads, slabs):
+    args = (_rnd(gen, dt, b, n, ci), 1 + _rnd(gen, dt, ci, scale=0.1), _rnd(gen, dt, ci, scale=0.1),
+            _rnd(gen, dt, slabs * co, ci, scale=ci ** -0.5), _rnd(gen, dt, slabs * co, scale=0.02))
+    before = ga.ln_qkv.launches
+    got = ga.ln_qkv(*args, heads, slabs)
+    assert got.shape == (slabs, b, heads, n, co // heads)
+    _close(got, ga.ln_qkv_plain(*args, heads, slabs))
+    assert ga.ln_qkv.launches == before + 1
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b,h,nq,nk,pool_win", [(1, 8, 4096, 4096, 0), (16, 16, 256, 256, 16),
+                                                (64, 4, 64, 64, 8), (2, 2, 100, 70, 0)])
+def test_flash_attn_kernel(gen, dt, b, h, nq, nk, pool_win):
+    q, k, v = _rnd(gen, dt, b, h, nq, 72), _rnd(gen, dt, b, h, nk, 72), _rnd(gen, dt, b, h, nk, 72)
+    before = fa.flash_attn.launches
+    _close(fa.flash_attn(q, k, v, pool_win), fa.flash_attn_plain(q, k, v, pool_win))
+    assert fa.flash_attn.launches == before + 1
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b,n,c,heads,pool_win,round_proj", [(1, 4096, 576, 8, 0, False),
+                                                             (16, 256, 576, 8, 0, True),
+                                                             (16, 64, 1152, 16, 16, True),
+                                                             (64, 16, 288, 4, 8, True)])
+def test_attn_proj_residual_kernel(gen, dt, b, n, c, heads, pool_win, round_proj):
+    rows = pool_win * pool_win if pool_win else n
+    args = (_rnd(gen, dt, b, rows, c), _rnd(gen, dt, b, heads, n, c // heads),
+            _rnd(gen, dt, c, c, scale=c ** -0.5), _rnd(gen, dt, c, scale=0.02))
+    kw = dict(pool_win=pool_win, round_proj=round_proj)
+    _close(ga.attn_proj_residual(*args, **kw), ga.attn_proj_residual_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("nw,t,c,heads", [(16, 256, 576, 8), (16, 64, 1152, 16), (64, 64, 144, 2)])
+def test_window_attn_tiled_route(gen, dt, nw, t, c, heads):
+    """Where a window does not fit one block, the wrapper takes the tiled
+    route; where it does, the tiled route computes the same function."""
+    args = (_rnd(gen, dt, nw, t, c), 1 + _rnd(gen, dt, c, scale=0.1), _rnd(gen, dt, c, scale=0.1),
+            _rnd(gen, dt, 3 * c, c, scale=c ** -0.5), _rnd(gen, dt, 3 * c, scale=0.02),
+            _rnd(gen, dt, c, c, scale=c ** -0.5), _rnd(gen, dt, c, scale=0.02))
+    ref = wa.window_attn_block_plain(*args, heads=heads)
+    tiled = wa.window_route("window", t, c, c) == "tiled"
+    before = (wa.window_attn_block.tiled, wa.window_attn_block.launches)
+    _close(wa.window_attn_block(*args, heads=heads), ref)
+    assert (wa.window_attn_block.tiled, wa.window_attn_block.launches) == \
+        (before[0] + tiled, before[1] + (not tiled))
+    _close(wa.window_attn_block_tiled(*args, heads=heads), ref)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("nw,win,ci,co,heads", [(64, 8, 144, 288, 4), (16, 16, 576, 1152, 16),
+                                                (64, 4, 288, 576, 8)])
+def test_qpool_attn_tiled_route(gen, dt, nw, win, ci, co, heads):
+    t = win * win
+    args = (_rnd(gen, dt, nw * t, ci), 1 + _rnd(gen, dt, ci, scale=0.1),
+            _rnd(gen, dt, ci, scale=0.1), _rnd(gen, dt, co, ci, scale=ci ** -0.5),
+            _rnd(gen, dt, co, scale=0.02), _rnd(gen, dt, 3 * co, ci, scale=ci ** -0.5),
+            _rnd(gen, dt, 3 * co, scale=0.02), _rnd(gen, dt, co, co, scale=co ** -0.5),
+            _rnd(gen, dt, co, scale=0.02))
+    ref = wa.qpool_attn_block_plain(*args, heads=heads, win=win)
+    tiled = wa.window_route("qpool", t, ci, co) == "tiled"
+    before = wa.qpool_attn_block.tiled
+    _close(wa.qpool_attn_block(*args, heads=heads, win=win), ref)
+    assert wa.qpool_attn_block.tiled == before + tiled
+    _close(wa.qpool_attn_block_tiled(*args, heads=heads, win=win), ref)
+
+
+def test_window_route_matches_kernel_smem(gen):
+    lib = build.library("window_attn")
+    for t, c in [(64, 96), (16, 192), (64, 144), (16, 288), (256, 576), (64, 1152)]:
+        assert lib.cv_window_attn_smem(t, c) == wa.window_smem("window", t, c, c)
+    for win, ci, co in [(8, 96, 192), (4, 192, 384), (8, 144, 288), (4, 288, 576), (16, 576, 1152)]:
+        assert lib.cv_qpool_attn_smem(win, ci, co) == wa.window_smem("qpool", win * win, ci, co)
 
 
 @pytest.mark.parametrize("dt", DTYPES)

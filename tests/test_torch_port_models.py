@@ -7,6 +7,7 @@ YOLO head outputs 1e-5 of their scale, SAM2 logits 1e-4 absolute (a
 dozen blocks of products summed in another order); detections after NMS
 must be identical.
 """
+import dataclasses
 import json
 from pathlib import Path
 
@@ -191,3 +192,28 @@ def test_seeded_state_loads_strict_at_shipped_shapes(kind):
     again = bridge.seeded_state(kind, meta, seed=0)
     assert all(torch.equal(state[k], again[k]) for k in state)
     assert all(torch.isfinite(t).all() for t in state.values())
+
+
+def test_sam2_config_takes_the_checkpoint_dtype():
+    """The SAM2 compute dtype is the checkpoint's (float32 for ckpt/sam2)
+    unless the caller names one; a meta without it keeps the default."""
+    meta = json.loads((ROOT / "ckpt" / "sam2" / "meta.json").read_text())
+    assert meta["sam2_config"]["dtype"] == "float32"
+    assert bridge.sam2_config(meta).dtype == "float32"
+    assert bridge.sam2_config(meta, dtype="bfloat16").dtype == "bfloat16"
+    assert bridge.sam2_config(meta).resolution == 512
+    bare = {"sam2": {"preset": "l", "overrides": {}}}
+    assert bridge.sam2_config(bare) == tconfig.SAM2Config()
+    assert tconfig.SAM2Config().dtype == "bfloat16"
+
+
+def test_l_preset_is_the_default_and_matches_jax():
+    """sam2_hiera_preset("l") equals SAM2Config() and the JAX package's
+    preset, field by field over the fields the port keeps."""
+    from circuitvision_tpu.core.config import sam2_hiera_preset as jpreset
+
+    port = tconfig.sam2_hiera_preset("l")
+    assert port == tconfig.SAM2Config()
+    jax_l = jpreset("l")
+    for f in dataclasses.fields(port):
+        assert getattr(port, f.name) == getattr(jax_l, f.name), f.name

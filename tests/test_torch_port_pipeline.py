@@ -44,6 +44,9 @@ TINY_SAM2 = dict(resolution=128, embed_dim=16, num_heads=1, stages=(1, 2, 3, 1),
                  backbone_channel_list=(128, 64, 32, 16), d_model=32, decoder_mlp_dim=64,
                  iou_head_hidden_dim=32, dtype="float32")
 TINY_DET = dict(scale="n", img_size=128, num_classes=64, dtype="float32")
+#: |logit − threshold| below which a float32 SAM2 mask pixel may differ
+#: between the packages (15× the largest logit difference seen)
+LOGIT_FLIP_BOUND = 1e-3
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "cv2", "PIL", "safetensors", "transformers",
              "circuitvision_tpu")
 
@@ -108,7 +111,10 @@ def test_whole_slice_shipped_checkpoints():
     """ckpt/yolo (YOLOv11-s@640) and ckpt/sam2 (Hiera-t@512), loaded by
     the JAX package's orbax reader here only, carried through the
     bridge; float32 on both sides (about 35 s on the CPU, JAX compiles
-    included)."""
+    included). A SAM2 mask pixel may differ between the packages only
+    where the logit lies within LOGIT_FLIP_BOUND of the threshold: the
+    two logit maps differ by at most 6.5e-5 on these images (none of
+    their pixels differed when this was written)."""
     from circuitvision_tpu.core.config import sam2_hiera_preset
     from circuitvision_tpu.models.checkpoint import load_model_checkpoint
 
@@ -132,6 +138,11 @@ def test_whole_slice_shipped_checkpoints():
         assert _summary(got) == _summary(ref), path
         assert ref.nodes and ref.netlist_text, path
         assert np.mean(got.sam_mask == ref.sam_mask) > 0.999, path
+        flipped = got.sam_mask != ref.sam_mask
+        if flipped.any():
+            logits = ta.segment_logits(got.image_for_analysis).numpy()
+            margin = np.abs(logits[flipped] - tcfg.sam2.mask_threshold).max()
+            assert margin < LOGIT_FLIP_BOUND, (path, int(flipped.sum()), margin)
 
 
 # ------------------------------------------------------------------ guards

@@ -31,13 +31,25 @@ Phases, in order; any failure raises and the process exits non-zero:
   6. main path at L@1024 — analyze() at YOLOv11-s@640 + SAM2 Hiera-L@1024
      (the default SAM2Config, bfloat16, seeded weights): one warm-up,
      three timed runs with exact launch counts, then SAM2's logits in
-     float32 on the card against the CPU at the full 48-block depth.
+     float32 on the card against the CPU at the full 48-block depth;
+  7. batched path — analyze_batch (BatchedPipeline.analyze_many) at
+     s@640 + t@512 with use_fused_morphology on, over 16 drawings in
+     chunks of 8: exact launch counts (the line enhancement once per
+     image), the same boxes, node counts and netlists as the card's own
+     analyze() with masks agreeing on ≥ 99.9 %, the drawn topology with
+     the switch on and off on the card and on the CPU, and images/s of
+     analyze_many against serial analyze();
+  8. the line-enhancement kernel, bit-exact, at every raster shape the
+     batched path ran it at (and at 600×800 and 600×1003);
+  9. the trunk LayerNorm option — TrunkLayerNorm(fused=True), alone and
+     with residual=, at the four Hiera-L@1024 trunk widths, with exact
+     launch counts — and its two kernels there in bf16 and f32.
 
 It prints one JSON line per kernel shape and route check, a `kernels`
 summary line (every ported kernel with its launches and times on the
-L@1024 path), the card's `nvidia-smi` name/power line, and as its last
-line {"ok": true, "device": {...}}. It reads only ckpt/*/meta.json and
-writes only the package's build/ directory. Without a CUDA device it
+path that runs it), the card's `nvidia-smi` name/power line, and as its
+last line {"ok": true, "device": {...}}. It reads only ckpt/*/meta.json
+and writes only the package's build/ directory. Without a CUDA device it
 exits 1 and prints no result.
 """
 from __future__ import annotations
@@ -63,11 +75,32 @@ REPO = Path(__file__).resolve().parent
 EXPECTED = {
     "t@512": {"mlp_block": 12, "window_attn_block": 2, "qpool_attn_block": 2, "refinement": 1,
               "ln_qkv": 0, "flash_attn": 0, "attn_proj_residual": 0,
+              "enhance_lines_fused": 0, "fused_layernorm": 0, "fused_add_layernorm": 0,
               "window_attn_block.tiled": 0, "qpool_attn_block.tiled": 0},
     "l@1024": {"mlp_block": 48, "window_attn_block": 7, "qpool_attn_block": 1, "refinement": 1,
                "ln_qkv": 42, "flash_attn": 40, "attn_proj_residual": 40,
+               "enhance_lines_fused": 0, "fused_layernorm": 0, "fused_add_layernorm": 0,
                "window_attn_block.tiled": 35, "qpool_attn_block.tiled": 2},
 }
+#: the batched path at s@640 + t@512: BATCH_IMAGES drawings in chunks of
+#: BATCH_SIZE; the Hiera kernels launch once per chunk (the chunk's crops
+#: are one batch), the line enhancement once per image with a mask
+BATCH_IMAGES, BATCH_SIZE = 16, 8
+BATCH_CHUNKS = -(-BATCH_IMAGES // BATCH_SIZE)
+EXPECTED["batch"] = {**{k: v * BATCH_CHUNKS for k, v in EXPECTED["t@512"].items()},
+                     "enhance_lines_fused": BATCH_IMAGES}
+#: the trunk LayerNorm option at the four Hiera-L@1024 widths: each
+#: TrunkLayerNorm(fused=True) called once alone and once with residual=
+L_TRUNK_ROWS = [(65536, 144), (16384, 288), (4096, 576), (1024, 1152)]
+EXPECTED["trunk-ln"] = {**{k: 0 for k in EXPECTED["t@512"]},
+                        "fused_layernorm": len(L_TRUNK_ROWS),
+                        "fused_add_layernorm": len(L_TRUNK_ROWS)}
+#: operations per pixel of the line enhancement (blur 2 × (5 products +
+#: 4 sums), round, 4 × 8 comparisons) and per element of a LayerNorm
+#: (two sums and a square for the statistics; subtract, two products and
+#: a sum for the affine)
+MORPH_OPS_PER_PIXEL = 51
+LN_OPS_PER_ELEMENT = 7
 #: the TPU kernel each one replaces (function definition; jax's own flash
 #: attention by the line that calls it)
 REPLACES = {
@@ -78,6 +111,9 @@ REPLACES = {
     "ln_qkv": "circuitvision_tpu/ops/pallas/global_attn.py:61",
     "flash_attn": "circuitvision_tpu/models/sam2/hiera.py:487",
     "attn_proj_residual": "circuitvision_tpu/ops/pallas/global_attn.py:133",
+    "enhance_lines_fused": "circuitvision_tpu/ops/pallas/fused_morphology.py:121",
+    "fused_layernorm": "circuitvision_tpu/ops/pallas/fused_ln.py:62",
+    "fused_add_layernorm": "circuitvision_tpu/ops/pallas/fused_ln.py:96",
 }
 SOURCES = {
     "mlp_block": "circuitvision_tpu_torch/csrc/mlp_block.cu",
@@ -87,6 +123,9 @@ SOURCES = {
     "ln_qkv": "circuitvision_tpu_torch/csrc/global_attn.cu",
     "flash_attn": "circuitvision_tpu_torch/csrc/flash_attn.cu",
     "attn_proj_residual": "circuitvision_tpu_torch/csrc/global_attn.cu",
+    "enhance_lines_fused": "circuitvision_tpu_torch/csrc/morphology.cu",
+    "fused_layernorm": "circuitvision_tpu_torch/csrc/fused_ln.cu",
+    "fused_add_layernorm": "circuitvision_tpu_torch/csrc/fused_ln.cu",
 }
 #: the window and q-pool block shapes of L@1024: (windows, tokens,
 #: width, heads) and (windows, window side, width in, width out, heads)
@@ -152,15 +191,19 @@ def counters():
     """(reset, read) over every kernel's launch count and the window and
     q-pool wrappers' tiled-route counts."""
     from circuitvision_tpu_torch.ops.cuda import flash_attn as fa
+    from circuitvision_tpu_torch.ops.cuda import fused_ln as fl
     from circuitvision_tpu_torch.ops.cuda import global_attn as ga
     from circuitvision_tpu_torch.ops.cuda import mlp_block as mb
+    from circuitvision_tpu_torch.ops.cuda import morphology as mo
     from circuitvision_tpu_torch.ops.cuda import refinement as rf
     from circuitvision_tpu_torch.ops.cuda import window_attn as wa
 
     fns = {"mlp_block": mb.mlp_block, "window_attn_block": wa.window_attn_block,
            "qpool_attn_block": wa.qpool_attn_block, "refinement": rf.refinement,
            "ln_qkv": ga.ln_qkv, "flash_attn": fa.flash_attn,
-           "attn_proj_residual": ga.attn_proj_residual}
+           "attn_proj_residual": ga.attn_proj_residual,
+           "enhance_lines_fused": mo.enhance_lines_fused,
+           "fused_layernorm": fl.fused_layernorm, "fused_add_layernorm": fl.fused_add_layernorm}
     tiled = {"window_attn_block.tiled": wa.window_attn_block,
              "qpool_attn_block.tiled": wa.qpool_attn_block}
 
@@ -186,10 +229,14 @@ def case_builders(torch):
     import torch.nn.functional as F
 
     from circuitvision_tpu_torch.ops.cuda import flash_attn as fa
+    from circuitvision_tpu_torch.ops.cuda import fused_ln as fl
     from circuitvision_tpu_torch.ops.cuda import global_attn as ga
     from circuitvision_tpu_torch.ops.cuda import mlp_block as mb
+    from circuitvision_tpu_torch.ops.cuda import morphology as mo
     from circuitvision_tpu_torch.ops.cuda import refinement as rf
     from circuitvision_tpu_torch.ops.cuda import window_attn as wa
+
+    F32 = torch.float32  # LayerNorm scale and bias are float32 for either dtype
 
     def rnd(gen, dt, *shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dt)
@@ -200,7 +247,7 @@ def case_builders(torch):
     def mlp(t, c):
         def make(dt, gen):
             h = 4 * c
-            args = (rnd(gen, dt, t, c), 1 + rnd(gen, dt, c, scale=0.1), rnd(gen, dt, c, scale=0.1),
+            args = (rnd(gen, dt, t, c), 1 + rnd(gen, F32, c, scale=0.1), rnd(gen, F32, c, scale=0.1),
                     rnd(gen, dt, h, c, scale=c ** -0.5), rnd(gen, dt, h, scale=0.02),
                     rnd(gen, dt, c, h, scale=h ** -0.5), rnd(gen, dt, c, scale=0.02))
             return dict(kernel=lambda: mb.mlp_block(*args), plain=lambda: mb.mlp_block_plain(*args),
@@ -209,7 +256,7 @@ def case_builders(torch):
 
     def window(nw, t, c, heads):
         def make(dt, gen):
-            args = (rnd(gen, dt, nw, t, c), 1 + rnd(gen, dt, c, scale=0.1), rnd(gen, dt, c, scale=0.1),
+            args = (rnd(gen, dt, nw, t, c), 1 + rnd(gen, F32, c, scale=0.1), rnd(gen, F32, c, scale=0.1),
                     rnd(gen, dt, 3 * c, c, scale=c ** -0.5), rnd(gen, dt, 3 * c, scale=0.02),
                     rnd(gen, dt, c, c, scale=c ** -0.5), rnd(gen, dt, c, scale=0.02))
             flops = nw * (2 * t * c * 3 * c + 4 * t * t * c + 2 * t * c * c)
@@ -222,7 +269,7 @@ def case_builders(torch):
     def qpool(nw, win, ci, co, heads):
         def make(dt, gen):
             t = win * win
-            args = (rnd(gen, dt, nw * t, ci), 1 + rnd(gen, dt, ci, scale=0.1), rnd(gen, dt, ci, scale=0.1),
+            args = (rnd(gen, dt, nw * t, ci), 1 + rnd(gen, F32, ci, scale=0.1), rnd(gen, F32, ci, scale=0.1),
                     rnd(gen, dt, co, ci, scale=ci ** -0.5), rnd(gen, dt, co, scale=0.02),
                     rnd(gen, dt, 3 * co, ci, scale=ci ** -0.5), rnd(gen, dt, 3 * co, scale=0.02),
                     rnd(gen, dt, co, co, scale=co ** -0.5), rnd(gen, dt, co, scale=0.02))
@@ -251,7 +298,7 @@ def case_builders(torch):
     def ln_qkv(b, n, ci, co, heads, slabs):
         def make(dt, gen):
             n_out = slabs * co
-            args = (rnd(gen, dt, b, n, ci), 1 + rnd(gen, dt, ci, scale=0.1), rnd(gen, dt, ci, scale=0.1),
+            args = (rnd(gen, dt, b, n, ci), 1 + rnd(gen, F32, ci, scale=0.1), rnd(gen, F32, ci, scale=0.1),
                     rnd(gen, dt, n_out, ci, scale=ci ** -0.5), rnd(gen, dt, n_out, scale=0.02))
             return dict(kernel=lambda: ga.ln_qkv(*args, heads, slabs),
                         plain=lambda: ga.ln_qkv_plain(*args, heads, slabs),
@@ -284,14 +331,59 @@ def case_builders(torch):
                         flops=2 * b * n * c * c, math_dt=dt)
         return make
 
+    def morph(h, w):
+        def make(dt, gen):
+            # a line raster at the drawings' stroke density, with grey levels
+            x = torch.round(torch.rand(h, w, generator=gen, device="cuda") * 255)
+            x = torch.where(torch.rand(h, w, generator=gen, device="cuda") < 0.9, 0.0, x)
+            return dict(kernel=lambda: mo.enhance_lines_fused(x),
+                        plain=lambda: mo.enhance_lines_fused_plain(x),
+                        library_note="no single call does blur + round + dilate + erode",
+                        bytes=2 * h * w * 4, flops=MORPH_OPS_PER_PIXEL * h * w, math_dt=F32,
+                        exact=True)
+        return make
+
+    def layernorm(t, c):
+        def make(dt, gen):
+            x = rnd(gen, dt, t, c, scale=2.0)
+            s, b = 1 + rnd(gen, F32, c, scale=0.1), rnd(gen, F32, c, scale=0.1)
+            sd, bd = s.to(dt), b.to(dt)
+            return dict(kernel=lambda: fl.fused_layernorm(x, s, b),
+                        plain=lambda: fl.fused_layernorm_plain(x, s, b),
+                        library=lambda: F.layer_norm(x, (c,), sd, bd, 1e-6),
+                        bytes=size(x, x, s, b), flops=LN_OPS_PER_ELEMENT * t * c, math_dt=F32)
+        return make
+
+    def add_layernorm(t, c):
+        def make(dt, gen):
+            a, r = rnd(gen, dt, t, c, scale=2.0), rnd(gen, dt, t, c)
+            s, b = 1 + rnd(gen, F32, c, scale=0.1), rnd(gen, F32, c, scale=0.1)
+            return dict(kernel=lambda: fl.fused_add_layernorm(r, a, s, b),
+                        plain=lambda: fl.fused_add_layernorm_plain(r, a, s, b),
+                        library_note="no single call does add + LN",
+                        bytes=size(a, r, a, a, s, b), flops=(LN_OPS_PER_ELEMENT + 1) * t * c,
+                        math_dt=F32)
+        return make
+
     return dict(mlp=mlp, window=window, qpool=qpool, refine=refine, ln_qkv=ln_qkv, flash=flash,
-                proj=proj)
+                proj=proj, morph=morph, layernorm=layernorm, add_layernorm=add_layernorm)
 
 
-def kernel_cases(torch, path):
-    """(name, shape label, launches per analyze, make) for every shape the
-    `path` ("t@512" or "l@1024") launches each kernel with."""
+def kernel_cases(torch, path, raster_counts=None):
+    """(name, shape label, launches on the path, make) for every shape the
+    `path` launches each kernel with: per analyze() on "t@512" and
+    "l@1024", per run of the trunk LayerNorm option on "trunk-ln", and on
+    "batch" per analyze_many() at the raster shapes `raster_counts`
+    ({(h, w): launches}) it recorded, plus two shapes off the path."""
     b = case_builders(torch)
+    if path == "trunk-ln":
+        return [(n, f"T={t} C={c}", 1, b[k](t, c)) for t, c in L_TRUNK_ROWS
+                for n, k in (("fused_layernorm", "layernorm"),
+                             ("fused_add_layernorm", "add_layernorm"))]
+    if path == "batch":
+        shapes = {(600, 800): 0, (600, 1003): 0, **raster_counts}
+        return [("enhance_lines_fused", f"{h}x{w}", n, b["morph"](h, w))
+                for (h, w), n in shapes.items()]
     if path == "t@512":
         return [
             ("mlp_block", "T=16384 C=96", 1, b["mlp"](16384, 96)),
@@ -341,23 +433,32 @@ def kernel_cases(torch, path):
     ]
 
 
-def run_kernels(torch, path):
-    """Phases 3 and 5. Returns per-kernel sums over one analyze()'s
-    launches on `path` in bfloat16 (the main path's dtype) and the worst
-    error seen in either dtype."""
+def run_kernels(torch, path, raster_counts=None):
+    """Kernel phases: every case against its plain version, timed. Returns
+    per-kernel sums over the path's launches in the path's dtype (bfloat16;
+    float32 for the line enhancement, which takes only float32) and the
+    worst error seen in either dtype."""
     summary = {}
-    for name, label, count, make in kernel_cases(torch, path):
-        for dt_name in ("bfloat16", "float32"):
+    for name, label, count, make in kernel_cases(torch, path, raster_counts):
+        dts = ("float32",) if name == "enhance_lines_fused" else ("bfloat16", "float32")
+        for dt_name in dts:
             dt = getattr(torch, dt_name)
             gen = torch.Generator(device="cuda").manual_seed(0)
             case = make(dt, gen)
             out = case["kernel"]()
-            got, ref = out.float(), case["plain"]().float()
+            ref = case["plain"]()
+            if isinstance(out, tuple):  # fused_add_layernorm: the sum must be bit-exact
+                if not torch.equal(out[0], ref[0]):
+                    raise AssertionError(f"{name} [{path} {label}, {dt_name}]: residual sum differs")
+                out, ref = out[1], ref[1]
+            got, ref = out.float(), ref.float()
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
             # the tolerance follows what the kernel stores: the refinement
-            # head returns float32 whatever its input's dtype
-            tol = tolerance(str(out.dtype).removeprefix("torch."), float(ref.abs().max()))
+            # head returns float32 whatever its input's dtype; the line
+            # enhancement must be bit-exact
+            tol = 0.0 if case.get("exact") else \
+                tolerance(str(out.dtype).removeprefix("torch."), float(ref.abs().max()))
             if not torch.isfinite(got).all() or err > tol:
                 raise AssertionError(f"{name} [{path} {label}, {dt_name}]: max |kernel - plain| "
                                      f"{err:.3e} > tol {tol:.3e}")
@@ -369,12 +470,13 @@ def run_kernels(torch, path):
                    "max_abs_err": err, "tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms,
                    "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "launches_per_analyze": count}
+                   "launches_on_path": count}
             print(json.dumps(row), flush=True)
             s = summary.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                           "library_ms": None, "t_bytes": 0.0, "t_ops": 0.0,
-                                          "max_abs_err": 0.0})
-            if dt_name == "bfloat16":
+                                          "max_abs_err": 0.0,
+                                          "library_note": case.get("library_note")})
+            if dt_name == dts[0]:
                 s["ms"] += count * k_ms
                 s["plain_ms"] += count * p_ms
                 s["bound_ms"] += count * row["bound_ms"]
@@ -460,6 +562,13 @@ def draw_schematic(seed: int, h: int = 750, w: int = 1000):
         img[ys + bh - t:ys + bh, xs:xs + bw] = 0
         boxes.append((int(xs), int(ys), int(xs + bw - 1), int(ys + bh - 1)))
     return img, boxes
+
+
+def batch_drawings():
+    """The batched phase's drawings: BATCH_IMAGES seeds, sizes from 600×820
+    to 705×970 (larger ones make the cluster crop keep only part of the
+    circuit)."""
+    return [draw_schematic(100 + i, h=600 + 7 * i, w=820 + 10 * i) for i in range(BATCH_IMAGES)]
 
 
 def timed_runs(torch, analyzer, image, path):
@@ -628,6 +737,175 @@ def run_l_path(torch):
     return launches
 
 
+def run_trunk_ln_path(torch):
+    """The trunk LayerNorm option: TrunkLayerNorm(fused=True) at the four
+    Hiera-L@1024 trunk shapes in bfloat16, each called alone and with
+    residual=, against the same module unfused. Returns the launches."""
+    from circuitvision_tpu_torch.models.sam2.hiera import TrunkLayerNorm
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for t, c in L_TRUNK_ROWS:
+        side = int(math.isqrt(t))
+        m = TrunkLayerNorm(c, fused=True).cuda()
+        with torch.no_grad():
+            m.weight.copy_(1 + 0.1 * torch.randn(c, generator=gen, device="cuda"))
+            m.bias.copy_(0.1 * torch.randn(c, generator=gen, device="cuda"))
+        x, r = (torch.randn(1, side, side, c, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        cases.append((m, x, r))
+    reset, read = counters()
+    reset()
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        outs = [(m(x), m(x, residual=r)) for m, x, r in cases]
+    torch.cuda.synchronize()
+    counts = read()
+    if counts != EXPECTED["trunk-ln"]:
+        raise AssertionError(f"trunk-ln: launches {counts} != {EXPECTED['trunk-ln']}")
+    for (m, x, r), (y, (resid, y2)) in zip(cases, outs):
+        m.fused = False
+        with torch.no_grad():
+            ref, (ref_resid, ref2) = m(x), m(x, residual=r)
+        errs = [float((a.float() - b.float()).abs().max()) for a, b in ((y, ref), (y2, ref2))]
+        tol = tolerance("bfloat16", float(ref.float().abs().max()))
+        if max(errs) > tol or not torch.equal(resid, ref_resid):
+            raise AssertionError(f"TrunkLayerNorm(fused=True) C={x.shape[-1]}: {errs} > {tol}")
+        print(json.dumps({"trunk_ln_option": list(x.shape), "max_abs_err": errs, "tol": tol}),
+              flush=True)
+    return counts
+
+
+def run_batched_path(torch, smi):
+    """The batched entry point at YOLOv11-s@640 + SAM2 Hiera-t@512 (seeded
+    weights; SAM2 in float32 as its meta says) with use_fused_morphology
+    on, over BATCH_IMAGES drawings of varied seeds and sizes in chunks of
+    BATCH_SIZE: (a) analyze_many against the card's own analyze() on each
+    image; (b) the drawn topology — each drawing's drawn boxes in place of
+    detection, the classical mask — on the card with the switch on and
+    off and on the CPU with it on; (c) exact launch counts, the line
+    enhancement once per image with a mask; (d) images/s of analyze_many
+    against serial analyze(). Returns the launches of one analyze_many()
+    and the raster shapes the line enhancement ran at."""
+    import copy
+
+    import numpy as np
+
+    from circuitvision_tpu_torch.core.config import PipelineConfig, TopologyConfig
+    from circuitvision_tpu_torch.core.types import BBox
+    from circuitvision_tpu_torch.models.bridge import detector_config, sam2_config, seeded_state
+    from circuitvision_tpu_torch.pipeline import batch as tbatch
+    from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
+    from circuitvision_tpu_torch.topology import nodes as tnodes
+    from circuitvision_tpu_torch.topology.crop import crop_image_and_adjust_bboxes
+    from circuitvision_tpu_torch.topology.reclassify import segment_classical
+
+    ymeta = json.loads((REPO / "ckpt" / "yolo" / "meta.json").read_text())
+    smeta = json.loads((REPO / "ckpt" / "sam2" / "meta.json").read_text())
+    on, off = TopologyConfig(use_fused_morphology=True), TopologyConfig()
+    cfg = PipelineConfig(detector=detector_config(ymeta), sam2=sam2_config(smeta), topology=on)
+    describe(cfg)
+    ystate, sstate = seeded_state("yolo", ymeta, 0), seeded_state("sam2", smeta, 1)
+    drawings = batch_drawings()
+    images = [img for img, _ in drawings]
+    card = CircuitAnalyzerTorch(cfg, ystate, sstate, device="cuda")
+    reset, read = counters()
+
+    # the raster shapes the line enhancement runs at, for its kernel phase
+    shapes: dict = {}
+    launch = tnodes.enhance_lines_fused
+
+    def recording(x):
+        shapes[tuple(x.shape)] = shapes.get(tuple(x.shape), 0) + 1
+        return launch(x)
+
+    card.analyze_batch(images[:BATCH_SIZE], batch_size=BATCH_SIZE)  # warm-up
+    tnodes.enhance_lines_fused = recording
+    try:
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batched = card.analyze_batch(images, batch_size=BATCH_SIZE)
+        torch.cuda.synchronize()
+        t_batch = time.perf_counter() - t0
+        counts = read()
+    finally:
+        tnodes.enhance_lines_fused = launch
+    with_mask = sum(r.sam_mask is not None for r in batched)
+    print(json.dumps({"path": "batch", "images": len(images), "batch_size": BATCH_SIZE,
+                      "launches": counts, "images_with_mask": with_mask}), flush=True)
+    if counts != EXPECTED["batch"] or counts["enhance_lines_fused"] != with_mask:
+        raise AssertionError(f"batch: launches {counts} != {EXPECTED['batch']} "
+                             f"({with_mask} images with a mask)")
+
+    card.analyze(images[0])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    singles = [card.analyze(img) for img in images]
+    torch.cuda.synchronize()
+    t_serial = time.perf_counter() - t0
+
+    key = lambda r: [(b.class_name, b.xmin, b.ymin, b.xmax, b.ymax) for b in r.bboxes_orig_nms]  # noqa: E731
+    worst, mismatches = 1.0, []
+    for i, (b, s) in enumerate(zip(batched, singles)):
+        agree = float(np.mean(b.sam_mask == s.sam_mask)) \
+            if b.sam_mask.shape == s.sam_mask.shape else 0.0
+        worst = min(worst, agree)
+        if key(b) != key(s) or len(b.nodes) != len(s.nodes) or b.netlist_text != s.netlist_text \
+                or agree < MASK_AGREEMENT_MIN:
+            mismatches.append({"drawing": i, "boxes": [key(b), key(s)],
+                               "nodes": [len(b.nodes), len(s.nodes)],
+                               "netlist_equal": b.netlist_text == s.netlist_text, "mask": agree})
+
+    # (b) the drawn topology: detection replaced by the drawn boxes, no SAM2
+    gt = {id(img): [BBox("resistor", 1.0, *bx, class_id=10) for bx in boxes]
+          for img, boxes in drawings}
+    detect = tbatch.BatchedPipeline._detect_bboxes
+    tbatch.BatchedPipeline._detect_bboxes = \
+        lambda self, chunk, imgs_dev: [copy.deepcopy(gt[id(im)]) for im in chunk]
+    runs = {}
+    try:
+        for name, topo, dev in (("card_on", on, "cuda"), ("card_off", off, "cuda"),
+                                ("cpu_on", on, "cpu")):
+            a = CircuitAnalyzerTorch(dataclasses.replace(cfg, topology=topo), ystate, None,
+                                     device=dev)
+            reset()
+            rs = a.analyze_batch(images, batch_size=BATCH_SIZE)
+            runs[name] = ([(len(r.nodes), r.netlist_text) for r in rs],
+                          read()["enhance_lines_fused"])
+    finally:
+        tbatch.BatchedPipeline._detect_bboxes = detect
+    grey = 0
+    for img, boxes in drawings:
+        crop, bxs, _info = crop_image_and_adjust_bboxes(img, gt[id(img)], cfg.crop)
+        mask = segment_classical(crop, on, device="cuda")
+        emptied = torch.as_tensor(tnodes.subtract_component_boxes(mask, bxs), device="cuda")
+        h, w = emptied.shape
+        resized = tnodes._cv2_resize_u8(emptied.float(), (on.resize_height,
+                                                          int(on.resize_height * (w / h))))
+        grey += int((tnodes.enhance_chain(resized, on) != tnodes.enhance_chain(resized, off)).sum())
+    drawn = {"netlists_equal": runs["card_on"][0] == runs["card_off"][0] == runs["cpu_on"][0],
+             "nodes": [n for n, _ in runs["card_on"][0]],
+             "enhance_lines_fused_launches": {k: v[1] for k, v in runs.items()},
+             "grey_levels_differing_on_vs_off": grey}
+    ips_batch, ips_serial = len(images) / t_batch, len(images) / t_serial
+    print(json.dumps({"batched_vs_analyze": {
+        "mismatches": mismatches, "worst_mask_agreement": worst,
+        "drawn_topology": drawn,
+        "images_per_s": {"analyze_many": ips_batch, "serial_analyze": ips_serial},
+        "seconds": {"analyze_many": t_batch, "serial_analyze": t_serial},
+        "card": smi}}), flush=True)
+    print(f"   images/s on {smi}: analyze_many {ips_batch:.2f}, serial analyze() "
+          f"{ips_serial:.2f}", flush=True)
+    if mismatches:
+        raise AssertionError(f"analyze_many differs from analyze() on {len(mismatches)} drawings")
+    if not drawn["netlists_equal"] or min(drawn["nodes"]) < 2:
+        raise AssertionError(f"drawn topology: {drawn} / {runs}")
+    if runs["card_on"][1] != len(images) or runs["card_off"][1] or runs["cpu_on"][1]:
+        raise AssertionError(f"drawn topology launches: {drawn['enhance_lines_fused_launches']}")
+    return counts, shapes
+
+
 def main() -> int:
     import torch
 
@@ -642,6 +920,7 @@ def main() -> int:
     print(f"   torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"   card: {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     done(t0, "environment")
@@ -668,18 +947,35 @@ def main() -> int:
     launches["l@1024"] = run_l_path(torch)
     done(t0, "main path at L@1024")
 
+    t0 = phase("batched path at s@640 + t@512 (analyze_many, fused morphology)")
+    launches["batch"], raster_shapes = run_batched_path(torch, smi)
+    done(t0, "batched path")
+
+    t0 = phase("kernel at the batched path's raster shapes")
+    summary["batch"] = run_kernels(torch, "batch", raster_shapes)
+    done(t0, "line-enhancement kernel")
+
+    t0 = phase("trunk LayerNorm option at the L@1024 widths")
+    launches["trunk-ln"] = run_trunk_ln_path(torch)
+    summary["trunk-ln"] = run_kernels(torch, "trunk-ln")
+    done(t0, "trunk LayerNorm option")
+
     def entry(name, s, counts):
         return {"launches": counts[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": "bytes" if s["t_bytes"] >= s["t_ops"] else "operations",
-                "library_ms": s["library_ms"]}
+                "library_ms": s["library_ms"],
+                **({"library_note": s["library_note"]} if s["library_note"] else {})}
 
     print(json.dumps({"kernels_t512": [{"name": n, **entry(n, s, launches["t@512"])}
                                        for n, s in summary["t@512"].items()]}))
-    # one entry per kernel, on the L@1024 path, which runs all of them
+    # one entry per kernel, on the path that runs it: the seven Hiera and
+    # head kernels on L@1024, the line enhancement on the batched path,
+    # the LayerNorms on the trunk LayerNorm option
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
-                **entry(n, s, launches["l@1024"]), "launches_t512": launches["t@512"][n]}
-               for n, s in summary["l@1024"].items()]
+                "path": path, **entry(n, s, launches[path]),
+                "launches_t512": launches["t@512"][n]}
+               for path in ("l@1024", "batch", "trunk-ln") for n, s in summary[path].items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

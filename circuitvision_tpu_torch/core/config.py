@@ -1,7 +1,7 @@
 """Typed configuration tree of the PyTorch port: the JAX package's
 `core/config.py` without JAX and without the sections and fields the
-ported slice never reads (enrichment, simulation, mesh, training, MXU
-channel padding, LoRA, the fused-morphology switch).
+ported slices never read (enrichment, simulation, mesh, training, MXU
+channel padding, LoRA).
 
 Every magic number that is inlined in the reference implementation
 (src/circuit_analyzer.py and src/analysis_pipeline.py of the reference
@@ -168,6 +168,16 @@ class TopologyConfig:
     # segment_circuit adaptive threshold (src/circuit_analyzer.py:313-319)
     adaptive_block: int = 31
     adaptive_c: int = 21
+    # Run enhance_lines as the one-pass `enhance_lines_fused` kernel
+    # (ops/cuda/morphology.py) at the default blur/morphology parameters
+    # on a CUDA raster; off, or on the CPU, the reference enhance_lines
+    # runs (JAX core/config.py:187, gate topology/nodes.py:99-109).
+    use_fused_morphology: bool = False
+
+
+#: images per chunk of the batched path when the caller names none (the
+#: JAX package's MeshConfig.batch_per_device, on one card)
+BATCH_PER_DEVICE = 8
 
 
 @dataclasses.dataclass(frozen=True)

@@ -37,32 +37,43 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
 }
 
+// LayerNorm statistics of one row of c values, by one warp: f32 sums of
+// x and x² (lane-strided, then a butterfly), mean = Σx/c and
+// rsqrt(var + eps) with var = Σx²/c − mean² clamped at 0 — flax's
+// fast-variance form (fused_ln.py:27-32 and window_attn.py:40-46 in the
+// JAX package). `load(i)` returns element i as float32. Every lane gets
+// the result.
+template <typename Load>
+__device__ __forceinline__ float2 warp_ln_stats(Load load, int c, float eps) {
+  const int lane = threadIdx.x % 32;
+  float s1 = 0.f, s2 = 0.f;
+  for (int i = lane; i < c; i += 32) {
+    float v = load(i);
+    s1 += v;
+    s2 += v * v;
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  float mean = s1 / c;
+  float var = fmaxf(s2 / c - mean * mean, 0.f);
+  return make_float2(mean, rsqrtf(var + eps));
+}
+
 // LayerNorm of `rows` rows of `src` (row stride c) into `dst`, one warp
-// per row: f32 statistics in the fast-variance form E[x²]−mean², then
-// (x−mean)·rsqrt(var+eps)·scale + bias rounded to T (window_attn.py:40-46
-// in the JAX package).
+// per row: warp_ln_stats, then (x−mean)·rsqrt(var+eps)·scale + bias
+// rounded to T. scale and bias are float32 whatever T is, as flax keeps
+// them (its parameters are float32 under a bf16 compute dtype).
 template <typename T>
 __device__ void layernorm_rows(const float* src, float* dst, int rows, int c,
-                               const T* scale, const T* bias, float eps) {
+                               const float* scale, const float* bias, float eps) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < rows; r += kThreads / 32) {
     const float* x = src + (size_t)r * c;
-    float s1 = 0.f, s2 = 0.f;
-    for (int i = lane; i < c; i += 32) {
-      float v = x[i];
-      s1 += v;
-      s2 += v * v;
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-    }
-    float mean = s1 / c;
-    float var = fmaxf(s2 / c - mean * mean, 0.f);
-    float inv = rsqrtf(var + eps);
+    float2 st = warp_ln_stats([&](int i) { return x[i]; }, c, eps);
     for (int i = lane; i < c; i += 32)
-      dst[(size_t)r * c + i] =
-          rnd<T>((x[i] - mean) * inv * to_f(scale[i]) + to_f(bias[i]));
+      dst[(size_t)r * c + i] = rnd<T>((x[i] - st.x) * st.y * scale[i] + bias[i]);
   }
 }
 

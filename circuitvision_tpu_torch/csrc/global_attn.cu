@@ -38,8 +38,8 @@ constexpr int kWs = kTileK * (kTileN + 1);
 // and output columns [j·cols, (j + 1)·cols).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ln_heads_kernel(const T* __restrict__ x, const T* __restrict__ ln_s,
-                const T* __restrict__ ln_b, const T* __restrict__ w,
+ln_heads_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
+                const float* __restrict__ ln_b, const T* __restrict__ w,
                 const T* __restrict__ bias, T* __restrict__ out, int rows_total,
                 int n, int c_in, int n_out, int cols, int heads, int hd,
                 float eps) {
@@ -143,7 +143,7 @@ cudaError_t launch_ln_heads(const void* x, const void* ln_s, const void* ln_b,
   const int cols = block_cols(rows_total, n_out);
   dim3 grid((rows_total + kRows - 1) / kRows, (n_out + cols - 1) / cols);
   ln_heads_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)x, (const T*)ln_s, (const T*)ln_b, (const T*)w, (const T*)b,
+      (const T*)x, (const float*)ln_s, (const float*)ln_b, (const T*)w, (const T*)b,
       (T*)out, rows_total, n, c_in, n_out, cols, heads, hd, eps);
   return cudaGetLastError();
 }
@@ -177,7 +177,7 @@ extern "C" long long cv_proj_res_smem(int c) {
 
 // dtype: 0 = float32, 1 = bfloat16. x (B, N, c_in); w (n_out, c_in) in
 // torch Linear layout with n_out = slabs·heads·hd; out (slabs, B, heads,
-// N, hd).
+// N, hd); ln_s and ln_b float32 for either dtype.
 extern "C" int cv_ln_heads(const void* x, const void* ln_s, const void* ln_b,
                            const void* w, const void* b, void* out,
                            int batch, int n, int c_in, int n_out, int heads,

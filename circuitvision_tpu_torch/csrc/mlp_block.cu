@@ -25,8 +25,8 @@ using namespace cvk;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-mlp_block_kernel(const T* __restrict__ x, const T* __restrict__ ln_s,
-                 const T* __restrict__ ln_b, const T* __restrict__ w0,
+mlp_block_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
+                 const float* __restrict__ ln_b, const T* __restrict__ w0,
                  const T* __restrict__ b0, const T* __restrict__ w1,
                  const T* __restrict__ b1, T* __restrict__ out,
                  float* __restrict__ partial, int t, int c, int hidden,
@@ -103,7 +103,7 @@ cudaError_t launch(const void* x, const void* ln_s, const void* ln_b,
   splits = (hidden + split_len - 1) / split_len;
   dim3 grid((t + kRows - 1) / kRows, splits);
   mlp_block_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)x, (const T*)ln_s, (const T*)ln_b, (const T*)w0,
+      (const T*)x, (const float*)ln_s, (const float*)ln_b, (const T*)w0,
       (const T*)b0, (const T*)w1, (const T*)b1, (T*)out, (float*)partial, t,
       c, hidden, split_len, eps);
   err = cudaGetLastError();
@@ -130,7 +130,8 @@ extern "C" int cv_mlp_block_splits(int t, int hidden, int sms) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Weights in torch Linear layout:
-// w0 (hidden, c), w1 (c, hidden). All tensors contiguous, same dtype.
+// w0 (hidden, c), w1 (c, hidden). All tensors contiguous, of the same
+// dtype but ln_s and ln_b, which are float32 for either dtype.
 // splits > 1 divides the hidden dimension across blocks; `partial` is
 // then a float32 workspace of splits·t·c elements.
 extern "C" int cv_mlp_block(const void* x, const void* ln_s, const void* ln_b,

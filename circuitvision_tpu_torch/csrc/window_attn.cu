@@ -32,8 +32,8 @@ constexpr int kWs = kTileK * (kTileN + 1);
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-window_attn_kernel(const T* __restrict__ x, const T* __restrict__ ln_s,
-                   const T* __restrict__ ln_b, const T* __restrict__ wqkv,
+window_attn_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
+                   const float* __restrict__ ln_b, const T* __restrict__ wqkv,
                    const T* __restrict__ bqkv, const T* __restrict__ wproj,
                    const T* __restrict__ bproj, T* __restrict__ out, int t,
                    int c, int heads, float scale, float eps) {
@@ -78,8 +78,8 @@ __device__ void pool2x2(const float* src, int ld, float* dst, int win, int c) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-qpool_attn_kernel(const T* __restrict__ x, const T* __restrict__ ln_s,
-                  const T* __restrict__ ln_b, const T* __restrict__ wskip,
+qpool_attn_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
+                  const float* __restrict__ ln_b, const T* __restrict__ wskip,
                   const T* __restrict__ bskip, const T* __restrict__ wqkv,
                   const T* __restrict__ bqkv, const T* __restrict__ wproj,
                   const T* __restrict__ bproj, T* __restrict__ out, int win,
@@ -150,7 +150,7 @@ cudaError_t launch_window(const void* x, const void* ln_s, const void* ln_b,
       (int)smem);
   if (err != cudaSuccess) return err;
   window_attn_kernel<T><<<n_win, kThreads, smem, stream>>>(
-      (const T*)x, (const T*)ln_s, (const T*)ln_b, (const T*)wqkv,
+      (const T*)x, (const float*)ln_s, (const float*)ln_b, (const T*)wqkv,
       (const T*)bqkv, (const T*)wproj, (const T*)bproj, (T*)out, t, c, heads,
       head_scale(c, heads), eps);
   return cudaGetLastError();
@@ -169,7 +169,7 @@ cudaError_t launch_qpool(const void* x, const void* ln_s, const void* ln_b,
       (int)smem);
   if (err != cudaSuccess) return err;
   qpool_attn_kernel<T><<<n_win, kThreads, smem, stream>>>(
-      (const T*)x, (const T*)ln_s, (const T*)ln_b, (const T*)wskip,
+      (const T*)x, (const float*)ln_s, (const float*)ln_b, (const T*)wskip,
       (const T*)bskip, (const T*)wqkv, (const T*)bqkv, (const T*)wproj,
       (const T*)bproj, (T*)out, win, c_in, c_out, heads,
       head_scale(c_out, heads), eps);
@@ -188,7 +188,8 @@ extern "C" long long cv_qpool_attn_smem(int win, int c_in, int c_out) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. x is (n_win, t, c); weights in torch
-// Linear layout: wqkv (3c, c), wproj (c, c).
+// Linear layout: wqkv (3c, c), wproj (c, c); ln_s and ln_b float32 for
+// either dtype (here and in cv_qpool_attn).
 extern "C" int cv_window_attn(const void* x, const void* ln_s,
                               const void* ln_b, const void* wqkv,
                               const void* bqkv, const void* wproj,

@@ -102,8 +102,8 @@ def seeded_state(kind: str, meta: Mapping, seed: int) -> dict[str, torch.Tensor]
         model = SAM2ImageSegmenter(sam2_config(meta))
     else:
         raise ValueError(f"unknown model kind {kind!r}")
-    norms = {n for n, m in model.named_modules() if isinstance(m, torch.nn.LayerNorm)
-             or type(m).__name__ in ("TrunkLayerNorm", "FrozenBatchNorm")}
+    norms = {n for n, m in model.named_modules()
+             if type(m).__name__ in ("LayerNorm", "TrunkLayerNorm", "FrozenBatchNorm")}
     gen = np.random.default_rng(seed)
     state = {}
     for key, t in model.state_dict().items():

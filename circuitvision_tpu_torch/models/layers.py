@@ -21,8 +21,9 @@ def autopad(k: int, p: int | None = None, d: int = 1) -> int:
 
 
 class FrozenBatchNorm(nn.Module):
-    """Inference BatchNorm computed as flax does:
-    (x − mean)·(rsqrt(var + eps)·scale) + bias, over NCHW channels."""
+    """Inference BatchNorm computed as flax does with float32 parameters
+    and statistics: (x − mean)·(rsqrt(var + eps)·scale) + bias in float32
+    over NCHW channels, rounded once to the input dtype."""
 
     def __init__(self, c: int, eps: float = 1e-3):
         super().__init__()
@@ -33,8 +34,47 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
+        y = (x.float() - self.running_mean.float()[:, None, None]) * mul[:, None, None]
+        return (y + self.bias.float()[:, None, None]).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax `nn.LayerNorm` over the last axis: float32 statistics in the
+    fast-variance form (mean of x² less the squared mean, clamped at 0),
+    (x − mean)·(rsqrt(var + eps)·scale) + bias in float32, rounded once to
+    the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((xf - mean) * mul + self.bias.float()).to(x.dtype)
+
+
+#: modules whose weights and biases take the compute dtype; flax's Dense
+#: and Conv cast theirs to the module dtype, every other flax parameter
+#: stays float32
+_CAST_MODULES = (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)
+
+
+def place(model: nn.Module, device, dtype: torch.dtype) -> nn.Module:
+    """Move `model` to `device` and give it flax's parameter dtypes under
+    compute dtype `dtype`: the weights and biases of linear and
+    convolution layers in `dtype`, every other parameter and buffer (norm
+    scales, biases and statistics, embeddings, tokens) in float32."""
+    model.to(device=device, dtype=torch.float32)
+    for m in model.modules():
+        if isinstance(m, _CAST_MODULES):
+            m.to(dtype=dtype)
+    return model
 
 
 class ConvBN(nn.Module):

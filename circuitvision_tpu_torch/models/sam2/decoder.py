@@ -11,7 +11,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import MLP
+from ..layers import MLP, LayerNorm
 
 
 class Attention(nn.Module):
@@ -46,14 +46,14 @@ class TwoWayAttentionBlock(nn.Module):
         d = embedding_dim
         self.skip_first_layer_pe = skip_first_layer_pe
         self.self_attn = Attention(d, num_heads)
-        self.norm1 = nn.LayerNorm(d, eps=1e-5)
+        self.norm1 = LayerNorm(d, eps=1e-5)
         self.cross_attn_token_to_image = Attention(d, num_heads, attention_downsample_rate)
-        self.norm2 = nn.LayerNorm(d, eps=1e-5)
+        self.norm2 = LayerNorm(d, eps=1e-5)
         self.mlp_lin1 = nn.Linear(d, mlp_dim)
         self.mlp_lin2 = nn.Linear(mlp_dim, d)
-        self.norm3 = nn.LayerNorm(d, eps=1e-5)
+        self.norm3 = LayerNorm(d, eps=1e-5)
         self.cross_attn_image_to_token = Attention(d, num_heads, attention_downsample_rate)
-        self.norm4 = nn.LayerNorm(d, eps=1e-5)
+        self.norm4 = LayerNorm(d, eps=1e-5)
 
     def forward(self, queries, keys, query_pe, key_pe):
         if self.skip_first_layer_pe:
@@ -79,7 +79,7 @@ class TwoWayTransformer(nn.Module):
             self.add_module(f"layers_{i}", TwoWayAttentionBlock(
                 embedding_dim, num_heads, mlp_dim, skip_first_layer_pe=(i == 0)))
         self.final_attn_token_to_image = Attention(embedding_dim, num_heads, 2)
-        self.norm_final_attn = nn.LayerNorm(embedding_dim, eps=1e-5)
+        self.norm_final_attn = LayerNorm(embedding_dim, eps=1e-5)
 
     def forward(self, image_embedding, image_pe, point_embedding):
         b, h, w, c = image_embedding.shape
@@ -121,7 +121,7 @@ class MaskDecoder(nn.Module):
                                         else nn.Linear(d, 1))
         self.transformer = TwoWayTransformer(2, d, 8, mlp_dim)
         self.output_upscaling_0 = nn.ConvTranspose2d(d, d // 4, 2, 2)
-        self.output_upscaling_1 = nn.LayerNorm(d // 4, eps=1e-6)
+        self.output_upscaling_1 = LayerNorm(d // 4, eps=1e-6)
         self.output_upscaling_3 = nn.ConvTranspose2d(d // 4, d // 8, 2, 2)
         for i in range(nm):
             self.add_module(f"output_hypernetworks_mlps_{i}", MLP(d, d, d // 8, 3))

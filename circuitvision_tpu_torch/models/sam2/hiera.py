@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.cuda.flash_attn import MAX_HEAD_DIM, flash_attn
+from ...ops.cuda.fused_ln import fused_add_layernorm, fused_layernorm
 from ...ops.cuda.global_attn import attn_proj_residual, ln_qkv
 from ...ops.cuda.mlp_block import mlp_block
 from ...ops.cuda.window_attn import qpool_attn_block, window_attn_block
@@ -70,20 +71,39 @@ def _pool2x(x: torch.Tensor) -> torch.Tensor:
 
 class TrunkLayerNorm(nn.Module):
     """LayerNorm with f32 fast-variance statistics (E[x²]−mean²), output
-    in the input dtype (JAX hiera.TrunkLayerNorm at true_dim == C)."""
+    in the input dtype (JAX hiera.TrunkLayerNorm at true_dim == C); scale
+    and bias stay float32 (models/layers.place).
 
-    def __init__(self, dim: int, eps: float = 1e-6):
+    `forward(x, residual=r)` computes the Hiera block's join r + x in the
+    input dtype and returns (r + x, LN(r + x)). With `fused` on and a CUDA
+    tensor, the `fused_layernorm` / `fused_add_layernorm` kernels compute
+    it in one pass (JAX hiera.py:102-116); otherwise the module math runs.
+    The trunk builds its norms unfused, as the JAX trunk does."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, fused: bool = False):
         super().__init__()
         self.eps = eps
+        self.fused = fused
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None):
+        if self.fused and x.is_cuda:
+            shape, c = x.shape, x.shape[-1]
+            x2 = x.reshape(-1, c).contiguous()
+            if residual is not None:
+                resid, y = fused_add_layernorm(residual.reshape(-1, c).contiguous(), x2,
+                                               self.weight, self.bias, self.eps)
+                return resid.reshape(shape), y.reshape(shape)
+            return fused_layernorm(x2, self.weight, self.bias, self.eps).reshape(shape)
+        if residual is not None:
+            x = residual + x
         xf = x.float()
         mean = xf.mean(-1, keepdim=True)
         var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(x.dtype)
+        y = (y * self.weight + self.bias).to(x.dtype)
+        return y if residual is None else (x, y)
 
 
 def einsum_attention(q, k, v, scale: float) -> torch.Tensor:

@@ -30,7 +30,8 @@ NVCC_FLAGS = (
 #: shared memory one block may use on Hopper (232,448 bytes)
 MAX_SMEM = 227 * 1024
 #: kernel sources; each becomes lib<name>-<hash>.so
-SOURCES = ("mlp_block", "window_attn", "refinement", "global_attn", "flash_attn")
+SOURCES = ("mlp_block", "window_attn", "refinement", "global_attn", "flash_attn", "morphology",
+           "fused_ln")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +60,13 @@ SIGNATURES = {
     },
     "flash_attn": {
         "cv_flash_attn": [_P] * 4 + [_I] * 6 + [_P],
+    },
+    "morphology": {
+        "cv_enhance_lines": [_P, _P, _I, _I] + [_F] * 5 + [_P],
+    },
+    "fused_ln": {
+        "cv_fused_layernorm": [_P] * 4 + [_I, _I, _F, _I, _P],
+        "cv_fused_add_layernorm": [_P] * 6 + [_I, _I, _F, _I, _P],
     },
 }
 
@@ -139,6 +147,17 @@ def dtype_code(t: torch.Tensor) -> int:
     if t.dtype not in codes:
         raise KernelError(f"unsupported dtype {t.dtype}; kernels take float32 or bfloat16")
     return codes[t.dtype]
+
+
+def check_ln_params(what: str, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> None:
+    """LayerNorm scale and bias: float32 (whatever x's dtype, as flax keeps
+    its parameters), contiguous, of shape (x.shape[-1],), on x's device."""
+    for t in (scale, bias):
+        if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous() \
+                or t.shape != (x.shape[-1],):
+            raise KernelError(f"{what}: LayerNorm parameters must be contiguous float32 of "
+                              f"shape ({x.shape[-1]},) on {x.device}; got {t.dtype} "
+                              f"{tuple(t.shape)} on {t.device}")
 
 
 def check_operands(what: str, x: torch.Tensor, *others: torch.Tensor) -> None:

@@ -23,7 +23,8 @@ from __future__ import annotations
 import torch
 
 from .build import (
-    MAX_SMEM, KernelError, check, check_operands, dtype_code, library, stream_ptr,
+    MAX_SMEM, KernelError, check, check_ln_params, check_operands, dtype_code, library,
+    stream_ptr,
 )
 from .mlp_block import layernorm_f32
 
@@ -50,11 +51,11 @@ def ln_qkv(x, ln_scale, ln_bias, w, b, heads, slabs=3, eps=1e-6):
     the kernel."""
     if x.device.type == "cpu":
         return ln_qkv_plain(x, ln_scale, ln_bias, w, b, heads, slabs, eps)
-    check_operands("ln_qkv", x, ln_scale, ln_bias, w, b)
+    check_operands("ln_qkv", x, w, b)
+    check_ln_params("ln_qkv", x, ln_scale, ln_bias)
     bsz, n, c_in = x.shape
     n_out = w.shape[0]
-    if n_out % (slabs * heads) or w.shape != (n_out, c_in) or b.shape != (n_out,) \
-            or ln_scale.shape != (c_in,) or ln_bias.shape != (c_in,):
+    if n_out % (slabs * heads) or w.shape != (n_out, c_in) or b.shape != (n_out,):
         raise KernelError("ln_qkv: weight shapes do not match x")
     hd = n_out // (slabs * heads)
     lib = library("global_attn")

@@ -14,7 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from .build import (
-    MAX_SMEM, KernelError, check, check_operands, dtype_code, library, stream_ptr,
+    MAX_SMEM, KernelError, check, check_ln_params, check_operands, dtype_code, library,
+    stream_ptr,
 )
 
 
@@ -40,11 +41,12 @@ def mlp_block(x, ln_scale, ln_bias, w0, b0, w1, b1, eps=1e-6):
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return mlp_block_plain(x, ln_scale, ln_bias, w0, b0, w1, b1, eps)
-    check_operands("mlp_block", x, ln_scale, ln_bias, w0, b0, w1, b1)
+    check_operands("mlp_block", x, w0, b0, w1, b1)
+    check_ln_params("mlp_block", x, ln_scale, ln_bias)
     t, c = x.shape
     hidden = w0.shape[0]
     if w0.shape != (hidden, c) or w1.shape != (c, hidden) or b0.shape != (hidden,) \
-            or b1.shape != (c,) or ln_scale.shape != (c,) or ln_bias.shape != (c,):
+            or b1.shape != (c,):
         raise KernelError("mlp_block: weight shapes do not match x")
     lib = library("mlp_block")
     if lib.cv_mlp_block_smem(c) > MAX_SMEM:

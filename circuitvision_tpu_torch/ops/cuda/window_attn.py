@@ -30,7 +30,8 @@ from __future__ import annotations
 import torch
 
 from .build import (
-    MAX_SMEM, KernelError, check, check_operands, dtype_code, library, stream_ptr,
+    MAX_SMEM, KernelError, check, check_ln_params, check_operands, dtype_code, library,
+    stream_ptr,
 )
 from .flash_attn import flash_attn
 from .global_attn import attn_proj_residual, ln_qkv, pool2x2_windows
@@ -94,7 +95,8 @@ def window_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     if x.device.type == "cpu":
         return window_attn_block_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
                                        bproj, heads, eps)
-    check_operands("window_attn_block", x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj)
+    check_operands("window_attn_block", x, wqkv, bqkv, wproj, bproj)
+    check_ln_params("window_attn_block", x, ln_scale, ln_bias)
     nw, t, c = x.shape
     if wqkv.shape != (3 * c, c) or wproj.shape != (c, c) or c % heads:
         raise KernelError("window_attn_block: weight shapes do not match x")
@@ -153,8 +155,8 @@ def qpool_attn_block(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj,
     if x.device.type == "cpu":
         return qpool_attn_block_plain(x, ln_scale, ln_bias, wskip, bskip, wqkv,
                                       bqkv, wproj, bproj, heads, win, eps)
-    check_operands("qpool_attn_block", x, ln_scale, ln_bias, wskip, bskip, wqkv,
-                   bqkv, wproj, bproj)
+    check_operands("qpool_attn_block", x, wskip, bskip, wqkv, bqkv, wproj, bproj)
+    check_ln_params("qpool_attn_block", x, ln_scale, ln_bias)
     rows, c_in = x.shape
     c_out = wproj.shape[0]
     t = win * win

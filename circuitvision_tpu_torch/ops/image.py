@@ -132,3 +132,11 @@ def letterbox(
     )
     canvas[pad_y : pad_y + new_h, pad_x : pad_x + new_w] = resized
     return canvas, scale, (float(pad_x), float(pad_y))
+
+
+def crop_sam2_preprocess(img_u8: torch.Tensor, y0: int, x0: int, crop_h: int, crop_w: int,
+                         resolution: int) -> torch.Tensor:
+    """The (crop_h, crop_w) window at (y0, x0) sliced out of an uploaded
+    uint8 image, then `sam2_preprocess` (JAX pipeline/batch.py:80-103):
+    the crop never travels from the host again."""
+    return sam2_preprocess(img_u8[y0:y0 + crop_h, x0:x0 + crop_w], resolution)

@@ -33,6 +33,7 @@ import torch
 from ..core import geometry, taxonomy
 from ..core.config import PipelineConfig, compute_dtype
 from ..core.types import AnalysisResult, BBox, StageTimings
+from ..models.layers import place
 from ..models.sam2.wrapper import SAM2ImageSegmenter
 from ..models.yolo.decode import decode_predictions, postprocess, unletterbox_boxes
 from ..models.yolo.model import YOLOv11
@@ -61,6 +62,18 @@ def _is_device_fault(exc: BaseException) -> bool:
     )
 
 
+def detections_to_bboxes(boxes: np.ndarray, scores: np.ndarray, classes: np.ndarray,
+                         valid: np.ndarray) -> list[BBox]:
+    """The valid rows of one image's decoded detections (boxes already in
+    image pixels) as BBoxes with rounded coordinates."""
+    return [BBox(class_name=taxonomy.ID_TO_NAME.get(int(classes[i]), "unknown"),
+                 confidence=float(scores[i]),
+                 xmin=round(float(boxes[i, 0])), ymin=round(float(boxes[i, 1])),
+                 xmax=round(float(boxes[i, 2])), ymax=round(float(boxes[i, 3])),
+                 class_id=int(classes[i]))
+            for i in np.nonzero(valid)[0]]
+
+
 class CircuitAnalyzerTorch:
     """Image-of-circuit → SPICE netlist with the PyTorch port.
 
@@ -83,12 +96,12 @@ class CircuitAnalyzerTorch:
         det = self.cfg.detector
         self.yolo = YOLOv11(det.num_classes, det.scale, det.reg_max)
         self.yolo.load_state_dict(yolo_state, strict=True)
-        self.yolo.to(self.device, compute_dtype(det.dtype)).eval()
+        place(self.yolo, self.device, compute_dtype(det.dtype)).eval()
         self.sam2 = None
         if sam2_state is not None and self.cfg.use_sam2:
             self.sam2 = SAM2ImageSegmenter(self.cfg.sam2)
             self.sam2.load_state_dict(sam2_state, strict=True)
-            self.sam2.to(self.device, compute_dtype(self.cfg.sam2.dtype)).eval()
+            place(self.sam2, self.device, compute_dtype(self.cfg.sam2.dtype)).eval()
 
     # ------------------------------------------------------------------
     # Stages
@@ -113,18 +126,8 @@ class CircuitAnalyzerTorch:
             conf_threshold=det.conf_threshold, iou_threshold=det.iou_threshold,
         )
         h, w = image_rgb.shape[:2]
-        boxes = unletterbox_boxes(boxes, scale, pads, w, h).cpu().numpy()
-        scores, classes, valid = (t.cpu().numpy() for t in (scores, classes, valid))
-        out = []
-        for i in np.nonzero(valid)[0]:
-            out.append(BBox(
-                class_name=taxonomy.ID_TO_NAME.get(int(classes[i]), "unknown"),
-                confidence=float(scores[i]),
-                xmin=round(float(boxes[i, 0])), ymin=round(float(boxes[i, 1])),
-                xmax=round(float(boxes[i, 2])), ymax=round(float(boxes[i, 3])),
-                class_id=int(classes[i]),
-            ))
-        return out
+        boxes = unletterbox_boxes(boxes, scale, pads, w, h)
+        return detections_to_bboxes(*(t.cpu().numpy() for t in (boxes, scores, classes, valid)))
 
     @torch.no_grad()
     def segment_logits(self, image_rgb: np.ndarray) -> torch.Tensor:
@@ -221,6 +224,19 @@ class CircuitAnalyzerTorch:
 
         result.component_stats = self._component_stats(result.bboxes_orig_nms)
         return result
+
+    def analyze_batch(self, images, batch_size: Optional[int] = None,
+                      finalize: bool = False) -> list[AnalysisResult]:
+        """Batched analysis of many images on this analyzer's device (JAX
+        pipeline/analyzer.py:398-415): chunks of `batch_size` (default 8),
+        SAM2 batched over a chunk's crops, the host topology of each chunk
+        overlapping the device work of the next (pipeline/batch.py). Same
+        stages [1]-[6], the same netlist stage and the same boxes as
+        analyze(); `finalize=True` is not ported yet."""
+        from .batch import BatchedPipeline
+
+        return BatchedPipeline(self, batch_size=batch_size).analyze_many(
+            list(images), finalize=finalize)
 
     def netlist_stage(self, result: AnalysisResult) -> None:
         """Stage [6]: initial netlist, the no-VLM-direction comparison

@@ -19,6 +19,13 @@ with the reference's exact tie-breaks:
     dropped unless >= 2 components (single-other-node
     exception preserved)                               (:1547-1582)
 
+The batched path (`extract_nodes_batched`, JAX nodes.py:451-596) runs
+the same stage A per image with the subtraction on the device and hands
+the host a bit-packed raster, fetched for a whole chunk at once. With
+`TopologyConfig.use_fused_morphology` on and the raster on the card,
+stage A's enhance_lines is the `enhance_lines_fused` kernel
+(ops/cuda/morphology.py), as JAX nodes.py:99-109 gates it.
+
 The debug visualisations of the JAX stage are not part of this package
 yet; their fields stay None.
 """
@@ -34,6 +41,7 @@ from ..core import taxonomy
 from ..core.config import TopologyConfig
 from ..core.types import BBox, Node
 from ..ops.cc import label_components
+from ..ops.cuda.morphology import enhance_lines_fused
 from ..ops.image import resize_bilinear
 from ..ops.morphology import enhance_lines
 from .host_cc import contour_touch_stage_host
@@ -79,12 +87,22 @@ class NodeExtraction:
     raw_node_count: int = 0
 
 
+def _fused_morphology(cfg: TopologyConfig, raster: torch.Tensor) -> bool:
+    """The kernel takes enhance_lines at its default parameters only, and
+    only on the card (JAX nodes.py:99-109: never on the CPU backend)."""
+    return (cfg.use_fused_morphology and raster.is_cuda and cfg.blur_kernel == 5
+            and cfg.blur_sigma == 1.0 and cfg.morph_kernel == 3 and cfg.morph_iterations == 2)
+
+
 def enhance_chain(resized: torch.Tensor, cfg: TopologyConfig) -> torch.Tensor:
     """resize output → enhance_lines → uint8 quantize → auto-invert."""
-    enhanced = torch.round(enhance_lines(
-        resized, blur_ksize=cfg.blur_kernel, blur_sigma=cfg.blur_sigma,
-        morph_ksize=cfg.morph_kernel, iterations=cfg.morph_iterations,
-    ))
+    if _fused_morphology(cfg, resized):
+        enhanced = enhance_lines_fused(resized.contiguous())
+    else:
+        enhanced = torch.round(enhance_lines(
+            resized, blur_ksize=cfg.blur_kernel, blur_sigma=cfg.blur_sigma,
+            morph_ksize=cfg.morph_kernel, iterations=cfg.morph_iterations,
+        ))
     # cv2 works on rounded uint8: the faint Gaussian halo below 0.5 must
     # NOT count as foreground
     enhanced_u8 = torch.clamp(enhanced, 0, 255)
@@ -271,3 +289,130 @@ def _component_arrays(resized_bboxes, cfg: TopologyConfig):
         comp_thr[col] = taxonomy.pixel_threshold_for_class(b.class_name, cfg)
         comp_valid[col] = True
     return comp_indices, comp_boxes, comp_thr, comp_valid
+
+
+# ---------------------------------------------------------------- batched
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def pack_bits(fg: torch.Tensor) -> torch.Tensor:
+    """(H, W) bool → (H, ceil(W/8)) uint8, in np.unpackbits order."""
+    h, w = fg.shape
+    w8 = (w + 7) // 8
+    bits = torch.zeros((h, w8 * 8), dtype=torch.int32, device=fg.device)
+    bits[:, :w] = fg.to(torch.int32)
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=fg.device)
+    return (bits.reshape(h, w8, 8) * weights).sum(-1).to(torch.uint8)
+
+
+class PackedFetch:
+    """One device-to-host copy of a list of uint8 tensors of one device
+    into pinned memory, queued behind the work that makes them on the
+    current CUDA stream; `get()` waits for its event and splits the copy
+    back into host arrays of the tensors' shapes."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self.shapes = [tuple(t.shape) for t in tensors]
+        self.event = None
+        flat = torch.cat([t.reshape(-1) for t in tensors]) if tensors \
+            else torch.zeros(0, dtype=torch.uint8)
+        if flat.is_cuda:
+            self.host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            self.host.copy_(flat, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = flat
+
+    def get(self) -> list[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        flat = self.host.numpy()
+        out, at = [], 0
+        for shape in self.shapes:
+            n = int(np.prod(shape))
+            out.append(flat[at:at + n].reshape(shape))
+            at += n
+        return out
+
+
+def _subtract_arrays(bboxes: Sequence[BBox], h: int, w: int) -> list[tuple[int, int, int, int]]:
+    """Boxes to zero out of the mask (everything not mask-preserved),
+    clamped to the raster exactly as subtract_component_boxes clamps them
+    (JAX nodes.py:451-466)."""
+    sub = [(max(0, int(b.xmin)), max(0, int(b.ymin)), min(w, int(b.xmax)), min(h, int(b.ymax)))
+           for b in bboxes if b.class_name not in taxonomy.MASK_PRESERVE_CLASSES]
+    return [(x0, y0, x1, y1) for x0, y0, x1, y1 in sub if x0 < x1 and y0 < y1]
+
+
+@dataclasses.dataclass
+class PackedRaster:
+    """One image's prepared analysis raster (stage A's output): the
+    bit-packed binarized enhance chain at cfg.resize_height rows, still on
+    its device, with the resize geometry that finishing on the host needs
+    (JAX nodes.py:524-532)."""
+
+    packed_dev: torch.Tensor  # (new_h, ceil(new_w/8)) uint8
+    in_shape: tuple[int, int]
+    new_h: int
+    new_w: int
+
+
+def prepare_packed_raster(mask, bboxes: Sequence[BBox], cfg: TopologyConfig,
+                          device="cpu") -> PackedRaster:
+    """Stage A for one image on the device (JAX nodes.py:470-503, 535-556):
+    component subtraction → cv2-exact resize → enhance chain → bit-pack.
+
+    `mask` is the (H, W) 0/255 wire mask, a tensor already on its device
+    or a numpy array that is uploaded to `device`. Subtraction depends
+    only on each box's coordinates and on whether its class is
+    mask-preserved, which reclassification never changes, so this may run
+    before stage [3]; `finish_from_packed` takes the final boxes."""
+    if not isinstance(mask, torch.Tensor):
+        mask = torch.as_tensor(np.ascontiguousarray(mask), device=device)
+    in_h, in_w = mask.shape[:2]
+    new_h, new_w = cfg.resize_height, int(cfg.resize_height * (in_w / in_h))
+    emptied = mask.to(torch.float32, copy=True)
+    for x0, y0, x1, y1 in _subtract_arrays(bboxes, in_h, in_w):
+        emptied[y0:y1, x0:x1] = 0.0
+    enhanced = enhance_chain(_cv2_resize_u8(emptied, (new_h, new_w)), cfg)
+    return PackedRaster(pack_bits(enhanced > 0), (in_h, in_w), new_h, new_w)
+
+
+def finish_from_packed(packed_host: np.ndarray, pr: PackedRaster, bboxes: Sequence[BBox],
+                       cfg: TopologyConfig) -> NodeExtraction:
+    """Host half of batched extraction (JAX nodes.py:559-593): unpack the
+    raster → contour trace / polygon stats / vertex touch (host_cc) →
+    nodes. `bboxes` are the final, post-reclassification boxes."""
+    in_h, in_w = pr.in_shape
+    sx, sy = pr.new_w / in_w, pr.new_h / in_h
+    resized_bboxes = [b.scaled(sx, sy) for b in bboxes]
+    comp_indices, comp_boxes, comp_thr, comp_valid = _component_arrays(resized_bboxes, cfg)
+    fg = np.unpackbits(packed_host, axis=1)[:, : pr.new_w].astype(bool)
+    centroids, rel_area, touch, _contours = contour_touch_stage_host(
+        fg, float(pr.new_w), cfg, comp_boxes, comp_thr, comp_valid
+    )
+    touch = touch[:, : len(comp_indices)]
+    k = len(rel_area)
+    if not comp_indices or k == 0:
+        return NodeExtraction([], None, None, None, resized_bboxes)
+    nodes, raw_count = _assemble_nodes(
+        resized_bboxes, comp_indices, np.arange(k), centroids, rel_area,
+        np.ones(k, bool), touch,
+    )
+    return NodeExtraction(nodes, None, None, None, resized_bboxes, raw_node_count=raw_count)
+
+
+def extract_nodes_batched(masks: Sequence, bboxes_list: Sequence[Sequence[BBox]],
+                          cfg: Optional[TopologyConfig] = None,
+                          device="cpu") -> list[NodeExtraction]:
+    """Node extraction over a batch (JAX nodes.py:596, its default
+    host-CC route): stage A per image on the device, one device-to-host
+    copy of every packed raster, then the host stage per image. Gives the
+    nodes of per-image `extract_nodes`; the visualisation fields stay
+    None. `masks` are tensors on their device or numpy arrays."""
+    cfg = cfg or TopologyConfig()
+    prs = [prepare_packed_raster(m, bbs, cfg, device) for m, bbs in zip(masks, bboxes_list)]
+    hosts = PackedFetch([pr.packed_dev for pr in prs]).get()
+    return [finish_from_packed(ph, pr, bbs, cfg)
+            for ph, pr, bbs in zip(hosts, prs, bboxes_list)]

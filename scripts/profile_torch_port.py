@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where one CircuitAnalyzerTorch.analyze() spends its time on the card.
+"""Where one CircuitAnalyzerTorch.analyze() spends its time on the card,
+or, with --batch, the batched path.
 
     python3 scripts/profile_torch_port.py [--runs 3] [--sam2 t@512|l@1024]
+    python3 scripts/profile_torch_port.py --batch 8 [--runs 3]
 
 Builds a slice as chip_smoke.py does (YOLOv11-s@640 at the shapes of
 ckpt/yolo/meta.json, and SAM2 Hiera-t@512 as ckpt/sam2/meta.json names
@@ -15,6 +17,16 @@ weights, the same drawn schematic), warms up, then prints JSON lines:
     host overhead lengthens the wall time);
   * `host`: the host functions with the most cumulative time (cProfile,
     one run; it slows Python calls, so only the ranking is meaningful).
+
+With --batch N (t@512, use_fused_morphology on, chip_smoke.py's 16
+drawings of varied sizes) it prints `batch`: images/s of serial
+analyze(), of analyze_batch(batch_size=N) (its three threads) and of the
+same chunks run stage after stage on one thread, and of analyze_batch
+with the interpreter's thread switch interval at 1 ms and 0.2 ms, for
+each of --runs runs; the last sequential run's ms per chunk of each stage (detect+crop,
+segment + stage A + fetch, host topology); and, under torch.profiler,
+analyze_batch's device-busy ms and idle share; with the card's
+nvidia-smi name and power limit.
 
 Needs a CUDA device; writes nothing.
 """
@@ -31,17 +43,116 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 
 
+def device_busy_ms(prof) -> float:
+    """Device time of a profile: device-side events only (kernels, memcpy,
+    memset); the CPU-side operator events carry the same time again."""
+    import torch
+
+    return sum(evt.self_device_time_total or evt.device_time_total
+               for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def profile_batch(torch, batch_size: int, runs: int) -> None:
+    import subprocess
+
+    from chip_smoke import batch_drawings
+    from circuitvision_tpu_torch.core.config import PipelineConfig, TopologyConfig
+    from circuitvision_tpu_torch.models.bridge import detector_config, sam2_config, seeded_state
+    from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
+    from circuitvision_tpu_torch.pipeline.batch import BatchedPipeline
+
+    ymeta = json.loads((REPO / "ckpt" / "yolo" / "meta.json").read_text())
+    smeta = json.loads((REPO / "ckpt" / "sam2" / "meta.json").read_text())
+    cfg = PipelineConfig(detector=detector_config(ymeta), sam2=sam2_config(smeta),
+                         topology=TopologyConfig(use_fused_morphology=True))
+    analyzer = CircuitAnalyzerTorch(cfg, seeded_state("yolo", ymeta, 0),
+                                    seeded_state("sam2", smeta, 1), device="cuda")
+    images = [img for img, _boxes in batch_drawings()]
+    pipe = BatchedPipeline(analyzer, batch_size=batch_size)
+    stage_ms: list = []
+
+    def stage_after_stage():
+        stage_ms.clear()
+        for i in range(0, len(images), batch_size):
+            t0 = time.perf_counter()
+            staged = pipe._detect_crop_phase(images[i:i + batch_size])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            staged, fetch = pipe._segment_phase(staged)
+            rasters = pipe._unpack(staged, fetch)
+            t2 = time.perf_counter()
+            results = [pipe._pre_topology(st) for st in staged]
+            pipe._extract_nodes_chunk(staged, rasters, results)
+            for r in results:
+                pipe._post_topology(r)
+            stage_ms.append([(t1 - t0) * 1e3, (t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3])
+
+    def with_switch_interval(seconds):
+        def run():
+            old = sys.getswitchinterval()
+            sys.setswitchinterval(seconds)
+            try:
+                pipe.analyze_many(images)
+            finally:
+                sys.setswitchinterval(old)
+        return run
+
+    variants = {"serial_analyze": lambda: [analyzer.analyze(im) for im in images],
+                "analyze_batch": lambda: pipe.analyze_many(images),
+                "stage_after_stage": stage_after_stage,
+                # the interpreter's thread switch interval (5 ms by default)
+                # bounds how long a thread that released the lock for a
+                # CUDA wait waits to get it back
+                "analyze_batch_switch_1ms": with_switch_interval(1e-3),
+                "analyze_batch_switch_0.2ms": with_switch_interval(2e-4)}
+    ips = {k: [] for k in variants}
+    for fn in variants.values():
+        fn()
+    for _ in range(runs):
+        for name, fn in variants.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ips[name].append(len(images) / (time.perf_counter() - t0))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        pipe.analyze_many(images)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = device_busy_ms(prof)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(json.dumps({"batch": {
+        "images": len(images), "batch_size": batch_size, "images_per_s": ips,
+        "stage_after_stage_ms_per_chunk": {"detect_crop": [c[0] for c in stage_ms],
+                                           "segment_stage_a_fetch": [c[1] for c in stage_ms],
+                                           "host_topology": [c[2] for c in stage_ms]},
+        "profiled": {"wall_ms": wall_ms, "device_busy_ms": busy,
+                     "idle_share": 1.0 - busy / wall_ms},
+        "card": smi}}))
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--sam2", choices=("t@512", "l@1024"), default="t@512")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="profile analyze_batch at this batch size instead of analyze()")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.batch:
+        profile_batch(torch, args.batch, args.runs)
+        return 0
     from chip_smoke import draw_schematic
     from circuitvision_tpu_torch.core.config import PipelineConfig
     from circuitvision_tpu_torch.models.bridge import detector_config, sam2_config, seeded_state
@@ -70,19 +181,15 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.runs
     rows = []
-    busy_us = 0.0
-    # device-side events only (kernels, memcpy, memset): the CPU-side
-    # operator events carry the same device time again
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = evt.self_device_time_total or evt.device_time_total
-        busy_us += dev_us
-        rows.append((dev_us / args.runs / 1e3, evt.count // args.runs, evt.key[:90]))
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us = evt.self_device_time_total or evt.device_time_total
+            rows.append((dev_us / args.runs / 1e3, evt.count // args.runs, evt.key[:90]))
     rows.sort(reverse=True)
+    busy_ms = device_busy_ms(prof) / args.runs
     print(json.dumps({"device": {
-        "wall_ms_per_analyze": wall_ms, "device_busy_ms_per_analyze": busy_us / args.runs / 1e3,
-        "idle_share": 1.0 - busy_us / args.runs / 1e3 / wall_ms,
+        "wall_ms_per_analyze": wall_ms, "device_busy_ms_per_analyze": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms,
         "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:20]]}}))
 
     prof_host = cProfile.Profile()

@@ -19,8 +19,10 @@ import torch
 
 from circuitvision_tpu_torch.ops.cuda import build
 from circuitvision_tpu_torch.ops.cuda import flash_attn as fa
+from circuitvision_tpu_torch.ops.cuda import fused_ln as fl
 from circuitvision_tpu_torch.ops.cuda import global_attn as ga
 from circuitvision_tpu_torch.ops.cuda import mlp_block as mb
+from circuitvision_tpu_torch.ops.cuda import morphology as mo
 from circuitvision_tpu_torch.ops.cuda import refinement as rf
 from circuitvision_tpu_torch.ops.cuda import window_attn as wa
 
@@ -55,12 +57,14 @@ def _close(got, ref):
 
 
 DTYPES = [torch.float32, torch.bfloat16]
+#: LayerNorm scale and bias are float32 for either dtype, as flax keeps them
+F32 = torch.float32
 
 
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("t,c", [(100, 96), (16, 768)])
 def test_mlp_block_kernel(gen, dt, t, c):
-    args = (_rnd(gen, dt, t, c), 1 + _rnd(gen, dt, c, scale=0.1), _rnd(gen, dt, c, scale=0.1),
+    args = (_rnd(gen, dt, t, c), 1 + _rnd(gen, F32, c, scale=0.1), _rnd(gen, F32, c, scale=0.1),
             _rnd(gen, dt, 4 * c, c, scale=c ** -0.5), _rnd(gen, dt, 4 * c, scale=0.02),
             _rnd(gen, dt, c, 4 * c, scale=(4 * c) ** -0.5), _rnd(gen, dt, c, scale=0.02))
     before = mb.mlp_block.launches
@@ -71,7 +75,7 @@ def test_mlp_block_kernel(gen, dt, t, c):
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("t,c,heads", [(64, 96, 1), (16, 192, 2)])
 def test_window_attn_kernel(gen, dt, t, c, heads):
-    args = (_rnd(gen, dt, 8, t, c), 1 + _rnd(gen, dt, c, scale=0.1), _rnd(gen, dt, c, scale=0.1),
+    args = (_rnd(gen, dt, 8, t, c), 1 + _rnd(gen, F32, c, scale=0.1), _rnd(gen, F32, c, scale=0.1),
             _rnd(gen, dt, 3 * c, c, scale=c ** -0.5), _rnd(gen, dt, 3 * c, scale=0.02),
             _rnd(gen, dt, c, c, scale=c ** -0.5), _rnd(gen, dt, c, scale=0.02))
     _close(wa.window_attn_block(*args, heads=heads), wa.window_attn_block_plain(*args, heads=heads))
@@ -80,8 +84,8 @@ def test_window_attn_kernel(gen, dt, t, c, heads):
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("win,ci,co,heads", [(8, 96, 192, 2), (4, 192, 384, 4)])
 def test_qpool_attn_kernel(gen, dt, win, ci, co, heads):
-    args = (_rnd(gen, dt, 8 * win * win, ci), 1 + _rnd(gen, dt, ci, scale=0.1),
-            _rnd(gen, dt, ci, scale=0.1), _rnd(gen, dt, co, ci, scale=ci ** -0.5),
+    args = (_rnd(gen, dt, 8 * win * win, ci), 1 + _rnd(gen, F32, ci, scale=0.1),
+            _rnd(gen, F32, ci, scale=0.1), _rnd(gen, dt, co, ci, scale=ci ** -0.5),
             _rnd(gen, dt, co, scale=0.02), _rnd(gen, dt, 3 * co, ci, scale=ci ** -0.5),
             _rnd(gen, dt, 3 * co, scale=0.02), _rnd(gen, dt, co, co, scale=co ** -0.5),
             _rnd(gen, dt, co, scale=0.02))
@@ -94,7 +98,7 @@ def test_qpool_attn_kernel(gen, dt, win, ci, co, heads):
                                                   (16, 64, 1152, 1152, 16, 3),
                                                   (64, 64, 144, 288, 1, 1)])
 def test_ln_qkv_kernel(gen, dt, b, n, ci, co, heads, slabs):
-    args = (_rnd(gen, dt, b, n, ci), 1 + _rnd(gen, dt, ci, scale=0.1), _rnd(gen, dt, ci, scale=0.1),
+    args = (_rnd(gen, dt, b, n, ci), 1 + _rnd(gen, F32, ci, scale=0.1), _rnd(gen, F32, ci, scale=0.1),
             _rnd(gen, dt, slabs * co, ci, scale=ci ** -0.5), _rnd(gen, dt, slabs * co, scale=0.02))
     before = ga.ln_qkv.launches
     got = ga.ln_qkv(*args, heads, slabs)
@@ -131,7 +135,7 @@ def test_attn_proj_residual_kernel(gen, dt, b, n, c, heads, pool_win, round_proj
 def test_window_attn_tiled_route(gen, dt, nw, t, c, heads):
     """Where a window does not fit one block, the wrapper takes the tiled
     route; where it does, the tiled route computes the same function."""
-    args = (_rnd(gen, dt, nw, t, c), 1 + _rnd(gen, dt, c, scale=0.1), _rnd(gen, dt, c, scale=0.1),
+    args = (_rnd(gen, dt, nw, t, c), 1 + _rnd(gen, F32, c, scale=0.1), _rnd(gen, F32, c, scale=0.1),
             _rnd(gen, dt, 3 * c, c, scale=c ** -0.5), _rnd(gen, dt, 3 * c, scale=0.02),
             _rnd(gen, dt, c, c, scale=c ** -0.5), _rnd(gen, dt, c, scale=0.02))
     ref = wa.window_attn_block_plain(*args, heads=heads)
@@ -148,8 +152,8 @@ def test_window_attn_tiled_route(gen, dt, nw, t, c, heads):
                                                 (64, 4, 288, 576, 8)])
 def test_qpool_attn_tiled_route(gen, dt, nw, win, ci, co, heads):
     t = win * win
-    args = (_rnd(gen, dt, nw * t, ci), 1 + _rnd(gen, dt, ci, scale=0.1),
-            _rnd(gen, dt, ci, scale=0.1), _rnd(gen, dt, co, ci, scale=ci ** -0.5),
+    args = (_rnd(gen, dt, nw * t, ci), 1 + _rnd(gen, F32, ci, scale=0.1),
+            _rnd(gen, F32, ci, scale=0.1), _rnd(gen, dt, co, ci, scale=ci ** -0.5),
             _rnd(gen, dt, co, scale=0.02), _rnd(gen, dt, 3 * co, ci, scale=ci ** -0.5),
             _rnd(gen, dt, 3 * co, scale=0.02), _rnd(gen, dt, co, co, scale=co ** -0.5),
             _rnd(gen, dt, co, scale=0.02))
@@ -184,6 +188,50 @@ def test_kernels_refuse_mixed_dtypes(gen):
     with pytest.raises(build.KernelError):
         mb.mlp_block(x, *bad, _rnd(gen, torch.float32, 128, 32), _rnd(gen, torch.float32, 128),
                      _rnd(gen, torch.float32, 32, 128), _rnd(gen, torch.float32, 32))
+    # LayerNorm parameters in the compute dtype are refused too: they are float32
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(build.KernelError):
+        fl.fused_layernorm(xb, *bad)
+
+
+@pytest.mark.parametrize("h,w", [(600, 800), (600, 1003), (97, 130), (5, 3)])
+def test_enhance_lines_fused_kernel_bit_exact(gen, h, w):
+    """Line rasters and grey-level noise: kernel and plain version agree
+    bit for bit (same taps, same order of rounded products and sums)."""
+    noise = torch.round(torch.rand(h, w, generator=gen, device="cuda") * 255)
+    lines = (torch.rand(h, w, generator=gen, device="cuda") < 0.05).float() * 255
+    for x in (noise, lines):
+        before = mo.enhance_lines_fused.launches
+        assert torch.equal(mo.enhance_lines_fused(x), mo.enhance_lines_fused_plain(x))
+        assert mo.enhance_lines_fused.launches == before + 1
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("t,c", [(65536, 144), (16384, 288), (4096, 576), (1024, 1152), (101, 96)])
+def test_fused_layernorm_kernels(gen, dt, t, c):
+    a, b = _rnd(gen, dt, t, c, scale=2.0), _rnd(gen, dt, t, c)
+    s, bias = 1 + _rnd(gen, F32, c, scale=0.1), _rnd(gen, F32, c, scale=0.1)
+    _close(fl.fused_layernorm(a, s, bias), fl.fused_layernorm_plain(a, s, bias))
+    (r, y), (rp, yp) = fl.fused_add_layernorm(a, b, s, bias), fl.fused_add_layernorm_plain(a, b, s, bias)
+    assert torch.equal(r, rp)
+    _close(y, yp)
+
+
+def test_trunk_layernorm_fused_launches(gen):
+    from circuitvision_tpu_torch.models.sam2.hiera import TrunkLayerNorm
+
+    m = TrunkLayerNorm(96, fused=True).cuda()
+    x, r = _rnd(gen, torch.bfloat16, 2, 8, 8, 96), _rnd(gen, torch.bfloat16, 2, 8, 8, 96)
+    before = (fl.fused_layernorm.launches, fl.fused_add_layernorm.launches)
+    y = m(x)
+    resid, y2 = m(x, residual=r)
+    assert (fl.fused_layernorm.launches, fl.fused_add_layernorm.launches) == \
+        (before[0] + 1, before[1] + 1)
+    m.fused = False
+    _close(y, m(x))
+    ref_resid, ref_y = m(x, residual=r)
+    assert torch.equal(resid, ref_resid)
+    _close(y2, ref_y)
 
 
 def test_tiny_analyze_on_card_matches_cpu(gen):

@@ -147,10 +147,12 @@ def test_whole_slice_shipped_checkpoints():
 
 # ------------------------------------------------------------------ guards
 def test_tiny_analyze_imports_no_jax_cv2_or_reference_package(tmp_path):
-    """In a fresh interpreter: import the port, run a tiny CPU analyze(),
-    and find no module named exactly jax, flax, cv2, PIL, ... or the JAX
-    package, nor any submodule of them (names compared exactly, since
-    circuitvision_tpu is a prefix of circuitvision_tpu_torch)."""
+    """In a fresh interpreter: import the port, run a tiny CPU analyze()
+    and analyze_batch() (BatchedPipeline.analyze_many, with the
+    fused-morphology switch on), and find no module named exactly jax,
+    flax, cv2, PIL, ... or the JAX package, nor any submodule of them
+    (names compared exactly, since circuitvision_tpu is a prefix of
+    circuitvision_tpu_torch)."""
     code = f"""
 import sys, json
 sys.path.insert(0, {str(ROOT)!r})
@@ -160,18 +162,24 @@ from circuitvision_tpu_torch.core.config import PipelineConfig, DetectorConfig, 
 from circuitvision_tpu_torch.models.sam2.wrapper import SAM2ImageSegmenter
 from circuitvision_tpu_torch.models.yolo.model import YOLOv11
 from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
-cfg = PipelineConfig(detector=DetectorConfig(**{TINY_DET!r}), sam2=SAM2Config(**{TINY_SAM2!r}))
+from circuitvision_tpu_torch.core.config import TopologyConfig
+cfg = PipelineConfig(detector=DetectorConfig(**{TINY_DET!r}), sam2=SAM2Config(**{TINY_SAM2!r}),
+                     topology=TopologyConfig(use_fused_morphology=True))
 ys = YOLOv11(64, "n").state_dict()
 ss = SAM2ImageSegmenter(cfg.sam2).state_dict()
 img = np.full((120, 160, 3), 255, np.uint8); img[40:43, 10:150] = 0
-r = CircuitAnalyzerTorch(cfg, ys, ss, device="cpu").analyze(img)
+a = CircuitAnalyzerTorch(cfg, ys, ss, device="cpu")
+r = a.analyze(img)
+rs = a.analyze_batch([img, img[:100]], batch_size=1)
+assert len(rs) == 2
 print(json.dumps(sorted(sys.modules)))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=tmp_path, env={**os.environ, "PYTHONPATH": ""}, timeout=300)
     assert out.returncode == 0, out.stderr
     mods = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "circuitvision_tpu_torch.pipeline.analyzer" in mods
+    for m in ("pipeline.analyzer", "pipeline.batch", "ops.cuda.morphology", "ops.cuda.fused_ln"):
+        assert "circuitvision_tpu_torch." + m in mods
     bad = [m for m in mods if m in FORBIDDEN or m.startswith(tuple(f + "." for f in FORBIDDEN))]
     assert not bad, bad
 

@@ -40,7 +40,9 @@ Phases, in order; any failure raises and the process exits non-zero:
      the switch on and off on the card and on the CPU, and images/s of
      analyze_many against serial analyze();
   8. the line-enhancement kernel, bit-exact, at every raster shape the
-     batched path ran it at (and at 600×800 and 600×1003);
+     batched path's drawn topology ran it at (its row in the `kernels`
+     line: those launches and times), and as rows off the count at the
+     seeded-weight run's shapes, 600×800 and 600×1003;
   9. the trunk LayerNorm option — TrunkLayerNorm(fused=True), alone and
      with residual=, at the four Hiera-L@1024 trunk widths, with exact
      launch counts — and its two kernels there in bf16 and f32.
@@ -373,17 +375,22 @@ def kernel_cases(torch, path, raster_counts=None):
     """(name, shape label, launches on the path, make) for every shape the
     `path` launches each kernel with: per analyze() on "t@512" and
     "l@1024", per run of the trunk LayerNorm option on "trunk-ln", and on
-    "batch" per analyze_many() at the raster shapes `raster_counts`
-    ({(h, w): launches}) it recorded, plus two shapes off the path."""
+    "batch" per analyze_many() of the drawn topology at the raster shapes
+    it recorded (`raster_counts` = ({(h, w): launches} of that run, the
+    shapes of the seeded-weight run), those of the seeded-weight run and
+    two more shapes as rows off the count."""
     b = case_builders(torch)
     if path == "trunk-ln":
         return [(n, f"T={t} C={c}", 1, b[k](t, c)) for t, c in L_TRUNK_ROWS
                 for n, k in (("fused_layernorm", "layernorm"),
                              ("fused_add_layernorm", "add_layernorm"))]
     if path == "batch":
-        shapes = {(600, 800): 0, (600, 1003): 0, **raster_counts}
-        return [("enhance_lines_fused", f"{h}x{w}", n, b["morph"](h, w))
-                for (h, w), n in shapes.items()]
+        drawn, seeded = raster_counts
+        rows = {(600, 800): (0, "off the path"), (600, 1003): (0, "off the path")}
+        rows.update({hw: (0, "seeded-weight crop") for hw in seeded})
+        rows.update({hw: (n, "drawn topology") for hw, n in drawn.items()})
+        return [("enhance_lines_fused", f"{h}x{w} {what}", n, b["morph"](h, w))
+                for (h, w), (n, what) in rows.items()]
     if path == "t@512":
         return [
             ("mlp_block", "T=16384 C=96", 1, b["mlp"](16384, 96)),
@@ -566,8 +573,9 @@ def draw_schematic(seed: int, h: int = 750, w: int = 1000):
 
 def batch_drawings():
     """The batched phase's drawings: BATCH_IMAGES seeds, sizes from 600×820
-    to 705×970 (larger ones make the cluster crop keep only part of the
-    circuit)."""
+    to 705×970. On larger pages the crop's clusters part and it keeps part
+    of the circuit, one node, in the JAX package as in the port
+    (tests/test_torch_port_batch.py::test_large_drawings_crop_alike)."""
     return [draw_schematic(100 + i, h=600 + 7 * i, w=820 + 10 * i) for i in range(BATCH_IMAGES)]
 
 
@@ -786,7 +794,9 @@ def run_batched_path(torch, smi):
     off and on the CPU with it on; (c) exact launch counts, the line
     enhancement once per image with a mask; (d) images/s of analyze_many
     against serial analyze(). Returns the launches of one analyze_many()
-    and the raster shapes the line enhancement ran at."""
+    (the line enhancement's from the drawn topology on the card with the
+    switch on) and the raster shapes the line enhancement ran at in that
+    run ({(h, w): launches}) and in the seeded-weight run."""
     import copy
 
     import numpy as np
@@ -812,15 +822,18 @@ def run_batched_path(torch, smi):
     reset, read = counters()
 
     # the raster shapes the line enhancement runs at, for its kernel phase
-    shapes: dict = {}
+    seeded_shapes: dict = {}
+    drawn_shapes: dict = {}
     launch = tnodes.enhance_lines_fused
 
-    def recording(x):
-        shapes[tuple(x.shape)] = shapes.get(tuple(x.shape), 0) + 1
-        return launch(x)
+    def recording(shapes):
+        def record(x):
+            shapes[tuple(x.shape)] = shapes.get(tuple(x.shape), 0) + 1
+            return launch(x)
+        return record
 
     card.analyze_batch(images[:BATCH_SIZE], batch_size=BATCH_SIZE)  # warm-up
-    tnodes.enhance_lines_fused = recording
+    tnodes.enhance_lines_fused = recording(seeded_shapes)
     try:
         reset()
         torch.cuda.synchronize()
@@ -869,12 +882,16 @@ def run_batched_path(torch, smi):
                                 ("cpu_on", on, "cpu")):
             a = CircuitAnalyzerTorch(dataclasses.replace(cfg, topology=topo), ystate, None,
                                      device=dev)
+            if name == "card_on":
+                tnodes.enhance_lines_fused = recording(drawn_shapes)
             reset()
             rs = a.analyze_batch(images, batch_size=BATCH_SIZE)
             runs[name] = ([(len(r.nodes), r.netlist_text) for r in rs],
                           read()["enhance_lines_fused"])
+            tnodes.enhance_lines_fused = launch
     finally:
         tbatch.BatchedPipeline._detect_bboxes = detect
+        tnodes.enhance_lines_fused = launch
     grey = 0
     for img, boxes in drawings:
         crop, bxs, _info = crop_image_and_adjust_bboxes(img, gt[id(img)], cfg.crop)
@@ -887,6 +904,7 @@ def run_batched_path(torch, smi):
     drawn = {"netlists_equal": runs["card_on"][0] == runs["card_off"][0] == runs["cpu_on"][0],
              "nodes": [n for n, _ in runs["card_on"][0]],
              "enhance_lines_fused_launches": {k: v[1] for k, v in runs.items()},
+             "raster_shapes_card_on": {f"{h}x{w}": n for (h, w), n in drawn_shapes.items()},
              "grey_levels_differing_on_vs_off": grey}
     ips_batch, ips_serial = len(images) / t_batch, len(images) / t_serial
     print(json.dumps({"batched_vs_analyze": {
@@ -903,7 +921,7 @@ def run_batched_path(torch, smi):
         raise AssertionError(f"drawn topology: {drawn} / {runs}")
     if runs["card_on"][1] != len(images) or runs["card_off"][1] or runs["cpu_on"][1]:
         raise AssertionError(f"drawn topology launches: {drawn['enhance_lines_fused_launches']}")
-    return counts, shapes
+    return {**counts, "enhance_lines_fused": runs["card_on"][1]}, (drawn_shapes, seeded_shapes)
 
 
 def main() -> int:

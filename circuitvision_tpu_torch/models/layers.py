@@ -21,9 +21,13 @@ def autopad(k: int, p: int | None = None, d: int = 1) -> int:
 
 
 class FrozenBatchNorm(nn.Module):
-    """Inference BatchNorm computed as flax does with float32 parameters
-    and statistics: (x − mean)·(rsqrt(var + eps)·scale) + bias in float32
-    over NCHW channels, rounded once to the input dtype."""
+    """Inference BatchNorm computed as flax does, in the dtype of its
+    parameters and statistics: (x − mean)·(rsqrt(var + eps)·scale) + bias
+    over NCHW channels. The square root is taken in float32 and rounded,
+    as XLA computes a bfloat16 rsqrt (PyTorch's bfloat16 rsqrt on the CPU
+    may differ from it by one ulp). The per-channel factor
+    rsqrt(var + eps)·scale is computed once for each version of the
+    variance and scale tensors."""
 
     def __init__(self, c: int, eps: float = 1e-3):
         super().__init__()
@@ -32,18 +36,28 @@ class FrozenBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self._factor = (None, None)
+
+    def factor(self) -> torch.Tensor:
+        key = tuple((t.data_ptr(), t._version, t.dtype) for t in (self.running_var, self.weight))
+        if self._factor[0] != key:
+            with torch.no_grad():
+                var = self.running_var + self.eps
+                mul = torch.rsqrt(var.float()).to(var.dtype) * self.weight
+            self._factor = (key, mul[:, None, None])
+        return self._factor[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
-        y = (x.float() - self.running_mean.float()[:, None, None]) * mul[:, None, None]
-        return (y + self.bias.float()[:, None, None]).to(x.dtype)
+        return (x - self.running_mean[:, None, None]) * self.factor() + self.bias[:, None, None]
 
 
 class LayerNorm(nn.Module):
     """flax `nn.LayerNorm` over the last axis: float32 statistics in the
     fast-variance form (mean of x² less the squared mean, clamped at 0),
     (x − mean)·(rsqrt(var + eps)·scale) + bias in float32, rounded once to
-    the input dtype."""
+    the input dtype. Scale and bias in float32 storage (`place`)."""
+
+    float32_params = True
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -55,26 +69,33 @@ class LayerNorm(nn.Module):
         xf = x.float()
         mean = xf.mean(-1, keepdim=True)
         var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        return ((xf - mean) * mul + self.bias.float()).to(x.dtype)
-
-
-#: modules whose weights and biases take the compute dtype; flax's Dense
-#: and Conv cast theirs to the module dtype, every other flax parameter
-#: stays float32
-_CAST_MODULES = (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
 
 
 def place(model: nn.Module, device, dtype: torch.dtype) -> nn.Module:
-    """Move `model` to `device` and give it flax's parameter dtypes under
-    compute dtype `dtype`: the weights and biases of linear and
-    convolution layers in `dtype`, every other parameter and buffer (norm
-    scales, biases and statistics, embeddings, tokens) in float32."""
-    model.to(device=device, dtype=torch.float32)
+    """Move `model` to `device` with every float parameter and buffer in
+    the compute dtype `dtype`, as the JAX analyzer casts its variables
+    (`cast_float_params`, pipeline/analyzer.py:104, :124). LayerNorm
+    scales and biases (modules marked `float32_params`) keep those rounded
+    values in float32 storage: flax promotes them to float32 for its
+    float32 statistics anyway, and the kernels read them as float32."""
+    model.to(device=device, dtype=dtype)
     for m in model.modules():
-        if isinstance(m, _CAST_MODULES):
-            m.to(dtype=dtype)
+        if getattr(m, "float32_params", False):
+            m.float()
     return model
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """flax's `nn.silu`, x·sigmoid(x), as XLA computes it: in a 16-bit
+    dtype every step of sigmoid's expansion 1 / (1 + exp(−x)) rounds to
+    that dtype, and then the product does (PyTorch's one-pass silu rounds
+    once and differs in about a third of the values). In float32
+    PyTorch's silu."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 class ConvBN(nn.Module):
@@ -92,7 +113,7 @@ class ConvBN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.bn(self.conv(x))
-        return F.silu(x) if self.act else x
+        return silu(x) if self.act else x
 
 
 def DWConvBN(c_in: int, c_out: int, kernel: int = 1, act: bool = True) -> ConvBN:

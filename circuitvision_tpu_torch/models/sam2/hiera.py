@@ -72,13 +72,15 @@ def _pool2x(x: torch.Tensor) -> torch.Tensor:
 class TrunkLayerNorm(nn.Module):
     """LayerNorm with f32 fast-variance statistics (E[x²]−mean²), output
     in the input dtype (JAX hiera.TrunkLayerNorm at true_dim == C); scale
-    and bias stay float32 (models/layers.place).
+    and bias in float32 storage (models/layers.place).
 
     `forward(x, residual=r)` computes the Hiera block's join r + x in the
     input dtype and returns (r + x, LN(r + x)). With `fused` on and a CUDA
     tensor, the `fused_layernorm` / `fused_add_layernorm` kernels compute
     it in one pass (JAX hiera.py:102-116); otherwise the module math runs.
     The trunk builds its norms unfused, as the JAX trunk does."""
+
+    float32_params = True
 
     def __init__(self, dim: int, eps: float = 1e-6, fused: bool = False):
         super().__init__()

@@ -12,6 +12,7 @@ import dataclasses
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..layers import C2PSA, C3k2, ConvBN, DWConvBN, SPPF, upsample2x
 
@@ -53,6 +54,13 @@ class YOLOArch:
         head = (ch(256), ch(512), ch(1024))
         return cls(channels=channels, head_channels=head, repeats=n,
                    c3k=scale in ("m", "l", "x"))
+
+
+def _conv_then_bias(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A head's 1×1 convolution as flax's `nn.Conv` computes it: the
+    product rounds to the compute dtype, then the bias is added (PyTorch's
+    convolution adds the bias before it rounds)."""
+    return F.conv2d(x, conv.weight) + conv.bias[:, None, None]
 
 
 class YOLOv11(nn.Module):
@@ -111,8 +119,8 @@ class YOLOv11(nn.Module):
         outs = []
         for i, f in enumerate((h16, h19, h22)):
             m = lambda name: getattr(self, f"{name}")  # noqa: E731
-            box = m(f"cv2_{i}_2")(m(f"cv2_{i}_1")(m(f"cv2_{i}_0")(f)))
+            box = _conv_then_bias(m(f"cv2_{i}_2"), m(f"cv2_{i}_1")(m(f"cv2_{i}_0")(f)))
             cls = m(f"cv3_{i}_0_1")(m(f"cv3_{i}_0_0")(f))
-            cls = m(f"cv3_{i}_2")(m(f"cv3_{i}_1_1")(m(f"cv3_{i}_1_0")(cls)))
+            cls = _conv_then_bias(m(f"cv3_{i}_2"), m(f"cv3_{i}_1_1")(m(f"cv3_{i}_1_0")(cls)))
             outs.append(torch.cat([box, cls], dim=1).float().permute(0, 2, 3, 1))
         return outs

@@ -14,13 +14,14 @@ Design on the card:
     preprocessing run on the device from those uploads;
   * the chunk's packed masks and packed analysis rasters come back with
     ONE device-to-host copy per chunk into pinned memory, queued behind
-    the work that makes them; the consumer waits on its event;
-  * detection and segmentation launch on two CUDA streams, so detection's
-    blocking box fetch does not wait for the previous chunk's SAM2; a
-    chunk passes from one to the other with an event;
-  * three stages run as threads over chunks — detect+crop, segment, host
-    topology on the caller's thread — joined by bounded queues, so the
-    host work of chunk N overlaps the device work of chunk N+1.
+    the work that makes them; the host waits on its event;
+  * one thread and one CUDA stream: the chunks go through the stages in
+    order, and a chunk's host topology runs after the next chunk's
+    device work is queued, so the two overlap. The JAX package runs the
+    stages as three threads; here, where every YOLO forward is host
+    dispatch, three threads sharing one interpreter ran slower than the
+    same stages in order on one thread (PERF.md §6); threads wait for a
+    CUDA graph of YOLO (ROADMAP Queue A 4).
 
 Deliberate differences from the JAX path: no mesh and no shard_map (data
 parallelism over cards is ROADMAP Queue A 13), no padding of a partial
@@ -33,11 +34,8 @@ kernel fault or a CUDA error.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import logging
-import queue
-import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -225,111 +223,32 @@ class BatchedPipeline:
         return result
 
     # -- entry point ------------------------------------------------------
-    def analyze_many(self, images: Sequence[np.ndarray], prefetch: int = 2,
+    def _host_stages(self, staged: list[_Staged], fetch: PackedFetch) -> list[AnalysisResult]:
+        """Stages [3]-[6] of one chunk on the host, after its fetch."""
+        rasters = self._unpack(staged, fetch)
+        results = [self._pre_topology(st) for st in staged]
+        self._extract_nodes_chunk(staged, rasters, results)
+        return [self._post_topology(r) for r in results]
+
+    def analyze_many(self, images: Sequence[np.ndarray],
                      finalize: bool = False) -> list[AnalysisResult]:
-        """Full pipeline over many images with analyze() semantics, as a
-        three-stage thread pipeline over chunks (JAX batch.py:633-748):
+        """Full pipeline over many images with analyze() semantics, chunk
+        by chunk (JAX batch.py:633-748 runs the same stages as threads):
 
-          [detect+crop thread] → [segment thread] → [host topology, here]
+          detect+crop(N) → segment(N) queued → host stages(N − 1)
 
-        Bounded queues hold at most `prefetch` chunks between stages. An
-        exception in any stage raises here; the `stop` event makes every
-        queue operation of the workers give up, so neither the workers nor
-        the joins can hang on a full queue."""
+        An exception in any stage raises here, with nothing left running."""
         if finalize:
             raise NotImplementedError(
                 "finalize=True needs the VLM value pass, not yet ported (ROADMAP Queue A 6)")
         images = list(images)
-        chunks = [images[i:i + self.batch_size] for i in range(0, len(images), self.batch_size)]
-        q1: queue.Queue = queue.Queue(maxsize=prefetch)
-        q2: queue.Queue = queue.Queue(maxsize=prefetch)
-        stop = threading.Event()
-
-        def _put(q, item) -> bool:
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.1)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
-        def _get(q):
-            while True:
-                try:
-                    return q.get(timeout=0.1)
-                except queue.Empty:
-                    if stop.is_set():
-                        return None
-
-        # each device stage launches on a stream of its own, so a stage's
-        # blocking fetch waits for its own work only; a chunk handed on
-        # carries an event that the next stage's stream waits for
-        streams = [torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-                   for _ in range(2)]
-
-        def on(stream):
-            return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
-
-        def handed_on(stream):
-            if stream is None:
-                return None
-            event = torch.cuda.Event()
-            event.record(stream)
-            return event
-
-        def detect_worker():
-            try:
-                with on(streams[0]):
-                    for chunk in chunks:
-                        staged = self._detect_crop_phase(chunk)
-                        if stop.is_set() or not _put(q1, (staged, handed_on(streams[0]))):
-                            return
-            except Exception as e:  # surfaced to the caller
-                _put(q1, e)
-            _put(q1, None)
-
-        def segment_worker():
-            with on(streams[1]):
-                while True:
-                    item = _get(q1)
-                    if item is None or isinstance(item, Exception):
-                        _put(q2, item)
-                        if item is None:
-                            return
-                        continue
-                    staged, ready = item
-                    try:
-                        if ready is not None:
-                            streams[1].wait_event(ready)
-                            for st in staged:
-                                st.image_dev.record_stream(streams[1])
-                        if not _put(q2, self._segment_phase(staged)):
-                            return
-                    except Exception as e:  # surfaced to the caller
-                        _put(q2, e)
-
-        t1 = threading.Thread(target=detect_worker, daemon=True)
-        t2 = threading.Thread(target=segment_worker, daemon=True)
-        t1.start()
-        t2.start()
         results: list[AnalysisResult] = []
-        try:
-            while True:
-                item = q2.get()
-                if item is None:
-                    break
-                if isinstance(item, Exception):
-                    raise item
-                staged, fetch = item
-                rasters = self._unpack(staged, fetch)
-                chunk_results = [self._pre_topology(st) for st in staged]
-                self._extract_nodes_chunk(staged, rasters, chunk_results)
-                results.extend(self._post_topology(r) for r in chunk_results)
-        finally:
-            # a raise here must stop the workers too, or they spin on the
-            # bounded queues holding device buffers
-            stop.set()
-            t1.join()
-            t2.join()
+        pending = None
+        for i in range(0, len(images), self.batch_size):
+            segmented = self._segment_phase(self._detect_crop_phase(images[i:i + self.batch_size]))
+            if pending is not None:
+                results.extend(self._host_stages(*pending))
+            pending = segmented
+        if pending is not None:
+            results.extend(self._host_stages(*pending))
         return results

@@ -20,11 +20,10 @@ weights, the same drawn schematic), warms up, then prints JSON lines:
 
 With --batch N (t@512, use_fused_morphology on, chip_smoke.py's 16
 drawings of varied sizes) it prints `batch`: images/s of serial
-analyze(), of analyze_batch(batch_size=N) (its three threads) and of the
-same chunks run stage after stage on one thread, and of analyze_batch
-with the interpreter's thread switch interval at 1 ms and 0.2 ms, for
-each of --runs runs; the last sequential run's ms per chunk of each stage (detect+crop,
-segment + stage A + fetch, host topology); and, under torch.profiler,
+analyze() and of analyze_batch(batch_size=N) for each of --runs runs;
+host ms per chunk of each stage of one more analyze_batch (detect+crop,
+segment + stage A queued, host stages with their fetch; a stage's time
+includes its waits for the device); and, under torch.profiler,
 analyze_batch's device-busy ms and idle share; with the card's
 nvidia-smi name and power limit.
 
@@ -70,42 +69,8 @@ def profile_batch(torch, batch_size: int, runs: int) -> None:
                                     seeded_state("sam2", smeta, 1), device="cuda")
     images = [img for img, _boxes in batch_drawings()]
     pipe = BatchedPipeline(analyzer, batch_size=batch_size)
-    stage_ms: list = []
-
-    def stage_after_stage():
-        stage_ms.clear()
-        for i in range(0, len(images), batch_size):
-            t0 = time.perf_counter()
-            staged = pipe._detect_crop_phase(images[i:i + batch_size])
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            staged, fetch = pipe._segment_phase(staged)
-            rasters = pipe._unpack(staged, fetch)
-            t2 = time.perf_counter()
-            results = [pipe._pre_topology(st) for st in staged]
-            pipe._extract_nodes_chunk(staged, rasters, results)
-            for r in results:
-                pipe._post_topology(r)
-            stage_ms.append([(t1 - t0) * 1e3, (t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3])
-
-    def with_switch_interval(seconds):
-        def run():
-            old = sys.getswitchinterval()
-            sys.setswitchinterval(seconds)
-            try:
-                pipe.analyze_many(images)
-            finally:
-                sys.setswitchinterval(old)
-        return run
-
     variants = {"serial_analyze": lambda: [analyzer.analyze(im) for im in images],
-                "analyze_batch": lambda: pipe.analyze_many(images),
-                "stage_after_stage": stage_after_stage,
-                # the interpreter's thread switch interval (5 ms by default)
-                # bounds how long a thread that released the lock for a
-                # CUDA wait waits to get it back
-                "analyze_batch_switch_1ms": with_switch_interval(1e-3),
-                "analyze_batch_switch_0.2ms": with_switch_interval(2e-4)}
+                "analyze_batch": lambda: pipe.analyze_many(images)}
     ips = {k: [] for k in variants}
     for fn in variants.values():
         fn()
@@ -116,6 +81,19 @@ def profile_batch(torch, batch_size: int, runs: int) -> None:
             fn()
             torch.cuda.synchronize()
             ips[name].append(len(images) / (time.perf_counter() - t0))
+    # host ms per call of each stage of one analyze_batch, waits included
+    stage_ms = {name: [] for name in ("_detect_crop_phase", "_segment_phase", "_host_stages")}
+    for name, times in stage_ms.items():
+        def clocked(*a, _fn=getattr(pipe, name), _times=times):
+            t0 = time.perf_counter()
+            out = _fn(*a)
+            _times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(pipe, name, clocked)
+    pipe.analyze_many(images)
+    torch.cuda.synchronize()
+    for name in stage_ms:
+        delattr(pipe, name)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -127,9 +105,7 @@ def profile_batch(torch, batch_size: int, runs: int) -> None:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"batch": {
         "images": len(images), "batch_size": batch_size, "images_per_s": ips,
-        "stage_after_stage_ms_per_chunk": {"detect_crop": [c[0] for c in stage_ms],
-                                           "segment_stage_a_fetch": [c[1] for c in stage_ms],
-                                           "host_topology": [c[2] for c in stage_ms]},
+        "stage_ms_per_chunk": stage_ms,
         "profiled": {"wall_ms": wall_ms, "device_busy_ms": busy,
                      "idle_share": 1.0 - busy / wall_ms},
         "card": smi}}))

@@ -218,8 +218,7 @@ def test_shipped_checkpoints_analyze_batch(shipped):
 
 def test_segment_stage_error_raises_without_hang(tiny_yolo, monkeypatch):
     """A segment-stage exception with many chunks still to come reaches the
-    caller within RAISE_WITHIN_S seconds: the workers give up on their
-    bounded queues once the caller stops draining them."""
+    caller within RAISE_WITHIN_S seconds."""
     _ja, ta = _tiny_pair(tiny_yolo)
     monkeypatch.setattr(tbatch.BatchedPipeline, "_detect_bboxes",
                         lambda self, chunk, imgs_dev: [_boxes(BBox, im.shape) for im in chunk])
@@ -232,7 +231,7 @@ def test_segment_stage_error_raises_without_hang(tiny_yolo, monkeypatch):
 
     def run():
         try:
-            tbatch.BatchedPipeline(ta, batch_size=2).analyze_many([CIRCUITS[1][0]] * 20, prefetch=2)
+            tbatch.BatchedPipeline(ta, batch_size=2).analyze_many([CIRCUITS[1][0]] * 20)
             outcome["result"] = "returned"
         except RuntimeError as e:
             outcome["result"] = str(e)
@@ -295,3 +294,33 @@ def test_batch_size_defaults_to_eight(tiny_yolo):
     _ja, ta = _tiny_pair(tiny_yolo)
     assert tbatch.BatchedPipeline(ta).batch_size == 8 == tconfig.BATCH_PER_DEVICE
     assert tbatch.BatchedPipeline(ta, batch_size=3).batch_size == 3
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("seed,h,w", [(106, 715, 975), (109, 900, 1200)])
+def test_large_drawings_crop_alike(tiny_yolo, monkeypatch, seed, h, w):
+    """Two of chip_smoke.py's drawings on pages past its batched band
+    (600×820 to 705×970), with their drawn boxes and the classical mask:
+    the cluster crop keeps part of the eight bodies and the drawn topology
+    finds one node, in the JAX package as in the port, with the same crop
+    and the same netlist. The band is set by the drawings, not by the
+    port."""
+    ja, ta = _tiny_pair(tiny_yolo)
+    img, drawn = _chip_smoke().draw_schematic(seed, h=h, w=w)
+    monkeypatch.setattr(ja, "bboxes", lambda im: [JBBox("resistor", 1.0, *b, class_id=10)
+                                                  for b in drawn])
+    monkeypatch.setattr(ta, "bboxes", lambda im: [BBox("resistor", 1.0, *b, class_id=10)
+                                                  for b in drawn])
+    ref, got = ja.analyze(img), ta.analyze(img)
+    assert got.crop_info.window == ref.crop_info.window
+    assert len(got.bboxes) == len(ref.bboxes) < len(drawn)
+    assert len(got.nodes) == len(ref.nodes) == 1
+    assert got.netlist_text == ref.netlist_text

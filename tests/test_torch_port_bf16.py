@@ -187,20 +187,16 @@ def _shipped_bf16():
 
 def test_shipped_checkpoints_analyze_bf16():
     """ckpt/yolo (YOLOv11-s@640) + ckpt/sam2 (Hiera-t@512), both models in
-    bfloat16 on both sides, on golden, loop and ac_rc. The port keeps
-    every normalisation parameter and statistic in float32 and computes
-    the norms in flax's order of casts (models/layers.py), yet the boxes
-    are not byte-equal: the packages part at YOLO's first SiLU
-    (test_bf16_first_diverging_layer), and the one-ulp differences grow
-    through the network. What holds, and is asserted: the same number of
-    boxes, each within one pixel of its counterpart (boxes sorted by
-    position), the crop windows within one pixel, the same node count and
-    the same netlist text; the classes of golden and loop; on ac_rc the
-    classes, or all but one diode box whose top two class scores the
-    packages may order differently (diode / diode.light_emitting, one
-    netlist letter); SAM2 masks that agree on at least 99.9 % of the
-    pixels wherever the crop window is the same (loop's crop is one row
-    shorter in the port, so its masks have other shapes)."""
+    bfloat16 on both sides, on golden, loop and ac_rc. Both analyzers cast
+    every parameter to bfloat16 (the JAX one through cast_float_params,
+    the port through models/layers.place) and compute the norms, SiLU and
+    head biases in XLA's order of roundings. What holds: the same boxes by
+    class, each within one pixel, byte-equal on loop and ac_rc, the same
+    node count and the same netlist text, and SAM2 masks that agree on at
+    least 99.9 % of the pixels. What does not: golden's boxes are not
+    byte-equal as in float32 — a ground box's edge moves by one pixel,
+    because the convolutions sum in another order from YOLO's second
+    layer on (test_bf16_first_diverging_layer)."""
     yv, sv, jcfg, tcfg = _shipped_bf16()
     ja = CircuitAnalyzerTPU(config=jcfg, yolo_variables=yv, sam2_variables=sv, vlm_client=None)
     ja.vlm_client = None
@@ -209,37 +205,28 @@ def test_shipped_checkpoints_analyze_bf16():
     for name in ("golden", "loop", "ac_rc"):
         img = _rgb(ROOT / "eval_data" / "images" / f"{name}.png")
         ref, got = ja.analyze(img), ta.analyze(img)
-        by_pos = lambda bs: sorted(bs, key=lambda b: b[1:])  # noqa: E731
-        rb, gb = by_pos(_boxes(ref)), by_pos(_boxes(got))
-        assert len(gb) == len(rb), name
+        rb, gb = _boxes(ref), _boxes(got)
+        assert [b[0] for b in gb] == [b[0] for b in rb], name
         assert max(abs(u - v) for g, r in zip(gb, rb) for u, v in zip(g[1:], r[1:])) <= 1, name
-        flips = [(g[0], r[0]) for g, r in zip(gb, rb) if g[0] != r[0]]
-        if name == "ac_rc":
-            assert flips in ([], [("diode.light_emitting", "diode")]), flips
-        else:
-            assert not flips, (name, flips)
-        rw, gw = ref.crop_info.window, got.crop_info.window
-        assert max(abs(u - v) for u, v in zip(gw, rw)) <= 1, name
+        if name != "golden":
+            assert gb == rb, name
         assert len(got.nodes) == len(ref.nodes) and ref.nodes, name
         assert got.netlist_text == ref.netlist_text, name
-        if gw == rw:
-            assert np.mean(got.sam_mask == ref.sam_mask) >= 0.999, name
+        assert np.mean(got.sam_mask == ref.sam_mask) >= 0.999, name
 
 
 def test_bf16_first_diverging_layer():
     """Where the bf16 packages part, on golden's letterboxed input through
-    the shipped YOLO: the stem convolution and its BatchNorm (float32
-    parameters and statistics) are bit-equal to the JAX package's; the
-    stem's SiLU is the first layer that differs — in about a third of its
-    3,276,800 values (1,004,998 when this was written), each by one bf16
-    ulp and by two in under 1 % of them (1,613). PyTorch's silu computes
-    x·sigmoid(x) in float32 and
-    rounds once; XLA's CPU backend rounds every operation of its
-    expansion (exp, 1 + e, 1 / d, x · s) to bf16. Repeating those
-    roundings in the port would cost four more launches per SiLU on the
-    card, for a reference artifact of one XLA backend."""
+    the shipped YOLO with the analyzers' bfloat16 parameters: the stem
+    (convolution, BatchNorm, SiLU) is bit-equal to the JAX package's, so
+    the BatchNorm's float32-rounded rsqrt and the SiLU's stepwise
+    roundings are XLA's. The second layer's convolution is the first that
+    differs, in a handful of its 1,638,400 values (2 when this was
+    written), each by one bf16 ulp: oneDNN and XLA sum the 3×3×C products
+    in other orders, and from there the differences spread."""
     import jax.numpy as jnp
 
+    from circuitvision_tpu.models.initialization import cast_float_params
     from circuitvision_tpu.models.yolo.model import YOLOv11 as JYOLO
     from circuitvision_tpu.ops.image import letterbox as jletterbox
     from circuitvision_tpu_torch.models.layers import place
@@ -251,7 +238,8 @@ def test_bf16_first_diverging_layer():
     x = (np.asarray(jletterbox(jnp.asarray(img), det.img_size)[0])[None] / 255.0).astype(np.float32)
     jm = JYOLO(num_classes=det.num_classes, scale=det.scale, reg_max=det.reg_max,
                dtype=jnp.bfloat16)
-    _, state = jm.apply(yv, jnp.asarray(x), capture_intermediates=True, mutable=["intermediates"])
+    _, state = jm.apply(cast_float_params(yv, jnp.bfloat16), jnp.asarray(x),
+                        capture_intermediates=True, mutable=["intermediates"])
     inter = state["intermediates"]
 
     def jax_out(path):
@@ -264,20 +252,19 @@ def test_bf16_first_diverging_layer():
     tm.load_state_dict(bridge.state_dict_from_variables(yv))
     place(tm, "cpu", torch.bfloat16)
     got = {}
-    for name in ("b0.conv", "b0.bn", "b0"):
+    names = ("b0.conv", "b0.bn", "b0", "b1.conv")
+    for name in names:
         tm.get_submodule(name).register_forward_hook(
             lambda m, a, out, _n=name: got.__setitem__(_n, out.float().permute(0, 2, 3, 1).numpy()))
     with torch.no_grad():
         tm(torch.from_numpy(x))
-    for name in ("b0.conv", "b0.bn"):
+    for name in names[:-1]:
         np.testing.assert_array_equal(got[name], jax_out(name), err_msg=name)
-    ref = jax_out("b0")
-    diff = np.abs(got["b0"] - ref)
+    ref = jax_out("b1.conv")
+    diff = np.abs(got["b1.conv"] - ref)
     n = int((diff > 0).sum())
-    assert diff.size // 5 < n < diff.size // 2, n
+    assert 0 < n < 100, n
     # one ulp of the larger of the two values (they may straddle a power of two)
-    big = np.maximum(np.abs(ref), np.abs(got["b0"]))[diff > 0]
+    big = np.maximum(np.abs(ref), np.abs(got["b1.conv"]))[diff > 0]
     ulp = 2.0 ** (np.floor(np.log2(np.maximum(big, 2.0 ** -126))) - 7)
-    assert (diff[diff > 0] <= 2 * ulp).all()
-    assert (diff[diff > 0] > ulp).sum() < n // 100
-
+    assert (diff[diff > 0] <= ulp).all()

@@ -23,11 +23,13 @@ Phases, in order; any failure raises and the process exits non-zero:
      with its drawn component boxes;
   5. kernels at L@1024 — all seven kernels against their plain versions
      at every shape the Hiera-L@1024 path launches them with (SDPA timed
-     beside flash attention as its library yardstick), then the window
-     and q-pool blocks at every L@1024 window shape through both routes
-     (one block per window where it fits shared memory, and the tiled
-     route), and the route rule against the kernels' own shared-memory
-     sizes;
+     beside flash attention as its library yardstick; the flash_attn and
+     mlp_block rows, here and at t@512, also print their rate in
+     TFLOP/s), then the bf16 launch plans of flash_attn and mlp_block
+     against the kernels' own shared-memory sizes, the window and q-pool
+     blocks at every L@1024 window shape through both routes (one block
+     per window where it fits shared memory, and the tiled route), and
+     the route rule against the kernels' own shared-memory sizes;
   6. main path at L@1024 — analyze() at YOLOv11-s@640 + SAM2 Hiera-L@1024
      (the default SAM2Config, bfloat16, seeded weights): one warm-up,
      three timed runs with exact launch counts, then SAM2's logits in
@@ -133,6 +135,8 @@ SOURCES = {
 #: width, heads) and (windows, window side, width in, width out, heads)
 L_WINDOWS = [(1024, 64, 144, 2), (1024, 16, 288, 4), (16, 256, 576, 8), (16, 64, 1152, 16)]
 L_QPOOLS = [(1024, 8, 144, 288, 4), (1024, 4, 288, 576, 8), (16, 16, 576, 1152, 16)]
+#: kernels whose rows also print their rate, operations ÷ kernel time
+TFLOPS_ROWS = ("flash_attn", "mlp_block")
 #: H100 SXM peaks (NVIDIA data sheet, dense): memory, bf16 tensor, f32
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -253,6 +257,7 @@ def case_builders(torch):
                     rnd(gen, dt, h, c, scale=c ** -0.5), rnd(gen, dt, h, scale=0.02),
                     rnd(gen, dt, c, h, scale=h ** -0.5), rnd(gen, dt, c, scale=0.02))
             return dict(kernel=lambda: mb.mlp_block(*args), plain=lambda: mb.mlp_block_plain(*args),
+                        plan=mb.mlp_plan(t, c, h), width=c,
                         bytes=size(*args, args[0]), flops=4 * t * c * h, math_dt=dt)
         return make
 
@@ -316,6 +321,7 @@ def case_builders(torch):
             nq = q_lib.shape[2]
             return dict(kernel=lambda: fa.flash_attn(q, k, v, pool_win),
                         plain=lambda: fa.flash_attn_plain(q, k, v, pool_win),
+                        plan=fa.flash_plan(b * h, nq, nk, hd),
                         library=lambda: F.scaled_dot_product_attention(q_lib, k, v),
                         bytes=size(q, k, v) + b * h * nq * hd * q.element_size(),
                         flops=4 * b * h * nq * nk * hd, math_dt=dt)
@@ -478,6 +484,8 @@ def run_kernels(torch, path, raster_counts=None):
                    "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "launches_on_path": count}
+            if name in TFLOPS_ROWS:
+                row["tflops"] = case["flops"] / (k_ms * 1e-3) / 1e12
             print(json.dumps(row), flush=True)
             s = summary.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                           "library_ms": None, "t_bytes": 0.0, "t_ops": 0.0,
@@ -495,6 +503,30 @@ def run_kernels(torch, path, raster_counts=None):
     return summary
 
 
+def check_plans(torch):
+    """The bf16 launch plans of flash_attn and mlp_block against the
+    kernels' own shared-memory sizes, at every shape of both paths."""
+    from circuitvision_tpu_torch.ops.cuda import flash_attn as fa
+    from circuitvision_tpu_torch.ops.cuda import mlp_block as mb
+    from circuitvision_tpu_torch.ops.cuda.build import library
+
+    fl, ml = library("flash_attn"), library("mlp_block")
+    for name, label, _count, make in kernel_cases(torch, "t@512") + kernel_cases(torch, "l@1024"):
+        if name not in ("flash_attn", "mlp_block"):
+            continue
+        case = make(torch.bfloat16, torch.Generator(device="cuda").manual_seed(0))
+        plan = case["plan"]
+        if name == "flash_attn":
+            ok = fl.cv_flash_attn_bf16_smem(plan.width, plan.mt, plan.wpp, plan.stages) == plan.smem
+        else:
+            ok = ml.cv_mlp_ln_smem(case["width"]) == plan.ln_smem and all(
+                ml.cv_mlp_gemm_smem(g.bm) == g.smem for g in (plan.gemm1, plan.gemm2))
+        if not ok:
+            raise AssertionError(f"{name} plan disagrees with the kernel at {label}")
+    print(json.dumps({"plans_match_kernels": True, "flash_widths": list(fa.TC_WIDTHS),
+                      "gemm_rows": list(mb.GEMM_ROWS)}), flush=True)
+
+
 def run_routes(torch):
     """Phase 5, second half: the window and q-pool blocks at every L@1024
     shape through both routes — the one-block kernel where a window fits
@@ -503,6 +535,7 @@ def run_routes(torch):
     from circuitvision_tpu_torch.ops.cuda.build import library
     from circuitvision_tpu_torch.ops.cuda.window_attn import window_route, window_smem
 
+    check_plans(torch)
     lib = library("window_attn")
     for t, c in [(64, 96), (16, 192)] + [(t, c) for _nw, t, c, _h in L_WINDOWS]:
         if lib.cv_window_attn_smem(t, c) != window_smem("window", t, c, c):

@@ -199,3 +199,13 @@ class PipelineConfig:
 
 def compute_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}[name]
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """The device an entry point runs on: CUDA unless another device (such
+    as "cpu") is asked for. A missing CUDA device raises instead of moving
+    the work to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev

@@ -1,23 +1,65 @@
-// Hiera MLP half, out = x + W1·GELU_erf(W0·LN2(x) + b0) + b1, over rows.
+// Hiera MLP half, out = x + W1·bf16(GELU_erf(W0·bf16(LN2(x)) + b0)) + b1,
+// over rows; weights in torch Linear layout, w0 (4C, C) and w1 (C, 4C).
 //
 // Replaces the Pallas kernel `mlp_block` of the JAX package
-// (circuitvision_tpu/ops/pallas/mlp_block.py). What bounds it on the
-// H100: 16·T·C² FLOPs against 4·T·C bytes of activations, about 4·C
-// FLOP/byte — 384 to 3072 at the slice's widths (C = 96 … 768), so the
-// products, not the memory, are the limit. This first version spends them
-// on plain f32 FMAs: one block per 16-row tile keeps the row tile's
-// LayerNorm output and the f32 accumulator in shared memory for the whole
-// hidden dimension, which it walks in 64-wide chunks — the hidden
-// activation never reaches device memory, as in the Pallas kernel. The
-// weights stream through a staged tile per chunk (block_gemm). Where the
-// row tiles alone would leave most SMs idle (T ≤ 4096 at the slice's
-// deep stages), the hidden dimension is also split across blocks: each
-// writes its f32 partial sum to a workspace, and a second pass adds the
-// partials in split order to x + b1 — deterministic, no atomics.
-// Tensor cores (wgmma) are the next step.
+// (circuitvision_tpu/ops/pallas/mlp_block.py). Numerics follow it: LN
+// statistics in f32 (fast-variance form, true width), LN(x) rounded to
+// the compute dtype where the Pallas kernel stores xn_ref, both products
+// accumulated in f32, the hidden activation rounded where it is stored,
+// the output rounded once.
+//
+// What bounds it on the H100: 16·T·C² FLOPs against 4·T·C bytes of
+// activations, about 4·C FLOP/byte — 576 to 4608 at the Hiera-L@1024
+// widths (C = 144 … 1152): the products, not the memory. Each L@1024
+// launch is 21.7 GFLOP, 22 µs at 989 TFLOP/s.
+//
+// bfloat16 — the design: three launches per call.
+//   1. LN pre-pass (ln_rows_kernel): 8 rows a block through common.cuh's
+//      layernorm_rows, unchanged, so xn is bit for bit what the fused
+//      kernel computed; written to a bf16 workspace (T·C·2 bytes).
+//   2. h = bf16(GELU_erf(xn·W0ᵀ + b0)) (gemm_tc_kernel, epilogue 0),
+//      written to the workspace in bf16 (T·4C·2 bytes).
+//   3. out = bf16(x + b1 + h·W1ᵀ) (epilogue 1).
+// Both products are one tensor-core GEMM over operands that are both
+// K-contiguous (xn or h row-major; W in Linear layout): wgmma m64n128k16
+// (tc.cuh), B and A read from shared memory through 128-byte-swizzle
+// descriptors; a 3-stage cp.async ring of 64-deep tiles (rows of 128
+// bytes, each 16-byte chunk placed where the swizzle expects it, so no
+// TMA descriptor is needed); one warpgroup per 64 output rows, blocks of
+// 128 or 64 rows by 128 columns — 64 where 128-row blocks would not give
+// two per SM (the wrapper's plan, ops/cuda/mlp_block.py). Where h lives:
+// in device memory, in bf16 at the point where the Pallas kernel rounds
+// it, so the numerics are those of the fused form. It costs 2·T·4C·2
+// bytes a call: 37.7 MB at T = 4096, C = 576, where h (18.9 MB) stays in
+// the 50 MB L2; 151 MB at T = 65536, C = 144, where it does not (≈ 45 µs
+// at 3.35 TB/s, 2 launches a call); ≈ 2.2 GB summed over an L@1024
+// analyze(). A fused form would keep h on chip only while the 64-row f32
+// output accumulator fits one warpgroup's registers (C ≤ 288); the
+// two-pass form serves every width with one kernel. Each k tile's
+// products finish before the next tile's barrier (wgmma_wait<0>); a
+// producer warp with mbarriers, keeping products in flight across tiles,
+// is the next step.
+//
+// float32 — mlp_block_kernel, f32 FMA loops: one block per 16-row tile
+// keeps the row tile's LayerNorm output and the f32 accumulator in shared
+// memory for the whole hidden dimension, walked in 64-wide chunks (the
+// hidden activation never reaches device memory, as in the Pallas
+// kernel); weights stream through a staged tile per chunk (block_gemm).
+// Where the row tiles alone would leave most SMs idle, the hidden
+// dimension is also split across blocks: each writes its f32 partial sum
+// to a workspace, and mlp_reduce_kernel adds the partials in split order
+// to x + b1 — deterministic, no atomics. TF32 would not hold the float32
+// card-against-CPU check, so it stays on the FMA units.
+//
+// Measured per Hiera-L@1024 analyze() (48 launches, bf16; chip_smoke.py,
+// H100 80GB HBM3 at 700 W, parent and this design in one call): 6.414
+// and 6.363 ms against the parent's f32-FMA loops at 149.632 and
+// 148.922, and a 1.055 ms bound (6.0×); 0.123 ms a launch at T = 4096,
+// C = 576 (177 TFLOP/s, bound 0.022). float32: 152.7–153.4 ms, unchanged.
 #include <algorithm>
 
 #include "common.cuh"
+#include "tc.cuh"
 
 namespace {
 
@@ -114,37 +156,203 @@ cudaError_t launch(const void* x, const void* ln_s, const void* ln_b,
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------ bfloat16
+using tc::bf16;
+
+constexpr int kLnRows = 8;       // rows per block of the LN pre-pass (one per warp)
+constexpr int kGemmBK = 64;      // reduction depth of one staged tile: a 128-byte row
+constexpr int kGemmBN = 128;     // output columns per block: one m64n128 product
+constexpr int kGemmStages = 3;   // depth of the cp.async ring
+
+size_t ln_smem(int c) { return sizeof(float) * 2 * kLnRows * (size_t)c; }
+
+// The ring of A (bm rows) and B (kGemmBN rows) tiles, 128 bytes a row,
+// plus 1024 bytes to align it to the swizzle's 1024-byte pattern.
+size_t gemm_smem(int bm) { return (size_t)kGemmStages * (bm + kGemmBN) * 128 + 1024; }
+
+// xn = bf16(LN(x)) for kLnRows rows, through layernorm_rows as the f32
+// kernel runs it.
+__global__ void __launch_bounds__(kThreads)
+ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+               const float* __restrict__ ln_b, bf16* __restrict__ xn, int t, int c,
+               float eps) {
+  extern __shared__ float lsm[];
+  float* src = lsm;                 // kLnRows × c
+  float* dst = lsm + kLnRows * c;   // kLnRows × c
+  const int r0 = blockIdx.x * kLnRows;
+  const int rows = min(kLnRows, t - r0);
+  const bf16* xb = x + (size_t)r0 * c;
+  for (int e = threadIdx.x; e < rows * c; e += kThreads) src[e] = to_f(xb[e]);
+  __syncthreads();
+  layernorm_rows<bf16>(src, dst, rows, c, ln_s, ln_b, eps);
+  __syncthreads();
+  bf16* ob = xn + (size_t)r0 * c;
+  for (int e = threadIdx.x; e < rows * c; e += kThreads) ob[e] = from_f<bf16>(dst[e]);
+}
+
+// out[r][n] = epi(Σ_k a[r][k]·w[n][k]) for r < m, n < n_cols: a (m, k)
+// row-major, w (n_cols, k) in torch Linear layout. EPI 0: bf16(GELU_erf(
+// acc + bias[n])); EPI 1: bf16(resid[r][n] + bias[n] + acc). A block owns
+// a BM × 128 output tile, one warpgroup per 64 rows, each issuing
+// wgmma m64n128k16 over the 64-deep tiles of the cp.async ring (4 per
+// tile). k and n_cols are multiples of 8; rows and columns past the
+// edges and depth past k are zero-filled by cp.async.
+template <int BM, int EPI>
+__global__ void __launch_bounds__(BM * 2)
+gemm_tc_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
+               const bf16* __restrict__ bias, const bf16* __restrict__ resid,
+               bf16* __restrict__ out, int m, int n_cols, int k) {
+  constexpr int kThreadsG = BM * 2;  // a warpgroup of 128 threads per 64 rows
+  constexpr int kABytes = BM * 128, kStage = (BM + kGemmBN) * 128;
+  extern __shared__ unsigned char gsm[];
+  const uint32_t raw = tc::smem_u32(gsm);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle's alignment
+  unsigned char* ring = gsm + (base - raw);
+  const int tid = threadIdx.x, wg = tid / 128, w4 = (tid / 32) % 4, lane = tid % 32;
+  const int n0 = blockIdx.x * kGemmBN, m0 = blockIdx.y * BM;
+  const int ktiles = (k + kGemmBK - 1) / kGemmBK;
+
+  auto load = [&](int kt, int s) {
+    const int k0 = kt * kGemmBK;
+    unsigned char* sa = ring + s * kStage;
+    unsigned char* sb = sa + kABytes;
+    for (int e = tid; e < BM * 8; e += kThreadsG) {
+      const int r = e / 8, c = e % 8, gr = m0 + r, gk = k0 + c * 8;
+      const bool in = gr < m && gk < k;
+      tc::cp_async16(sa + tc::sw128_offset(r, c), a + (in ? (size_t)gr * k + gk : 0), in);
+    }
+    for (int e = tid; e < kGemmBN * 8; e += kThreadsG) {
+      const int r = e / 8, c = e % 8, gn = n0 + r, gk = k0 + c * 8;
+      const bool in = gn < n_cols && gk < k;
+      tc::cp_async16(sb + tc::sw128_offset(r, c), w + (in ? (size_t)gn * k + gk : 0), in);
+    }
+  };
+
+  float acc[kGemmBN / 2];
+#pragma unroll
+  for (int i = 0; i < kGemmBN / 2; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kGemmStages - 1; ++s) {
+    if (s < ktiles) load(s, s);
+    tc::cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    tc::cp_async_wait<kGemmStages - 2>();  // tile kt has landed
+    tc::fence_proxy_async();               // ... visible to wgmma
+    __syncthreads();  // ... for every thread, and tile kt − 1 is no longer read
+    const int next = kt + kGemmStages - 1;
+    if (next < ktiles) load(next, next % kGemmStages);
+    tc::cp_async_commit();
+    const uint32_t sa = base + (kt % kGemmStages) * kStage;
+    const uint64_t da = tc::sw128_desc(sa + wg * 64 * 128), db = tc::sw128_desc(sa + kABytes);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kGemmBK / 16; ++kk)  // +32 bytes a step: +2 in the address field
+      tc::wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+  }
+  tc::cp_async_wait<0>();
+
+  const int g = lane / 4, t2 = 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < kGemmBN / 8; ++j) {
+    const int col = n0 + 8 * j + t2;
+    if (col >= n_cols) continue;
+    const float2 bb = tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(bias + col));
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = m0 + wg * 64 + w4 * 16 + g + 8 * hr;
+      if (row >= m) continue;
+      float v0 = acc[4 * j + 2 * hr], v1 = acc[4 * j + 2 * hr + 1];
+      const size_t at = (size_t)row * n_cols + col;
+      if (EPI == 0) {
+        v0 = gelu_erf(v0 + bb.x);
+        v1 = gelu_erf(v1 + bb.y);
+      } else {
+        const float2 xr = tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(resid + at));
+        v0 = (xr.x + bb.x) + v0;
+        v1 = (xr.y + bb.y) + v1;
+      }
+      *reinterpret_cast<uint32_t*>(out + at) = tc::pack_bf16(v0, v1);
+    }
+  }
+}
+
+template <int EPI>
+cudaError_t launch_gemm(int bm, const bf16* a, const bf16* w, const bf16* bias,
+                        const bf16* resid, bf16* out, int m, int n_cols, int k,
+                        cudaStream_t stream) {
+  auto run = [&](auto kernel) {
+    const size_t smem = gemm_smem(bm);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((n_cols + kGemmBN - 1) / kGemmBN, (m + bm - 1) / bm);
+    kernel<<<grid, bm * 2, smem, stream>>>(a, w, bias, resid, out, m, n_cols, k);
+    return cudaGetLastError();
+  };
+  if (bm == 128) return run(gemm_tc_kernel<128, EPI>);
+  if (bm == 64) return run(gemm_tc_kernel<64, EPI>);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Shared-memory bytes a launch of width c needs (the wrapper refuses
+// Shared-memory bytes of a float32 launch of width c (the wrapper refuses
 // widths above the 227 KB a block can hold).
 extern "C" long long cv_mlp_block_smem(int c) { return (long long)mlp_smem(c); }
 
-// How many blocks share the hidden dimension of a row tile: enough for
-// about two waves over `sms` SMs, at most one per 64-wide hidden chunk.
-// The wrapper sizes the float32 workspace from it.
+// Shared-memory bytes of the bf16 path's LN pre-pass at width c, and of
+// one bf16 GEMM block of bm rows (the wrapper's plan must agree).
+extern "C" long long cv_mlp_ln_smem(int c) { return (long long)ln_smem(c); }
+extern "C" long long cv_mlp_gemm_smem(int bm) { return (long long)gemm_smem(bm); }
+
+// float32: how many blocks share the hidden dimension of a row tile:
+// enough for about two waves over `sms` SMs, at most one per 64-wide
+// hidden chunk. The wrapper sizes the float32 workspace from it.
 extern "C" int cv_mlp_block_splits(int t, int hidden, int sms) {
   int row_tiles = (t + cvk::kRows - 1) / cvk::kRows;
   int want = (2 * sms + row_tiles - 1) / row_tiles;
   return std::max(1, std::min(hidden / cvk::kTileN, want));
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Weights in torch Linear layout:
-// w0 (hidden, c), w1 (c, hidden). All tensors contiguous, of the same
-// dtype but ln_s and ln_b, which are float32 for either dtype.
-// splits > 1 divides the hidden dimension across blocks; `partial` is
-// then a float32 workspace of splits·t·c elements.
-extern "C" int cv_mlp_block(const void* x, const void* ln_s, const void* ln_b,
-                            const void* w0, const void* b0, const void* w1,
-                            const void* b1, void* out, void* partial, int t,
-                            int c, int hidden, int splits, float eps,
-                            int dtype, void* stream) {
+// float32 on the FMA units. Weights in torch Linear layout: w0 (hidden,
+// c), w1 (c, hidden); every tensor contiguous float32. splits > 1
+// divides the hidden dimension across blocks; `partial` is then a
+// float32 workspace of splits·t·c elements.
+extern "C" int cv_mlp_block_f32(const void* x, const void* ln_s, const void* ln_b,
+                                const void* w0, const void* b0, const void* w1,
+                                const void* b1, void* out, void* partial, int t, int c,
+                                int hidden, int splits, float eps, void* stream) {
+  return launch<float>(x, ln_s, ln_b, w0, b0, w1, b1, out, partial, t, c, hidden, splits, eps,
+                       (cudaStream_t)stream);
+}
+
+// bfloat16 on the tensor cores: the same function, ln_s and ln_b float32,
+// every other tensor contiguous bf16 and 16-byte aligned, c and hidden
+// multiples of 8. xn (t·c) and h (t·hidden) are bf16 workspaces; the
+// GEMM row tiles (bm1 for h, bm2 for out, each 128 or 64) come from the
+// wrapper's plan (ops/cuda/mlp_block.py mlp_plan).
+extern "C" int cv_mlp_block_bf16(const void* x, const void* ln_s, const void* ln_b,
+                                 const void* w0, const void* b0, const void* w1,
+                                 const void* b1, void* out, void* xn, void* h, int t, int c,
+                                 int hidden, float eps, int bm1, int bm2, void* stream) {
+  if (t < 1 || c < 8 || c % 8 || hidden < 8 || hidden % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float>(x, ln_s, ln_b, w0, b0, w1, b1, out, partial, t, c,
-                         hidden, splits, eps, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, ln_s, ln_b, w0, b0, w1, b1, out, partial,
-                                 t, c, hidden, splits, eps, s);
-  return (int)cudaErrorInvalidValue;
+  const size_t lsm = ln_smem(c);
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lsm);
+  if (err != cudaSuccess) return (int)err;
+  ln_rows_kernel<<<(t + kLnRows - 1) / kLnRows, kThreads, lsm, s>>>(
+      (const bf16*)x, (const float*)ln_s, (const float*)ln_b, (bf16*)xn, t, c, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = launch_gemm<0>(bm1, (const bf16*)xn, (const bf16*)w0, (const bf16*)b0, nullptr,
+                       (bf16*)h, t, hidden, c, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_gemm<1>(bm2, (const bf16*)h, (const bf16*)w1, (const bf16*)b1,
+                             (const bf16*)x, (bf16*)out, t, c, hidden, s);
 }

@@ -1,0 +1,166 @@
+// Tensor-core building blocks for Hopper (sm_90a), shared by the bf16
+// kernels of flash_attn.cu and mlp_block.cu: 16-byte asynchronous
+// global → shared copies (cp.async, zero-filling where the source lies
+// outside the operand), ldmatrix fragment loads, the warp-level mma.sync
+// m16n8k16 product, and the warpgroup wgmma product over swizzled
+// shared-memory tiles (below), all with bf16 inputs and float32
+// accumulators.
+//
+// Fragment layouts of mma.m16n8k16.row.col (lane = 4·g + t):
+//   A (16×16, row-major)  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
+//   B (16×8, k × n)       b0 (k 2t..2t+1, n g)  b1 (k 2t+8..2t+9, n g)
+//   C (16×8, float32)     c0 c1 (g, 2t..2t+1)  c2 c3 (g+8, 2t..2t+1)
+// A tile stored row by row (m rows, k contiguous) gives A by ldmatrix;
+// an operand stored n rows × k contiguous (a weight in torch Linear
+// layout, or K in q·kᵀ) gives B by ldmatrix; one stored k rows × n
+// contiguous (V in p·v) gives B by ldmatrix.trans. A float32 C fragment
+// packed to bf16 pairs is an A fragment of the next product (p·v).
+//
+// Shared-memory tiles keep rows of a multiple of 16 bytes padded by 16
+// bytes, so the eight 16-byte rows one ldmatrix matrix reads fall in
+// distinct bank groups.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global `src` to shared `dst` without passing through
+// registers; with `valid` false nothing is read and dst is zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most n of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8×8 bf16 matrices; lanes 8i..8i+7 give the row addresses of
+// matrix i, and register i receives matrix i's fragment.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// Two matrices, transposed; lanes 0..15 give the row addresses.
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a·b: one 16×8×16 product, bf16 inputs, float32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two float32 values rounded to bf16 (round to nearest even), `lo` in
+// the low half: the element of the smaller column index.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// ------------------------------------------------------------- wgmma
+// Warpgroup products (4 warps, 128 threads) with both operands in shared
+// memory, K-major, in tiles of rows × 64 bf16 (128 bytes) under the
+// 128-byte swizzle: the 16-byte chunk c of row r sits at chunk c ^ (r % 8)
+// of its row, the tile starting on a 1024-byte boundary. The accumulator
+// of m64nNk16 is per warp w of the group what mma.m16n8 gives for rows
+// 16w..16w+15, repeated along n: d[4j .. 4j+3] hold columns 8j + 2t,
+// 8j + 2t + 1 of rows g and g + 8.
+
+// Byte offset of chunk c (8 bf16) of row r in a swizzled tile.
+__device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// Descriptor of a swizzled K-major tile at shared address `addr`: the
+// start address in 16-byte units, leading offset 16 bytes (unused under
+// the swizzle), stride 1024 bytes between groups of 8 rows, swizzle mode
+// 128 bytes. Advancing the start by 32 bytes steps 16 deeper in k.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Order this thread's completed shared-memory writes (cp.async included)
+// before the async proxy's reads (wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d += A·Bᵀ over 16 of k: A 64 rows and B 128 rows, both K-major tiles
+// given by their descriptors; bf16 inputs, float32 accumulators.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+}  // namespace tc

@@ -10,6 +10,7 @@ circuitvision_tpu_torch` works on a machine without nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,8 +40,11 @@ _F = ctypes.c_float
 #: C signatures of the exported launchers
 SIGNATURES = {
     "mlp_block": {
-        "cv_mlp_block": [_P] * 9 + [_I] * 4 + [_F, _I, _P],
+        "cv_mlp_block_f32": [_P] * 9 + [_I] * 4 + [_F, _P],
+        "cv_mlp_block_bf16": [_P] * 10 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
         "cv_mlp_block_smem": [_I],
+        "cv_mlp_ln_smem": [_I],
+        "cv_mlp_gemm_smem": [_I],
         "cv_mlp_block_splits": [_I, _I, _I],
     },
     "window_attn": {
@@ -59,7 +63,9 @@ SIGNATURES = {
         "cv_proj_res_smem": [_I],
     },
     "flash_attn": {
-        "cv_flash_attn": [_P] * 4 + [_I] * 6 + [_P],
+        "cv_flash_attn_f32": [_P] * 4 + [_I] * 5 + [_P],
+        "cv_flash_attn_bf16": [_P] * 4 + [_I] * 9 + [_P],
+        "cv_flash_attn_bf16_smem": [_I] * 4,
     },
     "morphology": {
         "cv_enhance_lines": [_P, _P, _I, _I] + [_F] * 5 + [_P],
@@ -88,7 +94,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(src.read_bytes())
     return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -138,6 +144,17 @@ def check(err: int, what: str) -> None:
         raise KernelError(f"{what}: CUDA error {err}")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """Streaming multiprocessors of the card that holds t."""
+    index = t.device.index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -170,3 +187,12 @@ def check_operands(what: str, x: torch.Tensor, *others: torch.Tensor) -> None:
             raise KernelError(f"{what}: operand dtype {t.dtype} != {x.dtype}")
         if not t.is_contiguous():
             raise KernelError(f"{what}: operand of shape {tuple(t.shape)} is not contiguous")
+
+
+def check_aligned(what: str, *tensors: torch.Tensor, align: int = 16) -> None:
+    """Operands that a kernel copies in 16-byte pieces start on a 16-byte
+    boundary."""
+    for t in tensors:
+        if t.data_ptr() % align:
+            raise KernelError(f"{what}: operand of shape {tuple(t.shape)} is not "
+                              f"{align}-byte aligned")

@@ -3,20 +3,87 @@
 Replaces the JAX package's Pallas kernel `mlp_block`
 (circuitvision_tpu/ops/pallas/mlp_block.py); the CUDA source is
 csrc/mlp_block.cu, whose header note says what bounds it on the H100 and
-how the design answers that. `mlp_block_plain` is the same function in
-plain PyTorch, with the kernel's numerics: LayerNorm statistics in f32,
-products accumulated in f32, the LN output and the hidden activation
-rounded to the compute dtype where the kernel stores them.
+how the design answers that: bfloat16 as an LN pre-pass and two wgmma
+GEMMs with h in a bf16 workspace (`mlp_plan` picks their block rows),
+float32 on the FMA units. `mlp_block_plain` is the same
+function in plain PyTorch, with the kernel's numerics: LayerNorm
+statistics in f32, products accumulated in f32, the LN output and the
+hidden activation rounded to the compute dtype where the kernel stores
+them.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from .build import (
-    MAX_SMEM, KernelError, check, check_ln_params, check_operands, dtype_code, library,
-    stream_ptr,
+    MAX_SMEM, KernelError, check, check_aligned, check_ln_params, check_operands, library,
+    sm_count, stream_ptr,
 )
+
+#: the bf16 GEMM (csrc/mlp_block.cu gemm_tc_kernel): block rows (one
+#: warpgroup per 64), block columns (one wgmma m64n128), depth of a
+#: staged tile (one 128-byte swizzled row), stages of the cp.async ring
+GEMM_ROWS = (128, 64)
+GEMM_BN, GEMM_BK, GEMM_STAGES = 128, 64, 3
+#: rows per block of the bf16 LN pre-pass (one warp each)
+LN_ROWS = 8
+#: SMs of an H100 SXM, for plans made without a card
+H100_SMS = 132
+
+
+def gemm_smem(bm: int) -> int:
+    """Shared-memory bytes of one GEMM block: the cp.async ring of A and B
+    tiles, 128 bytes a row, plus 1024 to align it to the swizzle's pattern
+    (csrc/mlp_block.cu gemm_smem)."""
+    return GEMM_STAGES * (bm + GEMM_BN) * 128 + 1024
+
+
+def ln_smem(c: int) -> int:
+    """Shared-memory bytes of one LN pre-pass block: the rows in and out
+    in float32 (csrc/mlp_block.cu ln_smem)."""
+    return 4 * 2 * LN_ROWS * c
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    bm: int
+    blocks: int
+    smem: int
+
+
+@dataclasses.dataclass(frozen=True)
+class MlpPlan:
+    """Launch plan of the bf16 path: h = GELU(xn·W0ᵀ + b0) (m = t, n =
+    hidden, k = c), then out = x + b1 + h·W1ᵀ (m = t, n = c, k = hidden),
+    with xn and h in one bf16 workspace of t·(c + hidden) elements."""
+
+    ln_blocks: int
+    ln_smem: int
+    gemm1: GemmPlan
+    gemm2: GemmPlan
+    workspace: int
+
+
+def gemm_tile(m: int, n: int, sms: int = H100_SMS) -> GemmPlan:
+    """Block rows of an (m × n) output in 128-column blocks: 128 where
+    that gives two blocks per SM, else 64 (one warpgroup a block, up to
+    three a SM)."""
+    cols = -(-n // GEMM_BN)
+    bm = 128 if -(-m // 128) * cols >= 2 * sms else 64
+    return GemmPlan(bm, -(-m // bm) * cols, gemm_smem(bm))
+
+
+@functools.lru_cache(maxsize=64)
+def mlp_plan(t: int, c: int, hidden: int, sms: int = H100_SMS) -> MlpPlan:
+    if c % 8 or hidden % 8:
+        raise KernelError(f"mlp_block: bfloat16 widths must be multiples of 8; got C={c}, "
+                          f"hidden={hidden}")
+    return MlpPlan(-(-t // LN_ROWS), ln_smem(c), gemm_tile(t, hidden, sms),
+                   gemm_tile(t, c, sms), t * (c + hidden))
 
 
 def layernorm_f32(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
@@ -49,21 +116,34 @@ def mlp_block(x, ln_scale, ln_bias, w0, b0, w1, b1, eps=1e-6):
             or b1.shape != (c,):
         raise KernelError("mlp_block: weight shapes do not match x")
     lib = library("mlp_block")
-    if lib.cv_mlp_block_smem(c) > MAX_SMEM:
-        raise KernelError(f"mlp_block: width {c} exceeds the kernel's shared memory")
-    # row tiles alone leave most SMs idle at small T: the launcher says
-    # how many blocks share each tile's hidden dimension
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = lib.cv_mlp_block_splits(t, hidden, sms)
+    sms = sm_count(x)
     out = torch.empty_like(x)
-    partial = (torch.empty((splits, t, c), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
-    err = lib.cv_mlp_block(
-        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w0.data_ptr(),
-        b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(),
-        t, c, hidden, splits, eps, dtype_code(x), stream_ptr(x),
-    )
+    if x.dtype == torch.bfloat16:
+        plan = mlp_plan(t, c, hidden, sms)
+        if plan.ln_smem > MAX_SMEM:
+            raise KernelError(f"mlp_block: width {c} exceeds the LN pre-pass's shared memory")
+        check_aligned("mlp_block", x, w0, w1)
+        ws = torch.empty(plan.workspace, dtype=torch.bfloat16, device=x.device)
+        err = lib.cv_mlp_block_bf16(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w0.data_ptr(),
+            b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            ws[t * c:].data_ptr(), t, c, hidden, eps, plan.gemm1.bm, plan.gemm2.bm,
+            stream_ptr(x),
+        )
+    else:
+        if lib.cv_mlp_block_smem(c) > MAX_SMEM:
+            raise KernelError(f"mlp_block: width {c} exceeds the kernel's shared memory")
+        # row tiles alone leave most SMs idle at small T: the launcher says
+        # how many blocks share each tile's hidden dimension
+        splits = lib.cv_mlp_block_splits(t, hidden, sms)
+        partial = (torch.empty((splits, t, c), dtype=torch.float32, device=x.device)
+                   if splits > 1 else None)
+        err = lib.cv_mlp_block_f32(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w0.data_ptr(),
+            b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            t, c, hidden, splits, eps, stream_ptr(x),
+        )
     check(err, "mlp_block")
     mlp_block.launches += 1
     return out

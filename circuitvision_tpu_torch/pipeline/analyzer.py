@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..core import geometry, taxonomy
-from ..core.config import PipelineConfig, compute_dtype
+from ..core.config import PipelineConfig, compute_dtype, resolve_device
 from ..core.types import AnalysisResult, BBox, StageTimings
 from ..models.layers import place
 from ..models.sam2.wrapper import SAM2ImageSegmenter
@@ -87,10 +87,7 @@ class CircuitAnalyzerTorch:
     def __init__(self, config: Optional[PipelineConfig] = None, yolo_state: Optional[dict] = None,
                  sam2_state: Optional[dict] = None, device="cuda"):
         self.cfg = config or PipelineConfig()
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("CircuitAnalyzerTorch: CUDA is not available; "
-                               "pass device='cpu' to run on the CPU")
+        self.device = resolve_device(device, "CircuitAnalyzerTorch")
         if yolo_state is None:
             raise ValueError("CircuitAnalyzerTorch needs YOLO weights (yolo_state)")
         det = self.cfg.detector

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..core import taxonomy
-from ..core.config import TopologyConfig
+from ..core.config import TopologyConfig, resolve_device
 from ..core.types import BBox, Node
 from ..ops.cc import label_components
 from ..ops.cuda.morphology import enhance_lines_fused
@@ -131,16 +131,18 @@ def extract_nodes(
     wire_mask: np.ndarray,
     bboxes: Sequence[BBox],
     cfg: Optional[TopologyConfig] = None,
-    device="cpu",
+    device="cuda",
     with_labels: bool = False,
 ) -> NodeExtraction:
     """Run the full node-extraction stage.
 
     wire_mask: (H, W) uint8 0/255 segmentation (SAM2 or classical), in the
-        same coordinate space as `bboxes`. Stage A runs on `device`.
+        same coordinate space as `bboxes`. Stage A runs on `device`: the
+        CUDA device unless `device="cpu"` is asked for.
     with_labels: also return the connected-component label image (the
         JAX stage's visualisation input; no netlist result depends on it).
     """
+    device = resolve_device(device, "extract_nodes")
     cfg = cfg or TopologyConfig()
     if wire_mask is None:
         return NodeExtraction([], None, None, None, [])
@@ -359,7 +361,7 @@ class PackedRaster:
 
 
 def prepare_packed_raster(mask, bboxes: Sequence[BBox], cfg: TopologyConfig,
-                          device="cpu") -> PackedRaster:
+                          device="cuda") -> PackedRaster:
     """Stage A for one image on the device (JAX nodes.py:470-503, 535-556):
     component subtraction → cv2-exact resize → enhance chain → bit-pack.
 
@@ -368,6 +370,7 @@ def prepare_packed_raster(mask, bboxes: Sequence[BBox], cfg: TopologyConfig,
     only on each box's coordinates and on whether its class is
     mask-preserved, which reclassification never changes, so this may run
     before stage [3]; `finish_from_packed` takes the final boxes."""
+    device = resolve_device(device, "prepare_packed_raster")
     if not isinstance(mask, torch.Tensor):
         mask = torch.as_tensor(np.ascontiguousarray(mask), device=device)
     in_h, in_w = mask.shape[:2]
@@ -405,12 +408,13 @@ def finish_from_packed(packed_host: np.ndarray, pr: PackedRaster, bboxes: Sequen
 
 def extract_nodes_batched(masks: Sequence, bboxes_list: Sequence[Sequence[BBox]],
                           cfg: Optional[TopologyConfig] = None,
-                          device="cpu") -> list[NodeExtraction]:
+                          device="cuda") -> list[NodeExtraction]:
     """Node extraction over a batch (JAX nodes.py:596, its default
     host-CC route): stage A per image on the device, one device-to-host
     copy of every packed raster, then the host stage per image. Gives the
     nodes of per-image `extract_nodes`; the visualisation fields stay
     None. `masks` are tensors on their device or numpy arrays."""
+    device = resolve_device(device, "extract_nodes_batched")
     cfg = cfg or TopologyConfig()
     prs = [prepare_packed_raster(m, bbs, cfg, device) for m, bbs in zip(masks, bboxes_list)]
     hosts = PackedFetch([pr.packed_dev for pr in prs]).get()

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..core import taxonomy
-from ..core.config import TopologyConfig
+from ..core.config import TopologyConfig, resolve_device
 from ..core.types import BBox
 from ..ops.image import adaptive_threshold_mean_inv, rgb_to_gray
 from .host_cc import contour_touch_stage_host
@@ -24,13 +24,14 @@ from .nodes import _comp_bucket, subtract_component_boxes
 
 
 def segment_classical(image_rgb: np.ndarray, cfg: Optional[TopologyConfig] = None,
-                      swap_rb: bool = False, device="cpu") -> np.ndarray:
+                      swap_rb: bool = False, device="cuda") -> np.ndarray:
     """Classical wire mask: grayscale → adaptive mean threshold, inverted
     (reference segment_circuit, src/circuit_analyzer.py:313-319).
 
     swap_rb reproduces the reference reclassify path's channel quirk
     (RGB→BGR, then COLOR_RGB2GRAY on the BGR image, :2234-2238).
     """
+    device = resolve_device(device, "segment_classical")
     cfg = cfg or TopologyConfig()
     img = torch.as_tensor(np.ascontiguousarray(image_rgb), device=device)
     if swap_rb:
@@ -40,10 +41,11 @@ def segment_classical(image_rgb: np.ndarray, cfg: Optional[TopologyConfig] = Non
 
 
 def reclassify_terminals(image_rgb: np.ndarray, bboxes: Sequence[BBox],
-                         cfg: Optional[TopologyConfig] = None, device="cpu") -> list[BBox]:
+                         cfg: Optional[TopologyConfig] = None, device="cuda") -> list[BBox]:
     """A new bbox list with multi-connected terminals relabelled
     'voltage.dc'. The threshold runs on `device`, the contour/touch stage
     on the host."""
+    device = resolve_device(device, "reclassify_terminals")
     cfg = cfg or TopologyConfig()
     out = [dataclasses.replace(b) for b in bboxes]
     terminal_idx = [i for i, b in enumerate(out) if b.class_name == "terminal"]

@@ -274,11 +274,11 @@ def test_extract_nodes_batched_equals_extract_nodes():
     from circuitvision_tpu_torch.topology.reclassify import segment_classical
 
     cfg = tconfig.TopologyConfig()
-    masks = [segment_classical(img, cfg) for img, _ in CIRCUITS]
+    masks = [segment_classical(img, cfg, device="cpu") for img, _ in CIRCUITS]
     boxes = [_boxes(BBox, img.shape) for img, _ in CIRCUITS]
-    batched = tnodes.extract_nodes_batched(masks, boxes, cfg)
+    batched = tnodes.extract_nodes_batched(masks, boxes, cfg, device="cpu")
     for m, bb, ex in zip(masks, boxes, batched):
-        single = tnodes.extract_nodes(m, bb, cfg)
+        single = tnodes.extract_nodes(m, bb, cfg, device="cpu")
         assert [(n.id, n.centroid, [c.persistent_uid for c in n.components]) for n in ex.nodes] \
             == [(n.id, n.centroid, [c.persistent_uid for c in n.components]) for n in single.nodes]
         assert ex.nodes

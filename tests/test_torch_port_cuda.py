@@ -62,8 +62,12 @@ F32 = torch.float32
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("t,c", [(100, 96), (16, 768)])
+@pytest.mark.parametrize("t,c", [(100, 96), (16, 768), (65536, 144), (16384, 288), (4096, 576),
+                                 (1024, 1152), (1000, 144), (300, 576), (70, 1152)])
 def test_mlp_block_kernel(gen, dt, t, c):
+    """Every Hiera-L@1024 width; T off the 64- and 128-row tiles; T small
+    enough for the float32 kernel's hidden split and the bf16 GEMMs'
+    smallest tiles."""
     args = (_rnd(gen, dt, t, c), 1 + _rnd(gen, F32, c, scale=0.1), _rnd(gen, F32, c, scale=0.1),
             _rnd(gen, dt, 4 * c, c, scale=c ** -0.5), _rnd(gen, dt, 4 * c, scale=0.02),
             _rnd(gen, dt, c, 4 * c, scale=(4 * c) ** -0.5), _rnd(gen, dt, c, scale=0.02))
@@ -108,10 +112,18 @@ def test_ln_qkv_kernel(gen, dt, b, n, ci, co, heads, slabs):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("b,h,nq,nk,pool_win", [(1, 8, 4096, 4096, 0), (16, 16, 256, 256, 16),
-                                                (64, 4, 64, 64, 8), (2, 2, 100, 70, 0)])
-def test_flash_attn_kernel(gen, dt, b, h, nq, nk, pool_win):
-    q, k, v = _rnd(gen, dt, b, h, nq, 72), _rnd(gen, dt, b, h, nk, 72), _rnd(gen, dt, b, h, nk, 72)
+@pytest.mark.parametrize("b,h,nq,nk,pool_win,d", [
+    (1, 8, 4096, 4096, 0, 72), (16, 8, 256, 256, 0, 72), (16, 16, 256, 256, 16, 72),
+    (64, 4, 64, 64, 8, 72), (64, 4, 16, 64, 0, 72), (2, 2, 100, 70, 0, 72),
+    (3, 2, 17, 257, 0, 72), (4, 4, 100, 70, 0, 64), (2, 3, 17, 257, 0, 128),
+    (4, 4, 100, 70, 0, 128), (16, 4, 64, 64, 8, 64), (2, 2, 33, 65, 0, 56),
+    (16, 8, 256, 200, 0, 64), (20, 8, 300, 130, 0, 72)])
+def test_flash_attn_kernel(gen, dt, b, h, nq, nk, pool_win, d):
+    """Nq (rows after the pool) of 16 — one problem per warp, four a
+    block — 17, 33, 64, 100, and 256, 300, 4096 in 128-row tiles; Nk on
+    and off the 64-key tile; head widths 64, 72 and 128, and 56 on the
+    64-wide instance; both q-pool window sides."""
+    q, k, v = _rnd(gen, dt, b, h, nq, d), _rnd(gen, dt, b, h, nk, d), _rnd(gen, dt, b, h, nk, d)
     before = fa.flash_attn.launches
     _close(fa.flash_attn(q, k, v, pool_win), fa.flash_attn_plain(q, k, v, pool_win))
     assert fa.flash_attn.launches == before + 1
@@ -163,6 +175,21 @@ def test_qpool_attn_tiled_route(gen, dt, nw, win, ci, co, heads):
     _close(wa.qpool_attn_block(*args, heads=heads, win=win), ref)
     assert wa.qpool_attn_block.tiled == before + tiled
     _close(wa.qpool_attn_block_tiled(*args, heads=heads, win=win), ref)
+
+
+def test_launch_plans_match_kernel_smem(gen):
+    """The wrappers' shared-memory sizes are the kernels' own."""
+    lib = build.library("flash_attn")
+    for width in fa.TC_WIDTHS:
+        for mt, wpp in ((1, 1), (1, 2), (1, 4), (2, 4)):
+            for stages in (1, 2):
+                assert lib.cv_flash_attn_bf16_smem(width, mt, wpp, stages) == \
+                    fa.flash_tc_smem(width, mt, wpp, stages)
+    lib = build.library("mlp_block")
+    for bm in mb.GEMM_ROWS:
+        assert lib.cv_mlp_gemm_smem(bm) == mb.gemm_smem(bm)
+    for c in (96, 144, 192, 288, 384, 576, 768, 1152):
+        assert lib.cv_mlp_ln_smem(c) == mb.ln_smem(c)
 
 
 def test_window_route_matches_kernel_smem(gen):

@@ -24,6 +24,7 @@ from circuitvision_tpu.ops.pallas.window_attn import (
     window_attn_block as pallas_window,
 )
 from circuitvision_tpu_torch.ops.cuda import build
+from circuitvision_tpu_torch.ops.cuda import flash_attn as tflash
 from circuitvision_tpu_torch.ops.cuda import mlp_block as tmlp
 from circuitvision_tpu_torch.ops.cuda import refinement as trefine
 from circuitvision_tpu_torch.ops.cuda import window_attn as twin
@@ -229,3 +230,101 @@ def test_wrappers_reject_unsupported_operands():
                        torch.empty(8, 32, device="meta"), torch.empty(8, device="meta"))
     with pytest.raises(build.KernelError):
         build.dtype_code(torch.empty(2, dtype=torch.float16))
+
+
+# ------------------------------------------------------------ launch plans
+#: (T, C) of every mlp_block call of Hiera-t@512 and Hiera-L@1024 at one
+#: image (stages at 128², 64², 32², 16² and 256², 128², 64², 32² tokens)
+MLP_SHAPES = [(16384, 96), (4096, 192), (1024, 384), (256, 768),
+              (65536, 144), (16384, 288), (4096, 576), (1024, 1152)]
+#: (batch·heads, Nq, Nk, head width) of every flash_attn shape of the two
+#: configs: global blocks; windows through the tiled route (windows ×
+#: heads, window tokens); q-pool transitions (Nq = Nk / 4)
+FLASH_SHAPES = [
+    # t@512: global 32² tokens, 4 heads; windows 8², 4², 14² (on a 42²
+    # padded map), 7² (21²); q-pools 8 → 4, 4 → 2, 14 → 7
+    (4, 1024, 1024, 96), (256, 64, 64, 96), (512, 16, 16, 96), (36, 196, 196, 96),
+    (72, 49, 49, 96), (512, 16, 64, 96), (1024, 4, 16, 96), (72, 49, 196, 96),
+    # L@1024: global 64² tokens, 8 heads; windows 8², 4², 16², 8²;
+    # q-pools 8 → 4, 4 → 2, 16 → 8
+    (8, 4096, 4096, 72), (2048, 64, 64, 72), (4096, 16, 16, 72), (128, 256, 256, 72),
+    (256, 64, 64, 72), (4096, 16, 64, 72), (8192, 4, 16, 72), (256, 64, 256, 72),
+]
+SMS = 132
+
+
+@pytest.mark.parametrize("t,c", MLP_SHAPES)
+def test_mlp_plan_fits_and_covers(t, c):
+    """The bf16 mlp_block plan: shared memory within a block's 227 KB, the
+    hidden dimension covered exactly by GEMM 1's columns and GEMM 2's
+    depth, tiles that wgmma m64n128k16 and the 128-byte swizzle can take,
+    and at least one block per SM wherever 64-row blocks give that many."""
+    hidden = 4 * c
+    plan = tmlp.mlp_plan(t, c, hidden, SMS)
+    assert c % 16 == 0 and hidden % 64 == 0
+    assert plan.ln_smem <= build.MAX_SMEM and plan.ln_blocks * tmlp.LN_ROWS >= t
+    assert plan.workspace == t * (c + hidden)
+    # wgmma: 64 rows a warpgroup, n a multiple of 8 up to 256, k steps of
+    # 16; a staged row is one 128-byte swizzle span; rows copied in
+    # 16-byte pieces
+    assert tmlp.GEMM_BN % 8 == 0 and tmlp.GEMM_BN <= 256
+    assert tmlp.GEMM_BK % 16 == 0 and tmlp.GEMM_BK * 2 == 128
+    for g, n, k in ((plan.gemm1, hidden, c), (plan.gemm2, c, hidden)):
+        assert g.bm in tmlp.GEMM_ROWS and g.bm % 64 == 0 and k % 8 == 0 and n % 2 == 0
+        assert g.smem == tmlp.gemm_smem(g.bm) <= build.MAX_SMEM
+        assert (g.bm + tmlp.GEMM_BN) * 128 % 1024 == 0  # every stage on the swizzle's alignment
+        cols = -(-n // tmlp.GEMM_BN)
+        assert (cols - 1) * tmlp.GEMM_BN < n <= cols * tmlp.GEMM_BN
+        assert g.blocks == -(-t // g.bm) * cols
+        if -(-t // 64) * cols >= SMS:
+            assert g.blocks >= SMS
+    steps = -(-hidden // tmlp.GEMM_BK)
+    assert (steps - 1) * tmlp.GEMM_BK < hidden <= steps * tmlp.GEMM_BK
+
+
+@pytest.mark.parametrize("bh,nq,nk,hd", FLASH_SHAPES)
+def test_flash_plan_fits_and_covers(bh, nq, nk, hd):
+    """The bf16 flash_attn plan: shared memory within 227 KB, the padded
+    depth a multiple of mma's k = 16 and the head's columns whole 8-wide
+    n tiles, conflict-free ldmatrix rows, every q row in a tile, and at
+    least one block per SM wherever the 16-row q tiles fill 132 blocks."""
+    plan = tflash.flash_plan(bh, nq, nk, hd, SMS)
+    assert plan.smem == tflash.flash_tc_smem(plan.width, plan.mt, plan.wpp, plan.stages)
+    assert plan.smem <= build.MAX_SMEM
+    assert hd <= plan.width in tflash.TC_WIDTHS and plan.width % 8 == 0
+    depth = tflash.tc_depth(plan.width)
+    assert depth % 16 == 0 and plan.width <= depth < plan.width + 16
+    ld_words = (depth + 8) // 2
+    assert ld_words % 8 == 4
+    assert plan.wpp in (1, 2, 4) and (plan.stages == 2 or nk <= tflash.TC_KEYS)
+    assert plan.mt == 1 or (plan.wpp == tflash.TC_WARPS and plan.width <= tflash.TC_MAX_WIDE_WIDTH)
+    rows = tflash.TC_Q_ROWS * plan.mt * plan.wpp
+    tiles = bh * -(-nq // rows)
+    assert plan.blocks * (tflash.TC_WARPS // plan.wpp) >= tiles
+    assert plan.blocks == -(-tiles // (tflash.TC_WARPS // plan.wpp))
+    if nq <= tflash.TC_Q_ROWS:
+        assert plan.wpp == 1  # one problem per warp, four a block
+    if bh * -(-nq // tflash.TC_Q_ROWS) >= tflash.TC_WARPS * SMS:
+        assert plan.blocks >= SMS
+
+
+@pytest.mark.parametrize("hd", [4, 36, 136])
+def test_flash_plan_refuses_head_widths(hd):
+    """bf16 rows are copied in 16-byte pieces: head widths that are not a
+    multiple of 8, or wider than the widest instance, are refused."""
+    with pytest.raises(build.KernelError):
+        tflash.flash_plan(8, 64, 64, hd)
+
+
+def test_mlp_plan_refuses_widths_off_16_bytes():
+    with pytest.raises(build.KernelError):
+        tmlp.mlp_plan(64, 100, 400)
+
+
+def test_gemm_tile_rows():
+    """128-row blocks where they give two per SM, else 64: T = 4096 takes
+    128 rows for the 2304-wide product and 64 for the 576-wide one; T =
+    1024 at C = 1152 reaches 144 blocks with 64."""
+    assert tmlp.gemm_tile(4096, 2304).bm == 128
+    assert tmlp.gemm_tile(4096, 576) == tmlp.GemmPlan(64, 320, tmlp.gemm_smem(64))
+    assert tmlp.gemm_tile(1024, 1152).blocks == 144 >= SMS

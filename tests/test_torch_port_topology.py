@@ -174,3 +174,27 @@ def test_visual_ids_and_fallback_netlist_identical(name):
     assert _key(got) == _key(ref_boxes)
     ref_text = jgen.stringify_netlist(jgen.generate_fallback_netlist(_boxes(JBBox, boxes)))
     assert tgen.stringify_netlist(tgen.generate_fallback_netlist(_boxes(TBBox, boxes))) == ref_text
+
+
+_MASK = np.zeros((40, 60), np.uint8)
+_RGB = np.full((40, 60, 3), 255, np.uint8)
+_DEFAULT_DEVICE_CALLS = {
+    "extract_nodes": lambda **kw: tnodes.extract_nodes(_MASK, [], **kw),
+    "prepare_packed_raster": lambda **kw: tnodes.prepare_packed_raster(
+        _MASK, [], tnodes.TopologyConfig(), **kw),
+    "extract_nodes_batched": lambda **kw: tnodes.extract_nodes_batched([_MASK], [[]], **kw),
+    "segment_classical": lambda **kw: treclass.segment_classical(_RGB, **kw),
+    "reclassify_terminals": lambda **kw: treclass.reclassify_terminals(
+        _RGB, [TBBox("terminal", 0.9, 5, 5, 15, 15)], **kw),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_DEFAULT_DEVICE_CALLS))
+def test_topology_entry_points_default_to_cuda(entry, monkeypatch):
+    """Without a CUDA device the topology entry points raise unless
+    device="cpu" is asked for, as the analyzer does; with it they run."""
+    call = _DEFAULT_DEVICE_CALLS[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        call()
+    call(device="cpu")

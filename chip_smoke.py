@@ -136,7 +136,7 @@ SOURCES = {
 L_WINDOWS = [(1024, 64, 144, 2), (1024, 16, 288, 4), (16, 256, 576, 8), (16, 64, 1152, 16)]
 L_QPOOLS = [(1024, 8, 144, 288, 4), (1024, 4, 288, 576, 8), (16, 16, 576, 1152, 16)]
 #: kernels whose rows also print their rate, operations ÷ kernel time
-TFLOPS_ROWS = ("flash_attn", "mlp_block")
+TFLOPS_ROWS = ("flash_attn", "mlp_block", "ln_qkv", "window_attn_block")
 #: H100 SXM peaks (NVIDIA data sheet, dense): memory, bf16 tensor, f32
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -307,8 +307,15 @@ def case_builders(torch):
             n_out = slabs * co
             args = (rnd(gen, dt, b, n, ci), 1 + rnd(gen, F32, ci, scale=0.1), rnd(gen, F32, ci, scale=0.1),
                     rnd(gen, dt, n_out, ci, scale=ci ** -0.5), rnd(gen, dt, n_out, scale=0.02))
+            # cuBLAS's product alone, on the input already normalised: how
+            # far the kernel's GEMM is from a library GEMM (not its library
+            # time: no call does LN + product)
+            xn = mb.layernorm_f32(*args[:3], 1e-6).to(dt)
             return dict(kernel=lambda: ga.ln_qkv(*args, heads, slabs),
                         plain=lambda: ga.ln_qkv_plain(*args, heads, slabs),
+                        plan=ga.ln_qkv_plan(b * n, ci, n_out), width=ci,
+                        linear=lambda: F.linear(xn, args[3], args[4]),
+                        library_note="no call does LN + product",
                         bytes=size(*args) + b * n * n_out * args[0].element_size(),
                         flops=2 * b * n * ci * n_out, math_dt=dt)
         return make
@@ -486,6 +493,8 @@ def run_kernels(torch, path, raster_counts=None):
                    "launches_on_path": count}
             if name in TFLOPS_ROWS:
                 row["tflops"] = case["flops"] / (k_ms * 1e-3) / 1e12
+            if case.get("linear"):
+                row["linear_ms"] = cuda_ms(case["linear"])
             print(json.dumps(row), flush=True)
             s = summary.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                           "library_ms": None, "t_bytes": 0.0, "t_ops": 0.0,
@@ -504,20 +513,23 @@ def run_kernels(torch, path, raster_counts=None):
 
 
 def check_plans(torch):
-    """The bf16 launch plans of flash_attn and mlp_block against the
-    kernels' own shared-memory sizes, at every shape of both paths."""
+    """The bf16 launch plans of flash_attn, mlp_block and ln_qkv against
+    the kernels' own shared-memory sizes, at every shape of both paths."""
     from circuitvision_tpu_torch.ops.cuda import flash_attn as fa
     from circuitvision_tpu_torch.ops.cuda import mlp_block as mb
     from circuitvision_tpu_torch.ops.cuda.build import library
 
-    fl, ml = library("flash_attn"), library("mlp_block")
+    fl, ml, gl = library("flash_attn"), library("mlp_block"), library("global_attn")
     for name, label, _count, make in kernel_cases(torch, "t@512") + kernel_cases(torch, "l@1024"):
-        if name not in ("flash_attn", "mlp_block"):
+        if name not in ("flash_attn", "mlp_block", "ln_qkv"):
             continue
         case = make(torch.bfloat16, torch.Generator(device="cuda").manual_seed(0))
         plan = case["plan"]
         if name == "flash_attn":
             ok = fl.cv_flash_attn_bf16_smem(plan.width, plan.mt, plan.wpp, plan.stages) == plan.smem
+        elif name == "ln_qkv":
+            ok = gl.cv_ln_heads_ln_smem(case["width"]) == plan.ln_smem and \
+                gl.cv_ln_heads_gemm_smem(plan.gemm.bm) == plan.gemm.smem
         else:
             ok = ml.cv_mlp_ln_smem(case["width"]) == plan.ln_smem and all(
                 ml.cv_mlp_gemm_smem(g.bm) == g.smem for g in (plan.gemm1, plan.gemm2))
@@ -538,19 +550,21 @@ def run_routes(torch):
     check_plans(torch)
     lib = library("window_attn")
     for t, c in [(64, 96), (16, 192)] + [(t, c) for _nw, t, c, _h in L_WINDOWS]:
-        if lib.cv_window_attn_smem(t, c) != window_smem("window", t, c, c):
-            raise AssertionError(f"window_smem disagrees with the kernel at T={t} C={c}")
+        for code, dt in enumerate((torch.float32, torch.bfloat16)):
+            if lib.cv_window_attn_smem(t, c, code) != window_smem("window", t, c, c, dt):
+                raise AssertionError(f"window_smem disagrees with the kernel at T={t} C={c} {dt}")
     for win, ci, co in [(8, 96, 192), (4, 192, 384)] + [(w, ci, co) for _n, w, ci, co, _h in L_QPOOLS]:
         if lib.cv_qpool_attn_smem(win, ci, co) != window_smem("qpool", win * win, ci, co):
             raise AssertionError(f"qpool smem disagrees with the kernel at win={win} {ci}->{co}")
     b = case_builders(torch)
     cases = [("window_attn_block", f"{nw} windows x {t} tokens C={c} heads={h}",
-              window_route("window", t, c, c), b["window"](nw, t, c, h)) for nw, t, c, h in L_WINDOWS]
+              ("window", t, c, c), b["window"](nw, t, c, h)) for nw, t, c, h in L_WINDOWS]
     cases += [("qpool_attn_block", f"{nw} windows win={w} C={ci}->{co} heads={h}",
-               window_route("qpool", w * w, ci, co), b["qpool"](nw, w, ci, co, h))
+               ("qpool", w * w, ci, co), b["qpool"](nw, w, ci, co, h))
               for nw, w, ci, co, h in L_QPOOLS]
-    for name, label, route, make in cases:
+    for name, label, shape, make in cases:
         for dt_name in ("bfloat16", "float32"):
+            route = window_route(*shape, getattr(torch, dt_name))
             gen = torch.Generator(device="cuda").manual_seed(0)
             case = make(getattr(torch, dt_name), gen)
             ref = case["plain"]().float()

@@ -1,5 +1,6 @@
 // The shell around attention in the Hiera global blocks: LN1 + a product
-// emitting head-major slabs, and the output projection with the residual.
+// emitting head-major slabs (`ln_qkv`), and the output projection with
+// the residual (`attn_proj_residual`).
 //
 // Replaces two Pallas kernels of the JAX package
 // (circuitvision_tpu/ops/pallas/global_attn.py):
@@ -10,22 +11,45 @@
 // The large-window routes of window_attn.cu's blocks use the same two
 // kernels over (n_windows, T, C) windows; for the q-pool block the
 // residual is the 2×2 max-pool of the shortcut, taken as it is read.
+//
 // What bounds them on the H100: at the global blocks (N 4096, C 576) the
 // products are 6·N·C² and 2·N·C² FLOPs against 8·N·C and 6·N·C bytes of
 // bf16 activations, ~430 and ~190 FLOP/byte — about the bf16 ridge
 // (295), so the products are the limit once they run on tensor cores.
-// The design reads each activation row once per block and writes each
-// output once: a block owns 16 rows and a share of the output columns,
-// normalises its rows in shared memory and streams its weight columns
-// through staged tiles (common.cuh block_gemm, f32 FMA). Few rows (1024
-// at stage 4) would leave most SMs idle, so the columns split until
-// about four blocks per SM are in flight. The head split happens in the
-// epilogue's store address, so there is no transpose pass and no 72 →
-// 128 lane pad (the pad only served the MXU). Tensor-core tiles are the
-// next step.
+// Per Hiera-L@1024 analyze(), ln_qkv's 42 launches are ≈ 350 GFLOP
+// (bound 0.39 ms at 989 TFLOP/s).
+//
+// Which kernel is which:
+//   * ln_qkv, bfloat16 — two launches through tc_gemm.cuh, shared with
+//     mlp_block.cu: the LN pre-pass (ln_rows_kernel over common.cuh's
+//     layernorm_rows, unchanged, so xn is bit for bit what the f32
+//     kernel normalises) into a bf16 workspace of B·N × C_in, then the
+//     wgmma m64n128k16 GEMM over a swizzled cp.async ring with the
+//     head-split epilogue (HeadsEpi): bias added to the f32 accumulator,
+//     one rounding, and the store at the head-major address (s, b, h, i,
+//     d). The head width is even, so each accumulator pair (2t, 2t + 1)
+//     stays in one head and goes out as one 4-byte store; the per-row
+//     and per-column parts of the address are computed once each. No
+//     transpose pass and no 72 → 128 lane pad (the pad only served the
+//     MXU). The FMA design it replaces read every weight element once
+//     per 16 rows and ran at ≈ 6.5 TFLOP/s. Measured per Hiera-L@1024
+//     analyze() (chip_smoke.py, H100 80GB HBM3 at 700 W, parent and this
+//     design in one call): 2.415 ms against 53.7–53.9, 150–185 TFLOP/s
+//     a launch at C_in = 576 and 1152, 56–74 at C_in = 144.
+//   * ln_qkv, float32 — ln_heads_kernel, f32 FMA loops: a block owns 16
+//     rows and a share of the output columns, normalises its rows in
+//     shared memory and streams its weight columns through staged tiles
+//     (common.cuh block_gemm); few rows (1024 at stage 4) split the
+//     columns until about four blocks per SM are in flight. TF32 would
+//     not hold the float32 card-against-CPU check.
+//   * attn_proj_residual, both dtypes — proj_res_kernel, the same FMA
+//     design with the head gather in its load and the residual (pooled
+//     where asked) in its epilogue; tensor cores for it are the next
+//     step.
 #include <algorithm>
 
 #include "common.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -166,30 +190,79 @@ cudaError_t launch_proj_res(const void* x, const void* o, const void* w,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ bfloat16
+using tc::bf16;
+
+// ln_qkv's store: out[s][b][h][i][d] = bf16(acc + bias[col]) for output
+// column col = s·c_out + h·hd + d of row b·n + i; hd even.
+struct HeadsEpi {
+  const bf16* bias;
+  bf16* out;
+  int n, heads, hd, c_out;
+  size_t slab;  // rows_total · c_out: one of q, k, v
+  struct Col {
+    float2 bb;
+    size_t off;  // s·slab + h·n·hd + d
+  };
+  __device__ size_t row(int r) const {
+    return ((size_t)(r / n) * heads * n + r % n) * hd;
+  }
+  __device__ Col col(int c) const {
+    const int s = c / c_out, h = (c % c_out) / hd, d = c % hd;
+    return {tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(bias + c)),
+            s * slab + (size_t)h * n * hd + d};
+  }
+  __device__ void store(size_t r, Col c, float v0, float v1) const {
+    *reinterpret_cast<uint32_t*>(out + r + c.off) = tc::pack_bf16(v0 + c.bb.x, v1 + c.bb.y);
+  }
+};
+
 }  // namespace
 
+// Shared-memory bytes of a float32 ln_qkv launch (the wrapper refuses
+// widths above the 227 KB a block can hold), of attn_proj_residual, and
+// of the bf16 path's LN pre-pass at width c_in and one GEMM block of bm
+// rows (the wrapper's plan, ops/cuda/global_attn.py ln_qkv_plan, must
+// agree).
 extern "C" long long cv_ln_heads_smem(int c_in) {
   return (long long)ln_heads_smem(c_in);
 }
 extern "C" long long cv_proj_res_smem(int c) {
   return (long long)proj_res_smem(c);
 }
+extern "C" long long cv_ln_heads_ln_smem(int c_in) { return (long long)tcg::ln_smem(c_in); }
+extern "C" long long cv_ln_heads_gemm_smem(int bm) { return (long long)tcg::gemm_smem(bm); }
 
-// dtype: 0 = float32, 1 = bfloat16. x (B, N, c_in); w (n_out, c_in) in
-// torch Linear layout with n_out = slabs·heads·hd; out (slabs, B, heads,
-// N, hd); ln_s and ln_b float32 for either dtype.
-extern "C" int cv_ln_heads(const void* x, const void* ln_s, const void* ln_b,
-                           const void* w, const void* b, void* out,
-                           int batch, int n, int c_in, int n_out, int heads,
-                           int hd, float eps, int dtype, void* stream) {
+// float32 on the FMA units. x (B, N, c_in); w (n_out, c_in) in torch
+// Linear layout with n_out = slabs·heads·hd; out (slabs, B, heads, N,
+// hd); ln_s and ln_b float32.
+extern "C" int cv_ln_heads_f32(const void* x, const void* ln_s, const void* ln_b,
+                               const void* w, const void* b, void* out, int batch, int n,
+                               int c_in, int n_out, int heads, int hd, float eps,
+                               void* stream) {
+  return (int)launch_ln_heads<float>(x, ln_s, ln_b, w, b, out, batch * n, n, c_in, n_out,
+                                     heads, hd, eps, (cudaStream_t)stream);
+}
+
+// bfloat16 on the tensor cores: the same function and layouts; x, w and
+// the workspace xn (B·N·c_in bf16) 16-byte aligned, c_in a multiple of 8,
+// hd even; bm (128 or 64) from the wrapper's plan.
+extern "C" int cv_ln_heads_bf16(const void* x, const void* ln_s, const void* ln_b,
+                                const void* w, const void* b, void* out, void* xn, int batch,
+                                int n, int c_in, int n_out, int heads, int hd, float eps,
+                                int bm, void* stream) {
+  const int rows = batch * n;
+  if (rows < 1 || c_in < 8 || c_in % 8 || hd < 2 || hd % 2 || heads < 1 ||
+      n_out % (heads * hd))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_ln_heads<float>(x, ln_s, ln_b, w, b, out, batch * n, n, c_in,
-                                  n_out, heads, hd, eps, s);
-  if (dtype == 1)
-    return launch_ln_heads<__nv_bfloat16>(x, ln_s, ln_b, w, b, out, batch * n,
-                                          n, c_in, n_out, heads, hd, eps, s);
-  return (int)cudaErrorInvalidValue;
+  cudaError_t err = tcg::launch_ln_rows((const bf16*)x, (const float*)ln_s, (const float*)ln_b,
+                                        (bf16*)xn, rows, c_in, eps, s);
+  if (err != cudaSuccess) return (int)err;
+  const int c_out = heads * hd;
+  return (int)tcg::launch_gemm(
+      bm, (const bf16*)xn, (const bf16*)w, rows, n_out, c_in,
+      HeadsEpi{(const bf16*)b, (bf16*)out, n, heads, hd, c_out, (size_t)rows * c_out}, s);
 }
 
 // o (B, heads, N, hd); w (c, c); out (B, N, c); x (B, N, c), or

@@ -13,13 +13,14 @@
 // widths (C = 144 … 1152): the products, not the memory. Each L@1024
 // launch is 21.7 GFLOP, 22 µs at 989 TFLOP/s.
 //
-// bfloat16 — the design: three launches per call.
+// bfloat16 — the design: three launches per call, the LN pre-pass and
+// the GEMM of tc_gemm.cuh (shared with global_attn.cu's ln_qkv).
 //   1. LN pre-pass (ln_rows_kernel): 8 rows a block through common.cuh's
 //      layernorm_rows, unchanged, so xn is bit for bit what the fused
 //      kernel computed; written to a bf16 workspace (T·C·2 bytes).
-//   2. h = bf16(GELU_erf(xn·W0ᵀ + b0)) (gemm_tc_kernel, epilogue 0),
+//   2. h = bf16(GELU_erf(xn·W0ᵀ + b0)) (gemm_tc_kernel, GeluEpi),
 //      written to the workspace in bf16 (T·4C·2 bytes).
-//   3. out = bf16(x + b1 + h·W1ᵀ) (epilogue 1).
+//   3. out = bf16(x + b1 + h·W1ᵀ) (ResidEpi).
 // Both products are one tensor-core GEMM over operands that are both
 // K-contiguous (xn or h row-major; W in Linear layout): wgmma m64n128k16
 // (tc.cuh), B and A read from shared memory through 128-byte-swizzle
@@ -59,7 +60,7 @@
 #include <algorithm>
 
 #include "common.cuh"
-#include "tc.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -160,144 +161,44 @@ cudaError_t launch(const void* x, const void* ln_s, const void* ln_b,
 // ------------------------------------------------------------ bfloat16
 using tc::bf16;
 
-constexpr int kLnRows = 8;       // rows per block of the LN pre-pass (one per warp)
-constexpr int kGemmBK = 64;      // reduction depth of one staged tile: a 128-byte row
-constexpr int kGemmBN = 128;     // output columns per block: one m64n128 product
-constexpr int kGemmStages = 3;   // depth of the cp.async ring
+// Epilogues of the shared GEMM (tc_gemm.cuh) over an output of n_cols
+// columns. EPI 0: h = bf16(GELU_erf(acc + bias[n])); EPI 1: out =
+// bf16(resid[r][n] + bias[n] + acc).
+struct BiasCol {
+  float2 bb;
+  int col;
+};
 
-size_t ln_smem(int c) { return sizeof(float) * 2 * kLnRows * (size_t)c; }
-
-// The ring of A (bm rows) and B (kGemmBN rows) tiles, 128 bytes a row,
-// plus 1024 bytes to align it to the swizzle's 1024-byte pattern.
-size_t gemm_smem(int bm) { return (size_t)kGemmStages * (bm + kGemmBN) * 128 + 1024; }
-
-// xn = bf16(LN(x)) for kLnRows rows, through layernorm_rows as the f32
-// kernel runs it.
-__global__ void __launch_bounds__(kThreads)
-ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-               const float* __restrict__ ln_b, bf16* __restrict__ xn, int t, int c,
-               float eps) {
-  extern __shared__ float lsm[];
-  float* src = lsm;                 // kLnRows × c
-  float* dst = lsm + kLnRows * c;   // kLnRows × c
-  const int r0 = blockIdx.x * kLnRows;
-  const int rows = min(kLnRows, t - r0);
-  const bf16* xb = x + (size_t)r0 * c;
-  for (int e = threadIdx.x; e < rows * c; e += kThreads) src[e] = to_f(xb[e]);
-  __syncthreads();
-  layernorm_rows<bf16>(src, dst, rows, c, ln_s, ln_b, eps);
-  __syncthreads();
-  bf16* ob = xn + (size_t)r0 * c;
-  for (int e = threadIdx.x; e < rows * c; e += kThreads) ob[e] = from_f<bf16>(dst[e]);
-}
-
-// out[r][n] = epi(Σ_k a[r][k]·w[n][k]) for r < m, n < n_cols: a (m, k)
-// row-major, w (n_cols, k) in torch Linear layout. EPI 0: bf16(GELU_erf(
-// acc + bias[n])); EPI 1: bf16(resid[r][n] + bias[n] + acc). A block owns
-// a BM × 128 output tile, one warpgroup per 64 rows, each issuing
-// wgmma m64n128k16 over the 64-deep tiles of the cp.async ring (4 per
-// tile). k and n_cols are multiples of 8; rows and columns past the
-// edges and depth past k are zero-filled by cp.async.
-template <int BM, int EPI>
-__global__ void __launch_bounds__(BM * 2)
-gemm_tc_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-               const bf16* __restrict__ bias, const bf16* __restrict__ resid,
-               bf16* __restrict__ out, int m, int n_cols, int k) {
-  constexpr int kThreadsG = BM * 2;  // a warpgroup of 128 threads per 64 rows
-  constexpr int kABytes = BM * 128, kStage = (BM + kGemmBN) * 128;
-  extern __shared__ unsigned char gsm[];
-  const uint32_t raw = tc::smem_u32(gsm);
-  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle's alignment
-  unsigned char* ring = gsm + (base - raw);
-  const int tid = threadIdx.x, wg = tid / 128, w4 = (tid / 32) % 4, lane = tid % 32;
-  const int n0 = blockIdx.x * kGemmBN, m0 = blockIdx.y * BM;
-  const int ktiles = (k + kGemmBK - 1) / kGemmBK;
-
-  auto load = [&](int kt, int s) {
-    const int k0 = kt * kGemmBK;
-    unsigned char* sa = ring + s * kStage;
-    unsigned char* sb = sa + kABytes;
-    for (int e = tid; e < BM * 8; e += kThreadsG) {
-      const int r = e / 8, c = e % 8, gr = m0 + r, gk = k0 + c * 8;
-      const bool in = gr < m && gk < k;
-      tc::cp_async16(sa + tc::sw128_offset(r, c), a + (in ? (size_t)gr * k + gk : 0), in);
-    }
-    for (int e = tid; e < kGemmBN * 8; e += kThreadsG) {
-      const int r = e / 8, c = e % 8, gn = n0 + r, gk = k0 + c * 8;
-      const bool in = gn < n_cols && gk < k;
-      tc::cp_async16(sb + tc::sw128_offset(r, c), w + (in ? (size_t)gn * k + gk : 0), in);
-    }
-  };
-
-  float acc[kGemmBN / 2];
-#pragma unroll
-  for (int i = 0; i < kGemmBN / 2; ++i) acc[i] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kGemmStages - 1; ++s) {
-    if (s < ktiles) load(s, s);
-    tc::cp_async_commit();
+struct GeluEpi {
+  const bf16* bias;
+  bf16* out;
+  int n_cols;
+  __device__ size_t row(int r) const { return (size_t)r * n_cols; }
+  __device__ BiasCol col(int c) const {
+    return {tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(bias + c)), c};
   }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    tc::cp_async_wait<kGemmStages - 2>();  // tile kt has landed
-    tc::fence_proxy_async();               // ... visible to wgmma
-    __syncthreads();  // ... for every thread, and tile kt − 1 is no longer read
-    const int next = kt + kGemmStages - 1;
-    if (next < ktiles) load(next, next % kGemmStages);
-    tc::cp_async_commit();
-    const uint32_t sa = base + (kt % kGemmStages) * kStage;
-    const uint64_t da = tc::sw128_desc(sa + wg * 64 * 128), db = tc::sw128_desc(sa + kABytes);
-    tc::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kGemmBK / 16; ++kk)  // +32 bytes a step: +2 in the address field
-      tc::wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk);
-    tc::wgmma_commit();
-    tc::wgmma_wait<0>();
+  __device__ void store(size_t r, BiasCol c, float v0, float v1) const {
+    *reinterpret_cast<uint32_t*>(out + r + c.col) =
+        tc::pack_bf16(gelu_erf(v0 + c.bb.x), gelu_erf(v1 + c.bb.y));
   }
-  tc::cp_async_wait<0>();
+};
 
-  const int g = lane / 4, t2 = 2 * (lane % 4);
-#pragma unroll
-  for (int j = 0; j < kGemmBN / 8; ++j) {
-    const int col = n0 + 8 * j + t2;
-    if (col >= n_cols) continue;
-    const float2 bb = tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(bias + col));
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = m0 + wg * 64 + w4 * 16 + g + 8 * hr;
-      if (row >= m) continue;
-      float v0 = acc[4 * j + 2 * hr], v1 = acc[4 * j + 2 * hr + 1];
-      const size_t at = (size_t)row * n_cols + col;
-      if (EPI == 0) {
-        v0 = gelu_erf(v0 + bb.x);
-        v1 = gelu_erf(v1 + bb.y);
-      } else {
-        const float2 xr = tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(resid + at));
-        v0 = (xr.x + bb.x) + v0;
-        v1 = (xr.y + bb.y) + v1;
-      }
-      *reinterpret_cast<uint32_t*>(out + at) = tc::pack_bf16(v0, v1);
-    }
+struct ResidEpi {
+  const bf16* bias;
+  const bf16* resid;
+  bf16* out;
+  int n_cols;
+  __device__ size_t row(int r) const { return (size_t)r * n_cols; }
+  __device__ BiasCol col(int c) const {
+    return {tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(bias + c)), c};
   }
-}
-
-template <int EPI>
-cudaError_t launch_gemm(int bm, const bf16* a, const bf16* w, const bf16* bias,
-                        const bf16* resid, bf16* out, int m, int n_cols, int k,
-                        cudaStream_t stream) {
-  auto run = [&](auto kernel) {
-    const size_t smem = gemm_smem(bm);
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((n_cols + kGemmBN - 1) / kGemmBN, (m + bm - 1) / bm);
-    kernel<<<grid, bm * 2, smem, stream>>>(a, w, bias, resid, out, m, n_cols, k);
-    return cudaGetLastError();
-  };
-  if (bm == 128) return run(gemm_tc_kernel<128, EPI>);
-  if (bm == 64) return run(gemm_tc_kernel<64, EPI>);
-  return cudaErrorInvalidValue;
-}
+  __device__ void store(size_t r, BiasCol c, float v0, float v1) const {
+    const size_t at = r + c.col;
+    const float2 xr = tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(resid + at));
+    *reinterpret_cast<uint32_t*>(out + at) =
+        tc::pack_bf16((xr.x + c.bb.x) + v0, (xr.y + c.bb.y) + v1);
+  }
+};
 
 }  // namespace
 
@@ -307,8 +208,8 @@ extern "C" long long cv_mlp_block_smem(int c) { return (long long)mlp_smem(c); }
 
 // Shared-memory bytes of the bf16 path's LN pre-pass at width c, and of
 // one bf16 GEMM block of bm rows (the wrapper's plan must agree).
-extern "C" long long cv_mlp_ln_smem(int c) { return (long long)ln_smem(c); }
-extern "C" long long cv_mlp_gemm_smem(int bm) { return (long long)gemm_smem(bm); }
+extern "C" long long cv_mlp_ln_smem(int c) { return (long long)tcg::ln_smem(c); }
+extern "C" long long cv_mlp_gemm_smem(int bm) { return (long long)tcg::gemm_smem(bm); }
 
 // float32: how many blocks share the hidden dimension of a row tile:
 // enough for about two waves over `sms` SMs, at most one per 64-wide
@@ -342,17 +243,12 @@ extern "C" int cv_mlp_block_bf16(const void* x, const void* ln_s, const void* ln
                                  int hidden, float eps, int bm1, int bm2, void* stream) {
   if (t < 1 || c < 8 || c % 8 || hidden < 8 || hidden % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t lsm = ln_smem(c);
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lsm);
+  cudaError_t err = tcg::launch_ln_rows((const bf16*)x, (const float*)ln_s, (const float*)ln_b,
+                                        (bf16*)xn, t, c, eps, s);
   if (err != cudaSuccess) return (int)err;
-  ln_rows_kernel<<<(t + kLnRows - 1) / kLnRows, kThreads, lsm, s>>>(
-      (const bf16*)x, (const float*)ln_s, (const float*)ln_b, (bf16*)xn, t, c, eps);
-  err = cudaGetLastError();
+  err = tcg::launch_gemm(bm1, (const bf16*)xn, (const bf16*)w0, t, hidden, c,
+                         GeluEpi{(const bf16*)b0, (bf16*)h, hidden}, s);
   if (err != cudaSuccess) return (int)err;
-  err = launch_gemm<0>(bm1, (const bf16*)xn, (const bf16*)w0, (const bf16*)b0, nullptr,
-                       (bf16*)h, t, hidden, c, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_gemm<1>(bm2, (const bf16*)h, (const bf16*)w1, (const bf16*)b1,
-                             (const bf16*)x, (bf16*)out, t, c, hidden, s);
+  return (int)tcg::launch_gemm(bm2, (const bf16*)h, (const bf16*)w1, t, c, hidden,
+                               ResidEpi{(const bf16*)b1, (const bf16*)x, (bf16*)out, c}, s);
 }

@@ -1,5 +1,6 @@
 // Tensor-core building blocks for Hopper (sm_90a), shared by the bf16
-// kernels of flash_attn.cu and mlp_block.cu: 16-byte asynchronous
+// kernels of flash_attn.cu, window_attn.cu and tc_gemm.cuh (mlp_block.cu,
+// global_attn.cu): 16-byte asynchronous
 // global → shared copies (cp.async, zero-filling where the source lies
 // outside the operand), ldmatrix fragment loads, the warp-level mma.sync
 // m16n8k16 product, and the warpgroup wgmma product over swizzled
@@ -63,6 +64,14 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// Two matrices; lanes 0..15 give the row addresses.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p))
                : "memory");
 }

@@ -13,20 +13,50 @@ The large-window routes of the window and q-pool blocks
 (ops/cuda/window_attn.py) use them too, with one slab for the q-pool
 shortcut and the residual 2×2-pooled as it is read. The CUDA source is
 csrc/global_attn.cu; its header note says what bounds the kernels on the
-H100 and how the design answers that. The plain versions compute the
-same functions with the kernels' numerics: f32 LayerNorm statistics in
-the fast-variance form, products accumulated in f32 and rounded to the
-compute dtype where the kernel stores them.
+H100 and how the design answers that. In bfloat16, `ln_qkv` is a product
+bound by the tensor cores: an LN pre-pass into a bf16 workspace, then the
+wgmma GEMM that `mlp_block` uses (csrc/tc_gemm.cuh) with the head split
+in its epilogue's store address; `ln_qkv_plan` sizes it. In float32, and
+`attn_proj_residual` in both dtypes, f32 FMA loops. The plain versions
+compute the same functions with the kernels' numerics: f32 LayerNorm
+statistics in the fast-variance form, products accumulated in f32 and
+rounded to the compute dtype where the kernel stores them.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
 from .build import (
-    MAX_SMEM, KernelError, check, check_ln_params, check_operands, dtype_code, library,
-    stream_ptr,
+    MAX_SMEM, KernelError, check, check_aligned, check_ln_params, check_operands, dtype_code,
+    library, sm_count, stream_ptr,
 )
-from .mlp_block import layernorm_f32
+from .mlp_block import H100_SMS, LN_ROWS, GemmPlan, gemm_tile, layernorm_f32, ln_smem
+
+
+@dataclasses.dataclass(frozen=True)
+class LnQkvPlan:
+    """Launch plan of the bf16 `ln_qkv`: the LN pre-pass over m rows of
+    width k into a bf16 workspace of m·k elements, then the GEMM of its
+    (m × n) output, n = slabs·heads·hd."""
+
+    ln_blocks: int
+    ln_smem: int
+    gemm: GemmPlan
+    workspace: int
+
+
+@functools.lru_cache(maxsize=64)
+def ln_qkv_plan(m: int, k: int, n: int, sms: int = H100_SMS) -> LnQkvPlan:
+    """The pre-pass of mlp_block's bf16 path and its GEMM's block rows
+    (ops/cuda/mlp_block.py gemm_tile). The GEMM copies rows of k in
+    16-byte pieces, so k must be a multiple of 8."""
+    if k % 8 or n % 2:
+        raise KernelError(f"ln_qkv: bfloat16 widths must be multiples of 8 in and 2 out; got "
+                          f"C_in={k}, N={n}")
+    return LnQkvPlan(-(-m // LN_ROWS), ln_smem(k), gemm_tile(m, n, sms), m * k)
 
 
 def pool2x2_windows(a: torch.Tensor, win: int) -> torch.Tensor:
@@ -48,7 +78,7 @@ def ln_qkv(x, ln_scale, ln_bias, w, b, heads, slabs=3, eps=1e-6):
     Returns (slabs, B, heads, N, D): q, k, v for the qkv weight, or one
     slab of one head — the plain product, row-major — for a shortcut
     projection. CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
+    the kernel (bfloat16: C_in a multiple of 8, an even head width)."""
     if x.device.type == "cpu":
         return ln_qkv_plain(x, ln_scale, ln_bias, w, b, heads, slabs, eps)
     check_operands("ln_qkv", x, w, b)
@@ -59,13 +89,27 @@ def ln_qkv(x, ln_scale, ln_bias, w, b, heads, slabs=3, eps=1e-6):
         raise KernelError("ln_qkv: weight shapes do not match x")
     hd = n_out // (slabs * heads)
     lib = library("global_attn")
-    if lib.cv_ln_heads_smem(c_in) > MAX_SMEM:
-        raise KernelError(f"ln_qkv: width {c_in} exceeds the kernel's shared memory")
     out = torch.empty((slabs, bsz, heads, n, hd), dtype=x.dtype, device=x.device)
-    err = lib.cv_ln_heads(
-        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w.data_ptr(), b.data_ptr(),
-        out.data_ptr(), bsz, n, c_in, n_out, heads, hd, eps, dtype_code(x), stream_ptr(x),
-    )
+    if x.dtype == torch.bfloat16:
+        if hd % 2:
+            raise KernelError(f"ln_qkv: bfloat16 head width {hd} is odd")
+        plan = ln_qkv_plan(bsz * n, c_in, n_out, sm_count(x))
+        if plan.ln_smem > MAX_SMEM:
+            raise KernelError(f"ln_qkv: width {c_in} exceeds the LN pre-pass's shared memory")
+        check_aligned("ln_qkv", x, w)
+        xn = torch.empty(plan.workspace, dtype=torch.bfloat16, device=x.device)
+        err = lib.cv_ln_heads_bf16(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w.data_ptr(), b.data_ptr(),
+            out.data_ptr(), xn.data_ptr(), bsz, n, c_in, n_out, heads, hd, eps, plan.gemm.bm,
+            stream_ptr(x),
+        )
+    else:
+        if lib.cv_ln_heads_smem(c_in) > MAX_SMEM:
+            raise KernelError(f"ln_qkv: width {c_in} exceeds the kernel's shared memory")
+        err = lib.cv_ln_heads_f32(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w.data_ptr(), b.data_ptr(),
+            out.data_ptr(), bsz, n, c_in, n_out, heads, hd, eps, stream_ptr(x),
+        )
     check(err, "ln_qkv")
     ln_qkv.launches += 1
     return out

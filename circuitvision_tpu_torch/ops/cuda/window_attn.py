@@ -1,4 +1,5 @@
-"""Hiera windowed-attention halves as kernels, one block per window.
+"""Hiera windowed-attention halves as kernels, one block per window or,
+in bfloat16, per 64 rows of windows.
 
 Replaces two Pallas kernels of the JAX package
 (circuitvision_tpu/ops/pallas/window_attn.py):
@@ -11,16 +12,21 @@ Replaces two Pallas kernels of the JAX package
     win²/4 rows per window.
 
 The CUDA source is csrc/window_attn.cu; its header note says what bounds
-the kernels on the H100 and how the design answers that. The plain
-versions beside them compute the same functions with the kernels'
-numerics: f32 LayerNorm statistics, f32 scores and softmax scaled by
-1/sqrt(head width), products accumulated in f32, and values rounded to
-the compute dtype where the kernel stores them.
+the kernels on the H100 and how the design answers that. In bfloat16,
+`window_attn_block` runs its products and its attention on the tensor
+cores, a block owning 64 rows (64 / T windows of T ∈ {16, 32, 64}); in
+float32, and `qpool_attn_block` in both dtypes, f32 FMA loops with one
+window a block. The plain versions beside them compute the same
+functions with the kernels' numerics: f32 LayerNorm statistics, f32
+scores and softmax scaled by 1/sqrt(head width), products accumulated in
+f32, and values rounded to the compute dtype where the kernel stores
+them.
 
-A window too large for one block's shared memory (`window_route`: the
-Hiera-L stage-3 and stage-4 windows, two of its q-pool transitions)
-takes the tiled route instead, which computes the same function with
-three kernels batched over the windows: `ln_qkv`, `flash_attn` and
+A window that does not fit the one-block kernel (`window_route`: its
+shared memory, and in bfloat16 its 64-row block; the Hiera-L stage-3
+and stage-4 windows, two of its q-pool transitions) takes the tiled
+route instead, which computes the same function with three kernels
+batched over the windows: `ln_qkv`, `flash_attn` and
 `attn_proj_residual` (ops/cuda/global_attn.py, ops/cuda/flash_attn.py),
 rounding q/k/v, the attention output and the projection where the
 one-block kernels do.
@@ -30,23 +36,36 @@ from __future__ import annotations
 import torch
 
 from .build import (
-    MAX_SMEM, KernelError, check, check_ln_params, check_operands, dtype_code, library,
-    stream_ptr,
+    MAX_SMEM, KernelError, check, check_aligned, check_ln_params, check_operands, dtype_code,
+    library, stream_ptr,
 )
 from .flash_attn import flash_attn
 from .global_attn import attn_proj_residual, ln_qkv, pool2x2_windows
 from .mlp_block import layernorm_f32
 
-#: floats of one staged weight tile (common.cuh: kTileK × (kTileN + 1))
+#: floats of one staged weight tile of the f32 kernels (common.cuh:
+#: kTileK × (kTileN + 1))
 _WEIGHT_TILE = 32 * 65
+#: the bf16 window kernel (csrc/window_attn.cu window_tc_kernel): rows a
+#: block owns, weight rows a staged tile holds, the window sizes it packs
+#: into its rows, and the head widths it is built for (Hiera-b+, -L and
+#: -t/-s)
+TC_ROWS, TC_BN = 64, 48
+TC_TOKENS = (16, 32, 64)
+TC_HEAD_WIDTHS = (56, 72, 96)
 
 
-def window_smem(kind: str, tokens: int, c_in: int, c_out: int) -> int:
-    """Shared-memory bytes of the one-block-per-window kernel for a
-    `tokens`-token window ("window": width c_in == c_out; "qpool":
-    c_in → c_out), as csrc/window_attn.cu's window_smem and qpool_smem
-    compute them."""
+def window_smem(kind: str, tokens: int, c_in: int, c_out: int,
+                dtype: torch.dtype = torch.float32) -> int:
+    """Shared-memory bytes of the one-block kernel for a `tokens`-token
+    window ("window": width c_in == c_out; "qpool": c_in → c_out) in
+    `dtype`, as csrc/window_attn.cu's window_smem, window_tc_smem and
+    qpool_smem compute them. The bf16 window kernel holds 64 rows of xn
+    and of q|k|v and two staged weight tiles, in bf16, each row padded by
+    16 bytes, whatever the window size."""
     t = tokens
+    if kind == "window" and dtype == torch.bfloat16:
+        return 2 * ((TC_ROWS + 2 * TC_BN) * (c_in + 8) + TC_ROWS * (3 * c_in + 8))
     if kind == "window":
         floats = max(t * c_in, t * t) + 3 * t * c_in
     elif kind == "qpool":
@@ -57,10 +76,14 @@ def window_smem(kind: str, tokens: int, c_in: int, c_out: int) -> int:
     return 4 * (floats + _WEIGHT_TILE)
 
 
-def window_route(kind: str, tokens: int, c_in: int, c_out: int) -> str:
-    """"block" where one window fits the one-block kernel's shared
-    memory, else "tiled"."""
-    return "block" if window_smem(kind, tokens, c_in, c_out) <= MAX_SMEM else "tiled"
+def window_route(kind: str, tokens: int, c_in: int, c_out: int,
+                 dtype: torch.dtype = torch.float32) -> str:
+    """"block" where one window fits the one-block kernel — its shared
+    memory and, for the bf16 window kernel, a share of its 64 rows (T ∈
+    {16, 32, 64}) — else "tiled"."""
+    if kind == "window" and dtype == torch.bfloat16 and tokens not in TC_TOKENS:
+        return "tiled"
+    return "block" if window_smem(kind, tokens, c_in, c_out, dtype) <= MAX_SMEM else "tiled"
 
 
 def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dt) -> torch.Tensor:
@@ -100,10 +123,15 @@ def window_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     nw, t, c = x.shape
     if wqkv.shape != (3 * c, c) or wproj.shape != (c, c) or c % heads:
         raise KernelError("window_attn_block: weight shapes do not match x")
-    if window_route("window", t, c, c) == "tiled":
+    if window_route("window", t, c, c, x.dtype) == "tiled":
         window_attn_block.tiled += 1
         return window_attn_block_tiled(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                                        heads, eps)
+    if x.dtype == torch.bfloat16:
+        if c % 16 or c // heads not in TC_HEAD_WIDTHS:
+            raise KernelError(f"window_attn_block: the bfloat16 kernel takes C a multiple of 16 "
+                              f"and head widths {TC_HEAD_WIDTHS}; got C={c}, heads={heads}")
+        check_aligned("window_attn_block", x, wqkv, wproj)
     lib = library("window_attn")
     out = torch.empty_like(x)
     err = lib.cv_window_attn(

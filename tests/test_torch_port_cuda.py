@@ -77,12 +77,18 @@ def test_mlp_block_kernel(gen, dt, t, c):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("t,c,heads", [(64, 96, 1), (16, 192, 2)])
-def test_window_attn_kernel(gen, dt, t, c, heads):
-    args = (_rnd(gen, dt, 8, t, c), 1 + _rnd(gen, F32, c, scale=0.1), _rnd(gen, F32, c, scale=0.1),
+@pytest.mark.parametrize("nw,t,c,heads", [(8, 64, 96, 1), (8, 16, 192, 2), (32, 64, 144, 2),
+                                          (64, 16, 288, 4), (5, 32, 112, 2), (7, 16, 288, 4)])
+def test_window_attn_kernel(gen, dt, nw, t, c, heads):
+    """The t@512 and Hiera-L@1024 one-block shapes with fewer windows (head
+    widths 96 and 72), and in bfloat16 a 32-token window of head width 56
+    and window counts that leave the last 64-row block part empty."""
+    before = wa.window_attn_block.launches
+    args = (_rnd(gen, dt, nw, t, c), 1 + _rnd(gen, F32, c, scale=0.1), _rnd(gen, F32, c, scale=0.1),
             _rnd(gen, dt, 3 * c, c, scale=c ** -0.5), _rnd(gen, dt, 3 * c, scale=0.02),
             _rnd(gen, dt, c, c, scale=c ** -0.5), _rnd(gen, dt, c, scale=0.02))
     _close(wa.window_attn_block(*args, heads=heads), wa.window_attn_block_plain(*args, heads=heads))
+    assert wa.window_attn_block.launches == before + 1
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -100,8 +106,16 @@ def test_qpool_attn_kernel(gen, dt, win, ci, co, heads):
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("b,n,ci,co,heads,slabs", [(1, 4096, 576, 576, 8, 3),
                                                   (16, 64, 1152, 1152, 16, 3),
-                                                  (64, 64, 144, 288, 1, 1)])
+                                                  (64, 64, 144, 288, 1, 1),
+                                                  (4, 256, 576, 576, 8, 3),
+                                                  (64, 64, 144, 288, 4, 3),
+                                                  (2, 256, 576, 1152, 16, 3),
+                                                  (2, 256, 576, 1152, 1, 1),
+                                                  (3, 100, 144, 288, 4, 3)])
 def test_ln_qkv_kernel(gen, dt, b, n, ci, co, heads, slabs):
+    """Every Hiera-L@1024 shape class with fewer windows — the global
+    block, the stage-3 and stage-4 windows, both tiled q-pool transitions
+    (q/k/v and the one-slab shortcut) — and rows off the GEMM's tiles."""
     args = (_rnd(gen, dt, b, n, ci), 1 + _rnd(gen, F32, ci, scale=0.1), _rnd(gen, F32, ci, scale=0.1),
             _rnd(gen, dt, slabs * co, ci, scale=ci ** -0.5), _rnd(gen, dt, slabs * co, scale=0.02))
     before = ga.ln_qkv.launches
@@ -190,12 +204,19 @@ def test_launch_plans_match_kernel_smem(gen):
         assert lib.cv_mlp_gemm_smem(bm) == mb.gemm_smem(bm)
     for c in (96, 144, 192, 288, 384, 576, 768, 1152):
         assert lib.cv_mlp_ln_smem(c) == mb.ln_smem(c)
+    lib = build.library("global_attn")
+    for bm in mb.GEMM_ROWS:
+        assert lib.cv_ln_heads_gemm_smem(bm) == mb.gemm_smem(bm)
+    for c in (144, 288, 576, 1152):
+        assert lib.cv_ln_heads_ln_smem(c) == ga.ln_qkv_plan(64, c, 3 * c).ln_smem
 
 
-def test_window_route_matches_kernel_smem(gen):
+@pytest.mark.parametrize("dt", DTYPES)
+def test_window_route_matches_kernel_smem(gen, dt):
     lib = build.library("window_attn")
+    code = build.dtype_code(torch.empty(0, dtype=dt))
     for t, c in [(64, 96), (16, 192), (64, 144), (16, 288), (256, 576), (64, 1152)]:
-        assert lib.cv_window_attn_smem(t, c) == wa.window_smem("window", t, c, c)
+        assert lib.cv_window_attn_smem(t, c, code) == wa.window_smem("window", t, c, c, dt)
     for win, ci, co in [(8, 96, 192), (4, 192, 384), (8, 144, 288), (4, 288, 576), (16, 576, 1152)]:
         assert lib.cv_qpool_attn_smem(win, ci, co) == wa.window_smem("qpool", win * win, ci, co)
 

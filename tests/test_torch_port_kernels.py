@@ -25,6 +25,7 @@ from circuitvision_tpu.ops.pallas.window_attn import (
 )
 from circuitvision_tpu_torch.ops.cuda import build
 from circuitvision_tpu_torch.ops.cuda import flash_attn as tflash
+from circuitvision_tpu_torch.ops.cuda import global_attn as tglobal
 from circuitvision_tpu_torch.ops.cuda import mlp_block as tmlp
 from circuitvision_tpu_torch.ops.cuda import refinement as trefine
 from circuitvision_tpu_torch.ops.cuda import window_attn as twin
@@ -328,3 +329,43 @@ def test_gemm_tile_rows():
     assert tmlp.gemm_tile(4096, 2304).bm == 128
     assert tmlp.gemm_tile(4096, 576) == tmlp.GemmPlan(64, 320, tmlp.gemm_smem(64))
     assert tmlp.gemm_tile(1024, 1152).blocks == 144 >= SMS
+
+
+#: (M, K, N) of every ln_qkv call of one Hiera-L@1024 analyze(): M = B·N
+#: rows, K = C_in, N = slabs·heads·hd — the global blocks, the stage-3
+#: and stage-4 windows on the tiled route, and both tiled q-pool
+#: transitions (q/k/v, then the one-slab shortcut)
+LN_QKV_SHAPES = [(4096, 576, 1728), (4096, 576, 1728), (1024, 1152, 3456), (65536, 144, 864),
+                 (65536, 144, 288), (4096, 576, 3456), (4096, 576, 1152)]
+
+
+@pytest.mark.parametrize("m,k,n", LN_QKV_SHAPES)
+def test_ln_qkv_plan_fits_and_covers(m, k, n):
+    """The bf16 ln_qkv plan: the LN pre-pass of mlp_block's bf16 path in
+    shared memory and over every row, a workspace of m·k, and the shared
+    GEMM's blocks covering the (m × n) output exactly, in tiles that
+    wgmma m64n128k16 and the 128-byte swizzle take, with at least one
+    block per SM wherever 64-row blocks give that many."""
+    plan = tglobal.ln_qkv_plan(m, k, n, SMS)
+    assert plan.ln_smem == tmlp.ln_smem(k) <= build.MAX_SMEM
+    assert plan.ln_blocks * tmlp.LN_ROWS >= m > (plan.ln_blocks - 1) * tmlp.LN_ROWS
+    assert plan.workspace == m * k
+    g = plan.gemm
+    assert k % 8 == 0 and n % 2 == 0
+    assert g.bm in tmlp.GEMM_ROWS and g.smem == tmlp.gemm_smem(g.bm) <= build.MAX_SMEM
+    assert (g.bm + tmlp.GEMM_BN) * 128 % 1024 == 0
+    cols = -(-n // tmlp.GEMM_BN)
+    assert (cols - 1) * tmlp.GEMM_BN < n <= cols * tmlp.GEMM_BN
+    assert g.blocks == -(-m // g.bm) * cols and (-(-m // g.bm) - 1) * g.bm < m
+    if -(-m // 64) * cols >= SMS:
+        assert g.blocks >= SMS
+    steps = -(-k // tmlp.GEMM_BK)
+    assert (steps - 1) * tmlp.GEMM_BK < k <= steps * tmlp.GEMM_BK
+
+
+@pytest.mark.parametrize("k,n", [(100, 300), (144, 301)])
+def test_ln_qkv_plan_refuses_widths_off_16_bytes(k, n):
+    """Rows of the input are copied in 16-byte pieces (C_in a multiple of
+    8) and the epilogue stores column pairs (an even output width)."""
+    with pytest.raises(build.KernelError):
+        tglobal.ln_qkv_plan(64, k, n)

@@ -141,30 +141,40 @@ def _kernel_blocks(cfg):
     return shapes
 
 
-#: (kind, tokens, c_in, c_out) → (shared-memory bytes, route)
+#: (kind, tokens, c_in, c_out) → (shared-memory bytes in float32 and in
+#: bfloat16, route in either dtype); the bf16 window kernel owns 64 rows
+#: in bf16 (csrc/window_attn.cu window_tc_smem), the q-pool kernel is one
+#: design for both dtypes
 ROUTES = {
-    "t@512": {("window", 64, 96, 96): (106624, "block"),
-              ("qpool", 64, 96, 192): (159872, "block"),
-              ("window", 16, 192, 192): (57472, "block"),
-              ("qpool", 16, 192, 384): (82304, "block")},
-    "l@1024": {("window", 64, 144, 144): (155776, "block"),
-               ("qpool", 64, 144, 288): (233600, "tiled"),
-               ("window", 16, 288, 288): (82048, "block"),
-               ("qpool", 16, 288, 576): (119168, "block"),
-               ("window", 256, 576, 576): (2367616, "tiled"),
-               ("qpool", 256, 576, 1152): (3612800, "tiled"),
-               ("window", 64, 1152, 1152): (1187968, "tiled")},
+    "t@512": {("window", 64, 96, 96): (106624, 71168, "block"),
+              ("qpool", 64, 96, 192): (159872, 159872, "block"),
+              ("window", 16, 192, 192): (57472, 138752, "block"),
+              ("qpool", 16, 192, 384): (82304, 82304, "block")},
+    "l@1024": {("window", 64, 144, 144): (155776, 104960, "block"),
+               ("qpool", 64, 144, 288): (233600, 233600, "tiled"),
+               ("window", 16, 288, 288): (82048, 206336, "block"),
+               ("qpool", 16, 288, 576): (119168, 119168, "block"),
+               ("window", 256, 576, 576): (2367616, 409088, "tiled"),
+               ("qpool", 256, 576, 1152): (3612800, 3612800, "tiled"),
+               ("window", 64, 1152, 1152): (1187968, 814592, "tiled")},
 }
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", sorted(ROUTES))
-def test_window_route_at_every_block_shape(name):
+def test_window_route_at_every_block_shape(name, dtype):
+    """Every window and q-pool block shape of the two configs, its
+    shared-memory size in the dtype and its route — the same in both
+    dtypes: the 256-token windows do not fit the bf16 kernel's 64 rows,
+    the 1152-wide ones not its shared memory."""
     size, res = name.split("@")
     cfg = tconfig.sam2_hiera_preset(size, resolution=int(res))
     table = ROUTES[name]
     assert _kernel_blocks(cfg) == set(table)
-    for shape, (smem, route) in table.items():
-        assert (twin.window_smem(*shape), twin.window_route(*shape)) == (smem, route), shape
+    col = 0 if dtype == torch.float32 else 1
+    for shape, row in table.items():
+        got = (twin.window_smem(*shape, dtype=dtype), twin.window_route(*shape, dtype=dtype))
+        assert got == (row[col], row[2]), shape
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -22,14 +22,17 @@ Phases, in order; any failure raises and the process exits non-zero:
      and the topology and netlist of the drawing's classical wire mask
      with its drawn component boxes;
   5. kernels at L@1024 — all seven kernels against their plain versions
-     at every shape the Hiera-L@1024 path launches them with (SDPA timed
-     beside flash attention as its library yardstick; the flash_attn and
-     mlp_block rows, here and at t@512, also print their rate in
-     TFLOP/s), then the bf16 launch plans of flash_attn and mlp_block
-     against the kernels' own shared-memory sizes, the window and q-pool
-     blocks at every L@1024 window shape through both routes (one block
-     per window where it fits shared memory, and the tiled route), and
-     the route rule against the kernels' own shared-memory sizes;
+     at every shape the Hiera-L@1024 path launches them with, and the
+     shapes only its float32 route launches (SDPA timed beside flash
+     attention as its library yardstick; the six Hiera kernels' rows,
+     here and at t@512, also print their rate in TFLOP/s; the ln_qkv and
+     attn_proj_residual rows one `F.linear`'s time, cuBLAS's product
+     alone), then the bf16 launch plans of flash_attn, mlp_block, ln_qkv
+     and attn_proj_residual against the kernels' own shared-memory sizes,
+     the window and q-pool blocks at every L@1024 window shape through
+     both routes (the one-block kernel where the route rule gives it,
+     and the tiled route), and the route rule against the kernels' own
+     shared-memory sizes in both dtypes;
   6. main path at L@1024 — analyze() at YOLOv11-s@640 + SAM2 Hiera-L@1024
      (the default SAM2Config, bfloat16, seeded weights): one warm-up,
      three timed runs with exact launch counts, then SAM2's logits in
@@ -71,20 +74,20 @@ REPO = Path(__file__).resolve().parent
 #: launches of each kernel in one analyze(), and the window and q-pool
 #: calls that took the tiled route. t@512: 12 Hiera blocks; windowed
 #: blocks 0 and 2; q-pool transitions 1 and 3; global blocks below the
-#: flash threshold; one head. L@1024: 48 blocks; windowed blocks 0-1 and
-#: 3-7 in one block per window, the 32 stage-3 and 3 stage-4 windows
-#: tiled; q-pool 8 in one block, 2 and 44 tiled; global 23, 33, 43. The
-#: tiled calls launch ln_qkv (twice for a q-pool: q/k/v and the
+#: flash threshold; one head. L@1024 (bf16): 48 blocks; windowed blocks
+#: 0-1 and 3-7 in one block per window, the 32 stage-3 and 3 stage-4
+#: windows tiled; q-pool 2 and 8 in one block, 44 tiled; global 23, 33,
+#: 43. The tiled calls launch ln_qkv (twice for a q-pool: q/k/v and the
 #: shortcut), flash_attn and attn_proj_residual once each.
 EXPECTED = {
     "t@512": {"mlp_block": 12, "window_attn_block": 2, "qpool_attn_block": 2, "refinement": 1,
               "ln_qkv": 0, "flash_attn": 0, "attn_proj_residual": 0,
               "enhance_lines_fused": 0, "fused_layernorm": 0, "fused_add_layernorm": 0,
               "window_attn_block.tiled": 0, "qpool_attn_block.tiled": 0},
-    "l@1024": {"mlp_block": 48, "window_attn_block": 7, "qpool_attn_block": 1, "refinement": 1,
-               "ln_qkv": 42, "flash_attn": 40, "attn_proj_residual": 40,
+    "l@1024": {"mlp_block": 48, "window_attn_block": 7, "qpool_attn_block": 2, "refinement": 1,
+               "ln_qkv": 40, "flash_attn": 39, "attn_proj_residual": 39,
                "enhance_lines_fused": 0, "fused_layernorm": 0, "fused_add_layernorm": 0,
-               "window_attn_block.tiled": 35, "qpool_attn_block.tiled": 2},
+               "window_attn_block.tiled": 35, "qpool_attn_block.tiled": 1},
 }
 #: the batched path at s@640 + t@512: BATCH_IMAGES drawings in chunks of
 #: BATCH_SIZE; the Hiera kernels launch once per chunk (the chunk's crops
@@ -136,7 +139,8 @@ SOURCES = {
 L_WINDOWS = [(1024, 64, 144, 2), (1024, 16, 288, 4), (16, 256, 576, 8), (16, 64, 1152, 16)]
 L_QPOOLS = [(1024, 8, 144, 288, 4), (1024, 4, 288, 576, 8), (16, 16, 576, 1152, 16)]
 #: kernels whose rows also print their rate, operations ÷ kernel time
-TFLOPS_ROWS = ("flash_attn", "mlp_block", "ln_qkv", "window_attn_block")
+TFLOPS_ROWS = ("flash_attn", "mlp_block", "ln_qkv", "window_attn_block", "attn_proj_residual",
+               "qpool_attn_block")
 #: H100 SXM peaks (NVIDIA data sheet, dense): memory, bf16 tensor, f32
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -340,8 +344,16 @@ def case_builders(torch):
             args = (rnd(gen, dt, b, rows, c), rnd(gen, dt, b, heads, n, c // heads),
                     rnd(gen, dt, c, c, scale=c ** -0.5), rnd(gen, dt, c, scale=0.02))
             kw = dict(pool_win=pool_win, round_proj=round_proj)
+            # cuBLAS's product alone, with its bias, over the heads already
+            # concatenated: how far the kernel's GEMM is from a library
+            # GEMM (not its library time: no call does head gather +
+            # product + residual)
+            a_cat = args[1].permute(0, 2, 1, 3).reshape(b, n, c).contiguous()
             return dict(kernel=lambda: ga.attn_proj_residual(*args, **kw),
                         plain=lambda: ga.attn_proj_residual_plain(*args, **kw),
+                        plan=ga.proj_res_plan(b * n, c),
+                        linear=lambda: F.linear(a_cat, args[2], args[3]),
+                        library_note="no call does head gather + product + residual",
                         bytes=size(*args) + b * n * c * args[0].element_size(),
                         flops=2 * b * n * c * c, math_dt=dt)
         return make
@@ -423,13 +435,15 @@ def kernel_cases(torch, path, raster_counts=None):
         ("mlp_block", "T=1024 C=1152", 4, b["mlp"](1024, 1152)),
         ("window_attn_block", "1024 windows x 64 tokens C=144 heads=2", 2, b["window"](1024, 64, 144, 2)),
         ("window_attn_block", "1024 windows x 16 tokens C=288 heads=4", 5, b["window"](1024, 16, 288, 4)),
+        ("qpool_attn_block", "1024 windows win=8 C=144->288 heads=4", 1, b["qpool"](1024, 8, 144, 288, 4)),
         ("qpool_attn_block", "1024 windows win=4 C=288->576 heads=8", 1, b["qpool"](1024, 4, 288, 576, 8)),
         ("refinement", "1x1024x1024", 1, b["refine"](1024, 1024)),
         ("ln_qkv", "global 1x4096 C=576 heads=8", 3, b["ln_qkv"](1, 4096, 576, 576, 8, 3)),
         ("ln_qkv", "16 windows x 256 C=576 heads=8", 32, b["ln_qkv"](16, 256, 576, 576, 8, 3)),
         ("ln_qkv", "16 windows x 64 C=1152 heads=16", 3, b["ln_qkv"](16, 64, 1152, 1152, 16, 3)),
-        ("ln_qkv", "q-pool 1024 windows x 64 C=144->288 qkv", 1, b["ln_qkv"](1024, 64, 144, 288, 4, 3)),
-        ("ln_qkv", "q-pool 1024 windows x 64 C=144->288 shortcut", 1,
+        ("ln_qkv", "q-pool 1024 windows x 64 C=144->288 qkv (f32 route)", 0,
+         b["ln_qkv"](1024, 64, 144, 288, 4, 3)),
+        ("ln_qkv", "q-pool 1024 windows x 64 C=144->288 shortcut (f32 route)", 0,
          b["ln_qkv"](1024, 64, 144, 288, 1, 1)),
         ("ln_qkv", "q-pool 16 windows x 256 C=576->1152 qkv", 1, b["ln_qkv"](16, 256, 576, 1152, 16, 3)),
         ("ln_qkv", "q-pool 16 windows x 256 C=576->1152 shortcut", 1,
@@ -437,7 +451,7 @@ def kernel_cases(torch, path, raster_counts=None):
         ("flash_attn", "global 1x8 heads N=4096 D=72", 3, b["flash"](1, 8, 4096, 4096, 72)),
         ("flash_attn", "16 windows x 8 heads N=256 D=72", 32, b["flash"](16, 8, 256, 256, 72)),
         ("flash_attn", "16 windows x 16 heads N=64 D=72", 3, b["flash"](16, 16, 64, 64, 72)),
-        ("flash_attn", "q-pool 1024 windows x 4 heads Nq=16 Nk=64 D=72", 1,
+        ("flash_attn", "q-pool 1024 windows x 4 heads Nq=16 Nk=64 D=72 (f32 route)", 0,
          b["flash"](1024, 4, 64, 64, 72, pool_win=8)),
         ("flash_attn", "q-pool 16 windows x 16 heads Nq=64 Nk=256 D=72", 1,
          b["flash"](16, 16, 256, 256, 72, pool_win=16)),
@@ -446,7 +460,7 @@ def kernel_cases(torch, path, raster_counts=None):
          b["proj"](16, 256, 576, 8, round_proj=True)),
         ("attn_proj_residual", "16 windows x 64 C=1152 heads=16", 3,
          b["proj"](16, 64, 1152, 16, round_proj=True)),
-        ("attn_proj_residual", "q-pool 1024 windows x 16 C=288 heads=4", 1,
+        ("attn_proj_residual", "q-pool 1024 windows x 16 C=288 heads=4 (f32 route)", 0,
          b["proj"](1024, 16, 288, 4, pool_win=8, round_proj=True)),
         ("attn_proj_residual", "q-pool 16 windows x 64 C=1152 heads=16", 1,
          b["proj"](16, 64, 1152, 16, pool_win=16, round_proj=True)),
@@ -513,15 +527,16 @@ def run_kernels(torch, path, raster_counts=None):
 
 
 def check_plans(torch):
-    """The bf16 launch plans of flash_attn, mlp_block and ln_qkv against
-    the kernels' own shared-memory sizes, at every shape of both paths."""
+    """The bf16 launch plans of flash_attn, mlp_block, ln_qkv and
+    attn_proj_residual against the kernels' own shared-memory sizes, at
+    every shape of both paths."""
     from circuitvision_tpu_torch.ops.cuda import flash_attn as fa
     from circuitvision_tpu_torch.ops.cuda import mlp_block as mb
     from circuitvision_tpu_torch.ops.cuda.build import library
 
     fl, ml, gl = library("flash_attn"), library("mlp_block"), library("global_attn")
     for name, label, _count, make in kernel_cases(torch, "t@512") + kernel_cases(torch, "l@1024"):
-        if name not in ("flash_attn", "mlp_block", "ln_qkv"):
+        if name not in ("flash_attn", "mlp_block", "ln_qkv", "attn_proj_residual"):
             continue
         case = make(torch.bfloat16, torch.Generator(device="cuda").manual_seed(0))
         plan = case["plan"]
@@ -530,6 +545,8 @@ def check_plans(torch):
         elif name == "ln_qkv":
             ok = gl.cv_ln_heads_ln_smem(case["width"]) == plan.ln_smem and \
                 gl.cv_ln_heads_gemm_smem(plan.gemm.bm) == plan.gemm.smem
+        elif name == "attn_proj_residual":  # ln_qkv's GEMM kernel, its own plan
+            ok = gl.cv_ln_heads_gemm_smem(plan.bm) == plan.smem
         else:
             ok = ml.cv_mlp_ln_smem(case["width"]) == plan.ln_smem and all(
                 ml.cv_mlp_gemm_smem(g.bm) == g.smem for g in (plan.gemm1, plan.gemm2))
@@ -554,8 +571,10 @@ def run_routes(torch):
             if lib.cv_window_attn_smem(t, c, code) != window_smem("window", t, c, c, dt):
                 raise AssertionError(f"window_smem disagrees with the kernel at T={t} C={c} {dt}")
     for win, ci, co in [(8, 96, 192), (4, 192, 384)] + [(w, ci, co) for _n, w, ci, co, _h in L_QPOOLS]:
-        if lib.cv_qpool_attn_smem(win, ci, co) != window_smem("qpool", win * win, ci, co):
-            raise AssertionError(f"qpool smem disagrees with the kernel at win={win} {ci}->{co}")
+        for code, dt in enumerate((torch.float32, torch.bfloat16)):
+            if lib.cv_qpool_attn_smem(win, ci, co, code) != window_smem("qpool", win * win, ci, co, dt):
+                raise AssertionError(f"qpool smem disagrees with the kernel at win={win} "
+                                     f"{ci}->{co} {dt}")
     b = case_builders(torch)
     cases = [("window_attn_block", f"{nw} windows x {t} tokens C={c} heads={h}",
               ("window", t, c, c), b["window"](nw, t, c, h)) for nw, t, c, h in L_WINDOWS]

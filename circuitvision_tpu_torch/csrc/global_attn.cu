@@ -17,7 +17,9 @@
 // bf16 activations, ~430 and ~190 FLOP/byte — about the bf16 ridge
 // (295), so the products are the limit once they run on tensor cores.
 // Per Hiera-L@1024 analyze(), ln_qkv's 42 launches are ≈ 350 GFLOP
-// (bound 0.39 ms at 989 TFLOP/s).
+// (bound 0.39 ms at 989 TFLOP/s); attn_proj_residual's 40 are ≈ 109
+// GFLOP (0.11 ms) against ≈ 620 MB (0.186 ms): its q-pool launch reads
+// the full-resolution shortcut, 4 rows per output row, so bytes bound it.
 //
 // Which kernel is which:
 //   * ln_qkv, bfloat16 — two launches through tc_gemm.cuh, shared with
@@ -31,21 +33,32 @@
 //     stays in one head and goes out as one 4-byte store; the per-row
 //     and per-column parts of the address are computed once each. No
 //     transpose pass and no 72 → 128 lane pad (the pad only served the
-//     MXU). The FMA design it replaces read every weight element once
-//     per 16 rows and ran at ≈ 6.5 TFLOP/s. Measured per Hiera-L@1024
-//     analyze() (chip_smoke.py, H100 80GB HBM3 at 700 W, parent and this
-//     design in one call): 2.415 ms against 53.7–53.9, 150–185 TFLOP/s
-//     a launch at C_in = 576 and 1152, 56–74 at C_in = 144.
-//   * ln_qkv, float32 — ln_heads_kernel, f32 FMA loops: a block owns 16
-//     rows and a share of the output columns, normalises its rows in
-//     shared memory and streams its weight columns through staged tiles
-//     (common.cuh block_gemm); few rows (1024 at stage 4) split the
-//     columns until about four blocks per SM are in flight. TF32 would
-//     not hold the float32 card-against-CPU check.
-//   * attn_proj_residual, both dtypes — proj_res_kernel, the same FMA
-//     design with the head gather in its load and the residual (pooled
-//     where asked) in its epilogue; tensor cores for it are the next
-//     step.
+//     MXU). Measured per Hiera-L@1024 analyze() (chip_smoke.py, H100
+//     80GB HBM3 at 700 W): 2.415 ms against the FMA design's 53.7–53.9,
+//     150–185 TFLOP/s a launch at C_in = 576 and 1152, 56–74 at 144.
+//   * attn_proj_residual, bfloat16 — one launch of the same GEMM, its A
+//     operand concat_heads(o) read where it lies (HeadsA: the 16-byte
+//     piece at row b·N + i, depth h·hd + d comes from o[b][h][i][d..];
+//     hd is a multiple of 8, so no piece straddles two heads) and the
+//     residual in the epilogue (ProjResEpi): bias added to the f32
+//     accumulator, the projection rounded there where round_proj asks
+//     (the window routes) or not (the global blocks), the residual read
+//     as bf16 pairs — with pool_win, four pairs a row of C apart, their
+//     max taken in f32 — and one rounding at the store. No transpose
+//     pass, no f32 copy of the heads. The FMA design it replaces owned
+//     16 rows a block and read every weight element M/16 times at ≈ 8
+//     TFLOP/s (13.7 ms per L@1024 analyze()).
+//   * ln_qkv and attn_proj_residual, float32 — ln_heads_kernel and
+//     proj_res_kernel, f32 FMA loops: a block owns 16 rows and a share of
+//     the output columns and streams its weight columns through staged
+//     tiles (common.cuh block_gemm); few rows (1024 at stage 4) split the
+//     columns until about four blocks per SM are in flight. ln_heads
+//     normalises its rows in shared memory; proj_res gathers the heads as
+//     it loads and adds the residual (pooled where asked) as it stores.
+//     TF32 would not hold the float32 card-against-CPU check.
+// After this, no bf16 Hiera kernel of the port multiplies on the FMA
+// units: both of these, mlp_block, window_attn_block, qpool_attn_block
+// and flash_attn run their bf16 products on the tensor cores.
 #include <algorithm>
 
 #include "common.cuh"
@@ -172,21 +185,18 @@ cudaError_t launch_ln_heads(const void* x, const void* ln_s, const void* ln_b,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_proj_res(const void* x, const void* o, const void* w,
-                            const void* b, void* out, int rows_total, int n,
-                            int heads, int hd, int pool_win, int round_proj,
-                            cudaStream_t stream) {
+cudaError_t launch_proj_res_f32(const void* x, const void* o, const void* w, const void* b,
+                                void* out, int rows_total, int n, int heads, int hd,
+                                int pool_win, int round_proj, cudaStream_t stream) {
   size_t smem = proj_res_smem(heads * hd);
   cudaError_t err = cudaFuncSetAttribute(
-      proj_res_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      proj_res_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int c = heads * hd, cols = block_cols(rows_total, c);
   dim3 grid((rows_total + kRows - 1) / kRows, (c + cols - 1) / cols);
-  proj_res_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)x, (const T*)o, (const T*)w, (const T*)b, (T*)out, rows_total,
-      n, cols, heads, hd, pool_win, round_proj);
+  proj_res_kernel<float><<<grid, kThreads, smem, stream>>>(
+      (const float*)x, (const float*)o, (const float*)w, (const float*)b, (float*)out,
+      rows_total, n, cols, heads, hd, pool_win, round_proj);
   return cudaGetLastError();
 }
 
@@ -217,13 +227,71 @@ struct HeadsEpi {
   }
 };
 
+// attn_proj_residual's A operand, concat_heads(o) with o (B, heads, n,
+// HD): row r = b·n + i at depth kk = h·HD + d lies at o[b][h][i][d]; HD
+// a multiple of 8, so the 8 elements from kk on are in one head. HD is a
+// template argument: the GEMM asks for an address per 16-byte piece of
+// every k tile, and a division by a constant is a multiply.
+template <int HD>
+struct HeadsA {
+  int n, heads;
+  __device__ size_t at(int r, int kk, int) const {
+    const int b = r / n, i = r - b * n, h = kk / HD;
+    return (((size_t)b * heads + h) * n + i) * HD + (kk - h * HD);
+  }
+};
+
+// attn_proj_residual's store: out[r][c] = bf16(res + p) with p = acc +
+// bias[c], rounded to bf16 first where round_proj asks; res = x[r][c],
+// or with pool_win the max of the 2×2 patch of window-major rows whose
+// top-left row row(r) locates (b·pool_win² + 2·(i / m)·pool_win +
+// 2·(i % m), m = pool_win / 2). Residuals are read as bf16 pairs.
+struct ProjResEpi {
+  const bf16* bias;
+  const bf16* x;
+  bf16* out;
+  int c, n, pool_win, round_proj;
+  struct Row {
+    size_t out, res;  // element offsets of the output row and the residual row
+  };
+  struct Col {
+    float2 bb;
+    int col;
+  };
+  __device__ Row row(int r) const {
+    if (!pool_win) return {(size_t)r * c, (size_t)r * c};
+    const int m = pool_win / 2, b = r / n, i = r % n;
+    return {(size_t)r * c, ((size_t)b * pool_win * pool_win +
+                            (size_t)(2 * (i / m)) * pool_win + 2 * (i % m)) * c};
+  }
+  __device__ Col col(int cc) const {
+    return {tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(bias + cc)), cc};
+  }
+  __device__ float2 pair(size_t at) const {
+    return tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(x + at));
+  }
+  __device__ void store(Row r, Col cv, float v0, float v1) const {
+    const size_t at = r.res + cv.col;
+    float2 res = pair(at);
+    if (pool_win) {
+      const float2 a = pair(at + c), b = pair(at + (size_t)pool_win * c),
+                   d = pair(at + (size_t)(pool_win + 1) * c);
+      res = make_float2(fmaxf(fmaxf(res.x, a.x), fmaxf(b.x, d.x)),
+                        fmaxf(fmaxf(res.y, a.y), fmaxf(b.y, d.y)));
+    }
+    float2 p = make_float2(v0 + cv.bb.x, v1 + cv.bb.y);
+    if (round_proj) p = tc::unpack_bf16(tc::pack_bf16(p.x, p.y));
+    *reinterpret_cast<uint32_t*>(out + r.out + cv.col) = tc::pack_bf16(res.x + p.x, res.y + p.y);
+  }
+};
+
 }  // namespace
 
-// Shared-memory bytes of a float32 ln_qkv launch (the wrapper refuses
-// widths above the 227 KB a block can hold), of attn_proj_residual, and
-// of the bf16 path's LN pre-pass at width c_in and one GEMM block of bm
-// rows (the wrapper's plan, ops/cuda/global_attn.py ln_qkv_plan, must
-// agree).
+// Shared-memory bytes of a float32 ln_qkv or attn_proj_residual launch
+// (the wrapper refuses widths above the 227 KB a block can hold), and of
+// the bf16 path's LN pre-pass at width c_in and one GEMM block of bm rows
+// — the GEMM of both bf16 kernels (the wrappers' plans,
+// ops/cuda/global_attn.py ln_qkv_plan and proj_res_plan, must agree).
 extern "C" long long cv_ln_heads_smem(int c_in) {
   return (long long)ln_heads_smem(c_in);
 }
@@ -265,18 +333,35 @@ extern "C" int cv_ln_heads_bf16(const void* x, const void* ln_s, const void* ln_
       HeadsEpi{(const bf16*)b, (bf16*)out, n, heads, hd, c_out, (size_t)rows * c_out}, s);
 }
 
-// o (B, heads, N, hd); w (c, c); out (B, N, c); x (B, N, c), or
-// (B, N·4, c) window-major rows with pool_win > 0 (N = pool_win²/4).
-extern "C" int cv_proj_res(const void* x, const void* o, const void* w,
-                           const void* b, void* out, int batch, int n,
-                           int heads, int hd, int pool_win, int round_proj,
-                           int dtype, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_proj_res<float>(x, o, w, b, out, batch * n, n, heads, hd,
-                                  pool_win, round_proj, s);
-  if (dtype == 1)
-    return launch_proj_res<__nv_bfloat16>(x, o, w, b, out, batch * n, n, heads,
-                                          hd, pool_win, round_proj, s);
-  return (int)cudaErrorInvalidValue;
+// float32 on the FMA units. o (B, heads, N, hd); w (c, c); out (B, N,
+// c); x (B, N, c), or (B, N·4, c) window-major rows with pool_win > 0
+// (N = pool_win²/4).
+extern "C" int cv_proj_res_f32(const void* x, const void* o, const void* w, const void* b,
+                               void* out, int batch, int n, int heads, int hd, int pool_win,
+                               int round_proj, void* stream) {
+  return (int)launch_proj_res_f32(x, o, w, b, out, batch * n, n, heads, hd, pool_win,
+                                  round_proj, (cudaStream_t)stream);
+}
+
+// bfloat16 on the tensor cores: the same function and layouts through
+// tc_gemm.cuh's GEMM; o, w 16-byte aligned, x and b 4-byte, hd one of
+// the Hiera head widths 56, 72, 96 (b+, L, t/s); bm (128 or 64) from the
+// wrapper's plan (ops/cuda/global_attn.py proj_res_plan).
+extern "C" int cv_proj_res_bf16(const void* x, const void* o, const void* w, const void* b,
+                                void* out, int batch, int n, int heads, int hd, int pool_win,
+                                int round_proj, int bm, void* stream) {
+  if (batch < 1 || n < 1 || heads < 1 || pool_win < 0 || pool_win % 2)
+    return (int)cudaErrorInvalidValue;
+  const int c = heads * hd;
+  const ProjResEpi epi{(const bf16*)b, (const bf16*)x, (bf16*)out, c, n, pool_win, round_proj};
+  auto run = [&](auto a_layout) {
+    return (int)tcg::launch_gemm(bm, (const bf16*)o, (const bf16*)w, batch * n, c, c, epi,
+                                 (cudaStream_t)stream, a_layout);
+  };
+  switch (hd) {
+    case 56: return run(HeadsA<56>{n, heads});
+    case 72: return run(HeadsA<72>{n, heads});
+    case 96: return run(HeadsA<96>{n, heads});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

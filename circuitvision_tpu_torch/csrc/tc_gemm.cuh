@@ -1,14 +1,16 @@
 // The bf16 LN pre-pass and tensor-core GEMM shared by mlp_block.cu (the
 // MLP's two products) and global_attn.cu (ln_qkv's product with the
-// head-split store).
+// head-split store; attn_proj_residual's, reading the heads where they
+// lie, with the residual in its store).
 //
 // ln_rows_kernel: xn = bf16(LN(x)) for kLnRows rows a block, through
 // common.cuh's layernorm_rows as the f32 kernels run it, so xn is bit for
 // bit what they normalise.
 //
 // gemm_tc_kernel: out = epi(a·wᵀ) over an (m × n_cols) output, a (m, k)
-// row-major, w (n_cols, k) in torch Linear layout, both bf16 and
-// K-contiguous. A block owns a BM × 128 output tile, one warpgroup per 64
+// — row-major by default, or any layout whose 8-deep runs are contiguous
+// (the A layout type below) — and w (n_cols, k) in torch Linear layout,
+// both bf16. A block owns a BM × 128 output tile, one warpgroup per 64
 // rows, each issuing wgmma m64n128k16 (tc.cuh) over the 64-deep tiles of
 // a 3-stage cp.async ring (4 per tile): rows of 128 bytes, each 16-byte
 // chunk placed where the 128-byte swizzle expects it, so no TMA
@@ -22,6 +24,13 @@
 // col(c) a per-column value once per 8-column tile (its bias, its
 // address), and store(row value, col value, v0, v1) takes the f32
 // accumulators of columns c and c + 1 of row r and writes them.
+//
+// The A layout is a type with one member, at(r, kk, k): the element
+// offset of row r at depth kk (a multiple of 8) of an (m × k) operand,
+// whose 8 elements from there on are contiguous. RowMajorA, the default,
+// is the contiguous (m, k) operand of mlp_block and ln_qkv; it holds
+// nothing and is the kernel's last parameter, so their loads are what
+// they were before the parameter existed.
 #pragma once
 
 #include "common.cuh"
@@ -37,6 +46,10 @@ constexpr int kLnRows = 8;       // rows per block of the LN pre-pass (one per w
 constexpr int kGemmBK = 64;      // reduction depth of one staged tile: a 128-byte row
 constexpr int kGemmBN = 128;     // output columns per block: one m64n128 product
 constexpr int kGemmStages = 3;   // depth of the cp.async ring
+
+struct RowMajorA {
+  __device__ size_t at(int r, int kk, int k) const { return (size_t)r * k + kk; }
+};
 
 size_t ln_smem(int c) { return sizeof(float) * 2 * kLnRows * (size_t)c; }
 
@@ -73,10 +86,10 @@ cudaError_t launch_ln_rows(const bf16* x, const float* ln_s, const float* ln_b, 
   return cudaGetLastError();
 }
 
-template <int BM, typename Epi>
+template <int BM, typename Epi, typename ALayout>
 __global__ void __launch_bounds__(BM * 2)
 gemm_tc_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w, int m, int n_cols,
-               int k, Epi epi) {
+               int k, Epi epi, ALayout al) {
   constexpr int kThreadsG = BM * 2;  // a warpgroup of 128 threads per 64 rows
   constexpr int kABytes = BM * 128, kStage = (BM + kGemmBN) * 128;
   extern __shared__ unsigned char gsm[];
@@ -94,7 +107,7 @@ gemm_tc_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w, int m, in
     for (int e = tid; e < BM * 8; e += kThreadsG) {
       const int r = e / 8, c = e % 8, gr = m0 + r, gk = k0 + c * 8;
       const bool in = gr < m && gk < k;
-      tc::cp_async16(sa + tc::sw128_offset(r, c), a + (in ? (size_t)gr * k + gk : 0), in);
+      tc::cp_async16(sa + tc::sw128_offset(r, c), a + (in ? al.at(gr, gk, k) : 0), in);
     }
     for (int e = tid; e < kGemmBN * 8; e += kThreadsG) {
       const int r = e / 8, c = e % 8, gn = n0 + r, gk = k0 + c * 8;
@@ -146,20 +159,20 @@ gemm_tc_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w, int m, in
 }
 
 // One GEMM of block rows bm (128 or 64, the wrapper's plan).
-template <typename Epi>
+template <typename Epi, typename ALayout = RowMajorA>
 cudaError_t launch_gemm(int bm, const bf16* a, const bf16* w, int m, int n_cols, int k, Epi epi,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, ALayout al = ALayout()) {
   auto run = [&](auto kernel) {
     const size_t smem = gemm_smem(bm);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((n_cols + kGemmBN - 1) / kGemmBN, (m + bm - 1) / bm);
-    kernel<<<grid, bm * 2, smem, stream>>>(a, w, m, n_cols, k, epi);
+    kernel<<<grid, bm * 2, smem, stream>>>(a, w, m, n_cols, k, epi, al);
     return cudaGetLastError();
   };
-  if (bm == 128) return run(gemm_tc_kernel<128, Epi>);
-  if (bm == 64) return run(gemm_tc_kernel<64, Epi>);
+  if (bm == 128) return run(gemm_tc_kernel<128, Epi, ALayout>);
+  if (bm == 64) return run(gemm_tc_kernel<64, Epi, ALayout>);
   return cudaErrorInvalidValue;
 }
 

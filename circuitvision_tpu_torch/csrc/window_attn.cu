@@ -12,8 +12,10 @@
 // widths, at or above the bf16 ridge (295), so the products are the
 // limit. Per Hiera-L@1024 analyze() the 7 window_attn_block launches
 // (1024 windows of 64 tokens at C = 144, 1024 of 16 at C = 288) are
-// ≈ 83 GFLOP, 0.083 ms at 989 TFLOP/s; every block also streams all of
-// Wqkv and Wproj (8·C² bytes) from L2, 64 FLOPs per byte at 64 rows.
+// ≈ 83 GFLOP, 0.083 ms at 989 TFLOP/s, and the q-pool launch at win 4,
+// 288 → 576 ≈ 24.5 GFLOP, 0.025 ms. Every block also streams all its
+// weights from L2: 8·C² bytes for the window block's 64 rows, ≈ 2 MB for
+// that q-pool block's 128.
 //
 // window_attn_block, bfloat16 — window_tc_kernel, tensor cores. A block
 // owns 64 rows: one window at T = 64, four at T = 16 (two at T = 32), so
@@ -30,44 +32,105 @@
 //      whole depth C stream through a double buffer filled by cp.async,
 //      the next tile's copy in flight while this one's products run (the
 //      first Wproj tile's across the attention).
-//   3. Attention per (16-row slab, head), one warp each, on mma.sync:
-//      S = q·kᵀ over the slab's own window (T ≤ 64 keys: at T = 16 each
-//      window-head is one m16 tile against its 16 keys, not a masked
-//      64×64 tile), depth hd in 16-deep steps, the last half-step of
-//      hd = 72 (or 56) zeroed in registers; then the exact softmax —
-//      f32 scores × scale, max, exp and sum over the quad — with P
-//      rounded to bf16 as it becomes the A fragment of P·V (V through
-//      ldmatrix.trans); O = bf16(P·V) overwrites the slab's q columns.
-// Why mma.sync rather than wgmma: rows of the head width (144 bytes at
-// hd = 72) and of C = 144 or 288 (288, 576 bytes) are not whole 128-byte
-// swizzle spans, so wgmma's descriptors would need a re-laid copy of q,
-// k, v and o; the warp-level product reads them as they are, each row
-// padded by 16 bytes so the eight rows one ldmatrix reads fall in
-// distinct bank groups, and at 64 rows a block the products are small
-// enough that mma.sync's rate is not the limit. Shared memory (bf16): xn
-// 64 × (C + 8), q|k|v 64 × (3C + 8), two weight tiles 48 × (C + 8) —
-// 104,960 bytes at C = 144, so two blocks share an SM (113 registers a
-// thread); 206,336 at C = 288, one. T ∈ {16, 32, 64}; head widths 56,
-// 72 and 96, those of Hiera-b+, -L and -t/-s (template instances).
-// Measured per Hiera-L@1024 analyze() (chip_smoke.py, H100 80GB HBM3 at
-// 700 W, parent and this design in one call): 1.03 ms against the
-// FMA kernel's 16.77, 80 TFLOP/s at both shapes.
+//   3. Attention per (16-row slab, head), one warp each (attend16, shared
+//      with the q-pool kernel): S = q·kᵀ over the slab's own window (T ≤
+//      64 keys: at T = 16 each window-head is one m16 tile against its 16
+//      keys, not a masked 64×64 tile), depth hd in 16-deep steps, the
+//      last half-step of hd = 72 (or 56) zeroed in registers; then the
+//      exact softmax — f32 scores × scale, max, exp and sum over the
+//      quad — with P rounded to bf16 as it becomes the A fragment of P·V
+//      (V through ldmatrix.trans); O = bf16(P·V) overwrites the slab's q
+//      columns.
+// Why mma.sync rather than wgmma here: rows of the head width (144 bytes
+// at hd = 72) and of C = 144 or 288 (288, 576 bytes) are not whole
+// 128-byte swizzle spans, so wgmma's descriptors would need a re-laid
+// copy of q, k, v and o; the warp-level product reads them as they are,
+// each row padded by 16 bytes so the eight rows one ldmatrix reads fall
+// in distinct bank groups. Shared memory (bf16): xn 64 × (C + 8), q|k|v
+// 64 × (3C + 8), two weight tiles 48 × (C + 8) — 104,960 bytes at C =
+// 144, so two blocks share an SM; 206,336 at C = 288, one. T ∈ {16, 32,
+// 64}; head widths 56, 72 and 96, those of Hiera-b+, -L and -t/-s
+// (template instances). Measured per Hiera-L@1024 analyze()
+// (chip_smoke.py, H100 80GB HBM3 at 700 W): 1.03 ms against the FMA
+// kernel's 16.77, 80 TFLOP/s at both shapes.
 //
-// window_attn_block in float32, and qpool_attn_block in both dtypes —
-// one block per window, f32 FMA loops: the whole window (≤ 64 tokens) —
-// its LN output, q/k/v and scores — in shared memory as float32, so
-// each activation is read once and written once (the residual re-reads
-// the input tile from L2), as in the Pallas kernel, without its 128-row
-// window packing and block-diagonal masks. Buffers are reused (scores
-// in the LN buffer, each head's output over its q columns) so a
-// 64-token, 96-wide window needs 107 KB and two blocks share an SM. The
-// products run as staged-tile f32 FMA loops (common.cuh block_gemm);
-// TF32 would not hold the float32 card-against-CPU check.
+// qpool_attn_block, bfloat16 — ln_rows_kernel (tc_gemm.cuh, the LN
+// pre-pass of mlp_block and ln_qkv: xn = bf16(LN1(x)) through
+// layernorm_rows into a bf16 workspace) and qpool_tc_kernel. What bounds
+// the block kernel: every block streams all of Wskip, Wqkv and Wproj
+// (≈ 2 MB at 288 → 576) from L2 for the rows it owns, so rows per block
+// set the weight traffic (64 rows: 512 MB from L2 per call, ≈ 0.13 ms
+// alone on the card); and one block fills an SM's shared memory, so its
+// phases run one after another. The FMA design it replaces held one
+// window in f32 a block and read those weights 1024 times through 32×64
+// f32 tiles on the FMA units (6.7 ms at win 4, 11.5× slower than the
+// tiled route). The design:
+//   * A block owns 128 input rows — eight windows of win 4, or two of win
+//     8 — and emits 32 pooled rows, halving the weight traffic of a
+//     64-row block. Warp w owns rows 16w .. 16w + 15 and, once xn's
+//     rows have come in (one cp.async burst from the pre-pass's
+//     workspace), holds their A fragments in registers (c_in / 16 steps
+//     of 4 registers); xn's shared memory then serves the head groups.
+//   * Input-side products on wgmma m64n32k16 with A from registers: each
+//     warpgroup its 64 rows × the 32 columns of a weight tile, B read by
+//     the tensor cores from 64-deep 128-byte-swizzled panels (the
+//     16-byte pieces placed by cp.async where the swizzle expects them,
+//     so no TMA descriptor). Three tiles of 32 rows ring through shared
+//     memory, two in flight; the next copy is issued while the tile's
+//     wgmmas run. Tile j is Wskip's rows, then per head group (two heads,
+//     gw = 2·hd columns) the rows of its [q | k | v] columns of Wqkv.
+//     The depth is a template argument (c_in ∈ {96, 144, 192, 288}):
+//     with a runtime depth each wgmma sat behind a branch and ptxas
+//     serialised them, 4× slower.
+//   * Pool in the accumulators. wgmma's accumulator layout is mma's per
+//     warp, and a warp's 16 rows hold whole pool partners at both window
+//     sizes (win 4: row 4i + j, partners in lanes ^ 4 and ^ 16; win 8:
+//     rows 8i + j of i = 2s, 2s + 1, partners in lane ^ 4 and the
+//     thread's own row g + 8), so skip and q are pooled with shuffles and
+//     their full-resolution values never reach shared memory. The bias
+//     goes in first; rounding commutes with max, so one rounding after
+//     the max is the plain version's bf16(...) then pool. The pooled
+//     shortcut goes straight to the block's output rows.
+//   * Attention per head group, on mma.sync (attend16), four warps: two
+//     heads × two 16-query tiles, each against its 64 keys — at win 4
+//     four windows of 4 queries and 16 keys in one m16 tile under a
+//     block-diagonal mask (query r sees keys j with r / 4 == j / 16),
+//     exact since a masked score's exp is 0, chosen over four m16 tiles
+//     of 4 live rows each; at win 8 one window. O_h goes to its columns
+//     of o (32 × C_out).
+//   * out = bf16(skip + bf16(o·Wprojᵀ + b)) on mma.sync: o is 32 rows,
+//     so the product runs the other way round — each warp holds 18
+//     8-column units of one 16-row half for the whole depth, and Wproj
+//     streams through three tiles of all C_out rows × 32 deep, laid over
+//     the ring and the group's memory; the epilogue reads the shortcut
+//     back from the output rows.
+//   Shared memory (bf16, rows padded by 16 bytes): o 32 × (C_out + 8) and
+//   the biases (4·C_out) for the whole block; the weight ring 3 × 32 rows
+//   × ⌈C_in/64⌉ panels of 128 bytes; xn 128 × (C_in + 8), then a group's
+//   pooled q 32 × (2hd + 8) and k|v 128 × (4hd + 8), sized for hd ≤ 96;
+//   then the Wproj ring 3 × C_out × 40 over ring and group: 217,600
+//   bytes at 288 → 576 and 172,288 at 144 → 288, one block an SM
+//   (134–213 registers a thread). An even number of heads of width 56,
+//   72 or 96, C_out ≤ 576; other shapes take the tiled route.
+// After this, no bf16 Hiera kernel of the port multiplies on the FMA
+// units.
+//
+// float32 — window_attn_kernel and qpool_attn_kernel, one block per
+// window, f32 FMA loops: the whole window (≤ 64 tokens) — its LN output,
+// q/k/v and scores — in shared memory as float32, so each activation is
+// read once and written once (the residual re-reads the input tile from
+// L2), as in the Pallas kernel, without its 128-row window packing and
+// block-diagonal masks. Buffers are reused (scores in the LN buffer,
+// each head's output over its q columns) so a 64-token, 96-wide window
+// needs 107 KB and two blocks share an SM. The products run as
+// staged-tile f32 FMA loops (common.cuh block_gemm); TF32 would not hold
+// the float32 card-against-CPU check.
 #include <algorithm>
 #include <cmath>
 
 #include "common.cuh"
 #include "tc.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -228,6 +291,13 @@ using tc::bf16;
 constexpr int kTcRows = 64;               // rows a block owns: 64 / t windows
 constexpr int kTcBN = 48;                 // weight rows per staged tile
 constexpr int kTcWarps = kThreads / 32;   // 8
+constexpr int kQpRows = 128;              // input rows a q-pool block owns, 16 a warp
+constexpr int kQpOut = kQpRows / 4;       // pooled rows it emits
+constexpr int kQpGroupMax = 2 * 96;       // columns of a head group (two heads) at most
+constexpr int kQpBN = 32;                 // weight rows per staged q-pool input tile
+constexpr int kQpStages = 3;              // q-pool weight rings: two tiles in flight
+constexpr int kQpProjK = 32;              // depth of a staged Wproj tile
+constexpr int kQpUnits = 18;              // 8-column units of the projection a warp holds
 
 // Shared memory of one bf16 block at width c: xn (64 rows), q|k|v (64
 // rows of 3c) and two staged weight tiles (48 rows of c), all bf16, each
@@ -236,6 +306,131 @@ constexpr int kTcWarps = kThreads / 32;   // 8
 size_t window_tc_smem(int c) {
   return sizeof(bf16) * ((size_t)kTcRows * (c + 8) + (size_t)kTcRows * (3 * c + 8) +
                          (size_t)2 * kTcBN * (c + 8));
+}
+
+// Shared memory of one bf16 q-pool block, c_in → c_out (bf16, rows
+// padded by 16 bytes): the attention output (32 × c_out) and the skip
+// and qkv biases (4·c_out) for the whole block, and three staged weight
+// tiles (32 × c_in); beside them first xn (128 × c_in) until the warps
+// hold its fragments, then a head group's pooled q (32 × 2hd) and k|v
+// (128 × 4hd), sized for hd ≤ 96; at the end three staged Wproj tiles
+// (c_out × 32) over tiles and group.
+size_t qpool_tc_smem(int c_in, int c_out) {
+  const size_t keep = sizeof(bf16) * ((size_t)kQpOut * (c_out + 8) + 4 * (size_t)c_out);
+  const size_t ring = (size_t)kQpStages * ((c_in + 63) / 64) * kQpBN * 128;
+  const size_t group = sizeof(bf16) * std::max((size_t)kQpRows * (c_in + 8),
+                                               (size_t)kQpOut * (kQpGroupMax + 8) +
+                                                   (size_t)kQpRows * (2 * kQpGroupMax + 8));
+  const size_t proj = sizeof(bf16) * kQpStages * c_out * (kQpProjK + 8);
+  return keep + 1024 + std::max(ring + group, proj);  // + the swizzle's 1024-byte alignment
+}
+
+// Softmax attention of one 16-row query tile over nk ∈ {16, 32, 64} keys
+// for one head of width 8·NT, by one warp on mma.sync: S = q·kᵀ (the
+// whole row in registers, depth in 16-deep steps, an odd NT's last
+// half-step zeroed in q's and k's registers), the exact softmax — f32
+// scores × scale, max, exp and sum over the quad — with P rounded to
+// bf16 as it becomes the A fragment of P·V (V through ldmatrix.trans),
+// and O = bf16(P·V) to o. q, k, v point at the head's first column of
+// their first row (q stride ldq; k and v stride ldk). With MASK_Q > 0,
+// query row r sees only the keys j with r / MASK_Q == j / MASK_K:
+// several windows in one tile, a block-diagonal mask, exact since a
+// masked score's exp is 0. The warp syncs before it writes o, which may
+// be q itself.
+template <int NT, int MASK_Q = 0, int MASK_K = 1>
+__device__ __forceinline__ void attend16(const bf16* q, int ldq, const bf16* k, const bf16* v,
+                                         int ldk, int nk, bf16* o, int ldo, float scale) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t2 = 2 * (lane % 4);
+  const int nk8 = nk / 8;
+  constexpr int KS = (NT + 1) / 2;  // 16-deep steps over hd; an odd NT's last is half zero
+  float s[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const bool half = NT % 2 == 1 && ks == KS - 1;  // depth hd..hd+15 is the next columns'
+    uint32_t qf[4];
+    tc::ldsm_x4(qf, q + (lane % 16) * ldq + ks * 16 + (lane / 16) * 8);
+    if (half) qf[2] = qf[3] = 0u;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      if (16 * jj >= nk) break;
+      uint32_t bk[4];
+      tc::ldsm_x4(bk, k + (jj * 16 + lane % 8 + (lane / 16) * 8) * ldk + ks * 16 +
+                          ((lane / 8) % 2) * 8);
+      if (half) bk[1] = bk[3] = 0u;
+      tc::mma_bf16(s[2 * jj], qf, bk[0], bk[1]);
+      tc::mma_bf16(s[2 * jj + 1], qf, bk[2], bk[3]);
+    }
+  }
+  // rows g (e = 0, 1) and g + 8 (e = 2, 3), keys 8n + 2t + (e & 1); the
+  // four lanes of a quad hold a row's keys
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+    if (n < nk8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] *= scale;
+        if constexpr (MASK_Q > 0)
+          if ((g + 8 * (e >> 1)) / MASK_Q != (8 * n + t2 + (e & 1)) / MASK_K) s[n][e] = -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+    if (n < nk8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = expf(s[n][e] - mx[e >> 1]);
+        sum[e >> 1] += s[n][e];
+      }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+  }
+  // O = P·V: P rounded to bf16 as it becomes the A fragment
+  float acc[NT][4];
+#pragma unroll
+  for (int d = 0; d < NT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (16 * kk >= nk) break;
+    uint32_t pa[4];
+    pa[0] = tc::pack_bf16(s[2 * kk][0] / sum[0], s[2 * kk][1] / sum[0]);
+    pa[1] = tc::pack_bf16(s[2 * kk][2] / sum[1], s[2 * kk][3] / sum[1]);
+    pa[2] = tc::pack_bf16(s[2 * kk + 1][0] / sum[0], s[2 * kk + 1][1] / sum[0]);
+    pa[3] = tc::pack_bf16(s[2 * kk + 1][2] / sum[1], s[2 * kk + 1][3] / sum[1]);
+    const bf16* vrow = v + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * ldk;
+#pragma unroll
+    for (int dp = 0; dp < NT / 2; ++dp) {
+      uint32_t bv[4];
+      tc::ldsm_x4_t(bv, vrow + dp * 16 + (lane / 16) * 8);
+      tc::mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
+      tc::mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
+    }
+    if constexpr (NT % 2 == 1) {
+      uint32_t bv[2];
+      tc::ldsm_x2_t(bv, vrow + (NT - 1) * 8);
+      tc::mma_bf16(acc[NT - 1], pa, bv[0], bv[1]);
+    }
+  }
+  __syncwarp();  // q is read; o may take the same columns
+#pragma unroll
+  for (int d = 0; d < NT; ++d) {
+    bf16* orow = o + g * ldo + 8 * d + t2;
+    *reinterpret_cast<uint32_t*>(orow) = tc::pack_bf16(acc[d][0], acc[d][1]);
+    *reinterpret_cast<uint32_t*>(orow + 8 * ldo) = tc::pack_bf16(acc[d][2], acc[d][3]);
+  }
 }
 
 // NT: the head width in 8-column tiles (hd = 8·NT). A block owns 64 rows
@@ -305,103 +500,16 @@ window_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
     const bool proj = j >= n_qkv;
     if (j == n_qkv) {
       __syncthreads();  // q, k, v are complete
-      // attention per (16-row slab, head), one warp each: S = q·kᵀ over
-      // the slab's window (t ≤ 64 keys, the whole row in registers),
-      // exact softmax, O = bf16(P·V) over the slab's q columns
-      const int nk8 = t / 8;
-      constexpr int KS = (NT + 1) / 2;  // 16-deep steps over hd; an odd NT's last is half zero
+      // attention per (16-row slab, head), one warp each, over the
+      // slab's window (at t = 16 each window-head is one m16 tile
+      // against its 16 keys, not a masked 64 × 64 tile); O = bf16(P·V)
+      // overwrites the slab's q columns
       for (int u = warp; u < 4 * heads; u += kTcWarps) {
         const int q0 = (u / heads) * 16, h = u % heads, key0 = q0 / t * t;
         if (key0 >= rows) continue;
-        const bf16* qb = qkv + h * hd;
-        const bf16* kb = qkv + c + h * hd;
-        const bf16* vb = qkv + 2 * c + h * hd;
-        float s[8][4];
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          const bool half = NT % 2 == 1 && ks == KS - 1;  // depth hd..hd+15 is the next columns'
-          uint32_t qf[4];
-          tc::ldsm_x4(qf, qb + (q0 + lane % 16) * ldq + ks * 16 + (lane / 16) * 8);
-          if (half) qf[2] = qf[3] = 0u;
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            if (16 * jj >= t) break;
-            uint32_t bk[4];
-            tc::ldsm_x4(bk, kb + (key0 + jj * 16 + lane % 8 + (lane / 16) * 8) * ldq + ks * 16 +
-                                ((lane / 8) % 2) * 8);
-            if (half) bk[1] = bk[3] = 0u;
-            tc::mma_bf16(s[2 * jj], qf, bk[0], bk[1]);
-            tc::mma_bf16(s[2 * jj + 1], qf, bk[2], bk[3]);
-          }
-        }
-        // rows g (e = 0, 1) and g + 8 (e = 2, 3), keys 8n + 2t + (e & 1);
-        // the four lanes of a quad hold a row's keys
-        float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          if (n < nk8)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              s[n][e] *= scale;
-              mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-            }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        }
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          if (n < nk8)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              s[n][e] = expf(s[n][e] - mx[e >> 1]);
-              sum[e >> 1] += s[n][e];
-            }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-          sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-        }
-        // O = P·V: P rounded to bf16 as it becomes the A fragment
-        float o[NT][4];
-#pragma unroll
-        for (int d = 0; d < NT; ++d)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          if (16 * kk >= t) break;
-          uint32_t pa[4];
-          pa[0] = tc::pack_bf16(s[2 * kk][0] / sum[0], s[2 * kk][1] / sum[0]);
-          pa[1] = tc::pack_bf16(s[2 * kk][2] / sum[1], s[2 * kk][3] / sum[1]);
-          pa[2] = tc::pack_bf16(s[2 * kk + 1][0] / sum[0], s[2 * kk + 1][1] / sum[0]);
-          pa[3] = tc::pack_bf16(s[2 * kk + 1][2] / sum[1], s[2 * kk + 1][3] / sum[1]);
-          const bf16* vrow = vb + (key0 + kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * ldq;
-#pragma unroll
-          for (int dp = 0; dp < NT / 2; ++dp) {
-            uint32_t bv[4];
-            tc::ldsm_x4_t(bv, vrow + dp * 16 + (lane / 16) * 8);
-            tc::mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
-            tc::mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
-          }
-          if constexpr (NT % 2 == 1) {
-            uint32_t bv[2];
-            tc::ldsm_x2_t(bv, vrow + (NT - 1) * 8);
-            tc::mma_bf16(o[NT - 1], pa, bv[0], bv[1]);
-          }
-        }
-        __syncwarp();  // this slab's q is read; its o takes the same columns
-#pragma unroll
-        for (int d = 0; d < NT; ++d) {
-          bf16* orow = qkv + (q0 + g) * ldq + h * hd + 8 * d + t2;
-          *reinterpret_cast<uint32_t*>(orow) = tc::pack_bf16(o[d][0], o[d][1]);
-          *reinterpret_cast<uint32_t*>(orow + 8 * ldq) = tc::pack_bf16(o[d][2], o[d][3]);
-        }
+        bf16* qh = qkv + q0 * ldq + h * hd;
+        const bf16* kh = qkv + key0 * ldq + c + h * hd;
+        attend16<NT>(qh, ldq, kh, kh + c, ldq, t, qh, ldq, scale);
       }
     }
     tc::cp_async_wait<0>();  // tile j has landed (the only group in flight)
@@ -452,6 +560,288 @@ window_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
   }
 }
 
+// The 2×2 max-pool of one 8-column unit of a warp's m16 product, in the
+// accumulators: v holds columns 2t, 2t + 1 of rows g (v[0], v[1]) and
+// g + 8 (v[2], v[3]) of the warp's 16 rows, window-major. win 4: the 16
+// rows are one window, row 4i + j; the partners of row g are rows g ^ 1
+// (lane ^ 4) and g ^ 4 (lane ^ 16). win 8: the rows are rows 2s, 2s + 1
+// of a window (s = slab % 4); row g's partners are row g ^ 1 (lane ^ 4)
+// and the thread's own g + 8. The lanes holding a pooled pair store it to
+// dst + (its pooled row) · ld where that row is below `limit`, the
+// pooled rows of slab s being 4s + 0..3. Every lane of the warp calls it.
+__device__ __forceinline__ void pool_store(const float (&v)[4], int win, int slab, bf16* dst,
+                                           int ld, int limit) {
+  const int g = (threadIdx.x % 32) / 4;
+  if (win == 4) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float a0 = v[2 * hr], a1 = v[2 * hr + 1];
+      a0 = fmaxf(a0, __shfl_xor_sync(0xffffffffu, a0, 4));
+      a1 = fmaxf(a1, __shfl_xor_sync(0xffffffffu, a1, 4));
+      a0 = fmaxf(a0, __shfl_xor_sync(0xffffffffu, a0, 16));
+      a1 = fmaxf(a1, __shfl_xor_sync(0xffffffffu, a1, 16));
+      const int row = 4 * slab + g / 2 + 2 * hr;  // g ∈ {0, 2} hold rows g / 2, 2 + g / 2
+      if ((g & 5) == 0 && row < limit)
+        *reinterpret_cast<uint32_t*>(dst + (size_t)row * ld) = tc::pack_bf16(a0, a1);
+    }
+  } else {
+    float a0 = fmaxf(v[0], v[2]), a1 = fmaxf(v[1], v[3]);
+    a0 = fmaxf(a0, __shfl_xor_sync(0xffffffffu, a0, 4));
+    a1 = fmaxf(a1, __shfl_xor_sync(0xffffffffu, a1, 4));
+    const int row = 4 * slab + g / 2;  // even g hold the pooled rows
+    if ((g & 1) == 0 && row < limit)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)row * ld) = tc::pack_bf16(a0, a1);
+  }
+}
+
+// The q-pool block in bf16: 128 input rows (eight 16-token windows of win
+// 4, or two 64-token windows of win 8) to 32 pooled rows, every product
+// on the tensor cores. NT: the head width in 8-column tiles; KS: c_in in
+// 16-deep steps (c_in = 16·KS, so every loop over depth and every load
+// has a compile-time shape, and no branch separates the wgmmas of a
+// tile, which would serialise them). xln holds xn = bf16(LN1(x)), the
+// LN pre-pass's output. Warp w owns input rows 16w .. 16w + 15 and keeps
+// their A fragments (xn) in registers for every input-side product, so
+// xn's shared memory goes to the head groups. The heads go in groups of two (gw = 2·hd columns);
+// input-side weight tile j (32 rows of c_in) is Wskip's rows for j <
+// n_skip, then, per group, rows of the group's [q | k | v] columns of
+// Wqkv. Rows past rows_total are zero and never stored.
+template <int NT, int KS>
+__global__ void __launch_bounds__(kThreads)
+qpool_tc_kernel(const bf16* __restrict__ xln, const bf16* __restrict__ wskip,
+                const bf16* __restrict__ bskip, const bf16* __restrict__ wqkv,
+                const bf16* __restrict__ bqkv, const bf16* __restrict__ wproj,
+                const bf16* __restrict__ bproj, bf16* __restrict__ out, int rows_total,
+                int win, int c_out, float scale) {
+  constexpr int hd = 8 * NT, gw = 2 * hd;  // a group's columns of q, of k and of v
+  constexpr int c_in = 16 * KS, chunks = c_in / 8;  // 16-byte pieces of an input row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ldo = c_out + 8;
+  constexpr int ldx = c_in + 8, ldq = gw + 8, ldkv = 2 * gw + 8, ldp = kQpProjK + 8;
+  bf16* o = reinterpret_cast<bf16*>(smem_raw);  // 32 × ldo: attention output
+  bf16* bias_s = o + kQpOut * ldo;              // c_out skip, 3·c_out qkv biases
+  // 3 weight tiles of 32 rows × c_in in 64-deep panels of 32 rows × 128
+  // bytes, 128-byte swizzled for wgmma, on the swizzle's 1024-byte
+  // alignment
+  constexpr int panels = (c_in + 63) / 64, stage_bytes = panels * kQpBN * 128;
+  const uint32_t raw = tc::smem_u32(bias_s + 4 * c_out), ring_u32 = (raw + 1023) & ~1023u;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(bias_s + 4 * c_out) + (ring_u32 - raw);
+  bf16* xn = reinterpret_cast<bf16*>(ring + kQpStages * stage_bytes);  // 128 × ldx: LN1(x)
+                                                // until the fragments are loaded; then:
+  bf16* qp = xn;                                // 32 × ldq: a group's pooled q
+  bf16* kv = qp + kQpOut * ldq;                 // 128 × ldkv: a group's k | v
+  bf16* pring = reinterpret_cast<bf16*>(ring);  // 3 × c_out × ldp: Wproj tiles, at the end
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t2 = 2 * (lane % 4);
+  const int r0 = blockIdx.x * kQpRows;
+  const int rows = min(kQpRows, rows_total - r0), out_rows = rows / 4;
+  const int heads = c_out / hd, n_groups = heads / 2;
+  const int n_skip = (c_out + kQpBN - 1) / kQpBN;
+  constexpr int n_grp = (3 * gw + kQpBN - 1) / kQpBN;
+  const int n_in = n_skip + n_groups * n_grp;
+  bf16* ob = out + (size_t)blockIdx.x * kQpOut * c_out;  // this block's output rows
+
+  // tile j: Wskip's (j < n_skip) or group grp's, its first column v0 of
+  // the section; a group column's part (q, k or v) by comparisons
+  auto tile_of = [&](int j, int& grp, int& v0) {
+    grp = j < n_skip ? -1 : (j - n_skip) / n_grp;
+    v0 = (grp < 0 ? j : j - n_skip - grp * n_grp) * kQpBN;
+  };
+  auto part_of = [](int vc) { return (vc >= gw) + (vc >= 2 * gw); };
+  // tile row r's 16-byte piece c (depth 8c) goes to panel c / 8 at its
+  // swizzled place; rows past the section's columns are zero-filled
+  auto load_w = [&](int j) {
+    int grp, v0;
+    tile_of(j, grp, v0);
+    unsigned char* dst = ring + (j % kQpStages) * stage_bytes;
+#pragma unroll
+    for (int e = tid; e < kQpBN * chunks; e += kThreads) {
+      const int r = e / chunks, c = e % chunks, vc = v0 + r;
+      const bf16* src = nullptr;
+      if (grp < 0) {
+        if (vc < c_out) src = wskip + (size_t)vc * c_in;
+      } else if (vc < 3 * gw) {
+        const int part = part_of(vc);
+        src = wqkv + (size_t)(part * c_out + grp * gw + vc - part * gw) * c_in;
+      }
+      tc::cp_async16(dst + (c / 8) * (kQpBN * 128) + tc::sw128_offset(r, c % 8),
+                     src ? src + 8 * c : wqkv, src != nullptr);
+    }
+  };
+  // the first two weight tiles in flight, one commit group each; then the
+  // biases and the block's rows of xn (the LN pre-pass's output; rows
+  // past `rows` zero) in one burst
+#pragma unroll
+  for (int s = 0; s < kQpStages - 1; ++s) {
+    if (s < n_in) load_w(s);
+    tc::cp_async_commit();
+  }
+  {
+    for (int e = tid; e < c_out / 8; e += kThreads) tc::cp_async16(bias_s + 8 * e, bskip + 8 * e, true);
+    for (int e = tid; e < 3 * c_out / 8; e += kThreads)
+      tc::cp_async16(bias_s + c_out + 8 * e, bqkv + 8 * e, true);
+    for (int e = tid; e < kQpRows * chunks; e += kThreads) {
+      const int r = e / chunks, c8 = (e % chunks) * 8;
+      tc::cp_async16(xn + r * ldx + c8, xln + (r < rows ? (size_t)(r0 + r) * c_in + c8 : 0),
+                     r < rows);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    __syncthreads();
+  }
+  // this warp's 16 rows of xn as mma A fragments, for every k step
+  uint32_t af[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    tc::ldsm_x4(af[ks], xn + (16 * warp + lane % 16) * ldx + ks * 16 + (lane / 16) * 8);
+  __syncthreads();  // xn is free for the groups' q, k, v
+
+  // attention of group grp: warps 0..3, head grp·2 + (w & 1) of query
+  // tile w / 2 — 16 pooled queries (four windows of win 4, a block-
+  // diagonal mask; one window of win 8) against that tile's 64 keys;
+  // O_h to its columns of o
+  auto attend_group = [&](int grp) {
+    if (warp < 4) {
+      const int hh = warp & 1, qt = warp / 2, col = hh * hd;
+      const bf16* q = qp + 16 * qt * ldq + col;
+      const bf16* k = kv + 64 * qt * ldkv + col;
+      bf16* oh = o + 16 * qt * ldo + grp * gw + col;
+      if (win == 4)
+        attend16<NT, 4, 16>(q, ldq, k, k + gw, ldkv, 64, oh, ldo, scale);
+      else
+        attend16<NT>(q, ldq, k, k + gw, ldkv, 64, oh, ldo, scale);
+    }
+  };
+
+  // the input-side products: each warpgroup its 64 rows × the tile's 32
+  // columns on wgmma, A (the warps' xn fragments) from registers, B from
+  // the swizzled tile, tile j + 2's copy issued while they run; skip and
+  // q pooled in the accumulators, skip straight to the output rows
+  for (int j = 0; j < n_in; ++j) {
+    if (j > n_skip && (j - n_skip) % n_grp == 0) {
+      __syncthreads();  // the previous group's q, k, v are complete
+      attend_group((j - n_skip) / n_grp - 1);
+    }
+    tc::cp_async_wait<kQpStages - 2>();  // tile j has landed
+    tc::fence_proxy_async();             // ... visible to wgmma
+    __syncthreads();  // ... for every thread; tile j − 1's buffer, q, k, v are free
+
+    const uint32_t stage = tc::smem_u32(ring + (j % kQpStages) * stage_bytes);
+    float acc[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+    tc::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)  // +32 bytes a step in a panel: +2 in the address field
+      tc::wgmma_m64n32k16_rs(acc, af[ks],
+                             tc::sw128_desc(stage + (ks / 4) * (kQpBN * 128)) + 2 * (ks % 4));
+    tc::wgmma_commit();
+    if (j + kQpStages - 1 < n_in) load_w(j + kQpStages - 1);
+    tc::cp_async_commit();
+
+    int grp, v0;
+    tile_of(j, grp, v0);
+    // the four 8-column units' parts and biases
+    int part[4];
+    float2 bb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int u = v0 + 8 * i;  // the unit's first column: one part
+      part[i] = u >= (grp < 0 ? c_out : 3 * gw) ? -1 : grp < 0 ? 0 : part_of(u);
+      const bf16* bias = bias_s + (grp < 0 ? u : c_out + part[i] * (c_out - gw) + grp * gw + u);
+      bb[i] = part[i] < 0 ? make_float2(0.f, 0.f)
+                          : tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(bias + t2));
+    }
+    tc::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (part[i] < 0) continue;  // past the section's columns
+      const float v[4] = {acc[4 * i] + bb[i].x, acc[4 * i + 1] + bb[i].y,
+                          acc[4 * i + 2] + bb[i].x, acc[4 * i + 3] + bb[i].y};
+      const int u = v0 + 8 * i, off = u - part[i] * gw;
+      if (grp < 0) {  // skip = pool(bf16(xn·Wskipᵀ + b)), to the output rows
+        pool_store(v, win, warp, ob + u + t2, c_out, out_rows);
+      } else if (part[i] == 0) {  // q = pool(bf16(xn·Wqᵀ + b))
+        pool_store(v, win, warp, qp + off + t2, ldq, kQpOut);
+      } else {  // k, v = bf16(xn·Wkvᵀ + b)
+        bf16* dst = kv + (part[i] - 1) * gw + off + t2;
+        *reinterpret_cast<uint32_t*>(dst + (16 * warp + g) * ldkv) = tc::pack_bf16(v[0], v[1]);
+        *reinterpret_cast<uint32_t*>(dst + (16 * warp + g + 8) * ldkv) =
+            tc::pack_bf16(v[2], v[3]);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  attend_group(n_groups - 1);
+  __syncthreads();  // o and the shortcut are complete; the weight tiles, q, k, v are free
+
+  // the projection, 32 rows × c_out: warp w takes query rows 16·(w & 1)
+  // and the 8-column units w / 2, w / 2 + 4, …, over depth c_out in
+  // staged Wproj tiles (all c_out rows, 32 deep) over the weight ring
+  const int units = c_out / 8, n_p = (c_out + kQpProjK - 1) / kQpProjK;
+  const int prow = 16 * (warp & 1), pu = warp / 2;
+  auto load_p = [&](int kt) {
+    const int k0 = kt * kQpProjK;
+    bf16* dst = pring + (kt % kQpStages) * c_out * ldp;
+    for (int e = tid; e < c_out * (kQpProjK / 8); e += kThreads) {
+      const int r = e / (kQpProjK / 8), c8 = (e % (kQpProjK / 8)) * 8;
+      const bool in = k0 + c8 < c_out;
+      tc::cp_async16(dst + r * ldp + c8, wproj + (in ? (size_t)r * c_out + k0 + c8 : 0), in);
+    }
+  };
+  float pacc[kQpUnits][4];
+#pragma unroll
+  for (int i = 0; i < kQpUnits; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pacc[i][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kQpStages - 1; ++s) {
+    if (s < n_p) load_p(s);
+    tc::cp_async_commit();
+  }
+  for (int kt = 0; kt < n_p; ++kt) {
+    tc::cp_async_wait<kQpStages - 2>();
+    __syncthreads();
+    if (kt + kQpStages - 1 < n_p) load_p(kt + kQpStages - 1);
+    tc::cp_async_commit();
+    const bf16* wt = pring + (kt % kQpStages) * c_out * ldp;
+    const int k0 = kt * kQpProjK;
+#pragma unroll
+    for (int ks = 0; ks < kQpProjK / 16; ++ks) {
+      if (k0 + ks * 16 >= c_out) break;
+      uint32_t a[4];
+      tc::ldsm_x4(a, o + (prow + lane % 16) * ldo + k0 + ks * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int i = 0; i < kQpUnits; ++i) {
+        const int u = pu + 4 * i;
+        if (u >= units) break;
+        uint32_t b[2];
+        tc::ldsm_x2(b, wt + (8 * u + lane % 8) * ldp + ks * 16 + ((lane / 8) % 2) * 8);
+        tc::mma_bf16(pacc[i], a, b[0], b[1]);
+      }
+    }
+  }
+  // out = bf16(skip + bf16(o·Wprojᵀ + b)), skip read back from the
+  // output rows this block wrote
+#pragma unroll
+  for (int i = 0; i < kQpUnits; ++i) {
+    const int col = 8 * (pu + 4 * i) + t2;
+    if (col >= c_out) break;
+    const float2 bb = tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(bproj + col));
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = prow + g + 8 * hr;
+      if (row >= out_rows) continue;
+      uint32_t* at = reinterpret_cast<uint32_t*>(ob + (size_t)row * c_out + col);
+      const float2 pr = tc::unpack_bf16(
+          tc::pack_bf16(pacc[i][2 * hr] + bb.x, pacc[i][2 * hr + 1] + bb.y));
+      const float2 sv = tc::unpack_bf16(*at);
+      *at = tc::pack_bf16(sv.x + pr.x, sv.y + pr.y);
+    }
+  }
+}
+
 template <int NT>
 cudaError_t launch_window_tc(const void* x, const void* ln_s, const void* ln_b,
                              const void* wqkv, const void* bqkv, const void* wproj,
@@ -488,6 +878,72 @@ cudaError_t launch_window_bf16(const void* x, const void* ln_s, const void* ln_b
   }
 }
 
+template <int NT, int KS>
+cudaError_t launch_qpool_tc(const void* xln, const void* wskip, const void* bskip,
+                            const void* wqkv, const void* bqkv, const void* wproj,
+                            const void* bproj, void* out, int rows_total, int win, int c_out,
+                            int heads, cudaStream_t stream) {
+  const size_t smem = qpool_tc_smem(16 * KS, c_out);
+  cudaError_t err = cudaFuncSetAttribute(
+      qpool_tc_kernel<NT, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  qpool_tc_kernel<NT, KS><<<(rows_total + kQpRows - 1) / kQpRows, kThreads, smem, stream>>>(
+      (const bf16*)xln, (const bf16*)wskip, (const bf16*)bskip, (const bf16*)wqkv,
+      (const bf16*)bqkv, (const bf16*)wproj, (const bf16*)bproj, (bf16*)out, rows_total, win,
+      c_out, head_scale(c_out, heads));
+  return cudaGetLastError();
+}
+
+// The head widths (NT) and input widths (KS = c_in / 16) the q-pool
+// kernel is built for: Hiera-b+, -L and -t/-s heads; the t/s and L
+// transitions' inputs.
+template <int NT>
+cudaError_t launch_qpool_depth(int c_in, const void* xn, const void* wskip, const void* bskip,
+                               const void* wqkv, const void* bqkv, const void* wproj,
+                               const void* bproj, void* out, int rows, int win, int c_out,
+                               int heads, cudaStream_t stream) {
+  auto run = [&](auto launch) {
+    return launch(xn, wskip, bskip, wqkv, bqkv, wproj, bproj, out, rows, win, c_out, heads,
+                  stream);
+  };
+  switch (c_in) {
+    case 96: return run(launch_qpool_tc<NT, 6>);
+    case 144: return run(launch_qpool_tc<NT, 9>);
+    case 192: return run(launch_qpool_tc<NT, 12>);
+    case 288: return run(launch_qpool_tc<NT, 18>);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The LN pre-pass (tc_gemm.cuh's ln_rows_kernel: xn = bf16(LN1(x))
+// through layernorm_rows, 8 rows a block, into the workspace xn of
+// n_win·win² × c_in), then the block kernel. win ∈ {4, 8}; c_in one of
+// 96, 144, 192, 288; c_out a multiple of 16 up to 4 × kQpUnits × 8 =
+// 576; an even number of heads (groups of two) of width 56, 72 or 96.
+cudaError_t launch_qpool_bf16(const void* x, const void* ln_s, const void* ln_b,
+                              const void* wskip, const void* bskip, const void* wqkv,
+                              const void* bqkv, const void* wproj, const void* bproj, void* out,
+                              void* xn, int n_win, int win, int c_in, int c_out, int heads,
+                              float eps, cudaStream_t stream) {
+  if ((win != 4 && win != 8) || n_win < 1 || c_out < 16 || c_out % 16 ||
+      c_out > 4 * kQpUnits * 8 || heads < 2 || heads % 2 || c_out % heads)
+    return cudaErrorInvalidValue;
+  const int rows = n_win * win * win;
+  cudaError_t err = tcg::launch_ln_rows((const bf16*)x, (const float*)ln_s, (const float*)ln_b,
+                                        (bf16*)xn, rows, c_in, eps, stream);
+  if (err != cudaSuccess) return err;
+  auto run = [&](auto launch) {
+    return launch(c_in, xn, wskip, bskip, wqkv, bqkv, wproj, bproj, out, rows, win, c_out, heads,
+                  stream);
+  };
+  switch (c_out / heads) {
+    case 56: return run(launch_qpool_depth<7>);
+    case 72: return run(launch_qpool_depth<9>);
+    case 96: return run(launch_qpool_depth<12>);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Shared-memory bytes a launch needs (the wrappers refuse shapes above
@@ -495,15 +951,16 @@ cudaError_t launch_window_bf16(const void* x, const void* ln_s, const void* ln_b
 extern "C" long long cv_window_attn_smem(int t, int c, int dtype) {
   return (long long)(dtype == 1 ? window_tc_smem(c) : window_smem(t, c));
 }
-extern "C" long long cv_qpool_attn_smem(int win, int c_in, int c_out) {
-  return (long long)qpool_smem(win, c_in, c_out);
+extern "C" long long cv_qpool_attn_smem(int win, int c_in, int c_out, int dtype) {
+  return (long long)(dtype == 1 ? qpool_tc_smem(c_in, c_out) : qpool_smem(win, c_in, c_out));
 }
 
 // dtype: 0 = float32 (window_attn_kernel, FMA loops), 1 = bfloat16
 // (window_tc_kernel, tensor cores; t ∈ {16, 32, 64}, c a multiple of 16,
-// head width 56, 72 or 96, every bf16 pointer 16-byte aligned). x is (n_win, t, c); weights in torch Linear layout: wqkv
-// (3c, c), wproj (c, c); ln_s and ln_b float32 for either dtype (here
-// and in cv_qpool_attn).
+// head width 56, 72 or 96, every bf16 pointer 16-byte aligned). x is
+// (n_win, t, c); weights in torch Linear layout: wqkv (3c, c), wproj
+// (c, c); ln_s and ln_b float32 for either dtype (here and in
+// cv_qpool_attn).
 extern "C" int cv_window_attn(const void* x, const void* ln_s,
                               const void* ln_b, const void* wqkv,
                               const void* bqkv, const void* wproj,
@@ -521,22 +978,25 @@ extern "C" int cv_window_attn(const void* x, const void* ln_s,
 }
 
 // x is (n_win·win², c_in) window-major rows; out (n_win·win²/4, c_out).
-// wskip (c_out, c_in), wqkv (3·c_out, c_in), wproj (c_out, c_out).
-extern "C" int cv_qpool_attn(const void* x, const void* ln_s,
-                             const void* ln_b, const void* wskip,
-                             const void* bskip, const void* wqkv,
-                             const void* bqkv, const void* wproj,
-                             const void* bproj, void* out, int n_win, int win,
-                             int c_in, int c_out, int heads, float eps,
-                             int dtype, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_qpool<float>(x, ln_s, ln_b, wskip, bskip, wqkv, bqkv, wproj,
-                               bproj, out, n_win, win, c_in, c_out, heads, eps,
-                               s);
-  if (dtype == 1)
-    return launch_qpool<__nv_bfloat16>(x, ln_s, ln_b, wskip, bskip, wqkv, bqkv,
-                                       wproj, bproj, out, n_win, win, c_in,
-                                       c_out, heads, eps, s);
-  return (int)cudaErrorInvalidValue;
+// wskip (c_out, c_in), wqkv (3·c_out, c_in), wproj (c_out, c_out); ln_s
+// and ln_b float32. float32 on the FMA units (qpool_attn_kernel).
+extern "C" int cv_qpool_attn_f32(const void* x, const void* ln_s, const void* ln_b,
+                                 const void* wskip, const void* bskip, const void* wqkv,
+                                 const void* bqkv, const void* wproj, const void* bproj,
+                                 void* out, int n_win, int win, int c_in, int c_out, int heads,
+                                 float eps, void* stream) {
+  return (int)launch_qpool<float>(x, ln_s, ln_b, wskip, bskip, wqkv, bqkv, wproj, bproj, out,
+                                  n_win, win, c_in, c_out, heads, eps, (cudaStream_t)stream);
+}
+
+// bfloat16 on the tensor cores: the same function and layouts, the
+// shapes launch_qpool_bf16 takes, every bf16 pointer 16-byte aligned; xn
+// a bf16 workspace of n_win·win² × c_in for the LN pre-pass.
+extern "C" int cv_qpool_attn_bf16(const void* x, const void* ln_s, const void* ln_b,
+                                  const void* wskip, const void* bskip, const void* wqkv,
+                                  const void* bqkv, const void* wproj, const void* bproj,
+                                  void* out, void* xn, int n_win, int win, int c_in, int c_out,
+                                  int heads, float eps, void* stream) {
+  return (int)launch_qpool_bf16(x, ln_s, ln_b, wskip, bskip, wqkv, bqkv, wproj, bproj, out, xn,
+                                n_win, win, c_in, c_out, heads, eps, (cudaStream_t)stream);
 }

@@ -49,9 +49,10 @@ SIGNATURES = {
     },
     "window_attn": {
         "cv_window_attn": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
-        "cv_qpool_attn": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
+        "cv_qpool_attn_f32": [_P] * 10 + [_I] * 5 + [_F, _P],
+        "cv_qpool_attn_bf16": [_P] * 11 + [_I] * 5 + [_F, _P],
         "cv_window_attn_smem": [_I, _I, _I],
-        "cv_qpool_attn_smem": [_I, _I, _I],
+        "cv_qpool_attn_smem": [_I] * 4,
     },
     "refinement": {
         "cv_refinement": [_P] * 12 + [_I] * 4 + [_P],
@@ -59,7 +60,8 @@ SIGNATURES = {
     "global_attn": {
         "cv_ln_heads_f32": [_P] * 6 + [_I] * 6 + [_F, _P],
         "cv_ln_heads_bf16": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
-        "cv_proj_res": [_P] * 5 + [_I] * 7 + [_P],
+        "cv_proj_res_f32": [_P] * 5 + [_I] * 6 + [_P],
+        "cv_proj_res_bf16": [_P] * 5 + [_I] * 7 + [_P],
         "cv_ln_heads_smem": [_I],
         "cv_proj_res_smem": [_I],
         "cv_ln_heads_ln_smem": [_I],

@@ -13,14 +13,17 @@ The large-window routes of the window and q-pool blocks
 (ops/cuda/window_attn.py) use them too, with one slab for the q-pool
 shortcut and the residual 2×2-pooled as it is read. The CUDA source is
 csrc/global_attn.cu; its header note says what bounds the kernels on the
-H100 and how the design answers that. In bfloat16, `ln_qkv` is a product
-bound by the tensor cores: an LN pre-pass into a bf16 workspace, then the
-wgmma GEMM that `mlp_block` uses (csrc/tc_gemm.cuh) with the head split
-in its epilogue's store address; `ln_qkv_plan` sizes it. In float32, and
-`attn_proj_residual` in both dtypes, f32 FMA loops. The plain versions
-compute the same functions with the kernels' numerics: f32 LayerNorm
-statistics in the fast-variance form, products accumulated in f32 and
-rounded to the compute dtype where the kernel stores them.
+H100 and how the design answers that. In bfloat16 both run on the tensor
+cores, through the wgmma GEMM that `mlp_block` uses (csrc/tc_gemm.cuh):
+`ln_qkv` as an LN pre-pass into a bf16 workspace and the GEMM with the
+head split in its epilogue's store address (`ln_qkv_plan`);
+`attn_proj_residual` as one GEMM whose A operand, concat_heads(o), is
+read where it lies, head by head, and whose epilogue adds the bias and
+the residual, pooled where asked (`proj_res_plan`). In float32, f32 FMA
+loops. The plain versions compute the same functions with the kernels'
+numerics: f32 LayerNorm statistics in the fast-variance form, products
+accumulated in f32 and rounded to the compute dtype where the kernel
+stores them.
 """
 from __future__ import annotations
 
@@ -30,8 +33,8 @@ import functools
 import torch
 
 from .build import (
-    MAX_SMEM, KernelError, check, check_aligned, check_ln_params, check_operands, dtype_code,
-    library, sm_count, stream_ptr,
+    MAX_SMEM, KernelError, check, check_aligned, check_ln_params, check_operands, library,
+    sm_count, stream_ptr,
 )
 from .mlp_block import H100_SMS, LN_ROWS, GemmPlan, gemm_tile, layernorm_f32, ln_smem
 
@@ -57,6 +60,23 @@ def ln_qkv_plan(m: int, k: int, n: int, sms: int = H100_SMS) -> LnQkvPlan:
         raise KernelError(f"ln_qkv: bfloat16 widths must be multiples of 8 in and 2 out; got "
                           f"C_in={k}, N={n}")
     return LnQkvPlan(-(-m // LN_ROWS), ln_smem(k), gemm_tile(m, n, sms), m * k)
+
+
+#: head widths the bf16 attn_proj_residual is built for (its A layout's
+#: template argument): those of Hiera-b+, -L and -t/-s
+PROJ_HEAD_WIDTHS = (56, 72, 96)
+
+
+@functools.lru_cache(maxsize=64)
+def proj_res_plan(m: int, c: int, sms: int = H100_SMS) -> GemmPlan:
+    """Block rows of the bf16 `attn_proj_residual` GEMM over its (m × c)
+    output at depth c (ops/cuda/mlp_block.py gemm_tile). The GEMM copies
+    the heads in 16-byte pieces that must not straddle two heads, so the
+    wrapper also holds the head width to PROJ_HEAD_WIDTHS (multiples of
+    8)."""
+    if c % 8:
+        raise KernelError(f"attn_proj_residual: bfloat16 width {c} is not a multiple of 8")
+    return gemm_tile(m, c, sms)
 
 
 def pool2x2_windows(a: torch.Tensor, win: int) -> torch.Tensor:
@@ -136,7 +156,8 @@ def attn_proj_residual(x, o, wproj, bproj, pool_win=0, round_proj=False):
     (B, pool_win², C) with N = pool_win²/4. `round_proj` rounds the
     projection to x's dtype before the add, as the window kernels do; the
     global blocks round once, at the end. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel (bfloat16: a head width of
+    PROJ_HEAD_WIDTHS, operands on 16-byte boundaries)."""
     if x.device.type == "cpu":
         return attn_proj_residual_plain(x, o, wproj, bproj, pool_win, round_proj)
     check_operands("attn_proj_residual", x, o, wproj, bproj)
@@ -147,13 +168,24 @@ def attn_proj_residual(x, o, wproj, bproj, pool_win=0, round_proj=False):
             or (pool_win and (pool_win % 2 or 4 * n != rows)):
         raise KernelError("attn_proj_residual: shapes of x, o and the weight do not match")
     lib = library("global_attn")
-    if lib.cv_proj_res_smem(c) > MAX_SMEM:
-        raise KernelError(f"attn_proj_residual: width {c} exceeds the kernel's shared memory")
     out = torch.empty((bsz, n, c), dtype=x.dtype, device=x.device)
-    err = lib.cv_proj_res(
-        x.data_ptr(), o.data_ptr(), wproj.data_ptr(), bproj.data_ptr(), out.data_ptr(),
-        bsz, n, heads, hd, pool_win, int(round_proj), dtype_code(x), stream_ptr(x),
-    )
+    if x.dtype == torch.bfloat16:
+        if hd not in PROJ_HEAD_WIDTHS:
+            raise KernelError(f"attn_proj_residual: the bfloat16 kernel takes head widths "
+                              f"{PROJ_HEAD_WIDTHS}; got {hd}")
+        plan = proj_res_plan(bsz * n, c, sm_count(x))
+        check_aligned("attn_proj_residual", x, o, wproj)
+        err = lib.cv_proj_res_bf16(
+            x.data_ptr(), o.data_ptr(), wproj.data_ptr(), bproj.data_ptr(), out.data_ptr(),
+            bsz, n, heads, hd, pool_win, int(round_proj), plan.bm, stream_ptr(x),
+        )
+    else:
+        if lib.cv_proj_res_smem(c) > MAX_SMEM:
+            raise KernelError(f"attn_proj_residual: width {c} exceeds the kernel's shared memory")
+        err = lib.cv_proj_res_f32(
+            x.data_ptr(), o.data_ptr(), wproj.data_ptr(), bproj.data_ptr(), out.data_ptr(),
+            bsz, n, heads, hd, pool_win, int(round_proj), stream_ptr(x),
+        )
     check(err, "attn_proj_residual")
     attn_proj_residual.launches += 1
     return out

@@ -1,5 +1,5 @@
 """Hiera windowed-attention halves as kernels, one block per window or,
-in bfloat16, per 64 rows of windows.
+in bfloat16, per 64 or 128 rows of windows.
 
 Replaces two Pallas kernels of the JAX package
 (circuitvision_tpu/ops/pallas/window_attn.py):
@@ -12,24 +12,27 @@ Replaces two Pallas kernels of the JAX package
     win²/4 rows per window.
 
 The CUDA source is csrc/window_attn.cu; its header note says what bounds
-the kernels on the H100 and how the design answers that. In bfloat16,
-`window_attn_block` runs its products and its attention on the tensor
-cores, a block owning 64 rows (64 / T windows of T ∈ {16, 32, 64}); in
-float32, and `qpool_attn_block` in both dtypes, f32 FMA loops with one
-window a block. The plain versions beside them compute the same
-functions with the kernels' numerics: f32 LayerNorm statistics, f32
-scores and softmax scaled by 1/sqrt(head width), products accumulated in
-f32, and values rounded to the compute dtype where the kernel stores
-them.
+the kernels on the H100 and how the design answers that. In bfloat16
+both run their products and their attention on the tensor cores:
+`window_attn_block` on mma.sync, a block owning 64 rows (64 / T windows
+of T ∈ {16, 32, 64}); `qpool_attn_block` as an LN pre-pass into a bf16
+workspace and a block owning 128 rows (eight windows of win 4 or two of
+win 8) that runs its input-side products on wgmma with xn in registers,
+pools skip and q in the accumulators and takes its heads two at a time.
+In float32, f32 FMA loops with one window a block. The plain versions
+beside them compute the same functions with the kernels' numerics: f32
+LayerNorm statistics, f32 scores and softmax scaled by 1/sqrt(head
+width), products accumulated in f32, and values rounded to the compute
+dtype where the kernel stores them.
 
 A window that does not fit the one-block kernel (`window_route`: its
-shared memory, and in bfloat16 its 64-row block; the Hiera-L stage-3
-and stage-4 windows, two of its q-pool transitions) takes the tiled
-route instead, which computes the same function with three kernels
-batched over the windows: `ln_qkv`, `flash_attn` and
-`attn_proj_residual` (ops/cuda/global_attn.py, ops/cuda/flash_attn.py),
-rounding q/k/v, the attention output and the projection where the
-one-block kernels do.
+shared memory in the dtype, and in bfloat16 the shapes the kernels are
+built for; the Hiera-L stage-3 and stage-4 windows and its last q-pool
+transition, and in float32 its first as well) takes the tiled route
+instead, which computes the same function with three kernels batched
+over the windows: `ln_qkv`, `flash_attn` and `attn_proj_residual`
+(ops/cuda/global_attn.py, ops/cuda/flash_attn.py), rounding q/k/v, the
+attention output and the projection where the one-block kernels do.
 """
 from __future__ import annotations
 
@@ -53,19 +56,41 @@ _WEIGHT_TILE = 32 * 65
 TC_ROWS, TC_BN = 64, 48
 TC_TOKENS = (16, 32, 64)
 TC_HEAD_WIDTHS = (56, 72, 96)
-
+#: the bf16 q-pool kernel (qpool_tc_kernel): window sizes (win 4 and 8),
+#: input and pooled rows a block owns, columns of a head group (two
+#: heads of ≤ 96), weight rows of a staged input tile, stages of both
+#: weight rings, depth of a staged Wproj tile, the input widths it is
+#: built for (the t/s and L transitions'; its depth is a compile-time
+#: constant) and the widest output (8 warps × 18 units of 8 over two row
+#: tiles)
+TC_QPOOL_TOKENS = (16, 64)
+TC_QPOOL_ROWS, TC_QPOOL_OUT, TC_QPOOL_GROUP = 128, 32, 2 * 96
+TC_QPOOL_BN, TC_QPOOL_STAGES, TC_QPOOL_PROJ_K = 32, 3, 32
+TC_QPOOL_WIDTHS_IN, TC_QPOOL_MAX_OUT = (96, 144, 192, 288), 576
 
 def window_smem(kind: str, tokens: int, c_in: int, c_out: int,
                 dtype: torch.dtype = torch.float32) -> int:
     """Shared-memory bytes of the one-block kernel for a `tokens`-token
     window ("window": width c_in == c_out; "qpool": c_in → c_out) in
-    `dtype`, as csrc/window_attn.cu's window_smem, window_tc_smem and
-    qpool_smem compute them. The bf16 window kernel holds 64 rows of xn
-    and of q|k|v and two staged weight tiles, in bf16, each row padded by
-    16 bytes, whatever the window size."""
+    `dtype`, as csrc/window_attn.cu's window_smem, window_tc_smem,
+    qpool_smem and qpool_tc_smem compute them. The bf16 kernels hold 64
+    (window) or 128 (q-pool) rows whatever the window size, in bf16, each
+    row padded by 16 bytes: the window kernel xn, q|k|v and two staged
+    weight tiles; the q-pool kernel its attention output and three
+    staged weight tiles and its biases, beside them xn (from its LN
+    pre-pass) until the warps hold it in registers, then one head group's
+    pooled q and k|v, and at the end three staged Wproj tiles over tiles
+    and group."""
     t = tokens
-    if kind == "window" and dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and kind == "window":
         return 2 * ((TC_ROWS + 2 * TC_BN) * (c_in + 8) + TC_ROWS * (3 * c_in + 8))
+    if dtype == torch.bfloat16 and kind == "qpool":
+        ring = TC_QPOOL_STAGES * -(-c_in // 64) * TC_QPOOL_BN * 128  # swizzled 64-deep panels
+        group = 2 * max(TC_QPOOL_ROWS * (c_in + 8),
+                        TC_QPOOL_OUT * (TC_QPOOL_GROUP + 8) + TC_QPOOL_ROWS * (2 * TC_QPOOL_GROUP + 8))
+        proj = 2 * TC_QPOOL_STAGES * c_out * (TC_QPOOL_PROJ_K + 8)
+        keep = 2 * (TC_QPOOL_OUT * (c_out + 8) + 4 * c_out)
+        return keep + 1024 + max(ring + group, proj)
     if kind == "window":
         floats = max(t * c_in, t * t) + 3 * t * c_in
     elif kind == "qpool":
@@ -79,9 +104,14 @@ def window_smem(kind: str, tokens: int, c_in: int, c_out: int,
 def window_route(kind: str, tokens: int, c_in: int, c_out: int,
                  dtype: torch.dtype = torch.float32) -> str:
     """"block" where one window fits the one-block kernel — its shared
-    memory and, for the bf16 window kernel, a share of its 64 rows (T ∈
-    {16, 32, 64}) — else "tiled"."""
-    if kind == "window" and dtype == torch.bfloat16 and tokens not in TC_TOKENS:
+    memory in `dtype` and, for the bf16 kernels, a share of their 64 rows
+    (window: T ∈ {16, 32, 64}; q-pool: win 4 or 8, C_in one of
+    TC_QPOOL_WIDTHS_IN, C_out ≤ 576) — else "tiled"."""
+    if dtype == torch.bfloat16 and (
+            (kind == "window" and tokens not in TC_TOKENS)
+            or (kind == "qpool" and (tokens not in TC_QPOOL_TOKENS
+                                     or c_in not in TC_QPOOL_WIDTHS_IN
+                                     or c_out > TC_QPOOL_MAX_OUT))):
         return "tiled"
     return "block" if window_smem(kind, tokens, c_in, c_out, dtype) <= MAX_SMEM else "tiled"
 
@@ -191,18 +221,28 @@ def qpool_attn_block(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj,
     if win % 2 or rows % t or wskip.shape != (c_out, c_in) \
             or wqkv.shape != (3 * c_out, c_in) or c_out % heads:
         raise KernelError("qpool_attn_block: shapes do not match an even window")
-    if window_route("qpool", t, c_in, c_out) == "tiled":
+    if window_route("qpool", t, c_in, c_out, x.dtype) == "tiled":
         qpool_attn_block.tiled += 1
         return qpool_attn_block_tiled(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv,
                                       wproj, bproj, heads, win, eps)
+    if x.dtype == torch.bfloat16:
+        if c_out % 16 or heads % 2 or c_out // heads not in TC_HEAD_WIDTHS:
+            raise KernelError(f"qpool_attn_block: the bfloat16 kernel takes C_out a multiple "
+                              f"of 16, an even number of heads and head widths "
+                              f"{TC_HEAD_WIDTHS}; got C_out={c_out}, heads={heads}")
+        check_aligned("qpool_attn_block", x, wskip, wqkv, wproj)
     lib = library("window_attn")
     out = torch.empty((rows // 4, c_out), dtype=x.dtype, device=x.device)
-    err = lib.cv_qpool_attn(
-        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wskip.data_ptr(),
-        bskip.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
-        bproj.data_ptr(), out.data_ptr(), rows // t, win, c_in, c_out, heads,
-        eps, dtype_code(x), stream_ptr(x),
-    )
+    args = (x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wskip.data_ptr(),
+            bskip.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
+            bproj.data_ptr(), out.data_ptr())
+    if x.dtype == torch.bfloat16:
+        xn = torch.empty_like(x)  # the LN pre-pass's output
+        err = lib.cv_qpool_attn_bf16(*args, xn.data_ptr(), rows // t, win, c_in, c_out, heads,
+                                     eps, stream_ptr(x))
+    else:
+        err = lib.cv_qpool_attn_f32(*args, rows // t, win, c_in, c_out, heads, eps,
+                                    stream_ptr(x))
     check(err, "qpool_attn_block")
     qpool_attn_block.launches += 1
     return out

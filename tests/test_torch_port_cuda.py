@@ -92,15 +92,24 @@ def test_window_attn_kernel(gen, dt, nw, t, c, heads):
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("win,ci,co,heads", [(8, 96, 192, 2), (4, 192, 384, 4)])
-def test_qpool_attn_kernel(gen, dt, win, ci, co, heads):
-    args = (_rnd(gen, dt, 8 * win * win, ci), 1 + _rnd(gen, F32, ci, scale=0.1),
+@pytest.mark.parametrize("nw,win,ci,co,heads", [(8, 8, 96, 192, 2), (8, 4, 192, 384, 4),
+                                                (12, 4, 288, 576, 8), (7, 4, 288, 576, 8),
+                                                (3, 8, 144, 288, 4)])
+def test_qpool_attn_kernel(gen, dt, nw, win, ci, co, heads):
+    """The t@512 shapes and the Hiera-L@1024 64-row shapes (win 4 288 →
+    576 with 8 heads, win 8 144 → 288 with 4; the latter tiled in float32)
+    with fewer windows, and at win 4 a window count that leaves the last
+    64-row block part empty."""
+    args = (_rnd(gen, dt, nw * win * win, ci), 1 + _rnd(gen, F32, ci, scale=0.1),
             _rnd(gen, F32, ci, scale=0.1), _rnd(gen, dt, co, ci, scale=ci ** -0.5),
             _rnd(gen, dt, co, scale=0.02), _rnd(gen, dt, 3 * co, ci, scale=ci ** -0.5),
             _rnd(gen, dt, 3 * co, scale=0.02), _rnd(gen, dt, co, co, scale=co ** -0.5),
             _rnd(gen, dt, co, scale=0.02))
+    block = wa.window_route("qpool", win * win, ci, co, dt) == "block"
+    before = wa.qpool_attn_block.launches
     _close(wa.qpool_attn_block(*args, heads=heads, win=win),
            wa.qpool_attn_block_plain(*args, heads=heads, win=win))
+    assert wa.qpool_attn_block.launches == before + block
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -147,13 +156,25 @@ def test_flash_attn_kernel(gen, dt, b, h, nq, nk, pool_win, d):
 @pytest.mark.parametrize("b,n,c,heads,pool_win,round_proj", [(1, 4096, 576, 8, 0, False),
                                                              (16, 256, 576, 8, 0, True),
                                                              (16, 64, 1152, 16, 16, True),
-                                                             (64, 16, 288, 4, 8, True)])
+                                                             (64, 16, 288, 4, 8, True),
+                                                             (4, 256, 576, 8, 0, False),
+                                                             (3, 100, 576, 8, 0, True),
+                                                             (8, 64, 384, 4, 0, False),
+                                                             (16, 16, 384, 4, 8, True)])
 def test_attn_proj_residual_kernel(gen, dt, b, n, c, heads, pool_win, round_proj):
+    """The Hiera-L@1024 shapes with fewer windows; 1024 rows at C = 576,
+    which the bf16 plan gives 64-row blocks; rows off the GEMM's tiles;
+    and head width 96 (Hiera-t/-s) with and without the pooled
+    residual."""
     rows = pool_win * pool_win if pool_win else n
     args = (_rnd(gen, dt, b, rows, c), _rnd(gen, dt, b, heads, n, c // heads),
             _rnd(gen, dt, c, c, scale=c ** -0.5), _rnd(gen, dt, c, scale=0.02))
     kw = dict(pool_win=pool_win, round_proj=round_proj)
+    if (b, n, c) == (4, 256, 576):
+        assert ga.proj_res_plan(b * n, c).bm == 64
+    before = ga.attn_proj_residual.launches
     _close(ga.attn_proj_residual(*args, **kw), ga.attn_proj_residual_plain(*args, **kw))
+    assert ga.attn_proj_residual.launches == before + 1
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -165,7 +186,7 @@ def test_window_attn_tiled_route(gen, dt, nw, t, c, heads):
             _rnd(gen, dt, 3 * c, c, scale=c ** -0.5), _rnd(gen, dt, 3 * c, scale=0.02),
             _rnd(gen, dt, c, c, scale=c ** -0.5), _rnd(gen, dt, c, scale=0.02))
     ref = wa.window_attn_block_plain(*args, heads=heads)
-    tiled = wa.window_route("window", t, c, c) == "tiled"
+    tiled = wa.window_route("window", t, c, c, dt) == "tiled"
     before = (wa.window_attn_block.tiled, wa.window_attn_block.launches)
     _close(wa.window_attn_block(*args, heads=heads), ref)
     assert (wa.window_attn_block.tiled, wa.window_attn_block.launches) == \
@@ -184,7 +205,7 @@ def test_qpool_attn_tiled_route(gen, dt, nw, win, ci, co, heads):
             _rnd(gen, dt, 3 * co, scale=0.02), _rnd(gen, dt, co, co, scale=co ** -0.5),
             _rnd(gen, dt, co, scale=0.02))
     ref = wa.qpool_attn_block_plain(*args, heads=heads, win=win)
-    tiled = wa.window_route("qpool", t, ci, co) == "tiled"
+    tiled = wa.window_route("qpool", t, ci, co, dt) == "tiled"
     before = wa.qpool_attn_block.tiled
     _close(wa.qpool_attn_block(*args, heads=heads, win=win), ref)
     assert wa.qpool_attn_block.tiled == before + tiled
@@ -209,6 +230,9 @@ def test_launch_plans_match_kernel_smem(gen):
         assert lib.cv_ln_heads_gemm_smem(bm) == mb.gemm_smem(bm)
     for c in (144, 288, 576, 1152):
         assert lib.cv_ln_heads_ln_smem(c) == ga.ln_qkv_plan(64, c, 3 * c).ln_smem
+        # attn_proj_residual's bf16 GEMM is the same kernel
+        plan = ga.proj_res_plan(4096, c)
+        assert lib.cv_ln_heads_gemm_smem(plan.bm) == plan.smem
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -218,7 +242,8 @@ def test_window_route_matches_kernel_smem(gen, dt):
     for t, c in [(64, 96), (16, 192), (64, 144), (16, 288), (256, 576), (64, 1152)]:
         assert lib.cv_window_attn_smem(t, c, code) == wa.window_smem("window", t, c, c, dt)
     for win, ci, co in [(8, 96, 192), (4, 192, 384), (8, 144, 288), (4, 288, 576), (16, 576, 1152)]:
-        assert lib.cv_qpool_attn_smem(win, ci, co) == wa.window_smem("qpool", win * win, ci, co)
+        assert lib.cv_qpool_attn_smem(win, ci, co, code) == \
+            wa.window_smem("qpool", win * win, ci, co, dt)
 
 
 @pytest.mark.parametrize("dt", DTYPES)

@@ -212,13 +212,15 @@ def test_build_raises_kernel_error_without_nvcc(monkeypatch, tmp_path):
 
 def test_launcher_signatures_match_sources():
     """Every launcher the ctypes table declares is exported by its
-    source with the same number of parameters."""
+    source with the same number of parameters, and every function a
+    source exports is in the table."""
     for name, fns in build.SIGNATURES.items():
         src = (build.CSRC / f"{name}.cu").read_text()
         for fn, argtypes in fns.items():
             m = re.search(r'extern "C" [\w ]+ ' + fn + r"\(([^)]*)\)", src)
             assert m, f"{fn} not exported by {name}.cu"
             assert len(m.group(1).split(",")) == len(argtypes), fn
+        assert set(re.findall(r'extern "C" [\w ]+ (cv_\w+)\(', src)) == set(fns), name
 
 
 def test_wrappers_reject_unsupported_operands():
@@ -361,6 +363,59 @@ def test_ln_qkv_plan_fits_and_covers(m, k, n):
         assert g.blocks >= SMS
     steps = -(-k // tmlp.GEMM_BK)
     assert (steps - 1) * tmlp.GEMM_BK < k <= steps * tmlp.GEMM_BK
+
+
+#: (M, C) of every attn_proj_residual call of one Hiera-L@1024 analyze()
+#: on the bf16 path, M = B·N rows, depth and output width C: the global
+#: blocks, the stage-3 and stage-4 windows on the tiled route, and the
+#: tiled q-pool transitions (16384 rows at 288 if the 144 → 288
+#: transition takes the tiled route, as in float32; 1024 at 1152)
+PROJ_RES_SHAPES = [(4096, 576), (4096, 576), (1024, 1152), (16384, 288), (1024, 1152)]
+
+
+@pytest.mark.parametrize("m,c", PROJ_RES_SHAPES)
+def test_proj_res_plan_fits_and_covers(m, c):
+    """The bf16 attn_proj_residual plan: the shared GEMM's blocks cover
+    the (m × c) output exactly, in tiles that wgmma m64n128k16 and the
+    128-byte swizzle take, within a block's shared memory, with at least
+    one block per SM wherever 64-row blocks give that many (the global
+    block's 4096 × 576 takes 64 rows: 128 would give 160 blocks)."""
+    g = tglobal.proj_res_plan(m, c, SMS)
+    assert c % 8 == 0
+    assert g.bm in tmlp.GEMM_ROWS and g.smem == tmlp.gemm_smem(g.bm) <= build.MAX_SMEM
+    assert (g.bm + tmlp.GEMM_BN) * 128 % 1024 == 0
+    cols = -(-c // tmlp.GEMM_BN)
+    assert (cols - 1) * tmlp.GEMM_BN < c <= cols * tmlp.GEMM_BN
+    assert g.blocks == -(-m // g.bm) * cols and (-(-m // g.bm) - 1) * g.bm < m
+    if -(-m // 64) * cols >= SMS:
+        assert g.blocks >= SMS
+    steps = -(-c // tmlp.GEMM_BK)
+    assert (steps - 1) * tmlp.GEMM_BK < c <= steps * tmlp.GEMM_BK
+    if (m, c) == (4096, 576):
+        assert g.bm == 64 and g.blocks == 320
+
+
+def test_proj_res_plan_refuses_widths_off_16_bytes():
+    with pytest.raises(build.KernelError):
+        tglobal.proj_res_plan(64, 300)
+
+
+def test_qpool_route_rule_bf16():
+    """The bf16 q-pool kernel takes win 4 and 8 (16 and 64 tokens), the
+    input widths it is built for (C_in 96, 144, 192, 288) and up to C_out
+    = 576 — eight warps of eighteen 8-column units over two row tiles —
+    and only where its shared memory fits: other shapes take the tiled
+    route, never the f32 kernel, even where their bf16 size would fit."""
+    bf = torch.bfloat16
+    assert twin.window_route("qpool", 16, 288, 576, bf) == "block"
+    assert twin.window_route("qpool", 64, 144, 288, bf) == "block"
+    assert twin.window_smem("qpool", 16, 96, 640, bf) <= build.MAX_SMEM
+    assert twin.window_route("qpool", 16, 96, 640, bf) == "tiled"
+    assert twin.window_route("qpool", 36, 96, 192, bf) == "tiled"
+    assert twin.window_route("qpool", 36, 96, 192) == "block"
+    assert twin.window_route("qpool", 16, 576, 1152, bf) == "tiled"
+    assert twin.window_smem("qpool", 16, 112, 224, bf) <= build.MAX_SMEM
+    assert twin.window_route("qpool", 16, 112, 224, bf) == "tiled"
 
 
 @pytest.mark.parametrize("k,n", [(100, 300), (144, 301)])

@@ -142,21 +142,21 @@ def _kernel_blocks(cfg):
 
 
 #: (kind, tokens, c_in, c_out) → (shared-memory bytes in float32 and in
-#: bfloat16, route in either dtype); the bf16 window kernel owns 64 rows
-#: in bf16 (csrc/window_attn.cu window_tc_smem), the q-pool kernel is one
-#: design for both dtypes
+#: bfloat16, route in float32 and in bfloat16); the bf16 kernels own 64
+#: (window) or 128 (q-pool) rows in bf16 (csrc/window_attn.cu
+#: window_tc_smem, qpool_tc_smem)
 ROUTES = {
-    "t@512": {("window", 64, 96, 96): (106624, 71168, "block"),
-              ("qpool", 64, 96, 192): (159872, 159872, "block"),
-              ("window", 16, 192, 192): (57472, 138752, "block"),
-              ("qpool", 16, 192, 384): (82304, 82304, "block")},
-    "l@1024": {("window", 64, 144, 144): (155776, 104960, "block"),
-               ("qpool", 64, 144, 288): (233600, 233600, "tiled"),
-               ("window", 16, 288, 288): (82048, 206336, "block"),
-               ("qpool", 16, 288, 576): (119168, 119168, "block"),
-               ("window", 256, 576, 576): (2367616, 409088, "tiled"),
-               ("qpool", 256, 576, 1152): (3612800, 3612800, "tiled"),
-               ("window", 64, 1152, 1152): (1187968, 814592, "tiled")},
+    "t@512": {("window", 64, 96, 96): (106624, 71168, "block", "block"),
+              ("qpool", 64, 96, 192): (159872, 153088, "block", "block"),
+              ("window", 16, 192, 192): (57472, 138752, "block", "block"),
+              ("qpool", 16, 192, 384): (82304, 179200, "block", "block")},
+    "l@1024": {("window", 64, 144, 144): (155776, 104960, "block", "block"),
+               ("qpool", 64, 144, 288): (233600, 172288, "tiled", "block"),
+               ("window", 16, 288, 288): (82048, 206336, "block", "block"),
+               ("qpool", 16, 288, 576): (119168, 217600, "block", "block"),
+               ("window", 256, 576, 576): (2367616, 409088, "tiled", "tiled"),
+               ("qpool", 256, 576, 1152): (3612800, 360960, "tiled", "tiled"),
+               ("window", 64, 1152, 1152): (1187968, 814592, "tiled", "tiled")},
 }
 
 
@@ -164,9 +164,10 @@ ROUTES = {
 @pytest.mark.parametrize("name", sorted(ROUTES))
 def test_window_route_at_every_block_shape(name, dtype):
     """Every window and q-pool block shape of the two configs, its
-    shared-memory size in the dtype and its route — the same in both
-    dtypes: the 256-token windows do not fit the bf16 kernel's 64 rows,
-    the 1152-wide ones not its shared memory."""
+    shared-memory size in the dtype and its route in that dtype: the
+    256-token windows do not fit the bf16 kernels' 64 rows, the 1152-wide
+    window not the bf16 window kernel's shared memory; the L@1024 64-token
+    144 → 288 q-pool fits the bf16 q-pool kernel but not the f32 one."""
     size, res = name.split("@")
     cfg = tconfig.sam2_hiera_preset(size, resolution=int(res))
     table = ROUTES[name]
@@ -174,7 +175,7 @@ def test_window_route_at_every_block_shape(name, dtype):
     col = 0 if dtype == torch.float32 else 1
     for shape, row in table.items():
         got = (twin.window_smem(*shape, dtype=dtype), twin.window_route(*shape, dtype=dtype))
-        assert got == (row[col], row[2]), shape
+        assert got == (row[col], row[2 + col]), shape
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

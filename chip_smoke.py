@@ -8,11 +8,20 @@ Phases, in order; any failure raises and the process exits non-zero:
   1. environment — torch/CUDA versions, the card's name and power limit,
      TF32 off for matmuls and convolutions;
   2. build — nvcc for every kernel source (started together) and g++ for
-     the contour tracer, timed;
+     the contour tracer, timed; the kernels this tree did not mean to
+     change held to their machine code (ops/cuda/sass_kept.json, where
+     the nvcc is the one it was made with); the launch floor — an empty
+     kernel of the repo's own (csrc/launch_floor.cu) timed as the kernel
+     rows are;
   3. kernels at t@512 — the four kernels of that slice against their
      plain PyTorch versions on the card, at every shape the t@512 slice
      launches them with, in bfloat16 and float32: error, tolerance,
-     times, bound;
+     times, bound. Every kernel row (here and below) gives its device
+     time, `kernel_ms` — 20 calls captured in one CUDA graph, replays
+     timed between events, divided by the calls — and beside it
+     `eager_ms`, 20 eager calls between events, which holds each call's
+     Python dispatch; library and `F.linear` times are device times, the
+     plain version's eager;
   4. main path at t@512 — CircuitAnalyzerTorch.analyze() at YOLOv11-s@640
      + SAM2 Hiera-t@512 (shapes and SAM2's dtype from ckpt/*/meta.json,
      seeded weights) on a drawn ~1000×750 schematic: one warm-up, three
@@ -48,13 +57,18 @@ Phases, in order; any failure raises and the process exits non-zero:
      batched path's drawn topology ran it at (its row in the `kernels`
      line: those launches and times), and as rows off the count at the
      seeded-weight run's shapes, 600×800 and 600×1003;
-  9. the trunk LayerNorm option — TrunkLayerNorm(fused=True), alone and
+  9. off-preset head width — a bf16 Hiera trunk at head width 64
+     (OFF_PRESET) on the card, every window and q-pool block on the tiled
+     route and the global block on flash attention, with exact launch
+     counts, against its float32 forward on the CPU;
+ 10. the trunk LayerNorm option — TrunkLayerNorm(fused=True), alone and
      with residual=, at the four Hiera-L@1024 trunk widths, with exact
      launch counts — and its two kernels there in bf16 and f32.
 
-It prints one JSON line per kernel shape and route check, a `kernels`
-summary line (every ported kernel with its launches and times on the
-path that runs it), the card's `nvidia-smi` name/power line, and as its
+It prints one JSON line per kernel shape and route check, the launch
+floor, a `kernels` summary line (every ported kernel with its launches,
+device and eager times on the path that runs it), the card's
+`nvidia-smi` name/power line, and as its
 last line {"ok": true, "device": {...}}. It reads only ckpt/*/meta.json
 and writes only the package's build/ directory. Without a CUDA device it
 exits 1 and prints no result.
@@ -144,6 +158,25 @@ TFLOPS_ROWS = ("flash_attn", "mlp_block", "ln_qkv", "window_attn_block", "attn_p
 #: H100 SXM peaks (NVIDIA data sheet, dense): memory, bf16 tensor, f32
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+#: the off-preset head-width check: SAM2.1-L's
+#: layout — its window spec, a global block in stage 3 — at embed 128 and
+#: 2 heads, so every stage's head width is 64, outside the block kernels'
+#: 56/72/96; resolution 768 (a 48² stage-3 map, 2304 tokens, over the
+#: flash threshold) and depth cut to stages (1, 1, 3, 1). In bf16 on the
+#: card every window and q-pool block takes the tiled route and the
+#: global block flash attention.
+OFF_PRESET = dict(resolution=768, embed_dim=128, num_heads=2, stages=[1, 1, 3, 1],
+                  global_att_blocks=[3], backbone_channel_list=[1024, 512, 256, 128])
+EXPECTED["off-preset"] = {**{k: 0 for k in EXPECTED["t@512"]},
+                          "mlp_block": 6, "ln_qkv": 9, "flash_attn": 6, "attn_proj_residual": 6,
+                          "window_attn_block.tiled": 2, "qpool_attn_block.tiled": 3}
+#: its bf16 trunk on the card against its float32 trunk on the CPU, per
+#: stage output: max |card − cpu| ≤ 2^-4 · max |cpu| and rms(card − cpu)
+#: ≤ 2^-5 · rms(cpu). bf16 keeps 8 significant bits; the port's own bf16
+#: trunk on the CPU, whose roundings the kernels share, differs from its
+#: f32 trunk by up to 1.8 % of max |ref| and 1.3 % rms at this layout
+#: (hd 64 and 32, resolution 256)
+OFF_PRESET_MAX, OFF_PRESET_RMS = 2.0 ** -4, 2.0 ** -5
 #: float32 card vs float32 CPU: share of SAM2 mask pixels that must agree
 MASK_AGREEMENT_MIN = 0.999
 #: float32 card vs float32 CPU on the continuous outputs (YOLO's raw head
@@ -183,6 +216,8 @@ def done(t0, name):
 
 
 def cuda_ms(fn, iters=20, warmup=3):
+    """Eager ms a call: `iters` calls between two events, so each call's
+    Python, checks, allocation and ctypes dispatch are in the time."""
     import torch
 
     for _ in range(warmup):
@@ -195,6 +230,49 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20, replays=5):
+    """Device ms a call: `iters` calls captured in one CUDA graph (the
+    wrappers launch on the current stream, the capture stream, and their
+    torch.empty draws from the graph's pool), its replays timed between
+    events, divided by the calls. No host dispatch is in the time, only
+    the card's own launch of each kernel (the launch-floor row)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
+
+
+def launch_floor(smi):
+    """The launch-floor row: the empty kernel of csrc/launch_floor.cu timed
+    as every kernel row is, device (graph replay) and eager."""
+    from circuitvision_tpu_torch.ops.cuda.build import empty_kernel
+
+    row = {"launch_floor": {"source": "circuitvision_tpu_torch/csrc/launch_floor.cu",
+                            "ms": graph_ms(empty_kernel, iters=100),
+                            "eager_ms": cuda_ms(empty_kernel, iters=100), "card": smi}}
+    print(json.dumps(row), flush=True)
+    return row["launch_floor"]
 
 
 def counters():
@@ -403,7 +481,7 @@ def kernel_cases(torch, path, raster_counts=None):
     "batch" per analyze_many() of the drawn topology at the raster shapes
     it recorded (`raster_counts` = ({(h, w): launches} of that run, the
     shapes of the seeded-weight run), those of the seeded-weight run and
-    two more shapes as rows off the count."""
+    three more shapes as rows off the count."""
     b = case_builders(torch)
     if path == "trunk-ln":
         return [(n, f"T={t} C={c}", 1, b[k](t, c)) for t, c in L_TRUNK_ROWS
@@ -411,7 +489,9 @@ def kernel_cases(torch, path, raster_counts=None):
                              ("fused_add_layernorm", "add_layernorm"))]
     if path == "batch":
         drawn, seeded = raster_counts
-        rows = {(600, 800): (0, "off the path"), (600, 1003): (0, "off the path")}
+        # and a 1×1 raster: the kernel's own fixed cost beside the launch floor
+        rows = {(600, 800): (0, "off the path"), (600, 1003): (0, "off the path"),
+                (1, 1): (0, "off the path")}
         rows.update({hw: (0, "seeded-weight crop") for hw in seeded})
         rows.update({hw: (n, "drawn topology") for hw, n in drawn.items()})
         return [("enhance_lines_fused", f"{h}x{w} {what}", n, b["morph"](h, w))
@@ -468,7 +548,9 @@ def kernel_cases(torch, path, raster_counts=None):
 
 
 def run_kernels(torch, path, raster_counts=None):
-    """Kernel phases: every case against its plain version, timed. Returns
+    """Kernel phases: every case against its plain version, timed on the
+    device (`graph_ms`: kernel_ms, library_ms, linear_ms, and the rate and
+    sums from them) and eagerly (`cuda_ms`: eager_ms, plain_ms). Returns
     per-kernel sums over the path's launches in the path's dtype (bfloat16;
     float32 for the line enhancement, which takes only float32) and the
     worst error seen in either dtype."""
@@ -496,26 +578,30 @@ def run_kernels(torch, path, raster_counts=None):
             if not torch.isfinite(got).all() or err > tol:
                 raise AssertionError(f"{name} [{path} {label}, {dt_name}]: max |kernel - plain| "
                                      f"{err:.3e} > tol {tol:.3e}")
-            k_ms, p_ms = cuda_ms(case["kernel"]), cuda_ms(case["plain"], iters=5)
-            lib_ms = cuda_ms(case["library"]) if case.get("library") else None
+            k_ms, eager_ms = graph_ms(case["kernel"]), cuda_ms(case["kernel"])
+            p_ms = cuda_ms(case["plain"], iters=5)
+            lib_ms = graph_ms(case["library"]) if case.get("library") else None
             t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
             t_ops = case["flops"] / PEAK_FLOPS[str(case["math_dt"]).removeprefix("torch.")] * 1e3
             row = {"kernel": name, "path": path, "shape": label, "dtype": dt_name,
-                   "max_abs_err": err, "tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms,
+                   "max_abs_err": err, "tol": tol, "kernel_ms": k_ms, "eager_ms": eager_ms,
+                   "plain_ms": p_ms,
                    "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "launches_on_path": count}
             if name in TFLOPS_ROWS:
                 row["tflops"] = case["flops"] / (k_ms * 1e-3) / 1e12
             if case.get("linear"):
-                row["linear_ms"] = cuda_ms(case["linear"])
+                row["linear_ms"] = graph_ms(case["linear"])
             print(json.dumps(row), flush=True)
-            s = summary.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            s = summary.setdefault(name, {"ms": 0.0, "eager_ms": 0.0, "plain_ms": 0.0,
+                                          "bound_ms": 0.0,
                                           "library_ms": None, "t_bytes": 0.0, "t_ops": 0.0,
                                           "max_abs_err": 0.0,
                                           "library_note": case.get("library_note")})
             if dt_name == dts[0]:
                 s["ms"] += count * k_ms
+                s["eager_ms"] += count * eager_ms
                 s["plain_ms"] += count * p_ms
                 s["bound_ms"] += count * row["bound_ms"]
                 s["t_bytes"] += count * t_bytes
@@ -600,7 +686,7 @@ def run_routes(torch):
                 if not torch.isfinite(got).all() or err > tol:
                     raise AssertionError(f"{name} [{label}, {dt_name}, {which} route]: "
                                          f"max |route - plain| {err:.3e} > tol {tol:.3e}")
-                row[f"{which}_err"], row[f"{which}_ms"] = err, cuda_ms(fn)
+                row[f"{which}_err"], row[f"{which}_ms"] = err, graph_ms(fn)
             print(json.dumps(row), flush=True)
 
 
@@ -811,6 +897,70 @@ def run_l_path(torch):
     return launches
 
 
+def run_off_preset(torch, smi):
+    """Phase 9: the Hiera trunk of OFF_PRESET (head width 64) in bf16 on
+    the card with exact launch counts — every window and q-pool block on
+    the tiled route, the global block on flash attention — against the
+    same seeded weights in float32 on the CPU. Returns the launches."""
+    import numpy as np
+
+    from circuitvision_tpu_torch.models.bridge import sam2_config, seeded_state
+    from circuitvision_tpu_torch.models.layers import place
+    from circuitvision_tpu_torch.models.sam2.wrapper import SAM2ImageSegmenter
+
+    meta = {"sam2": {"preset": "l", "overrides": OFF_PRESET}}
+    state = seeded_state("sam2", meta, 3)
+
+    def trunk(device, dtype):
+        m = SAM2ImageSegmenter(sam2_config(meta))
+        m.load_state_dict(state)
+        return place(m, device, dtype).eval().trunk
+
+    res = OFF_PRESET["resolution"]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((1, res, res, 3))
+                         .astype(np.float32))
+    card = trunk("cuda", torch.bfloat16)
+    reset, read = counters()
+    with torch.no_grad():
+        card(x.cuda())  # warm-up
+        reset()
+        torch.cuda.synchronize()
+        got = card(x.cuda())
+        torch.cuda.synchronize()
+        counts = read()
+        t0 = time.perf_counter()
+        ref = trunk("cpu", torch.float32)(x)
+    print(f"   cpu float32 off-preset trunk: {time.perf_counter() - t0:.3f} s", flush=True)
+    stages = []
+    for g, r in zip(got, ref):
+        d = g.float().cpu() - r
+        rms = float(d.pow(2).mean().sqrt()) / float(r.pow(2).mean().sqrt())
+        stages.append({"shape": list(r.shape), "max_abs_err": float(d.abs().max()),
+                       "max_abs_ref": float(r.abs().max()), "rel_rms": rms,
+                       "finite": bool(torch.isfinite(g).all())})
+    print(json.dumps({"off_preset_bf16_card_vs_f32_cpu": {
+        "head_width": OFF_PRESET["embed_dim"] // OFF_PRESET["num_heads"], "config": OFF_PRESET,
+        "launches": counts, "stages": stages, "tol_max": OFF_PRESET_MAX,
+        "tol_rms": OFF_PRESET_RMS, "card": smi}}), flush=True)
+    if counts != EXPECTED["off-preset"]:
+        raise AssertionError(f"off-preset: launches {counts} != {EXPECTED['off-preset']}")
+    for st in stages:
+        if not st["finite"] or st["max_abs_err"] > OFF_PRESET_MAX * st["max_abs_ref"] \
+                or st["rel_rms"] > OFF_PRESET_RMS:
+            raise AssertionError(f"off-preset bf16 trunk differs from f32: {st}")
+    return counts
+
+
+def check_sass_kept():
+    """The kernels this tree did not mean to change keep their machine
+    code: the built libraries against ops/cuda/sass_kept.json."""
+    from circuitvision_tpu_torch.ops.cuda.build import build_all
+    from circuitvision_tpu_torch.ops.cuda.sass import KEPT, check_kept
+
+    sources = tuple(json.loads(KEPT.read_text())["functions"])
+    print(json.dumps({"sass_kept": check_kept(build_all(sources))}), flush=True)
+
+
 def run_trunk_ln_path(torch):
     """The trunk LayerNorm option: TrunkLayerNorm(fused=True) at the four
     Hiera-L@1024 trunk shapes in bfloat16, each called alone and with
@@ -1013,6 +1163,8 @@ def main() -> int:
     build_all()
     contours.load_library()
     done(t0, "build (nvcc for every kernel, g++ for the contour tracer)")
+    check_sass_kept()
+    floor = launch_floor(smi)
 
     t0 = phase("kernels at t@512")
     summary = {"t@512": run_kernels(torch, "t@512")}
@@ -1039,6 +1191,10 @@ def main() -> int:
     summary["batch"] = run_kernels(torch, "batch", raster_shapes)
     done(t0, "line-enhancement kernel")
 
+    t0 = phase("off-preset head width: bf16 Hiera at head width 64")
+    run_off_preset(torch, smi)
+    done(t0, "off-preset head width")
+
     t0 = phase("trunk LayerNorm option at the L@1024 widths")
     launches["trunk-ln"] = run_trunk_ln_path(torch)
     summary["trunk-ln"] = run_kernels(torch, "trunk-ln")
@@ -1046,7 +1202,7 @@ def main() -> int:
 
     def entry(name, s, counts):
         return {"launches": counts[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                "eager_ms": s["eager_ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": "bytes" if s["t_bytes"] >= s["t_ops"] else "operations",
                 "library_ms": s["library_ms"],
                 **({"library_note": s["library_note"]} if s["library_note"] else {})}
@@ -1060,6 +1216,7 @@ def main() -> int:
                 "path": path, **entry(n, s, launches[path]),
                 "launches_t512": launches["t@512"][n]}
                for path in ("l@1024", "batch", "trunk-ln") for n, s in summary[path].items()]
+    print(json.dumps({"launch_floor": floor}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

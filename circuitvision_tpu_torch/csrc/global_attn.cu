@@ -39,7 +39,9 @@
 //   * attn_proj_residual, bfloat16 — one launch of the same GEMM, its A
 //     operand concat_heads(o) read where it lies (HeadsA: the 16-byte
 //     piece at row b·N + i, depth h·hd + d comes from o[b][h][i][d..];
-//     hd is a multiple of 8, so no piece straddles two heads) and the
+//     hd is a multiple of 8, so no piece straddles two heads; a template
+//     instance at 56, 72 and 96, HeadsAnyA with a runtime hd at any
+//     other multiple of 8) and the
 //     residual in the epilogue (ProjResEpi): bias added to the f32
 //     accumulator, the projection rounded there where round_proj asks
 //     (the window routes) or not (the global blocks), the residual read
@@ -241,6 +243,18 @@ struct HeadsA {
   }
 };
 
+// The same operand at any head width hd that is a multiple of 8, hd a
+// runtime value (one division by it per 16-byte piece): the head widths
+// HeadsA has no instance for. The pieces are 16-byte aligned and never
+// straddle a head, since kk and hd are multiples of 8.
+struct HeadsAnyA {
+  int n, heads, hd;
+  __device__ size_t at(int r, int kk, int) const {
+    const int b = r / n, i = r - b * n, h = kk / hd;
+    return (((size_t)b * heads + h) * n + i) * hd + (kk - h * hd);
+  }
+};
+
 // attn_proj_residual's store: out[r][c] = bf16(res + p) with p = acc +
 // bias[c], rounded to bf16 first where round_proj asks; res = x[r][c],
 // or with pool_win the max of the 2×2 patch of window-major rows whose
@@ -344,13 +358,16 @@ extern "C" int cv_proj_res_f32(const void* x, const void* o, const void* w, cons
 }
 
 // bfloat16 on the tensor cores: the same function and layouts through
-// tc_gemm.cuh's GEMM; o, w 16-byte aligned, x and b 4-byte, hd one of
-// the Hiera head widths 56, 72, 96 (b+, L, t/s); bm (128 or 64) from the
-// wrapper's plan (ops/cuda/global_attn.py proj_res_plan).
+// tc_gemm.cuh's GEMM; o, w 16-byte aligned, x and b 4-byte, hd a
+// multiple of 8; a_width the A layout (ops/cuda/global_attn.py
+// proj_a_width): hd for the instances at the Hiera head widths 56, 72,
+// 96 (b+, L, t/s), 0 for the runtime-width layout; bm (128 or 64) from
+// the wrapper's plan (proj_res_plan).
 extern "C" int cv_proj_res_bf16(const void* x, const void* o, const void* w, const void* b,
                                 void* out, int batch, int n, int heads, int hd, int pool_win,
-                                int round_proj, int bm, void* stream) {
-  if (batch < 1 || n < 1 || heads < 1 || pool_win < 0 || pool_win % 2)
+                                int round_proj, int a_width, int bm, void* stream) {
+  if (batch < 1 || n < 1 || heads < 1 || hd < 8 || hd % 8 || pool_win < 0 || pool_win % 2 ||
+      (a_width && a_width != hd))
     return (int)cudaErrorInvalidValue;
   const int c = heads * hd;
   const ProjResEpi epi{(const bf16*)b, (const bf16*)x, (bf16*)out, c, n, pool_win, round_proj};
@@ -358,10 +375,11 @@ extern "C" int cv_proj_res_bf16(const void* x, const void* o, const void* w, con
     return (int)tcg::launch_gemm(bm, (const bf16*)o, (const bf16*)w, batch * n, c, c, epi,
                                  (cudaStream_t)stream, a_layout);
   };
-  switch (hd) {
+  switch (a_width) {
     case 56: return run(HeadsA<56>{n, heads});
     case 72: return run(HeadsA<72>{n, heads});
     case 96: return run(HeadsA<96>{n, heads});
+    case 0: return run(HeadsAnyA{n, heads, hd});
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,48 +4,113 @@
 //
 // Replaces the Pallas kernel `refinement_fused` of the JAX package
 // (circuitvision_tpu/ops/pallas/refinement_fused.py). What bounds it on
-// the H100: 2·4·(9+25+49+121) + 16 ≈ 1.7 kFLOP of f32 per pixel against
-// 6 bytes (bf16 in, f32 out) — about 280 FLOP/byte, far above the f32
-// ridge (67 TFLOP/s ÷ 3.35 TB/s ≈ 20), so the FMAs bound it. The design
-// reads each logit from device memory once: a block stages its 32×8
-// output tile plus the 5-pixel halo in shared memory, with the 833
-// weights beside it, and each thread computes one output pixel with the
-// sixteen channel sums in registers; no intermediate leaves the SM.
+// the H100: 2·4·(9+25+49+121) + 32 ≈ 1.7 kFLOP of f32 per pixel against
+// 6–8 bytes (a bf16 or f32 logit in, f32 out) — about 200–280 FLOP/byte,
+// far above the f32 ridge (67 TFLOP/s ÷ 3.35 TB/s ≈ 20), so the 816
+// FFMAs a pixel bound it: 0.026 ms at 1 × 1024 × 1024.
+//
+// The design keeps the FMA pipe fed. The first version (one output pixel
+// a thread, every tap one shared-memory load of the input and four of
+// weights for its four FFMAs) issued five loads for every four FFMAs and
+// was bound by shared-memory issue at 27 % of the FMA bound. Here:
+//   * each thread owns a strip of kP = 4 pixels along x. For every row dy
+//     of a branch it loads the strip plus K − 1 inputs into registers
+//     once and reuses them across the K taps dx and the four channels:
+//     4·K·kP FFMAs for kP + K − 1 input loads (strips of 8 and 16 pixels
+//     cut the loads further but hold 80 and 128 registers, and ran
+//     slower: fewer warps to hide latency);
+//   * the weights sit in shared memory as one float4 per tap (the four
+//     channels' weights side by side), read with one 16-byte load at a
+//     uniform address (a broadcast) and used for kP·4 FFMAs; biases and
+//     the combiner the same way;
+//   * a block of 256 threads owns a 32 × 32 output tile: each warp 4 rows
+//     of eight strips, lane l at strip l % 8 of row l / 8, so with a tile
+//     pitch of kPitch = 43 (3 mod 4) the 32 lanes' loads of one row
+//     element fall in 32 distinct banks. The haloed 42 × 42 tile is loaded
+//     once, each warp its rows, each lane its columns, with no division,
+//     and zero outside the image (SAME padding);
+//   * a 512 × 512 map is 256 blocks, 1024 × 1024 is 1024 blocks; at 54
+//     registers four blocks share an SM.
 // erff gives the exact GELU (the Pallas kernel needed a polynomial only
-// because Mosaic lowers no erf).
+// because Mosaic lowers no erf). Sums are f32.
+//
+// What still holds it from the FMA bound (0.067 ms at 1 × 1024 × 1024 on
+// an H100 80GB HBM3 at 700 W, chip_smoke.py, against the first version's
+// 0.094: 39 % of the bound): the shared-memory pipe, one per SM, serves
+// the four FMA pipes. A warp's 16-byte weight load is four wavefronts for
+// the 16 FFMAs a 4-pixel strip makes of it, and the input loads come on
+// top; 8- and 16-pixel strips cut that ratio but ran no faster, with
+// fewer warps to hide latency. The way past it is the weights as FFMA
+// constant operands (a kernel parameter struct or __constant__ memory),
+// which needs their values on the host, or a copy, at every launch.
+// Then erff's ≈ 26 instructions for each of a pixel's 16 channels, beside
+// its 816 FFMAs, are the next limit.
 #include "common.cuh"
 
 namespace {
 
 using namespace cvk;
 
-constexpr int kTx = 32, kTy = 8, kHalo = 5;
-constexpr int kNw = 4 * (9 + 25 + 49 + 121);  // branch weights
-constexpr int kSx = kTx + 2 * kHalo, kSy = kTy + 2 * kHalo;
+constexpr int kP = 4;                      // pixels a thread owns along x
+constexpr int kStrips = 8;                 // strips of a warp's row
+constexpr int kTx = kP * kStrips;          // 32: tile width
+constexpr int kWarps = 8, kThreadsR = 32 * kWarps;
+constexpr int kTy = kWarps * (32 / kStrips);  // 32: tile height
+constexpr int kHalo = 5;
+constexpr int kSx = kTx + 2 * kHalo, kSy = kTy + 2 * kHalo;  // 42 × 42
+constexpr int kPitch = kSx + 1;            // 43: the lanes' banks differ
+constexpr int kTaps = 9 + 25 + 49 + 121;   // float4 weights, one per tap
 
 template <int K>
-__device__ __forceinline__ float branch(const float (*tile)[kSx],
-                                        const float* w, const float* b,
-                                        const float* wc, int tx, int ty) {
-  constexpr int r = K / 2;
-  float acc[4] = {b[0], b[1], b[2], b[3]};
+__device__ __forceinline__ void branch(const float* __restrict__ tile, const float4* wk,
+                                       float4 bias, float4 comb, float (&y)[kP]) {
+  constexpr int R = K / 2;
+  float acc[kP][4];
 #pragma unroll
-  for (int dy = 0; dy < K; ++dy) {
+  for (int p = 0; p < kP; ++p) {
+    acc[p][0] = bias.x;
+    acc[p][1] = bias.y;
+    acc[p][2] = bias.z;
+    acc[p][3] = bias.w;
+  }
+  const float* row = tile + (kHalo - R) * kPitch + (kHalo - R);
+#pragma unroll 1
+  for (int dy = 0; dy < K; ++dy, row += kPitch) {
+    float v[kP + K - 1];
+#pragma unroll
+    for (int j = 0; j < kP + K - 1; ++j) v[j] = row[j];
 #pragma unroll
     for (int dx = 0; dx < K; ++dx) {
-      float v = tile[ty + kHalo - r + dy][tx + kHalo - r + dx];
+      const float4 w = wk[dy * K + dx];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[c] += w[(c * K + dy) * K + dx] * v;
+      for (int p = 0; p < kP; ++p) {
+        acc[p][0] = fmaf(w.x, v[p + dx], acc[p][0]);
+        acc[p][1] = fmaf(w.y, v[p + dx], acc[p][1]);
+        acc[p][2] = fmaf(w.z, v[p + dx], acc[p][2]);
+        acc[p][3] = fmaf(w.w, v[p + dx], acc[p][3]);
+      }
     }
   }
-  float out = 0.f;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) out += wc[c] * gelu_erf(acc[c]);
-  return out;
+  for (int p = 0; p < kP; ++p) {
+    y[p] += comb.x * gelu_erf(acc[p][0]);
+    y[p] += comb.y * gelu_erf(acc[p][1]);
+    y[p] += comb.z * gelu_erf(acc[p][2]);
+    y[p] += comb.w * gelu_erf(acc[p][3]);
+  }
+}
+
+// The (4, 1, K, K) weights of one branch as K·K float4s, tap-major.
+template <typename T, int K>
+__device__ __forceinline__ void stage_weights(const T* __restrict__ src, float* dst) {
+  for (int e = threadIdx.x; e < 4 * K * K; e += kThreadsR) {
+    const int c = e / (K * K), t = e - c * (K * K);
+    dst[4 * t + c] = to_f(src[e]);
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kTx * kTy)
+__global__ void __launch_bounds__(kThreadsR)
 refinement_kernel(const T* __restrict__ x, const T* __restrict__ w3,
                   const T* __restrict__ b3, const T* __restrict__ w5,
                   const T* __restrict__ b5, const T* __restrict__ w7,
@@ -53,51 +118,69 @@ refinement_kernel(const T* __restrict__ x, const T* __restrict__ w3,
                   const T* __restrict__ b11, const T* __restrict__ wc,
                   const T* __restrict__ bc, float* __restrict__ out, int h,
                   int w) {
-  __shared__ float tile[kSy][kSx];
-  __shared__ float wts[kNw + 16 + 16 + 1];
-  const int tid = threadIdx.y * kTx + threadIdx.x;
-  const int nthreads = kTx * kTy;
-  const T* srcs[4] = {w3, w5, w7, w11};
-  const int sizes[4] = {9, 25, 49, 121};
-  int off = 0;
-  for (int i = 0; i < 4; ++i) {
-    for (int e = tid; e < 4 * sizes[i]; e += nthreads) wts[off + e] = to_f(srcs[i][e]);
-    off += 4 * sizes[i];
+  __shared__ float tile[kSy * kPitch];
+  // per tap a float4 of the four channels; then the 16 biases, the 16
+  // combiner weights and the combiner's bias
+  __shared__ __align__(16) float wts[4 * kTaps + 16 + 16 + 4];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  stage_weights<T, 3>(w3, wts);
+  stage_weights<T, 5>(w5, wts + 4 * 9);
+  stage_weights<T, 7>(w7, wts + 4 * 34);
+  stage_weights<T, 11>(w11, wts + 4 * 83);
+  float* tail = wts + 4 * kTaps;
+  if (tid < 16) {
+    const T* bs[4] = {b3, b5, b7, b11};
+    tail[tid] = to_f(bs[tid / 4][tid % 4]);
+    tail[16 + tid] = to_f(wc[tid]);
   }
-  const T* bs[4] = {b3, b5, b7, b11};
-  if (tid < 16) wts[kNw + tid] = to_f(bs[tid / 4][tid % 4]);
-  if (tid < 16) wts[kNw + 16 + tid] = to_f(wc[tid]);
-  if (tid == 0) wts[kNw + 32] = to_f(bc[0]);
+  if (tid == 0) tail[32] = to_f(bc[0]);
 
   const int img = blockIdx.z;
-  const int x0 = blockIdx.x * kTx - kHalo, y0 = blockIdx.y * kTy - kHalo;
+  const int tx0 = blockIdx.x * kTx, ty0 = blockIdx.y * kTy;
   const T* xi = x + (size_t)img * h * w;
-  for (int e = tid; e < kSx * kSy; e += nthreads) {
-    int yy = y0 + e / kSx, xx = x0 + e % kSx;
-    tile[e / kSx][e % kSx] =
-        (yy >= 0 && yy < h && xx >= 0 && xx < w) ? to_f(xi[(size_t)yy * w + xx]) : 0.f;
+  for (int r = warp; r < kSy; r += kWarps) {
+    const int gy = ty0 - kHalo + r;
+    const bool row_in = gy >= 0 && gy < h;
+    for (int c = lane; c < kSx; c += 32) {
+      const int gx = tx0 - kHalo + c;
+      tile[r * kPitch + c] =
+          row_in && gx >= 0 && gx < w ? to_f(xi[(size_t)gy * w + gx]) : 0.f;
+    }
   }
   __syncthreads();
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int ox = blockIdx.x * kTx + tx, oy = blockIdx.y * kTy + ty;
-  if (ox >= w || oy >= h) return;
-  const float* bias = wts + kNw;
-  const float* comb = wts + kNw + 16;
-  float y = wts[kNw + 32];
-  y += branch<3>(tile, wts, bias, comb, tx, ty);
-  y += branch<5>(tile, wts + 36, bias + 4, comb + 4, tx, ty);
-  y += branch<7>(tile, wts + 136, bias + 8, comb + 8, tx, ty);
-  y += branch<11>(tile, wts + 332, bias + 12, comb + 12, tx, ty);
-  out[(size_t)img * h * w + (size_t)oy * w + ox] = y;
+  const int sx = lane % kStrips, sy = warp * (32 / kStrips) + lane / kStrips;
+  const int ox = tx0 + sx * kP, oy = ty0 + sy;
+  if (oy >= h || ox >= w) return;
+  const float* t = tile + sy * kPitch + sx * kP;
+  const float4* w4 = reinterpret_cast<const float4*>(wts);
+  const float4* b4 = reinterpret_cast<const float4*>(tail);
+  float y[kP];
+#pragma unroll
+  for (int p = 0; p < kP; ++p) y[p] = tail[32];
+  branch<3>(t, w4, b4[0], b4[4], y);
+  branch<5>(t, w4 + 9, b4[1], b4[5], y);
+  branch<7>(t, w4 + 34, b4[2], b4[6], y);
+  branch<11>(t, w4 + 83, b4[3], b4[7], y);
+
+  float* o = out + (size_t)img * h * w + (size_t)oy * w + ox;
+  if (kP % 4 == 0 && ox + kP <= w && w % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < kP / 4; ++q)
+      reinterpret_cast<float4*>(o)[q] = make_float4(y[4 * q], y[4 * q + 1], y[4 * q + 2],
+                                                    y[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int p = 0; p < kP; ++p)
+      if (ox + p < w) o[p] = y[p];
+  }
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* const* p, void* out, int b,
                    int h, int w, cudaStream_t stream) {
-  dim3 block(kTx, kTy);
   dim3 grid((w + kTx - 1) / kTx, (h + kTy - 1) / kTy, b);
-  refinement_kernel<T><<<grid, block, 0, stream>>>(
+  refinement_kernel<T><<<grid, kThreadsR, 0, stream>>>(
       (const T*)x, (const T*)p[0], (const T*)p[1], (const T*)p[2],
       (const T*)p[3], (const T*)p[4], (const T*)p[5], (const T*)p[6],
       (const T*)p[7], (const T*)p[8], (const T*)p[9], (float*)out, h, w);
@@ -108,12 +191,14 @@ cudaError_t launch(const void* x, const void* const* p, void* out, int b,
 
 // x: (b, h, w) logits; branch weights in torch Conv2d layout (4, 1, k, k)
 // for k = 3, 5, 7, 11, biases (4,), combiner (1, 16, 1, 1) and (1,), all
-// in x's dtype (0 = float32, 1 = bfloat16). out: (b, h, w) float32.
+// in x's dtype (0 = float32, 1 = bfloat16). out: (b, h, w) float32,
+// 16-byte aligned (the wrapper's torch.empty).
 extern "C" int cv_refinement(const void* x, const void* w3, const void* b3,
                              const void* w5, const void* b5, const void* w7,
                              const void* b7, const void* w11, const void* b11,
                              const void* wc, const void* bc, void* out, int b,
                              int h, int w, int dtype, void* stream) {
+  if (b < 1 || h < 1 || w < 1) return (int)cudaErrorInvalidValue;
   const void* p[10] = {w3, b3, w5, b5, w7, b7, w11, b11, wc, bc};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return launch<float>(x, p, out, b, h, w, s);

@@ -23,7 +23,9 @@ The kernels of the port carry the blocks the JAX package gives to its
 Pallas kernels: `mlp_block` in every block, `window_attn_block` in
 partitioned blocks, `qpool_attn_block` in transition blocks whose even
 window divides the map, `ln_qkv` → `flash_attn` → `attn_proj_residual`
-in long global blocks. Everything else is the plain module path.
+in long global blocks, each at the head widths the kernels take
+(`kernel_head_width`: in bfloat16 every multiple of 8 up to 128).
+Everything else is the plain module path.
 """
 from __future__ import annotations
 
@@ -116,6 +118,23 @@ def einsum_attention(q, k, v, scale: float) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", attn, v)
 
 
+def kernel_head_width(hd: int, dtype: torch.dtype) -> bool:
+    """Whether the attention kernels take head width hd in `dtype`: at
+    most MAX_HEAD_DIM (flash_attn's widest), and in bfloat16 a multiple
+    of 8 — the tiled route's GEMMs copy the heads in 16-byte pieces and
+    flash_attn's tensor-core depth pads a head to the next of its
+    widths. The float32 kernels take any width."""
+    return hd <= MAX_HEAD_DIM and (dtype != torch.bfloat16 or hd % 8 == 0)
+
+
+def mlp_kernel_width(c: int, dtype: torch.dtype) -> bool:
+    """Whether `mlp_block` takes width c in `dtype`: in bfloat16 its
+    GEMMs copy rows in 16-byte pieces, so c must be a multiple of 8.
+    Other widths run the MLP on the module path (LN2, the two Linear
+    layers and exact GELU, as the JAX module path)."""
+    return dtype != torch.bfloat16 or c % 8 == 0
+
+
 class MultiScaleAttention(nn.Module):
     def __init__(self, dim: int, dim_out: int, num_heads: int):
         super().__init__()
@@ -152,27 +171,33 @@ class MultiScaleBlock(nn.Module):
         self.mlp_layers_0 = nn.Linear(dim_out, hidden)
         self.mlp_layers_1 = nn.Linear(hidden, dim_out)
 
+    def attention_path(self, x: torch.Tensor, window_size: int, partitioned: bool) -> str:
+        """Which path the attention half of `forward` takes: "qpool",
+        "global" or "window" (the kernels) or "module" (the plain module
+        path). The kernels take a head width up to MAX_HEAD_DIM and, in
+        bfloat16, a multiple of 8 (`kernel_head_width`); other widths,
+        and shapes the kernels do not take, run the module path."""
+        heads = self.num_heads
+        heads_ok = self.dim_out % heads == 0 and kernel_head_width(self.dim_out // heads, x.dtype)
+        if (self.q_stride and window_size > 0 and window_size % 2 == 0
+                and x.shape[1] % window_size == 0 and x.shape[2] % window_size == 0
+                and self.dim != self.dim_out and heads_ok):
+            return "qpool"
+        if (window_size == 0 and not partitioned and not self.q_stride
+                and self.dim == self.dim_out and heads_ok
+                and x.shape[1] * x.shape[2] >= FLASH_MIN_SEQ):
+            return "global"
+        if partitioned and not self.q_stride and self.dim == self.dim_out and heads_ok:
+            return "window"
+        return "module"
+
     def forward(self, x: torch.Tensor, window_size: int, partitioned: bool) -> torch.Tensor:
         """x is (B, H, W, C) in full layout (`window_size` > 0 windows it
         here, 0 is global) or, when `partitioned`, (B·nW, win, win, C)
         with each window an image of its own."""
         heads = self.num_heads
-        qpool_kernel = (
-            self.q_stride and window_size > 0 and window_size % 2 == 0
-            and x.shape[1] % window_size == 0 and x.shape[2] % window_size == 0
-            and self.dim != self.dim_out and self.dim_out % heads == 0
-        )
-        window_kernel = (
-            partitioned and not self.q_stride and self.dim == self.dim_out
-            and self.dim_out % heads == 0
-        )
-        global_kernel = (
-            window_size == 0 and not partitioned and not self.q_stride
-            and self.dim == self.dim_out and self.dim % heads == 0
-            and self.dim // heads <= MAX_HEAD_DIM
-            and x.shape[1] * x.shape[2] >= FLASH_MIN_SEQ
-        )
-        if qpool_kernel:
+        path = self.attention_path(x, window_size, partitioned)
+        if path == "qpool":
             _b, fh, fw, c = x.shape
             win = window_size
             xw, _ = window_partition(x, win)
@@ -186,14 +211,14 @@ class MultiScaleBlock(nn.Module):
             )
             x = out.reshape(nwm, win // 2, win // 2, self.dim_out)
             x = window_unpartition(x, win // 2, (fh // 2, fw // 2), (fh // 2, fw // 2))
-        elif global_kernel:
+        elif path == "global":
             b_, fh, fw, c = x.shape
             xr = x.reshape(b_, fh * fw, c).contiguous()
             q, k, v = ln_qkv(xr, self.norm1.weight, self.norm1.bias,
                              self.attn.qkv.weight, self.attn.qkv.bias, heads)
             x = attn_proj_residual(xr, flash_attn(q, k, v), self.attn.proj.weight,
                                    self.attn.proj.bias).reshape(b_, fh, fw, c)
-        elif window_kernel:
+        elif path == "window":
             b_, wh, ww, c = x.shape
             x = window_attn_block(
                 x.reshape(b_, wh * ww, c).contiguous(),
@@ -222,6 +247,8 @@ class MultiScaleBlock(nn.Module):
             if window > 0:
                 x = window_unpartition(x, window, pad_hw, hw)
             x = shortcut + x
+        if not mlp_kernel_width(self.dim_out, x.dtype):  # the module path
+            return x + self.mlp_layers_1(F.gelu(self.mlp_layers_0(self.norm2(x))))
         shp = x.shape
         return mlp_block(
             x.reshape(-1, self.dim_out).contiguous(), self.norm2.weight, self.norm2.bias,

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 MAX_SMEM = 227 * 1024
 #: kernel sources; each becomes lib<name>-<hash>.so
 SOURCES = ("mlp_block", "window_attn", "refinement", "global_attn", "flash_attn", "morphology",
-           "fused_ln")
+           "fused_ln", "launch_floor")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,7 +61,7 @@ SIGNATURES = {
         "cv_ln_heads_f32": [_P] * 6 + [_I] * 6 + [_F, _P],
         "cv_ln_heads_bf16": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
         "cv_proj_res_f32": [_P] * 5 + [_I] * 6 + [_P],
-        "cv_proj_res_bf16": [_P] * 5 + [_I] * 7 + [_P],
+        "cv_proj_res_bf16": [_P] * 5 + [_I] * 8 + [_P],
         "cv_ln_heads_smem": [_I],
         "cv_proj_res_smem": [_I],
         "cv_ln_heads_ln_smem": [_I],
@@ -74,6 +74,9 @@ SIGNATURES = {
     },
     "morphology": {
         "cv_enhance_lines": [_P, _P, _I, _I] + [_F] * 5 + [_P],
+    },
+    "launch_floor": {
+        "cv_empty_kernel": [_P],
     },
     "fused_ln": {
         "cv_fused_layernorm": [_P] * 4 + [_I, _I, _F, _I, _P],
@@ -162,6 +165,14 @@ def sm_count(t: torch.Tensor) -> int:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def empty_kernel(device: torch.device | str = "cuda") -> None:
+    """Launch csrc/launch_floor.cu's empty kernel on the current stream of
+    `device`: the card's own cost of a launch, the floor under every
+    kernel's time."""
+    err = library("launch_floor").cv_empty_kernel(torch.cuda.current_stream(device).cuda_stream)
+    check(err, "empty_kernel")
 
 
 def dtype_code(t: torch.Tensor) -> int:

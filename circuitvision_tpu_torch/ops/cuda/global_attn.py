@@ -62,8 +62,10 @@ def ln_qkv_plan(m: int, k: int, n: int, sms: int = H100_SMS) -> LnQkvPlan:
     return LnQkvPlan(-(-m // LN_ROWS), ln_smem(k), gemm_tile(m, n, sms), m * k)
 
 
-#: head widths the bf16 attn_proj_residual is built for (its A layout's
-#: template argument): those of Hiera-b+, -L and -t/-s
+#: head widths the bf16 attn_proj_residual has an A-layout instance for
+#: (a template argument: the division by the head width is a multiply),
+#: those of Hiera-b+, -L and -t/-s; any other multiple of 8 takes the
+#: layout whose width is a runtime value
 PROJ_HEAD_WIDTHS = (56, 72, 96)
 
 
@@ -71,12 +73,23 @@ PROJ_HEAD_WIDTHS = (56, 72, 96)
 def proj_res_plan(m: int, c: int, sms: int = H100_SMS) -> GemmPlan:
     """Block rows of the bf16 `attn_proj_residual` GEMM over its (m × c)
     output at depth c (ops/cuda/mlp_block.py gemm_tile). The GEMM copies
-    the heads in 16-byte pieces that must not straddle two heads, so the
-    wrapper also holds the head width to PROJ_HEAD_WIDTHS (multiples of
-    8)."""
+    rows of c in 16-byte pieces, so c must be a multiple of 8; the head
+    width's own rule is `proj_a_width`'s."""
     if c % 8:
         raise KernelError(f"attn_proj_residual: bfloat16 width {c} is not a multiple of 8")
     return gemm_tile(m, c, sms)
+
+
+def proj_a_width(hd: int) -> int:
+    """The A layout of the bf16 `attn_proj_residual` at head width hd:
+    hd itself where PROJ_HEAD_WIDTHS has an instance for it, else 0, the
+    layout whose head width is a runtime value. Both copy the heads in
+    16-byte pieces, which never straddle two heads when hd is a multiple
+    of 8; other widths are refused."""
+    if hd < 8 or hd % 8:
+        raise KernelError(f"attn_proj_residual: bfloat16 head width {hd} is not a multiple "
+                          f"of 8")
+    return hd if hd in PROJ_HEAD_WIDTHS else 0
 
 
 def pool2x2_windows(a: torch.Tensor, win: int) -> torch.Tensor:
@@ -156,8 +169,8 @@ def attn_proj_residual(x, o, wproj, bproj, pool_win=0, round_proj=False):
     (B, pool_win², C) with N = pool_win²/4. `round_proj` rounds the
     projection to x's dtype before the add, as the window kernels do; the
     global blocks round once, at the end. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (bfloat16: a head width of
-    PROJ_HEAD_WIDTHS, operands on 16-byte boundaries)."""
+    version; CUDA tensors launch the kernel (bfloat16: a head width that
+    is a multiple of 8, operands on 16-byte boundaries)."""
     if x.device.type == "cpu":
         return attn_proj_residual_plain(x, o, wproj, bproj, pool_win, round_proj)
     check_operands("attn_proj_residual", x, o, wproj, bproj)
@@ -170,14 +183,12 @@ def attn_proj_residual(x, o, wproj, bproj, pool_win=0, round_proj=False):
     lib = library("global_attn")
     out = torch.empty((bsz, n, c), dtype=x.dtype, device=x.device)
     if x.dtype == torch.bfloat16:
-        if hd not in PROJ_HEAD_WIDTHS:
-            raise KernelError(f"attn_proj_residual: the bfloat16 kernel takes head widths "
-                              f"{PROJ_HEAD_WIDTHS}; got {hd}")
+        a_width = proj_a_width(hd)
         plan = proj_res_plan(bsz * n, c, sm_count(x))
         check_aligned("attn_proj_residual", x, o, wproj)
         err = lib.cv_proj_res_bf16(
             x.data_ptr(), o.data_ptr(), wproj.data_ptr(), bproj.data_ptr(), out.data_ptr(),
-            bsz, n, heads, hd, pool_win, int(round_proj), plan.bm, stream_ptr(x),
+            bsz, n, heads, hd, pool_win, int(round_proj), a_width, plan.bm, stream_ptr(x),
         )
     else:
         if lib.cv_proj_res_smem(c) > MAX_SMEM:

@@ -26,9 +26,10 @@ width), products accumulated in f32, and values rounded to the compute
 dtype where the kernel stores them.
 
 A window that does not fit the one-block kernel (`window_route`: its
-shared memory in the dtype, and in bfloat16 the shapes the kernels are
-built for; the Hiera-L stage-3 and stage-4 windows and its last q-pool
-transition, and in float32 its first as well) takes the tiled route
+shared memory in the dtype, and in bfloat16 the shapes and head widths
+the kernels are built for; the Hiera-L stage-3 and stage-4 windows and
+its last q-pool transition, in float32 its first as well, and in
+bfloat16 every head width outside TC_HEAD_WIDTHS) takes the tiled route
 instead, which computes the same function with three kernels batched
 over the windows: `ln_qkv`, `flash_attn` and `attn_proj_residual`
 (ops/cuda/global_attn.py, ops/cuda/flash_attn.py), rounding q/k/v, the
@@ -101,17 +102,31 @@ def window_smem(kind: str, tokens: int, c_in: int, c_out: int,
     return 4 * (floats + _WEIGHT_TILE)
 
 
+def block_heads(kind: str, c_out: int, heads: int) -> bool:
+    """Whether the bf16 block kernel of `kind` is built for `heads` heads
+    over c_out columns: a head width of TC_HEAD_WIDTHS (its template
+    instances), C a multiple of 16, and for the q-pool kernel an even
+    number of heads (it takes them two at a time)."""
+    return c_out % heads == 0 and c_out // heads in TC_HEAD_WIDTHS and c_out % 16 == 0 \
+        and (kind == "window" or heads % 2 == 0)
+
+
 def window_route(kind: str, tokens: int, c_in: int, c_out: int,
-                 dtype: torch.dtype = torch.float32) -> str:
+                 dtype: torch.dtype = torch.float32, heads: int | None = None) -> str:
     """"block" where one window fits the one-block kernel — its shared
     memory in `dtype` and, for the bf16 kernels, a share of their 64 rows
     (window: T ∈ {16, 32, 64}; q-pool: win 4 or 8, C_in one of
-    TC_QPOOL_WIDTHS_IN, C_out ≤ 576) — else "tiled"."""
+    TC_QPOOL_WIDTHS_IN, C_out ≤ 576) and, where `heads` is given, a head
+    layout they are built for (`block_heads`) — else "tiled". The tiled
+    route's kernels take any head width that is a multiple of 8 up to
+    128 (flash_attn pads it to TC_WIDTHS, attn_proj_residual reads it
+    through a runtime-width layout outside PROJ_HEAD_WIDTHS)."""
     if dtype == torch.bfloat16 and (
             (kind == "window" and tokens not in TC_TOKENS)
             or (kind == "qpool" and (tokens not in TC_QPOOL_TOKENS
                                      or c_in not in TC_QPOOL_WIDTHS_IN
-                                     or c_out > TC_QPOOL_MAX_OUT))):
+                                     or c_out > TC_QPOOL_MAX_OUT))
+            or (heads is not None and not block_heads(kind, c_out, heads))):
         return "tiled"
     return "block" if window_smem(kind, tokens, c_in, c_out, dtype) <= MAX_SMEM else "tiled"
 
@@ -153,14 +168,11 @@ def window_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     nw, t, c = x.shape
     if wqkv.shape != (3 * c, c) or wproj.shape != (c, c) or c % heads:
         raise KernelError("window_attn_block: weight shapes do not match x")
-    if window_route("window", t, c, c, x.dtype) == "tiled":
+    if window_route("window", t, c, c, x.dtype, heads) == "tiled":
         window_attn_block.tiled += 1
         return window_attn_block_tiled(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                                        heads, eps)
     if x.dtype == torch.bfloat16:
-        if c % 16 or c // heads not in TC_HEAD_WIDTHS:
-            raise KernelError(f"window_attn_block: the bfloat16 kernel takes C a multiple of 16 "
-                              f"and head widths {TC_HEAD_WIDTHS}; got C={c}, heads={heads}")
         check_aligned("window_attn_block", x, wqkv, wproj)
     lib = library("window_attn")
     out = torch.empty_like(x)
@@ -221,15 +233,11 @@ def qpool_attn_block(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj,
     if win % 2 or rows % t or wskip.shape != (c_out, c_in) \
             or wqkv.shape != (3 * c_out, c_in) or c_out % heads:
         raise KernelError("qpool_attn_block: shapes do not match an even window")
-    if window_route("qpool", t, c_in, c_out, x.dtype) == "tiled":
+    if window_route("qpool", t, c_in, c_out, x.dtype, heads) == "tiled":
         qpool_attn_block.tiled += 1
         return qpool_attn_block_tiled(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv,
                                       wproj, bproj, heads, win, eps)
     if x.dtype == torch.bfloat16:
-        if c_out % 16 or heads % 2 or c_out // heads not in TC_HEAD_WIDTHS:
-            raise KernelError(f"qpool_attn_block: the bfloat16 kernel takes C_out a multiple "
-                              f"of 16, an even number of heads and head widths "
-                              f"{TC_HEAD_WIDTHS}; got C_out={c_out}, heads={heads}")
         check_aligned("qpool_attn_block", x, wskip, wqkv, wproj)
     lib = library("window_attn")
     out = torch.empty((rows // 4, c_out), dtype=x.dtype, device=x.device)

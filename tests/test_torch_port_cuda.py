@@ -160,12 +160,16 @@ def test_flash_attn_kernel(gen, dt, b, h, nq, nk, pool_win, d):
                                                              (4, 256, 576, 8, 0, False),
                                                              (3, 100, 576, 8, 0, True),
                                                              (8, 64, 384, 4, 0, False),
-                                                             (16, 16, 384, 4, 8, True)])
+                                                             (16, 16, 384, 4, 8, True),
+                                                             (4, 256, 640, 8, 0, False),
+                                                             (16, 16, 512, 4, 8, True),
+                                                             (3, 100, 320, 10, 0, True)])
 def test_attn_proj_residual_kernel(gen, dt, b, n, c, heads, pool_win, round_proj):
     """The Hiera-L@1024 shapes with fewer windows; 1024 rows at C = 576,
     which the bf16 plan gives 64-row blocks; rows off the GEMM's tiles;
-    and head width 96 (Hiera-t/-s) with and without the pooled
-    residual."""
+    head width 96 (Hiera-t/-s) with and without the pooled residual; and
+    head widths 80, 128 and 32, which the bf16 kernel reads through its
+    runtime-width layout."""
     rows = pool_win * pool_win if pool_win else n
     args = (_rnd(gen, dt, b, rows, c), _rnd(gen, dt, b, heads, n, c // heads),
             _rnd(gen, dt, c, c, scale=c ** -0.5), _rnd(gen, dt, c, scale=0.02))
@@ -267,10 +271,13 @@ def test_kernels_refuse_mixed_dtypes(gen):
         fl.fused_layernorm(xb, *bad)
 
 
-@pytest.mark.parametrize("h,w", [(600, 800), (600, 1003), (97, 130), (5, 3)])
+@pytest.mark.parametrize("h,w", [(600, 800), (600, 1003), (97, 130), (5, 3), (7, 5), (1, 1),
+                                 (49, 53), (600, 1)])
 def test_enhance_lines_fused_kernel_bit_exact(gen, h, w):
     """Line rasters and grey-level noise: kernel and plain version agree
-    bit for bit (same taps, same order of rounded products and sums)."""
+    bit for bit (same taps, same order of rounded products and sums), at
+    the drawings' rasters, at sizes below one 52 × 48 tile, one tile and
+    a pixel past it, and one column."""
     noise = torch.round(torch.rand(h, w, generator=gen, device="cuda") * 255)
     lines = (torch.rand(h, w, generator=gen, device="cuda") < 0.05).float() * 255
     for x in (noise, lines):
@@ -327,3 +334,67 @@ def test_tiny_analyze_on_card_matches_cpu(gen):
     assert key(card) == key(cpu)
     assert card.netlist_text == cpu.netlist_text
     assert np.mean(card.sam_mask == cpu.sam_mask) > 0.999
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b,h,w", [(1, 512, 512), (1, 1024, 1024), (2, 97, 131), (1, 1, 1),
+                                   (1, 33, 9)])
+def test_refinement_kernel_shapes(gen, dt, b, h, w):
+    """The t@512 and L@1024 logit maps, a batch of two at a size off the
+    32 × 32 tile and the 8-pixel strip (width not a multiple of 4: scalar
+    stores), and maps smaller than a tile. Tolerance as for the whole
+    head: the kernel returns float32."""
+    args = (_rnd(gen, dt, b, h, w, 1, scale=3.0),
+            [_rnd(gen, dt, 4, 1, k, k, scale=1.0 / k) for k in rf.KERNELS],
+            [_rnd(gen, dt, 4, scale=0.1) for _ in rf.KERNELS],
+            _rnd(gen, dt, 1, 16, 1, 1, scale=0.25), _rnd(gen, dt, 1, scale=0.1))
+    before = rf.refinement.launches
+    _close(rf.refinement(*args), rf.refinement_plain(*args))
+    assert rf.refinement.launches == before + 1
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_off_preset_head_widths_route_and_match(gen, hd):
+    """bf16 Hiera blocks at head widths the block kernels have no
+    instance for: the window block (64 and 16 tokens) and the q-pool
+    transition (win 8 and 4) take the tiled route — ln_qkv, flash_attn,
+    attn_proj_residual with its runtime-width layout — and the global
+    block's three kernels run at that width; each against its plain
+    version."""
+    dt = torch.bfloat16
+    for nw, t, heads in ((32, 64, 2), (64, 16, 4)):
+        c = heads * hd
+        args = (_rnd(gen, dt, nw, t, c), 1 + _rnd(gen, F32, c, scale=0.1),
+                _rnd(gen, F32, c, scale=0.1), _rnd(gen, dt, 3 * c, c, scale=c ** -0.5),
+                _rnd(gen, dt, 3 * c, scale=0.02), _rnd(gen, dt, c, c, scale=c ** -0.5),
+                _rnd(gen, dt, c, scale=0.02))
+        before = (wa.window_attn_block.tiled, wa.window_attn_block.launches,
+                  ga.attn_proj_residual.launches)
+        _close(wa.window_attn_block(*args, heads=heads),
+               wa.window_attn_block_plain(*args, heads=heads))
+        assert (wa.window_attn_block.tiled, wa.window_attn_block.launches,
+                ga.attn_proj_residual.launches) == (before[0] + 1, before[1], before[2] + 1)
+    for nw, win, heads in ((32, 8, 4), (64, 4, 8)):
+        ci, co = heads * hd // 2, heads * hd
+        args = (_rnd(gen, dt, nw * win * win, ci), 1 + _rnd(gen, F32, ci, scale=0.1),
+                _rnd(gen, F32, ci, scale=0.1), _rnd(gen, dt, co, ci, scale=ci ** -0.5),
+                _rnd(gen, dt, co, scale=0.02), _rnd(gen, dt, 3 * co, ci, scale=ci ** -0.5),
+                _rnd(gen, dt, 3 * co, scale=0.02), _rnd(gen, dt, co, co, scale=co ** -0.5),
+                _rnd(gen, dt, co, scale=0.02))
+        before = (wa.qpool_attn_block.tiled, wa.qpool_attn_block.launches)
+        _close(wa.qpool_attn_block(*args, heads=heads, win=win),
+               wa.qpool_attn_block_plain(*args, heads=heads, win=win))
+        assert (wa.qpool_attn_block.tiled, wa.qpool_attn_block.launches) == \
+            (before[0] + 1, before[1])
+    heads = 8
+    c = heads * hd
+    x = _rnd(gen, dt, 1, 4096, c)
+    ln = (1 + _rnd(gen, F32, c, scale=0.1), _rnd(gen, F32, c, scale=0.1))
+    wqkv, bqkv = _rnd(gen, dt, 3 * c, c, scale=c ** -0.5), _rnd(gen, dt, 3 * c, scale=0.02)
+    wproj, bproj = _rnd(gen, dt, c, c, scale=c ** -0.5), _rnd(gen, dt, c, scale=0.02)
+    q, k, v = ga.ln_qkv(x, *ln, wqkv, bqkv, heads)
+    _close(torch.stack((q, k, v)), ga.ln_qkv_plain(x, *ln, wqkv, bqkv, heads))
+    o = fa.flash_attn(q, k, v)
+    _close(o, fa.flash_attn_plain(q, k, v))
+    _close(ga.attn_proj_residual(x, o, wproj, bproj),
+           ga.attn_proj_residual_plain(x, o, wproj, bproj))

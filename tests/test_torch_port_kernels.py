@@ -424,3 +424,61 @@ def test_ln_qkv_plan_refuses_widths_off_16_bytes(k, n):
     8) and the epilogue stores column pairs (an even output width)."""
     with pytest.raises(build.KernelError):
         tglobal.ln_qkv_plan(64, k, n)
+
+
+#: (head width, heads) off the block kernels' 56/72/96 — multiples of 8,
+#: which the tiled route takes, and 60, which no bf16 kernel takes — and
+#: one at a preset width (96, Hiera-t/-s) that keeps its block kernel
+HEAD_WIDTHS = [(32, 12), (64, 6), (80, 6), (128, 4), (60, 8), (96, 4)]
+
+
+@pytest.mark.parametrize("hd,heads", HEAD_WIDTHS)
+def test_block_route_by_head_width(hd, heads):
+    """In bfloat16 a window (two heads, 16 tokens) or q-pool transition
+    (win 4 and 8) whose head width has no block-kernel instance takes the
+    tiled route, though its shape alone fits the block kernel; in float32
+    the head width does not route."""
+    bf = torch.bfloat16
+    c, c_out = 2 * hd, hd * heads
+    block = hd in twin.TC_HEAD_WIDTHS
+    assert twin.window_route("window", 16, c, c, bf) == "block"
+    assert twin.window_route("window", 16, c, c, bf, 2) == ("block" if block else "tiled")
+    assert twin.block_heads("window", c, 2) == block
+    for tokens, c_in in ((16, 192), (64, 96)):
+        assert twin.window_route("qpool", tokens, c_in, c_out, bf) == "block"
+        assert twin.window_route("qpool", tokens, c_in, c_out, bf, heads) == \
+            ("block" if block else "tiled")
+        assert twin.window_route("qpool", tokens, c_in, c_out, torch.float32, heads) == \
+            twin.window_route("qpool", tokens, c_in, c_out, torch.float32)
+    # an odd number of heads at a preset width: the q-pool kernel takes two at a time
+    assert twin.window_route("qpool", 16, 192, 3 * 96, bf, 3) == "tiled"
+
+
+@pytest.mark.parametrize("hd,heads", HEAD_WIDTHS)
+def test_tiled_and_global_instances_by_head_width(hd, heads):
+    """The kernels of the tiled route and the global blocks at each head
+    width, bf16: flash_attn pads it to the next of TC_WIDTHS,
+    attn_proj_residual takes its template instance at 56/72/96 and the
+    runtime-width A layout at every other multiple of 8 (its plan is the
+    width's GEMM plan either way), ln_qkv takes any even width; a width
+    that is not a multiple of 8 is refused by flash_attn's plan and by
+    attn_proj_residual's gate."""
+    c = hd * heads
+    assert tglobal.ln_qkv_plan(4096, c, 3 * c, SMS).gemm.bm in tmlp.GEMM_ROWS
+    plan = tglobal.proj_res_plan(4096, c, SMS)
+    assert plan == tmlp.gemm_tile(4096, c, SMS)
+    if hd % 8:
+        with pytest.raises(build.KernelError):
+            tflash.flash_plan(16 * heads, 256, 256, hd, SMS)
+        with pytest.raises(build.KernelError):
+            tglobal.proj_a_width(hd)
+        return
+    width = tflash.flash_plan(16 * heads, 256, 256, hd, SMS).width
+    assert width == min(w for w in tflash.TC_WIDTHS if w >= hd)
+    assert tglobal.proj_a_width(hd) == (hd if hd in tglobal.PROJ_HEAD_WIDTHS else 0)
+
+
+@pytest.mark.parametrize("hd", [0, 4, 12, 100])
+def test_proj_a_width_refuses_widths_off_16_bytes(hd):
+    with pytest.raises(build.KernelError):
+        tglobal.proj_a_width(hd)

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from circuitvision_tpu.core.config import SAM2Config as JSAM2Config
+from circuitvision_tpu.models.initialization import cast_float_params
 from circuitvision_tpu.models.sam2 import hiera as jhiera
 from circuitvision_tpu.models.sam2.wrapper import SAM2ImageSegmenter as JSAM2
 from circuitvision_tpu.models.sam2.wrapper import init_params as jsam2_init
@@ -25,6 +26,7 @@ from circuitvision_tpu.ops.pallas.global_attn import attn_proj_residual as palla
 from circuitvision_tpu.ops.pallas.global_attn import ln_qkv_flash as pallas_ln_qkv
 from circuitvision_tpu_torch.core import config as tconfig
 from circuitvision_tpu_torch.models import bridge
+from circuitvision_tpu_torch.models.layers import place
 from circuitvision_tpu_torch.models.sam2 import hiera as thiera
 from circuitvision_tpu_torch.models.sam2.wrapper import SAM2ImageSegmenter as TSAM2
 from circuitvision_tpu_torch.ops.cuda import flash_attn as tflash
@@ -258,3 +260,83 @@ def test_bridge_carries_the_l_parameters(l_pair):
     model.load_state_dict(full, strict=True)
     assert sum(1 for k in full if k.endswith("mlp_layers_0.weight")) == 48
     assert full["trunk.blocks_47.attn.qkv.weight"].shape == (3 * 1152, 1152)
+
+
+# ------------------------------------- (e) head widths off the presets
+#: a tiny Hiera with every path of t@512 (partitioned windows, q-pool
+#: blocks, a global block on the module path), two heads a stage
+def _tiny_hiera(hd, heads=2):
+    return dict(embed_dim=heads * hd, num_heads=heads, stages=(1, 2, 3, 1),
+                global_att_blocks=(4,), window_spec=(4, 2, 4, 2))
+
+
+def _recording_paths(trunk):
+    paths = []
+    for i in range(trunk.depth):
+        blk = getattr(trunk, f"blocks_{i}")
+        blk.attention_path = (lambda x, w, p, _f=blk.attention_path:
+                              paths.append(_f(x, w, p)) or paths[-1])
+    return paths
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,heads", [(32, 2), (64, 2), (60, 2), (60, 1)])
+def test_hiera_at_off_preset_head_widths_matches_jax(hd, heads, dtype):
+    """The port's Hiera at head widths the block kernels have no instance
+    for, against the JAX trunk (its module path on the CPU) on the same
+    variables and input, both in `dtype`. At 32 and 64 the blocks take
+    the kernels' paths (on the card: the tiled route and flash
+    attention); at 60, in bfloat16, the module path, since no bf16
+    kernel takes a head width off a multiple of 8 — with one head the
+    first stage's width, 60, is off a multiple of 8 too, and its MLP
+    takes the module path as well. Tolerance: float32
+    1e-4 of max |jax| (summation order through seven blocks, ≈ 1e-6
+    measured); bfloat16 four bf16 ulps at max |jax| — the port rounds
+    where the Pallas kernels do, the JAX module path where XLA does, and
+    each block's output rounds once (≤ 2 ulps measured)."""
+    kw = _tiny_hiera(hd, heads)
+    jdt = getattr(jnp, dtype)
+    jm = jhiera.Hiera(**kw, dtype=jdt)
+    x = np.random.default_rng(3).standard_normal((1, 128, 128, 3)).astype(np.float32)
+    v = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    ref = [np.asarray(a, np.float32)
+           for a in jm.apply(cast_float_params(v, jdt) if dtype == "bfloat16" else v,
+                             jnp.asarray(x))]
+    tm = thiera.Hiera(**kw)
+    tm.load_state_dict(bridge.state_dict_from_variables(v), strict=True)
+    place(tm, "cpu", getattr(torch, dtype)).eval()
+    paths = _recording_paths(tm)
+    with torch.no_grad():
+        got = [a.float().numpy() for a in tm(torch.from_numpy(x))]
+    kernels = ["window", "qpool", "window", "qpool", "module", "window", "qpool"]
+    assert paths == (["module"] * 7 if (hd % 8 and dtype == "bfloat16") else kernels)
+    for g, r in zip(got, ref):
+        ref_max = float(np.abs(r).max())
+        tol = 1e-4 * max(1.0, ref_max) if dtype == "float32" else \
+            4.0 * 2.0 ** (np.floor(np.log2(ref_max)) - 7)
+        assert g.shape == r.shape and np.abs(g - r).max() <= tol
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 60, 136])
+def test_hiera_head_width_gate(hd):
+    """Which blocks of a Hiera-L@1024-shaped trunk (cut to one block a
+    stage, head width hd in every stage) take a kernel path: in bfloat16
+    every multiple of 8 up to MAX_HEAD_DIM does, like the presets' 56, 72
+    and 96; a width off a multiple of 8 or above 128 takes the module
+    path, in both dtypes above 128; the MLP kernel needs a width that is
+    a multiple of 8 in bfloat16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        ok = hd <= tflash.MAX_HEAD_DIM and (dtype == torch.float32 or hd % 8 == 0)
+        assert thiera.kernel_head_width(hd, dtype) == ok
+        q = thiera.MultiScaleBlock(2 * hd, 4 * hd, 4, q_stride=True)
+        g = thiera.MultiScaleBlock(8 * hd, 8 * hd, 8, q_stride=False)
+        w = thiera.MultiScaleBlock(2 * hd, 2 * hd, 2, q_stride=False)
+        x_q = torch.zeros(1, 16, 16, 2 * hd, dtype=dtype)
+        x_g = torch.zeros(1, 64, 64, 8 * hd, dtype=dtype)
+        x_w = torch.zeros(16, 8, 8, 2 * hd, dtype=dtype)
+        assert q.attention_path(x_q, 8, False) == ("qpool" if ok else "module")
+        assert g.attention_path(x_g, 0, False) == ("global" if ok else "module")
+        assert w.attention_path(x_w, 0, True) == ("window" if ok else "module")
+    assert thiera.mlp_kernel_width(60, torch.float32)
+    assert not thiera.mlp_kernel_width(60, torch.bfloat16)
+    assert thiera.mlp_kernel_width(120, torch.bfloat16)

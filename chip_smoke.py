@@ -663,9 +663,9 @@ def run_routes(torch):
                                      f"{ci}->{co} {dt}")
     b = case_builders(torch)
     cases = [("window_attn_block", f"{nw} windows x {t} tokens C={c} heads={h}",
-              ("window", t, c, c), b["window"](nw, t, c, h)) for nw, t, c, h in L_WINDOWS]
+              ("window", t, c, c, h), b["window"](nw, t, c, h)) for nw, t, c, h in L_WINDOWS]
     cases += [("qpool_attn_block", f"{nw} windows win={w} C={ci}->{co} heads={h}",
-               ("qpool", w * w, ci, co), b["qpool"](nw, w, ci, co, h))
+               ("qpool", w * w, ci, co, h), b["qpool"](nw, w, ci, co, h))
               for nw, w, ci, co, h in L_QPOOLS]
     for name, label, shape, make in cases:
         for dt_name in ("bfloat16", "float32"):

@@ -23,9 +23,13 @@ The kernels of the port carry the blocks the JAX package gives to its
 Pallas kernels: `mlp_block` in every block, `window_attn_block` in
 partitioned blocks, `qpool_attn_block` in transition blocks whose even
 window divides the map, `ln_qkv` → `flash_attn` → `attn_proj_residual`
-in long global blocks, each at the head widths the kernels take
-(`kernel_head_width`: in bfloat16 every multiple of 8 up to 128).
-Everything else is the plain module path.
+in long global blocks of head width up to MAX_HEAD_DIM. Everything else
+is the plain module path. In bfloat16 the kernels take every head width
+that is a multiple of 8 up to MAX_HEAD_DIM (the one-block window and
+q-pool kernels 56, 72 and 96, the others through the tiled route); the
+analyzer refuses a trunk with another width on the card
+(`refused_head_width`), and a CUDA tensor at such a width raises in the
+kernel's wrapper.
 """
 from __future__ import annotations
 
@@ -118,23 +122,6 @@ def einsum_attention(q, k, v, scale: float) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", attn, v)
 
 
-def kernel_head_width(hd: int, dtype: torch.dtype) -> bool:
-    """Whether the attention kernels take head width hd in `dtype`: at
-    most MAX_HEAD_DIM (flash_attn's widest), and in bfloat16 a multiple
-    of 8 — the tiled route's GEMMs copy the heads in 16-byte pieces and
-    flash_attn's tensor-core depth pads a head to the next of its
-    widths. The float32 kernels take any width."""
-    return hd <= MAX_HEAD_DIM and (dtype != torch.bfloat16 or hd % 8 == 0)
-
-
-def mlp_kernel_width(c: int, dtype: torch.dtype) -> bool:
-    """Whether `mlp_block` takes width c in `dtype`: in bfloat16 its
-    GEMMs copy rows in 16-byte pieces, so c must be a multiple of 8.
-    Other widths run the MLP on the module path (LN2, the two Linear
-    layers and exact GELU, as the JAX module path)."""
-    return dtype != torch.bfloat16 or c % 8 == 0
-
-
 class MultiScaleAttention(nn.Module):
     def __init__(self, dim: int, dim_out: int, num_heads: int):
         super().__init__()
@@ -174,20 +161,22 @@ class MultiScaleBlock(nn.Module):
     def attention_path(self, x: torch.Tensor, window_size: int, partitioned: bool) -> str:
         """Which path the attention half of `forward` takes: "qpool",
         "global" or "window" (the kernels) or "module" (the plain module
-        path). The kernels take a head width up to MAX_HEAD_DIM and, in
-        bfloat16, a multiple of 8 (`kernel_head_width`); other widths,
-        and shapes the kernels do not take, run the module path."""
+        path), by shape alone — whatever the dtype or head width, so a
+        CUDA tensor at a width the kernels refuse raises in the wrapper.
+        Global blocks of head width above MAX_HEAD_DIM (flash_attn's
+        widest) take the module path, as the JAX trunk's do."""
         heads = self.num_heads
-        heads_ok = self.dim_out % heads == 0 and kernel_head_width(self.dim_out // heads, x.dtype)
         if (self.q_stride and window_size > 0 and window_size % 2 == 0
                 and x.shape[1] % window_size == 0 and x.shape[2] % window_size == 0
-                and self.dim != self.dim_out and heads_ok):
+                and self.dim != self.dim_out and self.dim_out % heads == 0):
             return "qpool"
         if (window_size == 0 and not partitioned and not self.q_stride
-                and self.dim == self.dim_out and heads_ok
+                and self.dim == self.dim_out and self.dim % heads == 0
+                and self.dim // heads <= MAX_HEAD_DIM
                 and x.shape[1] * x.shape[2] >= FLASH_MIN_SEQ):
             return "global"
-        if partitioned and not self.q_stride and self.dim == self.dim_out and heads_ok:
+        if partitioned and not self.q_stride and self.dim == self.dim_out \
+                and self.dim_out % heads == 0:
             return "window"
         return "module"
 
@@ -247,14 +236,22 @@ class MultiScaleBlock(nn.Module):
             if window > 0:
                 x = window_unpartition(x, window, pad_hw, hw)
             x = shortcut + x
-        if not mlp_kernel_width(self.dim_out, x.dtype):  # the module path
-            return x + self.mlp_layers_1(F.gelu(self.mlp_layers_0(self.norm2(x))))
         shp = x.shape
         return mlp_block(
             x.reshape(-1, self.dim_out).contiguous(), self.norm2.weight, self.norm2.bias,
             self.mlp_layers_0.weight, self.mlp_layers_0.bias,
             self.mlp_layers_1.weight, self.mlp_layers_1.bias,
         ).reshape(shp)
+
+
+def refused_head_width(embed_dim: int, num_heads: int) -> int | None:
+    """The head width of a Hiera trunk — embed_dim // num_heads in every
+    stage, since a q-pool block doubles both — if its bfloat16 kernels
+    refuse it: not a multiple of 8 (the GEMMs copy heads in 16-byte
+    pieces) or above MAX_HEAD_DIM (flash_attn's widest, which the tiled
+    route runs); else None. The float32 kernels take any width."""
+    hd = embed_dim // num_heads
+    return hd if hd % 8 or hd > MAX_HEAD_DIM else None
 
 
 class Hiera(nn.Module):

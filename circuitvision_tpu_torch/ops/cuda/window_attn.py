@@ -111,22 +111,22 @@ def block_heads(kind: str, c_out: int, heads: int) -> bool:
         and (kind == "window" or heads % 2 == 0)
 
 
-def window_route(kind: str, tokens: int, c_in: int, c_out: int,
-                 dtype: torch.dtype = torch.float32, heads: int | None = None) -> str:
+def window_route(kind: str, tokens: int, c_in: int, c_out: int, heads: int,
+                 dtype: torch.dtype = torch.float32) -> str:
     """"block" where one window fits the one-block kernel — its shared
     memory in `dtype` and, for the bf16 kernels, a share of their 64 rows
     (window: T ∈ {16, 32, 64}; q-pool: win 4 or 8, C_in one of
-    TC_QPOOL_WIDTHS_IN, C_out ≤ 576) and, where `heads` is given, a head
-    layout they are built for (`block_heads`) — else "tiled". The tiled
-    route's kernels take any head width that is a multiple of 8 up to
-    128 (flash_attn pads it to TC_WIDTHS, attn_proj_residual reads it
-    through a runtime-width layout outside PROJ_HEAD_WIDTHS)."""
+    TC_QPOOL_WIDTHS_IN, C_out ≤ 576) and a head layout they are built for
+    (`block_heads`) — else "tiled". The tiled route's kernels take any
+    head width that is a multiple of 8 up to 128 (flash_attn pads it to
+    TC_WIDTHS, attn_proj_residual reads it through a runtime-width layout
+    outside PROJ_HEAD_WIDTHS)."""
     if dtype == torch.bfloat16 and (
             (kind == "window" and tokens not in TC_TOKENS)
             or (kind == "qpool" and (tokens not in TC_QPOOL_TOKENS
                                      or c_in not in TC_QPOOL_WIDTHS_IN
                                      or c_out > TC_QPOOL_MAX_OUT))
-            or (heads is not None and not block_heads(kind, c_out, heads))):
+            or not block_heads(kind, c_out, heads)):
         return "tiled"
     return "block" if window_smem(kind, tokens, c_in, c_out, dtype) <= MAX_SMEM else "tiled"
 
@@ -168,7 +168,7 @@ def window_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     nw, t, c = x.shape
     if wqkv.shape != (3 * c, c) or wproj.shape != (c, c) or c % heads:
         raise KernelError("window_attn_block: weight shapes do not match x")
-    if window_route("window", t, c, c, x.dtype, heads) == "tiled":
+    if window_route("window", t, c, c, heads, x.dtype) == "tiled":
         window_attn_block.tiled += 1
         return window_attn_block_tiled(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                                        heads, eps)
@@ -233,7 +233,7 @@ def qpool_attn_block(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj,
     if win % 2 or rows % t or wskip.shape != (c_out, c_in) \
             or wqkv.shape != (3 * c_out, c_in) or c_out % heads:
         raise KernelError("qpool_attn_block: shapes do not match an even window")
-    if window_route("qpool", t, c_in, c_out, x.dtype, heads) == "tiled":
+    if window_route("qpool", t, c_in, c_out, heads, x.dtype) == "tiled":
         qpool_attn_block.tiled += 1
         return qpool_attn_block_tiled(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv,
                                       wproj, bproj, heads, win, eps)

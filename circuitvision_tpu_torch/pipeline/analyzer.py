@@ -34,6 +34,7 @@ from ..core import geometry, taxonomy
 from ..core.config import PipelineConfig, compute_dtype, resolve_device
 from ..core.types import AnalysisResult, BBox, StageTimings
 from ..models.layers import place
+from ..models.sam2.hiera import refused_head_width
 from ..models.sam2.wrapper import SAM2ImageSegmenter
 from ..models.yolo.decode import decode_predictions, postprocess, unletterbox_boxes
 from ..models.yolo.model import YOLOv11
@@ -43,6 +44,7 @@ from ..netlist.generate import (
     stringify_netlist,
 )
 from ..ops.cuda.build import KernelError
+from ..ops.cuda.flash_attn import MAX_HEAD_DIM
 from ..ops.image import letterbox, resize_linear, sam2_preprocess
 from ..topology.crop import crop_image_and_adjust_bboxes
 from ..topology.enumerate_components import assign_visual_ids
@@ -81,13 +83,23 @@ class CircuitAnalyzerTorch:
     makes them from the JAX package's variables or from a seed). Without
     sam2_state the wire mask is the classical adaptive-threshold mask.
     Runs on the CUDA device unless `device="cpu"` is asked for; a missing
-    CUDA device raises instead of moving to the CPU.
+    CUDA device raises instead of moving to the CPU. A bfloat16 SAM2 on
+    the card whose head width its kernels refuse (`refused_head_width`)
+    raises KernelError here, before any model is built.
     """
 
     def __init__(self, config: Optional[PipelineConfig] = None, yolo_state: Optional[dict] = None,
                  sam2_state: Optional[dict] = None, device="cuda"):
         self.cfg = config or PipelineConfig()
         self.device = resolve_device(device, "CircuitAnalyzerTorch")
+        scfg, sam2_dtype = self.cfg.sam2, compute_dtype(self.cfg.sam2.dtype)
+        if sam2_state is not None and self.cfg.use_sam2 and self.device.type == "cuda" \
+                and sam2_dtype == torch.bfloat16:
+            hd = refused_head_width(scfg.embed_dim, scfg.num_heads)
+            if hd is not None:
+                raise KernelError(f"SAM2: the bfloat16 kernels take head widths that are "
+                                  f"multiples of 8 up to {MAX_HEAD_DIM}; this configuration's "
+                                  f"is {hd}")
         if yolo_state is None:
             raise ValueError("CircuitAnalyzerTorch needs YOLO weights (yolo_state)")
         det = self.cfg.detector
@@ -96,9 +108,9 @@ class CircuitAnalyzerTorch:
         place(self.yolo, self.device, compute_dtype(det.dtype)).eval()
         self.sam2 = None
         if sam2_state is not None and self.cfg.use_sam2:
-            self.sam2 = SAM2ImageSegmenter(self.cfg.sam2)
+            self.sam2 = SAM2ImageSegmenter(scfg)
             self.sam2.load_state_dict(sam2_state, strict=True)
-            place(self.sam2, self.device, compute_dtype(self.cfg.sam2.dtype)).eval()
+            place(self.sam2, self.device, sam2_dtype).eval()
 
     # ------------------------------------------------------------------
     # Stages

@@ -105,7 +105,7 @@ def test_qpool_attn_kernel(gen, dt, nw, win, ci, co, heads):
             _rnd(gen, dt, co, scale=0.02), _rnd(gen, dt, 3 * co, ci, scale=ci ** -0.5),
             _rnd(gen, dt, 3 * co, scale=0.02), _rnd(gen, dt, co, co, scale=co ** -0.5),
             _rnd(gen, dt, co, scale=0.02))
-    block = wa.window_route("qpool", win * win, ci, co, dt) == "block"
+    block = wa.window_route("qpool", win * win, ci, co, heads, dt) == "block"
     before = wa.qpool_attn_block.launches
     _close(wa.qpool_attn_block(*args, heads=heads, win=win),
            wa.qpool_attn_block_plain(*args, heads=heads, win=win))
@@ -190,7 +190,7 @@ def test_window_attn_tiled_route(gen, dt, nw, t, c, heads):
             _rnd(gen, dt, 3 * c, c, scale=c ** -0.5), _rnd(gen, dt, 3 * c, scale=0.02),
             _rnd(gen, dt, c, c, scale=c ** -0.5), _rnd(gen, dt, c, scale=0.02))
     ref = wa.window_attn_block_plain(*args, heads=heads)
-    tiled = wa.window_route("window", t, c, c, dt) == "tiled"
+    tiled = wa.window_route("window", t, c, c, heads, dt) == "tiled"
     before = (wa.window_attn_block.tiled, wa.window_attn_block.launches)
     _close(wa.window_attn_block(*args, heads=heads), ref)
     assert (wa.window_attn_block.tiled, wa.window_attn_block.launches) == \
@@ -209,7 +209,7 @@ def test_qpool_attn_tiled_route(gen, dt, nw, win, ci, co, heads):
             _rnd(gen, dt, 3 * co, scale=0.02), _rnd(gen, dt, co, co, scale=co ** -0.5),
             _rnd(gen, dt, co, scale=0.02))
     ref = wa.qpool_attn_block_plain(*args, heads=heads, win=win)
-    tiled = wa.window_route("qpool", t, ci, co, dt) == "tiled"
+    tiled = wa.window_route("qpool", t, ci, co, heads, dt) == "tiled"
     before = wa.qpool_attn_block.tiled
     _close(wa.qpool_attn_block(*args, heads=heads, win=win), ref)
     assert wa.qpool_attn_block.tiled == before + tiled

@@ -407,15 +407,18 @@ def test_qpool_route_rule_bf16():
     and only where its shared memory fits: other shapes take the tiled
     route, never the f32 kernel, even where their bf16 size would fit."""
     bf = torch.bfloat16
-    assert twin.window_route("qpool", 16, 288, 576, bf) == "block"
-    assert twin.window_route("qpool", 64, 144, 288, bf) == "block"
-    assert twin.window_smem("qpool", 16, 96, 640, bf) <= build.MAX_SMEM
-    assert twin.window_route("qpool", 16, 96, 640, bf) == "tiled"
-    assert twin.window_route("qpool", 36, 96, 192, bf) == "tiled"
-    assert twin.window_route("qpool", 36, 96, 192) == "block"
-    assert twin.window_route("qpool", 16, 576, 1152, bf) == "tiled"
+    assert twin.window_route("qpool", 16, 288, 576, 8, bf) == "block"
+    assert twin.window_route("qpool", 64, 144, 288, 4, bf) == "block"
+    # C_out 720 at head width 72 (ten heads): the block kernel's heads
+    # and shared memory fit, its eight warps do not
+    assert twin.block_heads("qpool", 720, 10)
+    assert twin.window_smem("qpool", 16, 96, 720, bf) <= build.MAX_SMEM
+    assert twin.window_route("qpool", 16, 96, 720, 10, bf) == "tiled"
+    assert twin.window_route("qpool", 36, 96, 192, 2, bf) == "tiled"
+    assert twin.window_route("qpool", 36, 96, 192, 2) == "block"
+    assert twin.window_route("qpool", 16, 576, 1152, 16, bf) == "tiled"
     assert twin.window_smem("qpool", 16, 112, 224, bf) <= build.MAX_SMEM
-    assert twin.window_route("qpool", 16, 112, 224, bf) == "tiled"
+    assert twin.window_route("qpool", 16, 112, 224, 4, bf) == "tiled"
 
 
 @pytest.mark.parametrize("k,n", [(100, 300), (144, 301)])
@@ -438,20 +441,20 @@ def test_block_route_by_head_width(hd, heads):
     (win 4 and 8) whose head width has no block-kernel instance takes the
     tiled route, though its shape alone fits the block kernel; in float32
     the head width does not route."""
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
     c, c_out = 2 * hd, hd * heads
     block = hd in twin.TC_HEAD_WIDTHS
-    assert twin.window_route("window", 16, c, c, bf) == "block"
-    assert twin.window_route("window", 16, c, c, bf, 2) == ("block" if block else "tiled")
+    assert twin.window_route("window", 16, c, c, 2, bf) == ("block" if block else "tiled")
     assert twin.block_heads("window", c, 2) == block
+    assert twin.window_route("window", 16, c, c, 2, f32) == "block"
     for tokens, c_in in ((16, 192), (64, 96)):
-        assert twin.window_route("qpool", tokens, c_in, c_out, bf) == "block"
-        assert twin.window_route("qpool", tokens, c_in, c_out, bf, heads) == \
+        assert twin.window_route("qpool", tokens, c_in, c_out, heads, bf) == \
             ("block" if block else "tiled")
-        assert twin.window_route("qpool", tokens, c_in, c_out, torch.float32, heads) == \
-            twin.window_route("qpool", tokens, c_in, c_out, torch.float32)
+        fits = twin.window_smem("qpool", tokens, c_in, c_out, f32) <= build.MAX_SMEM
+        assert twin.window_route("qpool", tokens, c_in, c_out, heads, f32) == \
+            ("block" if fits else "tiled")
     # an odd number of heads at a preset width: the q-pool kernel takes two at a time
-    assert twin.window_route("qpool", 16, 192, 3 * 96, bf, 3) == "tiled"
+    assert twin.window_route("qpool", 16, 192, 3 * 96, 3, bf) == "tiled"
 
 
 @pytest.mark.parametrize("hd,heads", HEAD_WIDTHS)

@@ -11,6 +11,8 @@ Float32 on both sides, JAX at "highest" matmul precision. Tolerances:
 few hundred products in another order), and for the SAM2 logits
 (seven blocks at widths up to 1152; about 1e-6 measured).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -175,8 +177,10 @@ def test_window_route_at_every_block_shape(name, dtype):
     table = ROUTES[name]
     assert _kernel_blocks(cfg) == set(table)
     col = 0 if dtype == torch.float32 else 1
+    hd = cfg.embed_dim // cfg.num_heads
     for shape, row in table.items():
-        got = (twin.window_smem(*shape, dtype=dtype), twin.window_route(*shape, dtype=dtype))
+        got = (twin.window_smem(*shape, dtype=dtype),
+               twin.window_route(*shape, shape[3] // hd, dtype))
         assert got == (row[col], row[2 + col]), shape
 
 
@@ -284,16 +288,15 @@ def _recording_paths(trunk):
 def test_hiera_at_off_preset_head_widths_matches_jax(hd, heads, dtype):
     """The port's Hiera at head widths the block kernels have no instance
     for, against the JAX trunk (its module path on the CPU) on the same
-    variables and input, both in `dtype`. At 32 and 64 the blocks take
-    the kernels' paths (on the card: the tiled route and flash
-    attention); at 60, in bfloat16, the module path, since no bf16
-    kernel takes a head width off a multiple of 8 — with one head the
-    first stage's width, 60, is off a multiple of 8 too, and its MLP
-    takes the module path as well. Tolerance: float32
-    1e-4 of max |jax| (summation order through seven blocks, ≈ 1e-6
-    measured); bfloat16 four bf16 ulps at max |jax| — the port rounds
-    where the Pallas kernels do, the JAX module path where XLA does, and
-    each block's output rounds once (≤ 2 ulps measured)."""
+    variables and input, both in `dtype`. The blocks take the kernels'
+    paths at every width (on the card at 32 and 64: the tiled route and
+    flash attention; at 60 the analyzer refuses a bf16 trunk, and the
+    wrappers raise); here the kernels' plain versions run. With one head
+    the first stage's width, 60, is off a multiple of 8 too. Tolerance:
+    float32 1e-4 of max |jax| (summation order through seven blocks,
+    ≈ 1e-6 measured); bfloat16 four bf16 ulps at max |jax| — the port
+    rounds where the Pallas kernels do, the JAX module path where XLA
+    does, and each block's output rounds once (≤ 2 ulps measured)."""
     kw = _tiny_hiera(hd, heads)
     jdt = getattr(jnp, dtype)
     jm = jhiera.Hiera(**kw, dtype=jdt)
@@ -309,7 +312,7 @@ def test_hiera_at_off_preset_head_widths_matches_jax(hd, heads, dtype):
     with torch.no_grad():
         got = [a.float().numpy() for a in tm(torch.from_numpy(x))]
     kernels = ["window", "qpool", "window", "qpool", "module", "window", "qpool"]
-    assert paths == (["module"] * 7 if (hd % 8 and dtype == "bfloat16") else kernels)
+    assert paths == kernels
     for g, r in zip(got, ref):
         ref_max = float(np.abs(r).max())
         tol = 1e-4 * max(1.0, ref_max) if dtype == "float32" else \
@@ -320,23 +323,38 @@ def test_hiera_at_off_preset_head_widths_matches_jax(hd, heads, dtype):
 @pytest.mark.parametrize("hd", [32, 64, 80, 128, 60, 136])
 def test_hiera_head_width_gate(hd):
     """Which blocks of a Hiera-L@1024-shaped trunk (cut to one block a
-    stage, head width hd in every stage) take a kernel path: in bfloat16
-    every multiple of 8 up to MAX_HEAD_DIM does, like the presets' 56, 72
-    and 96; a width off a multiple of 8 or above 128 takes the module
-    path, in both dtypes above 128; the MLP kernel needs a width that is
-    a multiple of 8 in bfloat16."""
+    stage, head width hd in every stage) take a kernel path: the window
+    and q-pool blocks at every width in both dtypes (a CUDA tensor at a
+    width the kernels refuse raises in the wrapper), the global block up
+    to MAX_HEAD_DIM, as before any width was routed. In bfloat16 the
+    analyzer refuses, on the card, a trunk whose width is off a multiple
+    of 8 or above MAX_HEAD_DIM; float32 refuses none."""
     for dtype in (torch.float32, torch.bfloat16):
-        ok = hd <= tflash.MAX_HEAD_DIM and (dtype == torch.float32 or hd % 8 == 0)
-        assert thiera.kernel_head_width(hd, dtype) == ok
         q = thiera.MultiScaleBlock(2 * hd, 4 * hd, 4, q_stride=True)
         g = thiera.MultiScaleBlock(8 * hd, 8 * hd, 8, q_stride=False)
         w = thiera.MultiScaleBlock(2 * hd, 2 * hd, 2, q_stride=False)
         x_q = torch.zeros(1, 16, 16, 2 * hd, dtype=dtype)
         x_g = torch.zeros(1, 64, 64, 8 * hd, dtype=dtype)
         x_w = torch.zeros(16, 8, 8, 2 * hd, dtype=dtype)
-        assert q.attention_path(x_q, 8, False) == ("qpool" if ok else "module")
-        assert g.attention_path(x_g, 0, False) == ("global" if ok else "module")
-        assert w.attention_path(x_w, 0, True) == ("window" if ok else "module")
-    assert thiera.mlp_kernel_width(60, torch.float32)
-    assert not thiera.mlp_kernel_width(60, torch.bfloat16)
-    assert thiera.mlp_kernel_width(120, torch.bfloat16)
+        assert q.attention_path(x_q, 8, False) == "qpool"
+        assert g.attention_path(x_g, 0, False) == \
+            ("global" if hd <= tflash.MAX_HEAD_DIM else "module")
+        assert w.attention_path(x_w, 0, True) == "window"
+    refused = hd % 8 != 0 or hd > tflash.MAX_HEAD_DIM
+    assert thiera.refused_head_width(2 * hd, 2) == (hd if refused else None)
+
+
+@pytest.mark.parametrize("hd,heads", [(60, 2), (136, 1), (60, 1)])
+def test_analyzer_refuses_bf16_head_widths_on_the_card(monkeypatch, hd, heads):
+    """In bfloat16 on the card the analyzer refuses, before it builds a
+    model, a SAM2 whose head width no kernel takes, and names the width.
+    (The card is only pretended here: the refusal comes first.)"""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
+    from circuitvision_tpu_torch.ops.cuda.build import KernelError
+
+    sam2 = dataclasses.replace(tconfig.SAM2Config(), embed_dim=heads * hd, num_heads=heads,
+                               dtype="bfloat16")
+    cfg = dataclasses.replace(tconfig.PipelineConfig(), sam2=sam2)
+    with pytest.raises(KernelError, match=f"is {hd}$"):
+        CircuitAnalyzerTorch(cfg, {}, {}, device="cuda")

@@ -55,7 +55,8 @@ SIGNATURES = {
         "cv_qpool_attn_smem": [_I] * 4,
     },
     "refinement": {
-        "cv_refinement": [_P] * 12 + [_I] * 4 + [_P],
+        "cv_refinement": [_P] * 13 + [_I] * 4 + [_P],
+        "cv_refinement_scratch_bytes": [],
     },
     "global_attn": {
         "cv_ln_heads_f32": [_P] * 6 + [_I] * 6 + [_F, _P],

@@ -8,9 +8,7 @@ Phases, in order; any failure raises and the process exits non-zero:
   1. environment — torch/CUDA versions, the card's name and power limit,
      TF32 off for matmuls and convolutions;
   2. build — nvcc for every kernel source (started together) and g++ for
-     the contour tracer, timed; the kernels this tree did not mean to
-     change held to their machine code (ops/cuda/sass_kept.json, where
-     the nvcc is the one it was made with); the launch floor — an empty
+     the contour tracer, timed; the launch floor — an empty
      kernel of the repo's own (csrc/launch_floor.cu) timed as the kernel
      rows are;
   3. kernels at t@512 — the four kernels of that slice against their
@@ -951,16 +949,6 @@ def run_off_preset(torch, smi):
     return counts
 
 
-def check_sass_kept():
-    """The kernels this tree did not mean to change keep their machine
-    code: the built libraries against ops/cuda/sass_kept.json."""
-    from circuitvision_tpu_torch.ops.cuda.build import build_all
-    from circuitvision_tpu_torch.ops.cuda.sass import KEPT, check_kept
-
-    sources = tuple(json.loads(KEPT.read_text())["functions"])
-    print(json.dumps({"sass_kept": check_kept(build_all(sources))}), flush=True)
-
-
 def run_trunk_ln_path(torch):
     """The trunk LayerNorm option: TrunkLayerNorm(fused=True) at the four
     Hiera-L@1024 trunk shapes in bfloat16, each called alone and with
@@ -1163,7 +1151,6 @@ def main() -> int:
     build_all()
     contours.load_library()
     done(t0, "build (nvcc for every kernel, g++ for the contour tracer)")
-    check_sass_kept()
     floor = launch_floor(smi)
 
     t0 = phase("kernels at t@512")

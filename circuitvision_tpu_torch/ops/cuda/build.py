@@ -55,8 +55,7 @@ SIGNATURES = {
         "cv_qpool_attn_smem": [_I] * 4,
     },
     "refinement": {
-        "cv_refinement": [_P] * 13 + [_I] * 4 + [_P],
-        "cv_refinement_scratch_bytes": [],
+        "cv_refinement": [_P] * 12 + [_I] * 4 + [_P],
     },
     "global_attn": {
         "cv_ln_heads_f32": [_P] * 6 + [_I] * 6 + [_F, _P],

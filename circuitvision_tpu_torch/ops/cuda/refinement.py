@@ -45,13 +45,10 @@ def refinement(logits, branch_weights, branch_biases, comb_weight, comb_bias):
     )
     if not shapes_ok or len(branch_weights) != len(KERNELS):
         raise KernelError("refinement: weights are not the (3, 5, 7, 11) × 4 head")
-    lib = library("refinement")
     out = torch.empty((b, h, w, 1), dtype=torch.float32, device=logits.device)
-    scratch = torch.empty(lib.cv_refinement_scratch_bytes() // 4, dtype=torch.float32,
-                          device=logits.device)
-    err = lib.cv_refinement(
+    err = library("refinement").cv_refinement(
         logits.data_ptr(), *(p.data_ptr() for p in params), comb_weight.data_ptr(),
-        comb_bias.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, h, w, dtype_code(logits),
+        comb_bias.data_ptr(), out.data_ptr(), b, h, w, dtype_code(logits),
         stream_ptr(logits),
     )
     check(err, "refinement")

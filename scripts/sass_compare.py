@@ -1,7 +1,7 @@
+#!/usr/bin/env python3
 """Compare the machine code of the port's CUDA kernels between two trees.
 
     python3 scripts/sass_compare.py OTHER_TREE [source ...]
-    python3 scripts/sass_compare.py --keep OTHER_TREE [source ...]
     python3 scripts/sass_compare.py --opcodes source [function-substring]
 
 Compiles each `circuitvision_tpu_torch/csrc/<source>.cu` of this tree and
@@ -12,17 +12,12 @@ its SASS is identical once the anonymous-namespace hash in symbol names
 is taken out, and how many instruction lines differ. Functions are
 matched by their demangled names up to the parameter list, without the
 template arguments that hold nothing and stand for a default
-(ops/cuda/sass.py IGNORED_ARGS), so a kernel given such a parameter is
-compared with its former self. With --keep it then builds this tree's
-libraries of those sources (ops/cuda/build.py) and writes
-ops/cuda/sass_kept.json: the digest of every function whose SASS is
-identical in both trees, read from the built library, with the nvcc
-release — what chip_smoke.py holds its own build to. With --opcodes it
-prints, for each kernel function of this tree's csrc/<source>.cu whose
-name holds the substring, how many instructions of each opcode its SASS
-has (static counts: a loop body counts once). Default sources:
-mlp_block global_attn window_attn. Needs nvcc and cuobjdump (the CUDA
-toolkit); no card.
+(IGNORED_ARGS), so a kernel given such a parameter is compared with its
+former self. With --opcodes it prints, for each kernel function of this
+tree's csrc/<source>.cu whose name holds the substring, how many
+instructions of each opcode its SASS has (static counts: a loop body
+counts once). Default sources: mlp_block global_attn window_attn. Needs
+nvcc and cuobjdump (the CUDA toolkit); no card.
 """
 from __future__ import annotations
 
@@ -38,19 +33,42 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-from circuitvision_tpu_torch.ops.cuda.build import NVCC_FLAGS, _nvcc, build_all  # noqa: E402
-from circuitvision_tpu_torch.ops.cuda.sass import (  # noqa: E402
-    KEPT, digest, functions, nvcc_release,
-)
+from circuitvision_tpu_torch.ops.cuda.build import NVCC_FLAGS, _nvcc  # noqa: E402
+
+#: `_GLOBAL__N__<hash>` names the anonymous namespace per translation unit
+ANON = re.compile(r"_GLOBAL__N__[0-9a-f_]+")
+#: template arguments taken out of the names: tc_gemm.cuh's default A layout
+IGNORED_ARGS = re.compile(r",\s*(?:<unnamed>::|\(anonymous namespace\)::)?(?:\w+::)*RowMajorA\b")
+
+
+def demangled(names: list[str]) -> list[str]:
+    out = subprocess.run([str(Path(_nvcc()).parent / "cu++filt")], input="\n".join(names),
+                         check=True, capture_output=True, text=True).stdout.splitlines()
+    return [IGNORED_ARGS.sub("", re.sub(r"\([^()]*\)$", "", n)) for n in out]
 
 
 def sass(tree: Path, source: str, out: Path) -> dict[str, list[str]]:
-    """Per-function SASS lines of csrc/<source>.cu in `tree`."""
+    """Per-function SASS lines of csrc/<source>.cu in `tree`, addresses,
+    encodings and the namespace hash taken out."""
     cubin = out / f"{source}.cubin"
     flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     subprocess.run([_nvcc(), *flags, "-cubin", "-o", str(cubin),
                     str(tree / "circuitvision_tpu_torch" / "csrc" / f"{source}.cu")], check=True)
-    return functions(cubin)
+    text = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "-sass", str(cubin)],
+                          check=True, capture_output=True, text=True).stdout
+    funcs: dict[str, list[str]] = {}
+    name = None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name and "/*" in line:
+            instr = re.sub(r"/\*[0-9a-f]+\*/", "", line.split(";")[0]).strip()
+            if instr and not instr.startswith("/*"):
+                funcs[name].append(ANON.sub("ANON", instr))
+    names = list(funcs)
+    return {key: funcs[n] for n, key in zip(names, demangled(names))}
 
 
 def opcodes(source: str, part: str) -> None:
@@ -64,18 +82,14 @@ def opcodes(source: str, part: str) -> None:
 
 
 def main() -> int:
-    args = sys.argv[1:]
-    if args[:1] == ["--opcodes"] and len(args) > 1:
-        opcodes(args[1], args[2] if len(args) > 2 else "")
+    if sys.argv[1:2] == ["--opcodes"] and len(sys.argv) > 2:
+        opcodes(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else "")
         return 0
-    keep = bool(args) and args[0] == "--keep"
-    args = args[1:] if keep else args
-    if not args:
+    if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
-    other = Path(args[0]).resolve()
-    sources = args[1:] or ["mlp_block", "global_attn", "window_attn"]
-    identical: dict[str, set[str]] = {}
+    other = Path(sys.argv[1]).resolve()
+    sources = sys.argv[2:] or ["mlp_block", "global_attn", "window_attn"]
     with tempfile.TemporaryDirectory() as tmp:
         for source in sources:
             a_dir, b_dir = Path(tmp, "this"), Path(tmp, "other")
@@ -91,15 +105,7 @@ def main() -> int:
                             if d[:1] in "+-" and d[:3] not in ("+++", "---")]
                     row.update(identical=a == b, instructions=[len(a), len(b)],
                                lines_differing=len(diff))
-                    if a == b:
-                        identical.setdefault(source, set()).add(fn)
                 print(json.dumps(row), flush=True)
-    if keep:
-        libs = build_all(tuple(sources))
-        kept = {s: {fn: digest(lines) for fn, lines in functions(libs[s]).items()
-                    if fn in identical.get(s, ())} for s in sources}
-        KEPT.write_text(json.dumps({"nvcc": nvcc_release(), "functions": kept}, indent=1) + "\n")
-        print(json.dumps({"kept": {s: len(v) for s, v in kept.items()}, "file": str(KEPT)}))
     return 0
 
 

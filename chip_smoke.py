@@ -55,10 +55,24 @@ Phases, in order; any failure raises and the process exits non-zero:
      batched path's drawn topology ran it at (its row in the `kernels`
      line: those launches and times), and as rows off the count at the
      seeded-weight run's shapes, 600×800 and 600×1003;
-  9. off-preset head width — a bf16 Hiera trunk at head width 64
-     (OFF_PRESET) on the card, every window and q-pool block on the tiled
-     route and the global block on flash attention, with exact launch
-     counts, against its float32 forward on the CPU;
+  8b. trained product — the shipped ckpt/yolo, ckpt/sam2 and the crop
+     reader ckpt/reader, read by the port's orbax reader (libzstd through
+     ctypes), and the first 16 eval_data PNGs and their masks, read by
+     the port's PNG reader: card against CPU in float32 on two images
+     (boxes, SAM2 logits, mask, the reader's rows and directions, final
+     netlist); then in the shipped dtypes analyze() +
+     generate_final_netlist over the 16 (timed, exact launch counts, SAM2
+     foreground share strictly inside (0, 1) wherever the ground truth
+     has wires, mask IoU), analyze_many(finalize=True) in chunks of 8
+     with the line enhancement kernel on (timed, exact launch counts,
+     each netlist the serial one), and netlist exact match against
+     eval_data/netlists, reported;
+  9. off-preset head widths — bf16 Hiera trunks on the card against
+     their float32 forward on the CPU, with exact launch counts: head
+     width 64 (OFF_PRESET: every window and q-pool block on the tiled
+     route, the global block on flash attention), 60 (heads padded to 64;
+     the blocks of width 60 on the float32 kernels) and 136 (flash_attn's
+     136 instance);
  10. the trunk LayerNorm option — TrunkLayerNorm(fused=True), alone and
      with residual=, at the four Hiera-L@1024 trunk widths, with exact
      launch counts — and its two kernels there in bf16 and f32.
@@ -67,7 +81,7 @@ It prints one JSON line per kernel shape and route check, the launch
 floor, a `kernels` summary line (every ported kernel with its launches,
 device and eager times on the path that runs it), the card's
 `nvidia-smi` name/power line, and as its
-last line {"ok": true, "device": {...}}. It reads only ckpt/*/meta.json
+last line {"ok": true, "device": {...}}. It reads ckpt/ and eval_data/
 and writes only the package's build/ directory. Without a CUDA device it
 exits 1 and prints no result.
 """
@@ -168,6 +182,31 @@ OFF_PRESET = dict(resolution=768, embed_dim=128, num_heads=2, stages=[1, 1, 3, 1
 EXPECTED["off-preset"] = {**{k: 0 for k in EXPECTED["t@512"]},
                           "mlp_block": 6, "ln_qkv": 9, "flash_attn": 6, "attn_proj_residual": 6,
                           "window_attn_block.tiled": 2, "qpool_attn_block.tiled": 3}
+#: the same layout at head widths the bf16 kernels refused before PR 12.
+#: Width 60, one head: stage 1 (C = 60) and the 60 → 120 transition are
+#: off a multiple of 8 and run the float32 kernels (one-block window and
+#: q-pool kernels, mlp_block); from C = 120 on, bf16 with the heads padded
+#: to 64 on the tiled route and the global block's route (resolution 768:
+#: a 48² stage-3 map over the flash threshold). Width 136, one head: every
+#: window and q-pool block tiled on flash_attn's 136 instance; the global
+#: block (hd > 128) on the module path, as in the JAX trunk; resolution 512.
+OFF_PRESET_60 = dict(resolution=768, embed_dim=60, num_heads=1, stages=[1, 1, 3, 1],
+                     global_att_blocks=[3], backbone_channel_list=[480, 240, 120, 60])
+EXPECTED["off-preset-60"] = {**{k: 0 for k in EXPECTED["t@512"]},
+                             "mlp_block": 6, "window_attn_block": 1, "qpool_attn_block": 1,
+                             "ln_qkv": 6, "flash_attn": 4, "attn_proj_residual": 4,
+                             "window_attn_block.tiled": 1, "qpool_attn_block.tiled": 2}
+OFF_PRESET_136 = dict(resolution=512, embed_dim=136, num_heads=1, stages=[1, 1, 3, 1],
+                      global_att_blocks=[3], backbone_channel_list=[1088, 544, 272, 136])
+EXPECTED["off-preset-136"] = {**{k: 0 for k in EXPECTED["t@512"]},
+                              "mlp_block": 6, "ln_qkv": 8, "flash_attn": 5,
+                              "attn_proj_residual": 5, "window_attn_block.tiled": 2,
+                              "qpool_attn_block.tiled": 3}
+#: the trained product: the first PRODUCT_IMAGES eval images (sorted, as
+#: scripts/bench_trained_product.py takes them), two of them for the card
+#: against CPU check, chunks of PRODUCT_BATCH for analyze_many, timed runs
+PRODUCT_IMAGES, PRODUCT_BATCH, PRODUCT_RUNS = 16, 8, 3
+PRODUCT_PARITY = ("ac_rc", "series_rl")
 #: its bf16 trunk on the card against its float32 trunk on the CPU, per
 #: stage output: max |card − cpu| ≤ 2^-4 · max |cpu| and rms(card − cpu)
 #: ≤ 2^-5 · rms(cpu). bf16 keeps 8 significant bits; the port's own bf16
@@ -895,10 +934,9 @@ def run_l_path(torch):
     return launches
 
 
-def run_off_preset(torch, smi):
-    """Phase 9: the Hiera trunk of OFF_PRESET (head width 64) in bf16 on
-    the card with exact launch counts — every window and q-pool block on
-    the tiled route, the global block on flash attention — against the
+def run_off_preset(torch, smi, name, config, seed):
+    """Phase 9: the Hiera trunk of `config` (an off-preset head width) in
+    bf16 on the card with exact launch counts (EXPECTED[name]) against the
     same seeded weights in float32 on the CPU. Returns the launches."""
     import numpy as np
 
@@ -906,15 +944,15 @@ def run_off_preset(torch, smi):
     from circuitvision_tpu_torch.models.layers import place
     from circuitvision_tpu_torch.models.sam2.wrapper import SAM2ImageSegmenter
 
-    meta = {"sam2": {"preset": "l", "overrides": OFF_PRESET}}
-    state = seeded_state("sam2", meta, 3)
+    meta = {"sam2": {"preset": "l", "overrides": config}}
+    state = seeded_state("sam2", meta, seed)
 
     def trunk(device, dtype):
         m = SAM2ImageSegmenter(sam2_config(meta))
         m.load_state_dict(state)
         return place(m, device, dtype).eval().trunk
 
-    res = OFF_PRESET["resolution"]
+    res = config["resolution"]
     x = torch.from_numpy(np.random.default_rng(5).standard_normal((1, res, res, 3))
                          .astype(np.float32))
     card = trunk("cuda", torch.bfloat16)
@@ -928,7 +966,7 @@ def run_off_preset(torch, smi):
         counts = read()
         t0 = time.perf_counter()
         ref = trunk("cpu", torch.float32)(x)
-    print(f"   cpu float32 off-preset trunk: {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"   cpu float32 {name} trunk: {time.perf_counter() - t0:.3f} s", flush=True)
     stages = []
     for g, r in zip(got, ref):
         d = g.float().cpu() - r
@@ -937,16 +975,204 @@ def run_off_preset(torch, smi):
                        "max_abs_ref": float(r.abs().max()), "rel_rms": rms,
                        "finite": bool(torch.isfinite(g).all())})
     print(json.dumps({"off_preset_bf16_card_vs_f32_cpu": {
-        "head_width": OFF_PRESET["embed_dim"] // OFF_PRESET["num_heads"], "config": OFF_PRESET,
-        "launches": counts, "stages": stages, "tol_max": OFF_PRESET_MAX,
+        "name": name, "head_width": config["embed_dim"] // config["num_heads"],
+        "config": config, "launches": counts, "stages": stages, "tol_max": OFF_PRESET_MAX,
         "tol_rms": OFF_PRESET_RMS, "card": smi}}), flush=True)
-    if counts != EXPECTED["off-preset"]:
-        raise AssertionError(f"off-preset: launches {counts} != {EXPECTED['off-preset']}")
+    if counts != EXPECTED[name]:
+        raise AssertionError(f"{name}: launches {counts} != {EXPECTED[name]}")
     for st in stages:
         if not st["finite"] or st["max_abs_err"] > OFF_PRESET_MAX * st["max_abs_ref"] \
                 or st["rel_rms"] > OFF_PRESET_RMS:
-            raise AssertionError(f"off-preset bf16 trunk differs from f32: {st}")
+            raise AssertionError(f"{name} bf16 trunk differs from f32: {st}")
     return counts
+
+
+def _box_keys(result):
+    return [(b.class_name, b.xmin, b.ymin, b.xmax, b.ymax) for b in result.bboxes_orig_nms]
+
+
+def _directions(result):
+    return [(b.semantic_direction, b.semantic_reason) for b in result.bboxes]
+
+
+def product_config(ymeta, smeta, **topology):
+    """The trained product's PipelineConfig (scripts/bench_trained_product.py):
+    the detector of ckpt/yolo's meta in its shipped bf16, SAM2 of
+    ckpt/sam2's meta in its trained float32."""
+    from circuitvision_tpu_torch.core.config import PipelineConfig, TopologyConfig
+    from circuitvision_tpu_torch.models.bridge import detector_config, sam2_config
+
+    return PipelineConfig(detector=detector_config(ymeta), sam2=sam2_config(smeta),
+                          topology=TopologyConfig(**topology))
+
+
+def run_trained_product(torch, smi):
+    """The trained product at YOLOv11-s@640 + Hiera-t@512 + the crop
+    reader: the three shipped checkpoints and the eval PNGs read by the
+    port's own readers; (a) card against CPU in float32 on PRODUCT_PARITY;
+    (b) the shipped dtypes: analyze() + generate_final_netlist over the
+    first PRODUCT_IMAGES eval images, timed, with exact launch counts, the
+    SAM2 foreground share and mask IoU against eval_data/masks; (c)
+    analyze_many(finalize=True) in chunks of PRODUCT_BATCH with the line
+    enhancement kernel on, timed, each netlist the card's serial one; (d)
+    netlist_exact_match against eval_data/netlists. Returns the launches
+    of one analyze() and of one analyze_many()."""
+    import ctypes.util
+    import statistics
+
+    import numpy as np
+
+    from circuitvision_tpu_torch.enrich.trained_reader import TrainedReaderClient
+    from circuitvision_tpu_torch.eval.metrics import mask_iou, netlist_exact_match
+    from circuitvision_tpu_torch.io.image_io import load_image, read_png
+    from circuitvision_tpu_torch.models.bridge import state_dict_from_variables
+    from circuitvision_tpu_torch.models.checkpoint import load_model_checkpoint
+    from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
+
+    lib = ctypes.util.find_library("zstd")
+    print(f"   find_library('zstd'): {lib}", flush=True)
+    loaded, load_s = {}, {}
+    for name in ("yolo", "sam2", "reader"):
+        t0 = time.perf_counter()
+        loaded[name] = load_model_checkpoint(str(REPO / "ckpt" / name))
+        load_s[name] = time.perf_counter() - t0
+    (yv, ymeta), (sv, smeta), (rv, _) = loaded["yolo"], loaded["sam2"], loaded["reader"]
+    ystate, sstate, rstate = (state_dict_from_variables(v) for v in (yv, sv, rv))
+
+    data = REPO / "eval_data"
+    paths = sorted((data / "images").glob("*.png"))[:PRODUCT_IMAGES]
+    load_image(str(paths[0]))  # builds the row unfilter (g++) outside the timing
+    t0 = time.perf_counter()
+    images = [load_image(str(p)) for p in paths]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+    masks = [read_png(str(data / "masks" / p.name)) for p in paths]
+    print(json.dumps({"trained_product_inputs": {
+        "zstd_library": lib, "checkpoint_load_s": load_s, "images": [p.stem for p in paths],
+        "png_decode_ms_per_image": decode_ms, "card": smi}}), flush=True)
+
+    def analyzer(cfg, device):
+        return CircuitAnalyzerTorch(cfg, ystate, sstate, device=device,
+                                    vlm_client=TrainedReaderClient(rstate, device=device))
+
+    # (a) float32, TF32 off: the card against the CPU
+    cfg = product_config(ymeta, smeta)
+    cfg32 = dataclasses.replace(cfg, detector=dataclasses.replace(cfg.detector, dtype="float32"))
+    card32, cpu32 = analyzer(cfg32, "cuda"), analyzer(cfg32, "cpu")
+    parity = []
+    for stem in PRODUCT_PARITY:
+        img = load_image(str(data / "images" / f"{stem}.png"))
+        g = card32.generate_final_netlist(card32.analyze(img))
+        c = cpu32.generate_final_netlist(cpu32.analyze(img))
+        row = {"image": stem,
+               "sam2_logits": path_err(torch, f"{stem} SAM2 logits",
+                                       card32.segment_logits(g.image_for_analysis),
+                                       cpu32.segment_logits(c.image_for_analysis)),
+               "boxes_equal": _box_keys(g) == _box_keys(c), "n_boxes": len(g.bboxes_orig_nms),
+               "mask_agreement": float(np.mean(g.sam_mask == c.sam_mask))
+               if g.sam_mask.shape == c.sam_mask.shape else 0.0,
+               "reader_rows_equal": g.vlm_stage2_output == c.vlm_stage2_output,
+               "directions_equal": _directions(g) == _directions(c),
+               "final_netlist_equal": g.netlist_text == c.netlist_text,
+               "netlist": g.netlist_text}
+        parity.append(row)
+        print(json.dumps({"trained_product_f32_card_vs_cpu": row}), flush=True)
+        if not (row["boxes_equal"] and row["reader_rows_equal"] and row["directions_equal"]
+                and row["final_netlist_equal"]) or row["mask_agreement"] < MASK_AGREEMENT_MIN:
+            raise AssertionError(f"trained product, {stem}: card and CPU differ: {row}")
+    del card32, cpu32
+
+    # (b) the shipped dtypes, serial
+    card = analyzer(cfg, "cuda")
+    reset, read = counters()
+    card.generate_final_netlist(card.analyze(images[0]))  # warm-up
+    runs, serial = [], None
+    for _ in range(PRODUCT_RUNS):
+        stage_s: dict = {}
+        results = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for img in images:
+            reset()
+            r = card.generate_final_netlist(card.analyze(img))
+            counts = read()
+            if counts != EXPECTED["t@512"]:
+                raise AssertionError(f"trained product: launches per analyze {counts} != "
+                                     f"{EXPECTED['t@512']}")
+            results.append(r)
+            for k, v in r.timings.timings.items():
+                stage_s[k] = stage_s.get(k, 0.0) + v
+        torch.cuda.synchronize()
+        runs.append({"ms_per_image": (time.perf_counter() - t0) * 1e3 / len(images),
+                     "stages_ms_per_image": {k: v * 1e3 / len(images)
+                                             for k, v in stage_s.items()}})
+        serial = results
+    launches = counts
+    ms = [r["ms_per_image"] for r in runs]
+    fg, ious = [], []
+    for r, gt in zip(serial, masks):
+        if not gt.any():
+            continue  # no wire in the ground truth (the degen_* images): IoU undefined
+        share = float(np.mean(r.sam_mask > 0))
+        fg.append(share)
+        pred = r.sam_mask
+        if pred.shape != gt.shape:  # the mask is the crop's: back into the image's frame
+            full = np.zeros(gt.shape, np.uint8)
+            info = r.crop_info
+            if info is not None and info.applied and info.window:
+                x0, y0, x1, y1 = info.window
+                full[y0:y1, x0:x1] = pred
+            pred = full
+        ious.append(mask_iou(pred, gt))
+    if not fg or not all(0.0 < f < 1.0 for f in fg):
+        raise AssertionError(f"trained SAM2 foreground shares {fg}: a mask is empty or full")
+
+    # (c) analyze_many(finalize=True), the line enhancement kernel on
+    batch = analyzer(product_config(ymeta, smeta, use_fused_morphology=True), "cuda")
+    batch.analyze_batch(images[:PRODUCT_BATCH], batch_size=PRODUCT_BATCH, finalize=True)
+    ips, batched = [], None
+    for _ in range(PRODUCT_RUNS):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batched = batch.analyze_batch(images, batch_size=PRODUCT_BATCH, finalize=True)
+        torch.cuda.synchronize()
+        ips.append(len(images) / (time.perf_counter() - t0))
+        batch_counts = read()
+    with_mask = sum(r.sam_mask is not None for r in batched)
+    want = {**{k: v * -(-len(images) // PRODUCT_BATCH) for k, v in EXPECTED["t@512"].items()},
+            "enhance_lines_fused": with_mask}
+    if batch_counts != want or want != EXPECTED["batch"]:
+        raise AssertionError(f"trained product batched: launches {batch_counts} != {want}")
+    differ = [p.stem for p, b, s_ in zip(paths, batched, serial)
+              if b.netlist_text != s_.netlist_text]
+
+    # (d) fidelity against the eval set's reference netlists, reported
+    refs = [(data / "netlists" / f"{p.stem}.cir") for p in paths]
+    have = [i for i, f in enumerate(refs) if f.exists()]
+    exact = netlist_exact_match([serial[i].netlist_text for i in have],
+                                [refs[i].read_text() for i in have])
+    valued = sum(1 for r in serial for line in r.netlist_text.splitlines()
+                 if line and not line.endswith("None"))
+    print(json.dumps({"trained_product": {
+        "config": "YOLOv11-s@640 bf16 + SAM2 Hiera-t@512 f32 + crop reader f32 (ckpt/)",
+        "images": len(images),
+        "analyze_final_ms_per_image": {"median": statistics.median(ms), "min": min(ms),
+                                       "max": max(ms), "runs": runs},
+        "analyze_many_finalize_images_per_s": {"median": statistics.median(ips),
+                                               "min": min(ips), "max": max(ips), "runs": ips,
+                                               "batch_size": PRODUCT_BATCH},
+        "launches_per_analyze": launches, "launches_per_analyze_many": batch_counts,
+        "sam2_foreground_share_mean": float(np.mean(fg)), "images_with_gt_wires": len(fg),
+        "mask_iou_mean": float(np.mean(ious)),
+        "netlist_exact_match": exact, "netlists_compared": len(have),
+        "valued_netlist_lines": valued, "batched_netlists_differing_from_serial": differ,
+        "card": smi}}), flush=True)
+    print(f"   trained product on {smi}: analyze()+final {statistics.median(ms):.1f} ms/image "
+          f"(median of {PRODUCT_RUNS}), analyze_many(finalize) {statistics.median(ips):.2f} "
+          f"images/s, netlist exact match {exact:.3f} over {len(have)}", flush=True)
+    if differ:
+        raise AssertionError(f"trained product: batched netlists differ from serial on {differ}")
+    return launches, batch_counts
 
 
 def run_trunk_ln_path(torch):
@@ -1178,9 +1404,15 @@ def main() -> int:
     summary["batch"] = run_kernels(torch, "batch", raster_shapes)
     done(t0, "line-enhancement kernel")
 
-    t0 = phase("off-preset head width: bf16 Hiera at head width 64")
-    run_off_preset(torch, smi)
-    done(t0, "off-preset head width")
+    t0 = phase("trained product at s@640 + t@512 + reader")
+    launches["product"], launches["product-batch"] = run_trained_product(torch, smi)
+    done(t0, "trained product")
+
+    t0 = phase("off-preset head widths: bf16 Hiera at head widths 64, 60 and 136")
+    for name, config, seed in (("off-preset", OFF_PRESET, 3), ("off-preset-60", OFF_PRESET_60, 4),
+                               ("off-preset-136", OFF_PRESET_136, 6)):
+        run_off_preset(torch, smi, name, config, seed)
+    done(t0, "off-preset head widths")
 
     t0 = phase("trunk LayerNorm option at the L@1024 widths")
     launches["trunk-ln"] = run_trunk_ln_path(torch)
@@ -1201,7 +1433,9 @@ def main() -> int:
     # the LayerNorms on the trunk LayerNorm option
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
                 "path": path, **entry(n, s, launches[path]),
-                "launches_t512": launches["t@512"][n]}
+                "launches_t512": launches["t@512"][n],
+                "launches_trained_product": launches["product"][n],
+                "launches_trained_product_batch": launches["product-batch"][n]}
                for path in ("l@1024", "batch", "trunk-ln") for n, s in summary[path].items()]
     print(json.dumps({"launch_floor": floor}))
     print(json.dumps({"kernels": kernels}))

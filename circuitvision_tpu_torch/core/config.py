@@ -1,7 +1,7 @@
 """Typed configuration tree of the PyTorch port: the JAX package's
 `core/config.py` without JAX and without the sections and fields the
-ported slices never read (enrichment, simulation, mesh, training, MXU
-channel padding, LoRA).
+ported slices never read (simulation, mesh, training, MXU channel
+padding, LoRA).
 
 Every magic number that is inlined in the reference implementation
 (src/circuit_analyzer.py and src/analysis_pipeline.py of the reference
@@ -186,6 +186,21 @@ class NMSConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EnrichConfig:
+    """VLM-based polarity/value enrichment (JAX core/config.py:196). The
+    trained reader reads only crop_padding; the rest configures the HTTP
+    clients, which are not ported (ROADMAP Queue A 6)."""
+
+    crop_padding: int = 15  # src/circuit_analyzer.py:2176
+    direction_model: str = "gemini-2.5-flash-lite-preview-06-17"
+    labels_model: str = "google/gemini-2.5-flash-preview"
+    temperature: float = 0.1
+    top_p: float = 0.98
+    max_output_tokens: int = 1024
+    max_concurrency: int = 8  # reference loops serially; we batch
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Top-level config tree."""
 
@@ -194,6 +209,7 @@ class PipelineConfig:
     crop: CropConfig = dataclasses.field(default_factory=CropConfig)
     topology: TopologyConfig = dataclasses.field(default_factory=TopologyConfig)
     nms: NMSConfig = dataclasses.field(default_factory=NMSConfig)
+    enrich: EnrichConfig = dataclasses.field(default_factory=EnrichConfig)
     use_sam2: bool = True
 
 

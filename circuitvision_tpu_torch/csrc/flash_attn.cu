@@ -1,6 +1,8 @@
 // Non-causal softmax attention with online softmax: o = softmax(q·kᵀ·s)·v
-// over (B, H, Nq, D) × (B, H, Nk, D), s = D^-0.5, scores never leaving
-// the SM.
+// over (B, H, Nq, D) × (B, H, Nk, D), scores never leaving the SM. The
+// caller gives the scale s: D^-0.5 of the head's true width, which is
+// narrower than D where the bf16 tiled route pads heads with zero columns
+// to a multiple of 8 (ops/cuda/window_attn.py pad_heads).
 //
 // Replaces jax's TPU flash attention
 // (jax.experimental.pallas.ops.tpu.flash_attention, which the JAX
@@ -50,7 +52,8 @@
 // the rows (half the L2 traffic of 64-row tiles) and reuse each K and V
 // fragment for both tiles; that instance holds 221 registers, and at
 // D = 96 it would spill, so it stops at D = 72. Head widths are
-// instantiated at 32, 64, 72, 96 and 128; a narrower head takes the next
+// instantiated at 32, 64, 72, 96 and 128, and at 136 and 256 for heads
+// wider than 128 (one q tile a warp); a narrower head takes the next
 // instance with its extra columns zero.
 //
 // float32 — flash_kernel, f32 FMA loops: one 64-row q tile in shared
@@ -197,7 +200,7 @@ size_t flash_smem(int hd) {
 
 template <typename T>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
-                         int bh, int nq, int nk, int hd, int pool_win,
+                         int bh, int nq, int nk, int hd, int pool_win, float scale,
                          cudaStream_t stream) {
   if (hd < 1 || hd > kMaxD || nk < 1) return cudaErrorInvalidValue;
   size_t smem = flash_smem(hd);
@@ -206,8 +209,7 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   dim3 grid((nq + kBQ - 1) / kBQ, bh);
   flash_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, nq, nk, hd, pool_win,
-      (float)(1.0 / std::sqrt((double)hd)));
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, nq, nk, hd, pool_win, scale);
   return cudaGetLastError();
 }
 
@@ -473,7 +475,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int NT, int MT>
 cudaError_t launch_flash_tc(const void* q, const void* k, const void* v, void* o, int bh,
                             int nq, int nk, int hd, int pool_win, int wpp, int stages,
-                            cudaStream_t stream) {
+                            float scale_log2, cudaStream_t stream) {
   const size_t smem = flash_tc_smem(8 * NT, MT, wpp, stages);
   cudaError_t err = cudaFuncSetAttribute(
       flash_tc_kernel<NT, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -483,19 +485,21 @@ cudaError_t launch_flash_tc(const void* q, const void* k, const void* v, void* o
   const unsigned blocks = (unsigned)((tiles + groups - 1) / groups);
   flash_tc_kernel<NT, MT><<<blocks, kTcThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, bh, nq, nk, hd, pool_win,
-      wpp, stages, (float)(1.4426950408889634 / std::sqrt((double)hd)));
+      wpp, stages, scale_log2);
   return cudaGetLastError();
 }
 
 template <int NT>
 cudaError_t launch_flash_width(int mt, const void* q, const void* k, const void* v, void* o,
                                int bh, int nq, int nk, int hd, int pool_win, int wpp,
-                               int stages, cudaStream_t stream) {
+                               int stages, float scale_log2, cudaStream_t stream) {
   if (mt == 1)
-    return launch_flash_tc<NT, 1>(q, k, v, o, bh, nq, nk, hd, pool_win, wpp, stages, stream);
+    return launch_flash_tc<NT, 1>(q, k, v, o, bh, nq, nk, hd, pool_win, wpp, stages,
+                                  scale_log2, stream);
   if constexpr (NT <= kTcMaxWideNT) {
     if (mt == 2 && wpp == kTcWarps)
-      return launch_flash_tc<NT, 2>(q, k, v, o, bh, nq, nk, hd, pool_win, wpp, stages, stream);
+      return launch_flash_tc<NT, 2>(q, k, v, o, bh, nq, nk, hd, pool_win, wpp, stages,
+                                    scale_log2, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -514,19 +518,21 @@ extern "C" long long cv_flash_attn_bf16_smem(int width, int mt, int wpp, int sta
 // with pool_win > 0, nq = pool_win²/4 — k, v (bh, nk, hd), o (bh, nq,
 // hd); bh = batch·heads; every pointer 16-byte aligned, hd a multiple of
 // 8. The launch plan comes from the wrapper (ops/cuda/flash_attn.py
-// flash_plan): `width` ∈ {32, 64, 72, 96, 128}, ≥ hd; mt ∈ {1, 2} m16 q
-// tiles per warp (2 only with wpp = 4 and width ≤ 72); wpp ∈ {1, 2, 4}
-// warps per (batch·head, q tile) problem; `stages` 2, or 1 where nk ≤ 64.
+// flash_plan): `width` ∈ {32, 64, 72, 96, 128, 136, 256}, ≥ hd; mt ∈ {1,
+// 2} m16 q tiles per warp (2 only with wpp = 4 and width ≤ 72); wpp ∈ {1,
+// 2, 4} warps per (batch·head, q tile) problem; `stages` 2, or 1 where nk
+// ≤ 64. scale_log2 = log2(e) · the softmax scale.
 extern "C" int cv_flash_attn_bf16(const void* q, const void* k, const void* v, void* o,
                                   int bh, int nq, int nk, int hd, int pool_win, int width,
-                                  int mt, int wpp, int stages, void* stream) {
+                                  int mt, int wpp, int stages, float scale_log2,
+                                  void* stream) {
   if (hd < 8 || hd % 8 || hd > width || nq < 1 || nk < 1 || bh < 1 ||
       (wpp != 1 && wpp != 2 && wpp != 4) || stages < 1 || stages > 2 ||
       (stages == 1 && nk > kTcKeys))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   auto run = [&](auto launch) {
-    return (int)launch(mt, q, k, v, o, bh, nq, nk, hd, pool_win, wpp, stages, s);
+    return (int)launch(mt, q, k, v, o, bh, nq, nk, hd, pool_win, wpp, stages, scale_log2, s);
   };
   switch (width) {
     case 32: return run(launch_flash_width<4>);
@@ -534,12 +540,17 @@ extern "C" int cv_flash_attn_bf16(const void* q, const void* k, const void* v, v
     case 72: return run(launch_flash_width<9>);
     case 96: return run(launch_flash_width<12>);
     case 128: return run(launch_flash_width<16>);
+    case 136: return run(launch_flash_width<17>);
+    case 256: return run(launch_flash_width<32>);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// float32 on the FMA units (flash_kernel); same layouts as above.
+// float32 on the FMA units (flash_kernel); same layouts as above, any hd
+// up to 128; `scale` the softmax scale.
 extern "C" int cv_flash_attn_f32(const void* q, const void* k, const void* v, void* o,
-                                 int bh, int nq, int nk, int hd, int pool_win, void* stream) {
-  return launch_flash<float>(q, k, v, o, bh, nq, nk, hd, pool_win, (cudaStream_t)stream);
+                                 int bh, int nq, int nk, int hd, int pool_win, float scale,
+                                 void* stream) {
+  return launch_flash<float>(q, k, v, o, bh, nq, nk, hd, pool_win, scale,
+                             (cudaStream_t)stream);
 }

@@ -23,13 +23,16 @@ The kernels of the port carry the blocks the JAX package gives to its
 Pallas kernels: `mlp_block` in every block, `window_attn_block` in
 partitioned blocks, `qpool_attn_block` in transition blocks whose even
 window divides the map, `ln_qkv` → `flash_attn` → `attn_proj_residual`
-in long global blocks of head width up to MAX_HEAD_DIM. Everything else
-is the plain module path. In bfloat16 the kernels take every head width
-that is a multiple of 8 up to MAX_HEAD_DIM (the one-block window and
-q-pool kernels 56, 72 and 96, the others through the tiled route); the
-analyzer refuses a trunk with another width on the card
-(`refused_head_width`), and a CUDA tensor at such a width raises in the
-kernel's wrapper.
+(`window_attn_block_tiled`) in long global blocks of head width up to
+MAX_HEAD_DIM. Everything else is the plain module path. In bfloat16 the
+one-block window and q-pool kernels take head widths 56, 72 and 96 and
+the tiled route every other width up to 256, padded to a multiple of 8
+where it is not one (ops/cuda/window_attn.py `pad_heads`). A bfloat16
+block on the card whose width is not a multiple of 8 — the tensor-core
+kernels copy rows in 16-byte pieces — runs its kernels in float32 and
+rounds its output back (`MultiScaleBlock.forward`). The analyzer
+refuses on the card only a bfloat16 trunk of heads wider than 256
+(`refused_head_width`).
 """
 from __future__ import annotations
 
@@ -37,11 +40,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.cuda.flash_attn import MAX_HEAD_DIM, flash_attn
+from ...ops.cuda.flash_attn import MAX_HEAD_DIM, TC_WIDTHS
 from ...ops.cuda.fused_ln import fused_add_layernorm, fused_layernorm
-from ...ops.cuda.global_attn import attn_proj_residual, ln_qkv
 from ...ops.cuda.mlp_block import mlp_block
-from ...ops.cuda.window_attn import qpool_attn_block, window_attn_block
+from ...ops.cuda.window_attn import (
+    padded_head_width, qpool_attn_block, window_attn_block, window_attn_block_tiled,
+)
 
 #: global blocks of at least this many tokens take the flash route (JAX
 #: hiera.py:201)
@@ -183,7 +187,12 @@ class MultiScaleBlock(nn.Module):
     def forward(self, x: torch.Tensor, window_size: int, partitioned: bool) -> torch.Tensor:
         """x is (B, H, W, C) in full layout (`window_size` > 0 windows it
         here, 0 is global) or, when `partitioned`, (B·nW, win, win, C)
-        with each window an image of its own."""
+        with each window an image of its own. A bfloat16 CUDA block of a
+        width off a multiple of 8 runs in float32 (`float32_kernels`)."""
+        if float32_kernels(x, self.dim, self.dim_out):
+            params = {name: p.float() for name, p in self.named_parameters()}
+            out = torch.func.functional_call(self, params, (x.float(), window_size, partitioned))
+            return out.to(x.dtype)
         heads = self.num_heads
         path = self.attention_path(x, window_size, partitioned)
         if path == "qpool":
@@ -202,11 +211,10 @@ class MultiScaleBlock(nn.Module):
             x = window_unpartition(x, win // 2, (fh // 2, fw // 2), (fh // 2, fw // 2))
         elif path == "global":
             b_, fh, fw, c = x.shape
-            xr = x.reshape(b_, fh * fw, c).contiguous()
-            q, k, v = ln_qkv(xr, self.norm1.weight, self.norm1.bias,
-                             self.attn.qkv.weight, self.attn.qkv.bias, heads)
-            x = attn_proj_residual(xr, flash_attn(q, k, v), self.attn.proj.weight,
-                                   self.attn.proj.bias).reshape(b_, fh, fw, c)
+            x = window_attn_block_tiled(
+                x.reshape(b_, fh * fw, c).contiguous(), self.norm1.weight, self.norm1.bias,
+                self.attn.qkv.weight, self.attn.qkv.bias, self.attn.proj.weight,
+                self.attn.proj.bias, heads, round_proj=False).reshape(b_, fh, fw, c)
         elif path == "window":
             b_, wh, ww, c = x.shape
             x = window_attn_block(
@@ -244,14 +252,24 @@ class MultiScaleBlock(nn.Module):
         ).reshape(shp)
 
 
+def float32_kernels(x: torch.Tensor, dim: int, dim_out: int) -> bool:
+    """Whether a block of widths dim → dim_out runs its kernels in float32
+    on input x: a bfloat16 CUDA tensor at a width off a multiple of 8,
+    which the tensor-core kernels (rows copied in 16-byte pieces) do not
+    take. On the CPU the plain versions take every width."""
+    return x.is_cuda and x.dtype == torch.bfloat16 and bool(dim % 8 or dim_out % 8)
+
+
 def refused_head_width(embed_dim: int, num_heads: int) -> int | None:
     """The head width of a Hiera trunk — embed_dim // num_heads in every
     stage, since a q-pool block doubles both — if its bfloat16 kernels
-    refuse it: not a multiple of 8 (the GEMMs copy heads in 16-byte
-    pieces) or above MAX_HEAD_DIM (flash_attn's widest, which the tiled
-    route runs); else None. The float32 kernels take any width."""
+    refuse it, else None: padded to a multiple of 8, wider than
+    flash_attn's widest bf16 instance (TC_WIDTHS[-1]), or, where the
+    trunk's width is off a multiple of 8 (those blocks run the float32
+    kernels), wider than theirs (MAX_HEAD_DIM)."""
     hd = embed_dim // num_heads
-    return hd if hd % 8 or hd > MAX_HEAD_DIM else None
+    widest = MAX_HEAD_DIM if embed_dim % 8 else TC_WIDTHS[-1]
+    return hd if padded_head_width(hd, torch.bfloat16) > widest else None
 
 
 class Hiera(nn.Module):

@@ -68,8 +68,8 @@ SIGNATURES = {
         "cv_ln_heads_gemm_smem": [_I],
     },
     "flash_attn": {
-        "cv_flash_attn_f32": [_P] * 4 + [_I] * 5 + [_P],
-        "cv_flash_attn_bf16": [_P] * 4 + [_I] * 9 + [_P],
+        "cv_flash_attn_f32": [_P] * 4 + [_I] * 5 + [_F, _P],
+        "cv_flash_attn_bf16": [_P] * 4 + [_I] * 9 + [_F, _P],
         "cv_flash_attn_bf16_smem": [_I] * 4,
     },
     "morphology": {
@@ -91,6 +91,16 @@ _lock = threading.Lock()
 class KernelError(RuntimeError):
     """A kernel could not be built or launched, or was given a tensor it
     does not take. The pipeline's degradation ladders never swallow it."""
+
+
+def is_device_fault(exc: BaseException) -> bool:
+    """Kernel faults and CUDA errors, which no degradation ladder may hide."""
+    accel = getattr(torch, "AcceleratorError", None)
+    return (
+        isinstance(exc, KernelError)
+        or (accel is not None and isinstance(exc, accel))
+        or (isinstance(exc, RuntimeError) and "CUDA" in str(exc))
+    )
 
 
 def _nvcc() -> str:

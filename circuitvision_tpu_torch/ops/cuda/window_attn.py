@@ -33,11 +33,19 @@ bfloat16 every head width outside TC_HEAD_WIDTHS) takes the tiled route
 instead, which computes the same function with three kernels batched
 over the windows: `ln_qkv`, `flash_attn` and `attn_proj_residual`
 (ops/cuda/global_attn.py, ops/cuda/flash_attn.py), rounding q/k/v, the
-attention output and the projection where the one-block kernels do.
+attention output and the projection where the one-block kernels do. In
+bfloat16 its kernels copy heads in 16-byte pieces, so a head width off a
+multiple of 8 runs padded (`pad_heads`): each head's q/k/v weight rows
+get zero rows up to the next multiple of 8, so q, k and v carry zero
+columns that change no score; flash_attn takes its softmax scale from
+the true width, and the projection reads the padded heads through
+weight columns that are zero at the padding, its output widened to the
+padded width and cut back to C after the residual.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .build import (
     MAX_SMEM, KernelError, check, check_aligned, check_ln_params, check_operands, dtype_code,
@@ -118,9 +126,10 @@ def window_route(kind: str, tokens: int, c_in: int, c_out: int, heads: int,
     (window: T ∈ {16, 32, 64}; q-pool: win 4 or 8, C_in one of
     TC_QPOOL_WIDTHS_IN, C_out ≤ 576) and a head layout they are built for
     (`block_heads`) — else "tiled". The tiled route's kernels take any
-    head width that is a multiple of 8 up to 128 (flash_attn pads it to
+    head width that is a multiple of 8 up to 256 (flash_attn pads it to
     TC_WIDTHS, attn_proj_residual reads it through a runtime-width layout
-    outside PROJ_HEAD_WIDTHS)."""
+    outside PROJ_HEAD_WIDTHS); in bfloat16 a width off a multiple of 8
+    runs padded (`pad_heads`), up to flash_attn's widest, 256."""
     if dtype == torch.bfloat16 and (
             (kind == "window" and tokens not in TC_TOKENS)
             or (kind == "qpool" and (tokens not in TC_QPOOL_TOKENS
@@ -190,12 +199,47 @@ window_attn_block.launches = 0
 window_attn_block.tiled = 0
 
 
+def padded_head_width(hd: int, dtype: torch.dtype) -> int:
+    """The head width the tiled route computes at: in bfloat16 hd rounded
+    up to a multiple of 8, in float32 hd (its kernels take any width)."""
+    return -(-hd // 8) * 8 if dtype == torch.bfloat16 else hd
+
+
+def pad_heads(wqkv, bqkv, wproj, bproj, heads: int, dtype: torch.dtype):
+    """(hd, wqkv, bqkv, wproj, bproj) for the tiled route at head width
+    hp = padded_head_width(hd): each head's rows of wqkv (slabs · heads ·
+    hd, C_in) and bqkv followed by hp − hd zero rows; wproj (C, C)
+    widened to (heads·hp, heads·hp) — each head's hd input columns
+    followed by zero columns, zero output rows past C — and bproj to
+    heads·hp. The same tensors where hp == hd."""
+    c = wproj.shape[0]
+    hd = c // heads
+    hp = padded_head_width(hd, dtype)
+    if hp == hd:
+        return hd, wqkv, bqkv, wproj, bproj
+    cp, c_in = heads * hp, wqkv.shape[1]
+    groups = wqkv.shape[0] // hd
+    wq = F.pad(wqkv.reshape(groups, hd, c_in), (0, 0, 0, hp - hd)).reshape(groups * hp, c_in)
+    bq = F.pad(bqkv.reshape(groups, hd), (0, hp - hd)).reshape(groups * hp)
+    wp = F.pad(wproj.reshape(c, heads, hd), (0, hp - hd)).reshape(c, cp)
+    return hd, wq, bq, F.pad(wp, (0, 0, 0, cp - c)), F.pad(bproj, (0, cp - c))
+
+
 def window_attn_block_tiled(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
-                            heads, eps=1e-6):
+                            heads, eps=1e-6, round_proj=True):
     """window_attn_block as ln_qkv → flash_attn → attn_proj_residual over
-    the (n_windows, T, C) windows."""
+    (B, N, C) windows — or one global block, B images of N tokens — with
+    the heads padded where the dtype needs it (`pad_heads`). `round_proj`
+    rounds the projection before the residual add, as the window kernels
+    do; the global blocks do not."""
+    c = x.shape[-1]
+    hd, wqkv, bqkv, wproj, bproj = pad_heads(wqkv, bqkv, wproj, bproj, heads, x.dtype)
+    pad = wproj.shape[0] - c
     q, k, v = ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv, heads, eps=eps)
-    return attn_proj_residual(x, flash_attn(q, k, v), wproj, bproj, round_proj=True)
+    out = attn_proj_residual(F.pad(x, (0, pad)) if pad else x,
+                             flash_attn(q, k, v, scale_width=hd), wproj, bproj,
+                             round_proj=round_proj)
+    return out[..., :c].contiguous() if pad else out
 
 
 def qpool_attn_block_plain(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv,
@@ -264,12 +308,20 @@ def qpool_attn_block_tiled(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj
                            bproj, heads, win, eps=1e-6):
     """qpool_attn_block as ln_qkv (q, k, v; then the shortcut as one
     slab) → flash_attn with q pooled as it loads → attn_proj_residual
-    onto the shortcut pooled as it is read."""
+    onto the shortcut pooled as it is read; heads padded where the dtype
+    needs it (`pad_heads`; the shortcut's weight gets zero rows to the
+    padded width)."""
     rows, c_in = x.shape
     t = win * win
+    c_out = wproj.shape[0]
     xw = x.view(rows // t, t, c_in)
+    hd, wqkv, bqkv, wproj, bproj = pad_heads(wqkv, bqkv, wproj, bproj, heads, x.dtype)
+    pad = wproj.shape[0] - c_out
+    if pad:
+        wskip, bskip = F.pad(wskip, (0, 0, 0, pad)), F.pad(bskip, (0, pad))
     q, k, v = ln_qkv(xw, ln_scale, ln_bias, wqkv, bqkv, heads, eps=eps)
     skip = ln_qkv(xw, ln_scale, ln_bias, wskip, bskip, 1, slabs=1, eps=eps)[0, :, 0]
-    o = flash_attn(q, k, v, pool_win=win)
+    o = flash_attn(q, k, v, pool_win=win, scale_width=hd)
     out = attn_proj_residual(skip, o, wproj, bproj, pool_win=win, round_proj=True)
-    return out.view(rows // 4, -1)
+    out = out.view(rows // 4, -1)
+    return out[:, :c_out].contiguous() if pad else out

@@ -1,7 +1,8 @@
 """CircuitAnalyzerTorch — the image → netlist pipeline on one CUDA device.
 
 Counterpart of `CircuitAnalyzerTPU.analyze()` in the JAX package
-(pipeline/analyzer.py:275-353), stages [1]-[6] with no VLM client:
+(pipeline/analyzer.py:275-353), stages [1]-[6], and of its value pass,
+`generate_final_netlist` and `finalize_netlists` (:417-498):
 
   [1] detect        — letterbox → YOLOv11 → DFL decode → class-aware NMS,
                       then the reference's confidence NMS at IoU 0.6
@@ -9,23 +10,33 @@ Counterpart of `CircuitAnalyzerTPU.analyze()` in the JAX package
   [2b] segment      — SAM2 forward (Hiera kernels, refinement kernel),
                       logits resized back like jax.image.resize linear
   [3] reclassify    — terminal→source reclassification (classical mask)
-  [4] enrich        — no VLM: directions stay unset, as in the JAX ladder
+  [4] enrich        — component polarities from the VLM client (the
+                      trained crop reader, enrich/trained_reader.py);
+                      without a client directions stay unset
   [5] nodes         — stage A on the device, contours on the host
   [6] netlist       — valueless netlist text and visual ids
+  [7] final netlist — the client's {id, class, value} rows merged in
+                      (fix_netlist), by generate_final_netlist
+
+The client must be box-driven (`get_labels_batch_boxes`): it is handed
+the analysis image and the id'd boxes. The cv2-drawn enumeration image a
+black-box VLM reads is not ported (ROADMAP Queue A 6), so a client
+without that hook is refused when the analyzer is built.
 
 Degradation ladders stay for failures that come from the data: a
 reclassification or node-analysis error is logged and the pipeline goes
-on, and no nodes gives the components-only netlist. They never swallow a
-kernel fault (`KernelError`) or a CUDA error, and SAM2 is not guarded at
-all: given SAM2 weights, a failed segmentation is an error, not a switch
-to the classical mask.
+on, no nodes gives the components-only netlist, a failed direction read
+gives UNKNOWN, and a failed value read or merge keeps the valueless
+netlist. They never swallow a kernel fault (`KernelError`) or a CUDA
+error, and SAM2 is not guarded at all: given SAM2 weights, a failed
+segmentation is an error, not a switch to the classical mask.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,18 +44,20 @@ import torch
 from ..core import geometry, taxonomy
 from ..core.config import PipelineConfig, compute_dtype, resolve_device
 from ..core.types import AnalysisResult, BBox, StageTimings
+from ..enrich.client import VLMClient, default_client
+from ..enrich.directions import enrich_directions
 from ..models.layers import place
 from ..models.sam2.hiera import refused_head_width
 from ..models.sam2.wrapper import SAM2ImageSegmenter
 from ..models.yolo.decode import decode_predictions, postprocess, unletterbox_boxes
 from ..models.yolo.model import YOLOv11
+from ..netlist.fix import fix_netlist
 from ..netlist.generate import (
     generate_fallback_netlist,
     generate_netlist_from_nodes,
     stringify_netlist,
 )
-from ..ops.cuda.build import KernelError
-from ..ops.cuda.flash_attn import MAX_HEAD_DIM
+from ..ops.cuda.build import KernelError, is_device_fault
 from ..ops.image import letterbox, resize_linear, sam2_preprocess
 from ..topology.crop import crop_image_and_adjust_bboxes
 from ..topology.enumerate_components import assign_visual_ids
@@ -52,16 +65,6 @@ from ..topology.nodes import extract_nodes
 from ..topology.reclassify import reclassify_terminals, segment_classical
 
 logger = logging.getLogger(__name__)
-
-
-def _is_device_fault(exc: BaseException) -> bool:
-    """Kernel faults and CUDA errors, which no degradation ladder may hide."""
-    accel = getattr(torch, "AcceleratorError", None)
-    return (
-        isinstance(exc, KernelError)
-        or (accel is not None and isinstance(exc, accel))
-        or (isinstance(exc, RuntimeError) and "CUDA" in str(exc))
-    )
 
 
 def detections_to_bboxes(boxes: np.ndarray, scores: np.ndarray, classes: np.ndarray,
@@ -80,26 +83,38 @@ class CircuitAnalyzerTorch:
     """Image-of-circuit → SPICE netlist with the PyTorch port.
 
     yolo_state / sam2_state are the models' state dicts (models/bridge.py
-    makes them from the JAX package's variables or from a seed). Without
+    makes them from a checkpoint's variables or from a seed). Without
     sam2_state the wire mask is the classical adaptive-threshold mask.
-    Runs on the CUDA device unless `device="cpu"` is asked for; a missing
-    CUDA device raises instead of moving to the CPU. A bfloat16 SAM2 on
-    the card whose head width its kernels refuse (`refused_head_width`)
-    raises KernelError here, before any model is built.
+    `vlm_client` (default: the one the environment names,
+    `enrich.client.default_client`, on this device) reads directions and
+    values. Runs on the CUDA device unless `device="cpu"` is asked for; a
+    missing CUDA device raises instead of moving to the CPU. A bfloat16 SAM2
+    on the card whose heads are wider than its kernels take
+    (`refused_head_width`: above 256) raises KernelError here, before any
+    model is built.
     """
 
     def __init__(self, config: Optional[PipelineConfig] = None, yolo_state: Optional[dict] = None,
-                 sam2_state: Optional[dict] = None, device="cuda"):
+                 sam2_state: Optional[dict] = None, device="cuda",
+                 vlm_client: Optional[VLMClient] = None):
         self.cfg = config or PipelineConfig()
         self.device = resolve_device(device, "CircuitAnalyzerTorch")
+        self.vlm_client = vlm_client if vlm_client is not None \
+            else default_client(self.device)
+        if self.vlm_client is not None and \
+                getattr(self.vlm_client, "get_labels_batch_boxes", None) is None:
+            raise NotImplementedError(
+                f"{type(self.vlm_client).__name__} has no get_labels_batch_boxes: a client "
+                f"that reads whole images needs the cv2-drawn enumeration image, which is "
+                f"not ported (ROADMAP Queue A 6)")
         scfg, sam2_dtype = self.cfg.sam2, compute_dtype(self.cfg.sam2.dtype)
         if sam2_state is not None and self.cfg.use_sam2 and self.device.type == "cuda" \
                 and sam2_dtype == torch.bfloat16:
             hd = refused_head_width(scfg.embed_dim, scfg.num_heads)
             if hd is not None:
-                raise KernelError(f"SAM2: the bfloat16 kernels take head widths that are "
-                                  f"multiples of 8 up to {MAX_HEAD_DIM}; this configuration's "
-                                  f"is {hd}")
+                raise KernelError(f"SAM2: the bfloat16 kernels take heads no wider than "
+                                  f"flash_attn's widest instance; this configuration's "
+                                  f"head width is {hd}")
         if yolo_state is None:
             raise ValueError("CircuitAnalyzerTorch needs YOLO weights (yolo_state)")
         det = self.cfg.detector
@@ -200,15 +215,21 @@ class CircuitAnalyzerTorch:
             result.bboxes = reclassify_terminals(image_for_analysis, result.bboxes,
                                                  cfg.topology, device=self.device)
         except Exception as exc:
-            if _is_device_fault(exc):
+            if is_device_fault(exc):
                 raise
             logger.exception("terminal reclassification failed; continuing")
         result.timings.record("Terminal Reclassification", time.time() - t0)
 
-        # [4] No VLM client: boxes pass through with directions unset
-        # (the JAX ladder's enrich_directions(client=None)).
+        # [4] Direction enrichment (:139-166); no client leaves them unset.
         t0 = time.time()
-        result.bboxes = [dataclasses.replace(b) for b in result.bboxes]
+        try:
+            result.bboxes = enrich_directions(image_for_analysis, result.bboxes,
+                                              self.vlm_client, cfg.enrich,
+                                              debug_store=result.vlm_direction_crops)
+        except Exception as exc:
+            if is_device_fault(exc):
+                raise
+            logger.exception("direction enrichment failed; continuing")
         result.timings.record("VLM Direction Enrichment", time.time() - t0)
 
         # [5] Node analysis (:227-260).
@@ -220,7 +241,7 @@ class CircuitAnalyzerTorch:
             result.node_mask = extraction.emptied_mask
             result.enhanced_mask = extraction.enhanced_mask
         except Exception as exc:
-            if _is_device_fault(exc):
+            if is_device_fault(exc):
                 raise
             logger.exception("node analysis failed; continuing")
         sync()
@@ -241,7 +262,7 @@ class CircuitAnalyzerTorch:
         SAM2 batched over a chunk's crops, the host topology of each chunk
         overlapping the device work of the next (pipeline/batch.py). Same
         stages [1]-[6], the same netlist stage and the same boxes as
-        analyze(); `finalize=True` is not ported yet."""
+        analyze(); `finalize=True` runs the value pass chunk by chunk."""
         from .batch import BatchedPipeline
 
         return BatchedPipeline(self, batch_size=batch_size).analyze_many(
@@ -250,7 +271,9 @@ class CircuitAnalyzerTorch:
     def netlist_stage(self, result: AnalysisResult) -> None:
         """Stage [6]: initial netlist, the no-VLM-direction comparison
         netlist (:280-292), visual ids, and the components-only fallback
-        (:310-323). The cv2-drawn enumeration image is not produced."""
+        (:310-323). With a client, the value pass's input is the analysis
+        image itself and the id'd boxes (:376-392: a box-driven reader
+        gets no drawn enumeration)."""
         if result.nodes:
             result.netlist = generate_netlist_from_nodes(result.nodes)
             result.valueless_netlist_text = stringify_netlist(result.netlist)
@@ -265,11 +288,75 @@ class CircuitAnalyzerTorch:
                 generate_netlist_from_nodes(nodes_unknown)
             )
             result.enum_bboxes = assign_visual_ids(result.bboxes)
+            if self.vlm_client is not None:
+                result.enum_image = np.asarray(result.image_for_analysis)
         else:
             logger.warning("no nodes; generating components-only fallback netlist")
             result.netlist = generate_fallback_netlist(result.bboxes)
             result.valueless_netlist_text = stringify_netlist(result.netlist)
             result.netlist_text = result.valueless_netlist_text
+
+    def _merge(self, result: AnalysisResult, rows, what: str) -> None:
+        """fix_netlist of one image's stage-2 rows, with the JAX ladder: a
+        row that does not merge keeps that image's valueless netlist."""
+        result.vlm_stage2_output = rows
+        try:
+            fix_netlist(result.netlist, rows, result.enum_bboxes)
+            result.netlist_text = stringify_netlist(result.netlist)
+        except Exception as exc:
+            logger.error("VLM merge failed for %s: %s; keeping valueless netlist", what, exc)
+
+    def generate_final_netlist(self, result: AnalysisResult) -> AnalysisResult:
+        """Stage [7]: the client's value read and the fix_netlist merge
+        (JAX :417-440; reference handle_final_netlist_generation,
+        src/analysis_pipeline.py:349-393). A failed read or merge keeps
+        the valueless netlist; a kernel fault or CUDA error raises."""
+        t0 = time.time()
+        if self.vlm_client is None or result.enum_image is None:
+            logger.warning("no VLM client or enum image; keeping valueless netlist")
+            return result
+        try:
+            rows = self.vlm_client.get_labels_batch_boxes([result.enum_image],
+                                                          [result.enum_bboxes])[0]
+        except Exception as exc:
+            if is_device_fault(exc):
+                raise
+            logger.error("VLM labeling failed: %s; keeping valueless netlist", exc)
+        else:
+            self._merge(result, rows, "the image")
+        result.timings.record("Final Netlist Generation", time.time() - t0)
+        return result
+
+    def finalize_netlists(self, results: Sequence[AnalysisResult],
+                          chunk_size: Optional[int] = None) -> list[AnalysisResult]:
+        """Stage [7] over many results (JAX :441-498): the value reads of
+        `chunk_size` images (default 8) in one client call, then the merge
+        image by image, with generate_final_netlist's ladder per image."""
+        results = list(results)
+        if self.vlm_client is None:
+            return [self.generate_final_netlist(r) for r in results]
+        chunk = chunk_size or 8
+        idx = [i for i, r in enumerate(results) if r.enum_image is not None]
+        for i, r in enumerate(results):
+            if r.enum_image is None:
+                logger.warning("no enum image for result %d; keeping valueless netlist", i)
+        for base in range(0, len(idx), chunk):
+            sel = idx[base:base + chunk]
+            t0 = time.time()
+            try:
+                outs = self.vlm_client.get_labels_batch_boxes(
+                    [results[i].enum_image for i in sel], [results[i].enum_bboxes for i in sel])
+            except Exception as exc:
+                if is_device_fault(exc):
+                    raise
+                logger.error("batched VLM labeling failed: %s; keeping valueless netlists", exc)
+                outs = [None] * len(sel)
+            dt = (time.time() - t0) / max(len(sel), 1)
+            for i, rows in zip(sel, outs):
+                if rows is not None:
+                    self._merge(results[i], rows, f"result {i}")
+                results[i].timings.record("Final Netlist Generation", dt)
+        return results
 
     @staticmethod
     def _component_stats(bboxes: list[BBox]) -> dict:

@@ -7,7 +7,9 @@ semantics (reference ordering src/analysis_pipeline.py:97-326):
   detect (YOLO per image, one fetch per chunk) → host confidence-NMS
   and cluster crop → SAM2 on the CROPS (one batch) → per-crop logit
   resize + threshold + bit-pack → topology stage A per image → host
-  reclassify / node extraction / netlist.
+  reclassify / direction reads (one client call a chunk) / node
+  extraction / netlist → with `finalize=True`, the value reads of the
+  chunk in one client call and the merge.
 
 Design on the card:
   * images upload once as uint8; letterboxing, crop slicing and SAM2
@@ -26,11 +28,9 @@ Design on the card:
 Deliberate differences from the JAX path: no mesh and no shard_map (data
 parallelism over cards is ROADMAP Queue A 13), no padding of a partial
 last chunk (it existed for XLA's fixed-shape programs), no `run_batch`
-(queued), no VLM stages: `finalize=True` raises, and stage [4] leaves
-directions unset as `analyze()` does without a VLM client. As in
-`analyze()`, a SAM2 failure raises instead of switching to the classical
-mask; the node-stage ladder falls back per image and never swallows a
-kernel fault or a CUDA error.
+(queued). As in `analyze()`, a SAM2 failure raises instead of switching
+to the classical mask; the node-stage ladder falls back per image, and
+no ladder swallows a kernel fault or a CUDA error.
 """
 from __future__ import annotations
 
@@ -44,6 +44,7 @@ import torch
 from ..core import geometry
 from ..core.config import BATCH_PER_DEVICE
 from ..core.types import AnalysisResult, BBox
+from ..enrich.directions import enrich_directions_many
 from ..models.yolo.decode import decode_predictions, postprocess, unletterbox_boxes
 from ..ops.image import crop_sam2_preprocess, letterbox, resize_linear
 from ..topology.crop import crop_image_and_adjust_bboxes
@@ -52,7 +53,8 @@ from ..topology.nodes import (
     prepare_packed_raster,
 )
 from ..topology.reclassify import reclassify_terminals, segment_classical
-from .analyzer import _is_device_fault, detections_to_bboxes
+from ..ops.cuda.build import is_device_fault
+from .analyzer import detections_to_bboxes
 
 logger = logging.getLogger(__name__)
 
@@ -179,7 +181,7 @@ class BatchedPipeline:
 
     def _pre_topology(self, st: _Staged) -> AnalysisResult:
         """Stage [3] for one image: reclassification, with analyze()'s
-        ladder (JAX batch.py:521-540); stage [4] leaves directions unset."""
+        ladder (JAX batch.py:521-540)."""
         result = AnalysisResult(original_image=st.image, image_for_analysis=st.crop,
                                 bboxes_orig_nms=st.bboxes_orig_nms, bboxes=st.bboxes,
                                 crop_info=st.crop_info, sam_mask=st.mask)
@@ -187,11 +189,25 @@ class BatchedPipeline:
             result.bboxes = reclassify_terminals(st.crop, result.bboxes, self.cfg.topology,
                                                  device=self.device)
         except Exception as exc:
-            if _is_device_fault(exc):
+            if is_device_fault(exc):
                 raise
             logger.exception("terminal reclassification failed; continuing")
-        result.bboxes = [dataclasses.replace(b) for b in result.bboxes]
         return result
+
+    def _enrich_chunk(self, results: Sequence[AnalysisResult]) -> None:
+        """Stage [4] for a chunk (JAX batch.py:542-562): every eligible
+        crop of every image in one client call."""
+        try:
+            enriched = enrich_directions_many(
+                [r.image_for_analysis for r in results], [r.bboxes for r in results],
+                self.analyzer.vlm_client, self.cfg.enrich,
+                debug_stores=[r.vlm_direction_crops for r in results])
+            for r, boxes in zip(results, enriched):
+                r.bboxes = boxes
+        except Exception as exc:
+            if is_device_fault(exc):
+                raise
+            logger.exception("direction enrichment failed; continuing")
 
     def _extract_nodes_chunk(self, staged: Sequence[_Staged], rasters: Sequence[np.ndarray],
                              results: Sequence[AnalysisResult]) -> None:
@@ -203,7 +219,7 @@ class BatchedPipeline:
                 r.nodes = finish_from_packed(raster, st.packed_raster, r.bboxes,
                                              self.cfg.topology).nodes
         except Exception as exc:
-            if _is_device_fault(exc):
+            if is_device_fault(exc):
                 raise
             logger.exception("batched node analysis failed; per-image fallback")
             for r in results:
@@ -211,7 +227,7 @@ class BatchedPipeline:
                     r.nodes = extract_nodes(r.sam_mask, r.bboxes, self.cfg.topology,
                                             device=self.device).nodes
                 except Exception as exc2:
-                    if _is_device_fault(exc2):
+                    if is_device_fault(exc2):
                         raise
                     logger.exception("node analysis failed; continuing")
 
@@ -223,12 +239,18 @@ class BatchedPipeline:
         return result
 
     # -- entry point ------------------------------------------------------
-    def _host_stages(self, staged: list[_Staged], fetch: PackedFetch) -> list[AnalysisResult]:
-        """Stages [3]-[6] of one chunk on the host, after its fetch."""
+    def _host_stages(self, staged: list[_Staged], fetch: PackedFetch,
+                     finalize: bool) -> list[AnalysisResult]:
+        """Stages [3]-[6] of one chunk on the host, after its fetch, and
+        with `finalize` stage [7]."""
         rasters = self._unpack(staged, fetch)
         results = [self._pre_topology(st) for st in staged]
+        self._enrich_chunk(results)
         self._extract_nodes_chunk(staged, rasters, results)
-        return [self._post_topology(r) for r in results]
+        results = [self._post_topology(r) for r in results]
+        if finalize:
+            results = self.analyzer.finalize_netlists(results, chunk_size=self.batch_size)
+        return results
 
     def analyze_many(self, images: Sequence[np.ndarray],
                      finalize: bool = False) -> list[AnalysisResult]:
@@ -237,18 +259,18 @@ class BatchedPipeline:
 
           detect+crop(N) → segment(N) queued → host stages(N − 1)
 
+        `finalize=True` runs the value pass (analyzer.finalize_netlists)
+        on each chunk after its host stages (JAX batch.py:736-739): the
+        same netlists as analyze_many() and a trailing finalize_netlists.
         An exception in any stage raises here, with nothing left running."""
-        if finalize:
-            raise NotImplementedError(
-                "finalize=True needs the VLM value pass, not yet ported (ROADMAP Queue A 6)")
         images = list(images)
         results: list[AnalysisResult] = []
         pending = None
         for i in range(0, len(images), self.batch_size):
             segmented = self._segment_phase(self._detect_crop_phase(images[i:i + self.batch_size]))
             if pending is not None:
-                results.extend(self._host_stages(*pending))
+                results.extend(self._host_stages(*pending, finalize))
             pending = segmented
         if pending is not None:
-            results.extend(self._host_stages(*pending))
+            results.extend(self._host_stages(*pending, finalize))
         return results

@@ -21,19 +21,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import subprocess
-import threading
+import functools
 from pathlib import Path
 
 import numpy as np
 
+from ..core.native import build_library
+
 _SRC = Path(__file__).resolve().parent / "native" / "contours.cpp"
-_BUILD = Path(__file__).resolve().parents[1] / "build"
-_CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
-_lib = None
-_lib_lock = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -56,30 +51,18 @@ class Contour:
         return int(self.m10 / self.m00), int(self.m01 / self.m00)
 
 
+@functools.lru_cache(maxsize=1)
 def load_library():
     """Build (once per source hash) and load the native tracer."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        digest = hashlib.sha256(_SRC.read_bytes() + " ".join(_CXX_FLAGS).encode())
-        path = _BUILD / f"libcvcontours-{digest.hexdigest()[:16]}.so"
-        if not path.exists():
-            _BUILD.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            subprocess.run(["g++", *_CXX_FLAGS, str(_SRC), "-o", str(tmp)], check=True,
-                           capture_output=True)
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
-        lib.cv_trace_contours.restype = ctypes.c_int
-        lib.cv_trace_contours.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_double), ctypes.c_int32,
-        ]
-        _lib = lib
-        return lib
+    lib = build_library(_SRC, "cvcontours")
+    lib.cv_trace_contours.restype = ctypes.c_int
+    lib.cv_trace_contours.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_double), ctypes.c_int32,
+    ]
+    return lib
 
 
 _MAX_CONTOURS = 4096

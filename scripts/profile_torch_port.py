@@ -3,12 +3,17 @@
 or, with --batch, the batched path.
 
     python3 scripts/profile_torch_port.py [--runs 3] [--sam2 t@512|l@1024]
+    python3 scripts/profile_torch_port.py --product [--image ac_rc] [--runs 3]
     python3 scripts/profile_torch_port.py --batch 8 [--runs 3]
 
 Builds a slice as chip_smoke.py does (YOLOv11-s@640 at the shapes of
 ckpt/yolo/meta.json, and SAM2 Hiera-t@512 as ckpt/sam2/meta.json names
 it, dtype included, or Hiera-L@1024, the default SAM2Config; seeded
-weights, the same drawn schematic), warms up, then prints JSON lines:
+weights, the same drawn schematic), or with --product the trained
+product (ckpt/yolo in bf16, ckpt/sam2, the crop reader ckpt/reader as
+the VLM client, all read by the port's own checkpoint reader) on one
+eval image, analyze() followed by generate_final_netlist; warms up, then
+prints JSON lines:
 
   * `stages`: per-stage wall time of each run (host clock, ms);
   * `device`: device time summed by kernel name under torch.profiler
@@ -35,6 +40,7 @@ import argparse
 import cProfile
 import json
 import pstats
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -53,8 +59,6 @@ def device_busy_ms(prof) -> float:
 
 
 def profile_batch(torch, batch_size: int, runs: int) -> None:
-    import subprocess
-
     from chip_smoke import batch_drawings
     from circuitvision_tpu_torch.core.config import PipelineConfig, TopologyConfig
     from circuitvision_tpu_torch.models.bridge import detector_config, sam2_config, seeded_state
@@ -119,6 +123,10 @@ def main() -> int:
     ap.add_argument("--sam2", choices=("t@512", "l@1024"), default="t@512")
     ap.add_argument("--batch", type=int, default=0,
                     help="profile analyze_batch at this batch size instead of analyze()")
+    ap.add_argument("--product", action="store_true",
+                    help="the trained checkpoints and reader on an eval image, with the "
+                         "final netlist")
+    ap.add_argument("--image", default="ac_rc", help="eval_data/images/<name>.png (--product)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -135,24 +143,43 @@ def main() -> int:
     from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
 
     ymeta = json.loads((REPO / "ckpt" / "yolo" / "meta.json").read_text())
-    if args.sam2 == "t@512":
-        smeta = json.loads((REPO / "ckpt" / "sam2" / "meta.json").read_text())
+    if args.product:
+        from circuitvision_tpu_torch.enrich.trained_reader import load_trained_reader
+        from circuitvision_tpu_torch.io.image_io import load_image
+        from circuitvision_tpu_torch.models.bridge import state_dict_from_variables
+        from circuitvision_tpu_torch.models.checkpoint import load_model_checkpoint
+
+        (yv, ymeta), (sv, smeta) = (load_model_checkpoint(str(REPO / "ckpt" / n))
+                                    for n in ("yolo", "sam2"))
         cfg = PipelineConfig(detector=detector_config(ymeta), sam2=sam2_config(smeta))
+        analyzer = CircuitAnalyzerTorch(
+            cfg, state_dict_from_variables(yv), state_dict_from_variables(sv), device="cuda",
+            vlm_client=load_trained_reader(str(REPO / "ckpt" / "reader")))
+        image = load_image(str(REPO / "eval_data" / "images" / f"{args.image}.png"))
     else:
-        smeta = {"sam2": {"preset": "l", "overrides": {}}}
-        cfg = PipelineConfig(detector=detector_config(ymeta))
-    analyzer = CircuitAnalyzerTorch(cfg, seeded_state("yolo", ymeta, 0),
-                                    seeded_state("sam2", smeta, 1), device="cuda")
-    image, _boxes = draw_schematic(0)
+        if args.sam2 == "t@512":
+            smeta = json.loads((REPO / "ckpt" / "sam2" / "meta.json").read_text())
+            cfg = PipelineConfig(detector=detector_config(ymeta), sam2=sam2_config(smeta))
+        else:
+            smeta = {"sam2": {"preset": "l", "overrides": {}}}
+            cfg = PipelineConfig(detector=detector_config(ymeta))
+        analyzer = CircuitAnalyzerTorch(cfg, seeded_state("yolo", ymeta, 0),
+                                        seeded_state("sam2", smeta, 1), device="cuda")
+        image, _boxes = draw_schematic(0)
+
+    def call():
+        res = analyzer.analyze(image)
+        return analyzer.generate_final_netlist(res) if args.product else res
+
     for _ in range(2):
-        analyzer.analyze(image)
+        call()
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.runs):
-            res = analyzer.analyze(image)
+            res = call()
             print(json.dumps({"stages": {k: v * 1e3 for k, v in res.timings.timings.items()}}))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.runs
@@ -170,15 +197,18 @@ def main() -> int:
 
     prof_host = cProfile.Profile()
     prof_host.enable()
-    analyzer.analyze(image)
+    call()
     torch.cuda.synchronize()
     prof_host.disable()
     stats = pstats.Stats(prof_host)
     top = sorted(stats.stats.items(), key=lambda kv: kv[1][3], reverse=True)[:25]
     print(json.dumps({"host": [{"cum_ms": v[3] * 1e3, "self_ms": v[2] * 1e3, "calls": v[1],
                                 "fn": f"{Path(k[0]).name}:{k[1]}:{k[2]}"} for k, v in top]}))
-    print(json.dumps({"device_name": torch.cuda.get_device_name(0), "sam2": args.sam2,
-                      "sam2_dtype": cfg.sam2.dtype}))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(json.dumps({"device_name": torch.cuda.get_device_name(0), "card": smi,
+                      "sam2": args.sam2, "sam2_dtype": cfg.sam2.dtype,
+                      "product": args.image if args.product else None}))
     return 0
 
 

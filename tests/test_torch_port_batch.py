@@ -285,9 +285,16 @@ def test_extract_nodes_batched_equals_extract_nodes():
 
 
 def test_finalize_is_not_ported(tiny_yolo):
+    """finalize=True is ported now (the value pass runs per chunk,
+    tests/test_torch_port_product.py); without a VLM client it keeps each
+    image's valueless netlist, as the JAX package's finalize does."""
     _ja, ta = _tiny_pair(tiny_yolo)
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        ta.analyze_batch([CIRCUITS[0][0]], finalize=True)
+    assert ta.vlm_client is None
+    images = [c[0] for c in CIRCUITS]
+    plain = ta.analyze_batch(images, batch_size=1)
+    final = ta.analyze_batch(images, batch_size=1, finalize=True)
+    assert [r.netlist_text for r in final] == [r.valueless_netlist_text for r in plain]
+    assert all(r.vlm_stage2_output is None for r in final)
 
 
 def test_batch_size_defaults_to_eight(tiny_yolo):

@@ -152,6 +152,42 @@ def test_flash_attn_kernel(gen, dt, b, h, nq, nk, pool_win, d):
     assert fa.flash_attn.launches == before + 1
 
 
+@pytest.mark.parametrize("b,h,nq,nk,pool_win,d,scale_width", [
+    (2, 2, 100, 70, 0, 136, None), (2, 1, 33, 300, 0, 256, None), (16, 4, 64, 64, 8, 136, None),
+    (4, 2, 100, 70, 0, 64, 60), (16, 2, 64, 64, 8, 136, 130)])
+def test_flash_attn_wide_heads_and_true_width_scale(gen, b, h, nq, nk, pool_win, d, scale_width):
+    """bf16 heads wider than 128 (the 136 and 256 instances) and padded
+    heads whose softmax scale comes from their true width."""
+    dt = torch.bfloat16
+    q, k, v = _rnd(gen, dt, b, h, nq, d), _rnd(gen, dt, b, h, nk, d), _rnd(gen, dt, b, h, nk, d)
+    _close(fa.flash_attn(q, k, v, pool_win, scale_width),
+           fa.flash_attn_plain(q, k, v, pool_win, scale_width))
+
+
+@pytest.mark.parametrize("hd,heads", [(60, 2), (20, 4), (136, 1)])
+def test_padded_head_routes(gen, hd, heads):
+    """bf16 window and q-pool blocks at head widths the tiled route pads
+    (60, 20) or runs on a wide flash instance (136): the wrapper routes
+    them to the tiled route, which agrees with the plain block."""
+    dt, win, ci, co = torch.bfloat16, 8, 96, hd * heads
+    t = win * win
+    wargs = (_rnd(gen, dt, 4, t, co), 1 + _rnd(gen, F32, co, scale=0.1),
+             _rnd(gen, F32, co, scale=0.1), _rnd(gen, dt, 3 * co, co, scale=co ** -0.5),
+             _rnd(gen, dt, 3 * co, scale=0.02), _rnd(gen, dt, co, co, scale=co ** -0.5),
+             _rnd(gen, dt, co, scale=0.02))
+    before = wa.window_attn_block.tiled
+    _close(wa.window_attn_block(*wargs, heads=heads),
+           wa.window_attn_block_plain(*wargs, heads=heads))
+    assert wa.window_attn_block.tiled == before + 1
+    qargs = (_rnd(gen, dt, 4 * t, ci), 1 + _rnd(gen, F32, ci, scale=0.1),
+             _rnd(gen, F32, ci, scale=0.1), _rnd(gen, dt, co, ci, scale=ci ** -0.5),
+             _rnd(gen, dt, co, scale=0.02), _rnd(gen, dt, 3 * co, ci, scale=ci ** -0.5),
+             _rnd(gen, dt, 3 * co, scale=0.02), _rnd(gen, dt, co, co, scale=co ** -0.5),
+             _rnd(gen, dt, co, scale=0.02))
+    _close(wa.qpool_attn_block(*qargs, heads=heads, win=win),
+           wa.qpool_attn_block_plain(*qargs, heads=heads, win=win))
+
+
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("b,n,c,heads,pool_win,round_proj", [(1, 4096, 576, 8, 0, False),
                                                              (16, 256, 576, 8, 0, True),

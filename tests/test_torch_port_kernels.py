@@ -311,10 +311,11 @@ def test_flash_plan_fits_and_covers(bh, nq, nk, hd):
         assert plan.blocks >= SMS
 
 
-@pytest.mark.parametrize("hd", [4, 36, 136])
+@pytest.mark.parametrize("hd", [4, 36, 264])
 def test_flash_plan_refuses_head_widths(hd):
     """bf16 rows are copied in 16-byte pieces: head widths that are not a
-    multiple of 8, or wider than the widest instance, are refused."""
+    multiple of 8 (the tiled route pads them first), or wider than the
+    widest instance (256), are refused."""
     with pytest.raises(build.KernelError):
         tflash.flash_plan(8, 64, 64, hd)
 

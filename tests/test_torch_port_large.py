@@ -11,6 +11,7 @@ Float32 on both sides, JAX at "highest" matmul precision. Tolerances:
 few hundred products in another order), and for the SAM2 logits
 (seven blocks at widths up to 1152; about 1e-6 measured).
 """
+import copy
 import dataclasses
 
 import jax
@@ -205,6 +206,38 @@ def test_tiled_routes_equal_the_plain_blocks(dtype):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("hd,heads", [(60, 2), (20, 4), (136, 1)])
+def test_tiled_routes_pad_head_widths_off_8(hd, heads):
+    """In bfloat16 the tiled routes compute at heads padded to a multiple
+    of 8 (pad_heads: zero q/k/v rows, the scale from the true width, zero
+    projection columns, the output cut back) and give what the unpadded
+    blocks give: the one-block plain versions, and for a global block the
+    three plain kernels composed at the true width. The padding changes
+    no value: zero products leave every sum as it was."""
+    rng = np.random.default_rng(hd)
+    dtype = torch.bfloat16
+    nw, win, ci = 2, 4, 48
+    co = hd * heads
+    t = win * win
+    r = lambda *s, scale=1.0: torch.from_numpy(_arr(rng, *s, scale=scale)).to(dtype)  # noqa: E731
+    assert twin.padded_head_width(hd, dtype) % 8 == 0
+    wargs = (r(nw, t, co), 1 + r(co, scale=0.1), r(co, scale=0.1), r(3 * co, co, scale=co ** -0.5),
+             r(3 * co, scale=0.02), r(co, co, scale=co ** -0.5), r(co, scale=0.02))
+    torch.testing.assert_close(twin.window_attn_block_tiled(*wargs, heads=heads),
+                               twin.window_attn_block_plain(*wargs, heads=heads), rtol=0, atol=0)
+    qargs = (r(nw * t, ci), 1 + r(ci, scale=0.1), r(ci, scale=0.1), r(co, ci, scale=ci ** -0.5),
+             r(co, scale=0.02), r(3 * co, ci, scale=ci ** -0.5), r(3 * co, scale=0.02),
+             r(co, co, scale=co ** -0.5), r(co, scale=0.02))
+    torch.testing.assert_close(twin.qpool_attn_block_tiled(*qargs, heads=heads, win=win),
+                               twin.qpool_attn_block_plain(*qargs, heads=heads, win=win),
+                               rtol=0, atol=0)
+    x, s_, b_, wqkv, bqkv, wproj, bproj = wargs
+    q, k, v = tglobal.ln_qkv_plain(x, s_, b_, wqkv, bqkv, heads)
+    ref = tglobal.attn_proj_residual_plain(x, tflash.flash_attn_plain(q, k, v), wproj, bproj)
+    got = twin.window_attn_block_tiled(*wargs, heads=heads, round_proj=False)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
 def test_global_route_matches_module_block(monkeypatch):
     """A global block of at least FLASH_MIN_SEQ tokens takes ln_qkv →
     flash_attn → attn_proj_residual and gives the JAX block's output (its
@@ -218,7 +251,7 @@ def test_global_route_matches_module_block(monkeypatch):
     blk = thiera.MultiScaleBlock(c, c, heads, q_stride=False).eval()
     blk.load_state_dict(bridge.state_dict_from_variables(v), strict=True)
     calls = []
-    monkeypatch.setattr(thiera, "flash_attn",
+    monkeypatch.setattr(twin, "flash_attn",
                         lambda *a, **kw: calls.append(1) or tflash.flash_attn(*a, **kw))
     with torch.no_grad():
         blk(torch.from_numpy(x[:, :32]), 0, False)
@@ -284,15 +317,16 @@ def _recording_paths(trunk):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd,heads", [(32, 2), (64, 2), (60, 2), (60, 1)])
+@pytest.mark.parametrize("hd,heads", [(32, 2), (64, 2), (60, 2), (60, 1), (136, 1)])
 def test_hiera_at_off_preset_head_widths_matches_jax(hd, heads, dtype):
     """The port's Hiera at head widths the block kernels have no instance
     for, against the JAX trunk (its module path on the CPU) on the same
     variables and input, both in `dtype`. The blocks take the kernels'
-    paths at every width (on the card at 32 and 64: the tiled route and
-    flash attention; at 60 the analyzer refuses a bf16 trunk, and the
-    wrappers raise); here the kernels' plain versions run. With one head
-    the first stage's width, 60, is off a multiple of 8 too. Tolerance:
+    paths at every width (on the card in bf16: the tiled route and flash
+    attention, at 60 with the heads padded to 64, at 136 on flash_attn's
+    136 instance); here the kernels' plain versions run. With one head
+    the first stage's width, 60, is off a multiple of 8 too (on the card
+    those blocks run the float32 kernels). Tolerance:
     float32 1e-4 of max |jax| (summation order through seven blocks,
     ≈ 1e-6 measured); bfloat16 four bf16 ulps at max |jax| — the port
     rounds where the Pallas kernels do, the JAX module path where XLA
@@ -327,8 +361,9 @@ def test_hiera_head_width_gate(hd):
     and q-pool blocks at every width in both dtypes (a CUDA tensor at a
     width the kernels refuse raises in the wrapper), the global block up
     to MAX_HEAD_DIM, as before any width was routed. In bfloat16 the
-    analyzer refuses, on the card, a trunk whose width is off a multiple
-    of 8 or above MAX_HEAD_DIM; float32 refuses none."""
+    analyzer refuses, on the card, only a trunk whose heads, padded to a
+    multiple of 8, are wider than flash_attn's widest instance (256);
+    float32 refuses none."""
     for dtype in (torch.float32, torch.bfloat16):
         q = thiera.MultiScaleBlock(2 * hd, 4 * hd, 4, q_stride=True)
         g = thiera.MultiScaleBlock(8 * hd, 8 * hd, 8, q_stride=False)
@@ -340,15 +375,67 @@ def test_hiera_head_width_gate(hd):
         assert g.attention_path(x_g, 0, False) == \
             ("global" if hd <= tflash.MAX_HEAD_DIM else "module")
         assert w.attention_path(x_w, 0, True) == "window"
-    refused = hd % 8 != 0 or hd > tflash.MAX_HEAD_DIM
-    assert thiera.refused_head_width(2 * hd, 2) == (hd if refused else None)
+    assert thiera.refused_head_width(2 * hd, 2) is None
+    assert twin.padded_head_width(hd, torch.bfloat16) == -(-hd // 8) * 8
+    assert twin.padded_head_width(hd, torch.float32) == hd
+
+
+@pytest.mark.parametrize("dim,dim_out,q_stride", [(60, 60, False), (60, 120, True)])
+def test_blocks_off_8_bytes_wide_run_float32_kernels(monkeypatch, dim, dim_out, q_stride):
+    """A bf16 block whose width is off a multiple of 8 (embed 60, one
+    head: stage 1 and its transition) runs in float32 on the card — the
+    same module with float32 parameters on a float32 input — and rounds
+    its output back to bf16. Here the reroute is forced on the CPU: the
+    output is the float32 block's, rounded; the gate itself is by dtype,
+    device and width."""
+    rng = np.random.default_rng(9)
+    blk = thiera.MultiScaleBlock(dim, dim_out, dim_out // 60, q_stride=q_stride)
+    with torch.no_grad():
+        for p_ in blk.parameters():
+            p_.copy_(torch.from_numpy(_arr(rng, *p_.shape, scale=0.1)))
+    x = torch.from_numpy(_arr(rng, 2, 8, 8, dim)).to(torch.bfloat16)
+    place(blk, "cpu", torch.bfloat16)
+    with torch.no_grad():
+        want = copy.deepcopy(blk).float()(x.float(), 8, False).to(torch.bfloat16)
+        monkeypatch.setattr(thiera, "float32_kernels", lambda x, d, do: x.dtype == torch.bfloat16)
+        got = blk(x, 8, False)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    monkeypatch.undo()
+    assert not thiera.float32_kernels(x, dim, dim_out)  # a CPU tensor: the plain versions
+    assert not thiera.float32_kernels(x.float(), dim, dim_out)
 
 
 @pytest.mark.parametrize("hd,heads", [(60, 2), (136, 1), (60, 1)])
 def test_analyzer_refuses_bf16_head_widths_on_the_card(monkeypatch, hd, heads):
-    """In bfloat16 on the card the analyzer refuses, before it builds a
-    model, a SAM2 whose head width no kernel takes, and names the width.
-    (The card is only pretended here: the refusal comes first.)"""
+    """These bf16 head widths were refused on the card until the tiled
+    route padded heads to a multiple of 8 and flash_attn gained a 136
+    instance; now the analyzer builds its SAM2 (the card is only
+    pretended here: the models are placed on the CPU)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    from circuitvision_tpu_torch.pipeline import analyzer as tanalyzer
+
+    sam2 = dataclasses.replace(tconfig.SAM2Config(), embed_dim=heads * hd, num_heads=heads,
+                               dtype="bfloat16", resolution=64, stages=(1, 1, 1, 1),
+                               global_att_blocks=(2,),
+                               backbone_channel_list=tuple(heads * hd * 2 ** i
+                                                           for i in (3, 2, 1, 0)))
+    cfg = dataclasses.replace(tconfig.PipelineConfig(), sam2=sam2,
+                              detector=tconfig.DetectorConfig(scale="n", num_classes=64))
+    assert thiera.refused_head_width(heads * hd, heads) is None
+    ys = tanalyzer.YOLOv11(64, "n").state_dict()
+    ss = tanalyzer.SAM2ImageSegmenter(sam2).state_dict()
+    monkeypatch.setattr(tanalyzer, "place", lambda m, device, dtype: m)
+    a = tanalyzer.CircuitAnalyzerTorch(cfg, ys, ss, device="cuda")
+    assert a.sam2 is not None
+
+
+@pytest.mark.parametrize("hd,heads", [(264, 1), (132, 1)])
+def test_analyzer_refuses_bf16_heads_wider_than_the_kernels(monkeypatch, hd, heads):
+    """Heads wider than flash_attn's widest bf16 instance (256), or wider
+    than the float32 kernels' 128 where the trunk's width is off a
+    multiple of 8 (132: those blocks run in float32), are refused before
+    any model is built, naming the width."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
     from circuitvision_tpu_torch.ops.cuda.build import KernelError

@@ -47,8 +47,8 @@ TINY_DET = dict(scale="n", img_size=128, num_classes=64, dtype="float32")
 #: |logit − threshold| below which a float32 SAM2 mask pixel may differ
 #: between the packages (15× the largest logit difference seen)
 LOGIT_FLIP_BOUND = 1e-3
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "cv2", "PIL", "safetensors", "transformers",
-             "circuitvision_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "tensorstore", "cv2", "PIL", "safetensors",
+             "transformers", "circuitvision_tpu")
 
 
 @pytest.fixture(autouse=True)
@@ -147,12 +147,14 @@ def test_whole_slice_shipped_checkpoints():
 
 # ------------------------------------------------------------------ guards
 def test_tiny_analyze_imports_no_jax_cv2_or_reference_package(tmp_path):
-    """In a fresh interpreter: import the port, run a tiny CPU analyze()
-    and analyze_batch() (BatchedPipeline.analyze_many, with the
-    fused-morphology switch on), and find no module named exactly jax,
-    flax, cv2, PIL, ... or the JAX package, nor any submodule of them
-    (names compared exactly, since circuitvision_tpu is a prefix of
-    circuitvision_tpu_torch)."""
+    """In a fresh interpreter: import the port, read ckpt/reader and an
+    eval PNG with the port's own readers, run a tiny CPU analyze() with
+    the trained reader as its client and the final netlist, and
+    analyze_batch() (BatchedPipeline.analyze_many, with the
+    fused-morphology switch on, finalize=True), and find no module named
+    exactly jax, flax, orbax, tensorstore, cv2, PIL, ... or the JAX
+    package, nor any submodule of them (names compared exactly, since
+    circuitvision_tpu is a prefix of circuitvision_tpu_torch)."""
     code = f"""
 import sys, json
 sys.path.insert(0, {str(ROOT)!r})
@@ -163,22 +165,30 @@ from circuitvision_tpu_torch.models.sam2.wrapper import SAM2ImageSegmenter
 from circuitvision_tpu_torch.models.yolo.model import YOLOv11
 from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
 from circuitvision_tpu_torch.core.config import TopologyConfig
+from circuitvision_tpu_torch.enrich.trained_reader import load_trained_reader
+from circuitvision_tpu_torch.eval.metrics import netlist_exact_match
+from circuitvision_tpu_torch.io.image_io import load_image
 cfg = PipelineConfig(detector=DetectorConfig(**{TINY_DET!r}), sam2=SAM2Config(**{TINY_SAM2!r}),
                      topology=TopologyConfig(use_fused_morphology=True))
 ys = YOLOv11(64, "n").state_dict()
 ss = SAM2ImageSegmenter(cfg.sam2).state_dict()
-img = np.full((120, 160, 3), 255, np.uint8); img[40:43, 10:150] = 0
-a = CircuitAnalyzerTorch(cfg, ys, ss, device="cpu")
-r = a.analyze(img)
-rs = a.analyze_batch([img, img[:100]], batch_size=1)
+img = load_image({str(ROOT / "eval_data" / "images" / "ac_rc.png")!r})
+reader = load_trained_reader({str(ROOT / "ckpt" / "reader")!r}, device="cpu")
+a = CircuitAnalyzerTorch(cfg, ys, ss, device="cpu", vlm_client=reader)
+r = a.generate_final_netlist(a.analyze(img))
+rs = a.analyze_batch([img, img[:100]], batch_size=1, finalize=True)
 assert len(rs) == 2
+netlist_exact_match([x.netlist_text for x in rs], [r.netlist_text] * 2)
 print(json.dumps(sorted(sys.modules)))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=tmp_path, env={**os.environ, "PYTHONPATH": ""}, timeout=300)
     assert out.returncode == 0, out.stderr
     mods = json.loads(out.stdout.strip().splitlines()[-1])
-    for m in ("pipeline.analyzer", "pipeline.batch", "ops.cuda.morphology", "ops.cuda.fused_ln"):
+    for m in ("pipeline.analyzer", "pipeline.batch", "ops.cuda.morphology", "ops.cuda.fused_ln",
+              "io.zstd", "io.image_io", "models.checkpoint", "models.reader",
+              "enrich.trained_reader", "enrich.directions", "enrich.client", "netlist.fix",
+              "eval.metrics"):
         assert "circuitvision_tpu_torch." + m in mods
     bad = [m for m in mods if m in FORBIDDEN or m.startswith(tuple(f + "." for f in FORBIDDEN))]
     assert not bad, bad
@@ -186,8 +196,8 @@ print(json.dumps(sorted(sys.modules)))
 
 def test_port_sources_name_no_jax_or_reference_import():
     pat = re.compile(r"import jax|from circuitvision_tpu\.|import circuitvision_tpu\b|cpp_extension"
-                     r"|import (flax|orbax|cv2|PIL|safetensors|transformers)\b"
-                     r"|from (jax|flax|orbax|cv2|PIL|safetensors|transformers)\b")
+                     r"|import (flax|orbax|tensorstore|cv2|PIL|safetensors|transformers)\b"
+                     r"|from (jax|flax|orbax|tensorstore|cv2|PIL|safetensors|transformers)\b")
     files = list((ROOT / "circuitvision_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)

@@ -182,7 +182,7 @@ OFF_PRESET = dict(resolution=768, embed_dim=128, num_heads=2, stages=[1, 1, 3, 1
 EXPECTED["off-preset"] = {**{k: 0 for k in EXPECTED["t@512"]},
                           "mlp_block": 6, "ln_qkv": 9, "flash_attn": 6, "attn_proj_residual": 6,
                           "window_attn_block.tiled": 2, "qpool_attn_block.tiled": 3}
-#: the same layout at head widths the bf16 kernels refused before PR 12.
+#: the same layout at head widths off the bf16 kernels' own instances.
 #: Width 60, one head: stage 1 (C = 60) and the 60 → 120 transition are
 #: off a multiple of 8 and run the float32 kernels (one-block window and
 #: q-pool kernels, mlp_block); from C = 120 on, bf16 with the heads padded

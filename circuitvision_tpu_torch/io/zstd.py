@@ -4,9 +4,9 @@ The orbax checkpoints compress twice with zstd: OCDBT compresses its
 manifests and b-tree nodes, and every zarr chunk names the zstd
 compressor (models/checkpoint.py). About 164 MB of the three shipped
 checkpoints sit in compressed blocks, far too much for a decoder in
-Python. Both this container and the card's machine carry libzstd.so.1
-(1.5.5 on the card), so the port decodes through it and has no other
-path: without the library, `decompress` raises and names it.
+Python. The machines the port runs on carry the system libzstd.so.1
+(1.5.5 beside the H100), so the port decodes through it and has no
+other path: without the library, `decompress` raises and names it.
 """
 from __future__ import annotations
 

@@ -1,118 +1,53 @@
-"""VLM client protocol, the stage-2 reply parsers, a fake client, and the
-client named by the environment.
+"""VLM client protocol, and the client the environment names.
 
-Counterpart of the JAX package's `enrich/client.py:24-120` and the
-`reader:` branch of its `default_client` (:267-277). The HTTP clients
-(Gemini, OpenRouter), the PaliGemma head and `prompts.py` are not ported
-yet (ROADMAP Queue A 6, 12): where the environment names one of them,
-`default_client` raises instead of running without it. Where JAX logs a
-failed `reader:` load and carries on without a client, the port raises
-too — the same deliberate difference it keeps for SAM2.
+Counterpart of the JAX package's `enrich/client.py:24-40` and the
+`reader:` branch of its `default_client` (:267-277). The port runs
+box-driven clients only: the pipeline hands them the id'd boxes and the
+direction crops (`get_labels_batch_boxes`, `get_directions_batch`). The
+HTTP clients (Gemini, OpenRouter) with their reply parsers, the fake
+whole-image client, the PaliGemma head and `prompts.py` are not ported
+yet (ROADMAP Queue A 6, 12). Where JAX logs a failed `reader:` load and
+carries on without a client, the port raises — the same deliberate
+difference it keeps for SAM2.
 """
 from __future__ import annotations
 
-import ast
-import json
+import logging
 import os
 from typing import Optional, Protocol, Sequence
 
 import numpy as np
 
+from ..core.types import BBox
+
+logger = logging.getLogger(__name__)
+
 
 class VLMClient(Protocol):
-    """Vision-language model interface used by the pipeline."""
+    """The reads the pipeline asks of a client."""
 
-    def get_labels(self, enum_image_rgb: np.ndarray) -> list[dict]:
-        """Stage-2 extraction: enumerated image → [{'id','class','value'}]."""
+    def get_labels_batch_boxes(self, enum_images: Sequence[np.ndarray],
+                               enum_boxes_lists: Sequence[Sequence[BBox]]) -> list[list[dict]]:
+        """Stage-2 extraction: per image, one {'id','class','value'} row
+        per box with a visual id."""
         ...
 
-    def get_direction(self, crop_rgb: np.ndarray, component_class: str) -> tuple[str, str]:
-        """Per-component polarity: crop → (direction, reason), each one of
-        UP/DOWN/LEFT/RIGHT/UNKNOWN and SIGN/ARROW/UNKNOWN."""
+    def get_directions_batch(self, crops: Sequence[np.ndarray],
+                             classes: Sequence[str]) -> list[tuple[str, str]]:
+        """Per-component polarity: (direction, reason) per crop, each one
+        of UP/DOWN/LEFT/RIGHT/UNKNOWN and SIGN/ARROW/UNKNOWN."""
         ...
-
-
-def parse_vlm_list(text: str) -> list[dict]:
-    """Fence-stripping + dual ast/json parser (reference src/utils.py:249-282).
-
-    str.strip takes a CHARACTER SET, so these strips eat any mix of the
-    fence characters at both ends — including, in the second strip, a
-    literal backslash: the reference reads strip('```json\\\\n')
-    (backslash + n, not a newline). Reproduced byte for byte."""
-    formatted = text.strip("```python\n")
-    formatted = formatted.strip("```json\\n")
-    formatted = formatted.strip("```")
-    try:
-        return ast.literal_eval(formatted.replace("null", "None"))
-    except (SyntaxError, ValueError) as e_ast:
-        try:
-            return json.loads(formatted)
-        except json.JSONDecodeError as e_json:
-            raise ValueError(
-                f"Failed to parse VLM response. ast error: {e_ast}, json error: "
-                f"{e_json}. Formatted response: {formatted}"
-            )
-
-
-def parse_gemini_labels(text: str) -> list[dict]:
-    """The direct-Gemini parse (reference src/utils.py:160-180): json first
-    with a null→None ast fallback, and a real newline in the json strip
-    set."""
-    formatted = text.strip("```python\n")
-    formatted = formatted.strip("```json\n")
-    formatted = formatted.strip("```")
-    try:
-        return json.loads(formatted)
-    except json.JSONDecodeError:
-        try:
-            return ast.literal_eval(formatted.replace("null", "None"))
-        except Exception as e2:
-            raise ValueError(
-                f"Failed to parse Gemini response: {e2}. "
-                f"Original response: {formatted}"
-            )
-
-
-class FakeVLMClient:
-    """Deterministic offline client for tests and air-gapped runs.
-
-    labels: canned stage-2 output (list of dicts) or None → empty list.
-    directions: {component_class: (direction, reason)} with a default.
-    """
-
-    def __init__(self, labels: Optional[Sequence[dict]] = None,
-                 directions: Optional[dict] = None,
-                 default_direction: tuple[str, str] = ("UNKNOWN", "UNKNOWN")):
-        self.labels = list(labels) if labels else []
-        self.directions = dict(directions or {})
-        self.default_direction = default_direction
-        self.label_calls = 0
-        self.label_batch_calls = 0
-        self.direction_calls: list[str] = []
-
-    def get_labels(self, enum_image_rgb: np.ndarray) -> list[dict]:
-        self.label_calls += 1
-        return list(self.labels)
-
-    def get_labels_batch(self, enum_images_rgb) -> list[Optional[list[dict]]]:
-        """Batched stage-2, the optional extension batch readers give."""
-        self.label_batch_calls += 1
-        return [list(self.labels) for _ in enum_images_rgb]
-
-    def get_direction(self, crop_rgb: np.ndarray, component_class: str):
-        self.direction_calls.append(component_class)
-        return self.directions.get(component_class, self.default_direction)
 
 
 def default_client(device="cuda") -> Optional[VLMClient]:
-    """The client the environment names, or None when it names none.
+    """The client CIRCUITVISION_VLM names, or None when it names none.
 
-    CIRCUITVISION_VLM=reader:<orbax dir> loads the trained crop reader
+    `reader:<orbax dir>` loads the trained crop reader
     (enrich/trained_reader.py) on `device`; a failed load raises. A
-    PaliGemma spec, or an HTTP client's key (GEMINI_API_KEY,
-    OPENROUTER_API_KEY), raises NotImplementedError: those clients are
-    not ported (the JAX `default_client`'s EnrichConfig argument served
-    only them)."""
+    `paligemma:` spec raises NotImplementedError: that head is not ported.
+    The HTTP clients' keys (GEMINI_API_KEY, OPENROUTER_API_KEY), which
+    the JAX package reads here, name clients the port does not have; they
+    are ignored, with a warning."""
     spec = os.getenv("CIRCUITVISION_VLM", "")
     if spec.startswith("reader:"):
         from .trained_reader import load_trained_reader
@@ -123,6 +58,6 @@ def default_client(device="cuda") -> Optional[VLMClient]:
                                   f"ported (ROADMAP Queue A 12)")
     for key in ("GEMINI_API_KEY", "OPENROUTER_API_KEY"):
         if os.getenv(key):
-            raise NotImplementedError(f"{key} is set: the HTTP VLM clients are not ported "
-                                      f"(ROADMAP Queue A 6); pass vlm_client= or unset it")
+            logger.warning("%s is set, but the HTTP VLM clients are not ported (ROADMAP "
+                           "Queue A 6); running without a client", key)
     return None

@@ -4,16 +4,18 @@ Counterpart of the JAX package's `enrich/directions.py`
 (`_collect_jobs`, `enrich_directions`, `enrich_directions_many`;
 reference src/circuit_analyzer.py:2145-2215): each component of a
 direction class gets its box padded by `EnrichConfig.crop_padding` cut
-from the analysis image and read by the client, in one
-`get_directions_batch` call for an image or a chunk where the client
-has it, else one `get_direction` call a crop on a thread pool. A failed
-read gives UNKNOWN, as in JAX — except a kernel fault or a CUDA error,
-which raises.
+from the analysis image, and the client reads every such crop of an
+image, or of a chunk, in one `get_directions_batch` call. The JAX
+package's per-crop `get_direction` dispatch on a thread pool serves only
+the HTTP clients, which are not ported (ROADMAP Queue A 6); a client
+without `get_directions_batch` raises. A failed read is logged and gives
+UNKNOWN, as in JAX — except a kernel fault or a CUDA, cuDNN or cuBLAS
+error, which raises.
 """
 from __future__ import annotations
 
-import concurrent.futures
 import dataclasses
+import logging
 from typing import Optional, Sequence
 
 import numpy as np
@@ -24,6 +26,7 @@ from ..core.types import BBox
 from ..ops.cuda.build import is_device_fault
 from .client import VLMClient
 
+logger = logging.getLogger(__name__)
 _UNKNOWN = ("UNKNOWN", "UNKNOWN")
 
 
@@ -51,11 +54,13 @@ def _collect_jobs(image_rgb: np.ndarray, out: list[BBox], cfg: EnrichConfig,
 
 
 def _read_batch(client, crops: list, classes: list) -> list[tuple[str, str]]:
+    read = client.get_directions_batch
     try:
-        return client.get_directions_batch(crops, classes)
+        return read(crops, classes)
     except Exception as exc:
         if is_device_fault(exc):
             raise
+        logger.error("direction read of %d crops failed: %s; reading UNKNOWN", len(crops), exc)
         return [_UNKNOWN] * len(crops)
 
 
@@ -65,33 +70,8 @@ def enrich_directions(image_rgb: np.ndarray, bboxes: Sequence[BBox],
     """New boxes with semantic_direction/reason filled (None for classes
     without a direction; left unset by no client). `debug_store`
     receives each read crop under its component's persistent_uid."""
-    cfg = cfg or EnrichConfig()
-    out = [dataclasses.replace(b) for b in bboxes]
-    if client is None:
-        return out
-    jobs = _collect_jobs(image_rgb, out, cfg, debug_store)
-    if not jobs:
-        return out
-    if getattr(client, "get_directions_batch", None) is not None:
-        answers = _read_batch(client, [c for _, c, _ in jobs], [k for _, _, k in jobs])
-        for (i, _, _), (direction, reason) in zip(jobs, answers):
-            out[i].semantic_direction, out[i].semantic_reason = direction, reason
-        return out
-
-    def run(job):
-        i, crop, cls = job
-        try:
-            return i, client.get_direction(crop, cls)
-        except Exception as exc:
-            if is_device_fault(exc):
-                raise
-            return i, _UNKNOWN
-
-    with concurrent.futures.ThreadPoolExecutor(
-            max_workers=max(1, min(cfg.max_concurrency, len(jobs)))) as pool:
-        for i, (direction, reason) in pool.map(run, jobs):
-            out[i].semantic_direction, out[i].semantic_reason = direction, reason
-    return out
+    return enrich_directions_many([image_rgb], [bboxes], client, cfg,
+                                  [debug_store] if debug_store is not None else None)[0]
 
 
 def enrich_directions_many(images: Sequence[np.ndarray], boxes_lists: Sequence[Sequence[BBox]],
@@ -99,14 +79,12 @@ def enrich_directions_many(images: Sequence[np.ndarray], boxes_lists: Sequence[S
                            debug_stores: Optional[Sequence[Optional[dict]]] = None
                            ) -> list[list[BBox]]:
     """Stage [4] over a chunk: every eligible crop of every image in one
-    get_directions_batch call where the client has it; else image by
-    image as `enrich_directions`."""
+    get_directions_batch call."""
     cfg = cfg or EnrichConfig()
     stores = debug_stores if debug_stores is not None else [None] * len(images)
-    if client is None or getattr(client, "get_directions_batch", None) is None:
-        return [enrich_directions(img, bl, client, cfg, ds)
-                for img, bl, ds in zip(images, boxes_lists, stores)]
     outs = [[dataclasses.replace(b) for b in bl] for bl in boxes_lists]
+    if client is None:
+        return outs
     jobs = [(k, i, crop, cls)
             for k, (img, out, ds) in enumerate(zip(images, outs, stores))
             for i, crop, cls in _collect_jobs(img, out, cfg, ds)]

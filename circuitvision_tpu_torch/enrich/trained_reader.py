@@ -98,9 +98,6 @@ class TrainedReaderClient:
             "are available)"
         )
 
-    def get_direction(self, crop_rgb: np.ndarray, component_class: str):
-        return self.get_directions_batch([crop_rgb], [component_class])[0]
-
     def get_directions_batch(self, crops: Sequence[np.ndarray],
                              classes: Sequence[str]) -> list[tuple[str, str]]:
         """(direction, reason) per padded component crop, each resized to

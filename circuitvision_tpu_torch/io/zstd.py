@@ -14,9 +14,7 @@ import ctypes
 import ctypes.util
 import functools
 
-_CONTENTSIZE_UNKNOWN = 2 ** 64 - 1
-_CONTENTSIZE_ERROR = 2 ** 64 - 2
-#: output bytes drawn at a time for a frame that does not state its size
+#: output bytes drawn at a time
 _STEP = 1 << 20
 
 
@@ -41,10 +39,6 @@ def library() -> ctypes.CDLL:
                         "decodes zstd frames through it")
     lib = ctypes.CDLL(path)
     size_t, ptr = ctypes.c_size_t, ctypes.c_void_p
-    lib.ZSTD_getFrameContentSize.restype = ctypes.c_ulonglong
-    lib.ZSTD_getFrameContentSize.argtypes = [ptr, size_t]
-    lib.ZSTD_decompress.restype = size_t
-    lib.ZSTD_decompress.argtypes = [ptr, size_t, ptr, size_t]
     lib.ZSTD_createDCtx.restype = ptr
     lib.ZSTD_createDCtx.argtypes = []
     lib.ZSTD_freeDCtx.restype = size_t
@@ -68,20 +62,11 @@ def _check(lib, code: int, what: str) -> int:
 
 
 def decompress(data: bytes) -> bytes:
-    """The content of one zstd frame. A frame that states its content
-    size decodes in one call into a buffer of that size; one that does
-    not (OCDBT's nodes) streams into growing output."""
+    """The content of one zstd frame, streamed into output drawn _STEP
+    bytes at a time: one path for the frames that state their content
+    size (the zarr chunks) and those that do not (OCDBT's nodes)."""
     lib = library()
     data = bytes(data)
-    size = lib.ZSTD_getFrameContentSize(data, len(data))
-    if size == _CONTENTSIZE_ERROR:
-        raise ZstdError("zstd: not a zstd frame")
-    if size != _CONTENTSIZE_UNKNOWN:
-        out = ctypes.create_string_buffer(max(size, 1))
-        n = _check(lib, lib.ZSTD_decompress(out, size, data, len(data)), "decompress")
-        if n != size:
-            raise ZstdError(f"zstd: frame gave {n} bytes, its header says {size}")
-        return out.raw[:n]
     dctx = lib.ZSTD_createDCtx()
     if not dctx:
         raise ZstdError("zstd: ZSTD_createDCtx failed")

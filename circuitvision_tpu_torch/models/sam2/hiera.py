@@ -30,7 +30,9 @@ the tiled route every other width up to 256, padded to a multiple of 8
 where it is not one (ops/cuda/window_attn.py `pad_heads`). A bfloat16
 block on the card whose width is not a multiple of 8 — the tensor-core
 kernels copy rows in 16-byte pieces — runs its kernels in float32 and
-rounds its output back (`MultiScaleBlock.forward`). The analyzer
+rounds its output back (`MultiScaleBlock.forward`): a precision
+departure from the JAX trunk, which computes such blocks in bfloat16
+(the two agree within four bf16 ulps on a width-60 trunk). The analyzer
 refuses on the card only a bfloat16 trunk of heads wider than 256
 (`refused_head_width`).
 """
@@ -161,6 +163,18 @@ class MultiScaleBlock(nn.Module):
         hidden = int(dim_out * mlp_ratio)
         self.mlp_layers_0 = nn.Linear(dim_out, hidden)
         self.mlp_layers_1 = nn.Linear(hidden, dim_out)
+        self._float32: dict[str, torch.Tensor] = {}
+        self._float32_key: tuple = ()
+
+    def float32_copy(self) -> dict[str, torch.Tensor]:
+        """The parameters in float32 for the `float32_kernels` detour: cast
+        on the first call, and again only once a parameter has been moved
+        or written (its storage or version changed)."""
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if self._float32_key != key:
+            self._float32 = {n: p.detach().float() for n, p in self.named_parameters()}
+            self._float32_key = key
+        return self._float32
 
     def attention_path(self, x: torch.Tensor, window_size: int, partitioned: bool) -> str:
         """Which path the attention half of `forward` takes: "qpool",
@@ -190,8 +204,8 @@ class MultiScaleBlock(nn.Module):
         with each window an image of its own. A bfloat16 CUDA block of a
         width off a multiple of 8 runs in float32 (`float32_kernels`)."""
         if float32_kernels(x, self.dim, self.dim_out):
-            params = {name: p.float() for name, p in self.named_parameters()}
-            out = torch.func.functional_call(self, params, (x.float(), window_size, partitioned))
+            out = torch.func.functional_call(self, self.float32_copy(),
+                                             (x.float(), window_size, partitioned))
             return out.to(x.dtype)
         heads = self.num_heads
         path = self.attention_path(x, window_size, partitioned)

@@ -93,13 +93,19 @@ class KernelError(RuntimeError):
     does not take. The pipeline's degradation ladders never swallow it."""
 
 
+#: words of torch's RuntimeErrors from the CUDA runtime, cuDNN and cuBLAS
+#: ("CUDA error: ...", "cuDNN error: CUDNN_STATUS_...", "CUBLAS_STATUS_...")
+_DEVICE_ERROR_WORDS = ("CUDA", "cuDNN", "CUDNN_STATUS", "cuBLAS", "CUBLAS_STATUS")
+
+
 def is_device_fault(exc: BaseException) -> bool:
-    """Kernel faults and CUDA errors, which no degradation ladder may hide."""
+    """Kernel faults and CUDA, cuDNN and cuBLAS errors, which no
+    degradation ladder may hide."""
     accel = getattr(torch, "AcceleratorError", None)
     return (
         isinstance(exc, KernelError)
         or (accel is not None and isinstance(exc, accel))
-        or (isinstance(exc, RuntimeError) and "CUDA" in str(exc))
+        or (isinstance(exc, RuntimeError) and any(w in str(exc) for w in _DEVICE_ERROR_WORDS))
     )
 
 

@@ -18,17 +18,19 @@ Counterpart of `CircuitAnalyzerTPU.analyze()` in the JAX package
   [7] final netlist — the client's {id, class, value} rows merged in
                       (fix_netlist), by generate_final_netlist
 
-The client must be box-driven (`get_labels_batch_boxes`): it is handed
-the analysis image and the id'd boxes. The cv2-drawn enumeration image a
-black-box VLM reads is not ported (ROADMAP Queue A 6), so a client
-without that hook is refused when the analyzer is built.
+The client must be box-driven (`enrich.client.VLMClient`): it is handed
+the analysis image and the id'd boxes (`get_labels_batch_boxes`), and
+the direction crops in one batch (`get_directions_batch`). The cv2-drawn
+enumeration image and the per-crop reads of the black-box VLMs are not
+ported (ROADMAP Queue A 6), so a client without both hooks is refused
+when the analyzer is built.
 
 Degradation ladders stay for failures that come from the data: a
 reclassification or node-analysis error is logged and the pipeline goes
 on, no nodes gives the components-only netlist, a failed direction read
 gives UNKNOWN, and a failed value read or merge keeps the valueless
-netlist. They never swallow a kernel fault (`KernelError`) or a CUDA
-error, and SAM2 is not guarded at all: given SAM2 weights, a failed
+netlist. They never swallow a kernel fault (`KernelError`) or a CUDA,
+cuDNN or cuBLAS error (`is_device_fault`), and SAM2 is not guarded at all: given SAM2 weights, a failed
 segmentation is an error, not a switch to the classical mask.
 """
 from __future__ import annotations
@@ -85,7 +87,7 @@ class CircuitAnalyzerTorch:
     yolo_state / sam2_state are the models' state dicts (models/bridge.py
     makes them from a checkpoint's variables or from a seed). Without
     sam2_state the wire mask is the classical adaptive-threshold mask.
-    `vlm_client` (default: the one the environment names,
+    `vlm_client` (default: the one CIRCUITVISION_VLM names,
     `enrich.client.default_client`, on this device) reads directions and
     values. Runs on the CUDA device unless `device="cpu"` is asked for; a
     missing CUDA device raises instead of moving to the CPU. A bfloat16 SAM2
@@ -101,12 +103,15 @@ class CircuitAnalyzerTorch:
         self.device = resolve_device(device, "CircuitAnalyzerTorch")
         self.vlm_client = vlm_client if vlm_client is not None \
             else default_client(self.device)
-        if self.vlm_client is not None and \
-                getattr(self.vlm_client, "get_labels_batch_boxes", None) is None:
+        missing = [hook for hook in ("get_labels_batch_boxes", "get_directions_batch")
+                   if self.vlm_client is not None
+                   and getattr(self.vlm_client, hook, None) is None]
+        if missing:
             raise NotImplementedError(
-                f"{type(self.vlm_client).__name__} has no get_labels_batch_boxes: a client "
-                f"that reads whole images needs the cv2-drawn enumeration image, which is "
-                f"not ported (ROADMAP Queue A 6)")
+                f"{type(self.vlm_client).__name__} has no {' or '.join(missing)}: a client "
+                f"that reads whole images or one crop at a time needs the cv2-drawn "
+                f"enumeration image and the per-crop dispatch, which are not ported "
+                f"(ROADMAP Queue A 6)")
         scfg, sam2_dtype = self.cfg.sam2, compute_dtype(self.cfg.sam2.dtype)
         if sam2_state is not None and self.cfg.use_sam2 and self.device.type == "cuda" \
                 and sam2_dtype == torch.bfloat16:

@@ -159,8 +159,9 @@ def test_corrupt_node_raises(tmp_path):
 
 
 def test_zstd_frames_with_and_without_content_size():
-    """Frames that state their size decode in one call; OCDBT's nodes
-    (no size in the header) stream; a truncated frame raises."""
+    """Frames that state their size and OCDBT's nodes (no size in the
+    header) decode through the one streaming path; a truncated frame
+    raises."""
     lib = zstd.library()
     payload = bytes(range(256)) * 5000
     lib.ZSTD_compressBound.restype = ctypes.c_size_t
@@ -173,7 +174,7 @@ def test_zstd_frames_with_and_without_content_size():
     n = lib.ZSTD_compress(buf, cap, payload, len(payload), 3)
     frame = buf.raw[:n]
     assert zstd.decompress(frame) == payload
-    # an OCDBT node's frame states no content size: the streaming path
+    # an OCDBT node's frame states no content size
     node = (ROOT / "ckpt" / "reader" / "d").iterdir().__next__().read_bytes()
     body = node[14:-4]
     assert body[4] & 0xC0 == 0  # no frame content size field

@@ -24,7 +24,6 @@ from circuitvision_tpu.enrich.trained_reader import load_trained_reader as jax_r
 from circuitvision_tpu.io.image_io import load_image as jax_load_image
 from circuitvision_tpu.pipeline.analyzer import CircuitAnalyzerTPU
 from circuitvision_tpu_torch.core import config as tconfig
-from circuitvision_tpu_torch.enrich.client import FakeVLMClient
 from circuitvision_tpu_torch.enrich.trained_reader import load_trained_reader
 from circuitvision_tpu_torch.io.image_io import load_image
 from circuitvision_tpu_torch.models import bridge
@@ -108,13 +107,15 @@ def test_analyze_many_finalize_equals_jax_and_serial(product):
 
 
 def test_reader_device_fault_reraises_in_every_stage(product, monkeypatch):
-    """A kernel fault or CUDA error in the reader's forward is never
-    swallowed: not by stage [4], not by the value pass."""
+    """A kernel fault, or a CUDA, cuDNN or cuBLAS error, in the reader's
+    forward is never swallowed: not by stage [4], not by the value pass."""
     _ja, ta = product
     img = load_image(_path("ac_rc"))
     done = ta.analyze(img)
     model = ta.vlm_client.model
-    for exc in (KernelError("launch failed"), RuntimeError("CUDA error: an illegal memory access")):
+    for exc in (KernelError("launch failed"), RuntimeError("CUDA error: an illegal memory access"),
+                RuntimeError("cuDNN error: CUDNN_STATUS_EXECUTION_FAILED"),
+                RuntimeError("CUDA error: CUBLAS_STATUS_EXECUTION_FAILED when calling `cublasSgemm`")):
         def boom(*a, _exc=exc, **k):
             raise _exc
         monkeypatch.setattr(model, "forward", boom)
@@ -155,7 +156,39 @@ def test_value_pass_ladders_keep_the_valueless_netlist(product, monkeypatch, cap
 
 
 def test_whole_image_clients_are_refused(product):
+    """A client that reads whole images, or one that reads the direction
+    crops one at a time, is refused: the drawn enumeration image and the
+    per-crop dispatch serve only the HTTP clients, which are not ported."""
     _ja, ta = product
-    with pytest.raises(NotImplementedError, match="enumeration image"):
-        CircuitAnalyzerTorch(ta.cfg, ta.yolo.state_dict(), None, device="cpu",
-                             vlm_client=FakeVLMClient())
+
+    class WholeImage:
+        def get_labels(self, enum_image):
+            return []
+
+        def get_directions_batch(self, crops, classes):
+            return [("UNKNOWN", "UNKNOWN")] * len(crops)
+
+    class PerCrop:
+        def get_labels_batch_boxes(self, images, boxes):
+            return [[] for _ in images]
+
+        def get_direction(self, crop, cls):
+            return "UNKNOWN", "UNKNOWN"
+
+    for client, hook in ((WholeImage(), "get_labels_batch_boxes"),
+                         (PerCrop(), "get_directions_batch")):
+        with pytest.raises(NotImplementedError, match=f"no {hook}: .*enumeration image"):
+            CircuitAnalyzerTorch(ta.cfg, ta.yolo.state_dict(), None, device="cpu",
+                                 vlm_client=client)
+
+
+@pytest.mark.parametrize("key", ["GEMINI_API_KEY", "OPENROUTER_API_KEY"])
+def test_analyzer_builds_with_an_http_key_set(product, monkeypatch, key):
+    """The HTTP clients' keys, which users of the JAX package have set,
+    name clients the port does not have: without vlm_client= the
+    analyzer builds with no client, and runs the valueless path."""
+    _ja, ta = product
+    monkeypatch.delenv("CIRCUITVISION_VLM", raising=False)
+    monkeypatch.setenv(key, "k")
+    a = CircuitAnalyzerTorch(ta.cfg, ta.yolo.state_dict(), None, device="cpu")
+    assert a.vlm_client is None

@@ -1,10 +1,11 @@
 """The port's trained crop reader (models/reader.py), its client
-(enrich/trained_reader.py), direction enrichment, the VLM client module
-and fix_netlist against the JAX package on the CPU, float32, with the
+(enrich/trained_reader.py), direction enrichment, the client the
+environment names, the device-fault test of the ladders, and fix_netlist against the JAX package on the CPU, float32, with the
 shipped ckpt/reader (read by the port's own checkpoint reader on the
 port's side and by orbax on the JAX side)."""
 import dataclasses
 import json
+import logging
 from pathlib import Path
 
 import cv2
@@ -31,7 +32,7 @@ from circuitvision_tpu_torch.models import reader as treader
 from circuitvision_tpu_torch.models.bridge import state_dict_from_variables
 from circuitvision_tpu_torch.models.checkpoint import load_variables
 from circuitvision_tpu_torch.netlist.fix import fix_netlist
-from circuitvision_tpu_torch.ops.cuda.build import KernelError
+from circuitvision_tpu_torch.ops.cuda.build import KernelError, is_device_fault
 from circuitvision_tpu_torch.topology.enumerate_components import assign_visual_ids
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -166,7 +167,6 @@ def test_directions_batch_equal_jax(readers):
             classes.append(b.class_name)
     got = tr.get_directions_batch(crops, classes)
     assert got == jr.get_directions_batch(crops, classes)
-    assert tr.get_direction(crops[0], classes[0]) == got[0]
     assert {d for d, _ in got} - {"UNKNOWN"}  # some polarity is read
 
 
@@ -184,26 +184,58 @@ def test_enrich_directions_many_equals_jax(readers):
     assert [key(s) for s in single] == [key(g) for g in got]
 
 
-def test_direction_ladder_unknown_on_data_errors_raises_on_device_faults(readers):
-    _jr, tr = readers
+class _DirectionReads:
+    """A client whose batched direction read raises `exc`."""
+
+    def __init__(self, exc):
+        self.exc = exc
+
+    def get_directions_batch(self, crops, classes):
+        raise self.exc
+
+
+def test_direction_ladder_unknown_on_data_errors_raises_on_device_faults(caplog):
     image = _image("ac_rc")
     boxes = _gt("ac_rc")
-    fake = tclient.FakeVLMClient()
-
-    def bad_batch(crops, classes):
-        raise ValueError("unreadable crop")
-    fake.get_directions_batch = bad_batch
-    out = tdirections.enrich_directions(image, boxes, fake, EnrichConfig())
+    caplog.set_level(logging.ERROR)
+    out = tdirections.enrich_directions(image, boxes, _DirectionReads(ValueError("unreadable")),
+                                        EnrichConfig())
     assert {b.semantic_direction for b in out if b.class_name in
             tdirections.taxonomy.DIRECTION_CLASSES} == {"UNKNOWN"}
+    assert "unreadable" in caplog.text
+    for exc in (KernelError("launch failed"),
+                RuntimeError("cuDNN error: CUDNN_STATUS_EXECUTION_FAILED")):
+        with pytest.raises(type(exc)):
+            tdirections.enrich_directions(image, boxes, _DirectionReads(exc))
+        with pytest.raises(type(exc)):
+            tdirections.enrich_directions_many([image], [boxes], _DirectionReads(exc))
 
-    def fault(crops, classes):
-        raise KernelError("launch failed")
-    fake.get_directions_batch = fault
-    with pytest.raises(KernelError):
-        tdirections.enrich_directions(image, boxes, fake)
-    with pytest.raises(KernelError):
-        tdirections.enrich_directions_many([image], [boxes], fake)
+
+def test_enrich_directions_refuses_a_client_without_the_batched_read():
+    """The JAX package's per-crop get_direction dispatch serves only its
+    HTTP clients, which are not ported: a client without
+    get_directions_batch raises instead of reading UNKNOWN everywhere."""
+    class PerCrop:
+        def get_direction(self, crop, cls):
+            return "UP", "SIGN"
+
+    with pytest.raises(AttributeError, match="get_directions_batch"):
+        tdirections.enrich_directions(_image("ac_rc"), _gt("ac_rc"), PerCrop())
+
+
+@pytest.mark.parametrize("exc,fault", [
+    (KernelError("launch failed"), True),
+    (RuntimeError("CUDA error: an illegal memory access was encountered"), True),
+    (RuntimeError("cuDNN error: CUDNN_STATUS_EXECUTION_FAILED"), True),
+    (RuntimeError("CUDA error: CUBLAS_STATUS_EXECUTION_FAILED when calling `cublasSgemm`"), True),
+    (RuntimeError("cuBLAS error: CUBLAS_STATUS_NOT_INITIALIZED"), True),
+    (ValueError("unreadable crop"), False),
+    (RuntimeError("shape '[2, 3]' is invalid for input of size 5"), False),
+])
+def test_device_faults_are_told_from_data_errors(exc, fault):
+    """What the ladders re-raise: kernel faults, and torch's errors from
+    the CUDA runtime, cuDNN and cuBLAS; anything else is the data's."""
+    assert is_device_fault(exc) == fault
 
 
 def test_get_labels_raises_as_jax(readers):
@@ -221,7 +253,7 @@ def test_reader_runs_on_the_card_unless_told(readers):
     assert readers[1].device.type == "cpu"
 
 
-def test_default_client(monkeypatch, tmp_path):
+def test_default_client(monkeypatch, tmp_path, caplog):
     for k in ("CIRCUITVISION_VLM", "GEMINI_API_KEY", "OPENROUTER_API_KEY"):
         monkeypatch.delenv(k, raising=False)
     assert tclient.default_client(device="cpu") is None
@@ -235,20 +267,9 @@ def test_default_client(monkeypatch, tmp_path):
         tclient.default_client(device="cpu")
     monkeypatch.delenv("CIRCUITVISION_VLM")
     monkeypatch.setenv("GEMINI_API_KEY", "k")
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        tclient.default_client(device="cpu")
-
-
-@pytest.mark.parametrize("text", [
-    '```python\n[{"id": 1, "class": "resistor", "value": null}]\n```',
-    '```json\n[{"id": "2", "class": "capacitor", "value": "1u"}]```',
-    "[{'id': 3, 'class': 'inductor', 'value': '10m'}]",
-])
-def test_reply_parsers_equal_jax(text):
-    from circuitvision_tpu.enrich import client as jclient
-
-    assert tclient.parse_vlm_list(text) == jclient.parse_vlm_list(text)
-    assert tclient.parse_gemini_labels(text) == jclient.parse_gemini_labels(text)
+    caplog.set_level(logging.WARNING)
+    assert tclient.default_client(device="cpu") is None
+    assert "GEMINI_API_KEY" in caplog.text and "Queue A 6" in caplog.text
 
 
 # --------------------------------------------------------------- fix_netlist

@@ -75,11 +75,26 @@ Phases, in order; any failure raises and the process exits non-zero:
      136 instance);
  10. the trunk LayerNorm option — TrunkLayerNorm(fused=True), alone and
      with residual=, at the four Hiera-L@1024 trunk widths, with exact
-     launch counts — and its two kernels there in bf16 and f32.
+     launch counts — and its two kernels there in bf16 and f32;
+ 11. the fine-tune's kernels — FlashAttention's lse forward (K1) and its
+     dq and dkv backward kernels (K3, K2) at SAM2.1-L's global shape,
+     1 × 8 heads × 4096 × 72, in bf16 and f32 against their plain
+     versions, SDPA and SDPA's backward (through autograd) beside them;
+ 12. the fine-tune — L_CUT whole-tree in float32 with TF32 off, the
+     card's gradients against the port's CPU gradients on every leaf;
+     SAM2.1-L@1024 in bf16 (every float leaf cast, LayerNorm's too):
+     the whole-tree step at batch 1 and 4 (path A) and, at batch 4, the
+     selective step at the reference's surface and the rank-4 LoRA step
+     (path B) — ms per step (median of 5 after a warm-up), images/s,
+     peak memory, the loss falling over the steps on one batch, exact
+     launch counts per step; then the shipped ckpt/sam2 (t@512 float32)
+     trained whole-tree on eval_data through the port's folder dataset
+     in batches of 8 (path C), which launches no kernel.
 
 It prints one JSON line per kernel shape and route check, the launch
-floor, a `kernels` summary line (every ported kernel with its launches,
-device and eager times on the path that runs it), the card's
+floor, one line per fine-tune path, a `kernels` summary line (every
+ported kernel with its launches, device and eager times on the path that
+runs it), the card's
 `nvidia-smi` name/power line, and as its
 last line {"ok": true, "device": {...}}. It reads ckpt/ and eval_data/
 and writes only the package's build/ directory. Without a CUDA device it
@@ -105,15 +120,20 @@ REPO = Path(__file__).resolve().parent
 #: windows tiled; q-pool 2 and 8 in one block, 44 tiled; global 23, 33,
 #: 43. The tiled calls launch ln_qkv (twice for a q-pool: q/k/v and the
 #: shortcut), flash_attn and attn_proj_residual once each.
+#: the fine-tune's kernels (FlashAttention: the forward with its lse, the
+#: two backward kernels), which no serving path launches
+TRAIN_KERNELS = ("flash_attn_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
 EXPECTED = {
     "t@512": {"mlp_block": 12, "window_attn_block": 2, "qpool_attn_block": 2, "refinement": 1,
               "ln_qkv": 0, "flash_attn": 0, "attn_proj_residual": 0,
               "enhance_lines_fused": 0, "fused_layernorm": 0, "fused_add_layernorm": 0,
-              "window_attn_block.tiled": 0, "qpool_attn_block.tiled": 0},
+              "window_attn_block.tiled": 0, "qpool_attn_block.tiled": 0,
+              **{k: 0 for k in TRAIN_KERNELS}},
     "l@1024": {"mlp_block": 48, "window_attn_block": 7, "qpool_attn_block": 2, "refinement": 1,
                "ln_qkv": 40, "flash_attn": 39, "attn_proj_residual": 39,
                "enhance_lines_fused": 0, "fused_layernorm": 0, "fused_add_layernorm": 0,
-               "window_attn_block.tiled": 35, "qpool_attn_block.tiled": 1},
+               "window_attn_block.tiled": 35, "qpool_attn_block.tiled": 1,
+               **{k: 0 for k in TRAIN_KERNELS}},
 }
 #: the batched path at s@640 + t@512: BATCH_IMAGES drawings in chunks of
 #: BATCH_SIZE; the Hiera kernels launch once per chunk (the chunk's crops
@@ -147,6 +167,12 @@ REPLACES = {
     "enhance_lines_fused": "circuitvision_tpu/ops/pallas/fused_morphology.py:121",
     "fused_layernorm": "circuitvision_tpu/ops/pallas/fused_ln.py:62",
     "fused_add_layernorm": "circuitvision_tpu/ops/pallas/fused_ln.py:96",
+    # jax's TPU flash attention on the JAX package's training path
+    # (hiera.py:270 under jax.value_and_grad): its forward with residuals
+    # (jax flash_attention.py:589, call :758) and backward kernels
+    "flash_attn_lse": "circuitvision_tpu/models/sam2/hiera.py:270",
+    "flash_attn_bwd_dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+    "flash_attn_bwd_dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
 }
 SOURCES = {
     "mlp_block": "circuitvision_tpu_torch/csrc/mlp_block.cu",
@@ -159,6 +185,9 @@ SOURCES = {
     "enhance_lines_fused": "circuitvision_tpu_torch/csrc/morphology.cu",
     "fused_layernorm": "circuitvision_tpu_torch/csrc/fused_ln.cu",
     "fused_add_layernorm": "circuitvision_tpu_torch/csrc/fused_ln.cu",
+    "flash_attn_lse": "circuitvision_tpu_torch/csrc/flash_attn.cu",
+    "flash_attn_bwd_dkv": "circuitvision_tpu_torch/csrc/flash_bwd.cu",
+    "flash_attn_bwd_dq": "circuitvision_tpu_torch/csrc/flash_bwd.cu",
 }
 #: the window and q-pool block shapes of L@1024: (windows, tokens,
 #: width, heads) and (windows, window side, width in, width out, heads)
@@ -166,6 +195,7 @@ L_WINDOWS = [(1024, 64, 144, 2), (1024, 16, 288, 4), (16, 256, 576, 8), (16, 64,
 L_QPOOLS = [(1024, 8, 144, 288, 4), (1024, 4, 288, 576, 8), (16, 16, 576, 1152, 16)]
 #: kernels whose rows also print their rate, operations ÷ kernel time
 TFLOPS_ROWS = ("flash_attn", "mlp_block", "ln_qkv", "window_attn_block", "attn_proj_residual",
+               "flash_attn_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
                "qpool_attn_block")
 #: H100 SXM peaks (NVIDIA data sheet, dense): memory, bf16 tensor, f32
 HBM_BYTES_PER_S = 3.35e12
@@ -202,6 +232,35 @@ EXPECTED["off-preset-136"] = {**{k: 0 for k in EXPECTED["t@512"]},
                               "mlp_block": 6, "ln_qkv": 8, "flash_attn": 5,
                               "attn_proj_residual": 5, "window_attn_block.tiled": 2,
                               "qpool_attn_block.tiled": 3}
+#: the fine-tune, launches per step. Whole-tree at L@1024 (path A): every
+#: block and the refinement head on the module path, the global blocks 23,
+#: 33 and 43 through FlashAttention — the lse forward, then the dq and the
+#: dkv kernel in the backward — and no forward kernel of rows 1-8; L_CUT
+#: has one global block. Selective at the reference's surface (cutoff 44)
+#: and LoRA (path B): blocks 0-43 on the serving kernels — every
+#: L@1024 launch but those of blocks 44-47 (the q-pool block 44's tiled
+#: route and the 3 stage-4 windows) and of the refinement head — and no
+#: backward kernel (the trainable blocks' windows hold at most 256
+#: tokens). The shipped segmenter's fine-tune (path C, t@512 float32,
+#: whole-tree): no kernel (the global blocks hold 1024 tokens, under
+#: FLASH_MIN_SEQ).
+EXPECTED["train-whole"] = {**{k: 0 for k in EXPECTED["t@512"]},
+                           **{k: 3 for k in TRAIN_KERNELS}}
+EXPECTED["train-lcut"] = {**{k: 0 for k in EXPECTED["t@512"]},
+                          **{k: 1 for k in TRAIN_KERNELS}}
+EXPECTED["train-selective"] = {**{k: 0 for k in EXPECTED["t@512"]},
+                               "mlp_block": 44, "window_attn_block": 7, "qpool_attn_block": 2,
+                               "ln_qkv": 35, "flash_attn": 35, "attn_proj_residual": 35,
+                               "window_attn_block.tiled": 32}
+EXPECTED["train-lora"] = EXPECTED["train-selective"]
+EXPECTED["train-c"] = {k: 0 for k in EXPECTED["t@512"]}
+#: L_CUT (tests/test_torch_port_large.py): Hiera-L@1024 cut to stages
+#: (1, 1, 3, 2), one global block of 4096 tokens (block 4)
+L_CUT = dict(stages=[1, 1, 3, 2], global_att_blocks=[4])
+#: timed steps after one warm-up, all on one batch (paths A and B); the
+#: batches of path C; card against CPU gradients per leaf:
+#: max |card − cpu| ≤ TRAIN_RTOL · max(1, max |cpu|) (as F32_PATH_RTOL)
+TRAIN_STEPS, TRAIN_C_STEPS, TRAIN_RTOL = 5, 4, 1e-3
 #: the trained product: the first PRODUCT_IMAGES eval images (sorted, as
 #: scripts/bench_trained_product.py takes them), two of them for the card
 #: against CPU check, chunks of PRODUCT_BATCH for analyze_many, timed runs
@@ -328,7 +387,8 @@ def counters():
            "ln_qkv": ga.ln_qkv, "flash_attn": fa.flash_attn,
            "attn_proj_residual": ga.attn_proj_residual,
            "enhance_lines_fused": mo.enhance_lines_fused,
-           "fused_layernorm": fl.fused_layernorm, "fused_add_layernorm": fl.fused_add_layernorm}
+           "fused_layernorm": fl.fused_layernorm, "fused_add_layernorm": fl.fused_add_layernorm,
+           **{k: getattr(fa, k) for k in TRAIN_KERNELS}}
     tiled = {"window_attn_block.tiled": wa.window_attn_block,
              "qpool_attn_block.tiled": wa.qpool_attn_block}
 
@@ -507,8 +567,46 @@ def case_builders(torch):
                         math_dt=F32)
         return make
 
+    def attn_grad(b, h, n, hd, part):
+        """FlashAttention's kernels at b × h heads of n tokens: the lse
+        forward ("lse"), the dq kernel ("dq", which also returns delta) or
+        the dkv kernel ("dkv"); o, lse and delta from the plain forward,
+        the same for the kernel and its plain version. Their library
+        yardstick: SDPA, and for the backward SDPA's backward through
+        autograd (dq, dk and dv in one call)."""
+        def make(dt, gen):
+            q, k, v, do = (rnd(gen, dt, b, h, n, hd) for _ in range(4))
+            elems, es = b * h * n * hd, q.element_size()
+            if part == "lse":
+                return dict(kernel=lambda: fa.flash_attn_lse(q, k, v),
+                            plain=lambda: fa.flash_attn_lse_plain(q, k, v), parts=True,
+                            library=lambda: F.scaled_dot_product_attention(q, k, v),
+                            bytes=4 * elems * es + b * h * n * 4, flops=4 * b * h * n * n * hd,
+                            math_dt=dt, timing=dict(iters=5, replays=3))
+            o, lse = fa.flash_attn_lse_plain(q, k, v)
+            delta = (do.float() * o.float()).sum(-1)
+            ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            ol = F.scaled_dot_product_attention(ql, kl, vl)
+            common = dict(parts=True, math_dt=dt, timing=dict(iters=5, replays=3),
+                          library=lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
+                                                              retain_graph=True),
+                          library_eager=True,
+                          library_note="SDPA's backward through autograd: dq, dk and dv in "
+                                       "one call, eager events")
+            if part == "dq":
+                return dict(kernel=lambda: fa.flash_attn_bwd_dq(q, k, v, o, lse, do),
+                            plain=lambda: (fa.flash_attn_bwd_plain(q, k, v, o, lse, do)[0], delta),
+                            bytes=6 * elems * es + 2 * b * h * n * 4,
+                            flops=6 * b * h * n * n * hd, **common)
+            return dict(kernel=lambda: fa.flash_attn_bwd_dkv(q, k, v, lse, delta, do),
+                        plain=lambda: fa.flash_attn_bwd_plain(q, k, v, o, lse, do)[1:],
+                        bytes=6 * elems * es + 2 * b * h * n * 4, flops=8 * b * h * n * n * hd,
+                        **common)
+        return make
+
     return dict(mlp=mlp, window=window, qpool=qpool, refine=refine, ln_qkv=ln_qkv, flash=flash,
-                proj=proj, morph=morph, layernorm=layernorm, add_layernorm=add_layernorm)
+                proj=proj, morph=morph, layernorm=layernorm, add_layernorm=add_layernorm,
+                attn_grad=attn_grad)
 
 
 def kernel_cases(torch, path, raster_counts=None):
@@ -520,6 +618,11 @@ def kernel_cases(torch, path, raster_counts=None):
     shapes of the seeded-weight run), those of the seeded-weight run and
     three more shapes as rows off the count."""
     b = case_builders(torch)
+    if path == "train":
+        # per whole-tree L@1024 step at batch 1: the global blocks 23, 33, 43
+        return [(name, "global 1x8 heads N=4096 D=72", 3, b["attn_grad"](1, 8, 4096, 72, part))
+                for name, part in (("flash_attn_lse", "lse"), ("flash_attn_bwd_dq", "dq"),
+                                   ("flash_attn_bwd_dkv", "dkv"))]
     if path == "trunk-ln":
         return [(n, f"T={t} C={c}", 1, b[k](t, c)) for t, c in L_TRUNK_ROWS
                 for n, k in (("fused_layernorm", "layernorm"),
@@ -600,24 +703,36 @@ def run_kernels(torch, path, raster_counts=None):
             case = make(dt, gen)
             out = case["kernel"]()
             ref = case["plain"]()
-            if isinstance(out, tuple):  # fused_add_layernorm: the sum must be bit-exact
+            if isinstance(out, tuple) and not case.get("parts"):
+                # fused_add_layernorm: the sum must be bit-exact
                 if not torch.equal(out[0], ref[0]):
                     raise AssertionError(f"{name} [{path} {label}, {dt_name}]: residual sum differs")
                 out, ref = out[1], ref[1]
-            got, ref = out.float(), ref.float()
             torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            # the tolerance follows what the kernel stores: the refinement
-            # head returns float32 whatever its input's dtype; the line
-            # enhancement must be bit-exact
-            tol = 0.0 if case.get("exact") else \
-                tolerance(str(out.dtype).removeprefix("torch."), float(ref.abs().max()))
-            if not torch.isfinite(got).all() or err > tol:
-                raise AssertionError(f"{name} [{path} {label}, {dt_name}]: max |kernel - plain| "
-                                     f"{err:.3e} > tol {tol:.3e}")
-            k_ms, eager_ms = graph_ms(case["kernel"]), cuda_ms(case["kernel"])
+            # each output held to the tolerance of the dtype it is stored in
+            # (the refinement head returns float32 whatever its input's
+            # dtype, FlashAttention's lse and delta are float32); the line
+            # enhancement must be bit-exact. The row shows the output
+            # nearest its tolerance.
+            err, tol, worst = 0.0, 0.0, -1.0
+            for o_, r_ in (zip(out, ref) if case.get("parts") else [(out, ref)]):
+                got, want = o_.float(), r_.float()
+                e = float((got - want).abs().max())
+                t = 0.0 if case.get("exact") else \
+                    tolerance(str(o_.dtype).removeprefix("torch."), float(want.abs().max()))
+                if not torch.isfinite(got).all() or e > t:
+                    raise AssertionError(f"{name} [{path} {label}, {dt_name}]: max |kernel - "
+                                         f"plain| {e:.3e} > tol {t:.3e}")
+                if (e / t if t else 0.0) > worst:
+                    err, tol, worst = e, t, (e / t if t else 0.0)
+            timing = case.get("timing", {})
+            k_ms = graph_ms(case["kernel"], **timing)
+            eager_ms = cuda_ms(case["kernel"], iters=timing.get("iters", 20))
             p_ms = cuda_ms(case["plain"], iters=5)
-            lib_ms = graph_ms(case["library"]) if case.get("library") else None
+            lib_ms = None
+            if case.get("library"):
+                lib_ms = (cuda_ms(case["library"], iters=timing.get("iters", 20))
+                          if case.get("library_eager") else graph_ms(case["library"], **timing))
             t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
             t_ops = case["flops"] / PEAK_FLOPS[str(case["math_dt"]).removeprefix("torch.")] * 1e3
             row = {"kernel": name, "path": path, "shape": label, "dtype": dt_name,
@@ -1214,6 +1329,192 @@ def run_trunk_ln_path(torch):
     return counts
 
 
+def train_inputs(torch, batch: int, res: int, seed: int = 0):
+    """scripts/profile_train_step.py's seeded batch: uniform images and
+    masks of density 1/2, on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    images = rng.random((batch, res, res, 3), np.float32)
+    masks = (rng.random((batch, res, res)) > 0.5).astype(np.float32)
+    return torch.from_numpy(images).cuda(), torch.from_numpy(masks).cuda()
+
+
+def train_model(torch, meta, state, device, dtype):
+    """A SAM2ImageSegmenter of `meta` with `state`, every float leaf in
+    `dtype` — LayerNorm parameters too, as the JAX training config casts
+    them (scripts/profile_train_step.py)."""
+    from circuitvision_tpu_torch.models.bridge import sam2_config
+    from circuitvision_tpu_torch.models.sam2.wrapper import SAM2ImageSegmenter
+
+    m = SAM2ImageSegmenter(sam2_config(meta, dtype=str(dtype).removeprefix("torch.")))
+    m.load_state_dict(state)
+    return m.to(device=device, dtype=dtype)
+
+
+def run_steps(torch, smi, name, step, carry, batch, steps, expected, fixed=True):
+    """One warm-up and `steps` timed steps of `step(carry, images, masks)
+    → (carry, metrics)`, on one batch (`fixed`) or on each of `batch`'s
+    batches in turn; launches of the first timed step held to
+    EXPECTED[expected]; ms per step (median), images/s, peak memory
+    (torch.cuda.max_memory_allocated over the steps, beside what was
+    allocated before them) and the losses printed. Returns (report,
+    launches)."""
+    import statistics
+
+    reset, read = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # the model's weights and what earlier phases hold
+    losses, times, counts = [], [], None
+    for i in range(1 + steps):
+        images, masks = batch if fixed else next(batch)
+        if i == 1:
+            reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, metrics = step(carry, images, masks)
+        losses.append(float(metrics["loss"]))  # reads back: the step has ended
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            counts = read()
+    n = images.shape[0]
+    ms = statistics.median(times[1:])
+    report = {"name": name, "batch": n, "ms_per_step": ms, "step_ms": times[1:],
+              "warmup_ms": times[0], "images_per_s": n / (ms * 1e-3),
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "allocated_before_gib": base / 2 ** 30,
+              "losses": losses, "launches": counts, "card": smi}
+    print(json.dumps({"train_path": report}), flush=True)
+    if counts != EXPECTED[expected]:
+        raise AssertionError(f"{name}: launches per step {counts} != {EXPECTED[expected]}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: losses {losses}")
+    if fixed and not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: the loss did not fall over {steps} steps on one batch: "
+                             f"{losses}")
+    return report, counts
+
+
+def run_training(torch, smi):
+    """Phase 12: the SAM2 fine-tune. (1) L_CUT whole-tree in float32, TF32
+    off: the card's gradients (FlashAttention's kernels in the global
+    block) against the port's CPU gradients, every leaf. (2) SAM2.1-L@1024
+    in bfloat16, seeded weights, on one seeded batch: the whole-tree step
+    at batch 1 and 4 (path A), the selective step at the reference's
+    surface and the rank-4 LoRA step at batch 4 (path B). (3) The shipped
+    segmenter's fine-tune (path C): ckpt/sam2 (t@512 float32), every leaf
+    trained at scripts/train_segmenter.py's learning rate held constant,
+    batches of 8 from eval_data through the port's
+    SegmentationFolderDataset. Returns the launches per step of path A at
+    batch 1."""
+    from circuitvision_tpu_torch.core.config import TrainConfig
+    from circuitvision_tpu_torch.models.bridge import (
+        sam2_config, seeded_state, state_dict_from_variables,
+    )
+    from circuitvision_tpu_torch.models.checkpoint import load_model_checkpoint
+    from circuitvision_tpu_torch.train import lora
+    from circuitvision_tpu_torch.train import train_step as ts
+    from circuitvision_tpu_torch.train.data import SegmentationFolderDataset
+
+    def params_of(model):
+        return {n: p.detach() for n, p in model.named_parameters()}
+
+    def stepper(model, cfg, mask, selective):
+        """(step over carry = (params, optimizer state), its first carry)."""
+        opt, mask = ts.make_optimizer(model, cfg, mask)
+        train_step = ts.make_train_step(model, opt, cfg, mask, selective)
+
+        def step(carry, images, masks):
+            params, state, metrics = train_step(*carry, images, masks)
+            return (params, state), metrics
+
+        params = params_of(model)
+        return step, (params, opt.init(params))
+
+    def every_leaf(model):
+        return {n: True for n, _ in model.named_parameters()}
+
+    # (1) card against CPU gradients at L_CUT
+    cut = {"sam2": {"preset": "l", "overrides": L_CUT}}
+    state = seeded_state("sam2", cut, 7)
+    images, masks = train_inputs(torch, 1, 1024, seed=1)
+    card = train_model(torch, cut, state, "cuda", torch.float32)
+    reset, read = counters()
+    reset()
+    _l, _m, got = ts.loss_and_grads(card, params_of(card), images, masks, selective=False)
+    torch.cuda.synchronize()
+    counts = read()
+    t0 = time.perf_counter()
+    cpu = train_model(torch, cut, state, "cpu", torch.float32)
+    _l, _m, ref = ts.loss_and_grads(cpu, params_of(cpu), images.cpu(), masks.cpu(),
+                                    selective=False)
+    cpu_s = time.perf_counter() - t0
+    worst = max(((float((got[n].cpu() - r).abs().max()), float(r.abs().max()), n)
+                 for n, r in ref.items()), key=lambda e: e[0] / max(1.0, e[1]))
+    print(json.dumps({"train_lcut_f32_card_vs_cpu": {
+        "leaves": len(ref), "worst_leaf": worst[2], "max_abs_err": worst[0],
+        "max_abs_cpu": worst[1], "tol": TRAIN_RTOL * max(1.0, worst[1]),
+        "cpu_seconds": cpu_s, "launches": counts, "card": smi}}), flush=True)
+    if counts != EXPECTED["train-lcut"]:
+        raise AssertionError(f"L_CUT: launches {counts} != {EXPECTED['train-lcut']}")
+    if not all(bool(torch.isfinite(g).all()) for g in got.values()) \
+            or worst[0] > TRAIN_RTOL * max(1.0, worst[1]):
+        raise AssertionError(f"L_CUT card gradients differ from the CPU's: {worst}")
+    del card, cpu, got, ref
+
+    # (2) SAM2.1-L@1024 in bfloat16, full depth
+    meta = {"sam2": {"preset": "l", "overrides": {}}}
+    model = train_model(torch, meta, seeded_state("sam2", meta, 2), "cuda", torch.bfloat16)
+    cfg = TrainConfig()
+    for batch in (1, 4):  # 4, the profile script's default, fits in 80 GB (PERF.md §6)
+        step, carry = stepper(model, cfg, every_leaf(model), selective=False)
+        _report, counts = run_steps(torch, smi, "A: whole-tree L@1024 bf16", step, carry,
+                                    train_inputs(torch, batch, 1024), TRAIN_STEPS, "train-whole")
+        if batch == 1:
+            launches = counts
+        del step, carry
+        torch.cuda.empty_cache()
+    inputs = train_inputs(torch, 4, 1024)
+    step, carry = stepper(model, cfg, None, selective=True)  # the reference's surface
+    run_steps(torch, smi, "B: selective L@1024 bf16 (cutoff 44)", step, carry, inputs,
+              TRAIN_STEPS, "train-selective")
+    del step, carry
+    torch.cuda.empty_cache()
+    tstate = lora.init_train_state(model, torch.Generator().manual_seed(0), cfg)
+    lopt = lora.make_lora_optimizer(cfg)
+    lora_step = lora.make_lora_train_step(model, lopt, cfg)
+    base = params_of(model)
+
+    def lstep(carry, images, masks):
+        tstate, state, metrics = lora_step(base, *carry, images, masks)
+        return (tstate, state), metrics
+
+    run_steps(torch, smi, "B: LoRA rank 4 alpha 16 L@1024 bf16", lstep,
+              (tstate, lopt.init(lora.flat_names(tstate))), inputs, TRAIN_STEPS, "train-lora")
+    del model, base, tstate, inputs
+    torch.cuda.empty_cache()
+
+    # (3) the shipped segmenter's fine-tune
+    variables, smeta = load_model_checkpoint(str(REPO / "ckpt" / "sam2"))
+    scfg = sam2_config(smeta)
+    model = train_model(torch, smeta, state_dict_from_variables(variables), "cuda",
+                        getattr(torch, scfg.dtype))
+    ds = SegmentationFolderDataset(str(REPO / "eval_data"), resolution=scfg.resolution,
+                                   device="cuda")
+    step, carry = stepper(model, TrainConfig(learning_rate=5e-4), every_leaf(model),
+                          selective=False)
+    batches = ds.batches(8, seed=0, epochs=None)
+    report, _ = run_steps(torch, smi, "C: shipped t@512 f32 fine-tune, eval_data", step, carry,
+                          batches, TRAIN_C_STEPS, "train-c", fixed=False)
+    batches.close()
+    print(json.dumps({"train_c_loss": {"first": report["losses"][0],
+                                       "last": report["losses"][-1], "images": len(ds)}}))
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def run_batched_path(torch, smi):
     """The batched entry point at YOLOv11-s@640 + SAM2 Hiera-t@512 (seeded
     weights; SAM2 in float32 as its meta says) with use_fused_morphology
@@ -1419,6 +1720,14 @@ def main() -> int:
     summary["trunk-ln"] = run_kernels(torch, "trunk-ln")
     done(t0, "trunk LayerNorm option")
 
+    t0 = phase("fine-tune kernels: FlashAttention's lse forward and backward at L@1024")
+    summary["train"] = run_kernels(torch, "train")
+    done(t0, "fine-tune kernels")
+
+    t0 = phase("fine-tune: L_CUT card vs CPU gradients, SAM2.1-L@1024 paths A and B, path C")
+    launches["train"] = run_training(torch, smi)
+    done(t0, "fine-tune")
+
     def entry(name, s, counts):
         return {"launches": counts[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "eager_ms": s["eager_ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -1430,13 +1739,15 @@ def main() -> int:
                                        for n, s in summary["t@512"].items()]}))
     # one entry per kernel, on the path that runs it: the seven Hiera and
     # head kernels on L@1024, the line enhancement on the batched path,
-    # the LayerNorms on the trunk LayerNorm option
+    # the LayerNorms on the trunk LayerNorm option, FlashAttention's three
+    # on the whole-tree fine-tune (launches per step at batch 1)
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
                 "path": path, **entry(n, s, launches[path]),
                 "launches_t512": launches["t@512"][n],
                 "launches_trained_product": launches["product"][n],
                 "launches_trained_product_batch": launches["product-batch"][n]}
-               for path in ("l@1024", "batch", "trunk-ln") for n, s in summary[path].items()]
+               for path in ("l@1024", "batch", "trunk-ln", "train")
+               for n, s in summary[path].items()]
     print(json.dumps({"launch_floor": floor}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,7 +1,6 @@
 """Typed configuration tree of the PyTorch port: the JAX package's
 `core/config.py` without JAX and without the sections and fields the
-ported slices never read (simulation, mesh, training, MXU channel
-padding, LoRA).
+ported slices never read (simulation, mesh, MXU channel padding).
 
 Every magic number that is inlined in the reference implementation
 (src/circuit_analyzer.py and src/analysis_pipeline.py of the reference
@@ -192,6 +191,54 @@ class EnrichConfig:
     HTTP clients, which are not ported (ROADMAP Queue A 6)."""
 
     crop_padding: int = 15  # src/circuit_analyzer.py:2176
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """SAM2 LoRA fine-tune hyper-params (src/sam2_infer.py:297-304); the
+    JAX package's TrainConfig (core/config.py:235-279), field for field."""
+
+    weight_dice: float = 0.5
+    weight_focal: float = 0.4
+    weight_iou: float = 0.3
+    weight_freq: float = 0.1
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    dice_smooth: float = 1e-5
+    iou_smooth: float = 1e-5
+    learning_rate: float = 1e-3
+    #: LR schedule: "constant" (reference-parity default) or "cosine"
+    #: (linear warmup → cosine decay to min_lr_ratio·learning_rate over
+    #: total_steps — the standard production fine-tune shape).
+    schedule: str = "constant"
+    warmup_steps: int = 0
+    total_steps: int = 0
+    min_lr_ratio: float = 0.0
+    #: average gradients over k micro-batches before each optimizer
+    #: update (train/train_step.py; optax.MultiSteps in the JAX package —
+    #: the accumulation buffer costs one copy of the TRAINABLE leaves, not
+    #: the frozen ~78% of SAM2-L). Effective batch = k × device batch;
+    #: total_steps/warmup_steps count optimizer UPDATES, not micro-steps.
+    grad_accum_steps: int = 1
+    #: exponential-moving-average decay for an eval-weights shadow of the
+    #: trainable leaves (0 = off); train_step.init_ema/update_ema/ema_params.
+    ema_decay: float = 0.0
+    #: rank-r LoRA adapters on the reference's 36 target modules
+    #: (src/circuit_analyzer.py:209-211: r=4, alpha=16; lora_dropout=0.3
+    #: is a training-time activation regularizer PEFT applies before
+    #: lora_A — the weight-space adapters here omit it, documented in
+    #: train/lora.py).
+    lora_rank: int = 4
+    lora_alpha: float = 16.0
+
+    def __post_init__(self):
+        # grad_accum_steps < 1 would silently disable accumulation in
+        # make_optimizer (its `> 1` gate) while callers still divide or
+        # modulo by it (ZeroDivisionError at 0, nonsense at negatives).
+        if self.grad_accum_steps < 1:
+            raise ValueError(
+                f"grad_accum_steps must be >= 1, got {self.grad_accum_steps}"
+            )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,6 +17,13 @@
 // product (accumulated in f32), the f32 sum of the unrounded ones as the
 // divisor, and the result rounded once.
 //
+// The lse instances (flash_lse_kernel, flash_tc_lse_kernel at head width
+// 72) are the forward of training's FlashAttention (jax's forward with
+// save_residuals): the same bodies, which also write each row's
+// log-sum-exp of the scaled scores, m + log(l), in float32 — the residual
+// the backward kernels (flash_bwd.cu) recompute the probabilities from.
+// The serving instances call the bodies with that write compiled out.
+//
 // What bounds it on the H100, per shape class of the Hiera-L@1024 path
 // (D = 72): 4·Nq·Nk·D FLOPs against (2·Nq + 2·Nk)·D elements. The global
 // blocks (8 heads, N = 4096) are bound by the operations, N/2 ≈ 2000
@@ -82,11 +89,13 @@ constexpr int kBK = 64;    // keys per streamed tile
 constexpr int kMaxD = 128;  // largest head width
 constexpr int kLanes = kThreads / kBQ;  // threads sharing one q row (4)
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int nq, int nk,
-             int hd, int pool_win, float scale) {
+// The body of the float32 kernel; with LSE it also writes each row's
+// log-sum-exp of the scaled scores, m + log(l), in float32.
+template <typename T, bool LSE>
+__device__ __forceinline__ void flash_body(const T* __restrict__ q, const T* __restrict__ k,
+                                           const T* __restrict__ v, T* __restrict__ o,
+                                           float* __restrict__ lse, int nq, int nk, int hd,
+                                           int pool_win, float scale) {
   extern __shared__ float smem[];
   const int ld = hd + 1;
   float* qs = smem;             // kBQ × ld
@@ -190,7 +199,26 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = sub + kLanes * dd;
       if (d < hd) orow[d] = from_f<T>(acc[dd] * inv);
     }
+    if constexpr (LSE) {
+      if (sub == 0) lse[bh * nq + qi] = m_run + logf(l_run);
+    }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ o, int nq, int nk,
+             int hd, int pool_win, float scale) {
+  flash_body<T, false>(q, k, v, o, nullptr, nq, nk, hd, pool_win, scale);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_lse_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse, int nq,
+                 int nk, int hd, float scale) {
+  flash_body<T, true>(q, k, v, o, lse, nq, nk, hd, 0, scale);
 }
 
 size_t flash_smem(int hd) {
@@ -201,13 +229,21 @@ size_t flash_smem(int hd) {
 template <typename T>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
                          int bh, int nq, int nk, int hd, int pool_win, float scale,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, float* lse = nullptr) {
   if (hd < 1 || hd > kMaxD || nk < 1) return cudaErrorInvalidValue;
   size_t smem = flash_smem(hd);
+  dim3 grid((nq + kBQ - 1) / kBQ, bh);
+  if (lse != nullptr) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_lse_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    flash_lse_kernel<T><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, nq, nk, hd, scale);
+    return cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((nq + kBQ - 1) / kBQ, bh);
   flash_kernel<T><<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, nq, nk, hd, pool_win, scale);
   return cudaGetLastError();
@@ -248,11 +284,15 @@ __device__ __forceinline__ uint4 hmax8(uint4 a, uint4 b) {
 // past hd are zero in shared memory and never stored). MT: m16 tiles of
 // q per warp (2 for long sequences: 128-row blocks read each K/V tile
 // once for twice the rows).
-template <int NT, int MT>
-__global__ void __launch_bounds__(kTcThreads)
-flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int bh, int nq,
-                int nk, int hd, int pool_win, int wpp, int stages, float scale_log2) {
+// With LSE the body also writes each row's log-sum-exp of the scaled
+// scores in natural log, m·ln 2 + ln(l) (m in log2 units), in float32.
+template <int NT, int MT, bool LSE>
+__device__ __forceinline__ void flash_tc_body(const bf16* __restrict__ q,
+                                              const bf16* __restrict__ k,
+                                              const bf16* __restrict__ v, bf16* __restrict__ o,
+                                              float* __restrict__ lse, int bh, int nq, int nk,
+                                              int hd, int pool_win, int wpp, int stages,
+                                              float scale_log2) {
   constexpr int KS = (NT + 1) / 2;  // 16-deep steps of q·kᵀ
   constexpr int LD = KS * 16 + 8;   // row stride in shared memory, bf16
   constexpr int kStage = 2 * kTcKeys * LD;  // one K tile and one V tile
@@ -468,25 +508,57 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             *reinterpret_cast<uint32_t*>(orow + col) =
                 tc::pack_bf16(acc[mt][d][2 * r] * inv, acc[mt][d][2 * r + 1] * inv);
         }
+        if constexpr (LSE) {
+          if (lane % 4 == 0)
+            lse[(size_t)b * nq + qi] = m_run[mt][r] * 0.69314718055994531f + logf(l);
+        }
       }
   }
 }
 
 template <int NT, int MT>
+__global__ void __launch_bounds__(kTcThreads)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, int bh, int nq,
+                int nk, int hd, int pool_win, int wpp, int stages, float scale_log2) {
+  flash_tc_body<NT, MT, false>(q, k, v, o, nullptr, bh, nq, nk, hd, pool_win, wpp, stages,
+                               scale_log2);
+}
+
+template <int NT, int MT>
+__global__ void __launch_bounds__(kTcThreads)
+flash_tc_lse_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                    int bh, int nq, int nk, int hd, int wpp, int stages, float scale_log2) {
+  flash_tc_body<NT, MT, true>(q, k, v, o, lse, bh, nq, nk, hd, 0, wpp, stages, scale_log2);
+}
+
+// LSE: launch flash_tc_lse_kernel, which also writes `lse` (pool_win 0).
+template <int NT, int MT, bool LSE = false>
 cudaError_t launch_flash_tc(const void* q, const void* k, const void* v, void* o, int bh,
                             int nq, int nk, int hd, int pool_win, int wpp, int stages,
-                            float scale_log2, cudaStream_t stream) {
+                            float scale_log2, cudaStream_t stream, float* lse = nullptr) {
   const size_t smem = flash_tc_smem(8 * NT, MT, wpp, stages);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<NT, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const int tile_rows = kTcQRows * MT * wpp, groups = kTcWarps / wpp;
   const long long tiles = (long long)bh * ((nq + tile_rows - 1) / tile_rows);
   const unsigned blocks = (unsigned)((tiles + groups - 1) / groups);
-  flash_tc_kernel<NT, MT><<<blocks, kTcThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, bh, nq, nk, hd, pool_win,
-      wpp, stages, scale_log2);
-  return cudaGetLastError();
+  if constexpr (LSE) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_tc_lse_kernel<NT, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    flash_tc_lse_kernel<NT, MT><<<blocks, kTcThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, bh, nq, nk, hd, wpp,
+        stages, scale_log2);
+    return cudaGetLastError();
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_tc_kernel<NT, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    flash_tc_kernel<NT, MT><<<blocks, kTcThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, bh, nq, nk, hd, pool_win,
+        wpp, stages, scale_log2);
+    return cudaGetLastError();
+  }
 }
 
 template <int NT>
@@ -544,6 +616,35 @@ extern "C" int cv_flash_attn_bf16(const void* q, const void* k, const void* v, v
     case 256: return run(launch_flash_width<32>);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The forward of the training path (FlashAttention in ops/cuda/
+// flash_attn.py): as cv_flash_attn_bf16 without pool_win, at the head
+// width 72 instance only (hd a multiple of 8 up to 72), and also writing
+// lse (bh, nq) float32, each row's log-sum-exp of the scaled scores, the
+// residual the backward (flash_bwd.cu) recomputes the probabilities from.
+extern "C" int cv_flash_attn_lse_bf16(const void* q, const void* k, const void* v, void* o,
+                                      void* lse, int bh, int nq, int nk, int hd, int mt,
+                                      int wpp, int stages, float scale_log2, void* stream) {
+  if (hd < 8 || hd % 8 || hd > 72 || nq < 1 || nk < 1 || bh < 1 ||
+      (wpp != 1 && wpp != 2 && wpp != 4) || stages < 1 || stages > 2 ||
+      (stages == 1 && nk > kTcKeys) || (mt == 2 && wpp != kTcWarps) || mt < 1 || mt > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mt == 2)
+    return (int)launch_flash_tc<9, 2, true>(q, k, v, o, bh, nq, nk, hd, 0, wpp, stages,
+                                            scale_log2, s, (float*)lse);
+  return (int)launch_flash_tc<9, 1, true>(q, k, v, o, bh, nq, nk, hd, 0, wpp, stages,
+                                          scale_log2, s, (float*)lse);
+}
+
+// float32 forward with lse, as cv_flash_attn_f32 without pool_win.
+extern "C" int cv_flash_attn_lse_f32(const void* q, const void* k, const void* v, void* o,
+                                     void* lse, int bh, int nq, int nk, int hd, float scale,
+                                     void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_flash<float>(q, k, v, o, bh, nq, nk, hd, 0, scale, (cudaStream_t)stream,
+                             (float*)lse);
 }
 
 // float32 on the FMA units (flash_kernel); same layouts as above, any hd

@@ -17,7 +17,11 @@ map is by name; only layouts change:
 
 Loading the result with `strict=True` checks that every name and shape
 lines up. `seeded_state` builds full-shape weights from a numpy seed for
-a run that has no checkpoint the machine can read.
+a run that has no checkpoint the machine can read. `flax_names` maps the
+other way (the fine-tune's trainable surface is written in flax paths),
+and `train_state_from_jax` / `lora_state_from_jax` carry the JAX
+package's train state — optax's Adam and MultiSteps state, the EMA, the
+LoRA adapters — into the port's, leaf for leaf.
 """
 from __future__ import annotations
 
@@ -39,30 +43,152 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (str(k),), v
 
 
+def port_key(path: tuple[str, ...]) -> str:
+    """The port's state-dict key of the JAX variable at `path` ("params" or
+    "batch_stats" first)."""
+    collection, *mods, leaf_name = path
+    if collection == "batch_stats":
+        name = _STATS[leaf_name]
+    elif leaf_name in ("kernel", "scale"):
+        name = "weight"
+    else:
+        name = leaf_name
+    return ".".join(mods + [name])
+
+
+def port_leaf(path: tuple[str, ...], arr: np.ndarray) -> tuple[str, np.ndarray]:
+    """One JAX variable at `path` → the port's (state-dict key, array in
+    the port's layout)."""
+    mods, leaf_name = path[1:-1], path[-1]
+    if leaf_name == "kernel" and arr.ndim == 2:
+        arr = arr.T
+    elif leaf_name == "kernel" and mods[-1].startswith("output_upscaling"):
+        arr = np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))
+    elif leaf_name == "kernel":
+        arr = np.transpose(arr, (3, 2, 0, 1))
+    return port_key(path), arr
+
+
 def state_dict_from_variables(variables: Mapping) -> dict[str, torch.Tensor]:
     """JAX variables {"params": ..., "batch_stats": ...} → port state dict
     (float32 tensors)."""
     out: dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(variables):
-        collection, *mods, leaf_name = path
-        arr = np.asarray(leaf, np.float32)
-        if collection == "batch_stats":
-            name = _STATS[leaf_name]
-        elif leaf_name in ("kernel", "scale"):
-            name = "weight"
-        else:
-            name = leaf_name
-        if leaf_name == "kernel" and arr.ndim == 2:
-            arr = arr.T
-        elif leaf_name == "kernel" and mods[-1].startswith("output_upscaling"):
-            arr = np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))
-        elif leaf_name == "kernel":
-            arr = np.transpose(arr, (3, 2, 0, 1))
-        key = ".".join(mods + [name])
+        key, arr = port_leaf(path, np.asarray(leaf, np.float32))
         if key in out:
             raise KeyError(f"two variables map to {key}")
         out[key] = torch.from_numpy(np.array(arr, np.float32))
     return out
+
+
+def flax_names(model: torch.nn.Module) -> dict[str, str]:
+    """The name map the other way: each parameter of a port model → its
+    path in the JAX package's variable tree, "params/<modules>/<leaf>"
+    (a Linear or Conv weight is a flax "kernel", a LayerNorm's a "scale")."""
+    norms = {n for n, m in model.named_modules()
+             if getattr(m, "float32_params", False) or isinstance(m, torch.nn.LayerNorm)}
+    out = {}
+    for name, _ in model.named_parameters():
+        mod, _, leaf = name.rpartition(".")
+        if leaf == "weight":
+            leaf = "scale" if mod in norms else "kernel"
+        out[name] = "/".join(["params", *(mod.split(".") if mod else []), leaf])
+    return out
+
+
+def tensor_from_numpy(arr, device=None) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same dtype (bfloat16 arrays, which
+    torch.from_numpy does not take, through float32: exact)."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(arr, np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    return t.to(device) if device is not None else t
+
+
+def _masked(leaf) -> bool:
+    """optax's MaskedNode: an empty tuple node where a label's branch does
+    not own a leaf."""
+    return isinstance(leaf, tuple) and len(leaf) == 0
+
+
+def _field(node, name: str):
+    return node[name] if isinstance(node, Mapping) else getattr(node, name)
+
+
+def port_tree(tree: Mapping, device=None) -> dict[str, torch.Tensor]:
+    """A params-shaped JAX tree (MaskedNode where a leaf is not owned) →
+    {port name: tensor in the port's layout}."""
+    out = {}
+    for path, leaf in _flatten(tree):
+        if _masked(leaf):
+            continue
+        key, arr = port_leaf(path, np.asarray(leaf))
+        out[key] = tensor_from_numpy(arr, device)
+    return out
+
+
+def _adam_state(chain, to_port, device) -> dict:
+    """optax.adam's chain state (ScaleByAdamState, then the schedule's
+    state or EmptyState) → the port optimizer's count, mu, nu and, where
+    the learning rate is a schedule, schedule_count."""
+    adam, sched = chain[0], chain[1]
+    state = {"count": torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32),
+             "mu": to_port(adam.mu, device), "nu": to_port(adam.nu, device)}
+    if "count" in getattr(sched, "_fields", ()):  # ScaleByScheduleState, not EmptyState
+        state["schedule_count"] = torch.tensor(int(np.asarray(sched.count)), dtype=torch.int32)
+    return state
+
+
+def _with_accumulation(inner, to_port, device) -> dict:
+    """optax.MultiSteps around adam, or adam alone → the port's state."""
+    if "mini_step" not in getattr(inner, "_fields", ()):
+        return _adam_state(inner, to_port, device)
+    state = _adam_state(inner.inner_opt_state, to_port, device)
+    state["mini_step"] = torch.tensor(int(np.asarray(inner.mini_step)), dtype=torch.int32)
+    state["gradient_step"] = torch.tensor(int(np.asarray(inner.gradient_step)),
+                                          dtype=torch.int32)
+    state["acc_grads"] = to_port(inner.acc_grads, device)
+    return state
+
+
+def train_state_from_jax(params: Mapping, opt_state, ema=None, trainable=None,
+                         device=None) -> tuple[dict, dict, dict | None]:
+    """The JAX package's SAM2 train state, as numpy leaves
+    (`jax.tree.map(np.asarray, ...)`), → the port's (params, optimizer
+    state, EMA):
+
+      * `params`: the variable tree {"params": ...} → {port name: tensor};
+      * `opt_state`: make_optimizer's multi_transform state — the "train"
+        branch's adam (count, mu, nu, the schedule's count) or its
+        MultiSteps (mini_step, gradient_step, acc_grads around the adam
+        state) — → train_step.Optimizer's state, moments keyed by port name;
+      * `ema`: init_ema's list, in JAX's leaf order of the trainable
+        leaves (`trainable`: port names, the optimizer's mask) → {port
+        name: tensor}.
+
+    Each leaf keeps its dtype and takes the port's layout."""
+    port_params = port_tree(params, device)
+    inner = _field(_field(opt_state.inner_states, "train"), "inner_state")
+    state = _with_accumulation(inner, port_tree, device)
+    if ema is None:
+        return port_params, state, None
+    return port_params, state, leaves_in_jax_order(params, trainable, ema, device)
+
+
+def leaves_in_jax_order(tree: Mapping, names, leaves, device=None) -> dict[str, torch.Tensor]:
+    """A list of leaves shaped like the leaves of JAX variable `tree` whose
+    port names are in `names`, in JAX's leaf order (dict keys sorted at
+    every level; an EMA list, an optimizer's moments) → {port name:
+    tensor in the port's layout}."""
+    names = set(names)
+    paths = [path for path, _ in sorted(_flatten(tree), key=lambda item: item[0])
+             if port_key(path) in names]
+    if len(paths) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves for {len(paths)} trainable parameters")
+    return {port_key(path): tensor_from_numpy(port_leaf(path, np.asarray(leaf))[1], device)
+            for path, leaf in zip(paths, leaves)}
 
 
 def detector_config(meta: Mapping) -> DetectorConfig:
@@ -142,3 +268,29 @@ def _calibrate_batchnorm(model: torch.nn.Module, gen, img_size: int) -> None:
         model(x)
     for h in hooks:
         h.remove()
+
+
+def _port_tstate(tree: Mapping, device) -> dict[str, torch.Tensor]:
+    """A LoRA train-state-shaped JAX tree {"lora": {path: {"a", "b"}},
+    "direct": {"params/...": leaf}} → the port's flat names
+    ("lora/<path>/a", "lora/<path>/b", "direct/<port name>"); the adapters
+    keep the JAX layout, the direct leaves take the port's."""
+    out = {}
+    for path, ab in tree["lora"].items():
+        for part in ("a", "b"):
+            out[f"lora/{path}/{part}"] = tensor_from_numpy(ab[part], device)
+    for key, leaf in tree["direct"].items():
+        name, arr = port_leaf(tuple(key.split("/")), np.asarray(leaf))
+        out[f"direct/{name}"] = tensor_from_numpy(arr, device)
+    return out
+
+
+def lora_state_from_jax(tstate: Mapping, opt_state, device=None) -> tuple[dict, dict]:
+    """The JAX package's LoRA train state (make_lora_train_step's tstate
+    and make_lora_optimizer's adam or MultiSteps state), as numpy leaves,
+    → the port's (tstate {"lora": {path: {"a", "b"}}, "direct": {port
+    name: tensor}}, optimizer state over train/lora.flat_names)."""
+    from ..train.lora import unflatten
+
+    return (unflatten(_port_tstate(tstate, device)),
+            _with_accumulation(opt_state, _port_tstate, device))

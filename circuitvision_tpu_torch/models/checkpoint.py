@@ -23,7 +23,8 @@ varints, and arrays of records are stored column by column. Anything
 this reader does not know — another magic, format version or
 compression, a numbered manifest, a zarr compressor other than zstd, a
 filter, Fortran order, zarr v3, a dtype numpy lacks, a leaf that is not
-an array under a dict key — raises `CheckpointFormatError` and names it.
+an array under dict keys and sequence indices — raises
+`CheckpointFormatError` and names it.
 `tests/test_torch_port_checkpoint.py` holds the reader leaf for leaf
 against the orbax loader on the three shipped checkpoints and against
 tensorstore on stores written to exercise the rest of the format
@@ -45,8 +46,8 @@ MANIFEST_MAGIC = 0x0CDB3A2A
 BTREE_MAGIC = 0x0CDB20DE
 #: an offset or length of all ones marks a version whose tree is empty
 _NO_ROOT = 2 ** 64 - 1
-#: orbax's key_type for a dict key (1 would be a sequence index)
-_DICT_KEY = 2
+#: orbax's key_type for a sequence index and for a dict key
+_SEQ_KEY, _DICT_KEY = 1, 2
 
 
 class CheckpointFormatError(ValueError):
@@ -311,16 +312,35 @@ def load_variables(path: str) -> dict:
     for entry in meta["tree_metadata"].values():
         keys = entry["key_metadata"]
         value = entry["value_metadata"]
-        if any(k["key_type"] != _DICT_KEY for k in keys):
-            raise CheckpointFormatError(f"{path}: {keys}: only dict keys are read")
+        if any(k["key_type"] not in (_SEQ_KEY, _DICT_KEY) for k in keys):
+            raise CheckpointFormatError(f"{path}: {keys}: only dict keys and sequence indices "
+                                        "are read")
         if value["value_type"] not in ("jax.Array", "np.ndarray") or value["skip_deserialize"]:
             raise CheckpointFormatError(f"{path}: leaf {keys} of type {value['value_type']}")
         names = [str(k["key"]) for k in keys]
         node = tree
-        for k in names[:-1]:
-            node = node.setdefault(k, {})
-        node[names[-1]] = _zarr_array(store, ".".join(names))
-    return tree
+        for k in keys[:-1]:
+            node = node.setdefault(_node_key(k), {})
+        node[_node_key(keys[-1])] = _zarr_array(store, ".".join(names))
+    return _lists(tree)
+
+
+def _node_key(key: Mapping):
+    """A dict key as its string, a sequence index as an int."""
+    return int(key["key"]) if key["key_type"] == _SEQ_KEY else str(key["key"])
+
+
+def _lists(node):
+    """Nodes keyed by sequence indices (0 … n−1) → lists, as orbax restores
+    a saved list (the train checkpoints' leaf lists)."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(isinstance(k, int) for k in node):
+        if sorted(node) != list(range(len(node))):
+            raise CheckpointFormatError(f"sequence indices {sorted(node)} are not 0 … n−1")
+        return [node[i] for i in range(len(node))]
+    return node
 
 
 def load_model_checkpoint(path: str) -> tuple[dict, dict]:

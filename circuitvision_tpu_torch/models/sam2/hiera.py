@@ -35,14 +35,31 @@ departure from the JAX trunk, which computes such blocks in bfloat16
 (the two agree within four bf16 ulps on a width-60 trunk). The analyzer
 refuses on the card only a bfloat16 trunk of heads wider than 256
 (`refused_head_width`).
+
+Training (train/train_step.py) needs gradients, and only FlashAttention
+has a backward. `force_fused` is the counterpart of the JAX package's
+gate of the same name (JAX hiera.py:156-198): False puts every block and the
+refinement head on the plain module path; an int N keeps the kernels in
+trunk blocks before N — the frozen prefix of a selective step, which
+builds no graph — and puts blocks from N on, and every other kernel
+site, on the module path; None (the default, serving) keeps the kernels
+wherever the shapes take them. On the module path, attention over at
+least FLASH_MIN_SEQ tokens goes through `FlashAttention` (the flash
+kernel with its backward kernels on the card, its plain version on the
+CPU), shorter sequences through `einsum_attention`, as the JAX module
+path takes flash or einsum (`force_flash` overrides the choice). Every
+other kernel wrapper raises when an operand requires grad under grad
+mode, so a kernel can never cut a gradient silently.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.cuda.flash_attn import MAX_HEAD_DIM, TC_WIDTHS
+from ...ops.cuda.flash_attn import MAX_HEAD_DIM, TC_WIDTHS, flash_attention
 from ...ops.cuda.fused_ln import fused_add_layernorm, fused_layernorm
 from ...ops.cuda.mlp_block import mlp_block
 from ...ops.cuda.window_attn import (
@@ -52,6 +69,57 @@ from ...ops.cuda.window_attn import (
 #: global blocks of at least this many tokens take the flash route (JAX
 #: hiera.py:201)
 FLASH_MIN_SEQ = 2048
+
+#: the kernel gate (`force_fused`) and the module path's attention choice
+#: (`force_flash`); None: the defaults
+_FORCE_FUSED = None
+_FORCE_FLASH = None
+
+
+@contextlib.contextmanager
+def force_fused(value):
+    """Scope the kernel gate: False puts every block and the refinement
+    head on the module path, True or None keeps the kernels wherever the
+    shapes take them, and an int N marks the start of the differentiable
+    tail — trunk blocks before N keep their kernels, blocks from N on and
+    every non-trunk kernel site take the module path (`fused_gate`)."""
+    global _FORCE_FUSED
+    old = _FORCE_FUSED
+    _FORCE_FUSED = value
+    try:
+        yield
+    finally:
+        _FORCE_FUSED = old
+
+
+def fused_gate(block_index: int | None = None) -> bool:
+    """Whether the call site of trunk block `block_index` (None: a
+    non-trunk site such as the refinement head) may take its kernels."""
+    f = _FORCE_FUSED
+    if f is None or isinstance(f, bool):
+        return f is None or f
+    return block_index is not None and 0 <= block_index < f
+
+
+@contextlib.contextmanager
+def force_flash(value):
+    """Scope the module path's attention choice: True forces
+    FlashAttention, False einsum attention, None restores the default
+    (FlashAttention from FLASH_MIN_SEQ tokens at head widths up to
+    MAX_HEAD_DIM)."""
+    global _FORCE_FLASH
+    old = _FORCE_FLASH
+    _FORCE_FLASH = value
+    try:
+        yield
+    finally:
+        _FORCE_FLASH = old
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """A LayerNorm parameter as the kernels read it: float32 (a training
+    config may hold it in bfloat16; bfloat16 → float32 is exact)."""
+    return t if t.dtype == torch.float32 else t.float()
 
 
 def window_partition(x: torch.Tensor, window: int):
@@ -145,7 +213,13 @@ class MultiScaleAttention(nn.Module):
             q = _pool2x(q.reshape(b, h, w, -1))
             h, w = q.shape[1], q.shape[2]
             q = q.reshape(b, h * w, self.num_heads, hd)
-        out = einsum_attention(q, k, v, hd ** -0.5)
+        flash = (_FORCE_FLASH if _FORCE_FLASH is not None
+                 else q.shape[1] >= FLASH_MIN_SEQ and hd <= MAX_HEAD_DIM)
+        if flash:
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2)).transpose(1, 2)
+        else:
+            out = einsum_attention(q, k, v, hd ** -0.5)
         return self.proj(out.reshape(b, h, w, self.dim_out))
 
 
@@ -163,6 +237,9 @@ class MultiScaleBlock(nn.Module):
         hidden = int(dim_out * mlp_ratio)
         self.mlp_layers_0 = nn.Linear(dim_out, hidden)
         self.mlp_layers_1 = nn.Linear(hidden, dim_out)
+        #: position in the trunk, for the kernel gate (`fused_gate`); -1: a
+        #: block of its own, on the module path whenever a cutoff is set
+        self.block_index = -1
         self._float32: dict[str, torch.Tensor] = {}
         self._float32_key: tuple = ()
 
@@ -203,12 +280,13 @@ class MultiScaleBlock(nn.Module):
         here, 0 is global) or, when `partitioned`, (B·nW, win, win, C)
         with each window an image of its own. A bfloat16 CUDA block of a
         width off a multiple of 8 runs in float32 (`float32_kernels`)."""
-        if float32_kernels(x, self.dim, self.dim_out):
+        kernels = fused_gate(self.block_index if self.block_index >= 0 else None)
+        if kernels and float32_kernels(x, self.dim, self.dim_out):
             out = torch.func.functional_call(self, self.float32_copy(),
                                              (x.float(), window_size, partitioned))
             return out.to(x.dtype)
         heads = self.num_heads
-        path = self.attention_path(x, window_size, partitioned)
+        path = self.attention_path(x, window_size, partitioned) if kernels else "module"
         if path == "qpool":
             _b, fh, fw, c = x.shape
             win = window_size
@@ -216,7 +294,7 @@ class MultiScaleBlock(nn.Module):
             nwm = xw.shape[0]
             out = qpool_attn_block(
                 xw.reshape(nwm * win * win, c).contiguous(),
-                self.norm1.weight, self.norm1.bias, self.proj.weight, self.proj.bias,
+                _f32(self.norm1.weight), _f32(self.norm1.bias), self.proj.weight, self.proj.bias,
                 self.attn.qkv.weight, self.attn.qkv.bias,
                 self.attn.proj.weight, self.attn.proj.bias,
                 heads=heads, win=win,
@@ -226,14 +304,15 @@ class MultiScaleBlock(nn.Module):
         elif path == "global":
             b_, fh, fw, c = x.shape
             x = window_attn_block_tiled(
-                x.reshape(b_, fh * fw, c).contiguous(), self.norm1.weight, self.norm1.bias,
+                x.reshape(b_, fh * fw, c).contiguous(), _f32(self.norm1.weight),
+                _f32(self.norm1.bias),
                 self.attn.qkv.weight, self.attn.qkv.bias, self.attn.proj.weight,
                 self.attn.proj.bias, heads, round_proj=False).reshape(b_, fh, fw, c)
         elif path == "window":
             b_, wh, ww, c = x.shape
             x = window_attn_block(
                 x.reshape(b_, wh * ww, c).contiguous(),
-                self.norm1.weight, self.norm1.bias,
+                _f32(self.norm1.weight), _f32(self.norm1.bias),
                 self.attn.qkv.weight, self.attn.qkv.bias,
                 self.attn.proj.weight, self.attn.proj.bias,
                 heads=heads,
@@ -258,10 +337,13 @@ class MultiScaleBlock(nn.Module):
             if window > 0:
                 x = window_unpartition(x, window, pad_hw, hw)
             x = shortcut + x
+        if not kernels:
+            y = F.gelu(self.mlp_layers_0(self.norm2(x)))
+            return x + self.mlp_layers_1(y)
         shp = x.shape
         return mlp_block(
-            x.reshape(-1, self.dim_out).contiguous(), self.norm2.weight, self.norm2.bias,
-            self.mlp_layers_0.weight, self.mlp_layers_0.bias,
+            x.reshape(-1, self.dim_out).contiguous(), _f32(self.norm2.weight),
+            _f32(self.norm2.bias), self.mlp_layers_0.weight, self.mlp_layers_0.bias,
             self.mlp_layers_1.weight, self.mlp_layers_1.bias,
         ).reshape(shp)
 
@@ -311,8 +393,9 @@ class Hiera(nn.Module):
             dim_out = dim
             if i in self.q_pool_blocks:
                 dim_out, heads = dim * 2, heads * 2
-            self.add_module(f"blocks_{i}",
-                            MultiScaleBlock(dim, dim_out, heads, i in self.q_pool_blocks))
+            block = MultiScaleBlock(dim, dim_out, heads, i in self.q_pool_blocks)
+            block.block_index = i
+            self.add_module(f"blocks_{i}", block)
             dim = dim_out
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:

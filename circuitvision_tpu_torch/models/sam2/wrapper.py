@@ -13,12 +13,13 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ...core.config import SAM2Config
 from ...ops.cuda.refinement import KERNELS, refinement
 from ...ops.image import resize_linear
 from .decoder import MaskDecoder
-from .hiera import Hiera
+from .hiera import Hiera, fused_gate
 from .neck import FpnNeck, conv1x1_nhwc
 
 
@@ -42,7 +43,10 @@ class PositionEmbeddingRandom(nn.Module):
 
 class MultiKernelRefinement(nn.Module):
     """Parallel odd-kernel conv branches + GELU, 1×1 combiner, over
-    (B, H, W, 1) logits — computed by the `refinement` kernel."""
+    (B, H, W, 1) logits — computed by the `refinement` kernel, or, where
+    the kernel gate says so (hiera.force_fused: a non-trunk site, on the
+    module path under any cutoff), by the convolutions themselves in the
+    parameters' dtype, as the JAX module path computes them."""
 
     def __init__(self, kernel_sizes=KERNELS, intermediate_channels: int = 4):
         super().__init__()
@@ -55,6 +59,10 @@ class MultiKernelRefinement(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         branches = [getattr(self, f"conv_branches_{i}") for i in range(len(KERNELS))]
+        if not fused_gate(None):
+            xc = x.permute(0, 3, 1, 2)
+            cat = torch.cat([F.gelu(b(xc)) for b in branches], dim=1)
+            return self.combiner_conv(cat).permute(0, 2, 3, 1)
         return refinement(
             x.contiguous(), [b.weight for b in branches], [b.bias for b in branches],
             self.combiner_conv.weight, self.combiner_conv.bias,

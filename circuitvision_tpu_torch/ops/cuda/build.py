@@ -31,8 +31,8 @@ NVCC_FLAGS = (
 #: shared memory one block may use on Hopper (232,448 bytes)
 MAX_SMEM = 227 * 1024
 #: kernel sources; each becomes lib<name>-<hash>.so
-SOURCES = ("mlp_block", "window_attn", "refinement", "global_attn", "flash_attn", "morphology",
-           "fused_ln", "launch_floor")
+SOURCES = ("mlp_block", "window_attn", "refinement", "global_attn", "flash_attn", "flash_bwd",
+           "morphology", "fused_ln", "launch_floor")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,6 +71,13 @@ SIGNATURES = {
         "cv_flash_attn_f32": [_P] * 4 + [_I] * 5 + [_F, _P],
         "cv_flash_attn_bf16": [_P] * 4 + [_I] * 9 + [_F, _P],
         "cv_flash_attn_bf16_smem": [_I] * 4,
+        "cv_flash_attn_lse_bf16": [_P] * 5 + [_I] * 7 + [_F, _P],
+        "cv_flash_attn_lse_f32": [_P] * 5 + [_I] * 4 + [_F, _P],
+    },
+    "flash_bwd": {
+        "cv_flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+        "cv_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+        "cv_flash_bwd_smem": [_I],
     },
     "morphology": {
         "cv_enhance_lines": [_P, _P, _I, _I] + [_F] * 5 + [_P],
@@ -219,6 +226,17 @@ def check_operands(what: str, x: torch.Tensor, *others: torch.Tensor) -> None:
             raise KernelError(f"{what}: operand dtype {t.dtype} != {x.dtype}")
         if not t.is_contiguous():
             raise KernelError(f"{what}: operand of shape {tuple(t.shape)} is not contiguous")
+
+
+def check_no_grad(what: str, *tensors: torch.Tensor) -> None:
+    """A kernel has no backward: under grad mode, an operand that requires
+    grad would leave everything upstream of it without a gradient, and
+    nothing would say so. Raise instead (FlashAttention is the one kernel
+    with a backward)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise KernelError(f"{what}: an operand requires grad, and the kernel has no backward; "
+                          "run it under torch.no_grad() or take the module path "
+                          "(models/sam2/hiera.force_fused)")
 
 
 def check_aligned(what: str, *tensors: torch.Tensor, align: int = 16) -> None:

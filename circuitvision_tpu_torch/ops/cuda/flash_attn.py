@@ -15,6 +15,15 @@ probabilities rounded to the compute dtype, p·v accumulated in f32 and
 rounded. The kernel rounds the probabilities
 before normalising them (as jax's kernel does), so in bfloat16 the two
 differ by that rounding; in float32 only the order of the sums differs.
+
+`FlashAttention` is the same attention with a gradient, for training
+(the Hiera global blocks on the module path, models/sam2/hiera.py): its
+forward launches the kernel's lse instance (`flash_attn_lse`, which also
+writes each row's log-sum-exp), its backward the two kernels of
+csrc/flash_bwd.cu (`flash_attn_bwd_dq`, then `flash_attn_bwd_dkv`),
+which replace jax's `_flash_attention_bwd_dq` and `_bwd_dkv`;
+`flash_attn_bwd_plain` is their plain version. Every other kernel wrapper
+of the port raises under autograd (build.check_no_grad).
 """
 from __future__ import annotations
 
@@ -25,7 +34,8 @@ import math
 import torch
 
 from .build import (
-    MAX_SMEM, KernelError, check, check_aligned, check_operands, library, sm_count, stream_ptr,
+    MAX_SMEM, KernelError, check, check_aligned, check_no_grad, check_operands, dtype_code,
+    library, sm_count, stream_ptr,
 )
 from .global_attn import pool2x2_windows
 
@@ -128,6 +138,7 @@ def flash_attn(q, k, v, pool_win=0, scale_width=None):
     if q.device.type == "cpu":
         return flash_attn_plain(q, k, v, pool_win, scale_width)
     check_operands("flash_attn", q, k, v)
+    check_no_grad("flash_attn", q, k, v)
     b, h, nq_in, hd = q.shape
     nk = k.shape[2]
     widest = TC_WIDTHS[-1] if q.dtype == torch.bfloat16 else MAX_HEAD_DIM
@@ -155,3 +166,206 @@ def flash_attn(q, k, v, pool_win=0, scale_width=None):
 
 
 flash_attn.launches = 0
+
+
+# ------------------------------------------------------- with a gradient
+#: the bfloat16 lse instance's head width (csrc/flash_attn.cu
+#: cv_flash_attn_lse_bf16): a head of width ≤ 72, a multiple of 8, runs
+#: on it with its extra columns zero; the backward kernels' widest heads
+#: (csrc/flash_bwd.cu): bfloat16 80, float32 128
+LSE_WIDTH = 72
+BWD_WIDEST = {torch.bfloat16: 80, torch.float32: MAX_HEAD_DIM}
+
+
+def _acc_dtype(dt: torch.dtype) -> torch.dtype:
+    """The plain versions' arithmetic: float64 for float64 inputs (the
+    gradient checks), float32 otherwise."""
+    return torch.float64 if dt == torch.float64 else torch.float32
+
+
+def flash_attn_lse_plain(q, k, v, scale_width=None):
+    """(o, lse): flash_attn_plain's o (the probabilities normalised in the
+    accumulation dtype, then rounded to the compute dtype) and each row's
+    log-sum-exp of the scaled scores, (B, H, Nq) in float32 (float64 for
+    float64 inputs)."""
+    dt, acc = q.dtype, _acc_dtype(q.dtype)
+    b, h, nq, hd = q.shape
+    scale = (scale_width or hd) ** -0.5
+    kf, vf = k.to(acc), v.to(acc)
+    out = torch.empty((b, h, nq, hd), dtype=dt, device=q.device)
+    lse = torch.empty((b, h, nq), dtype=acc, device=q.device)
+    step = max(1, _PLAIN_CHUNK // (b * h * k.shape[2]))
+    for i in range(0, nq, step):
+        s = (q[:, :, i:i + step].to(acc) @ kf.transpose(-1, -2)) * scale
+        lse[:, :, i:i + step] = torch.logsumexp(s, dim=-1)
+        p = torch.softmax(s, dim=-1).to(dt)
+        out[:, :, i:i + step] = (p.to(acc) @ vf).to(dt)
+    return out, lse
+
+
+def flash_attn_lse(q, k, v, scale_width=None):
+    """The forward of FlashAttention: (o, lse) for q (B, H, Nq, D), k and
+    v (B, H, Nk, D), lse (B, H, Nq) float32. CPU tensors take the plain
+    version; CUDA tensors launch flash_attn's lse instance (bfloat16: D a
+    multiple of 8 up to LSE_WIDTH; float32: D ≤ 128)."""
+    if q.device.type == "cpu":
+        return flash_attn_lse_plain(q, k, v, scale_width)
+    check_operands("flash_attn_lse", q, k, v)
+    check_no_grad("flash_attn_lse", q, k, v)
+    b, h, nq, hd = q.shape
+    nk = k.shape[2]
+    widest = LSE_WIDTH if q.dtype == torch.bfloat16 else MAX_HEAD_DIM
+    if k.shape != (b, h, nk, hd) or v.shape != k.shape or nk < 1 or hd > widest \
+            or (q.dtype == torch.bfloat16 and hd % 8):
+        raise KernelError(f"flash_attn_lse: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                          f"v {tuple(v.shape)} do not fit (widest {q.dtype} head {widest})")
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    lib = library("flash_attn")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
+    if q.dtype == torch.bfloat16:
+        plan = flash_plan(b * h, nq, nk, LSE_WIDTH, sm_count(q))
+        check_aligned("flash_attn_lse", q, k, v, out)
+        err = lib.cv_flash_attn_lse_bf16(*ptrs, b * h, nq, nk, hd, plan.mt, plan.wpp,
+                                         plan.stages, _LOG2E / math.sqrt(scale_width or hd),
+                                         stream_ptr(q))
+    else:
+        err = lib.cv_flash_attn_lse_f32(*ptrs, b * h, nq, nk, hd,
+                                        1.0 / math.sqrt(scale_width or hd), stream_ptr(q))
+    check(err, "flash_attn_lse")
+    flash_attn_lse.launches += 1
+    return out, lse
+
+
+flash_attn_lse.launches = 0
+
+
+def flash_attn_bwd_plain(q, k, v, o, lse, do, scale_width=None):
+    """(dq, dk, dv) of o = softmax(q·kᵀ·s)·v for the output gradient do,
+    from the forward's lse: P = exp(q·kᵀ·s − lse), dV = Pᵀ·dO,
+    dS = P∘(dO·Vᵀ − rowsum(dO∘O)), dQ = dS·K·s, dK = dSᵀ·Q·s — in float32
+    (float64 for float64 inputs) over chunks of q rows, each result
+    rounded once to the inputs' dtype."""
+    acc = _acc_dtype(q.dtype)
+    return _bwd_plain(q, k, v, lse, (do.to(acc) * o.to(acc)).sum(-1), do, scale_width)
+
+
+def _bwd_plain(q, k, v, lse, delta, do, scale_width):
+    """flash_attn_bwd_plain given delta = rowsum(do∘o)."""
+    dt, acc = q.dtype, _acc_dtype(q.dtype)
+    b, h, nq, hd = q.shape
+    scale = (scale_width or hd) ** -0.5
+    kf, vf = k.to(acc), v.to(acc)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=acc, device=q.device)
+    dv = torch.zeros(v.shape, dtype=acc, device=q.device)
+    step = max(1, _PLAIN_CHUNK // (b * h * k.shape[2]))
+    for i in range(0, nq, step):
+        qf, dof = q[:, :, i:i + step].to(acc), do[:, :, i:i + step].to(acc)
+        p = torch.exp((qf @ kf.transpose(-1, -2)) * scale - lse[:, :, i:i + step, None].to(acc))
+        dv += p.transpose(-1, -2) @ dof
+        ds = p * (dof @ vf.transpose(-1, -2) - delta[:, :, i:i + step, None].to(acc))
+        dq[:, :, i:i + step] = ((ds @ kf) * scale).to(dt)
+        dk += ds.transpose(-1, -2) @ qf
+    return dq, (dk * scale).to(dt), dv.to(dt)
+
+
+def _bwd_operands(what, q, k, v, lse, do, *more):
+    check_operands(what, q, k, v, do, *more)
+    check_no_grad(what, q, k, v, lse, do, *more)
+    b, h, nq, hd = q.shape
+    nk = k.shape[2]
+    widest = BWD_WIDEST.get(q.dtype, 0)
+    if k.shape != (b, h, nk, hd) or v.shape != k.shape or do.shape != q.shape or nk < 1 \
+            or hd > widest or any(t.shape != q.shape for t in more):
+        raise KernelError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)},"
+                          f" do {tuple(do.shape)} do not fit (widest {q.dtype} head {widest})")
+    if lse.dtype != torch.float32 or lse.shape != (b, h, nq) or not lse.is_contiguous() \
+            or lse.device != q.device:
+        raise KernelError(f"{what}: lse must be contiguous float32 ({b}, {h}, {nq}) on "
+                          f"{q.device}; got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    return b, h, nq, nk, hd
+
+
+def flash_attn_bwd_dq(q, k, v, o, lse, do, scale_width=None):
+    """(dq, delta): the gradient of q and delta = rowsum(do∘o) (B, H, Nq)
+    float32, which flash_attn_bwd_dkv reads. CPU tensors take the plain
+    version; CUDA tensors launch csrc/flash_bwd.cu's dq kernel (float32:
+    D ≤ 128; bfloat16: D ≤ 80)."""
+    if q.device.type == "cpu":
+        acc = _acc_dtype(q.dtype)
+        delta = (do.to(acc) * o.to(acc)).sum(-1)
+        return _bwd_plain(q, k, v, lse, delta, do, scale_width)[0], delta
+    b, h, nq, nk, hd = _bwd_operands("flash_attn_bwd_dq", q, k, v, lse, do, o)
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    err = library("flash_bwd").cv_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), delta.data_ptr(), b * h, nq, nk, hd,
+        1.0 / math.sqrt(scale_width or hd), dtype_code(q), stream_ptr(q))
+    check(err, "flash_attn_bwd_dq")
+    flash_attn_bwd_dq.launches += 1
+    return dq, delta
+
+
+flash_attn_bwd_dq.launches = 0
+
+
+def flash_attn_bwd_dkv(q, k, v, lse, delta, do, scale_width=None):
+    """(dk, dv) from lse and flash_attn_bwd_dq's delta. CPU tensors take
+    the plain version; CUDA tensors launch csrc/flash_bwd.cu's dkv kernel
+    on the stream that ran the dq kernel."""
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, lse, delta, do, scale_width)[1:]
+    b, h, nq, nk, hd = _bwd_operands("flash_attn_bwd_dkv", q, k, v, lse, do)
+    check_no_grad("flash_attn_bwd_dkv", delta)
+    if delta.dtype != torch.float32 or delta.shape != lse.shape or not delta.is_contiguous() \
+            or delta.device != q.device:
+        raise KernelError(f"flash_attn_bwd_dkv: delta must be contiguous float32 "
+                          f"{tuple(lse.shape)} on {q.device}; got {delta.dtype} "
+                          f"{tuple(delta.shape)} on {delta.device}")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = library("flash_bwd").cv_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        do.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, nq, nk, hd,
+        1.0 / math.sqrt(scale_width or hd), dtype_code(q), stream_ptr(q))
+    check(err, "flash_attn_bwd_dkv")
+    flash_attn_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attn_bwd_dkv.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """softmax(q·kᵀ·scale_width^-0.5)·v over q (B, H, Nq, D), k and v
+    (B, H, Nk, D), with a gradient: the counterpart of jax's TPU flash
+    attention with its custom VJP (flash_attention.py:204, defvjp :318).
+    The forward saves (q, k, v, o, lse) from flash_attn_lse; the backward
+    launches flash_attn_bwd_dq, then flash_attn_bwd_dkv. On the CPU both
+    take their plain versions. The one kernel path that may run under
+    autograd; a kernel failure raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale_width=None):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_attn_lse(q, k, v, scale_width)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale_width = scale_width
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attn_bwd_plain(q, k, v, o, lse, do, ctx.scale_width)
+        else:
+            dq, delta = flash_attn_bwd_dq(q, k, v, o, lse, do, ctx.scale_width)
+            dk, dv = flash_attn_bwd_dkv(q, k, v, lse, delta, do, ctx.scale_width)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, scale_width=None):
+    """FlashAttention.apply: attention with a gradient (see the class)."""
+    return FlashAttention.apply(q, k, v, scale_width)

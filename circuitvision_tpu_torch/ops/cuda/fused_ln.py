@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from .build import KernelError, check, check_ln_params, check_operands, dtype_code, library, \
-    stream_ptr
+from .build import KernelError, check, check_ln_params, check_no_grad, check_operands, dtype_code, \
+    library, stream_ptr
 from .mlp_block import layernorm_f32
 
 
@@ -42,6 +42,7 @@ def fused_layernorm(x, scale, bias, eps=1e-6):
     if x.device.type == "cpu":
         return fused_layernorm_plain(x, scale, bias, eps)
     check_operands("fused_layernorm", x)
+    check_no_grad("fused_layernorm", x, scale, bias)
     _check_rows("fused_layernorm", x, scale, bias)
     t, c = x.shape
     out = torch.empty_like(x)
@@ -60,6 +61,7 @@ def fused_add_layernorm(a, b, scale, bias, eps=1e-6):
     if a.device.type == "cpu":
         return fused_add_layernorm_plain(a, b, scale, bias, eps)
     check_operands("fused_add_layernorm", a, b)
+    check_no_grad("fused_add_layernorm", a, b, scale, bias)
     _check_rows("fused_add_layernorm", a, scale, bias)
     if b.shape != a.shape:
         raise KernelError(f"fused_add_layernorm: shapes {tuple(a.shape)} and {tuple(b.shape)}")

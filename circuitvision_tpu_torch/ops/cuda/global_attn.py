@@ -33,8 +33,8 @@ import functools
 import torch
 
 from .build import (
-    MAX_SMEM, KernelError, check, check_aligned, check_ln_params, check_operands, library,
-    sm_count, stream_ptr,
+    MAX_SMEM, KernelError, check, check_aligned, check_ln_params, check_no_grad, check_operands,
+    library, sm_count, stream_ptr,
 )
 from .mlp_block import H100_SMS, LN_ROWS, GemmPlan, gemm_tile, layernorm_f32, ln_smem
 
@@ -115,6 +115,7 @@ def ln_qkv(x, ln_scale, ln_bias, w, b, heads, slabs=3, eps=1e-6):
     if x.device.type == "cpu":
         return ln_qkv_plain(x, ln_scale, ln_bias, w, b, heads, slabs, eps)
     check_operands("ln_qkv", x, w, b)
+    check_no_grad("ln_qkv", x, ln_scale, ln_bias, w, b)
     check_ln_params("ln_qkv", x, ln_scale, ln_bias)
     bsz, n, c_in = x.shape
     n_out = w.shape[0]
@@ -174,6 +175,7 @@ def attn_proj_residual(x, o, wproj, bproj, pool_win=0, round_proj=False):
     if x.device.type == "cpu":
         return attn_proj_residual_plain(x, o, wproj, bproj, pool_win, round_proj)
     check_operands("attn_proj_residual", x, o, wproj, bproj)
+    check_no_grad("attn_proj_residual", x, o, wproj, bproj)
     bsz, heads, n, hd = o.shape
     c = heads * hd
     rows = pool_win * pool_win if pool_win else n

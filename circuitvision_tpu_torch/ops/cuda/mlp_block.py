@@ -20,8 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from .build import (
-    MAX_SMEM, KernelError, check, check_aligned, check_ln_params, check_operands, library,
-    sm_count, stream_ptr,
+    MAX_SMEM, KernelError, check, check_aligned, check_ln_params, check_no_grad, check_operands,
+    library, sm_count, stream_ptr,
 )
 
 #: the bf16 GEMM (csrc/mlp_block.cu gemm_tc_kernel): block rows (one
@@ -109,6 +109,7 @@ def mlp_block(x, ln_scale, ln_bias, w0, b0, w1, b1, eps=1e-6):
     if x.device.type == "cpu":
         return mlp_block_plain(x, ln_scale, ln_bias, w0, b0, w1, b1, eps)
     check_operands("mlp_block", x, w0, b0, w1, b1)
+    check_no_grad("mlp_block", x, ln_scale, ln_bias, w0, b0, w1, b1)
     check_ln_params("mlp_block", x, ln_scale, ln_bias)
     t, c = x.shape
     hidden = w0.shape[0]

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..morphology import dilate, erode
-from .build import KernelError, check, library, stream_ptr
+from .build import KernelError, check, check_no_grad, library, stream_ptr
 
 
 def _taps() -> tuple[float, ...]:
@@ -63,6 +63,7 @@ def enhance_lines_fused(mask: torch.Tensor) -> torch.Tensor:
             or not mask.is_cuda:
         raise KernelError(f"enhance_lines_fused: needs a contiguous (H, W) float32 CUDA "
                           f"tensor; got {mask.dtype} {tuple(mask.shape)} on {mask.device}")
+    check_no_grad("enhance_lines_fused", mask)
     h, w = mask.shape
     out = torch.empty_like(mask)
     err = library("morphology").cv_enhance_lines(

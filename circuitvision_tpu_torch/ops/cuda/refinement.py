@@ -13,7 +13,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .build import KernelError, check, check_operands, dtype_code, library, stream_ptr
+from .build import (
+    KernelError, check, check_no_grad, check_operands, dtype_code, library, stream_ptr,
+)
 
 KERNELS = (3, 5, 7, 11)
 
@@ -38,6 +40,7 @@ def refinement(logits, branch_weights, branch_biases, comb_weight, comb_bias):
         return refinement_plain(logits, branch_weights, branch_biases, comb_weight, comb_bias)
     params = [p for wb in zip(branch_weights, branch_biases) for p in wb]
     check_operands("refinement", logits, *params, comb_weight, comb_bias)
+    check_no_grad("refinement", logits, *params, comb_weight, comb_bias)
     b, h, w, one = logits.shape
     shapes_ok = one == 1 and comb_weight.shape == (1, 16, 1, 1) and all(
         wt.shape == (4, 1, k, k) and bs.shape == (4,)

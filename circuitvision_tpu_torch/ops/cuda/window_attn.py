@@ -48,8 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from .build import (
-    MAX_SMEM, KernelError, check, check_aligned, check_ln_params, check_operands, dtype_code,
-    library, stream_ptr,
+    MAX_SMEM, KernelError, check, check_aligned, check_ln_params, check_no_grad, check_operands,
+    dtype_code, library, stream_ptr,
 )
 from .flash_attn import flash_attn
 from .global_attn import attn_proj_residual, ln_qkv, pool2x2_windows
@@ -173,6 +173,7 @@ def window_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
         return window_attn_block_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
                                        bproj, heads, eps)
     check_operands("window_attn_block", x, wqkv, bqkv, wproj, bproj)
+    check_no_grad("window_attn_block", x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj)
     check_ln_params("window_attn_block", x, ln_scale, ln_bias)
     nw, t, c = x.shape
     if wqkv.shape != (3 * c, c) or wproj.shape != (c, c) or c % heads:
@@ -270,6 +271,8 @@ def qpool_attn_block(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj,
         return qpool_attn_block_plain(x, ln_scale, ln_bias, wskip, bskip, wqkv,
                                       bqkv, wproj, bproj, heads, win, eps)
     check_operands("qpool_attn_block", x, wskip, bskip, wqkv, bqkv, wproj, bproj)
+    check_no_grad("qpool_attn_block", x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj,
+                  bproj)
     check_ln_params("qpool_attn_block", x, ln_scale, ln_bias)
     rows, c_in = x.shape
     c_out = wproj.shape[0]

@@ -339,13 +339,14 @@ def test_trunk_layernorm_fused_launches(gen):
     m = TrunkLayerNorm(96, fused=True).cuda()
     x, r = _rnd(gen, torch.bfloat16, 2, 8, 8, 96), _rnd(gen, torch.bfloat16, 2, 8, 8, 96)
     before = (fl.fused_layernorm.launches, fl.fused_add_layernorm.launches)
-    y = m(x)
-    resid, y2 = m(x, residual=r)
-    assert (fl.fused_layernorm.launches, fl.fused_add_layernorm.launches) == \
-        (before[0] + 1, before[1] + 1)
-    m.fused = False
-    _close(y, m(x))
-    ref_resid, ref_y = m(x, residual=r)
+    with torch.no_grad():  # the module's parameters require grad; the kernels have no backward
+        y = m(x)
+        resid, y2 = m(x, residual=r)
+        assert (fl.fused_layernorm.launches, fl.fused_add_layernorm.launches) == \
+            (before[0] + 1, before[1] + 1)
+        m.fused = False
+        _close(y, m(x))
+        ref_resid, ref_y = m(x, residual=r)
     assert torch.equal(resid, ref_resid)
     _close(y2, ref_y)
 
@@ -434,3 +435,123 @@ def test_off_preset_head_widths_route_and_match(gen, hd):
     _close(o, fa.flash_attn_plain(q, k, v))
     _close(ga.attn_proj_residual(x, o, wproj, bproj),
            ga.attn_proj_residual_plain(x, o, wproj, bproj))
+
+
+# ------------------------------------------- flash attention with a gradient
+#: (B, H, Nq, Nk, D): SAM2.1-L's global blocks (1 × 8 heads × 4096, D 72),
+#: rows and keys off the 64-row tiles, Nq ≠ Nk, narrower heads on the
+#: bf16 lse instance of width 72, and float32 widths up to 128
+BWD_SHAPES = [(1, 8, 4096, 4096, 72), (2, 2, 100, 70, 72), (1, 3, 17, 257, 64),
+              (2, 2, 65, 64, 8)]
+BWD_SHAPES_F32 = BWD_SHAPES + [(2, 2, 100, 70, 128), (1, 2, 33, 65, 20)]
+
+
+def _attn_case(gen, dt, b, h, nq, nk, d):
+    q, k, v = _rnd(gen, dt, b, h, nq, d), _rnd(gen, dt, b, h, nk, d), _rnd(gen, dt, b, h, nk, d)
+    return q, k, v, _rnd(gen, dt, b, h, nq, d)
+
+
+@pytest.mark.parametrize("dt,shape", [(torch.bfloat16, s) for s in BWD_SHAPES]
+                         + [(torch.float32, s) for s in BWD_SHAPES_F32])
+def test_flash_attn_lse_kernel(gen, dt, shape):
+    """K1: flash_attn's lse instance — o as the plain forward's, lse (float32)
+    within 1e-4 · max(1, max |lse|) in either dtype (float32 scores)."""
+    q, k, v, _ = _attn_case(gen, dt, *shape)
+    before = fa.flash_attn_lse.launches
+    o, lse = fa.flash_attn_lse(q, k, v)
+    o_ref, lse_ref = fa.flash_attn_lse_plain(q, k, v)
+    assert fa.flash_attn_lse.launches == before + 1
+    _close(o, o_ref)
+    _close(lse, lse_ref)
+
+
+@pytest.mark.parametrize("dt,shape", [(torch.bfloat16, s) for s in BWD_SHAPES]
+                         + [(torch.float32, s) for s in BWD_SHAPES_F32])
+def test_flash_attn_bwd_kernels(gen, dt, shape):
+    """K3 then K2 against flash_attn_bwd_plain on the same o and lse: dq,
+    delta, dk and dv, each by the dtype it returns."""
+    q, k, v, do = _attn_case(gen, dt, *shape)
+    o, lse = fa.flash_attn_lse_plain(q, k, v)
+    lse = lse.float()
+    dq_ref, dk_ref, dv_ref = fa.flash_attn_bwd_plain(q, k, v, o, lse, do)
+    before = (fa.flash_attn_bwd_dq.launches, fa.flash_attn_bwd_dkv.launches)
+    dq, delta = fa.flash_attn_bwd_dq(q, k, v, o, lse, do)
+    dk, dv = fa.flash_attn_bwd_dkv(q, k, v, lse, delta, do)
+    assert (fa.flash_attn_bwd_dq.launches, fa.flash_attn_bwd_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    _close(delta, (do.float() * o.float()).sum(-1))
+    for got, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        _close(got, ref)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_flash_attention_gradients_on_card(gen, dt):
+    """FlashAttention under autograd on the card: one launch of each of
+    K1, K3 and K2, and the gradients of its kernels against its plain
+    backward (the card's own o and lse fed to both), at a global-block
+    shape with a true head width below the instance's."""
+    q, k, v, do = _attn_case(gen, dt, 2, 8, 1024, 1024, 72)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = (fa.flash_attn_lse.launches, fa.flash_attn_bwd_dq.launches,
+              fa.flash_attn_bwd_dkv.launches)
+    o = fa.flash_attention(q, k, v, 64)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    assert (fa.flash_attn_lse.launches, fa.flash_attn_bwd_dq.launches,
+            fa.flash_attn_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    with torch.no_grad():
+        o2, lse = fa.flash_attn_lse(q, k, v, 64)
+        ref = fa.flash_attn_bwd_plain(q, k, v, o2, lse, do, 64)
+    assert torch.equal(o, o2)
+    for got, r in zip(grads, ref):
+        _close(got, r)
+
+
+def test_kernel_wrappers_refuse_operands_that_require_grad(gen):
+    """Each wrapper of a kernel without a backward raises under grad mode
+    when an operand requires grad, instead of cutting the gradient; under
+    torch.no_grad() the same call runs."""
+    dt = torch.float32
+    x = _rnd(gen, dt, 64, 32)
+    s, bias = 1 + _rnd(gen, F32, 32, scale=0.1), _rnd(gen, F32, 32, scale=0.1)
+    w0, b0, w1, b1 = (_rnd(gen, dt, 128, 32, scale=0.2), _rnd(gen, dt, 128),
+                      _rnd(gen, dt, 32, 128, scale=0.1), _rnd(gen, dt, 32))
+    wq, bq, wp, bp = (_rnd(gen, dt, 96, 32, scale=0.2), _rnd(gen, dt, 96),
+                      _rnd(gen, dt, 32, 32, scale=0.2), _rnd(gen, dt, 32))
+    ws, bs = _rnd(gen, dt, 64, 32, scale=0.2), _rnd(gen, dt, 64)
+    wq2, bq2, wp2, bp2 = (_rnd(gen, dt, 192, 32, scale=0.2), _rnd(gen, dt, 192),
+                          _rnd(gen, dt, 64, 64, scale=0.2), _rnd(gen, dt, 64))
+    q = _rnd(gen, dt, 1, 2, 64, 16)
+    logits = _rnd(gen, dt, 1, 32, 32, 1)
+    refine = ([_rnd(gen, dt, 4, 1, kk, kk) for kk in rf.KERNELS],
+              [_rnd(gen, dt, 4) for _ in rf.KERNELS], _rnd(gen, dt, 1, 16, 1, 1), _rnd(gen, dt, 1))
+    calls = {
+        "mlp_block": (lambda: mb.mlp_block(x, s, bias, w0, b0, w1, b1), w0),
+        "window_attn_block": (lambda: wa.window_attn_block(
+            x.view(4, 16, 32), s, bias, wq, bq, wp, bp, heads=2), x),
+        "qpool_attn_block": (lambda: wa.qpool_attn_block(
+            x, s, bias, ws, bs, wq2, bq2, wp2, bp2, heads=2, win=4), bs),
+        "ln_qkv": (lambda: ga.ln_qkv(x.view(1, 64, 32), s, bias, wq, bq, 2), s),
+        "attn_proj_residual": (lambda: ga.attn_proj_residual(
+            x.view(1, 64, 32), q, wp, bp), wp),
+        "flash_attn": (lambda: fa.flash_attn(q, q, q), q),
+        "flash_attn_lse": (lambda: fa.flash_attn_lse(q, q, q), q),
+        "refinement": (lambda: rf.refinement(logits, *refine), refine[2]),
+        "enhance_lines_fused": (lambda: mo.enhance_lines_fused(
+            (_rnd(gen, dt, 40, 50).abs() * 50)), None),
+        "fused_layernorm": (lambda: fl.fused_layernorm(x, s, bias), bias),
+        "fused_add_layernorm": (lambda: fl.fused_add_layernorm(x, x, s, bias), x),
+    }
+    for name, (call, operand) in calls.items():
+        with torch.no_grad():
+            call()
+        if operand is None:  # the mask is the one operand: make it require grad
+            m = (_rnd(gen, dt, 40, 50).abs() * 50).requires_grad_()
+            with pytest.raises(build.KernelError, match="requires grad"):
+                mo.enhance_lines_fused(m)
+            continue
+        operand.requires_grad_()
+        try:
+            with pytest.raises(build.KernelError, match="requires grad"):
+                call()
+        finally:
+            operand.requires_grad_(False)

@@ -47,8 +47,8 @@ TINY_DET = dict(scale="n", img_size=128, num_classes=64, dtype="float32")
 #: |logit − threshold| below which a float32 SAM2 mask pixel may differ
 #: between the packages (15× the largest logit difference seen)
 LOGIT_FLIP_BOUND = 1e-3
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "tensorstore", "cv2", "PIL", "safetensors",
-             "transformers", "circuitvision_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "cv2", "PIL",
+             "safetensors", "transformers", "circuitvision_tpu")
 
 
 @pytest.fixture(autouse=True)
@@ -151,8 +151,10 @@ def test_tiny_analyze_imports_no_jax_cv2_or_reference_package(tmp_path):
     eval PNG with the port's own readers, run a tiny CPU analyze() with
     the trained reader as its client and the final netlist, and
     analyze_batch() (BatchedPipeline.analyze_many, with the
-    fused-morphology switch on, finalize=True), and find no module named
-    exactly jax, flax, orbax, tensorstore, cv2, PIL, ... or the JAX
+    fused-morphology switch on, finalize=True), a selective and a LoRA
+    fine-tune step on a batch of the folder dataset and a train
+    checkpoint, and find no module named
+    exactly jax, flax, optax, orbax, tensorstore, cv2, PIL, ... or the JAX
     package, nor any submodule of them (names compared exactly, since
     circuitvision_tpu is a prefix of circuitvision_tpu_torch)."""
     code = f"""
@@ -179,6 +181,25 @@ r = a.generate_final_netlist(a.analyze(img))
 rs = a.analyze_batch([img, img[:100]], batch_size=1, finalize=True)
 assert len(rs) == 2
 netlist_exact_match([x.netlist_text for x in rs], [r.netlist_text] * 2)
+# the fine-tune: dataset, a selective and a LoRA step, a checkpoint
+import torch
+from circuitvision_tpu_torch.core.config import TrainConfig
+from circuitvision_tpu_torch.train import checkpoint, lora, train_step
+from circuitvision_tpu_torch.train.data import SegmentationFolderDataset
+ds = SegmentationFolderDataset({str(ROOT / "eval_data")!r}, resolution=128, device="cpu")
+images, masks = next(ds.batches(1, seed=0))
+model = SAM2ImageSegmenter(cfg.sam2)
+params = {{n: p.detach() for n, p in model.named_parameters()}}
+tcfg = TrainConfig(grad_accum_steps=2, schedule="cosine", total_steps=3)
+opt, mask = train_step.make_optimizer(model, tcfg)
+state = opt.init(params)
+params, state, metrics = train_step.make_train_step(model, opt, tcfg, mask)(params, state,
+                                                                           images, masks)
+tstate = lora.init_train_state(model, torch.Generator().manual_seed(0), tcfg, 7)
+lopt = lora.make_lora_optimizer(tcfg)
+lora.make_lora_train_step(model, lopt, tcfg)(params, tstate, lopt.init(lora.flat_names(tstate)),
+                                             images, masks)
+checkpoint.save_train_state({str(tmp_path / "ckpt")!r}, 1, params, state)
 print(json.dumps(sorted(sys.modules)))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -188,7 +209,8 @@ print(json.dumps(sorted(sys.modules)))
     for m in ("pipeline.analyzer", "pipeline.batch", "ops.cuda.morphology", "ops.cuda.fused_ln",
               "io.zstd", "io.image_io", "models.checkpoint", "models.reader",
               "enrich.trained_reader", "enrich.directions", "enrich.client", "netlist.fix",
-              "eval.metrics"):
+              "eval.metrics", "train.losses", "train.train_step", "train.lora",
+              "train.checkpoint", "train.data"):
         assert "circuitvision_tpu_torch." + m in mods
     bad = [m for m in mods if m in FORBIDDEN or m.startswith(tuple(f + "." for f in FORBIDDEN))]
     assert not bad, bad
@@ -196,8 +218,9 @@ print(json.dumps(sorted(sys.modules)))
 
 def test_port_sources_name_no_jax_or_reference_import():
     pat = re.compile(r"import jax|from circuitvision_tpu\.|import circuitvision_tpu\b|cpp_extension"
-                     r"|import (flax|orbax|tensorstore|cv2|PIL|safetensors|transformers)\b"
-                     r"|from (jax|flax|orbax|tensorstore|cv2|PIL|safetensors|transformers)\b")
+                     r"|import (flax|optax|orbax|tensorstore|cv2|PIL|safetensors|transformers)\b"
+                     r"|from (jax|flax|optax|orbax|tensorstore|cv2|PIL|safetensors|transformers)"
+                     r"\b")
     files = list((ROOT / "circuitvision_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)

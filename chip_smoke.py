@@ -79,7 +79,8 @@ Phases, in order; any failure raises and the process exits non-zero:
  11. the fine-tune's kernels — FlashAttention's lse forward (K1) and its
      dq and dkv backward kernels (K3, K2) at SAM2.1-L's global shape,
      1 × 8 heads × 4096 × 72, in bf16 and f32 against their plain
-     versions, SDPA and SDPA's backward (through autograd) beside them;
+     versions, SDPA and SDPA's backward (through autograd, timed by
+     CUDA-graph replay as the kernels are) beside them;
  12. the fine-tune — L_CUT whole-tree in float32 with TF32 off, the
      card's gradients against the port's CPU gradients on every leaf;
      SAM2.1-L@1024 in bf16 (every float leaf cast, LayerNorm's too):
@@ -573,7 +574,9 @@ def case_builders(torch):
         the dkv kernel ("dkv"); o, lse and delta from the plain forward,
         the same for the kernel and its plain version. Their library
         yardstick: SDPA, and for the backward SDPA's backward through
-        autograd (dq, dk and dv in one call)."""
+        autograd (dq, dk and dv in one call), on the device clock as the
+        kernels are: forward and backward replayed in one CUDA graph, less
+        the forward replayed in another."""
         def make(dt, gen):
             q, k, v, do = (rnd(gen, dt, b, h, n, hd) for _ in range(4))
             elems, es = b * h * n * hd, q.element_size()
@@ -586,13 +589,13 @@ def case_builders(torch):
             o, lse = fa.flash_attn_lse_plain(q, k, v)
             delta = (do.float() * o.float()).sum(-1)
             ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-            ol = F.scaled_dot_product_attention(ql, kl, vl)
             common = dict(parts=True, math_dt=dt, timing=dict(iters=5, replays=3),
-                          library=lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
-                                                              retain_graph=True),
-                          library_eager=True,
-                          library_note="SDPA's backward through autograd: dq, dk and dv in "
-                                       "one call, eager events")
+                          library=lambda: torch.autograd.grad(
+                              F.scaled_dot_product_attention(ql, kl, vl), (ql, kl, vl), do),
+                          library_less=lambda: F.scaled_dot_product_attention(ql, kl, vl),
+                          library_note="SDPA's backward: SDPA's forward and its backward "
+                                       "through autograd (dq, dk and dv) replayed in one CUDA "
+                                       "graph, less the forward replayed in another")
             if part == "dq":
                 return dict(kernel=lambda: fa.flash_attn_bwd_dq(q, k, v, o, lse, do),
                             plain=lambda: (fa.flash_attn_bwd_plain(q, k, v, o, lse, do)[0], delta),
@@ -731,8 +734,9 @@ def run_kernels(torch, path, raster_counts=None):
             p_ms = cuda_ms(case["plain"], iters=5)
             lib_ms = None
             if case.get("library"):
-                lib_ms = (cuda_ms(case["library"], iters=timing.get("iters", 20))
-                          if case.get("library_eager") else graph_ms(case["library"], **timing))
+                lib_ms = graph_ms(case["library"], **timing)
+                if case.get("library_less"):  # a part of the call that is not the function
+                    lib_ms -= graph_ms(case["library_less"], **timing)
             t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
             t_ops = case["flops"] / PEAK_FLOPS[str(case["math_dt"]).removeprefix("torch.")] * 1e3
             row = {"kernel": name, "path": path, "shape": label, "dtype": dt_name,

@@ -324,9 +324,6 @@ bool bad_shape(int bh, int nq, int nk, int hd, int dtype) {
 
 }  // namespace
 
-// Shared-memory bytes of either kernel at head width hd.
-extern "C" long long cv_flash_bwd_smem(int hd) { return (long long)bwd_smem(hd); }
-
 // dQ and D. q, o, dout, dq (bh, nq, hd); k, v (bh, nk, hd); lse and delta
 // (bh, nq) float32; dtype 0 float32 (hd ≤ 128), 1 bfloat16 (hd ≤ 80); scale
 // the softmax scale.

@@ -47,9 +47,14 @@ wherever the shapes take them. On the module path, attention over at
 least FLASH_MIN_SEQ tokens goes through `FlashAttention` (the flash
 kernel with its backward kernels on the card, its plain version on the
 CPU), shorter sequences through `einsum_attention`, as the JAX module
-path takes flash or einsum (`force_flash` overrides the choice). Every
-other kernel wrapper raises when an operand requires grad under grad
-mode, so a kernel can never cut a gradient silently.
+path takes flash or einsum (`flash_route`; `force_flash` overrides the
+choice). On the card FlashAttention takes float32 heads up to 128 but
+bfloat16 heads only a multiple of 8 up to 72 — Hiera-L's globals; not
+Hiera-t's or -s's at 1024, of width 96 — and the training steps refuse
+a model past that before their first step (train/train_step.py
+`check_flash_widths`).
+Every other kernel wrapper raises when an operand requires grad under
+grad mode, so a kernel can never cut a gradient silently.
 """
 from __future__ import annotations
 
@@ -114,6 +119,41 @@ def force_flash(value):
         yield
     finally:
         _FORCE_FLASH = old
+
+
+def flash_route(tokens: int, hd: int) -> bool:
+    """Whether the module path's attention over `tokens` query tokens of
+    head width hd goes through FlashAttention (else einsum_attention):
+    from FLASH_MIN_SEQ tokens, at head widths up to MAX_HEAD_DIM. On the
+    card FlashAttention then takes every such float32 head but only
+    bfloat16 heads a multiple of 8 up to 72 (flash_attn.grad_head_width_ok)
+    and raises on any other; the training steps refuse such a model before
+    their first step (train/train_step.py `check_flash_widths`)."""
+    return tokens >= FLASH_MIN_SEQ and hd <= MAX_HEAD_DIM
+
+
+def flash_blocks(trunk: "Hiera", resolution: int, start: int = 0) -> list[tuple[int, int, int]]:
+    """(block index, query tokens, head width) of every trunk block from
+    `start` on whose module-path attention takes FlashAttention
+    (`flash_route`) on images of `resolution` pixels: a global block
+    attends over its whole map, a windowed one over a window (a q-pool
+    block over the pooled window), as `Hiera.forward` runs them."""
+    side = (resolution - 1) // 4 + 1  # patch_embed_proj: kernel 7, stride 4, padding 3
+    stage, out = 0, []
+    for i in range(trunk.depth):
+        window = trunk.window_spec[stage]  # a q-pool block keeps the previous stage's
+        if i in trunk.q_pool_blocks:
+            stage += 1
+        if i in trunk.global_att_blocks:
+            window = 0
+        block = getattr(trunk, f"blocks_{i}")
+        if block.q_stride:
+            side, window = side // 2, window // 2
+        tokens = window * window if window else side * side
+        hd = block.dim_out // block.num_heads
+        if i >= start and flash_route(tokens, hd):
+            out.append((i, tokens, hd))
+    return out
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -213,8 +253,7 @@ class MultiScaleAttention(nn.Module):
             q = _pool2x(q.reshape(b, h, w, -1))
             h, w = q.shape[1], q.shape[2]
             q = q.reshape(b, h * w, self.num_heads, hd)
-        flash = (_FORCE_FLASH if _FORCE_FLASH is not None
-                 else q.shape[1] >= FLASH_MIN_SEQ and hd <= MAX_HEAD_DIM)
+        flash = _FORCE_FLASH if _FORCE_FLASH is not None else flash_route(q.shape[1], hd)
         if flash:
             out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2)).transpose(1, 2)

@@ -77,7 +77,6 @@ SIGNATURES = {
     "flash_bwd": {
         "cv_flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
         "cv_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
-        "cv_flash_bwd_smem": [_I],
     },
     "morphology": {
         "cv_enhance_lines": [_P, _P, _I, _I] + [_F] * 5 + [_P],

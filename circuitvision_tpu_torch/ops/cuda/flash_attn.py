@@ -177,6 +177,16 @@ LSE_WIDTH = 72
 BWD_WIDEST = {torch.bfloat16: 80, torch.float32: MAX_HEAD_DIM}
 
 
+def grad_head_width_ok(hd: int, dtype: torch.dtype) -> bool:
+    """Whether FlashAttention's kernels take heads of width hd in dtype on
+    the card: float32 up to MAX_HEAD_DIM; bfloat16 a multiple of 8 up to
+    LSE_WIDTH (the lse forward's one instance — the backward kernels
+    reach 80). On the CPU the plain versions take every width."""
+    if dtype == torch.bfloat16:
+        return 0 < hd <= LSE_WIDTH and hd % 8 == 0
+    return dtype == torch.float32 and 0 < hd <= MAX_HEAD_DIM
+
+
 def _acc_dtype(dt: torch.dtype) -> torch.dtype:
     """The plain versions' arithmetic: float64 for float64 inputs (the
     gradient checks), float32 otherwise."""
@@ -214,11 +224,11 @@ def flash_attn_lse(q, k, v, scale_width=None):
     check_no_grad("flash_attn_lse", q, k, v)
     b, h, nq, hd = q.shape
     nk = k.shape[2]
-    widest = LSE_WIDTH if q.dtype == torch.bfloat16 else MAX_HEAD_DIM
-    if k.shape != (b, h, nk, hd) or v.shape != k.shape or nk < 1 or hd > widest \
-            or (q.dtype == torch.bfloat16 and hd % 8):
+    if k.shape != (b, h, nk, hd) or v.shape != k.shape or nk < 1 \
+            or not grad_head_width_ok(hd, q.dtype):
         raise KernelError(f"flash_attn_lse: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                          f"v {tuple(v.shape)} do not fit (widest {q.dtype} head {widest})")
+                          f"v {tuple(v.shape)} do not fit (heads: float32 up to "
+                          f"{MAX_HEAD_DIM}, bfloat16 a multiple of 8 up to {LSE_WIDTH})")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     lib = library("flash_attn")
@@ -342,9 +352,11 @@ class FlashAttention(torch.autograd.Function):
     (B, H, Nk, D), with a gradient: the counterpart of jax's TPU flash
     attention with its custom VJP (flash_attention.py:204, defvjp :318).
     The forward saves (q, k, v, o, lse) from flash_attn_lse; the backward
-    launches flash_attn_bwd_dq, then flash_attn_bwd_dkv. On the CPU both
-    take their plain versions. The one kernel path that may run under
-    autograd; a kernel failure raises."""
+    calls flash_attn_bwd_dq, then flash_attn_bwd_dkv. On the CPU the three
+    wrappers take their plain versions. The one kernel path that may run
+    under autograd; a kernel failure raises. On the card it takes heads
+    of width up to 128 in float32 and bfloat16 heads a multiple of 8 up to
+    LSE_WIDTH (`grad_head_width_ok`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale_width=None):
@@ -358,11 +370,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        if q.device.type == "cpu":
-            dq, dk, dv = flash_attn_bwd_plain(q, k, v, o, lse, do, ctx.scale_width)
-        else:
-            dq, delta = flash_attn_bwd_dq(q, k, v, o, lse, do, ctx.scale_width)
-            dk, dv = flash_attn_bwd_dkv(q, k, v, lse, delta, do, ctx.scale_width)
+        dq, delta = flash_attn_bwd_dq(q, k, v, o, lse, do, ctx.scale_width)
+        dk, dv = flash_attn_bwd_dkv(q, k, v, lse, delta, do, ctx.scale_width)
         return dq, dk, dv, None
 
 

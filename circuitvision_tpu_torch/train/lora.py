@@ -35,7 +35,8 @@ import torch
 from ..core.config import TrainConfig
 from ..models.bridge import flax_names
 from .train_step import (
-    TRAINABLE_PATTERNS, Optimizer, apply_updates, model_loss, trainable_mask,
+    TRAINABLE_PATTERNS, Optimizer, apply_updates, check_flash_widths, model_loss,
+    trainable_mask,
 )
 
 #: wrapper net-new parameters PEFT keeps fully trainable alongside the
@@ -263,10 +264,13 @@ def make_lora_train_step(model: torch.nn.Module, tx: Optimizer, cfg: TrainConfig
     (tstate, opt_state, metrics). `base` ({port name: tensor}) is never
     updated and never in the optimizer; tstate = {"lora": init_lora(...),
     "direct": {port name: leaf}} holds everything that trains. Serve with
-    `materialize(model, base, tstate)`."""
+    `materialize(model, base, tstate)`. A model on the card whose blocks
+    from the earliest adapted one on FlashAttention's kernels cannot take
+    raises KernelError before the step runs (`check_flash_widths`)."""
     cfg = cfg or TrainConfig()
 
     def train_step(base, tstate, opt_state, images, masks):
+        check_flash_widths(model, _lora_trunk_cutoff(tstate["lora"]))
         _loss, metrics, grads = lora_loss_and_grads(model, base, tstate, images, masks, cfg)
         updates, opt_state = tx.update(grads, opt_state)
         return unflatten(apply_updates(flat_names(tstate), updates)), opt_state, metrics

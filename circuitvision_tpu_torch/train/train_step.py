@@ -36,6 +36,7 @@ import torch
 
 from ..core.config import TrainConfig
 from ..models.bridge import flax_names
+from ..ops.cuda.build import KernelError
 from .losses import combined_loss
 
 #: flax param-path regexes matching the reference LoRA target surface
@@ -243,15 +244,14 @@ def model_loss(model: torch.nn.Module, params: Mapping[str, torch.Tensor], image
 
 def loss_and_grads(model, params: Mapping[str, torch.Tensor], images, masks,
                    cfg: TrainConfig | None = None, mask: Mapping[str, bool] | None = None,
-                   selective: bool = True, gate=None):
+                   selective: bool = True):
     """(loss, metrics, grads) with grads for every leaf of `params`.
 
     Whole-tree (selective=False): every leaf requires grad, every kernel
     site on the module path. Selective: only the leaves of `mask` (default
     trainable_mask) require grad; trunk blocks before the earliest
     trainable one keep their kernels and build no graph; frozen leaves get
-    zero gradients, as in the JAX package. `gate` overrides the kernel gate
-    (hiera.force_fused) the mode would choose."""
+    zero gradients, as in the JAX package."""
     from ..models.sam2 import hiera
 
     cfg = cfg or TrainConfig()
@@ -262,7 +262,7 @@ def loss_and_grads(model, params: Mapping[str, torch.Tensor], images, masks,
     else:
         train, cutoff = list(params), False
     leaves = {n: p.detach().requires_grad_(n in train) for n, p in params.items()}
-    with hiera.force_fused(cutoff if gate is None else gate):
+    with hiera.force_fused(cutoff):
         loss, metrics = model_loss(model, leaves, images, masks, cfg)
         got = torch.autograd.grad(loss, [leaves[n] for n in train], allow_unused=True)
     grads = dict(zip(train, got))
@@ -271,13 +271,36 @@ def loss_and_grads(model, params: Mapping[str, torch.Tensor], images, masks,
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def check_flash_widths(model: torch.nn.Module, start: int) -> None:
+    """Refuse, before any step, a model on the card whose differentiated
+    trunk blocks (from `start` on) would hand FlashAttention heads its
+    kernels do not take (hiera.flash_blocks, flash_attn.grad_head_width_ok):
+    in bfloat16, Hiera-t and -s at 1024, whose global heads are 96 wide.
+    On the CPU the plain versions take every width."""
+    from ..models.sam2 import hiera
+    from ..ops.cuda.flash_attn import LSE_WIDTH, grad_head_width_ok
+
+    weight = model.trunk.patch_embed_proj.weight
+    if not weight.is_cuda:
+        return
+    for _i, _tokens, hd in hiera.flash_blocks(model.trunk, model.cfg.resolution, start):
+        if not grad_head_width_ok(hd, weight.dtype):
+            raise KernelError(f"training on the card: FlashAttention's kernels take bfloat16 "
+                              f"heads a multiple of 8 up to {LSE_WIDTH}; this model's global "
+                              f"blocks give it heads of width {hd} ({weight.dtype})")
+
+
 def make_train_step(model: torch.nn.Module, tx: Optimizer, cfg: TrainConfig | None = None,
                     mask: Mapping[str, bool] | None = None, selective: bool = True):
     """Returns train_step(params, opt_state, images, masks) → (params,
     opt_state, metrics): loss_and_grads, then tx.update and apply_updates.
     `mask` must match the optimizer's (make_optimizer returns it);
-    selective=False differentiates the whole tree."""
+    selective=False differentiates the whole tree. A model on the card
+    whose differentiated blocks FlashAttention's kernels cannot take
+    raises KernelError here (`check_flash_widths`)."""
     cfg = cfg or TrainConfig()
+    check_flash_widths(model, _trunk_diff_cutoff(trainable_mask(model) if mask is None else mask)
+                       if selective else 0)
 
     def train_step(params, opt_state, images, masks):
         _loss, metrics, grads = loss_and_grads(model, params, images, masks, cfg, mask,

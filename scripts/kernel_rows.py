@@ -7,7 +7,8 @@
 Runs `chip_smoke.run_kernels` at every shape of the named kernels on the
 paths that launch them — L@1024 and t@512, the batched path's two
 off-path rasters (600×800, 600×1003, 1×1) for the line enhancement, the trunk
-LayerNorm widths for the LayerNorms — each against its plain version on
+LayerNorm widths for the LayerNorms, the fine-tune's global shape for
+FlashAttention's three kernels — each against its plain version on
 the card, in bfloat16 and float32, with device times (CUDA-graph replay),
 eager times, bound and library time, and prints chip_smoke.py's
 per-shape JSON rows, then per path the sums over the path's launches,
@@ -34,7 +35,8 @@ import chip_smoke  # noqa: E402
 
 #: the paths whose shapes each kernel's rows come from
 PATHS = {"enhance_lines_fused": ("batch",), "fused_layernorm": ("trunk-ln",),
-         "fused_add_layernorm": ("trunk-ln",)}
+         "fused_add_layernorm": ("trunk-ln",), "flash_attn_lse": ("train",),
+         "flash_attn_bwd_dq": ("train",), "flash_attn_bwd_dkv": ("train",)}
 
 
 def main() -> int:

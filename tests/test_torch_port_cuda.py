@@ -555,3 +555,27 @@ def test_kernel_wrappers_refuse_operands_that_require_grad(gen):
                 call()
         finally:
             operand.requires_grad_(False)
+
+
+def test_training_refuses_bf16_heads_flash_cannot_take(gen):
+    """Hiera-t at 1024 in bfloat16 — global heads of width 96, past the
+    lse forward's 72 — is refused with its width named when the
+    whole-tree step is made and before a LoRA step runs; in float32 the
+    same model is taken."""
+    from circuitvision_tpu_torch.core.config import SAM2Config, TrainConfig
+    from circuitvision_tpu_torch.models.sam2.wrapper import SAM2ImageSegmenter
+    from circuitvision_tpu_torch.train import lora, train_step
+
+    cfg = SAM2Config(resolution=1024, embed_dim=96, num_heads=1, stages=(1, 2, 7, 2),
+                     global_att_blocks=(5, 7, 9), window_spec=(8, 4, 14, 7))
+    model = SAM2ImageSegmenter(cfg).to("cuda", torch.bfloat16)
+    opt, mask = train_step.make_optimizer(model, TrainConfig(), None)
+    all_true = {n: True for n in mask}
+    with pytest.raises(build.KernelError, match="width 96"):
+        train_step.make_train_step(model, opt, mask=all_true, selective=False)
+    train_step.make_train_step(model, opt, mask=mask)  # the surface: no trunk block trains
+    tstate = lora.init_train_state(model, torch.Generator().manual_seed(0), n_trunk_blocks=12)
+    step = lora.make_lora_train_step(model, lora.make_lora_optimizer())
+    with pytest.raises(build.KernelError, match="width 96"):
+        step(dict(model.named_parameters()), tstate, None, None, None)
+    train_step.make_train_step(model.float(), opt, mask=all_true, selective=False)

@@ -38,6 +38,7 @@ from circuitvision_tpu_torch.models import bridge
 from circuitvision_tpu_torch.models.sam2 import hiera as thiera
 from circuitvision_tpu_torch.models.sam2 import wrapper as twrapper
 from circuitvision_tpu_torch.models.sam2.wrapper import SAM2ImageSegmenter as TSAM2
+from circuitvision_tpu_torch.ops.cuda import flash_attn as fa
 from circuitvision_tpu_torch.train import checkpoint as tckpt
 from circuitvision_tpu_torch.train import lora as tlora
 from circuitvision_tpu_torch.train import losses as tlosses
@@ -253,13 +254,44 @@ def test_learning_rate_schedules_match_optax():
         tconfig.TrainConfig(grad_accum_steps=0)
 
 
-#: the whole-step comparisons run Adam at this learning rate: Adam's first
-#: steps move every parameter by about lr · sign(grad), so a gradient at
-#: round-off level (many of the decoder's) may take opposite signs in the
-#: two packages and move the parameter by 2 · lr; at 1e-5 that stays
-#: inside the tolerance, and the optimizer's own arithmetic is held exactly
-#: on equal gradients by test_optimizer_matches_optax_step_for_step
-STEP_LR = 1e-5
+#: The whole-step comparisons run Adam at a normal learning rate and hold
+#: each parameter's CHANGE over a step (after − before) to JAX's within
+#: STEP_TOL · lr per element. Adam moves an element by about lr · m̂/√v̂
+#: whatever the gradient's size, so an element whose gradient is zero but
+#: for rounding (a key projection's bias, which softmax ignores, is the
+#: usual one: 1e-12 to 1e-9 here) may move by up to lr in either package
+#: and either direction. So the elements with √ν ≤ ROUNDOFF · (the largest
+#: √ν in the tree), ν read from JAX's state after the step, are left out
+#: and counted: at small_cfg 5 % of the whole tree's elements, 8 % of the
+#: selective surface's and 3 % of the adapters' — nearly all of them exact
+#: zeros, hidden units of the decoder's MLPs that the ReLU shuts, which
+#: the port leaves unmoved too — and never more than MAX_DROPPED of them.
+#: A leaf that JAX's gradient never reaches (ν ≡ 0: the unused mask
+#: outputs' hypernetworks) is compared whole, and the tests hold its
+#: parameters bit-unchanged, as they hold the frozen leaves.
+STEP_LR, STEP_TOL, ROUNDOFF, MAX_DROPPED = 1e-3, 1e-2, 1e-6, 0.1
+
+
+def _check_moves(before, after, jbefore, jafter, nu, lr, what):
+    """Each leaf of `nu`'s change, port (before → after, tensors) against
+    JAX (jbefore → jafter, arrays), within STEP_TOL · lr on every element
+    not at round-off; returns (elements dropped, elements, the largest
+    change JAX made to a compared element)."""
+    rms = {n: np.sqrt(np.asarray(x, np.float64)) for n, x in nu.items()}
+    top = max(r.max(initial=0.0) for r in rms.values())
+    dropped = total = 0
+    moved = 0.0
+    for n, r in rms.items():
+        dj = np.asarray(jafter[n], np.float64) - np.asarray(jbefore[n], np.float64)
+        dt = after[n].double().numpy() - before[n].double().numpy()
+        live = r > ROUNDOFF * top if r.any() else np.ones(r.shape, bool)
+        err = np.abs(dt - dj)[live].max(initial=0.0)
+        assert err <= STEP_TOL * lr, \
+            f"{what} {n}: |Δport − Δjax| {err:.3e} > {STEP_TOL * lr:.3e}"
+        dropped, total = dropped + int((~live).sum()), total + live.size
+        moved = max(moved, np.abs(dj[live]).max(initial=0.0))
+    assert dropped <= MAX_DROPPED * total, f"{what}: {dropped} of {total} elements at round-off"
+    return dropped, total, moved
 
 
 @pytest.mark.parametrize("selective,sched", [
@@ -267,44 +299,74 @@ STEP_LR = 1e-5
     (True, dict(schedule="cosine", warmup_steps=1, total_steps=4, min_lr_ratio=0.1,
                 grad_accum_steps=2, ema_decay=0.8)),
 ])
-def test_train_steps_match_jax_after_state_carried_across(small, selective, sched):
-    """One JAX step, its (params, optimizer state, EMA) carried into the
-    port (bridge.train_state_from_jax), then two more steps in each
-    package: params, moments and EMA leaf for leaf after each."""
+def test_train_steps_match_jax_after_state_carried_across(small, selective, sched, monkeypatch):
+    """JAX steps until the first update, its (params, optimizer state,
+    EMA) carried into the port (bridge.train_state_from_jax), then two more
+    steps in each package — whole-tree: two updates; selective with
+    accumulation 2: a micro-step, which must change nothing, then an
+    update at the schedule's full rate. After each: every trainable
+    leaf's and EMA leaf's change against JAX's (`_check_moves`), frozen
+    leaves bit-unchanged, the moments against JAX's at the gradient
+    tolerance (√ν for ν). Then planted faults in the last step — its
+    update not applied, or applied with the sign flipped — must fail the
+    same check."""
     jm, v, tm, images, masks = small
     cfg = JTrainConfig(learning_rate=STEP_LR, **sched)
     jmask = jts.trainable_mask(v) if selective else jax.tree.map(lambda x: True, v)
     tx, jmask = jts.make_optimizer(v, cfg, mask=jmask)
     step = jax.jit(jts.make_train_step(jm, tx, cfg, mask=jmask, selective=selective))
-    jstate, jema = tx.init(v), jts.init_ema(v, jmask)
-    args = (jnp.asarray(images), jnp.asarray(masks))
-    jparams, jstate, _ = step(v, jstate, *args)
+    jparams, jstate, jema = v, tx.init(v), jts.init_ema(v, jmask)
+    # two batches in turn, so that the micro-steps' gradients differ
+    batches = [(images, masks), (images[:, ::-1].copy(), masks[:, ::-1].copy())]
+    jargs = [tuple(map(jnp.asarray, b)) for b in batches]
+    targs = [tuple(map(torch.from_numpy, b)) for b in batches]
+    for k in range(cfg.grad_accum_steps):  # up to and including the first update
+        jparams, jstate, _ = step(jparams, jstate, *jargs[k % 2])
     jema = jts.update_ema(jema, jparams, jmask, cfg.ema_decay)
     tmask = tts.trainable_mask(tm) if selective else {n: True for n, _ in tm.named_parameters()}
+    trainable = [n for n, m in tmask.items() if m]
     opt, tmask = tts.make_optimizer(tm, _tcfg(cfg), tmask)
-    tparams, tstate, tema = bridge.train_state_from_jax(
-        jax.tree.map(np.asarray, jparams), jax.tree.map(np.asarray, jstate),
-        [np.asarray(e) for e in jema], [n for n, m in tmask.items() if m])
-    tstep = tts.make_train_step(tm, opt, _tcfg(cfg), mask=tmask, selective=selective)
-    targs = (torch.from_numpy(images), torch.from_numpy(masks))
-    for i in range(2):
-        jparams, jstate, jmet = step(jparams, jstate, *args)
-        jema = jts.update_ema(jema, jparams, jmask, cfg.ema_decay)
-        tparams, tstate, tmet = tstep(tparams, tstate, *targs)
-        tema = tts.update_ema(tema, tparams, cfg.ema_decay)
-        _close(tmet["loss"], jmet["loss"], what=f"step {i + 2} loss")
-        _p, carried, cema = bridge.train_state_from_jax(
+
+    def carry(jparams, jstate, jema):
+        return bridge.train_state_from_jax(
             jax.tree.map(np.asarray, jparams), jax.tree.map(np.asarray, jstate),
-            [np.asarray(e) for e in jema], [n for n, m in tmask.items() if m])
-        for n, a in _port(jparams).items():
-            _close(tparams[n], a, what=f"step {i + 2} {n}")
-        for n in tema:
-            _close(tema[n], cema[n], what=f"step {i + 2} ema {n}")
-        for key in ("mu", "nu", "acc_grads"):
+            [np.asarray(e) for e in jema], trainable)
+
+    tparams, tstate, tema = carry(jparams, jstate, jema)
+    ja, cema = _port(jparams), tema
+    tstep = tts.make_train_step(tm, opt, _tcfg(cfg), mask=tmask, selective=selective)
+    for i in range(2):
+        what, flush = f"step {i + 1}", (i + 1) % cfg.grad_accum_steps == 0
+        b = (cfg.grad_accum_steps + i) % 2
+        jb, jemab, tb, tsb, temab = ja, cema, tparams, tstate, tema
+        jparams, jstate, jmet = step(jparams, jstate, *jargs[b])
+        jema = jts.update_ema(jema, jparams, jmask, cfg.ema_decay) if flush else jema
+        tparams, tstate, tmet = tstep(tparams, tstate, *targs[b])
+        tema = tts.update_ema(tema, tparams, cfg.ema_decay) if flush else tema
+        _close(tmet["loss"], jmet["loss"], what=f"{what} loss")
+        _p, carried, cema = carry(jparams, jstate, jema)
+        ja = _port(jparams)
+        dropped, total, moved = _check_moves(tb, tparams, jb, ja, carried["nu"], STEP_LR, what)
+        assert (moved >= 0.5 * STEP_LR) == flush, (what, moved)  # an update moves, a micro-step not
+        _check_moves(temab, tema, jemab, cema, carried["nu"], STEP_LR, f"{what} ema")
+        for n in tmask:  # frozen, or out of the gradient's reach
+            if not tmask[n] or not carried["nu"][n].any():
+                assert torch.equal(tparams[n], tb[n]), n
+        for key in ("mu", "acc_grads"):
             for n in carried.get(key, {}):
                 # the moments hold gradients: the gradient tolerance
-                _close(tstate[key][n], carried[key][n], what=f"step {i + 2} {key} {n}")
+                _close(tstate[key][n], carried[key][n], what=f"{what} {key} {n}")
+        for n in carried["nu"]:
+            _close(tstate["nu"][n].sqrt(), carried["nu"][n].sqrt(), what=f"{what} √ν {n}")
         assert int(tstate["count"]) == int(carried["count"])
+    assert dropped > 0  # the rule is needed: round-off elements are there
+    for fault in (lambda p, u: dict(p),
+                  lambda p, u, real=tts.apply_updates: real(p, {n: -x for n, x in u.items()})):
+        with monkeypatch.context() as m:
+            m.setattr(tts, "apply_updates", fault)
+            bad, _s, _m = tstep(tb, tsb, *targs[b])
+        with pytest.raises(AssertionError, match="Δport"):
+            _check_moves(tb, bad, jb, ja, carried["nu"], STEP_LR, "planted fault")
 
 
 # ------------------------------------------------------------------ LoRA
@@ -349,7 +411,7 @@ def test_lora_surface_and_step_zero_is_the_base_forward(small):
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
-def test_lora_step_fold_and_export_match_jax(small, lora_pair):
+def test_lora_step_fold_and_export_match_jax(small, lora_pair, monkeypatch):
     jm, v, tm, images, masks = small
     cfg, jtstate, jopt, step = lora_pair
     tcfg = _tcfg(cfg)
@@ -364,19 +426,32 @@ def test_lora_step_fold_and_export_match_jax(small, lora_pair):
     assert set(jexp) == set(texp) and len(texp) == 2 * len(np_state["lora"])
     for k in jexp:
         np.testing.assert_array_equal(texp[k], jexp[k])
-    # one more step in each package from the same state
+    # one more step in each package from the same state: each adapter's
+    # and direct leaf's change against JAX's (`_check_moves`), then planted
+    # faults — the update not applied, or with its sign flipped — must fail
+    before, jbefore = tlora.flat_names(ttstate), {n: t.numpy() for n, t in
+                                                   tlora.flat_names(ttstate).items()}
+    state0 = (ttstate, topt)
     jtstate, jopt, jmet = step(v, jtstate, jopt, jnp.asarray(images), jnp.asarray(masks))
     tstep = tlora.make_lora_train_step(tm, tlora.make_lora_optimizer(tcfg), tcfg)
-    ttstate, topt, tmet = tstep(_params(tm), ttstate, topt, torch.from_numpy(images),
-                                torch.from_numpy(masks))
+    targs = (torch.from_numpy(images), torch.from_numpy(masks))
+    ttstate, topt, tmet = tstep(_params(tm), *state0, *targs)
     _close(tmet["loss"], jmet["loss"], what="loss")
-    want, _ = bridge.lora_state_from_jax(jax.tree.map(np.asarray, jtstate),
-                                         jax.tree.map(np.asarray, jopt))
-    for path, ab in want["lora"].items():
-        for part in ("a", "b"):
-            _close(ttstate["lora"][path][part], ab[part], what=f"{path} {part}")
-    for n, t in want["direct"].items():
-        _close(ttstate["direct"][n], t, what=n)
+    want, wopt = bridge.lora_state_from_jax(jax.tree.map(np.asarray, jtstate),
+                                            jax.tree.map(np.asarray, jopt))
+    jafter = {n: t.numpy() for n, t in tlora.flat_names(want).items()}
+    after = tlora.flat_names(ttstate)
+    assert set(after) == set(jafter) == set(wopt["nu"])
+    _d, _t, moved = _check_moves(before, after, jbefore, jafter, wopt["nu"], STEP_LR, "LoRA")
+    assert moved >= 0.5 * STEP_LR
+    for fault in (lambda p, u: dict(p),
+                  lambda p, u, real=tlora.apply_updates: real(p, {n: -x for n, x in u.items()})):
+        with monkeypatch.context() as m:
+            m.setattr(tlora, "apply_updates", fault)
+            bad, _o, _m = tstep(_params(tm), *state0, *targs)
+        with pytest.raises(AssertionError, match="Δport"):
+            _check_moves(before, tlora.flat_names(bad), jbefore, jafter, wopt["nu"], STEP_LR,
+                         "planted fault")
     served = tlora.materialize(tm, _params(tm), ttstate, tcfg)
     jserved = _port(jlora.materialize(v, jax.tree.map(np.asarray, jtstate), cfg))
     for n, a in jserved.items():
@@ -529,6 +604,31 @@ def test_gate_routes_no_kernel_at_or_past_the_cutoff(monkeypatch):
                 assert blocks == {0, 1, 2, 3, None} and ("refinement", None) in calls
             else:
                 assert blocks == {0, 1}
+
+
+def test_flash_route_walk_and_head_widths():
+    """The module path's FlashAttention blocks, walked from the config as
+    Hiera.forward runs them: Hiera-L@1024's globals 23/33/43 (4096 tokens,
+    heads of 72), Hiera-t@1024's 5/7/9 (heads of 96), none at t@512 (1024
+    tokens) or from a start past the last; and the widths the card's
+    kernels take. On the CPU nothing is refused."""
+    def trunk(**kw):
+        with torch.device("meta"):
+            return TSAM2(tconfig.SAM2Config(**kw)).trunk
+    big = trunk()
+    assert thiera.flash_blocks(big, 1024) == [(23, 4096, 72), (33, 4096, 72), (43, 4096, 72)]
+    assert thiera.flash_blocks(big, 1024, start=44) == []
+    t = dict(embed_dim=96, num_heads=1, stages=(1, 2, 7, 2), global_att_blocks=(5, 7, 9),
+             window_spec=(8, 4, 14, 7))
+    assert thiera.flash_blocks(trunk(resolution=1024, **t), 1024) == [
+        (5, 4096, 96), (7, 4096, 96), (9, 4096, 96)]
+    assert thiera.flash_blocks(trunk(resolution=512, **t), 512) == []
+    ok = fa.grad_head_width_ok
+    assert ok(72, torch.bfloat16) and ok(64, torch.bfloat16) and ok(96, torch.float32)
+    assert not ok(96, torch.bfloat16) and not ok(60, torch.bfloat16) and not ok(136, torch.float32)
+    with torch.device("meta"):
+        wide = TSAM2(tconfig.SAM2Config(resolution=1024, **t)).to(torch.bfloat16)
+    tts.check_flash_widths(wide, 0)
 
 
 # ------------------------------------------------------- max-pool ties

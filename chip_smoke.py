@@ -78,9 +78,10 @@ Phases, in order; any failure raises and the process exits non-zero:
      launch counts — and its two kernels there in bf16 and f32;
  11. the fine-tune's kernels — FlashAttention's lse forward (K1) and its
      dq and dkv backward kernels (K3, K2) at SAM2.1-L's global shape,
-     1 × 8 heads × 4096 × 72, in bf16 and f32 against their plain
-     versions, SDPA and SDPA's backward (through autograd, timed by
-     CUDA-graph replay as the kernels are) beside them;
+     1 × 8 heads × 4096 × 72, and at Hiera-t@1024's, 1 × 4 × 4096 × 96,
+     in bf16 and f32 against their plain versions, SDPA and SDPA's
+     backward (through autograd, timed by CUDA-graph replay as the
+     kernels are) beside them;
  12. the fine-tune — L_CUT whole-tree in float32 with TF32 off, the
      card's gradients against the port's CPU gradients on every leaf;
      SAM2.1-L@1024 in bf16 (every float leaf cast, LayerNorm's too):
@@ -88,14 +89,17 @@ Phases, in order; any failure raises and the process exits non-zero:
      selective step at the reference's surface and the rank-4 LoRA step
      (path B) — ms per step (median of 5 after a warm-up), images/s,
      peak memory, the loss falling over the steps on one batch, exact
-     launch counts per step; then the shipped ckpt/sam2 (t@512 float32)
-     trained whole-tree on eval_data through the port's folder dataset
-     in batches of 8 (path C), which launches no kernel.
+     launch counts per step; SAM2.1 Hiera-t@1024 in bf16, seeded, the
+     whole-tree step at batch 1 and 4 (its global heads of width 96 on
+     FlashAttention's 96 instances); then the shipped ckpt/sam2 (t@512
+     float32) trained whole-tree on eval_data through the port's folder
+     dataset in batches of 8 (path C), which launches no kernel.
 
 It prints one JSON line per kernel shape and route check, the launch
 floor, one line per fine-tune path, a `kernels` summary line (every
 ported kernel with its launches, device and eager times on the path that
-runs it), the card's
+runs it; FlashAttention's three at L@1024, and again at t@1024 on a
+`kernels_train_t1024` line before it), the card's
 `nvidia-smi` name/power line, and as its
 last line {"ok": true, "device": {...}}. It reads ckpt/ and eval_data/
 and writes only the package's build/ directory. Without a CUDA device it
@@ -621,9 +625,12 @@ def kernel_cases(torch, path, raster_counts=None):
     shapes of the seeded-weight run), those of the seeded-weight run and
     three more shapes as rows off the count."""
     b = case_builders(torch)
-    if path == "train":
-        # per whole-tree L@1024 step at batch 1: the global blocks 23, 33, 43
-        return [(name, "global 1x8 heads N=4096 D=72", 3, b["attn_grad"](1, 8, 4096, 72, part))
+    if path in ("train", "train-t"):
+        # per whole-tree step at batch 1: L@1024's global blocks 23, 33, 43
+        # (8 heads of 72), t@1024's 5, 7, 9 (4 heads of 96)
+        heads, hd = (8, 72) if path == "train" else (4, 96)
+        return [(name, f"global 1x{heads} heads N=4096 D={hd}", 3,
+                 b["attn_grad"](1, heads, 4096, hd, part))
                 for name, part in (("flash_attn_lse", "lse"), ("flash_attn_bwd_dq", "dq"),
                                    ("flash_attn_bwd_dkv", "dkv"))]
     if path == "trunk-ln":
@@ -794,7 +801,12 @@ def check_plans(torch):
                 ml.cv_mlp_gemm_smem(g.bm) == g.smem for g in (plan.gemm1, plan.gemm2))
         if not ok:
             raise AssertionError(f"{name} plan disagrees with the kernel at {label}")
+    bl = library("flash_bwd")
+    for hd in range(8, fa.LSE_WIDTHS[-1] + 1, 8):  # FlashAttention's bf16 backward
+        if bl.cv_flash_bwd_bf16_smem(hd) != fa.flash_bwd_tc_smem(fa.grad_width(hd)):
+            raise AssertionError(f"flash_bwd plan disagrees with the kernels at head width {hd}")
     print(json.dumps({"plans_match_kernels": True, "flash_widths": list(fa.TC_WIDTHS),
+                      "flash_grad_widths": list(fa.LSE_WIDTHS),
                       "gemm_rows": list(mb.GEMM_ROWS)}), flush=True)
 
 
@@ -1406,12 +1418,13 @@ def run_training(torch, smi):
     block) against the port's CPU gradients, every leaf. (2) SAM2.1-L@1024
     in bfloat16, seeded weights, on one seeded batch: the whole-tree step
     at batch 1 and 4 (path A), the selective step at the reference's
-    surface and the rank-4 LoRA step at batch 4 (path B). (3) The shipped
-    segmenter's fine-tune (path C): ckpt/sam2 (t@512 float32), every leaf
-    trained at scripts/train_segmenter.py's learning rate held constant,
-    batches of 8 from eval_data through the port's
-    SegmentationFolderDataset. Returns the launches per step of path A at
-    batch 1."""
+    surface and the rank-4 LoRA step at batch 4 (path B); SAM2.1
+    Hiera-t@1024 in bfloat16, seeded, its whole-tree step at batch 1 and 4
+    (global heads of 96). (3) The shipped segmenter's fine-tune (path C):
+    ckpt/sam2 (t@512 float32), every leaf trained at
+    scripts/train_segmenter.py's learning rate held constant, batches of 8
+    from eval_data through the port's SegmentationFolderDataset. Returns
+    the launches per step of path A and of the t@1024 step at batch 1."""
     from circuitvision_tpu_torch.core.config import TrainConfig
     from circuitvision_tpu_torch.models.bridge import (
         sam2_config, seeded_state, state_dict_from_variables,
@@ -1499,6 +1512,20 @@ def run_training(torch, smi):
     del model, base, tstate, inputs
     torch.cuda.empty_cache()
 
+    # Hiera-t@1024 in bfloat16: FlashAttention at head width 96
+    meta = {"sam2": {"preset": "t", "overrides": {"resolution": 1024}}}
+    model = train_model(torch, meta, seeded_state("sam2", meta, 5), "cuda", torch.bfloat16)
+    for batch in (1, 4):
+        step, carry = stepper(model, cfg, every_leaf(model), selective=False)
+        _report, counts = run_steps(torch, smi, "t@1024 whole-tree bf16", step, carry,
+                                    train_inputs(torch, batch, 1024), TRAIN_STEPS, "train-whole")
+        if batch == 1:
+            launches_t = counts
+        del step, carry
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+
     # (3) the shipped segmenter's fine-tune
     variables, smeta = load_model_checkpoint(str(REPO / "ckpt" / "sam2"))
     scfg = sam2_config(smeta)
@@ -1516,7 +1543,7 @@ def run_training(torch, smi):
                                        "last": report["losses"][-1], "images": len(ds)}}))
     del model
     torch.cuda.empty_cache()
-    return launches
+    return launches, launches_t
 
 
 def run_batched_path(torch, smi):
@@ -1724,12 +1751,14 @@ def main() -> int:
     summary["trunk-ln"] = run_kernels(torch, "trunk-ln")
     done(t0, "trunk LayerNorm option")
 
-    t0 = phase("fine-tune kernels: FlashAttention's lse forward and backward at L@1024")
+    t0 = phase("fine-tune kernels: FlashAttention's lse forward and backward at L@1024, t@1024")
     summary["train"] = run_kernels(torch, "train")
+    summary["train-t"] = run_kernels(torch, "train-t")
     done(t0, "fine-tune kernels")
 
-    t0 = phase("fine-tune: L_CUT card vs CPU gradients, SAM2.1-L@1024 paths A and B, path C")
-    launches["train"] = run_training(torch, smi)
+    t0 = phase("fine-tune: L_CUT card vs CPU gradients, SAM2.1-L@1024 paths A and B, "
+               "t@1024, path C")
+    launches["train"], launches["train-t"] = run_training(torch, smi)
     done(t0, "fine-tune")
 
     def entry(name, s, counts):
@@ -1741,6 +1770,10 @@ def main() -> int:
 
     print(json.dumps({"kernels_t512": [{"name": n, **entry(n, s, launches["t@512"])}
                                        for n, s in summary["t@512"].items()]}))
+    print(json.dumps({"kernels_train_t1024": [
+        {"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
+         "path": "train-t", **entry(n, s, launches["train-t"])}
+        for n, s in summary["train-t"].items()]}))
     # one entry per kernel, on the path that runs it: the seven Hiera and
     # head kernels on L@1024, the line enhancement on the batched path,
     # the LayerNorms on the trunk LayerNorm option, FlashAttention's three

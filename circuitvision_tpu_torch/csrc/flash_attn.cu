@@ -17,8 +17,8 @@
 // product (accumulated in f32), the f32 sum of the unrounded ones as the
 // divisor, and the result rounded once.
 //
-// The lse instances (flash_lse_kernel, flash_tc_lse_kernel at head width
-// 72) are the forward of training's FlashAttention (jax's forward with
+// The lse instances (flash_lse_kernel, flash_tc_lse_kernel at head widths
+// 72 and 96) are the forward of training's FlashAttention (jax's forward with
 // save_residuals): the same bodies, which also write each row's
 // log-sum-exp of the scaled scores, m + log(l), in float32 — the residual
 // the backward kernels (flash_bwd.cu) recompute the probabilities from.
@@ -619,23 +619,30 @@ extern "C" int cv_flash_attn_bf16(const void* q, const void* k, const void* v, v
 }
 
 // The forward of the training path (FlashAttention in ops/cuda/
-// flash_attn.py): as cv_flash_attn_bf16 without pool_win, at the head
-// width 72 instance only (hd a multiple of 8 up to 72), and also writing
-// lse (bh, nq) float32, each row's log-sum-exp of the scaled scores, the
-// residual the backward (flash_bwd.cu) recomputes the probabilities from.
+// flash_attn.py): as cv_flash_attn_bf16 without pool_win, at the
+// instances of width 72 (mt 1 or 2) and 96 (mt 1) only — hd a multiple of
+// 8 up to `width` — and also writing lse (bh, nq) float32, each row's
+// log-sum-exp of the scaled scores, the residual the backward
+// (flash_bwd.cu) recomputes the probabilities from.
 extern "C" int cv_flash_attn_lse_bf16(const void* q, const void* k, const void* v, void* o,
-                                      void* lse, int bh, int nq, int nk, int hd, int mt,
-                                      int wpp, int stages, float scale_log2, void* stream) {
-  if (hd < 8 || hd % 8 || hd > 72 || nq < 1 || nk < 1 || bh < 1 ||
+                                      void* lse, int bh, int nq, int nk, int hd, int width,
+                                      int mt, int wpp, int stages, float scale_log2,
+                                      void* stream) {
+  if (hd < 8 || hd % 8 || hd > width || nq < 1 || nk < 1 || bh < 1 ||
       (wpp != 1 && wpp != 2 && wpp != 4) || stages < 1 || stages > 2 ||
       (stages == 1 && nk > kTcKeys) || (mt == 2 && wpp != kTcWarps) || mt < 1 || mt > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (mt == 2)
+  if (width == 72 && mt == 2)
     return (int)launch_flash_tc<9, 2, true>(q, k, v, o, bh, nq, nk, hd, 0, wpp, stages,
                                             scale_log2, s, (float*)lse);
-  return (int)launch_flash_tc<9, 1, true>(q, k, v, o, bh, nq, nk, hd, 0, wpp, stages,
-                                          scale_log2, s, (float*)lse);
+  if (width == 72)
+    return (int)launch_flash_tc<9, 1, true>(q, k, v, o, bh, nq, nk, hd, 0, wpp, stages,
+                                            scale_log2, s, (float*)lse);
+  if (width == 96 && mt == 1)
+    return (int)launch_flash_tc<12, 1, true>(q, k, v, o, bh, nq, nk, hd, 0, wpp, stages,
+                                             scale_log2, s, (float*)lse);
+  return (int)cudaErrorInvalidValue;
 }
 
 // float32 forward with lse, as cv_flash_attn_f32 without pool_win.

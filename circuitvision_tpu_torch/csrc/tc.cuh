@@ -1,6 +1,6 @@
 // Tensor-core building blocks for Hopper (sm_90a), shared by the bf16
-// kernels of flash_attn.cu, window_attn.cu and tc_gemm.cuh (mlp_block.cu,
-// global_attn.cu): 16-byte asynchronous
+// kernels of flash_attn.cu, flash_bwd.cu, window_attn.cu and tc_gemm.cuh
+// (mlp_block.cu, global_attn.cu): 16-byte (and 4-byte) asynchronous
 // global → shared copies (cp.async, zero-filling where the source lies
 // outside the operand), ldmatrix fragment loads, the warp-level mma.sync
 // m16n8k16 product, and the warpgroup wgmma product over swizzled
@@ -39,6 +39,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from global `src` to shared `dst` (cp.async.ca: 16 bytes is
+// the only size .cg takes); with `valid` false dst is zero-filled.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 

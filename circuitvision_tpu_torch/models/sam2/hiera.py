@@ -49,9 +49,9 @@ kernel with its backward kernels on the card, its plain version on the
 CPU), shorter sequences through `einsum_attention`, as the JAX module
 path takes flash or einsum (`flash_route`; `force_flash` overrides the
 choice). On the card FlashAttention takes float32 heads up to 128 but
-bfloat16 heads only a multiple of 8 up to 72 — Hiera-L's globals; not
-Hiera-t's or -s's at 1024, of width 96 — and the training steps refuse
-a model past that before their first step (train/train_step.py
+bfloat16 heads only a multiple of 8 up to 96 — every SAM2.1 preset's
+global heads (L 72, b+ 56, t and s 96) — and the training steps refuse a
+model past that before their first step (train/train_step.py
 `check_flash_widths`).
 Every other kernel wrapper raises when an operand requires grad under
 grad mode, so a kernel can never cut a gradient silently.
@@ -126,7 +126,7 @@ def flash_route(tokens: int, hd: int) -> bool:
     head width hd goes through FlashAttention (else einsum_attention):
     from FLASH_MIN_SEQ tokens, at head widths up to MAX_HEAD_DIM. On the
     card FlashAttention then takes every such float32 head but only
-    bfloat16 heads a multiple of 8 up to 72 (flash_attn.grad_head_width_ok)
+    bfloat16 heads a multiple of 8 up to 96 (flash_attn.grad_head_width_ok)
     and raises on any other; the training steps refuse such a model before
     their first step (train/train_step.py `check_flash_widths`)."""
     return tokens >= FLASH_MIN_SEQ and hd <= MAX_HEAD_DIM

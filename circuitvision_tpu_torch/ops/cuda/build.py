@@ -71,12 +71,13 @@ SIGNATURES = {
         "cv_flash_attn_f32": [_P] * 4 + [_I] * 5 + [_F, _P],
         "cv_flash_attn_bf16": [_P] * 4 + [_I] * 9 + [_F, _P],
         "cv_flash_attn_bf16_smem": [_I] * 4,
-        "cv_flash_attn_lse_bf16": [_P] * 5 + [_I] * 7 + [_F, _P],
+        "cv_flash_attn_lse_bf16": [_P] * 5 + [_I] * 8 + [_F, _P],
         "cv_flash_attn_lse_f32": [_P] * 5 + [_I] * 4 + [_F, _P],
     },
     "flash_bwd": {
         "cv_flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
         "cv_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+        "cv_flash_bwd_bf16_smem": [_I],
     },
     "morphology": {
         "cv_enhance_lines": [_P, _P, _I, _I] + [_F] * 5 + [_P],

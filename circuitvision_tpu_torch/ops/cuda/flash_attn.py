@@ -169,21 +169,45 @@ flash_attn.launches = 0
 
 
 # ------------------------------------------------------- with a gradient
-#: the bfloat16 lse instance's head width (csrc/flash_attn.cu
-#: cv_flash_attn_lse_bf16): a head of width ≤ 72, a multiple of 8, runs
-#: on it with its extra columns zero; the backward kernels' widest heads
-#: (csrc/flash_bwd.cu): bfloat16 80, float32 128
-LSE_WIDTH = 72
-BWD_WIDEST = {torch.bfloat16: 80, torch.float32: MAX_HEAD_DIM}
+#: head widths of the bfloat16 instances of FlashAttention's kernels: the
+#: lse forward (csrc/flash_attn.cu cv_flash_attn_lse_bf16) and the two
+#: backward kernels (csrc/flash_bwd.cu kBwdWidths). A head a multiple of
+#: 8 takes the narrowest that holds it, its extra columns zero (`grad_width`):
+#: 72 takes SAM2.1-L's and -b+'s global heads (72, 56), 96 Hiera-t's and -s's
+LSE_WIDTHS = (72, 96)
+#: the backward kernels' widest heads: bfloat16 96, float32 128
+BWD_WIDEST = {torch.bfloat16: LSE_WIDTHS[-1], torch.float32: MAX_HEAD_DIM}
+#: q rows (dq) or keys (dkv) a block of the bfloat16 backward kernels,
+#: one m16 tile of them a warp; keys (dq) or q rows (dkv) a streamed tile
+BWD_TILE = 64
+
+
+def grad_width(hd: int) -> int:
+    """The bfloat16 instance of FlashAttention's kernels that takes heads
+    of width hd: the narrowest of LSE_WIDTHS that holds it. Raises where
+    hd is not a multiple of 8 (rows are copied in 16-byte pieces) or wider
+    than every instance."""
+    if hd < 8 or hd % 8 or hd > LSE_WIDTHS[-1]:
+        raise KernelError(f"FlashAttention: bfloat16 head width {hd} is not a multiple of 8 "
+                          f"up to {LSE_WIDTHS[-1]}")
+    return next(w for w in LSE_WIDTHS if w >= hd)
+
+
+def flash_bwd_tc_smem(width: int) -> int:
+    """Shared-memory bytes of a block of either bfloat16 backward kernel at
+    instance width `width` (csrc/flash_bwd.cu bwd_tc_smem, which the card
+    tests compare): six 64-row bf16 tiles of rows of the padded depth plus
+    8, and 1 KB of float32 row values (lse and D of two staged q tiles)."""
+    return 2 * 6 * BWD_TILE * (tc_depth(width) + 8) + 4 * 4 * BWD_TILE
 
 
 def grad_head_width_ok(hd: int, dtype: torch.dtype) -> bool:
     """Whether FlashAttention's kernels take heads of width hd in dtype on
     the card: float32 up to MAX_HEAD_DIM; bfloat16 a multiple of 8 up to
-    LSE_WIDTH (the lse forward's one instance — the backward kernels
-    reach 80). On the CPU the plain versions take every width."""
+    96 (the instances at LSE_WIDTHS). On the CPU the plain versions take
+    every width."""
     if dtype == torch.bfloat16:
-        return 0 < hd <= LSE_WIDTH and hd % 8 == 0
+        return 0 < hd <= LSE_WIDTHS[-1] and hd % 8 == 0
     return dtype == torch.float32 and 0 < hd <= MAX_HEAD_DIM
 
 
@@ -217,7 +241,8 @@ def flash_attn_lse(q, k, v, scale_width=None):
     """The forward of FlashAttention: (o, lse) for q (B, H, Nq, D), k and
     v (B, H, Nk, D), lse (B, H, Nq) float32. CPU tensors take the plain
     version; CUDA tensors launch flash_attn's lse instance (bfloat16: D a
-    multiple of 8 up to LSE_WIDTH; float32: D ≤ 128)."""
+    multiple of 8 up to 96, on the narrowest of LSE_WIDTHS that holds it;
+    float32: D ≤ 128)."""
     if q.device.type == "cpu":
         return flash_attn_lse_plain(q, k, v, scale_width)
     check_operands("flash_attn_lse", q, k, v)
@@ -228,17 +253,18 @@ def flash_attn_lse(q, k, v, scale_width=None):
             or not grad_head_width_ok(hd, q.dtype):
         raise KernelError(f"flash_attn_lse: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                           f"v {tuple(v.shape)} do not fit (heads: float32 up to "
-                          f"{MAX_HEAD_DIM}, bfloat16 a multiple of 8 up to {LSE_WIDTH})")
+                          f"{MAX_HEAD_DIM}, bfloat16 a multiple of 8 up to "
+                          f"{LSE_WIDTHS[-1]})")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     lib = library("flash_attn")
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
     if q.dtype == torch.bfloat16:
-        plan = flash_plan(b * h, nq, nk, LSE_WIDTH, sm_count(q))
+        plan = flash_plan(b * h, nq, nk, grad_width(hd), sm_count(q))
         check_aligned("flash_attn_lse", q, k, v, out)
-        err = lib.cv_flash_attn_lse_bf16(*ptrs, b * h, nq, nk, hd, plan.mt, plan.wpp,
-                                         plan.stages, _LOG2E / math.sqrt(scale_width or hd),
-                                         stream_ptr(q))
+        err = lib.cv_flash_attn_lse_bf16(*ptrs, b * h, nq, nk, hd, plan.width, plan.mt,
+                                         plan.wpp, plan.stages,
+                                         _LOG2E / math.sqrt(scale_width or hd), stream_ptr(q))
     else:
         err = lib.cv_flash_attn_lse_f32(*ptrs, b * h, nq, nk, hd,
                                         1.0 / math.sqrt(scale_width or hd), stream_ptr(q))
@@ -253,9 +279,12 @@ flash_attn_lse.launches = 0
 def flash_attn_bwd_plain(q, k, v, o, lse, do, scale_width=None):
     """(dq, dk, dv) of o = softmax(q·kᵀ·s)·v for the output gradient do,
     from the forward's lse: P = exp(q·kᵀ·s − lse), dV = Pᵀ·dO,
-    dS = P∘(dO·Vᵀ − rowsum(dO∘O)), dQ = dS·K·s, dK = dSᵀ·Q·s — in float32
-    (float64 for float64 inputs) over chunks of q rows, each result
-    rounded once to the inputs' dtype."""
+    dS = P∘(dO·Vᵀ − rowsum(dO∘O))·s, dQ = dS·K, dK = dSᵀ·Q — in float32
+    (float64 for float64 inputs) over chunks of q rows. As jax's backward
+    kernels (flash_attention.py :900, :918, :1251-1258), P and dS are
+    rounded to the inputs' dtype where they enter the products (a no-op in
+    float32 and float64), the sums kept in the accumulation dtype and each
+    result rounded once."""
     acc = _acc_dtype(q.dtype)
     return _bwd_plain(q, k, v, lse, (do.to(acc) * o.to(acc)).sum(-1), do, scale_width)
 
@@ -273,11 +302,12 @@ def _bwd_plain(q, k, v, lse, delta, do, scale_width):
     for i in range(0, nq, step):
         qf, dof = q[:, :, i:i + step].to(acc), do[:, :, i:i + step].to(acc)
         p = torch.exp((qf @ kf.transpose(-1, -2)) * scale - lse[:, :, i:i + step, None].to(acc))
-        dv += p.transpose(-1, -2) @ dof
+        dv += p.to(dt).to(acc).transpose(-1, -2) @ dof
         ds = p * (dof @ vf.transpose(-1, -2) - delta[:, :, i:i + step, None].to(acc))
-        dq[:, :, i:i + step] = ((ds @ kf) * scale).to(dt)
+        ds = (ds * scale).to(dt).to(acc)
+        dq[:, :, i:i + step] = (ds @ kf).to(dt)
         dk += ds.transpose(-1, -2) @ qf
-    return dq, (dk * scale).to(dt), dv.to(dt)
+    return dq, dk.to(dt), dv.to(dt)
 
 
 def _bwd_operands(what, q, k, v, lse, do, *more):
@@ -290,6 +320,9 @@ def _bwd_operands(what, q, k, v, lse, do, *more):
             or hd > widest or any(t.shape != q.shape for t in more):
         raise KernelError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)},"
                           f" do {tuple(do.shape)} do not fit (widest {q.dtype} head {widest})")
+    if q.dtype == torch.bfloat16:
+        grad_width(hd)  # raises on a width no instance takes
+        check_aligned(what, q, k, v, do, *more)
     if lse.dtype != torch.float32 or lse.shape != (b, h, nq) or not lse.is_contiguous() \
             or lse.device != q.device:
         raise KernelError(f"{what}: lse must be contiguous float32 ({b}, {h}, {nq}) on "
@@ -301,7 +334,7 @@ def flash_attn_bwd_dq(q, k, v, o, lse, do, scale_width=None):
     """(dq, delta): the gradient of q and delta = rowsum(do∘o) (B, H, Nq)
     float32, which flash_attn_bwd_dkv reads. CPU tensors take the plain
     version; CUDA tensors launch csrc/flash_bwd.cu's dq kernel (float32:
-    D ≤ 128; bfloat16: D ≤ 80)."""
+    D ≤ 128; bfloat16: D a multiple of 8 up to 96, on the tensor cores)."""
     if q.device.type == "cpu":
         acc = _acc_dtype(q.dtype)
         delta = (do.to(acc) * o.to(acc)).sum(-1)
@@ -356,7 +389,7 @@ class FlashAttention(torch.autograd.Function):
     wrappers take their plain versions. The one kernel path that may run
     under autograd; a kernel failure raises. On the card it takes heads
     of width up to 128 in float32 and bfloat16 heads a multiple of 8 up to
-    LSE_WIDTH (`grad_head_width_ok`)."""
+    96 (`grad_head_width_ok`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale_width=None):

@@ -23,6 +23,8 @@ from typing import Any, Mapping
 
 import torch
 
+from ..core.config import resolve_device
+
 _STEP_FMT = "step_{:08d}"
 _STEP_RE = re.compile(r"^step_(\d{8})$")
 _PAYLOAD = "state.pt"
@@ -147,7 +149,7 @@ def prune_checkpoints(ckpt_dir: str, keep: int) -> None:
         shutil.rmtree(path, ignore_errors=True)
 
 
-def restore_jax_train_state(path: str, trainable, cfg, extra: bool = False, device=None):
+def restore_jax_train_state(path: str, trainable, cfg, extra: bool = False, device="cuda"):
     """A train checkpoint the JAX package wrote (its save_train_state of a
     make_optimizer state) → the port's (params, opt_state[, ema]), read
     by the port's orbax reader. `trainable`: port names of the trainable
@@ -156,11 +158,14 @@ def restore_jax_train_state(path: str, trainable, cfg, extra: bool = False, devi
     gradient_step] with accumulation, count, mu and nu of the trainable
     leaves, the schedule's count where the LR is a schedule, then
     acc_grads with accumulation. Every moment takes its parameter's
-    layout in the port."""
+    layout in the port. The tensors land on `device`: the card unless
+    another device (such as "cpu") is asked for; the step counts stay
+    int32 scalars on the CPU, as the optimizer's init makes them."""
     from ..models.bridge import leaves_in_jax_order, port_tree
     from ..models.checkpoint import load_variables
     from .train_step import learning_rate_schedule
 
+    device = resolve_device(device, "restore_jax_train_state")
     tree = load_variables(path)
     params = port_tree(tree["params"], device)
     n = len(set(trainable))

@@ -275,10 +275,11 @@ def check_flash_widths(model: torch.nn.Module, start: int) -> None:
     """Refuse, before any step, a model on the card whose differentiated
     trunk blocks (from `start` on) would hand FlashAttention heads its
     kernels do not take (hiera.flash_blocks, flash_attn.grad_head_width_ok):
-    in bfloat16, Hiera-t and -s at 1024, whose global heads are 96 wide.
+    in bfloat16, heads off a multiple of 8 or wider than 96 (the kernels'
+    instances are at widths 72 and 96: every SAM2.1 preset's global heads).
     On the CPU the plain versions take every width."""
     from ..models.sam2 import hiera
-    from ..ops.cuda.flash_attn import LSE_WIDTH, grad_head_width_ok
+    from ..ops.cuda.flash_attn import LSE_WIDTHS, grad_head_width_ok
 
     weight = model.trunk.patch_embed_proj.weight
     if not weight.is_cuda:
@@ -286,7 +287,8 @@ def check_flash_widths(model: torch.nn.Module, start: int) -> None:
     for _i, _tokens, hd in hiera.flash_blocks(model.trunk, model.cfg.resolution, start):
         if not grad_head_width_ok(hd, weight.dtype):
             raise KernelError(f"training on the card: FlashAttention's kernels take bfloat16 "
-                              f"heads a multiple of 8 up to {LSE_WIDTH}; this model's global "
+                              f"heads a multiple of 8 up to {LSE_WIDTHS[-1]} (instances at "
+                              f"widths {', '.join(map(str, LSE_WIDTHS))}); this model's global "
                               f"blocks give it heads of width {hd} ({weight.dtype})")
 
 

@@ -438,11 +438,13 @@ def test_off_preset_head_widths_route_and_match(gen, hd):
 
 
 # ------------------------------------------- flash attention with a gradient
-#: (B, H, Nq, Nk, D): SAM2.1-L's global blocks (1 × 8 heads × 4096, D 72),
-#: rows and keys off the 64-row tiles, Nq ≠ Nk, narrower heads on the
-#: bf16 lse instance of width 72, and float32 widths up to 128
+#: (B, H, Nq, Nk, D): SAM2.1-L's global blocks (1 × 8 heads × 4096, D 72)
+#: and Hiera-t@1024's (1 × 4 × 4096, D 96), rows and keys off the 64-row
+#: tiles, Nq ≠ Nk, narrower heads on the bf16 instances of widths 72 and
+#: 96 (64, 8; 88), and float32 widths up to 128
 BWD_SHAPES = [(1, 8, 4096, 4096, 72), (2, 2, 100, 70, 72), (1, 3, 17, 257, 64),
-              (2, 2, 65, 64, 8)]
+              (2, 2, 65, 64, 8), (1, 4, 4096, 4096, 96), (2, 2, 100, 70, 96),
+              (1, 2, 300, 257, 88)]
 BWD_SHAPES_F32 = BWD_SHAPES + [(2, 2, 100, 70, 128), (1, 2, 33, 65, 20)]
 
 
@@ -482,6 +484,18 @@ def test_flash_attn_bwd_kernels(gen, dt, shape):
     _close(delta, (do.float() * o.float()).sum(-1))
     for got, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         _close(got, ref)
+
+
+def test_flash_bwd_smem_matches_kernels(gen):
+    """The bf16 backward's instance width and shared memory as the Python
+    side works them out against the kernels' own (csrc/flash_bwd.cu
+    cv_flash_bwd_bf16_smem) at every head width a multiple of 8 up to 96,
+    and no instance past them."""
+    lib = build.library("flash_bwd")
+    for hd in range(8, 97, 8):
+        assert lib.cv_flash_bwd_bf16_smem(hd) == fa.flash_bwd_tc_smem(fa.grad_width(hd)), hd
+    for hd in (4, 60, 104, 128):
+        assert lib.cv_flash_bwd_bf16_smem(hd) == 0, hd
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -558,24 +572,29 @@ def test_kernel_wrappers_refuse_operands_that_require_grad(gen):
 
 
 def test_training_refuses_bf16_heads_flash_cannot_take(gen):
-    """Hiera-t at 1024 in bfloat16 — global heads of width 96, past the
-    lse forward's 72 — is refused with its width named when the
-    whole-tree step is made and before a LoRA step runs; in float32 the
-    same model is taken."""
+    """A Hiera layout at 1024 whose global heads are 104 wide in bfloat16 —
+    past FlashAttention's widest bf16 instance, 96 — is refused with its
+    width named when the whole-tree step is made and before a LoRA step
+    runs; in float32 the same model is taken, and so is bfloat16
+    Hiera-t@1024 (global heads of 96)."""
     from circuitvision_tpu_torch.core.config import SAM2Config, TrainConfig
     from circuitvision_tpu_torch.models.sam2.wrapper import SAM2ImageSegmenter
     from circuitvision_tpu_torch.train import lora, train_step
 
-    cfg = SAM2Config(resolution=1024, embed_dim=96, num_heads=1, stages=(1, 2, 7, 2),
-                     global_att_blocks=(5, 7, 9), window_spec=(8, 4, 14, 7))
-    model = SAM2ImageSegmenter(cfg).to("cuda", torch.bfloat16)
+    t = dict(resolution=1024, num_heads=1, stages=(1, 2, 7, 2), global_att_blocks=(5, 7, 9),
+             window_spec=(8, 4, 14, 7))
+    model = SAM2ImageSegmenter(SAM2Config(embed_dim=104, **t)).to("cuda", torch.bfloat16)
     opt, mask = train_step.make_optimizer(model, TrainConfig(), None)
     all_true = {n: True for n in mask}
-    with pytest.raises(build.KernelError, match="width 96"):
+    with pytest.raises(build.KernelError, match="width 104"):
         train_step.make_train_step(model, opt, mask=all_true, selective=False)
     train_step.make_train_step(model, opt, mask=mask)  # the surface: no trunk block trains
     tstate = lora.init_train_state(model, torch.Generator().manual_seed(0), n_trunk_blocks=12)
     step = lora.make_lora_train_step(model, lora.make_lora_optimizer())
-    with pytest.raises(build.KernelError, match="width 96"):
+    with pytest.raises(build.KernelError, match="width 104"):
         step(dict(model.named_parameters()), tstate, None, None, None)
     train_step.make_train_step(model.float(), opt, mask=all_true, selective=False)
+    tiny = SAM2ImageSegmenter(SAM2Config(embed_dim=96, **t)).to("cuda", torch.bfloat16)
+    train_step.make_train_step(tiny, train_step.make_optimizer(tiny, TrainConfig(), None)[0],
+                               mask={n: True for n, _ in tiny.named_parameters()},
+                               selective=False)

@@ -3,19 +3,27 @@ jax's TPU flash attention with its custom VJP — on the CPU, where its
 forward and backward take their plain versions (flash_attn_lse_plain,
 flash_attn_bwd_plain): against `jax.vjp` of jax's `mha_reference`
 (flash_attention.py:1530, the reference its TPU kernels are tested
-against), in float64 against finite differences, and inside a whole
+against), against jax's TPU kernels themselves (forward and both
+backward kernels, run in Pallas's TPU interpret mode) in bfloat16 and
+float32, in float64 against finite differences, and inside a whole
 Hiera block on the module path with FLASH_MIN_SEQ lowered, against the
 JAX block's module path.
 
 Tolerance: max |port − jax| ≤ 1e-4 · max(1, max |jax|) per output, in
-float32, JAX under jax.default_matmul_precision("highest").
+float32, JAX under jax.default_matmul_precision("highest"); bfloat16 as
+the test against jax's kernels says.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas.ops.tpu.flash_attention import mha_reference
+from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu.flash_attention import (
+    BlockSizes, flash_attention, mha_reference,
+)
 
 from circuitvision_tpu.models.sam2 import hiera as jhiera
 from circuitvision_tpu_torch.models.sam2 import hiera as thiera
@@ -64,6 +72,55 @@ def test_flash_attention_matches_jax_vjp_of_mha_reference(b, h, nq, nk, d, scale
     s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), k.astype(np.float64)) * scale
     m = s.max(-1)
     _close(lse, m + np.log(np.exp(s - m[..., None]).sum(-1)))
+
+
+#: jax's TPU kernels at 128-row blocks everywhere: two q and two key
+#: blocks at N = 256, so each kernel carries its sums across grid steps
+_BLOCKS_128 = BlockSizes(block_q=128, block_k_major=128, block_k=128, block_b=1,
+                         block_q_major_dkv=128, block_k_major_dkv=128, block_k_dkv=128,
+                         block_q_dkv=128, block_k_major_dq=128, block_k_dq=128, block_q_dq=128)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [72, 96])
+def test_flash_attention_matches_jax_tpu_kernels(dtype, d):
+    """FlashAttention on the CPU (its plain versions) against jax's TPU
+    flash_attention — its forward and its _flash_attention_bwd_dq and
+    _bwd_dkv kernels through its custom VJP — run in Pallas's TPU
+    interpret mode, at 1 × 2 × 256 × d (SAM2.1-L's and Hiera-t/s's global
+    head widths), softmax scale d^-0.5, the same inputs in the same dtype.
+
+    bfloat16: o, dq, dk and dv within two bf16 ulps at max |jax| each. The
+    plain backward rounds P and dS to bf16 where jax's kernels do
+    (flash_attention.py :900, :918, :1251-1258), and keeps the scores, dP
+    and the sums in float32, as they do; what is left is the order of the
+    float32 sums, jax's P normalised as exp(s − m)/l against the port's
+    exp(s − lse), and each output's own rounding — one ulp, and a second
+    for a value near a rounding boundary. Measured at this seed: half an
+    ulp at max |jax| for o, dq and dk, a quarter or less for dv (both
+    widths), about 4 s a case. float32: the 1e-4 · max(1, max |jax|)
+    bound of the other tests here (measured ≤ 4.8e-7)."""
+    rng = np.random.default_rng(4)
+    q, k, v, do = (rng.standard_normal((1, 2, 256, d)).astype(np.float32) for _ in range(4))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def tpu_flash(q, k, v):
+        return flash_attention(q, k, v, sm_scale=d ** -0.5, block_sizes=_BLOCKS_128)
+
+    with pltpu.force_tpu_interpret_mode():
+        o_ref, vjp = jax.vjp(tpu_flash, *(jnp.asarray(a, jdt) for a in (q, k, v)))
+        refs = [o_ref, *vjp(jnp.asarray(do, jdt))]
+    refs = [np.asarray(r.astype(jnp.float32)) for r in refs]
+    tq, tk, tv = (torch.from_numpy(a).to(tdt).requires_grad_() for a in (q, k, v))
+    o = fa.flash_attention(tq, tk, tv)
+    grads = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do).to(tdt))
+    for got, want in zip((o.detach(), *grads), refs):
+        assert got.dtype == tdt
+        if dtype == "float32":
+            _close(got, want)
+            continue
+        ulp = 2.0 ** (math.floor(math.log2(np.abs(want).max())) - 7)
+        assert np.abs(got.float().numpy() - want).max() <= 2 * ulp
 
 
 def test_flash_attention_gradcheck_float64():

@@ -320,6 +320,51 @@ def test_flash_plan_refuses_head_widths(hd):
         tflash.flash_plan(8, 64, 64, hd)
 
 
+@pytest.mark.parametrize("hd", [8, 56, 64, 72, 80, 88, 96])
+def test_flash_bwd_width_and_smem(hd):
+    """The bf16 backward kernels at a head of width hd (csrc/flash_bwd.cu;
+    the card tests compare the C side's sizes): the narrowest instance
+    that holds the head (SAM2.1-b+'s 56 and L's 72 on 72, t's and s's 96
+    on 96), its depth padded to mma's k = 16 with the head's columns whole
+    8-wide n tiles, conflict-free ldmatrix rows, and six 64-row tiles and
+    1 KB of row values within 227 KB, two blocks to an SM."""
+    width = tflash.grad_width(hd)
+    assert width == min(w for w in tflash.LSE_WIDTHS if w >= hd) and width % 8 == 0
+    depth = tflash.tc_depth(width)
+    assert depth % 16 == 0 and width <= depth < width + 16
+    assert ((depth + 8) // 2) % 8 == 4
+    smem = tflash.flash_bwd_tc_smem(width)
+    assert smem == 6 * tflash.BWD_TILE * (depth + 8) * 2 + 2 * 2 * tflash.BWD_TILE * 4
+    assert 2 * (smem + 1024) <= 228 * 1024 and smem <= build.MAX_SMEM
+
+
+@pytest.mark.parametrize("hd", [4, 60, 100, 104, 128])
+def test_flash_bwd_refuses_head_widths(hd):
+    """bf16 rows are copied in 16-byte pieces and the widest instance is
+    96: other widths are refused, as the C side refuses them."""
+    with pytest.raises(build.KernelError):
+        tflash.grad_width(hd)
+    assert not tflash.grad_head_width_ok(hd, torch.bfloat16)
+
+
+def test_flash_grad_instances_match_the_sources():
+    """The widths and tile the Python side plans with are the C side's:
+    flash_bwd.cu's bf16 instances (kBwdWidths) and tile (kB), the bf16
+    lse forward's instances in flash_attn.cu, and the instances' smem
+    formula (bwd_tc_smem: six tiles and 4·kB floats)."""
+    bwd = (build.CSRC / "flash_bwd.cu").read_text()
+    widths = re.search(r"constexpr int kBwdWidths\[2\] = \{(\d+), (\d+)\};", bwd)
+    assert tuple(int(w) for w in widths.groups()) == tflash.LSE_WIDTHS
+    assert re.search(r"constexpr int kB = (\d+);", bwd).group(1) == str(tflash.BWD_TILE)
+    assert "sizeof(bf16) * 6 * kB * ld + sizeof(float) * 4 * kB" in bwd
+    fwd = (build.CSRC / "flash_attn.cu").read_text()
+    lse = fwd[fwd.index('extern "C" int cv_flash_attn_lse_bf16'):]
+    lse = lse[:lse.index("\n}\n")]
+    assert tuple(sorted({int(w) for w in re.findall(r"width == (\d+)", lse)})) == \
+        tflash.LSE_WIDTHS
+    assert set(tflash.LSE_WIDTHS) <= set(tflash.TC_WIDTHS)
+
+
 def test_mlp_plan_refuses_widths_off_16_bytes():
     with pytest.raises(build.KernelError):
         tmlp.mlp_plan(64, 100, 400)

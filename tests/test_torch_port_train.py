@@ -39,6 +39,7 @@ from circuitvision_tpu_torch.models.sam2 import hiera as thiera
 from circuitvision_tpu_torch.models.sam2 import wrapper as twrapper
 from circuitvision_tpu_torch.models.sam2.wrapper import SAM2ImageSegmenter as TSAM2
 from circuitvision_tpu_torch.ops.cuda import flash_attn as fa
+from circuitvision_tpu_torch.ops.cuda.build import KernelError
 from circuitvision_tpu_torch.train import checkpoint as tckpt
 from circuitvision_tpu_torch.train import lora as tlora
 from circuitvision_tpu_torch.train import losses as tlosses
@@ -537,7 +538,8 @@ def test_restore_of_a_jax_written_train_checkpoint(small, tmp_path, sched):
            for x in jts.init_ema(v, jmask)]
     path = jckpt.save_train_state(str(tmp_path), 7, v, state, extra=ema)
     trainable = [n for n, m in tts.trainable_mask(tm).items() if m]
-    params, got, got_ema = tckpt.restore_jax_train_state(path, trainable, _tcfg(cfg), extra=True)
+    params, got, got_ema = tckpt.restore_jax_train_state(path, trainable, _tcfg(cfg), extra=True,
+                                                         device="cpu")
     want_params, want, want_ema = bridge.train_state_from_jax(
         v, jax.tree.map(np.asarray, state), [np.asarray(e) for e in ema], trainable)
     for n, t in want_params.items():
@@ -611,7 +613,8 @@ def test_flash_route_walk_and_head_widths():
     Hiera.forward runs them: Hiera-L@1024's globals 23/33/43 (4096 tokens,
     heads of 72), Hiera-t@1024's 5/7/9 (heads of 96), none at t@512 (1024
     tokens) or from a start past the last; and the widths the card's
-    kernels take. On the CPU nothing is refused."""
+    kernels take: bfloat16 heads a multiple of 8 up to 96 (instances at 72
+    and 96), float32 up to 128. On the CPU nothing is refused."""
     def trunk(**kw):
         with torch.device("meta"):
             return TSAM2(tconfig.SAM2Config(**kw)).trunk
@@ -625,10 +628,44 @@ def test_flash_route_walk_and_head_widths():
     assert thiera.flash_blocks(trunk(resolution=512, **t), 512) == []
     ok = fa.grad_head_width_ok
     assert ok(72, torch.bfloat16) and ok(64, torch.bfloat16) and ok(96, torch.float32)
-    assert not ok(96, torch.bfloat16) and not ok(60, torch.bfloat16) and not ok(136, torch.float32)
+    assert ok(96, torch.bfloat16) and ok(88, torch.bfloat16)
+    assert not ok(60, torch.bfloat16) and not ok(104, torch.bfloat16)
+    assert not ok(136, torch.float32)
     with torch.device("meta"):
         wide = TSAM2(tconfig.SAM2Config(resolution=1024, **t)).to(torch.bfloat16)
     tts.check_flash_widths(wide, 0)
+
+
+def test_check_flash_widths_on_the_card_admits_t_at_1024_and_refuses_other_widths(monkeypatch):
+    """check_flash_widths as it runs for a model on the card (the weight's
+    is_cuda seen as true): bfloat16 Hiera-t@1024 (global heads of 96) is
+    admitted, and so is L@1024 (72); a layout whose global heads are 104
+    wide, or 60, is refused before any step with its width and the
+    kernels' instance widths named; in float32 the 104-wide model is
+    taken."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    t = dict(embed_dim=96, num_heads=1, stages=(1, 2, 7, 2), global_att_blocks=(5, 7, 9),
+             window_spec=(8, 4, 14, 7))
+
+    def model(dtype, **kw):
+        with torch.device("meta"):
+            return TSAM2(tconfig.SAM2Config(resolution=1024, **{**t, **kw})).to(dtype)
+    tts.check_flash_widths(model(torch.bfloat16), 0)
+    with torch.device("meta"):
+        tts.check_flash_widths(TSAM2(tconfig.SAM2Config()).to(torch.bfloat16), 0)
+    for embed in (104, 60):
+        with pytest.raises(KernelError, match=f"widths 72, 96.*heads of width {embed} "):
+            tts.check_flash_widths(model(torch.bfloat16, embed_dim=embed), 0)
+    tts.check_flash_widths(model(torch.float32, embed_dim=104), 0)
+
+
+def test_restore_jax_train_state_defaults_to_the_card(monkeypatch, tmp_path):
+    """Like every entry point of the port, restore_jax_train_state runs on
+    CUDA unless device="cpu" is passed: without a card the default raises
+    and says so, before reading anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tckpt.restore_jax_train_state(str(tmp_path / "missing"), [], _tcfg(JTrainConfig()))
 
 
 # ------------------------------------------------------- max-pool ties

@@ -67,6 +67,19 @@ Phases, in order; any failure raises and the process exits non-zero:
      with the line enhancement kernel on (timed, exact launch counts,
      each netlist the serial one), and netlist exact match against
      eval_data/netlists, reported;
+  8c. serving, simulation and the CLI on the trained product — `serve`'s
+     pieces (BatchedPipeline in chunks of 8 with the line enhancement
+     kernel, BatchingExecutor(final=True), make_server on an ephemeral
+     port) with 8 client threads POSTing the 16 eval PNGs, a warm-up
+     and 5 timed rounds:
+     every served netlist analyze_many(finalize=True)'s, exact launch
+     counts per round, /stats, /metrics, a body that is not a PNG
+     answered 500; served images/s, p50/p99 latency and mean batch size
+     beside analyze_many's images/s; analyzer.simulate on each served
+     result and the 63 eval netlists with the native solver (g++, timed)
+     against numpy; the CLI's `simulate` and `analyze` (shipped
+     checkpoints, the reader, --simulate dc) as subprocesses, its
+     netlist the serial analyze()'s;
   9. off-preset head widths — bf16 Hiera trunks on the card against
      their float32 forward on the CPU, with exact launch counts: head
      width 64 (OFF_PRESET: every window and q-pool block on the tiled
@@ -271,6 +284,9 @@ TRAIN_STEPS, TRAIN_C_STEPS, TRAIN_RTOL = 5, 4, 1e-3
 #: against CPU check, chunks of PRODUCT_BATCH for analyze_many, timed runs
 PRODUCT_IMAGES, PRODUCT_BATCH, PRODUCT_RUNS = 16, 8, 3
 PRODUCT_PARITY = ("ac_rc", "series_rl")
+#: the serving phase: client threads, and timed rounds of every image
+#: after one warm-up round
+SERVE_CLIENTS, SERVE_ROUNDS = 8, 5
 #: its bf16 trunk on the card against its float32 trunk on the CPU, per
 #: stage output: max |card − cpu| ≤ 2^-4 · max |cpu| and rms(card − cpu)
 #: ≤ 2^-5 · rms(cpu). bf16 keeps 8 significant bits; the port's own bf16
@@ -1147,7 +1163,9 @@ def run_trained_product(torch, smi):
     analyze_many(finalize=True) in chunks of PRODUCT_BATCH with the line
     enhancement kernel on, timed, each netlist the card's serial one; (d)
     netlist_exact_match against eval_data/netlists. Returns the launches
-    of one analyze() and of one analyze_many()."""
+    of one analyze() and of one analyze_many(), and what the serving phase
+    reuses: the eval PNG paths and images, the batched analyzer (fused
+    morphology on), the serial analyzer, and both runs' results."""
     import ctypes.util
     import statistics
 
@@ -1303,7 +1321,282 @@ def run_trained_product(torch, smi):
           f"images/s, netlist exact match {exact:.3f} over {len(have)}", flush=True)
     if differ:
         raise AssertionError(f"trained product: batched netlists differ from serial on {differ}")
-    return launches, batch_counts
+    product = {"paths": paths, "images": images, "batch": batch, "serial_analyzer": card,
+               "serial": serial, "batched": batched, "with_mask": with_mask}
+    return launches, batch_counts, product
+
+
+def _http():
+    """An opener for the local server that no proxy setting reroutes."""
+    import urllib.request
+
+    return urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def _post(http, url, body):
+    """(status, JSON payload, seconds) of one POST /analyze."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"{url}/analyze", data=body, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with http.open(req, timeout=300) as resp:
+            code, payload = resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        code, payload = e.code, json.loads(e.read())
+    return code, payload, time.perf_counter() - t0
+
+
+def _get(http, url):
+    with http.open(url, timeout=30) as resp:
+        return resp.read()
+
+
+def _metrics(text):
+    """Prometheus text → {name with labels: value}; raises on a line that
+    does not parse."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        out[name] = float(value)
+    return out
+
+
+def _listen_overflows():
+    """The kernel's count of connections dropped from a full listen queue
+    (TcpExt ListenOverflows in /proc/net/netstat), or None without it."""
+    try:
+        lines = Path("/proc/net/netstat").read_text().splitlines()
+    except OSError:
+        return None
+    for names, values in zip(lines[::2], lines[1::2]):
+        if names.startswith("TcpExt:"):
+            table = dict(zip(names.split()[1:], values.split()[1:]))
+            return int(table["ListenOverflows"]) if "ListenOverflows" in table else None
+    return None
+
+
+def _pct(values, p):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(p * len(v)))]
+
+
+def run_serving(torch, smi, product):
+    """Phase 8c, on the trained product phase's analyzers and images.
+    (a) serving: `serve`'s pieces — BatchedPipeline (chunks of
+    PRODUCT_BATCH, fused morphology on) + BatchingExecutor(final=True) +
+    make_server(port=0) — with SERVE_CLIENTS client threads POSTing the
+    eval PNGs' bytes, one request per image, a warm-up round and
+    SERVE_ROUNDS timed rounds, each beside a timed
+    analyze_many(finalize=True) on the same images: every
+    served netlist byte-equal to analyze_many's, /stats and /metrics, a
+    body that is not a PNG answered 500 and the next request served, exact
+    launch counts per round (the t@512 counts × /stats' batches, one line
+    enhancement per image with a mask). (b) simulation: analyzer.simulate
+    on each served result (DC, or structured AC at 60 Hz), and the 63
+    eval netlists through perform_dc_analysis / perform_ac_analysis_text
+    with the native solver (g++ here, timed) and with numpy, which must
+    agree. (c) the CLI, as subprocesses: `simulate` on an eval netlist
+    that solves, and `analyze` with the shipped checkpoints, the reader
+    and --simulate dc, whose netlist is the serial analyze()'s. Returns
+    the launches of the last served round."""
+    import os
+    import statistics
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from circuitvision_tpu_torch.core.config import SimConfig
+    from circuitvision_tpu_torch.netlist.values import detect_analysis_mode
+    from circuitvision_tpu_torch.pipeline.batch import BatchedPipeline
+    from circuitvision_tpu_torch.pipeline.server import BatchingExecutor, make_server
+    from circuitvision_tpu_torch.sim import native_backend
+    from circuitvision_tpu_torch.sim.engine import perform_ac_analysis_text, perform_dc_analysis
+
+    paths, images, analyzer = product["paths"], product["images"], product["batch"]
+    want = [r.netlist_text for r in product["batched"]]
+    bodies = [p.read_bytes() for p in paths]
+    n = len(paths)
+    reset, read = counters()
+    http = _http()
+
+    # (a) serving
+    rounds, latencies = [], []
+    with BatchingExecutor(BatchedPipeline(analyzer, batch_size=PRODUCT_BATCH), final=True) as ex:
+        server = make_server(ex, port=0)
+        serving = threading.Thread(target=server.serve_forever, daemon=True)
+        serving.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            def served_round():
+                """POST every image, check each reply and the round's
+                launches; (seconds, batches, request latencies)."""
+                before = ex.stats()
+                reset()
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+                    outs = list(pool.map(lambda b: _post(http, url, b), bodies))
+                wall = time.perf_counter() - t0
+                counts, after = read(), ex.stats()
+                bad = [(p.stem, code, payload.get("error")) for p, (code, payload, _) in
+                       zip(paths, outs) if code != 200]
+                if bad:
+                    raise AssertionError(f"served requests failed: {bad}")
+                differ = [p.stem for p, (_, payload, _), w in zip(paths, outs, want)
+                          if payload["netlist_text"] != w]
+                if differ:
+                    raise AssertionError(f"served netlists differ from analyze_many's on {differ}")
+                batches = after["batches"] - before["batches"]
+                expected = {**{k: v * batches for k, v in EXPECTED["t@512"].items()},
+                            "enhance_lines_fused": product["with_mask"]}
+                if counts != expected:
+                    raise AssertionError(f"served launches {counts} != {expected} "
+                                         f"({batches} batches)")
+                return wall, batches, [dt for _, _, dt in outs], counts
+
+            served_round()  # warm-up: batch sizes the product phase never ran
+            overflows = _listen_overflows()
+            for _ in range(SERVE_ROUNDS):
+                wall, batches, lat, counts = served_round()
+                latencies += lat
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                analyzer.analyze_batch(images, batch_size=PRODUCT_BATCH, finalize=True)
+                torch.cuda.synchronize()
+                rounds.append({"served_images_per_s": n / wall, "batches": batches,
+                               "mean_batch_size": n / batches,
+                               "analyze_many_finalize_images_per_s":
+                                   n / (time.perf_counter() - t1)})
+            if overflows is not None:
+                overflows = _listen_overflows() - overflows
+                if overflows:
+                    raise AssertionError(f"{overflows} connections overflowed the listen queue")
+            stats = ex.stats()
+            if stats["completed"] != (SERVE_ROUNDS + 1) * n or stats["failed"] != 0:
+                raise AssertionError(f"/stats after {SERVE_ROUNDS + 1} rounds of {n}: {stats}")
+            served_stats = json.loads(_get(http, f"{url}/stats"))
+            metrics = _metrics(_get(http, f"{url}/metrics").decode())
+            if metrics["circuitvision_completed_total"] != served_stats["completed"] or \
+                    served_stats != {**stats, "queue_depth": served_stats["queue_depth"]}:
+                raise AssertionError(f"/metrics {metrics} or /stats {served_stats} disagree "
+                                     f"with {stats}")
+            code, payload, _ = _post(http, url, b"\xff\xd8\xff\xe0 not a PNG")
+            if code != 500 or not payload.get("error"):
+                raise AssertionError(f"a body that is not a PNG got {code} {payload}")
+            code, payload, _ = _post(http, url, bodies[0])
+            if code != 200 or payload["netlist_text"] != want[0]:
+                raise AssertionError(f"the request after a bad body: {code} {payload}")
+            if json.loads(_get(http, f"{url}/healthz")) != {"ok": True}:
+                raise AssertionError("/healthz is not ok after serving")
+            # the results themselves, through the executor, for (b)
+            results = ex.map(images)
+        finally:
+            server.shutdown()
+            server.server_close()
+            serving.join(timeout=30)
+    if [r.netlist_text for r in results] != want:
+        raise AssertionError("executor.map netlists differ from analyze_many's")
+    final_stats = ex.stats()
+    mean_batch = n * SERVE_ROUNDS / sum(r["batches"] for r in rounds)
+    served = {
+        "config": "YOLOv11-s@640 bf16 + SAM2 Hiera-t@512 f32 + crop reader (ckpt/), "
+                  f"batch {PRODUCT_BATCH}, fused morphology, final=True",
+        "images": n, "clients": SERVE_CLIENTS, "rounds": rounds,
+        "served_images_per_s_median": statistics.median(
+            r["served_images_per_s"] for r in rounds),
+        "analyze_many_finalize_images_per_s_median": statistics.median(
+            r["analyze_many_finalize_images_per_s"] for r in rounds),
+        "client_latency_s": {"p50": _pct(latencies, 0.50), "p99": _pct(latencies, 0.99),
+                             "max": max(latencies), "requests": len(latencies)},
+        "server_latency_s_all_rounds": stats["latency_s"], "mean_batch_size": mean_batch,
+        "stats_after": final_stats, "launches_per_round": counts,
+        "listen_overflows": overflows, "bad_body_status": 500, "card": smi}
+    print(json.dumps({"serving": served}), flush=True)
+    print(f"   served on {smi}: {served['served_images_per_s_median']:.2f} images/s "
+          f"(median of {SERVE_ROUNDS} rounds of {n}, {SERVE_CLIENTS} clients), p50 "
+          f"{served['client_latency_s']['p50'] * 1e3:.1f} ms, p99 "
+          f"{served['client_latency_s']['p99'] * 1e3:.1f} ms, mean batch "
+          f"{mean_batch:.2f}; analyze_many(finalize) "
+          f"{served['analyze_many_finalize_images_per_s_median']:.2f} images/s", flush=True)
+
+    # (b) simulation
+    t0 = time.perf_counter()
+    native_backend.load_library()
+    build_s = time.perf_counter() - t0
+    sims = {}
+    for p, r in zip(paths, results):
+        sim = analyzer.simulate(r)
+        sims[p.stem] = {"mode": detect_analysis_mode(r.netlist_text), "ok": sim.ok,
+                        "error": sim.error}
+    eval_sims, singular = {}, []
+    for f in sorted((REPO / "eval_data" / "netlists").glob("*.cir")):
+        text = f.read_text()
+        ac = detect_analysis_mode(text) == "AC"
+        native, numpy_ = (
+            perform_ac_analysis_text(text, 60.0, SimConfig(prefer_native=nat)) if ac
+            else perform_dc_analysis(text, SimConfig(prefer_native=nat)) for nat in (True, False))
+        if (native.ok, native.node_voltages, native.branch_currents) != \
+                (numpy_.ok, numpy_.node_voltages, numpy_.branch_currents):
+            raise AssertionError(f"{f.name}: native {native} != numpy {numpy_}")
+        if native.error != numpy_.error:
+            # the two solvers word a singular matrix differently (so do the
+            # JAX package's); any other difference is a fault
+            if not ("solve failed (code 1; singular matrix?)" in (native.error or "")
+                    and "singular MNA matrix" in (numpy_.error or "")):
+                raise AssertionError(f"{f.name}: errors {native.error!r} != {numpy_.error!r}")
+            singular.append(f.stem)
+        eval_sims[f.stem] = {"mode": "AC" if ac else "DC", "ok": native.ok}
+
+    def tally(d):
+        out = {}
+        for v in d.values():
+            key = f"{v['mode']} {'ok' if v['ok'] else 'failed'}"
+            out[key] = out.get(key, 0) + 1
+        return out
+
+    simulation = {"native_build_s": build_s, "served_results": tally(sims),
+                  "served_errors": {k: v["error"] for k, v in sims.items() if not v["ok"]},
+                  "eval_netlists": tally(eval_sims),
+                  "singular_matrix_wording_differs": singular}
+    print(json.dumps({"simulation": simulation}), flush=True)
+
+    # (c) the CLI
+    dc_file = next(REPO / "eval_data" / "netlists" / f"{k}.cir" for k, v in eval_sims.items()
+                   if v["mode"] == "DC" and v["ok"])
+    cli = [sys.executable, "-m", "circuitvision_tpu_torch.cli"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cli + ["simulate", str(dc_file)], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0 or "node voltages" not in out.stdout:
+        raise AssertionError(f"cli simulate {dc_file.name}: {out.returncode}\n{out.stdout}"
+                             f"\n{out.stderr[-2000:]}")
+    simulate_s = time.perf_counter() - t0
+    ckpt = REPO / "ckpt"
+    env = {**os.environ, "CIRCUITVISION_VLM": f"reader:{ckpt / 'reader'}"}
+    t0 = time.perf_counter()
+    out = subprocess.run(cli + ["analyze", str(paths[0]), "--scale", "s", "--yolo-checkpoint",
+                                str(ckpt / "yolo"), "--sam2-checkpoint", str(ckpt / "sam2"),
+                                "--final", "--simulate", "dc"],
+                         cwd=REPO, capture_output=True, text=True, timeout=600, env=env)
+    analyze_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"cli analyze: {out.returncode}\n{out.stdout}\n{out.stderr[-4000:]}")
+    printed = out.stdout.split("=== netlist ===\n", 1)[1].split("\n=== timings ===", 1)[0]
+    serial = product["serial"][0]
+    if printed != (serial.netlist_text or "(empty)"):
+        raise AssertionError(f"cli analyze netlist differs from analyze()'s:\n{printed}\n--\n"
+                             f"{serial.netlist_text}")
+    sim = product["serial_analyzer"].simulate(serial)
+    if (f"simulation failed: {sim.error}" if not sim.ok else
+            json.dumps(sim.node_voltages, indent=2, ensure_ascii=False)) not in out.stdout:
+        raise AssertionError(f"cli analyze --simulate printed another result:\n{out.stdout}")
+    print(json.dumps({"cli": {"simulate": dc_file.name, "simulate_s": simulate_s,
+                              "analyze": paths[0].name, "analyze_s": analyze_s,
+                              "netlist_equal": True, "simulation_ok": sim.ok, "card": smi}}),
+          flush=True)
+    return counts
 
 
 def run_trunk_ln_path(torch):
@@ -1737,8 +2030,13 @@ def main() -> int:
     done(t0, "line-enhancement kernel")
 
     t0 = phase("trained product at s@640 + t@512 + reader")
-    launches["product"], launches["product-batch"] = run_trained_product(torch, smi)
+    launches["product"], launches["product-batch"], product = run_trained_product(torch, smi)
     done(t0, "trained product")
+
+    t0 = phase("serving, simulation and the CLI on the trained product")
+    launches["served"] = run_serving(torch, smi, product)
+    del product
+    done(t0, "serving, simulation and the CLI")
 
     t0 = phase("off-preset head widths: bf16 Hiera at head widths 64, 60 and 136")
     for name, config, seed in (("off-preset", OFF_PRESET, 3), ("off-preset-60", OFF_PRESET_60, 4),
@@ -1782,7 +2080,8 @@ def main() -> int:
                 "path": path, **entry(n, s, launches[path]),
                 "launches_t512": launches["t@512"][n],
                 "launches_trained_product": launches["product"][n],
-                "launches_trained_product_batch": launches["product-batch"][n]}
+                "launches_trained_product_batch": launches["product-batch"][n],
+                "launches_served": launches["served"][n]}
                for path in ("l@1024", "batch", "trunk-ln", "train")
                for n, s in summary[path].items()]
     print(json.dumps({"launch_floor": floor}))

@@ -1,6 +1,6 @@
 """Typed configuration tree of the PyTorch port: the JAX package's
 `core/config.py` without JAX and without the sections and fields the
-ported slices never read (simulation, mesh, MXU channel padding).
+ported slices never read (mesh, MXU channel padding).
 
 Every magic number that is inlined in the reference implementation
 (src/circuit_analyzer.py and src/analysis_pipeline.py of the reference
@@ -194,6 +194,22 @@ class EnrichConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SimConfig:
+    """SPICE analysis (src/spice_simulator.py:69-76 tolerances); the JAX
+    package's SimConfig (core/config.py:209-218) without `temperature_c`,
+    which nothing reads."""
+
+    gmin: float = 1e-12
+    abstol: float = 1e-12
+    reltol: float = 1e-6
+    max_newton_iters: int = 100
+    default_ac_frequency_hz: float = 60.0
+    #: the C++ solver, built with g++ at first use (a failed build raises);
+    #: False: the numpy solver (sim/engine.py)
+    prefer_native: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """SAM2 LoRA fine-tune hyper-params (src/sam2_infer.py:297-304); the
     JAX package's TrainConfig (core/config.py:235-279), field for field."""
@@ -251,6 +267,7 @@ class PipelineConfig:
     topology: TopologyConfig = dataclasses.field(default_factory=TopologyConfig)
     nms: NMSConfig = dataclasses.field(default_factory=NMSConfig)
     enrich: EnrichConfig = dataclasses.field(default_factory=EnrichConfig)
+    sim: SimConfig = dataclasses.field(default_factory=SimConfig)
     use_sam2: bool = True
 
 

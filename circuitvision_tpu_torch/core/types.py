@@ -80,6 +80,11 @@ class BBox:
             return dataclasses.replace(self, xmin=nxmin, ymin=nymin, xmax=nxmax, ymax=nymax)
         return None
 
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["class"] = d.pop("class_name")
+        return d
+
     @classmethod
     def from_dict(cls, d: dict) -> "BBox":
         return cls(

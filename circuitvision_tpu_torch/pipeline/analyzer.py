@@ -1,8 +1,9 @@
 """CircuitAnalyzerTorch — the image → netlist pipeline on one CUDA device.
 
 Counterpart of `CircuitAnalyzerTPU.analyze()` in the JAX package
-(pipeline/analyzer.py:275-353), stages [1]-[6], and of its value pass,
-`generate_final_netlist` and `finalize_netlists` (:417-498):
+(pipeline/analyzer.py:275-353), stages [1]-[6], of its value pass,
+`generate_final_netlist` and `finalize_netlists` (:417-498), and of
+`simulate` (:500-520, sim/ on the host):
 
   [1] detect        — letterbox → YOLOv11 → DFL decode → class-aware NMS,
                       then the reference's confidence NMS at IoU 0.6
@@ -59,8 +60,10 @@ from ..netlist.generate import (
     generate_netlist_from_nodes,
     stringify_netlist,
 )
+from ..netlist.values import detect_analysis_mode
 from ..ops.cuda.build import KernelError, is_device_fault
 from ..ops.image import letterbox, resize_linear, sam2_preprocess
+from ..sim.engine import perform_ac_analysis, perform_ac_analysis_text, perform_dc_analysis
 from ..topology.crop import crop_image_and_adjust_bboxes
 from ..topology.enumerate_components import assign_visual_ids
 from ..topology.nodes import extract_nodes
@@ -362,6 +365,24 @@ class CircuitAnalyzerTorch:
                     self._merge(results[i], rows, f"result {i}")
                 results[i].timings.record("Final Netlist Generation", dt)
         return results
+
+    def simulate(self, result_or_text, frequency_hz: Optional[float] = None):
+        """Auto-detected DC/AC simulation (JAX :500-520; reference
+        app.py:839-874 + its simulator calls) on the host: an
+        AnalysisResult's structured netlist lines take the AC path that
+        rewrites source phasors ("4:-45") and C/L reactances, netlist text
+        the text path. AC runs at `frequency_hz`, by default
+        cfg.sim.default_ac_frequency_hz."""
+        if isinstance(result_or_text, AnalysisResult):
+            text, netlist = result_or_text.netlist_text, result_or_text.netlist
+        else:
+            text, netlist = str(result_or_text), None
+        if detect_analysis_mode(text) == "AC":
+            freq = frequency_hz or self.cfg.sim.default_ac_frequency_hz
+            if netlist is not None:
+                return perform_ac_analysis(netlist, freq, self.cfg.sim)
+            return perform_ac_analysis_text(text, freq, self.cfg.sim)
+        return perform_dc_analysis(text, self.cfg.sim)
 
     @staticmethod
     def _component_stats(bboxes: list[BBox]) -> dict:

@@ -48,7 +48,7 @@ TINY_DET = dict(scale="n", img_size=128, num_classes=64, dtype="float32")
 #: between the packages (15× the largest logit difference seen)
 LOGIT_FLIP_BOUND = 1e-3
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "cv2", "PIL",
-             "safetensors", "transformers", "circuitvision_tpu")
+             "safetensors", "transformers", "matplotlib", "circuitvision_tpu")
 
 
 @pytest.fixture(autouse=True)
@@ -151,10 +151,11 @@ def test_tiny_analyze_imports_no_jax_cv2_or_reference_package(tmp_path):
     eval PNG with the port's own readers, run a tiny CPU analyze() with
     the trained reader as its client and the final netlist, and
     analyze_batch() (BatchedPipeline.analyze_many, with the
-    fused-morphology switch on, finalize=True), a selective and a LoRA
+    fused-morphology switch on, finalize=True), simulate(), the serving
+    executor and HTTP server, the CLI's simulate, a selective and a LoRA
     fine-tune step on a batch of the folder dataset and a train
     checkpoint, and find no module named
-    exactly jax, flax, optax, orbax, tensorstore, cv2, PIL, ... or the JAX
+    exactly jax, flax, optax, orbax, tensorstore, cv2, PIL, matplotlib, ... or the JAX
     package, nor any submodule of them (names compared exactly, since
     circuitvision_tpu is a prefix of circuitvision_tpu_torch)."""
     code = f"""
@@ -181,6 +182,16 @@ r = a.generate_final_netlist(a.analyze(img))
 rs = a.analyze_batch([img, img[:100]], batch_size=1, finalize=True)
 assert len(rs) == 2
 netlist_exact_match([x.netlist_text for x in rs], [r.netlist_text] * 2)
+# simulation (the native solver, g++ at first use), the server, the CLI
+from circuitvision_tpu_torch import cli
+from circuitvision_tpu_torch.pipeline.batch import BatchedPipeline
+from circuitvision_tpu_torch.pipeline.server import BatchingExecutor, make_server
+a.simulate(r)
+with BatchingExecutor(BatchedPipeline(a, batch_size=2), final=True) as ex:
+    server = make_server(ex, port=0)
+    assert ex.map([img])[0].netlist_text == r.netlist_text
+    server.server_close()
+assert cli.main(["simulate", {str(ROOT / "eval_data" / "netlists" / "golden.cir")!r}]) == 0
 # the fine-tune: dataset, a selective and a LoRA step, a checkpoint
 import torch
 from circuitvision_tpu_torch.core.config import TrainConfig
@@ -210,7 +221,8 @@ print(json.dumps(sorted(sys.modules)))
               "io.zstd", "io.image_io", "models.checkpoint", "models.reader",
               "enrich.trained_reader", "enrich.directions", "enrich.client", "netlist.fix",
               "eval.metrics", "train.losses", "train.train_step", "train.lora",
-              "train.checkpoint", "train.data"):
+              "train.checkpoint", "train.data", "cli", "pipeline.server", "netlist.values",
+              "sim.engine", "sim.mna", "sim.netlist_parse", "sim.native_backend"):
         assert "circuitvision_tpu_torch." + m in mods
     bad = [m for m in mods if m in FORBIDDEN or m.startswith(tuple(f + "." for f in FORBIDDEN))]
     assert not bad, bad
@@ -218,9 +230,10 @@ print(json.dumps(sorted(sys.modules)))
 
 def test_port_sources_name_no_jax_or_reference_import():
     pat = re.compile(r"import jax|from circuitvision_tpu\.|import circuitvision_tpu\b|cpp_extension"
-                     r"|import (flax|optax|orbax|tensorstore|cv2|PIL|safetensors|transformers)\b"
-                     r"|from (jax|flax|optax|orbax|tensorstore|cv2|PIL|safetensors|transformers)"
-                     r"\b")
+                     r"|import (flax|optax|orbax|tensorstore|cv2|PIL|safetensors|transformers"
+                     r"|matplotlib)\b"
+                     r"|from (jax|flax|optax|orbax|tensorstore|cv2|PIL|safetensors|transformers"
+                     r"|matplotlib)\b")
     files = list((ROOT / "circuitvision_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)

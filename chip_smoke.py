@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the process exits non-zero:
   1. environment — torch/CUDA versions, the card's name and power limit,
      TF32 off for matmuls and convolutions;
   2. build — nvcc for every kernel source (started together) and g++ for
-     the contour tracer, timed; the launch floor — an empty
+     the contour tracer, the PNG and JPEG decoders and the rasteriser of
+     the debug drawings, timed; the launch floor — an empty
      kernel of the repo's own (csrc/launch_floor.cu) timed as the kernel
      rows are;
   3. kernels at t@512 — the four kernels of that slice against their
@@ -80,12 +81,28 @@ Phases, in order; any failure raises and the process exits non-zero:
      against numpy; the CLI's `simulate` and `analyze` (shipped
      checkpoints, the reader, --simulate dc) as subprocesses, its
      netlist the serial analyze()'s;
+  8d. image input and the web UI on the trained product — every fixture
+     of eval_data/image_fixtures (JPEGs of each kind the reader takes,
+     PNG variants) decoded by the port and held to the SHA-256 of PIL's
+     decode (digests.json; the card has no PIL); decode ms per image for
+     the eval JPEGs, the photo-sized
+     JPEG and the eval PNGs; then the port's webapp (make_server on an
+     ephemeral port) POSTed each eval JPEG and each eval PNG: every
+     netlist the analyzer's analyze() on the same decoded pixels, every
+     debug image in the response decoding to the array core/viz draws
+     (the annotated images drawn again from the result), exact launch
+     counts per request, request ms beside analyze() ms; and the FLOP
+     count (models/flops.py) of one trained-product analyze() and one
+     L@1024 analyze(), with the rate it implies at this run's times;
   9. off-preset head widths — bf16 Hiera trunks on the card against
      their float32 forward on the CPU, with exact launch counts: head
      width 64 (OFF_PRESET: every window and q-pool block on the tiled
      route, the global block on flash attention), 60 (heads padded to 64;
-     the blocks of width 60 on the float32 kernels) and 136 (flash_attn's
-     136 instance);
+     stage 1 and its transition, whose width 60 is off a multiple of 8,
+     on the bf16 kernels with rows zero-padded to 64 and the LayerNorm
+     dividing by 60, their mlp_block and ln_qkv launches held to the
+     plain versions and timed beside the float32 kernels those blocks
+     ran before) and 136 (flash_attn's 136 instance);
  10. the trunk LayerNorm option — TrunkLayerNorm(fused=True), alone and
      with residual=, at the four Hiera-L@1024 trunk widths, with exact
      launch counts — and its two kernels there in bf16 and f32;
@@ -232,18 +249,20 @@ EXPECTED["off-preset"] = {**{k: 0 for k in EXPECTED["t@512"]},
                           "window_attn_block.tiled": 2, "qpool_attn_block.tiled": 3}
 #: the same layout at head widths off the bf16 kernels' own instances.
 #: Width 60, one head: stage 1 (C = 60) and the 60 → 120 transition are
-#: off a multiple of 8 and run the float32 kernels (one-block window and
-#: q-pool kernels, mlp_block); from C = 120 on, bf16 with the heads padded
-#: to 64 on the tiled route and the global block's route (resolution 768:
-#: a 48² stage-3 map over the flash threshold). Width 136, one head: every
-#: window and q-pool block tiled on flash_attn's 136 instance; the global
-#: block (hd > 128) on the module path, as in the JAX trunk; resolution 512.
+#: off a multiple of 8 and run the bf16 kernels on rows zero-padded to 64
+#: (hiera.pad_block), their window and q-pool halves on the tiled route;
+#: from C = 120 on, bf16 with the heads padded to 64 on the tiled route
+#: and the global block's route (resolution 768: a 48² stage-3 map over
+#: the flash threshold) — the launches of width 64. Width 136, one head:
+#: every window and q-pool block tiled on flash_attn's 136 instance; the
+#: global block (hd > 128) on the module path, as in the JAX trunk;
+#: resolution 512.
 OFF_PRESET_60 = dict(resolution=768, embed_dim=60, num_heads=1, stages=[1, 1, 3, 1],
                      global_att_blocks=[3], backbone_channel_list=[480, 240, 120, 60])
-EXPECTED["off-preset-60"] = {**{k: 0 for k in EXPECTED["t@512"]},
-                             "mlp_block": 6, "window_attn_block": 1, "qpool_attn_block": 1,
-                             "ln_qkv": 6, "flash_attn": 4, "attn_proj_residual": 4,
-                             "window_attn_block.tiled": 1, "qpool_attn_block.tiled": 2}
+EXPECTED["off-preset-60"] = EXPECTED["off-preset"]
+#: the padded route's rows at width 60: OFF_PRESET_60's stage-1 map
+#: (resolution 768 / 4)² tokens
+WIDTH60_ROWS = (768 // 4) ** 2
 OFF_PRESET_136 = dict(resolution=512, embed_dim=136, num_heads=1, stages=[1, 1, 3, 1],
                       global_att_blocks=[3], backbone_channel_list=[1088, 544, 272, 136])
 EXPECTED["off-preset-136"] = {**{k: 0 for k in EXPECTED["t@512"]},
@@ -294,6 +313,10 @@ SERVE_CLIENTS, SERVE_ROUNDS = 8, 5
 #: f32 trunk by up to 1.8 % of max |ref| and 1.3 % rms at this layout
 #: (hd 64 and 32, resolution 256)
 OFF_PRESET_MAX, OFF_PRESET_RMS = 2.0 ** -4, 2.0 ** -5
+#: ms of each timed analyze() by path (timed_runs), for the FLOP rates
+ANALYZE_MS: dict = {}
+#: the web UI phase: timed rounds of POSTs of every upload after a warm-up
+WEB_ROUNDS = 2
 #: float32 card vs float32 CPU: share of SAM2 mask pixels that must agree
 MASK_AGREEMENT_MIN = 0.999
 #: float32 card vs float32 CPU on the continuous outputs (YOLO's raw head
@@ -931,6 +954,7 @@ def timed_runs(torch, analyzer, image, path):
         torch.cuda.synchronize()
         total_ms = (time.perf_counter() - t0) * 1e3
         counts = read()
+        ANALYZE_MS.setdefault(path, []).append(total_ms)
         stages = {k: round(v * 1e3, 3) for k, v in res.timings.timings.items()}
         print(json.dumps({"path": path, "analyze_run": run, "total_ms": total_ms,
                           "stages_ms": stages, "launches": counts,
@@ -1599,6 +1623,268 @@ def run_serving(torch, smi, product):
     return counts
 
 
+def run_width60_kernels(torch, smi):
+    """Phase 9 for width 60: rows of true width 60 zero-padded to 64, as
+    a bf16 block off a multiple of 8 runs them (hiera.pad_block), at the
+    off-preset-60 trunk's stage-1 shapes — mlp_block and ln_qkv with the
+    LayerNorm dividing by 60, each against its plain version on the same
+    card tensors and against the unpadded plain function, the padding
+    left zero; then both blocks of width 60 (stage 1's window block, the
+    60 → 120 transition) on the card against the same blocks on the CPU
+    with the padded route taken there by the plain versions. Device times
+    of the two kernels beside the float32 kernels that ran those blocks
+    before (the float32 detour: the unpadded rows in float32)."""
+    import copy
+
+    from circuitvision_tpu_torch.models.layers import place
+    from circuitvision_tpu_torch.models.sam2 import hiera
+    from circuitvision_tpu_torch.ops.cuda import global_attn as ga
+    from circuitvision_tpu_torch.ops.cuda import mlp_block as mb
+
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    f32, bf = torch.float32, torch.bfloat16
+    c, cp, t = 60, 64, WIDTH60_ROWS
+
+    def rnd(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def pad(x, width=cp):
+        return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+    def check(name, got, ref):
+        got, ref = got.float(), ref.float()
+        ref_max = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        tol = tolerance("bfloat16", ref_max)
+        if not (bool(torch.isfinite(got).all()) and err <= tol):
+            raise AssertionError(f"width 60 {name}: max |err| {err} > {tol}")
+        return err, tol
+
+    ln = (pad(1 + rnd(c, scale=0.1, dtype=f32)), pad(rnd(c, scale=0.1, dtype=f32)))
+    x = pad(rnd(t, c))
+    w0, b0 = pad(rnd(4 * c, c, scale=c ** -0.5)), rnd(4 * c, scale=0.02)
+    w1 = pad(rnd(c, 4 * c, scale=(4 * c) ** -0.5).t()).t().contiguous()
+    b1 = pad(rnd(c, scale=0.02))
+    wq, bq = pad(rnd(3 * cp, c, scale=c ** -0.5)), rnd(3 * cp, scale=0.02)
+    xw = x.view(t // 64, 64, cp)
+    rows = {}
+    with torch.no_grad():
+        out = mb.mlp_block(x, *ln, w0, b0, w1, b1, ln_width=c)
+        if out[:, c:].any():
+            raise AssertionError("width 60 mlp_block: the padding is not zero")
+        rows["mlp_block"] = {
+            "vs_plain": check("mlp_block", out, mb.mlp_block_plain(x, *ln, w0, b0, w1, b1,
+                                                                     ln_width=c)),
+            "vs_unpadded_plain": check("mlp_block unpadded", out[:, :c], mb.mlp_block_plain(
+                x[:, :c], ln[0][:c], ln[1][:c], w0[:, :c], b0, w1[:c], b1[:c])),
+            "bf16_padded_ms": graph_ms(lambda: mb.mlp_block(x, *ln, w0, b0, w1, b1,
+                                                              ln_width=c)),
+            "f32_unpadded_ms": graph_ms(lambda a=(x[:, :c].float().contiguous(),
+                                                  ln[0][:c].contiguous(), ln[1][:c].contiguous(),
+                                                  w0[:, :c].float().contiguous(), b0.float(),
+                                                  w1[:c].float().contiguous(),
+                                                  b1[:c].float().contiguous()):
+                                        mb.mlp_block(*a))}
+        q = ga.ln_qkv(xw, *ln, wq, bq, 1, ln_width=c)
+        rows["ln_qkv"] = {
+            "vs_plain": check("ln_qkv", q, ga.ln_qkv_plain(xw, *ln, wq, bq, 1, ln_width=c)),
+            "vs_unpadded_plain": check("ln_qkv unpadded", q, ga.ln_qkv_plain(
+                xw[..., :c], ln[0][:c], ln[1][:c], wq[:, :c], bq, 1)),
+            "bf16_padded_ms": graph_ms(lambda: ga.ln_qkv(xw, *ln, wq, bq, 1, ln_width=c)),
+            "f32_unpadded_ms": graph_ms(lambda a=(xw[..., :c].float().contiguous(),
+                                                  ln[0][:c].contiguous(), ln[1][:c].contiguous(),
+                                                  wq[:, :c].float().contiguous(), bq.float()):
+                                        ga.ln_qkv(*a, 1))}
+    blocks = []
+    torch.manual_seed(60)
+    for dim, dim_out, q_stride in ((60, 60, False), (60, 120, True)):
+        blk = hiera.MultiScaleBlock(dim, dim_out, dim_out // 60, q_stride=q_stride)
+        with torch.no_grad():
+            for p_ in blk.parameters():
+                p_.normal_(0.0, 0.1)
+        cpu = place(blk, "cpu", bf).eval()
+        card = place(copy.deepcopy(cpu), "cuda", bf)
+        xb = rnd(64, 8, 8, dim)
+        reset, read = counters()
+        with torch.no_grad():
+            reset()
+            got = card(xb, 8, not q_stride)
+            counts = {k: v for k, v in read().items() if v}
+            saved = hiera.pad_block
+            hiera.pad_block = lambda t_, d, do: t_.dtype == bf and bool(d % 8 or do % 8)
+            try:
+                ref = cpu(xb.cpu(), 8, not q_stride)
+            finally:
+                hiera.pad_block = saved
+        err, tol = check(f"block {dim}->{dim_out}", got.cpu(), ref)
+        blocks.append({"dim": dim, "dim_out": dim_out, "launches": counts, "max_abs_err": err,
+                       "tol": tol})
+        if counts.get("mlp_block") != 1 or counts.get("ln_qkv") != (2 if q_stride else 1):
+            raise AssertionError(f"width 60 block {dim}->{dim_out}: launches {counts}")
+    print(json.dumps({"width60_bf16_kernels": {"rows": t, "kernels": rows, "blocks": blocks,
+                                               "card": smi}}), flush=True)
+
+
+def run_web_ui(torch, smi, product):
+    """Phase 8d: image input and the web UI on the trained product (the
+    serial analyzer of run_trained_product). Returns the launches of one
+    POST /analyze."""
+    import base64
+    import hashlib
+    import statistics
+    import threading
+
+    from circuitvision_tpu_torch import webapp
+    from circuitvision_tpu_torch.core.viz import create_annotated_image
+    from circuitvision_tpu_torch.io.image_io import ImageFormatError, decode_image
+
+    fx = REPO / "eval_data" / "image_fixtures"
+    digests = json.loads((fx / "digests.json").read_text())
+    files = {name: (fx / name).read_bytes() for name in digests}
+    decode_image(files["baseline_420.jpg"])  # builds the decoder outside the timing
+    bad = []
+    for name, entry in digests.items():
+        try:
+            arr = decode_image(files[name])
+        except ImageFormatError as exc:
+            bad.append(f"{name}: {exc}")
+            continue
+        got = [list(arr.shape), hashlib.sha256(arr.tobytes()).hexdigest()]
+        if got != [entry["shape"], entry["sha256"]]:
+            bad.append(f"{name}: {got}")
+
+    def decode_ms(blobs, reps=5):
+        per = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for b in blobs:
+                decode_image(b)
+            per.append((time.perf_counter() - t0) * 1e3 / len(blobs))
+        return statistics.median(per)
+    paths = product["paths"]
+    jpegs = [files[f"eval/{p.stem}.jpg"] for p in paths]
+    pngs = [p.read_bytes() for p in paths]
+    inputs = {"eval_jpeg_ms_per_image": decode_ms(jpegs), "eval_png_ms_per_image": decode_ms(pngs),
+              "photo_jpeg_ms": decode_ms([files["photo.jpg"]]),
+              "photo_shape": digests["photo.jpg"]["shape"]}
+    print(json.dumps({"image_input": {"fixtures": len(digests), "mismatches": bad, **inputs,
+                                      "card": smi}}), flush=True)
+    if bad:
+        raise AssertionError(f"image fixtures the port decodes otherwise than PIL: {bad}")
+
+    analyzer = product["serial_analyzer"]
+    server = webapp.make_server(analyzer, port=0, host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    http = _http()
+    uploads = [(f"{p.stem}.jpg", b) for p, b in zip(paths, jpegs)] + \
+        [(p.name, b) for p, b in zip(paths, pngs)]
+    reset, read = counters()
+    try:
+        _post(http, url, uploads[0][1])  # warm-up
+        req_ms, analyze_ms, mismatches, counts = {"jpeg": [], "png": []}, [], [], None
+        stage_inputs = []
+        for _ in range(WEB_ROUNDS):
+            for name, body in uploads:
+                reset()
+                code, payload, sec = _post(http, url, body)
+                counts = read()
+                if code != 200:
+                    raise AssertionError(f"web UI {name}: {code} {payload}")
+                if counts != EXPECTED["t@512"]:
+                    raise AssertionError(f"web UI {name}: launches {counts} != "
+                                         f"{EXPECTED['t@512']}")
+                req_ms["jpeg" if name.endswith(".jpg") else "png"].append(sec * 1e3)
+                served = webapp._STATE["result"]
+                if name.endswith(".png") and served.sam_mask is not None:
+                    stage_inputs.append((served.sam_mask, served.bboxes))
+                pixels = decode_image(body)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = analyzer.analyze(pixels)
+                torch.cuda.synchronize()
+                analyze_ms.append((time.perf_counter() - t0) * 1e3)
+                images = {"annotated": create_annotated_image(served.image_for_analysis,
+                                                              served.bboxes),
+                          "annotated_orig": create_annotated_image(pixels,
+                                                                   served.bboxes_orig_nms),
+                          "node_viz": served.node_visualization,
+                          "contour_viz": served.contour_visualization,
+                          "connection_viz": served.connection_points_visualization}
+                for key, arr in images.items():
+                    sent = payload[key]
+                    same = (sent == "" if arr is None else
+                            (decode_image(base64.b64decode(sent)) == arr).all())
+                    if not same:
+                        mismatches.append(f"{name} {key}")
+                if payload["netlist_text"] != (want.netlist_text or ""):
+                    mismatches.append(f"{name} netlist")
+    finally:
+        server.shutdown()
+        server.server_close()
+    # the node stage with and without its debug images on the served masks
+    from circuitvision_tpu_torch.topology.nodes import extract_nodes
+    node_ms = {}
+    for fetch in (False, True, False, True):
+        t0 = time.perf_counter()
+        for mask, boxes in stage_inputs:
+            extract_nodes(mask, boxes, analyzer.cfg.topology, device=analyzer.device,
+                          fetch_viz=fetch)
+        torch.cuda.synchronize()
+        node_ms.setdefault(fetch, []).append((time.perf_counter() - t0) * 1e3 / len(stage_inputs))
+    row = {"uploads": len(uploads), "rounds": WEB_ROUNDS,
+           "node_stage_ms": {"without_debug_images": min(node_ms[False]),
+                             "with_debug_images": min(node_ms[True])},
+           "request_ms_jpeg": {"median": statistics.median(req_ms["jpeg"]),
+                               "min": min(req_ms["jpeg"]), "max": max(req_ms["jpeg"])},
+           "request_ms_png": {"median": statistics.median(req_ms["png"]),
+                              "min": min(req_ms["png"]), "max": max(req_ms["png"])},
+           "analyze_ms": {"median": statistics.median(analyze_ms), "min": min(analyze_ms),
+                          "max": max(analyze_ms)},
+           "launches_per_request": counts, "mismatches": mismatches, "card": smi}
+    print(json.dumps({"web_ui": row}), flush=True)
+    print(f"   web UI on {smi}: POST /analyze {row['request_ms_jpeg']['median']:.1f} ms (JPEG), "
+          f"{row['request_ms_png']['median']:.1f} ms (PNG), analyze() "
+          f"{row['analyze_ms']['median']:.1f} ms; eval JPEG decode "
+          f"{inputs['eval_jpeg_ms_per_image']:.2f} ms, photo "
+          f"{inputs['photo_jpeg_ms']:.1f} ms", flush=True)
+    if mismatches:
+        raise AssertionError(f"web UI responses differ from analyze() / core.viz: {mismatches}")
+    ANALYZE_MS["trained-product"] = analyze_ms
+    return counts
+
+
+def run_flops(torch, smi):
+    """The FLOP count (models/flops.py, FlopCounterMode over the module
+    path on the meta device) of one trained-product analyze() (YOLOv11-s@640
+    + SAM2 Hiera-t@512) and one L@1024 analyze() (YOLOv11-s@640 + the
+    default SAM2Config), and the rate each implies at this run's analyze()
+    times against the card's peak (flops.device_peak_flops)."""
+    import statistics
+
+    from circuitvision_tpu_torch.core.config import SAM2Config
+    from circuitvision_tpu_torch.models import flops
+    from circuitvision_tpu_torch.models.bridge import detector_config, sam2_config
+
+    ymeta = json.loads((REPO / "ckpt" / "yolo" / "meta.json").read_text())
+    smeta = json.loads((REPO / "ckpt" / "sam2" / "meta.json").read_text())
+    det = detector_config(ymeta)
+    yolo = flops.yolo_forward_flops(det)
+    rows = {}
+    for name, scfg, path, dtype in (
+            ("trained_product", sam2_config(smeta), "trained-product", torch.float32),
+            ("l@1024", SAM2Config(), "l@1024", torch.bfloat16)):
+        sam2 = flops.sam2_forward_flops(scfg)
+        ms = statistics.median(ANALYZE_MS[path])
+        peak = flops.device_peak_flops("cuda", dtype)
+        rows[name] = {"yolo_flops": yolo, "sam2_flops": sam2, "total_flops": yolo + sam2,
+                      "analyze_ms": ms, "tflops_per_s": (yolo + sam2) / ms / 1e9,
+                      "peak_dtype": str(dtype), "peak_tflops_per_s": peak / 1e12,
+                      "share_of_peak": (yolo + sam2) / (ms / 1e3) / peak}
+    print(json.dumps({"flops": {**rows, "card": smi}}), flush=True)
+
+
 def run_trunk_ln_path(torch):
     """The trunk LayerNorm option: TrunkLayerNorm(fused=True) at the four
     Hiera-L@1024 trunk shapes in bfloat16, each called alone and with
@@ -1986,6 +2272,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    from circuitvision_tpu_torch.core import draw
+    from circuitvision_tpu_torch.io import image_io
     from circuitvision_tpu_torch.ops.cuda.build import build_all
     from circuitvision_tpu_torch.topology import contours
 
@@ -2001,7 +2289,10 @@ def main() -> int:
     t0 = phase("build")
     build_all()
     contours.load_library()
-    done(t0, "build (nvcc for every kernel, g++ for the contour tracer)")
+    image_io.load_native()
+    draw.load_library()
+    done(t0, "build (nvcc for every kernel; g++ for the contour tracer, the PNG and JPEG "
+             "decoders and the drawing rasteriser)")
     floor = launch_floor(smi)
 
     t0 = phase("kernels at t@512")
@@ -2035,13 +2326,19 @@ def main() -> int:
 
     t0 = phase("serving, simulation and the CLI on the trained product")
     launches["served"] = run_serving(torch, smi, product)
-    del product
     done(t0, "serving, simulation and the CLI")
+
+    t0 = phase("image input and the web UI on the trained product; the FLOP count")
+    launches["web"] = run_web_ui(torch, smi, product)
+    del product
+    run_flops(torch, smi)
+    done(t0, "image input, the web UI and the FLOP count")
 
     t0 = phase("off-preset head widths: bf16 Hiera at head widths 64, 60 and 136")
     for name, config, seed in (("off-preset", OFF_PRESET, 3), ("off-preset-60", OFF_PRESET_60, 4),
                                ("off-preset-136", OFF_PRESET_136, 6)):
         run_off_preset(torch, smi, name, config, seed)
+    run_width60_kernels(torch, smi)
     done(t0, "off-preset head widths")
 
     t0 = phase("trunk LayerNorm option at the L@1024 widths")
@@ -2081,7 +2378,8 @@ def main() -> int:
                 "launches_t512": launches["t@512"][n],
                 "launches_trained_product": launches["product"][n],
                 "launches_trained_product_batch": launches["product-batch"][n],
-                "launches_served": launches["served"][n]}
+                "launches_served": launches["served"][n],
+                "launches_web_ui": launches["web"][n]}
                for path in ("l@1024", "batch", "trunk-ln", "train")
                for n, s in summary[path].items()]
     print(json.dumps({"launch_floor": floor}))

@@ -1,9 +1,11 @@
 """Command-line interface of the PyTorch port.
 
-    python -m circuitvision_tpu_torch.cli analyze circuit.png --netlist out.cir \\
+    python -m circuitvision_tpu_torch.cli analyze circuit.jpg --netlist out.cir \\
         --yolo-checkpoint ckpt/yolo --sam2-checkpoint ckpt/sam2 --simulate dc
     python -m circuitvision_tpu_torch.cli analyze-batch imgs/ --out-dir netlists/ --final
     python -m circuitvision_tpu_torch.cli simulate netlist.cir
+    python -m circuitvision_tpu_torch.cli serve --port 8501 \\
+        --yolo-checkpoint ckpt/yolo --sam2-checkpoint ckpt/sam2
     python -m circuitvision_tpu_torch.cli serve-batch --port 8600 --final \\
         --yolo-checkpoint ckpt/yolo --sam2-checkpoint ckpt/sam2
 
@@ -15,15 +17,17 @@ meta.json gives its model config (`models/bridge.detector_config`,
 weights at `--scale` (and `--det-size`), as the JAX CLI initialises
 random ones. The directions and, with `--final`, the values come from the
 client CIRCUITVISION_VLM names (`enrich/client.default_client`;
-`reader:ckpt/reader` is the trained crop reader). Images are PNG
-(`io/image_io`).
+`reader:ckpt/reader` is the trained crop reader). Images are PNG or JPEG
+(`io/image_io`); BMP and WebP are refused, naming ROADMAP Queue A 9, and
+`analyze-batch` skips them and says which it skipped. `serve` is the web
+UI (webapp.py), `serve-batch` the micro-batching endpoint; both print
+`serving on port N` (port 0: an ephemeral one).
 
 `--device` (default cuda) takes the place of the JAX CLI's `--platform`:
 every command but `simulate` (host only) runs on the card unless `--device
 cpu` is given, and fails without one. Not ported, and refused with a
-non-zero exit: `serve` (the web UI; ROADMAP Queue A 7/9),
-`analyze-batch --distributed` (Queue A 13), a PaliGemma
-CIRCUITVISION_VLM (Queue A 12), and JPEG input (Queue A 9).
+non-zero exit: `analyze-batch --distributed` (Queue A 13) and a PaliGemma
+CIRCUITVISION_VLM (Queue A 12).
 """
 from __future__ import annotations
 
@@ -123,7 +127,7 @@ def _print_sim(sim) -> None:
 def _cmd_analyze_batch(args) -> int:
     """Batched multi-image analysis (pipeline/batch.py), the throughput
     path, with per-image netlist output."""
-    from .io.image_io import load_image
+    from .io.image_io import ImageFormatError, load_image
 
     if args.distributed:
         print("analyze-batch --distributed: analysis across processes and cards is not "
@@ -143,7 +147,19 @@ def _cmd_analyze_batch(args) -> int:
         print("no images found", file=sys.stderr)
         return 1
 
-    images = [load_image(p) for p in paths]
+    images, kept = [], []
+    for p in paths:
+        try:
+            images.append(load_image(p))
+            kept.append(p)
+        except ImageFormatError as exc:
+            print(f"skipped {p}: {exc}", file=sys.stderr)
+    if len(kept) < len(paths):
+        print(f"skipped {len(paths) - len(kept)} of {len(paths)} images", file=sys.stderr)
+    if not images:
+        print("no readable images", file=sys.stderr)
+        return 1
+    paths = kept
     analyzer = _analyzer(args)
     t0 = time.time()
     results = analyzer.analyze_batch(images, batch_size=args.batch_size, finalize=args.final)
@@ -165,9 +181,13 @@ def _cmd_analyze_batch(args) -> int:
 
 
 def _cmd_serve(args) -> int:
-    print("serve: the web UI (webapp.py) is not ported (ROADMAP Queue A 7/9); "
-          "serve-batch serves the HTTP endpoint", file=sys.stderr)
-    return 2
+    """The interactive web UI (webapp.py), one analysis at a time, with
+    the analyzer of the checkpoint flags."""
+    from .webapp import serve
+
+    serve(_analyzer(args), port=args.port)
+    print("server stopped", flush=True)
+    return 0
 
 
 def _cmd_serve_batch(args) -> int:
@@ -240,11 +260,14 @@ def _parser() -> argparse.ArgumentParser:
     ps.add_argument("--mode", choices=["dc", "ac"], default=None)
     ps.add_argument("--frequency", type=float, default=60.0)
 
-    pv = sub.add_parser("serve", help="the web UI: not ported (ROADMAP Queue A 7/9)")
-    pv.add_argument("--port", type=int, default=8501)
+    pv = sub.add_parser("serve", parents=[device],
+                        help="the web UI (one analysis at a time)")
+    pv.add_argument("--port", type=int, default=8501, help="0: an ephemeral port (printed)")
     pv.add_argument("--scale", default=None, choices=list("nsmlx"))
+    pv.add_argument("--det-size", type=int, default=None)
     pv.add_argument("--yolo-checkpoint")
     pv.add_argument("--sam2-checkpoint")
+    pv.add_argument("--force-sam2", action="store_true")
 
     pp = sub.add_parser("serve-batch", parents=[device],
                         help="production serving: micro-batching HTTP endpoint "
@@ -273,7 +296,8 @@ def main(argv=None) -> int:
     try:
         return commands[args.cmd](args)
     except (NotImplementedError, ImageFormatError) as exc:
-        # not ported: a PaliGemma CIRCUITVISION_VLM (Queue A 12), JPEG (Queue A 9)
+        # not ported: a PaliGemma CIRCUITVISION_VLM (Queue A 12); an image
+        # kind the reader refuses (Queue A 9)
         print(f"{args.cmd}: {exc}", file=sys.stderr)
         return 2
 

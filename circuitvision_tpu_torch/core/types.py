@@ -169,6 +169,9 @@ class StageTimings:
     def record(self, stage: str, seconds: float) -> None:
         self.timings[stage] = seconds
 
+    def total(self) -> float:
+        return sum(self.timings.values())
+
 
 @dataclasses.dataclass
 class AnalysisResult:

@@ -38,13 +38,15 @@ __device__ __forceinline__ float gelu_erf(float x) {
 }
 
 // LayerNorm statistics of one row of c values, by one warp: f32 sums of
-// x and x² (lane-strided, then a butterfly), mean = Σx/c and
-// rsqrt(var + eps) with var = Σx²/c − mean² clamped at 0 — flax's
+// x and x² (lane-strided, then a butterfly), mean = Σx/n and
+// rsqrt(var + eps) with var = Σx²/n − mean² clamped at 0 — flax's
 // fast-variance form (fused_ln.py:27-32 and window_attn.py:40-46 in the
-// JAX package). `load(i)` returns element i as float32. Every lane gets
-// the result.
+// JAX package). n is the row's true width `width`, or c where width is
+// 0: a row zero-padded past its true width (a bf16 block whose width is
+// off a multiple of 8) sums the same, and only the divisor differs.
+// `load(i)` returns element i as float32. Every lane gets the result.
 template <typename Load>
-__device__ __forceinline__ float2 warp_ln_stats(Load load, int c, float eps) {
+__device__ __forceinline__ float2 warp_ln_stats(Load load, int c, float eps, int width = 0) {
   const int lane = threadIdx.x % 32;
   float s1 = 0.f, s2 = 0.f;
   for (int i = lane; i < c; i += 32) {
@@ -56,22 +58,25 @@ __device__ __forceinline__ float2 warp_ln_stats(Load load, int c, float eps) {
     s1 += __shfl_xor_sync(0xffffffffu, s1, o);
     s2 += __shfl_xor_sync(0xffffffffu, s2, o);
   }
-  float mean = s1 / c;
-  float var = fmaxf(s2 / c - mean * mean, 0.f);
+  const int n = width ? width : c;
+  float mean = s1 / n;
+  float var = fmaxf(s2 / n - mean * mean, 0.f);
   return make_float2(mean, rsqrtf(var + eps));
 }
 
 // LayerNorm of `rows` rows of `src` (row stride c) into `dst`, one warp
-// per row: warp_ln_stats, then (x−mean)·rsqrt(var+eps)·scale + bias
-// rounded to T. scale and bias are float32 whatever T is, as flax keeps
-// them (its parameters are float32 under a bf16 compute dtype).
+// per row: warp_ln_stats (divisor `width`, or c where it is 0), then
+// (x−mean)·rsqrt(var+eps)·scale + bias rounded to T. scale and bias are
+// float32 whatever T is, as flax keeps them (its parameters are float32
+// under a bf16 compute dtype).
 template <typename T>
 __device__ void layernorm_rows(const float* src, float* dst, int rows, int c,
-                               const float* scale, const float* bias, float eps) {
+                               const float* scale, const float* bias, float eps,
+                               int width = 0) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < rows; r += kThreads / 32) {
     const float* x = src + (size_t)r * c;
-    float2 st = warp_ln_stats([&](int i) { return x[i]; }, c, eps);
+    float2 st = warp_ln_stats([&](int i) { return x[i]; }, c, eps, width);
     for (int i = lane; i < c; i += 32)
       dst[(size_t)r * c + i] = rnd<T>((x[i] - st.x) * st.y * scale[i] + bias[i]);
   }

@@ -328,18 +328,20 @@ extern "C" int cv_ln_heads_f32(const void* x, const void* ln_s, const void* ln_b
 
 // bfloat16 on the tensor cores: the same function and layouts; x, w and
 // the workspace xn (B·N·c_in bf16) 16-byte aligned, c_in a multiple of 8,
-// hd even; bm (128 or 64) from the wrapper's plan.
+// hd even; bm (128 or 64) from the wrapper's plan. ln_c ≤ c_in is the
+// rows' true width, the LayerNorm's divisor (x, w's columns and the LN
+// parameters zero-padded from ln_c to c_in).
 extern "C" int cv_ln_heads_bf16(const void* x, const void* ln_s, const void* ln_b,
                                 const void* w, const void* b, void* out, void* xn, int batch,
-                                int n, int c_in, int n_out, int heads, int hd, float eps,
-                                int bm, void* stream) {
+                                int n, int c_in, int n_out, int heads, int hd, int ln_c,
+                                float eps, int bm, void* stream) {
   const int rows = batch * n;
   if (rows < 1 || c_in < 8 || c_in % 8 || hd < 2 || hd % 2 || heads < 1 ||
       n_out % (heads * hd))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = tcg::launch_ln_rows((const bf16*)x, (const float*)ln_s, (const float*)ln_b,
-                                        (bf16*)xn, rows, c_in, eps, s);
+                                        (bf16*)xn, rows, c_in, ln_c, eps, s);
   if (err != cudaSuccess) return (int)err;
   const int c_out = heads * hd;
   return (int)tcg::launch_gemm(

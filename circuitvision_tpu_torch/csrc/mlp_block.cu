@@ -236,15 +236,19 @@ extern "C" int cv_mlp_block_f32(const void* x, const void* ln_s, const void* ln_
 // every other tensor contiguous bf16 and 16-byte aligned, c and hidden
 // multiples of 8. xn (t·c) and h (t·hidden) are bf16 workspaces; the
 // GEMM row tiles (bm1 for h, bm2 for out, each 128 or 64) come from the
-// wrapper's plan (ops/cuda/mlp_block.py mlp_plan).
+// wrapper's plan (ops/cuda/mlp_block.py mlp_plan). ln_c ≤ c is the rows'
+// true width, the LayerNorm's divisor: x, the weights and the LN
+// parameters zero-padded from ln_c to c give the unpadded block's
+// values and zeros in the padding.
 extern "C" int cv_mlp_block_bf16(const void* x, const void* ln_s, const void* ln_b,
                                  const void* w0, const void* b0, const void* w1,
                                  const void* b1, void* out, void* xn, void* h, int t, int c,
-                                 int hidden, float eps, int bm1, int bm2, void* stream) {
+                                 int hidden, int ln_c, float eps, int bm1, int bm2,
+                                 void* stream) {
   if (t < 1 || c < 8 || c % 8 || hidden < 8 || hidden % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = tcg::launch_ln_rows((const bf16*)x, (const float*)ln_s, (const float*)ln_b,
-                                        (bf16*)xn, t, c, eps, s);
+                                        (bf16*)xn, t, c, ln_c, eps, s);
   if (err != cudaSuccess) return (int)err;
   err = tcg::launch_gemm(bm1, (const bf16*)xn, (const bf16*)w0, t, hidden, c,
                          GeluEpi{(const bf16*)b0, (bf16*)h, hidden}, s);

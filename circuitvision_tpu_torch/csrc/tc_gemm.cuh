@@ -5,7 +5,9 @@
 //
 // ln_rows_kernel: xn = bf16(LN(x)) for kLnRows rows a block, through
 // common.cuh's layernorm_rows as the f32 kernels run it, so xn is bit for
-// bit what they normalise.
+// bit what they normalise. Its statistics divide by ln_c, the row's true
+// width: a row of c zero-padded past ln_c (with zero scale and bias
+// there) normalises as the unpadded row does, and its padding stays 0.
 //
 // gemm_tc_kernel: out = epi(a·wᵀ) over an (m × n_cols) output, a (m, k)
 // — row-major by default, or any layout whose 8-deep runs are contiguous
@@ -60,7 +62,7 @@ size_t gemm_smem(int bm) { return (size_t)kGemmStages * (bm + kGemmBN) * 128 + 1
 __global__ void __launch_bounds__(kThreads)
 ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
                const float* __restrict__ ln_b, bf16* __restrict__ xn, int t, int c,
-               float eps) {
+               int ln_c, float eps) {
   extern __shared__ float lsm[];
   float* src = lsm;                 // kLnRows × c
   float* dst = lsm + kLnRows * c;   // kLnRows × c
@@ -69,20 +71,21 @@ ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
   const bf16* xb = x + (size_t)r0 * c;
   for (int e = threadIdx.x; e < rows * c; e += kThreads) src[e] = cvk::to_f(xb[e]);
   __syncthreads();
-  cvk::layernorm_rows<bf16>(src, dst, rows, c, ln_s, ln_b, eps);
+  cvk::layernorm_rows<bf16>(src, dst, rows, c, ln_s, ln_b, eps, ln_c);
   __syncthreads();
   bf16* ob = xn + (size_t)r0 * c;
   for (int e = threadIdx.x; e < rows * c; e += kThreads) ob[e] = cvk::from_f<bf16>(dst[e]);
 }
 
 cudaError_t launch_ln_rows(const bf16* x, const float* ln_s, const float* ln_b, bf16* xn,
-                           int t, int c, float eps, cudaStream_t stream) {
+                           int t, int c, int ln_c, float eps, cudaStream_t stream) {
+  if (ln_c < 1 || ln_c > c) return cudaErrorInvalidValue;
   const size_t lsm = ln_smem(c);
   cudaError_t err = cudaFuncSetAttribute(
       ln_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lsm);
   if (err != cudaSuccess) return err;
   ln_rows_kernel<<<(t + kLnRows - 1) / kLnRows, kThreads, lsm, stream>>>(x, ln_s, ln_b, xn, t,
-                                                                        c, eps);
+                                                                        c, ln_c, eps);
   return cudaGetLastError();
 }
 

@@ -930,7 +930,7 @@ cudaError_t launch_qpool_bf16(const void* x, const void* ln_s, const void* ln_b,
     return cudaErrorInvalidValue;
   const int rows = n_win * win * win;
   cudaError_t err = tcg::launch_ln_rows((const bf16*)x, (const float*)ln_s, (const float*)ln_b,
-                                        (bf16*)xn, rows, c_in, eps, stream);
+                                        (bf16*)xn, rows, c_in, c_in, eps, stream);
   if (err != cudaSuccess) return err;
   auto run = [&](auto launch) {
     return launch(c_in, xn, wskip, bskip, wqkv, bqkv, wproj, bproj, out, rows, win, c_out, heads,

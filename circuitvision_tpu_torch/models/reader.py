@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from ..core import taxonomy
 from ..core.types import BBox
+from ..ops.image import resize_linear_u8
 
 #: value alphabet; slot 0 of the value logits is the blank
 VALUE_CHARS = "0123456789kMGunmp.:-"
@@ -138,43 +139,11 @@ class CropReader(nn.Module):
                 self.head_dir(feat))
 
 
-def _linear_taps(src: int, dst: int, clamp_weights: bool):
-    """Source indices and 11-bit weights of OpenCV's INTER_LINEAR along one
-    axis (imgproc/resize.cpp): fx = (float)((d + 0.5)·src/dst − 0.5),
-    index floor(fx), weights round((1 − f)·2048) and round(f·2048). Along
-    x a tap outside the image pins the weight (0 → 2048, 0); along y only
-    the row indices are clamped and the weights stay."""
-    f = ((np.arange(dst) + 0.5) * (src / dst) - 0.5).astype(np.float32)
-    s = np.floor(f).astype(np.int64)
-    f = (f - s.astype(np.float32)).astype(np.float32)
-    if clamp_weights:
-        edge = (s < 0) | (s >= src - 1)
-        f[edge] = 0.0
-        s = np.clip(s, 0, src - 1)
-    w1 = np.rint(f * np.float32(2048)).astype(np.int64)
-    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int64)
-    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), w0, w1
-
-
 def resize_crop(crop: np.ndarray, size: int) -> np.ndarray:
     """uint8 (H, W[, C]) → (size, size[, C]), byte-equal to
     cv2.resize(crop, (size, size), interpolation=cv2.INTER_LINEAR) (the
-    JAX package's `resize_crop`). OpenCV resizes in fixed point: the
-    horizontal pass sums pixel × 11-bit weight exactly in int32; the
-    vertical pass (its SIMD form, which the direction crops' rows take)
-    narrows each row sum to int16 by >> 4, multiplies by its 11-bit weight
-    keeping the high 16 bits, adds the two, and rounds off 2 more bits."""
-    img = np.asarray(crop)
-    h, w = img.shape[:2]
-    x0, x1, a0, a1 = _linear_taps(w, size, clamp_weights=True)
-    y0, y1, b0, b1 = _linear_taps(h, size, clamp_weights=False)
-    src = img.astype(np.int64).reshape(h, w, -1)
-    rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
-    r0 = np.clip(rows[y0] >> 4, -32768, 32767)
-    r1 = np.clip(rows[y1] >> 4, -32768, 32767)
-    out = (((r0 * b0[:, None, None]) >> 16) + ((r1 * b1[:, None, None]) >> 16) + 2) >> 2
-    out = np.clip(out, 0, 255).astype(np.uint8)
-    return out.reshape((size, size) + img.shape[2:])
+    JAX package's `resize_crop`; ops/image.resize_linear_u8)."""
+    return resize_linear_u8(crop, (size, size))
 
 
 def make_crop(image: np.ndarray, box: BBox, pad: int = CROP_PAD,

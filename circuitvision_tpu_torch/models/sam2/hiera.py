@@ -29,10 +29,11 @@ one-block window and q-pool kernels take head widths 56, 72 and 96 and
 the tiled route every other width up to 256, padded to a multiple of 8
 where it is not one (ops/cuda/window_attn.py `pad_heads`). A bfloat16
 block on the card whose width is not a multiple of 8 — the tensor-core
-kernels copy rows in 16-byte pieces — runs its kernels in float32 and
-rounds its output back (`MultiScaleBlock.forward`): a precision
-departure from the JAX trunk, which computes such blocks in bfloat16
-(the two agree within four bf16 ulps on a width-60 trunk). The analyzer
+kernels copy rows in 16-byte pieces — runs them in bfloat16 on rows
+zero-padded to the next multiple of 8, with its weights and LayerNorm
+parameters padded to match and each LayerNorm dividing by the true
+width (`pad_block`; its window and q-pool halves take the tiled route),
+and cuts its output back. The analyzer
 refuses on the card only a bfloat16 trunk of heads wider than 256
 (`refused_head_width`).
 
@@ -279,18 +280,46 @@ class MultiScaleBlock(nn.Module):
         #: position in the trunk, for the kernel gate (`fused_gate`); -1: a
         #: block of its own, on the module path whenever a cutoff is set
         self.block_index = -1
-        self._float32: dict[str, torch.Tensor] = {}
-        self._float32_key: tuple = ()
+        self._padded: dict[str, torch.Tensor] = {}
+        self._padded_key: tuple = ()
 
-    def float32_copy(self) -> dict[str, torch.Tensor]:
-        """The parameters in float32 for the `float32_kernels` detour: cast
-        on the first call, and again only once a parameter has been moved
-        or written (its storage or version changed)."""
+    def padded_params(self) -> dict[str, torch.Tensor]:
+        """The parameters as the padded route (`pad_block`) reads them:
+        the LayerNorms' scales and biases (float32) and the input columns
+        of qkv and of the shortcut projection zero-padded to the next
+        multiple of 8 of their width, the MLP's weights and biases padded
+        likewise on both sides (its hidden width too, where that is off a
+        multiple of 8), attn.proj at its true width (the tiled route pads
+        its heads itself, window_attn.pad_heads). Padded on the first
+        call, and again only once a parameter has been moved or written
+        (its storage or version changed)."""
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
-        if self._float32_key != key:
-            self._float32 = {n: p.detach().float() for n, p in self.named_parameters()}
-            self._float32_key = key
-        return self._float32
+        if self._padded_key != key:
+            p = {n: t.detach() for n, t in self.named_parameters()}
+            ci, co = _ceil8(self.dim), _ceil8(self.dim_out)
+            hidden = self.mlp_layers_0.out_features
+            hp = _ceil8(hidden)
+            out = {
+                "norm1.weight": _pad_last(_f32(p["norm1.weight"]), ci),
+                "norm1.bias": _pad_last(_f32(p["norm1.bias"]), ci),
+                "attn.qkv.weight": _pad_last(p["attn.qkv.weight"], ci),
+                "attn.qkv.bias": p["attn.qkv.bias"],
+                "attn.proj.weight": p["attn.proj.weight"],
+                "attn.proj.bias": p["attn.proj.bias"],
+                "norm2.weight": _pad_last(_f32(p["norm2.weight"]), co),
+                "norm2.bias": _pad_last(_f32(p["norm2.bias"]), co),
+                "mlp_layers_0.weight": F.pad(p["mlp_layers_0.weight"],
+                                             (0, co - self.dim_out, 0, hp - hidden)),
+                "mlp_layers_0.bias": _pad_last(p["mlp_layers_0.bias"], hp),
+                "mlp_layers_1.weight": F.pad(p["mlp_layers_1.weight"],
+                                             (0, hp - hidden, 0, co - self.dim_out)),
+                "mlp_layers_1.bias": _pad_last(p["mlp_layers_1.bias"], co),
+            }
+            if self.dim != self.dim_out:
+                out["proj.weight"] = _pad_last(p["proj.weight"], ci)
+                out["proj.bias"] = p["proj.bias"]
+            self._padded, self._padded_key = out, key
+        return self._padded
 
     def attention_path(self, x: torch.Tensor, window_size: int, partitioned: bool) -> str:
         """Which path the attention half of `forward` takes: "qpool",
@@ -318,12 +347,16 @@ class MultiScaleBlock(nn.Module):
         """x is (B, H, W, C) in full layout (`window_size` > 0 windows it
         here, 0 is global) or, when `partitioned`, (B·nW, win, win, C)
         with each window an image of its own. A bfloat16 CUDA block of a
-        width off a multiple of 8 runs in float32 (`float32_kernels`)."""
+        width off a multiple of 8 runs its kernels on rows zero-padded to
+        the next multiple of 8 (`pad_block`, `padded_params`), each
+        LayerNorm dividing by the true width, and cuts its output back."""
         kernels = fused_gate(self.block_index if self.block_index >= 0 else None)
-        if kernels and float32_kernels(x, self.dim, self.dim_out):
-            out = torch.func.functional_call(self, self.float32_copy(),
-                                             (x.float(), window_size, partitioned))
-            return out.to(x.dtype)
+        padded = kernels and pad_block(x, self.dim, self.dim_out)
+        if padded:
+            p, ln_in, ln_out = self.padded_params(), self.dim, self.dim_out
+            x = _pad_last(x, _ceil8(self.dim))
+        else:
+            p, ln_in, ln_out = self._params(), None, None
         heads = self.num_heads
         path = self.attention_path(x, window_size, partitioned) if kernels else "module"
         if path == "qpool":
@@ -333,78 +366,109 @@ class MultiScaleBlock(nn.Module):
             nwm = xw.shape[0]
             out = qpool_attn_block(
                 xw.reshape(nwm * win * win, c).contiguous(),
-                _f32(self.norm1.weight), _f32(self.norm1.bias), self.proj.weight, self.proj.bias,
-                self.attn.qkv.weight, self.attn.qkv.bias,
-                self.attn.proj.weight, self.attn.proj.bias,
-                heads=heads, win=win,
+                _f32(p["norm1.weight"]), _f32(p["norm1.bias"]), p["proj.weight"],
+                p["proj.bias"], p["attn.qkv.weight"], p["attn.qkv.bias"],
+                p["attn.proj.weight"], p["attn.proj.bias"],
+                heads=heads, win=win, ln_width=ln_in,
             )
             x = out.reshape(nwm, win // 2, win // 2, self.dim_out)
             x = window_unpartition(x, win // 2, (fh // 2, fw // 2), (fh // 2, fw // 2))
         elif path == "global":
             b_, fh, fw, c = x.shape
             x = window_attn_block_tiled(
-                x.reshape(b_, fh * fw, c).contiguous(), _f32(self.norm1.weight),
-                _f32(self.norm1.bias),
-                self.attn.qkv.weight, self.attn.qkv.bias, self.attn.proj.weight,
-                self.attn.proj.bias, heads, round_proj=False).reshape(b_, fh, fw, c)
+                x.reshape(b_, fh * fw, c).contiguous(), _f32(p["norm1.weight"]),
+                _f32(p["norm1.bias"]), p["attn.qkv.weight"], p["attn.qkv.bias"],
+                p["attn.proj.weight"], p["attn.proj.bias"], heads, round_proj=False,
+                ln_width=ln_in).reshape(b_, fh, fw, -1)
         elif path == "window":
             b_, wh, ww, c = x.shape
             x = window_attn_block(
                 x.reshape(b_, wh * ww, c).contiguous(),
-                _f32(self.norm1.weight), _f32(self.norm1.bias),
-                self.attn.qkv.weight, self.attn.qkv.bias,
-                self.attn.proj.weight, self.attn.proj.bias,
-                heads=heads,
-            ).reshape(b_, wh, ww, c)
+                _f32(p["norm1.weight"]), _f32(p["norm1.bias"]),
+                p["attn.qkv.weight"], p["attn.qkv.bias"],
+                p["attn.proj.weight"], p["attn.proj.bias"],
+                heads=heads, ln_width=ln_in,
+            ).reshape(b_, wh, ww, -1)
         else:
-            shortcut = x
-            x = self.norm1(x)
-            if self.dim != self.dim_out:
-                shortcut = _pool2x(self.proj(x))
-            window = 0 if partitioned else window_size
-            pad_hw = None
-            hw = (x.shape[1], x.shape[2])
-            if window > 0:
-                x, pad_hw = window_partition(x, window)
-            x = self.attn(x, self.q_stride)
-            if self.q_stride:
-                # q was pooled: windows halve and the padded grid with them
-                window = window // 2
-                hw = (shortcut.shape[1], shortcut.shape[2])
-                if pad_hw is not None:
-                    pad_hw = (pad_hw[0] // 2, pad_hw[1] // 2)
-            if window > 0:
-                x = window_unpartition(x, window, pad_hw, hw)
-            x = shortcut + x
+            x = self._module_attention(x[..., :self.dim] if padded else x, window_size,
+                                       partitioned)
         if not kernels:
             y = F.gelu(self.mlp_layers_0(self.norm2(x)))
             return x + self.mlp_layers_1(y)
+        if padded:
+            x = _pad_last(x[..., :self.dim_out], _ceil8(self.dim_out))
         shp = x.shape
-        return mlp_block(
-            x.reshape(-1, self.dim_out).contiguous(), _f32(self.norm2.weight),
-            _f32(self.norm2.bias), self.mlp_layers_0.weight, self.mlp_layers_0.bias,
-            self.mlp_layers_1.weight, self.mlp_layers_1.bias,
+        out = mlp_block(
+            x.reshape(-1, shp[-1]).contiguous(), _f32(p["norm2.weight"]),
+            _f32(p["norm2.bias"]), p["mlp_layers_0.weight"], p["mlp_layers_0.bias"],
+            p["mlp_layers_1.weight"], p["mlp_layers_1.bias"], ln_width=ln_out,
         ).reshape(shp)
+        return out[..., :self.dim_out].contiguous() if padded else out
+
+    def _params(self) -> dict[str, torch.Tensor]:
+        """The parameters the kernels read, by their state-dict names."""
+        p = {"norm1.weight": self.norm1.weight, "norm1.bias": self.norm1.bias,
+             "attn.qkv.weight": self.attn.qkv.weight, "attn.qkv.bias": self.attn.qkv.bias,
+             "attn.proj.weight": self.attn.proj.weight, "attn.proj.bias": self.attn.proj.bias,
+             "norm2.weight": self.norm2.weight, "norm2.bias": self.norm2.bias,
+             "mlp_layers_0.weight": self.mlp_layers_0.weight,
+             "mlp_layers_0.bias": self.mlp_layers_0.bias,
+             "mlp_layers_1.weight": self.mlp_layers_1.weight,
+             "mlp_layers_1.bias": self.mlp_layers_1.bias}
+        if self.dim != self.dim_out:
+            p["proj.weight"], p["proj.bias"] = self.proj.weight, self.proj.bias
+        return p
+
+    def _module_attention(self, x: torch.Tensor, window_size: int,
+                          partitioned: bool) -> torch.Tensor:
+        """The attention half on the plain module path: x + attn(LN1(x)),
+        the shortcut projected and pooled in a transition block."""
+        shortcut = x
+        x = self.norm1(x)
+        if self.dim != self.dim_out:
+            shortcut = _pool2x(self.proj(x))
+        window = 0 if partitioned else window_size
+        pad_hw = None
+        hw = (x.shape[1], x.shape[2])
+        if window > 0:
+            x, pad_hw = window_partition(x, window)
+        x = self.attn(x, self.q_stride)
+        if self.q_stride:
+            # q was pooled: windows halve and the padded grid with them
+            window = window // 2
+            hw = (shortcut.shape[1], shortcut.shape[2])
+            if pad_hw is not None:
+                pad_hw = (pad_hw[0] // 2, pad_hw[1] // 2)
+        if window > 0:
+            x = window_unpartition(x, window, pad_hw, hw)
+        return shortcut + x
 
 
-def float32_kernels(x: torch.Tensor, dim: int, dim_out: int) -> bool:
-    """Whether a block of widths dim → dim_out runs its kernels in float32
-    on input x: a bfloat16 CUDA tensor at a width off a multiple of 8,
-    which the tensor-core kernels (rows copied in 16-byte pieces) do not
-    take. On the CPU the plain versions take every width."""
+def pad_block(x: torch.Tensor, dim: int, dim_out: int) -> bool:
+    """Whether a block of widths dim → dim_out runs its kernels on padded
+    rows: a bfloat16 CUDA tensor at a width off a multiple of 8, which
+    the tensor-core kernels (rows copied in 16-byte pieces) take only
+    zero-padded to the next multiple of 8. On the CPU the plain versions
+    take every width."""
     return x.is_cuda and x.dtype == torch.bfloat16 and bool(dim % 8 or dim_out % 8)
+
+
+def _ceil8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
+    """t zero-padded on its last axis to `width` (t itself at that width)."""
+    return F.pad(t, (0, width - t.shape[-1])) if t.shape[-1] < width else t
 
 
 def refused_head_width(embed_dim: int, num_heads: int) -> int | None:
     """The head width of a Hiera trunk — embed_dim // num_heads in every
     stage, since a q-pool block doubles both — if its bfloat16 kernels
     refuse it, else None: padded to a multiple of 8, wider than
-    flash_attn's widest bf16 instance (TC_WIDTHS[-1]), or, where the
-    trunk's width is off a multiple of 8 (those blocks run the float32
-    kernels), wider than theirs (MAX_HEAD_DIM)."""
+    flash_attn's widest bf16 instance (TC_WIDTHS[-1])."""
     hd = embed_dim // num_heads
-    widest = MAX_HEAD_DIM if embed_dim % 8 else TC_WIDTHS[-1]
-    return hd if padded_head_width(hd, torch.bfloat16) > widest else None
+    return hd if padded_head_width(hd, torch.bfloat16) > TC_WIDTHS[-1] else None
 
 
 class Hiera(nn.Module):

@@ -19,8 +19,13 @@ def label_components(mask: np.ndarray) -> np.ndarray:
     lab, n = ndimage.label(fg, structure=np.ones((3, 3), np.int32))
     root = np.full(n + 1, h * w, np.int32)
     flat = lab.ravel()
-    idx = np.nonzero(flat)[0]
-    # scipy numbers components in raster order of their first pixel
-    ids, first = np.unique(flat[idx], return_index=True)
-    root[ids] = idx[first]
+    idx = np.flatnonzero(flat)
+    ids = flat[idx]
+    # scipy numbers components 1, 2, … in raster order of their first
+    # pixel, so a component's first pixel is where the running maximum of
+    # the labels met so far rises to its label
+    rises = np.empty(len(ids), bool)
+    rises[:1] = True
+    rises[1:] = ids[1:] > np.maximum.accumulate(ids)[:-1]
+    root[ids[rises]] = idx[rises]
     return root[lab]

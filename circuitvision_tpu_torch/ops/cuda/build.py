@@ -41,7 +41,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "mlp_block": {
         "cv_mlp_block_f32": [_P] * 9 + [_I] * 4 + [_F, _P],
-        "cv_mlp_block_bf16": [_P] * 10 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
+        "cv_mlp_block_bf16": [_P] * 10 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
         "cv_mlp_block_smem": [_I],
         "cv_mlp_ln_smem": [_I],
         "cv_mlp_gemm_smem": [_I],
@@ -59,7 +59,7 @@ SIGNATURES = {
     },
     "global_attn": {
         "cv_ln_heads_f32": [_P] * 6 + [_I] * 6 + [_F, _P],
-        "cv_ln_heads_bf16": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+        "cv_ln_heads_bf16": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
         "cv_proj_res_f32": [_P] * 5 + [_I] * 6 + [_P],
         "cv_proj_res_bf16": [_P] * 5 + [_I] * 8 + [_P],
         "cv_ln_heads_smem": [_I],

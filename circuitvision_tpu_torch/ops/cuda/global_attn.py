@@ -98,22 +98,25 @@ def pool2x2_windows(a: torch.Tensor, win: int) -> torch.Tensor:
     return a.reshape(-1, m, 2, m, 2, c).amax(dim=(2, 4)).reshape(*a.shape[:-2], m * m, c)
 
 
-def ln_qkv_plain(x, ln_scale, ln_bias, w, b, heads, slabs=3, eps=1e-6):
+def ln_qkv_plain(x, ln_scale, ln_bias, w, b, heads, slabs=3, eps=1e-6, ln_width=None):
     dt = x.dtype
     bsz, n, _ = x.shape
-    xn = layernorm_f32(x, ln_scale, ln_bias, eps).to(dt)
+    xn = layernorm_f32(x, ln_scale, ln_bias, eps, ln_width).to(dt)
     y = (xn.float() @ w.float().t() + b.float()).to(dt)
     return y.view(bsz, n, slabs, heads, -1).permute(2, 0, 3, 1, 4).contiguous()
 
 
-def ln_qkv(x, ln_scale, ln_bias, w, b, heads, slabs=3, eps=1e-6):
+def ln_qkv(x, ln_scale, ln_bias, w, b, heads, slabs=3, eps=1e-6, ln_width=None):
     """x (B, N, C_in); w (slabs·heads·D, C_in) in torch Linear layout.
     Returns (slabs, B, heads, N, D): q, k, v for the qkv weight, or one
     slab of one head — the plain product, row-major — for a shortcut
-    projection. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (bfloat16: C_in a multiple of 8, an even head width)."""
+    projection. `ln_width` (bfloat16 only) is the rows' true width where
+    x, w's columns and the LN parameters are zero-padded past it: the
+    LayerNorm divides by it. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (bfloat16: C_in a multiple of 8, an even
+    head width)."""
     if x.device.type == "cpu":
-        return ln_qkv_plain(x, ln_scale, ln_bias, w, b, heads, slabs, eps)
+        return ln_qkv_plain(x, ln_scale, ln_bias, w, b, heads, slabs, eps, ln_width)
     check_operands("ln_qkv", x, w, b)
     check_no_grad("ln_qkv", x, ln_scale, ln_bias, w, b)
     check_ln_params("ln_qkv", x, ln_scale, ln_bias)
@@ -122,6 +125,9 @@ def ln_qkv(x, ln_scale, ln_bias, w, b, heads, slabs=3, eps=1e-6):
     if n_out % (slabs * heads) or w.shape != (n_out, c_in) or b.shape != (n_out,):
         raise KernelError("ln_qkv: weight shapes do not match x")
     hd = n_out // (slabs * heads)
+    if ln_width is not None and (x.dtype != torch.bfloat16 or not 0 < ln_width <= c_in):
+        raise KernelError(f"ln_qkv: a true width ({ln_width}) is taken by the bfloat16 kernel "
+                          f"only, at most C_in={c_in}")
     lib = library("global_attn")
     out = torch.empty((slabs, bsz, heads, n, hd), dtype=x.dtype, device=x.device)
     if x.dtype == torch.bfloat16:
@@ -134,7 +140,8 @@ def ln_qkv(x, ln_scale, ln_bias, w, b, heads, slabs=3, eps=1e-6):
         xn = torch.empty(plan.workspace, dtype=torch.bfloat16, device=x.device)
         err = lib.cv_ln_heads_bf16(
             x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), xn.data_ptr(), bsz, n, c_in, n_out, heads, hd, eps, plan.gemm.bm,
+            out.data_ptr(), xn.data_ptr(), bsz, n, c_in, n_out, heads, hd, ln_width or c_in,
+            eps, plan.gemm.bm,
             stream_ptr(x),
         )
     else:

@@ -86,28 +86,34 @@ def mlp_plan(t: int, c: int, hidden: int, sms: int = H100_SMS) -> MlpPlan:
                    gemm_tile(t, c, sms), t * (c + hidden))
 
 
-def layernorm_f32(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
+def layernorm_f32(x: torch.Tensor, scale, bias, eps: float,
+                  width: int | None = None) -> torch.Tensor:
     """LayerNorm with f32 fast-variance statistics (hiera.TrunkLayerNorm),
-    returned in f32."""
+    returned in f32. `width` is the rows' true width, the statistics'
+    divisor, for rows zero-padded past it (default: all of the last
+    axis); zeros add nothing to the sums."""
     xf = x.float()
-    c = x.shape[-1]
+    c = width or x.shape[-1]
     mean = xf.sum(-1, keepdim=True) / c
     var = torch.clamp((xf * xf).sum(-1, keepdim=True) / c - mean * mean, min=0.0)
     return (xf - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
-def mlp_block_plain(x, ln_scale, ln_bias, w0, b0, w1, b1, eps=1e-6):
+def mlp_block_plain(x, ln_scale, ln_bias, w0, b0, w1, b1, eps=1e-6, ln_width=None):
     dt = x.dtype
-    xn = layernorm_f32(x, ln_scale, ln_bias, eps).to(dt)
+    xn = layernorm_f32(x, ln_scale, ln_bias, eps, ln_width).to(dt)
     h = F.gelu(xn.float() @ w0.float().t() + b0.float()).to(dt)
     return (x.float() + b1.float() + h.float() @ w1.float().t()).to(dt)
 
 
-def mlp_block(x, ln_scale, ln_bias, w0, b0, w1, b1, eps=1e-6):
+def mlp_block(x, ln_scale, ln_bias, w0, b0, w1, b1, eps=1e-6, ln_width=None):
     """x (T, C); w0 (hidden, C), w1 (C, hidden) in torch Linear layout.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    `ln_width` (bfloat16 only) is the rows' true width where x, the
+    weights and the LN parameters are zero-padded past it to C, a
+    multiple of 8 (hiera.pad_block): the LayerNorm divides by it. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
-        return mlp_block_plain(x, ln_scale, ln_bias, w0, b0, w1, b1, eps)
+        return mlp_block_plain(x, ln_scale, ln_bias, w0, b0, w1, b1, eps, ln_width)
     check_operands("mlp_block", x, w0, b0, w1, b1)
     check_no_grad("mlp_block", x, ln_scale, ln_bias, w0, b0, w1, b1)
     check_ln_params("mlp_block", x, ln_scale, ln_bias)
@@ -116,6 +122,9 @@ def mlp_block(x, ln_scale, ln_bias, w0, b0, w1, b1, eps=1e-6):
     if w0.shape != (hidden, c) or w1.shape != (c, hidden) or b0.shape != (hidden,) \
             or b1.shape != (c,):
         raise KernelError("mlp_block: weight shapes do not match x")
+    if ln_width is not None and (x.dtype != torch.bfloat16 or not 0 < ln_width <= c):
+        raise KernelError(f"mlp_block: a true width ({ln_width}) is taken by the bfloat16 "
+                          f"kernel only, at most C={c}")
     lib = library("mlp_block")
     sms = sm_count(x)
     out = torch.empty_like(x)
@@ -128,7 +137,8 @@ def mlp_block(x, ln_scale, ln_bias, w0, b0, w1, b1, eps=1e-6):
         err = lib.cv_mlp_block_bf16(
             x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w0.data_ptr(),
             b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            ws[t * c:].data_ptr(), t, c, hidden, eps, plan.gemm1.bm, plan.gemm2.bm,
+            ws[t * c:].data_ptr(), t, c, hidden, ln_width or c, eps, plan.gemm1.bm,
+            plan.gemm2.bm,
             stream_ptr(x),
         )
     else:

@@ -164,11 +164,19 @@ def window_attn_block_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
 
 
 def window_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
-                      heads, eps=1e-6):
+                      heads, eps=1e-6, ln_width=None):
     """x (n_windows, T, C); wqkv (3C, C), wproj (C, C) in torch Linear
     layout. CPU tensors take the plain version; CUDA tensors launch the
     one-block kernel or, where a window does not fit it, take the tiled
-    route (counted in `window_attn_block.tiled`)."""
+    route (counted in `window_attn_block.tiled`). Rows zero-padded past
+    their true width `ln_width` (a bfloat16 block off a multiple of 8,
+    hiera.pad_block; wqkv's columns and the LN parameters padded with
+    them, wproj at the true width) take the tiled route on both devices,
+    whose LayerNorm divides by the true width."""
+    if ln_width is not None:
+        window_attn_block.tiled += x.is_cuda
+        return window_attn_block_tiled(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
+                                       heads, eps, ln_width=ln_width)
     if x.device.type == "cpu":
         return window_attn_block_plain(x, ln_scale, ln_bias, wqkv, bqkv, wproj,
                                        bproj, heads, eps)
@@ -227,16 +235,16 @@ def pad_heads(wqkv, bqkv, wproj, bproj, heads: int, dtype: torch.dtype):
 
 
 def window_attn_block_tiled(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
-                            heads, eps=1e-6, round_proj=True):
+                            heads, eps=1e-6, round_proj=True, ln_width=None):
     """window_attn_block as ln_qkv → flash_attn → attn_proj_residual over
     (B, N, C) windows — or one global block, B images of N tokens — with
     the heads padded where the dtype needs it (`pad_heads`). `round_proj`
     rounds the projection before the residual add, as the window kernels
-    do; the global blocks do not."""
+    do; the global blocks do not. `ln_width`: see window_attn_block."""
     c = x.shape[-1]
     hd, wqkv, bqkv, wproj, bproj = pad_heads(wqkv, bqkv, wproj, bproj, heads, x.dtype)
     pad = wproj.shape[0] - c
-    q, k, v = ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv, heads, eps=eps)
+    q, k, v = ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv, heads, eps=eps, ln_width=ln_width)
     out = attn_proj_residual(F.pad(x, (0, pad)) if pad else x,
                              flash_attn(q, k, v, scale_width=hd), wproj, bproj,
                              round_proj=round_proj)
@@ -260,13 +268,20 @@ def qpool_attn_block_plain(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv,
 
 
 def qpool_attn_block(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj,
-                     bproj, heads, win, eps=1e-6):
+                     bproj, heads, win, eps=1e-6, ln_width=None):
     """x (n_windows·win², C_in) window-major rows, (i, j) order inside a
     window; returns (n_windows·win²/4, C_out) in the same order. Weights
     in torch Linear layout: wskip (C_out, C_in), wqkv (3·C_out, C_in),
     wproj (C_out, C_out). CPU tensors take the plain version; CUDA
     tensors launch the one-block kernel or, where a window does not fit
-    it, take the tiled route (counted in `qpool_attn_block.tiled`)."""
+    it, take the tiled route (counted in `qpool_attn_block.tiled`). Rows
+    zero-padded past their true width `ln_width` (wskip's and wqkv's
+    columns and the LN parameters padded with them) take the tiled route
+    on both devices, as in window_attn_block."""
+    if ln_width is not None:
+        qpool_attn_block.tiled += x.is_cuda
+        return qpool_attn_block_tiled(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv,
+                                      wproj, bproj, heads, win, eps, ln_width=ln_width)
     if x.device.type == "cpu":
         return qpool_attn_block_plain(x, ln_scale, ln_bias, wskip, bskip, wqkv,
                                       bqkv, wproj, bproj, heads, win, eps)
@@ -308,7 +323,7 @@ qpool_attn_block.tiled = 0
 
 
 def qpool_attn_block_tiled(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj,
-                           bproj, heads, win, eps=1e-6):
+                           bproj, heads, win, eps=1e-6, ln_width=None):
     """qpool_attn_block as ln_qkv (q, k, v; then the shortcut as one
     slab) → flash_attn with q pooled as it loads → attn_proj_residual
     onto the shortcut pooled as it is read; heads padded where the dtype
@@ -322,8 +337,9 @@ def qpool_attn_block_tiled(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj
     pad = wproj.shape[0] - c_out
     if pad:
         wskip, bskip = F.pad(wskip, (0, 0, 0, pad)), F.pad(bskip, (0, pad))
-    q, k, v = ln_qkv(xw, ln_scale, ln_bias, wqkv, bqkv, heads, eps=eps)
-    skip = ln_qkv(xw, ln_scale, ln_bias, wskip, bskip, 1, slabs=1, eps=eps)[0, :, 0]
+    q, k, v = ln_qkv(xw, ln_scale, ln_bias, wqkv, bqkv, heads, eps=eps, ln_width=ln_width)
+    skip = ln_qkv(xw, ln_scale, ln_bias, wskip, bskip, 1, slabs=1, eps=eps,
+                  ln_width=ln_width)[0, :, 0]
     o = flash_attn(q, k, v, pool_win=win, scale_width=hd)
     out = attn_proj_residual(skip, o, wproj, bproj, pool_win=win, round_proj=True)
     out = out.view(rows // 4, -1)

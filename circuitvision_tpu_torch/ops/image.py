@@ -15,10 +15,14 @@ scale when antialiasing a downscale), contracted one dim at a time. Both the
 upscale and the downscale therefore agree with the JAX package, where
 `F.interpolate` would not (it never antialiases a bilinear downscale the
 way JAX does, and its edge handling differs). All functions take and
-return tensors on the caller's device, in float32.
+return tensors on the caller's device, in float32, but
+`resize_linear_u8`, cv2.resize INTER_LINEAR on a uint8 host array in
+cv2's own fixed point, for the images that must be byte-equal to cv2's
+(the crop reader's direction crops, the node-visualisation base).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -140,3 +144,43 @@ def crop_sam2_preprocess(img_u8: torch.Tensor, y0: int, x0: int, crop_h: int, cr
     uint8 image, then `sam2_preprocess` (JAX pipeline/batch.py:80-103):
     the crop never travels from the host again."""
     return sam2_preprocess(img_u8[y0:y0 + crop_h, x0:x0 + crop_w], resolution)
+
+
+def _linear_taps(src: int, dst: int, clamp_weights: bool):
+    """Source indices and 11-bit weights of OpenCV's INTER_LINEAR along one
+    axis (imgproc/resize.cpp): fx = (float)((d + 0.5)·src/dst − 0.5),
+    index floor(fx), weights round((1 − f)·2048) and round(f·2048). Along
+    x a tap outside the image pins the weight (0 → 2048, 0); along y only
+    the row indices are clamped and the weights stay."""
+    f = ((np.arange(dst) + 0.5) * (src / dst) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(np.float32)).astype(np.float32)
+    if clamp_weights:
+        edge = (s < 0) | (s >= src - 1)
+        f[edge] = 0.0
+        s = np.clip(s, 0, src - 1)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int64)
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int64)
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), w0, w1
+
+
+def resize_linear_u8(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
+    """uint8 (H, W[, C]) → (out_h, out_w[, C]) on the host, byte-equal to
+    cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_LINEAR).
+    OpenCV resizes in fixed point: the horizontal pass sums pixel × 11-bit
+    weight exactly in int32; the vertical pass (its SIMD form) narrows
+    each row sum to int16 by >> 4, multiplies by its 11-bit weight keeping
+    the high 16 bits, adds the two, and rounds off 2 more bits."""
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    out_h, out_w = out_hw
+    x0, x1, a0, a1 = _linear_taps(w, out_w, clamp_weights=True)
+    y0, y1, b0, b1 = _linear_taps(h, out_h, clamp_weights=False)
+    # int32 holds every sum: 255 · 2048 horizontally, 32767 · 2048 vertically
+    src = img.reshape(h, w, -1)
+    a0, a1 = a0.astype(np.int32)[None, :, None], a1.astype(np.int32)[None, :, None]
+    rows = (src[:, x0].astype(np.int32) * a0 + src[:, x1].astype(np.int32) * a1) >> 4
+    np.clip(rows, -32768, 32767, out=rows)
+    b0, b1 = b0.astype(np.int32)[:, None, None], b1.astype(np.int32)[:, None, None]
+    out = (((rows[y0] * b0) >> 16) + ((rows[y1] * b1) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8).reshape((out_h, out_w) + img.shape[2:])

@@ -14,7 +14,9 @@ Counterpart of `CircuitAnalyzerTPU.analyze()` in the JAX package
   [4] enrich        — component polarities from the VLM client (the
                       trained crop reader, enrich/trained_reader.py);
                       without a client directions stay unset
-  [5] nodes         — stage A on the device, contours on the host
+  [5] nodes         — stage A on the device, contours on the host, and
+                      the three debug images drawn as cv2 draws them
+                      (core/viz.py; the batched path skips them)
   [6] netlist       — valueless netlist text and visual ids
   [7] final netlist — the client's {id, class, value} rows merged in
                       (fix_netlist), by generate_final_netlist
@@ -248,6 +250,9 @@ class CircuitAnalyzerTorch:
             result.nodes = extraction.nodes
             result.node_mask = extraction.emptied_mask
             result.enhanced_mask = extraction.enhanced_mask
+            result.contour_visualization = extraction.contour_viz
+            result.connection_points_visualization = extraction.connection_viz
+            result.node_visualization = extraction.node_viz
         except Exception as exc:
             if is_device_fault(exc):
                 raise

@@ -225,7 +225,7 @@ class BatchedPipeline:
             for r in results:
                 try:
                     r.nodes = extract_nodes(r.sam_mask, r.bboxes, self.cfg.topology,
-                                            device=self.device).nodes
+                                            device=self.device, fetch_viz=False).nodes
                 except Exception as exc2:
                     if is_device_fault(exc2):
                         raise

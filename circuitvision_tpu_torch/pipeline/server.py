@@ -14,7 +14,7 @@ crops in one batch:
   when it is full: backpressure). A batch that fails fails only its own
   requests, and the executor keeps serving.
 - :func:`make_server` / :func:`serve` — a stdlib HTTP front end:
-  ``POST /analyze`` (PNG bytes → netlist JSON), ``GET /healthz``,
+  ``POST /analyze`` (PNG or JPEG bytes → netlist JSON), ``GET /healthz``,
   ``GET /stats``, ``GET /metrics`` (Prometheus text).
 
 Design on the card, and why it differs from the JAX executor. The JAX
@@ -394,8 +394,8 @@ def make_server(
 
     ThreadingHTTPServer gives one thread per in-flight request; they all
     funnel into the executor's queue, which is where batching happens.
-    ``POST /analyze`` takes PNG bytes (io/image_io.decode_image); any
-    failure, a body that is not a PNG included, answers 500 with the
+    ``POST /analyze`` takes PNG or JPEG bytes (io/image_io.decode_image);
+    any failure, a body that is neither included, answers 500 with the
     error.
     """
 

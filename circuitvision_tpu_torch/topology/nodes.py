@@ -26,8 +26,13 @@ the host a bit-packed raster, fetched for a whole chunk at once. With
 stage A's enhance_lines is the `enhance_lines_fused` kernel
 (ops/cuda/morphology.py), as JAX nodes.py:99-109 gates it.
 
-The debug visualisations of the JAX stage are not part of this package
-yet; their fields stay None.
+With `fetch_viz` (the default, as in the JAX stage) the single-image
+path also returns the label image and the reference's three debug
+images, drawn by core/viz.py byte-equal to the JAX package's cv2
+drawings: the contour image, the connection points and the node image,
+whose base is the emptied mask resized by cv2's fixed-point INTER_LINEAR
+(ops/image.resize_linear_u8, JAX nodes.py:283-291). The throughput paths
+skip them, as the JAX package's fetch_viz=False does.
 """
 from __future__ import annotations
 
@@ -40,9 +45,10 @@ import torch
 from ..core import taxonomy
 from ..core.config import TopologyConfig, resolve_device
 from ..core.types import BBox, Node
+from ..core.viz import connection_points_viz, contour_viz, node_viz
 from ..ops.cc import label_components
 from ..ops.cuda.morphology import enhance_lines_fused
-from ..ops.image import resize_bilinear
+from ..ops.image import resize_bilinear, resize_linear_u8
 from ..ops.morphology import enhance_lines
 from .host_cc import contour_touch_stage_host
 
@@ -77,7 +83,7 @@ def subtract_component_boxes(
 @dataclasses.dataclass
 class NodeExtraction:
     """Full output of the node stage (the reference's 6-tuple return,
-    src/circuit_analyzer.py:1605, minus the visualisations)."""
+    src/circuit_analyzer.py:1605)."""
 
     nodes: list[Node]
     emptied_mask: np.ndarray
@@ -85,6 +91,9 @@ class NodeExtraction:
     label_image: np.ndarray
     resized_bboxes: list[BBox]
     raw_node_count: int = 0
+    contour_viz: Optional[np.ndarray] = None
+    connection_viz: Optional[np.ndarray] = None
+    node_viz: Optional[np.ndarray] = None
 
 
 def _fused_morphology(cfg: TopologyConfig, raster: torch.Tensor) -> bool:
@@ -132,15 +141,15 @@ def extract_nodes(
     bboxes: Sequence[BBox],
     cfg: Optional[TopologyConfig] = None,
     device="cuda",
-    with_labels: bool = False,
+    fetch_viz: bool = True,
 ) -> NodeExtraction:
     """Run the full node-extraction stage.
 
     wire_mask: (H, W) uint8 0/255 segmentation (SAM2 or classical), in the
         same coordinate space as `bboxes`. Stage A runs on `device`: the
         CUDA device unless `device="cpu"` is asked for.
-    with_labels: also return the connected-component label image (the
-        JAX stage's visualisation input; no netlist result depends on it).
+    fetch_viz: also return the connected-component label image and the
+        three debug images (no netlist result depends on them).
     """
     device = resolve_device(device, "extract_nodes")
     cfg = cfg or TopologyConfig()
@@ -157,9 +166,9 @@ def extract_nodes(
 
     enhanced_u8 = enhanced.to(torch.uint8).cpu().numpy()
     fg = enhanced_u8 > 0
-    labels = label_components(fg) if with_labels else None
+    labels = label_components(fg) if fetch_viz else None
 
-    centroids, rel_area, touch, _contours = contour_touch_stage_host(
+    centroids, rel_area, touch, contours = contour_touch_stage_host(
         fg, float(new_w), cfg, comp_boxes, comp_thr, comp_valid
     )
     touch = touch[:, : len(comp_indices)]
@@ -170,8 +179,43 @@ def extract_nodes(
         resized_bboxes, comp_indices, np.arange(k), centroids, rel_area,
         np.ones(k, bool), touch,
     )
+    cviz = pviz = nviz = None
+    if fetch_viz:
+        cviz = contour_viz((new_h, new_w), contours)
+        pviz = connection_points_viz(
+            cviz, _connection_points(contours, touch, resized_bboxes, comp_indices, cfg))
+        # node.label is the compacted contour index (np.arange(k) above)
+        nviz = node_viz(resize_linear_u8(emptied, (new_h, new_w)), nodes,
+                        dict(enumerate(contours)))
     return NodeExtraction(nodes, emptied, enhanced_u8, labels, resized_bboxes,
-                          raw_node_count=raw_count)
+                          raw_node_count=raw_count, contour_viz=cviz, connection_viz=pviz,
+                          node_viz=nviz)
+
+
+def _connection_points(contours, touch, resized_bboxes, comp_indices, cfg
+                       ) -> list[tuple[int, int]]:
+    """First contour vertex matching each touching (component, contour)
+    pair — the point the reference appends before `break`ing its walk
+    (src/circuit_analyzer.py:1423-1443; JAX nodes.py:297-322)."""
+    points: list[tuple[int, int]] = []
+    for k, ct in enumerate(contours):
+        row = touch[k]
+        if not row.any():
+            continue
+        xs = ct.vertices[:, 0].astype(np.int64)
+        ys = ct.vertices[:, 1].astype(np.int64)
+        for ci, gi in enumerate(comp_indices):
+            if not row[ci]:
+                continue
+            b = resized_bboxes[gi]
+            t = taxonomy.pixel_threshold_for_class(b.class_name, cfg)
+            inside = (xs >= b.xmin) & (xs <= b.xmax) & (ys >= b.ymin) & (ys <= b.ymax)
+            near = ((np.abs(xs - b.xmin) <= t) | (np.abs(xs - b.xmax) <= t)
+                    | (np.abs(ys - b.ymin) <= t) | (np.abs(ys - b.ymax) <= t))
+            sel = np.nonzero(inside | near)[0]
+            if len(sel):
+                points.append((int(xs[sel[0]]), int(ys[sel[0]])))
+    return points
 
 
 def _assemble_nodes(

@@ -1,9 +1,11 @@
 """The port's command line (`python -m circuitvision_tpu_torch.cli`) on the
 CPU: the cases of tests/test_cli.py (`simulate`, `analyze-batch`), plus
 `analyze` with checkpoint flags and the trained reader's value pass,
-each against the same call made in process, and the refusals of what is
-not ported (`serve`, `analyze-batch --distributed`, a PaliGemma
-CIRCUITVISION_VLM, a JPEG).
+each against the same call made in process, JPEG input beside a BMP
+that `analyze-batch` skips and names, and the refusals of what is not
+ported (a BMP, `analyze-batch --distributed`, a PaliGemma
+CIRCUITVISION_VLM). The web UI's `serve` is tested in
+tests/test_torch_port_webapp.py.
 """
 import cv2
 import jax
@@ -147,12 +149,17 @@ class TestAnalyzeCommands:
 
 class TestRefusals:
     @pytest.mark.parametrize("argv,words", [
-        (["serve"], "Queue A 7/9"),
+        (["analyze", "{bmp}", "--device", "cpu", "--scale", "n"], "BMP.*Queue A 9"),
         (["analyze-batch", "x.png", "--distributed"], "Queue A 13"),
     ])
-    def test_not_ported_commands(self, capsys, argv, words):
-        assert cli.main(argv) != 0
-        assert words in capsys.readouterr().err
+    def test_not_ported_commands(self, tmp_path, capsys, argv, words):
+        """A BMP (the web UI, once refused here, is ported now)."""
+        import re
+
+        bmp = tmp_path / "c.bmp"
+        cv2.imwrite(str(bmp), CIRCUITS[1][0])
+        assert cli.main([a.format(bmp=bmp) for a in argv]) != 0
+        assert re.search(words, capsys.readouterr().err)
 
     def test_paligemma_client(self, drawings, capsys, monkeypatch):
         monkeypatch.setenv("CIRCUITVISION_VLM", "paligemma:/nowhere")
@@ -161,11 +168,26 @@ class TestRefusals:
         assert "Queue A 12" in capsys.readouterr().err
 
     def test_jpeg_input(self, tmp_path, capsys):
-        p = tmp_path / "c.jpg"
-        cv2.imwrite(str(p), CIRCUITS[1][0])
-        assert cli.main(["analyze-batch", str(p), "--device", "cpu", "--scale", "n",
-                         "--det-size", "64"]) != 0
-        assert "not a PNG (JPEG)" in capsys.readouterr().err
+        """analyze-batch over a directory of a JPEG and a BMP: the JPEG's
+        netlist is analyze_batch's on the decoded pixels, the BMP is
+        skipped and named."""
+        d = tmp_path / "imgs"
+        d.mkdir()
+        cv2.imwrite(str(d / "c.jpg"), CIRCUITS[1][0])
+        cv2.imwrite(str(d / "d.bmp"), CIRCUITS[1][0])
+        out_dir = tmp_path / "netlists"
+        assert cli.main(["analyze-batch", str(d), "--device", "cpu", "--scale", "n",
+                         "--det-size", "64", "--out-dir", str(out_dir)]) == 0
+        err = capsys.readouterr().err
+        assert "skipped" in err and "d.bmp" in err and "Queue A 9" in err
+        cfg = tconfig.PipelineConfig(detector=tconfig.DetectorConfig(scale="n", img_size=64),
+                                     use_sam2=False)
+        state = bridge.seeded_state("yolo", {"detector": {
+            "scale": "n", "img_size": 64, "num_classes": 62, "reg_max": 16}}, cli.SEED)
+        analyzer = CircuitAnalyzerTorch(cfg, state, None, device="cpu")
+        (want,) = analyzer.analyze_batch([load_image(str(d / "c.jpg"))])
+        assert (out_dir / "c.cir").read_text() == want.netlist_text + "\n"
+        assert sorted(p.name for p in out_dir.iterdir()) == ["c.cir"]
 
     def test_cuda_without_a_card(self, drawings):
         import torch

@@ -437,6 +437,73 @@ def test_off_preset_head_widths_route_and_match(gen, hd):
            ga.attn_proj_residual_plain(x, o, wproj, bproj))
 
 
+def _pad(t, width):
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def test_width_60_bf16_kernels_match_plain(gen):
+    """Rows of true width 60 zero-padded to 64 (a bf16 Hiera block off a
+    multiple of 8, hiera.pad_block): mlp_block and ln_qkv with the true
+    width as the LayerNorm's divisor, each against its plain version on
+    the same padded inputs, whose real columns are the unpadded plain
+    functions' and whose padding stays zero."""
+    dt, c, cp, t = torch.bfloat16, 60, 64, 1000
+    x = _pad(_rnd(gen, dt, t, c), cp)
+    ln = (_pad(1 + _rnd(gen, F32, c, scale=0.1), cp), _pad(_rnd(gen, F32, c, scale=0.1), cp))
+    w0 = _pad(_rnd(gen, dt, 4 * c, c, scale=c ** -0.5), cp)
+    b0 = _rnd(gen, dt, 4 * c, scale=0.02)
+    w1 = _pad(_rnd(gen, dt, c, 4 * c, scale=(4 * c) ** -0.5).t(), cp).t().contiguous()
+    b1 = _pad(_rnd(gen, dt, c, scale=0.02), cp)
+    before = mb.mlp_block.launches
+    got = mb.mlp_block(x, *ln, w0, b0, w1, b1, ln_width=c)
+    assert mb.mlp_block.launches == before + 1
+    _close(got, mb.mlp_block_plain(x, *ln, w0, b0, w1, b1, ln_width=c))
+    _close(got[:, :c], mb.mlp_block_plain(x[:, :c], ln[0][:c], ln[1][:c], w0[:, :c], b0,
+                                          w1[:c], b1[:c]))
+    assert not got[:, c:].any()
+    w = _pad(_rnd(gen, dt, 3 * 64, c, scale=c ** -0.5), cp)
+    b = _rnd(gen, dt, 3 * 64, scale=0.02)
+    xb = x.view(10, 100, cp)
+    before = ga.ln_qkv.launches
+    got = ga.ln_qkv(xb, *ln, w, b, 1, ln_width=c)
+    assert ga.ln_qkv.launches == before + 1
+    _close(got, ga.ln_qkv_plain(xb, *ln, w, b, 1, ln_width=c))
+    _close(got, ga.ln_qkv_plain(xb[..., :c], ln[0][:c], ln[1][:c], w[:, :c], b, 1))
+
+
+@pytest.mark.parametrize("dim,dim_out,q_stride", [(60, 60, False), (60, 120, True)])
+def test_width_60_bf16_blocks_launch_bf16_kernels(gen, monkeypatch, dim, dim_out, q_stride):
+    """A bf16 Hiera block of width 60 on the card (the window block of
+    stage 1 and the 60 → 120 transition) launches the bf16 kernels on
+    padded rows — the tiled route and mlp_block — and gives, within the
+    bf16 rule, what the same block gives on the CPU with the padded route
+    forced, where the plain versions stand in for the kernels."""
+    from circuitvision_tpu_torch.models.layers import place
+    from circuitvision_tpu_torch.models.sam2 import hiera
+
+    torch.manual_seed(0)
+    blk = hiera.MultiScaleBlock(dim, dim_out, dim_out // 60, q_stride=q_stride)
+    with torch.no_grad():
+        for p_ in blk.parameters():
+            p_.normal_(0.0, 0.1)
+    cpu = place(blk, "cpu", torch.bfloat16).eval()
+    x = _rnd(gen, torch.bfloat16, 16, 8, 8, dim)
+    partitioned = not q_stride
+    card = place(__import__("copy").deepcopy(cpu), "cuda", torch.bfloat16)
+    counters = (mb.mlp_block, ga.ln_qkv, fa.flash_attn, ga.attn_proj_residual,
+                wa.window_attn_block, wa.qpool_attn_block)
+    before = [f.launches for f in counters]
+    with torch.no_grad():
+        got = card(x, 8, partitioned)
+        monkeypatch.setattr(hiera, "pad_block",
+                            lambda t, d, do: t.dtype == torch.bfloat16 and bool(d % 8 or do % 8))
+        ref = cpu(x.cpu(), 8, partitioned)
+    launched = [f.launches - b for f, b in zip(counters, before)]
+    assert launched == [1, 2 if q_stride else 1, 1, 1, 0, 0]
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    _close(got.cpu(), ref)
+
+
 # ------------------------------------------- flash attention with a gradient
 #: (B, H, Nq, Nk, D): SAM2.1-L's global blocks (1 × 8 heads × 4096, D 72)
 #: and Hiera-t@1024's (1 × 4 × 4096, D 96), rows and keys off the 64-row

@@ -326,7 +326,7 @@ def test_hiera_at_off_preset_head_widths_matches_jax(hd, heads, dtype):
     attention, at 60 with the heads padded to 64, at 136 on flash_attn's
     136 instance); here the kernels' plain versions run. With one head
     the first stage's width, 60, is off a multiple of 8 too (on the card
-    those blocks run the float32 kernels). Tolerance:
+    those blocks run on rows padded to 64, `hiera.pad_block`). Tolerance:
     float32 1e-4 of max |jax| (summation order through seven blocks,
     ≈ 1e-6 measured); bfloat16 four bf16 ulps at max |jax| — the port
     rounds where the Pallas kernels do, the JAX module path where XLA
@@ -369,21 +369,22 @@ def _assert_trunk_close(got, ref, dtype):
 def test_hiera_card_route_at_width_60_matches_jax_bf16(monkeypatch):
     """The card's route for a bf16 trunk of width 60 and one head, held
     against the JAX bf16 trunk: stage 1 and its transition (C = 60, off a
-    multiple of 8) run in float32 and round their outputs to bf16
-    (`float32_kernels`, forced here on the CPU tensors as the card takes
-    it on CUDA ones), every later block in bf16. This is a precision
-    departure from JAX, which computes those blocks in bf16; it stays
-    within the bf16 tolerance of the test above (four bf16 ulps at
-    max |jax|)."""
-    detours = []
+    multiple of 8) run in bf16 on rows zero-padded to 64 with each
+    LayerNorm dividing by 60 (`pad_block`, forced here on the CPU tensors
+    as the card takes it on CUDA ones; the plain versions stand in for
+    the kernels), every later block unpadded. Held within the bf16 trunk
+    tolerance of the test above, unchanged: four bf16 ulps at max |jax|
+    (2.5 measured; the float32 detour this route replaced was held to the
+    same)."""
+    padded = []
 
     def card_gate(x, dim, dim_out):
         off = x.dtype == torch.bfloat16 and bool(dim % 8 or dim_out % 8)
-        detours.append((dim, dim_out)) if off else None
+        padded.append((dim, dim_out)) if off else None
         return off
-    monkeypatch.setattr(thiera, "float32_kernels", card_gate)
+    monkeypatch.setattr(thiera, "pad_block", card_gate)
     got, ref, _paths = _port_and_jax_trunks(60, 1, "bfloat16")
-    assert detours == [(60, 60), (60, 120)]
+    assert padded == [(60, 60), (60, 120)]
     _assert_trunk_close(got, ref, "bfloat16")
 
 
@@ -416,12 +417,14 @@ def test_hiera_head_width_gate(hd):
 @pytest.mark.parametrize("dim,dim_out,q_stride", [(60, 60, False), (60, 120, True)])
 def test_blocks_off_8_bytes_wide_run_float32_kernels(monkeypatch, dim, dim_out, q_stride):
     """A bf16 block whose width is off a multiple of 8 (embed 60, one
-    head: stage 1 and its transition) runs in float32 on the card — the
-    same module with float32 parameters on a float32 input — and rounds
-    its output back to bf16. Here the reroute is forced on the CPU: the
-    output is the float32 block's, rounded; the parameters are cast once
-    and again only after one is written; the gate itself is by dtype,
-    device and width."""
+    head: stage 1 and its transition) no longer detours through float32
+    on the card: it runs the bf16 kernels on rows zero-padded to 64
+    (`pad_block`), forced here on the CPU. Its output is the unpadded
+    bf16 block's within two bf16 ulps at max |ref| (the padded heads'
+    zero columns change only the order of the products' sums); the padded
+    parameters are zero past the true widths, padded once and again only
+    after one is written; the gate itself is by dtype, device and
+    width."""
     rng = np.random.default_rng(9)
     blk = thiera.MultiScaleBlock(dim, dim_out, dim_out // 60, q_stride=q_stride)
     with torch.no_grad():
@@ -430,19 +433,26 @@ def test_blocks_off_8_bytes_wide_run_float32_kernels(monkeypatch, dim, dim_out, 
     x = torch.from_numpy(_arr(rng, 2, 8, 8, dim)).to(torch.bfloat16)
     place(blk, "cpu", torch.bfloat16)
     with torch.no_grad():
-        want = copy.deepcopy(blk).float()(x.float(), 8, False).to(torch.bfloat16)
-        monkeypatch.setattr(thiera, "float32_kernels", lambda x, d, do: x.dtype == torch.bfloat16)
+        want = blk(x, 8, False)
+        monkeypatch.setattr(thiera, "pad_block", lambda x, d, do: x.dtype == torch.bfloat16)
         got = blk(x, 8, False)
-        cast = blk.float32_copy()
-        assert blk(x, 8, False).equal(got) and blk.float32_copy() is cast  # cast once
-        blk.mlp_layers_1.bias.add_(1.0)  # a written parameter is cast again
-        assert blk.float32_copy() is not cast
-        assert blk.float32_copy()["mlp_layers_1.bias"].equal(blk.mlp_layers_1.bias.float())
-    assert got.dtype == torch.bfloat16
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
+        pads = blk.padded_params()
+        assert blk(x, 8, False).equal(got) and blk.padded_params() is pads  # padded once
+        for name, t in pads.items():
+            assert t.shape[-1] % 8 == 0 or name.startswith("attn.")
+            own = blk.get_parameter(name)
+            cut = t[tuple(slice(0, n) for n in own.shape)]
+            assert cut.equal(own.float() if name.startswith("norm") else own)
+            assert t.abs().sum().item() == cut.abs().sum().item()  # zero past the true widths
+        blk.mlp_layers_1.bias.add_(1.0)  # a written parameter is padded again
+        assert blk.padded_params() is not pads
+        assert blk.padded_params()["mlp_layers_1.bias"][:dim_out].equal(blk.mlp_layers_1.bias)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    ulp = 2.0 ** (np.floor(np.log2(want.float().abs().max().item())) - 7)
+    assert (got.float() - want.float()).abs().max().item() <= 2 * ulp
     monkeypatch.undo()
-    assert not thiera.float32_kernels(x, dim, dim_out)  # a CPU tensor: the plain versions
-    assert not thiera.float32_kernels(x.float(), dim, dim_out)
+    assert not thiera.pad_block(x, dim, dim_out)  # a CPU tensor: the plain versions
+    assert not thiera.pad_block(x.float(), dim, dim_out)
 
 
 @pytest.mark.parametrize("hd,heads", [(60, 2), (136, 1), (60, 1)])
@@ -471,10 +481,12 @@ def test_analyzer_refuses_bf16_head_widths_on_the_card(monkeypatch, hd, heads):
 
 @pytest.mark.parametrize("hd,heads", [(264, 1), (132, 1)])
 def test_analyzer_refuses_bf16_heads_wider_than_the_kernels(monkeypatch, hd, heads):
-    """Heads wider than flash_attn's widest bf16 instance (256), or wider
-    than the float32 kernels' 128 where the trunk's width is off a
-    multiple of 8 (132: those blocks run in float32), are refused before
-    any model is built, naming the width."""
+    """Heads wider than flash_attn's widest bf16 instance (256) are
+    refused before any model is built, naming the width. A trunk of width
+    132, off a multiple of 8, was refused too while such blocks ran the
+    float32 kernels (heads up to 128); it now runs the bf16 kernels on
+    rows padded to 136 (`hiera.pad_block`), its heads on flash_attn's 136
+    instance, and is not refused."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
     from circuitvision_tpu_torch.ops.cuda.build import KernelError
@@ -482,5 +494,12 @@ def test_analyzer_refuses_bf16_heads_wider_than_the_kernels(monkeypatch, hd, hea
     sam2 = dataclasses.replace(tconfig.SAM2Config(), embed_dim=heads * hd, num_heads=heads,
                                dtype="bfloat16")
     cfg = dataclasses.replace(tconfig.PipelineConfig(), sam2=sam2)
-    with pytest.raises(KernelError, match=f"is {hd}$"):
-        CircuitAnalyzerTorch(cfg, {}, {}, device="cuda")
+    if hd > tflash.TC_WIDTHS[-1]:
+        assert thiera.refused_head_width(heads * hd, heads) == hd
+        with pytest.raises(KernelError, match=f"is {hd}$"):
+            CircuitAnalyzerTorch(cfg, {}, {}, device="cuda")
+    else:
+        assert thiera.refused_head_width(heads * hd, heads) is None
+        # past the refusal the analyzer loads the (here empty) weights
+        with pytest.raises(RuntimeError, match="Missing key"):
+            CircuitAnalyzerTorch(cfg, {}, {}, device="cuda")

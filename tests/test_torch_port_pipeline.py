@@ -192,6 +192,13 @@ with BatchingExecutor(BatchedPipeline(a, batch_size=2), final=True) as ex:
     assert ex.map([img])[0].netlist_text == r.netlist_text
     server.server_close()
 assert cli.main(["simulate", {str(ROOT / "eval_data" / "netlists" / "golden.cir")!r}]) == 0
+# the web UI with its drawings, JPEG input, the FLOP count
+from circuitvision_tpu_torch import webapp
+from circuitvision_tpu_torch.models import flops
+webapp.make_server(a, port=0, host="127.0.0.1").server_close()
+json.dumps(webapp.analysis_json(r, img))
+load_image({str(ROOT / "eval_data" / "image_fixtures" / "progressive.jpg")!r})
+assert flops.sam2_forward_flops(cfg.sam2) > 0
 # the fine-tune: dataset, a selective and a LoRA step, a checkpoint
 import torch
 from circuitvision_tpu_torch.core.config import TrainConfig
@@ -222,7 +229,8 @@ print(json.dumps(sorted(sys.modules)))
               "enrich.trained_reader", "enrich.directions", "enrich.client", "netlist.fix",
               "eval.metrics", "train.losses", "train.train_step", "train.lora",
               "train.checkpoint", "train.data", "cli", "pipeline.server", "netlist.values",
-              "sim.engine", "sim.mna", "sim.netlist_parse", "sim.native_backend"):
+              "sim.engine", "sim.mna", "sim.netlist_parse", "sim.native_backend",
+              "webapp", "models.flops", "core.draw", "core.hershey", "core.viz"):
         assert "circuitvision_tpu_torch." + m in mods
     bad = [m for m in mods if m in FORBIDDEN or m.startswith(tuple(f + "." for f in FORBIDDEN))]
     assert not bad, bad

@@ -29,6 +29,7 @@ import pytest
 from circuitvision_tpu.core.types import BBox as JBBox
 from circuitvision_tpu.pipeline import batch as jbatch
 from circuitvision_tpu_torch.core.types import BBox
+from circuitvision_tpu_torch.io.image_io import decode_image
 from circuitvision_tpu_torch.ops.cuda.build import KernelError
 from circuitvision_tpu_torch.pipeline import batch as tbatch
 from circuitvision_tpu_torch.pipeline.server import BatchingExecutor, _Request, make_server
@@ -269,6 +270,28 @@ def test_http_roundtrip_stats_and_metrics(pipeline, reference):
             assert "# TYPE circuitvision_request_latency_seconds summary" in text
             assert 'quantile="0.5"' in text
             assert _get(f"{url}/nope")[0] == 404
+        finally:
+            server.shutdown()
+            t.join(timeout=30)
+
+
+def test_jpeg_request_is_served_on_its_pixels(pipeline):
+    """POST /analyze with a JPEG: the served netlist is the executor's on
+    the pixels the port's reader decodes (PIL's, tests/test_torch_port_
+    jpeg.py), and a BMP answers 500 naming ROADMAP Queue A 9."""
+    ok, jpeg = cv2.imencode(".jpg", cv2.cvtColor(LOOP, cv2.COLOR_RGB2BGR),
+                            [cv2.IMWRITE_JPEG_QUALITY, 95])
+    assert ok
+    pixels = decode_image(jpeg.tobytes())
+    with BatchingExecutor(pipeline, max_wait_ms=10) as ex:
+        server, t, url = _serving(ex)
+        try:
+            want = ex.submit(pixels).result(timeout=WAIT_S)
+            code, payload = _post(url, jpeg.tobytes())
+            assert code == 200 and payload["netlist_text"] == want.netlist_text
+            ok, bmp = cv2.imencode(".bmp", LOOP)
+            code, payload = _post(url, bmp.tobytes())
+            assert code == 500 and "Queue A 9" in payload["error"]
         finally:
             server.shutdown()
             t.join(timeout=30)

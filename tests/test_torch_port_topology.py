@@ -111,7 +111,7 @@ def test_crop_reasons_for_no_crop_identical():
 def test_extract_nodes_and_netlist_identical(name):
     _img, mask, boxes = _load(name)
     ref = jnodes.extract_nodes(mask, _boxes(JBBox, boxes))
-    got = tnodes.extract_nodes(mask, _boxes(TBBox, boxes), device="cpu", with_labels=True)
+    got = tnodes.extract_nodes(mask, _boxes(TBBox, boxes), device="cpu", fetch_viz=True)
     assert len(got.nodes) == len(ref.nodes) > 0
     assert _node_key(got.nodes) == _node_key(ref.nodes)
     assert got.raw_node_count == ref.raw_node_count

@@ -20,7 +20,13 @@ Phases, in order; any failure raises and the process exits non-zero:
      timed between events, divided by the calls — and beside it
      `eager_ms`, 20 eager calls between events, which holds each call's
      Python dispatch; library and `F.linear` times are device times, the
-     plain version's eager;
+     plain version's eager. The float32 rows of mlp_block and
+     qpool_attn_block, whose products run as three TF32 products on the
+     tensor cores, take 3 × ops ÷ 495 TFLOP/s as their bound ("3xTF32
+     operations", `fma_bound_ms` the FMA units' bound beside it) and the
+     sum of their products' cuBLAS float32 `F.linear` calls as
+     `library_ms`; a `kernels_t512_f32` line sums the float32 rows over
+     the trained product's launches;
   4. main path at t@512 — CircuitAnalyzerTorch.analyze() at YOLOv11-s@640
      + SAM2 Hiera-t@512 (shapes and SAM2's dtype from ckpt/*/meta.json,
      seeded weights) on a drawn ~1000×750 schematic: one warm-up, three
@@ -233,8 +239,15 @@ TFLOPS_ROWS = ("flash_attn", "mlp_block", "ln_qkv", "window_attn_block", "attn_p
                "flash_attn_lse", "flash_attn_bwd_dq", "flash_attn_bwd_dkv",
                "qpool_attn_block")
 #: H100 SXM peaks (NVIDIA data sheet, dense): memory, bf16 tensor, f32
+#: on the FMA units, tf32 tensor
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+#: the float32 kernels that run every product as three TF32 products on
+#: the tensor cores (csrc/tf32.cuh): their bound is 3 × ops ÷ the tf32
+#: peak, the FMA bound (ops ÷ the f32 peak) printed beside it
+TF32X3_KERNELS = ("mlp_block", "qpool_attn_block")
+#: the trained product's SAM2 stage (analyzer StageTimings)
+SAM2_STAGE = "SAM2 Segmentation on YOLO-Cropped Image"
 #: the off-preset head-width check: SAM2.1-L's
 #: layout — its window spec, a global block in stage 3 — at embed 128 and
 #: 2 heads, so every stage's head width is 64, outside the block kernels'
@@ -473,15 +486,28 @@ def case_builders(torch):
     def size(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
+    def linears(dt, calls):
+        """The float32 rows' yardstick: cuBLAS's float32 products (TF32
+        off) of the kernel's function, one F.linear each, their device
+        times summed."""
+        if dt != torch.float32:
+            return {}
+        return dict(linears=calls, library_note="sum of its products' F.linear calls "
+                                                "(cuBLAS float32, TF32 off)")
+
     def mlp(t, c):
         def make(dt, gen):
             h = 4 * c
             args = (rnd(gen, dt, t, c), 1 + rnd(gen, F32, c, scale=0.1), rnd(gen, F32, c, scale=0.1),
                     rnd(gen, dt, h, c, scale=c ** -0.5), rnd(gen, dt, h, scale=0.02),
                     rnd(gen, dt, c, h, scale=h ** -0.5), rnd(gen, dt, c, scale=0.02))
+            xn = mb.layernorm_f32(*args[:3], 1e-6).to(dt)
+            hid = F.gelu(F.linear(xn, args[3], args[4]))
             return dict(kernel=lambda: mb.mlp_block(*args), plain=lambda: mb.mlp_block_plain(*args),
                         plan=mb.mlp_plan(t, c, h), width=c,
-                        bytes=size(*args, args[0]), flops=4 * t * c * h, math_dt=dt)
+                        bytes=size(*args, args[0]), flops=4 * t * c * h, math_dt=dt,
+                        **linears(dt, [lambda: F.linear(xn, args[3], args[4]),
+                                       lambda: F.linear(hid, args[5], args[6])]))
         return make
 
     def window(nw, t, c, heads):
@@ -506,11 +532,16 @@ def case_builders(torch):
             flops = nw * (2 * t * ci * co + 2 * t * ci * 3 * co + 4 * (t // 4) * t * co
                           + 2 * (t // 4) * co * co)
             kw = dict(heads=heads, win=win)
+            xn = mb.layernorm_f32(*args[:3], 1e-6).to(dt)
+            o = rnd(gen, dt, nw * t // 4, co)  # the attention output's shape
             return dict(kernel=lambda: wa.qpool_attn_block(*args, **kw),
                         plain=lambda: wa.qpool_attn_block_plain(*args, **kw),
                         tiled=lambda: wa.qpool_attn_block_tiled(*args, **kw),
                         bytes=size(*args) + nw * t // 4 * co * args[0].element_size(),
-                        flops=flops, math_dt=dt)
+                        flops=flops, math_dt=dt,
+                        **linears(dt, [lambda: F.linear(xn, args[3], args[4]),
+                                       lambda: F.linear(xn, args[5], args[6]),
+                                       lambda: F.linear(o, args[7], args[8])]))
         return make
 
     def refine(h, w):
@@ -710,9 +741,9 @@ def kernel_cases(torch, path, raster_counts=None):
         ("ln_qkv", "global 1x4096 C=576 heads=8", 3, b["ln_qkv"](1, 4096, 576, 576, 8, 3)),
         ("ln_qkv", "16 windows x 256 C=576 heads=8", 32, b["ln_qkv"](16, 256, 576, 576, 8, 3)),
         ("ln_qkv", "16 windows x 64 C=1152 heads=16", 3, b["ln_qkv"](16, 64, 1152, 1152, 16, 3)),
-        ("ln_qkv", "q-pool 1024 windows x 64 C=144->288 qkv (f32 route)", 0,
+        ("ln_qkv", "q-pool 1024 windows x 64 C=144->288 qkv (tiled route)", 0,
          b["ln_qkv"](1024, 64, 144, 288, 4, 3)),
-        ("ln_qkv", "q-pool 1024 windows x 64 C=144->288 shortcut (f32 route)", 0,
+        ("ln_qkv", "q-pool 1024 windows x 64 C=144->288 shortcut (tiled route)", 0,
          b["ln_qkv"](1024, 64, 144, 288, 1, 1)),
         ("ln_qkv", "q-pool 16 windows x 256 C=576->1152 qkv", 1, b["ln_qkv"](16, 256, 576, 1152, 16, 3)),
         ("ln_qkv", "q-pool 16 windows x 256 C=576->1152 shortcut", 1,
@@ -720,7 +751,7 @@ def kernel_cases(torch, path, raster_counts=None):
         ("flash_attn", "global 1x8 heads N=4096 D=72", 3, b["flash"](1, 8, 4096, 4096, 72)),
         ("flash_attn", "16 windows x 8 heads N=256 D=72", 32, b["flash"](16, 8, 256, 256, 72)),
         ("flash_attn", "16 windows x 16 heads N=64 D=72", 3, b["flash"](16, 16, 64, 64, 72)),
-        ("flash_attn", "q-pool 1024 windows x 4 heads Nq=16 Nk=64 D=72 (f32 route)", 0,
+        ("flash_attn", "q-pool 1024 windows x 4 heads Nq=16 Nk=64 D=72 (tiled route)", 0,
          b["flash"](1024, 4, 64, 64, 72, pool_win=8)),
         ("flash_attn", "q-pool 16 windows x 16 heads Nq=64 Nk=256 D=72", 1,
          b["flash"](16, 16, 256, 256, 72, pool_win=16)),
@@ -729,7 +760,7 @@ def kernel_cases(torch, path, raster_counts=None):
          b["proj"](16, 256, 576, 8, round_proj=True)),
         ("attn_proj_residual", "16 windows x 64 C=1152 heads=16", 3,
          b["proj"](16, 64, 1152, 16, round_proj=True)),
-        ("attn_proj_residual", "q-pool 1024 windows x 16 C=288 heads=4 (f32 route)", 0,
+        ("attn_proj_residual", "q-pool 1024 windows x 16 C=288 heads=4 (tiled route)", 0,
          b["proj"](1024, 16, 288, 4, pool_win=8, round_proj=True)),
         ("attn_proj_residual", "q-pool 16 windows x 64 C=1152 heads=16", 1,
          b["proj"](16, 64, 1152, 16, pool_win=16, round_proj=True)),
@@ -783,14 +814,25 @@ def run_kernels(torch, path, raster_counts=None):
                 lib_ms = graph_ms(case["library"], **timing)
                 if case.get("library_less"):  # a part of the call that is not the function
                     lib_ms -= graph_ms(case["library_less"], **timing)
+            if case.get("linears"):
+                lib_ms = sum(graph_ms(f) for f in case["linears"])
             t_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
-            t_ops = case["flops"] / PEAK_FLOPS[str(case["math_dt"]).removeprefix("torch.")] * 1e3
+            math = str(case["math_dt"]).removeprefix("torch.")
+            t_fma = t_ops = case["flops"] / PEAK_FLOPS[math] * 1e3
+            tf32x3 = math == "float32" and name in TF32X3_KERNELS
+            if tf32x3:  # three TF32 products on the tensor cores for each
+                t_ops = 3 * case["flops"] / PEAK_FLOPS["tf32"] * 1e3
             row = {"kernel": name, "path": path, "shape": label, "dtype": dt_name,
                    "max_abs_err": err, "tol": tol, "kernel_ms": k_ms, "eager_ms": eager_ms,
                    "plain_ms": p_ms,
                    "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bound_by": "bytes" if t_bytes >= t_ops else
+                   "3xTF32 operations" if tf32x3 else "operations",
                    "launches_on_path": count}
+            if tf32x3:
+                row["fma_bound_ms"] = max(t_bytes, t_fma)
+            if case.get("library_note") and case.get("linears"):
+                row["library_note"] = case["library_note"]
             if name in TFLOPS_ROWS:
                 row["tflops"] = case["flops"] / (k_ms * 1e-3) / 1e12
             if case.get("linear"):
@@ -800,7 +842,8 @@ def run_kernels(torch, path, raster_counts=None):
                                           "bound_ms": 0.0,
                                           "library_ms": None, "t_bytes": 0.0, "t_ops": 0.0,
                                           "max_abs_err": 0.0,
-                                          "library_note": case.get("library_note")})
+                                          "library_note": None if case.get("linears")
+                                          else case.get("library_note")})
             if dt_name == dts[0]:
                 s["ms"] += count * k_ms
                 s["eager_ms"] += count * eager_ms
@@ -810,6 +853,17 @@ def run_kernels(torch, path, raster_counts=None):
                 s["t_ops"] += count * t_ops
                 if lib_ms is not None:
                     s["library_ms"] = (s["library_ms"] or 0.0) + count * lib_ms
+            if dt_name == "float32" and len(dts) > 1:  # the float32 instances' sums
+                f = s.setdefault("f32", {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                         "fma_bound_ms": 0.0, "library_ms": None,
+                                         "bound_by": row["bound_by"], "max_abs_err": 0.0})
+                f["ms"] += count * k_ms
+                f["plain_ms"] += count * p_ms
+                f["bound_ms"] += count * row["bound_ms"]
+                f["fma_bound_ms"] += count * row.get("fma_bound_ms", row["bound_ms"])
+                if lib_ms is not None:
+                    f["library_ms"] = (f["library_ms"] or 0.0) + count * lib_ms
+                f["max_abs_err"] = max(f["max_abs_err"], err)
             s["max_abs_err"] = max(s["max_abs_err"], err)
     return summary
 
@@ -855,10 +909,16 @@ def run_routes(torch):
     its shared memory, and the tiled route everywhere — against the plain
     block; and the route rule against the kernels' own sizes."""
     from circuitvision_tpu_torch.ops.cuda.build import library
-    from circuitvision_tpu_torch.ops.cuda.window_attn import window_route, window_smem
+    from circuitvision_tpu_torch.ops.cuda.window_attn import (
+        TC_HEAD_WIDTHS, qpool_attn_f32_smem, window_route, window_smem,
+    )
 
     check_plans(torch)
     lib = library("window_attn")
+    # the float32 q-pool's attention blocks (its GEMM's below, as window_smem)
+    for hd in TC_HEAD_WIDTHS:
+        if lib.cv_qpool_f32_attn_smem(hd) != qpool_attn_f32_smem(hd):
+            raise AssertionError(f"qpool_attn_f32_smem disagrees with the kernel at head width {hd}")
     for t, c in [(64, 96), (16, 192)] + [(t, c) for _nw, t, c, _h in L_WINDOWS]:
         for code, dt in enumerate((torch.float32, torch.bfloat16)):
             if lib.cv_window_attn_smem(t, c, code) != window_smem("window", t, c, c, dt):
@@ -1095,7 +1155,12 @@ def run_l_path(torch):
     cfg32 = dataclasses.replace(cfg, sam2=dataclasses.replace(cfg.sam2, dtype="float32"))
     card32 = CircuitAnalyzerTorch(cfg32, ystate, sstate, device="cuda")
     cpu32 = CircuitAnalyzerTorch(cfg32, ystate, sstate, device="cpu")
+    card32.segment_logits(image)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     got = card32.segment_logits(image)
+    torch.cuda.synchronize()
+    print(f"   card float32 SAM2-L@1024 logits: {time.perf_counter() - t0:.3f} s", flush=True)
     t0 = time.perf_counter()
     ref = cpu32.segment_logits(image)
     print(f"   cpu float32 SAM2-L@1024 logits: {time.perf_counter() - t0:.3f} s", flush=True)
@@ -1281,6 +1346,7 @@ def run_trained_product(torch, smi):
         serial = results
     launches = counts
     ms = [r["ms_per_image"] for r in runs]
+    sam2_ms = [r["stages_ms_per_image"][SAM2_STAGE] for r in runs]
     fg, ious = [], []
     for r, gt in zip(serial, masks):
         if not gt.any():
@@ -1331,6 +1397,8 @@ def run_trained_product(torch, smi):
         "images": len(images),
         "analyze_final_ms_per_image": {"median": statistics.median(ms), "min": min(ms),
                                        "max": max(ms), "runs": runs},
+        "sam2_stage_ms_per_image": {"median": statistics.median(sam2_ms), "min": min(sam2_ms),
+                                    "max": max(sam2_ms)},
         "analyze_many_finalize_images_per_s": {"median": statistics.median(ips),
                                                "min": min(ips), "max": max(ips), "runs": ips,
                                                "batch_size": PRODUCT_BATCH},
@@ -1341,7 +1409,8 @@ def run_trained_product(torch, smi):
         "valued_netlist_lines": valued, "batched_netlists_differing_from_serial": differ,
         "card": smi}}), flush=True)
     print(f"   trained product on {smi}: analyze()+final {statistics.median(ms):.1f} ms/image "
-          f"(median of {PRODUCT_RUNS}), analyze_many(finalize) {statistics.median(ips):.2f} "
+          f"(median of {PRODUCT_RUNS}; SAM2 stage {statistics.median(sam2_ms):.2f}), "
+          f"analyze_many(finalize) {statistics.median(ips):.2f} "
           f"images/s, netlist exact match {exact:.3f} over {len(have)}", flush=True)
     if differ:
         raise AssertionError(f"trained product: batched netlists differ from serial on {differ}")
@@ -2365,6 +2434,11 @@ def main() -> int:
 
     print(json.dumps({"kernels_t512": [{"name": n, **entry(n, s, launches["t@512"])}
                                        for n, s in summary["t@512"].items()]}))
+    # the float32 instances at t@512, the trained product's (its SAM2 is
+    # float32): device ms summed over its launches per analyze()
+    print(json.dumps({"kernels_t512_f32": [
+        {"name": n, "launches": launches["product"][n], **s["f32"]}
+        for n, s in summary["t@512"].items() if "f32" in s]}))
     print(json.dumps({"kernels_train_t1024": [
         {"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
          "path": "train-t", **entry(n, s, launches["train-t"])}

@@ -41,122 +41,85 @@
 // producer warp with mbarriers, keeping products in flight across tiles,
 // is the next step.
 //
-// float32 — mlp_block_kernel, f32 FMA loops: one block per 16-row tile
-// keeps the row tile's LayerNorm output and the f32 accumulator in shared
-// memory for the whole hidden dimension, walked in 64-wide chunks (the
-// hidden activation never reaches device memory, as in the Pallas
-// kernel); weights stream through a staged tile per chunk (block_gemm).
-// Where the row tiles alone would leave most SMs idle, the hidden
-// dimension is also split across blocks: each writes its f32 partial sum
-// to a workspace, and mlp_reduce_kernel adds the partials in split order
-// to x + b1 — deterministic, no atomics. TF32 would not hold the float32
-// card-against-CPU check, so it stays on the FMA units.
+// float32 — the same three launches in float32, every product 3×TF32
+// on the tensor cores (tf32.cuh): the LN pre-pass (tf32::ln_rows_kernel,
+// layernorm_rows<float>, so xn is bit for bit what the FMA kernel
+// normalised) into an f32 workspace; h = GELU_erf(xn·W0ᵀ + b0) kept in
+// f32 (T·4C·4 bytes: 25 MB at T = 16384, C = 96, within the 50 MB L2);
+// out = x + b1 + h·W1ᵀ. Blocks of 64 × 64 outputs, mma.sync m16n8k8
+// .tf32 with each operand split into hi and lo in registers; where
+// the row tiles leave SMs idle (t@512's small-T products: T = 256, C = 768
+// gives 48 blocks for out) the depth is split across blocks and the
+// partial sums added in split order (the wrapper's plan, mlp_plan_f32).
+// What bounds it: 16·T·C² FLOPs at three TF32 products each, 3 × ops ÷
+// 495 TFLOP/s — 0.176 ms per trained-product analyze() (12 launches,
+// 29 GFLOP), against 0.433 at the FMA units' 67 TFLOP/s. The FMA loops it
+// replaces (one 16-row tile a block, weights re-read from L2 by every
+// block, 4 accumulators a thread) ran at about 7 TFLOP/s. One TF32
+// product would miss the float32 card-against-CPU check (about 3e-4 of
+// max |plain| at these shapes); three hold float32's own summation noise.
 //
 // Measured per Hiera-L@1024 analyze() (48 launches, bf16; chip_smoke.py,
 // H100 80GB HBM3 at 700 W, parent and this design in one call): 6.414
 // and 6.363 ms against the parent's f32-FMA loops at 149.632 and
 // 148.922, and a 1.055 ms bound (6.0×); 0.123 ms a launch at T = 4096,
-// C = 576 (177 TFLOP/s, bound 0.022). float32: 152.7–153.4 ms, unchanged.
+// C = 576 (177 TFLOP/s, bound 0.022). float32, 3×TF32 (scripts/
+// kernel_rows.py, same card, the FMA kernel in the same call): 0.836 ms
+// per trained-product analyze() (12 launches, 29.6–36.3 TFLOP/s) against
+// 4.02 for the FMA loops and 1.148 for the two products' F.linear calls
+// (cuBLAS float32); 20.1 ms per Hiera-L@1024 float32 forward against
+// 152.2.
 #include <algorithm>
 
 #include "common.cuh"
 #include "tc_gemm.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using namespace cvk;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-mlp_block_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
-                 const float* __restrict__ ln_b, const T* __restrict__ w0,
-                 const T* __restrict__ b0, const T* __restrict__ w1,
-                 const T* __restrict__ b1, T* __restrict__ out,
-                 float* __restrict__ partial, int t, int c, int hidden,
-                 int split_len, float eps) {
-  extern __shared__ float smem[];
-  float* acc = smem;                    // kRows × c
-  float* xn = acc + kRows * c;          // kRows × c
-  float* h = xn + kRows * c;            // kRows × kTileN
-  float* ws = h + kRows * kTileN;       // kTileK × (kTileN + 1)
-  const int r0 = blockIdx.x * kRows;
-  const int rows = min(kRows, t - r0);
-  const int j_begin = blockIdx.y * split_len;
-  const int j_end = min(hidden, j_begin + split_len);
-  const bool whole = gridDim.y == 1;
-  const T* xb = x + (size_t)r0 * c;
-
-  for (int e = threadIdx.x; e < rows * c; e += kThreads) acc[e] = to_f(xb[e]);
-  __syncthreads();
-  layernorm_rows<T>(acc, xn, rows, c, ln_s, ln_b, eps);
-  __syncthreads();
-  for (int e = threadIdx.x; e < rows * c; e += kThreads)
-    acc[e] = whole ? acc[e] + to_f(b1[e % c]) : 0.f;
-
-  for (int j0 = j_begin; j0 < j_end; j0 += kTileN) {
-    const int hc = min(kTileN, j_end - j0);
-    block_gemm<T>(xn, c, rows, c, w0 + (size_t)j0 * c, c, hc, ws,
-                  [&](int r, int n, float v) {
-                    h[r * kTileN + n] = rnd<T>(gelu_erf(v + to_f(b0[j0 + n])));
-                  });
-    block_gemm<T>(h, kTileN, rows, hc, w1 + j0, hidden, c, ws,
-                  [&](int r, int n, float v) { acc[r * c + n] += v; });
+// ------------------------------------------------------------- float32
+// Epilogues of the 3×TF32 GEMM (tf32.cuh) over an output of n_cols
+// columns: h = GELU_erf(acc + bias[n]); out = (resid[r][n] + bias[n]) +
+// acc, the plain version's order. two() takes columns c, c + 1 (c even,
+// n_cols even) with 8-byte loads and stores.
+struct GeluF32 {
+  const float* bias;
+  float* out;
+  int n_cols;
+  static constexpr bool kFrag = false;
+  __device__ void one(int r, int c, float v) const {
+    out[(size_t)r * n_cols + c] = gelu_erf(v + bias[c]);
   }
-  if (whole) {
-    T* ob = out + (size_t)r0 * c;
-    for (int e = threadIdx.x; e < rows * c; e += kThreads) ob[e] = from_f<T>(acc[e]);
-  } else {
-    float* pb = partial + ((size_t)blockIdx.y * t + r0) * c;
-    for (int e = threadIdx.x; e < rows * c; e += kThreads) pb[e] = acc[e];
+  __device__ void two(int r, int c, float v0, float v1) const {
+    const float2 b = *reinterpret_cast<const float2*>(bias + c);
+    *reinterpret_cast<float2*>(out + (size_t)r * n_cols + c) =
+        make_float2(gelu_erf(v0 + b.x), gelu_erf(v1 + b.y));
   }
-}
+  bool aligned8() const { return tf32::aligned8(bias) && tf32::aligned8(out); }
+};
 
-// out = x + b1 + Σ_s partial[s], summed in split order.
-template <typename T>
-__global__ void mlp_reduce_kernel(const T* __restrict__ x, const T* __restrict__ b1,
-                                  const float* __restrict__ partial,
-                                  T* __restrict__ out, int t, int c, int splits) {
-  size_t n = (size_t)t * c;
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    float v = to_f(x[e]) + to_f(b1[e % c]);
-    for (int s = 0; s < splits; ++s) v += partial[s * n + e];
-    out[e] = from_f<T>(v);
+struct ResidF32 {
+  const float* bias;
+  const float* resid;
+  float* out;
+  int n_cols;
+  static constexpr bool kFrag = false;
+  __device__ void one(int r, int c, float v) const {
+    const size_t at = (size_t)r * n_cols + c;
+    out[at] = (resid[at] + bias[c]) + v;
   }
-}
-
-size_t mlp_smem(int c) {
-  return sizeof(float) *
-         ((size_t)2 * kRows * c + kRows * kTileN + kTileK * (kTileN + 1));
-}
-
-template <typename T>
-cudaError_t launch(const void* x, const void* ln_s, const void* ln_b,
-                   const void* w0, const void* b0, const void* w1,
-                   const void* b1, void* out, void* partial, int t, int c,
-                   int hidden, int splits, float eps, cudaStream_t stream) {
-  size_t smem = mlp_smem(c);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  // split length: a multiple of the 64-wide hidden chunk
-  int split_len = (hidden + splits - 1) / splits;
-  split_len = (split_len + kTileN - 1) / kTileN * kTileN;
-  splits = (hidden + split_len - 1) / split_len;
-  dim3 grid((t + kRows - 1) / kRows, splits);
-  mlp_block_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)x, (const float*)ln_s, (const float*)ln_b, (const T*)w0,
-      (const T*)b0, (const T*)w1, (const T*)b1, (T*)out, (float*)partial, t,
-      c, hidden, split_len, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  int blocks = (int)min(((size_t)t * c + 255) / 256, (size_t)4096);
-  mlp_reduce_kernel<T><<<blocks, 256, 0, stream>>>(
-      (const T*)x, (const T*)b1, (const float*)partial, (T*)out, t, c, splits);
-  return cudaGetLastError();
-}
-
+  __device__ void two(int r, int c, float v0, float v1) const {
+    const size_t at = (size_t)r * n_cols + c;
+    const float2 b = *reinterpret_cast<const float2*>(bias + c);
+    const float2 x = *reinterpret_cast<const float2*>(resid + at);
+    *reinterpret_cast<float2*>(out + at) = make_float2((x.x + b.x) + v0, (x.y + b.y) + v1);
+  }
+  bool aligned8() const {
+    return tf32::aligned8(bias) && tf32::aligned8(resid) && tf32::aligned8(out);
+  }
+};
 
 // ------------------------------------------------------------ bfloat16
 using tc::bf16;
@@ -202,34 +165,39 @@ struct ResidEpi {
 
 }  // namespace
 
-// Shared-memory bytes of a float32 launch of width c (the wrapper refuses
-// widths above the 227 KB a block can hold).
-extern "C" long long cv_mlp_block_smem(int c) { return (long long)mlp_smem(c); }
-
 // Shared-memory bytes of the bf16 path's LN pre-pass at width c, and of
 // one bf16 GEMM block of bm rows (the wrapper's plan must agree).
 extern "C" long long cv_mlp_ln_smem(int c) { return (long long)tcg::ln_smem(c); }
 extern "C" long long cv_mlp_gemm_smem(int bm) { return (long long)tcg::gemm_smem(bm); }
 
-// float32: how many blocks share the hidden dimension of a row tile:
-// enough for about two waves over `sms` SMs, at most one per 64-wide
-// hidden chunk. The wrapper sizes the float32 workspace from it.
-extern "C" int cv_mlp_block_splits(int t, int hidden, int sms) {
-  int row_tiles = (t + cvk::kRows - 1) / cvk::kRows;
-  int want = (2 * sms + row_tiles - 1) / row_tiles;
-  return std::max(1, std::min(hidden / cvk::kTileN, want));
-}
-
-// float32 on the FMA units. Weights in torch Linear layout: w0 (hidden,
-// c), w1 (c, hidden); every tensor contiguous float32. splits > 1
-// divides the hidden dimension across blocks; `partial` is then a
-// float32 workspace of splits·t·c elements.
+// float32 on the tensor cores (3×TF32). Weights in torch Linear layout:
+// w0 (hidden, c), w1 (c, hidden); every tensor contiguous float32. ws is
+// a float32 workspace of xn (t·c elements) and h (t·hidden), each
+// starting on a 16-byte boundary, followed by the partial sums of a split
+// GEMM: splits·t·hidden for the first product, splits·t·c for the
+// second, the larger where both split. The
+// GEMMs' depth splits come from the wrapper's plan
+// (ops/cuda/mlp_block.py mlp_plan_f32). Any width: k a multiple of 4
+// with aligned operands copies 16 bytes at a time.
 extern "C" int cv_mlp_block_f32(const void* x, const void* ln_s, const void* ln_b,
                                 const void* w0, const void* b0, const void* w1,
-                                const void* b1, void* out, void* partial, int t, int c,
-                                int hidden, int splits, float eps, void* stream) {
-  return launch<float>(x, ln_s, ln_b, w0, b0, w1, b1, out, partial, t, c, hidden, splits, eps,
-                       (cudaStream_t)stream);
+                                const void* b1, void* out, void* ws, int t, int c, int hidden,
+                                float eps, int splits1, int splits2, void* stream) {
+  if (t < 1 || c < 1 || hidden < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  auto up4 = [](size_t e) { return (e + 3) / 4 * 4; };
+  float* xn = (float*)ws;
+  float* h = xn + up4((size_t)t * c);
+  float* partial = h + up4((size_t)t * hidden);
+  cudaError_t err = tf32::launch_ln_rows((const float*)x, (const float*)ln_s,
+                                         (const float*)ln_b, xn, t, c, eps, s);
+  if (err != cudaSuccess) return (int)err;
+  err = tf32::launch_gemm(splits1, xn, (const float*)w0, (const float*)w0, hidden, t,
+                          hidden, c, partial, GeluF32{(const float*)b0, h, hidden}, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)tf32::launch_gemm(splits2, h, (const float*)w1, (const float*)w1, c, t, c,
+                                hidden, partial,
+                                ResidF32{(const float*)b1, (const float*)x, (float*)out, c}, s);
 }
 
 // bfloat16 on the tensor cores: the same function, ln_s and ln_b float32,

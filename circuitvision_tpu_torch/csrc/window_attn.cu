@@ -115,22 +115,63 @@
 // After this, no bf16 Hiera kernel of the port multiplies on the FMA
 // units.
 //
-// float32 — window_attn_kernel and qpool_attn_kernel, one block per
-// window, f32 FMA loops: the whole window (≤ 64 tokens) — its LN output,
-// q/k/v and scores — in shared memory as float32, so each activation is
-// read once and written once (the residual re-reads the input tile from
-// L2), as in the Pallas kernel, without its 128-row window packing and
-// block-diagonal masks. Buffers are reused (scores in the LN buffer,
-// each head's output over its q columns) so a 64-token, 96-wide window
-// needs 107 KB and two blocks share an SM. The products run as
-// staged-tile f32 FMA loops (common.cuh block_gemm); TF32 would not hold
-// the float32 card-against-CPU check.
+// window_attn_block, float32 — window_attn_kernel, one block per window,
+// f32 FMA loops: the whole window (≤ 64 tokens) — its LN output, q/k/v
+// and scores — in shared memory as float32, so each activation is read
+// once and written once (the residual re-reads the input tile from L2),
+// as in the Pallas kernel, without its 128-row window packing and
+// block-diagonal masks. Buffers are reused (scores in the LN buffer, each
+// head's output over its q columns) so a 64-token, 96-wide window needs
+// 107 KB and two blocks share an SM. The products run as staged-tile f32
+// FMA loops (common.cuh block_gemm).
+//
+// qpool_attn_block, float32 — four launches, every product 3×TF32 on the
+// tensor cores (tf32.cuh: each operand split into hi and lo in
+// registers, lo·hi + hi·lo + hi·hi on mma.sync m16n8k8 .tf32, float32
+// accumulators), at win 4 and 8 and head widths 56, 72 and 96:
+//   1. the LN pre-pass (tf32::ln_rows_kernel: xn = LN1(x) through
+//      layernorm_rows<float>, bit for bit the FMA kernel's) into an f32
+//      workspace;
+//   2. [skip | q | k | v] = xn·[Wskip; Wqkv]ᵀ + b as one GEMM (tf32.cuh
+//      gemm_kernel, Wskip's rows then Wqkv's) on 64 × 64 blocks — a
+//      64-token window of win 8, four of win 4. Skip and q are pooled in
+//      the accumulators (PoolF32: an m16 tile holds whole pool partners
+//      at both window sizes, as in pool_store) and only the pooled rows
+//      reach the workspace; k and v at full resolution;
+//   3. attention per (16 pooled queries, head), a block of four warps
+//      each (qpool_attn_f32_kernel): the head's k and v in shared memory
+//      by cp.async, v landing while S is computed, q's fragments from L2
+//      into registers; S = q·kᵀ against the tile's 64 keys, 16 a warp —
+//      at win 4 four windows under a block-diagonal mask, exact since a
+//      masked score's exp is 0 — f32 scores × scale, max, exp and sum
+//      across the warps, P normalised in f32 as window_attention computes
+//      it, then O = P·V, a third of the head's columns a warp;
+//   4. out = skip + (o·Wprojᵀ + b) (ProjF32) over the pooled rows, a
+//      quarter of the input's, the depth split where the row tiles leave
+//      SMs idle (win 4: 1024 rows, 96 blocks; the partial sums added in
+//      split order).
+// Why not one block kernel as in bf16: float32 tiles take twice bf16's
+// shared memory; at 192 → 384 the 128-row block's xn, one head group's
+// k|v and the attention output alone pass 227 KB, and 64-row blocks
+// leave 64 of 132 SMs busy at win 4. What bounds it: the products, 3 ×
+// ops ÷ 495 TFLOP/s — 0.035 ms per trained-product analyze() (2
+// launches, 5.6 GFLOP) against 0.085 at the FMA units' 67 TFLOP/s; the
+// workspace round trips (k|v: 25.2 and 12.6 MB written, then read) come
+// on top. The FMA design
+// it replaces held one window a block and streamed all of Wskip, Wqkv and
+// Wproj from L2 for each (453 MB at win 4), its attention scalar. Other
+// float32 shapes (win 16, other head widths) take the tiled route.
+// Measured (scripts/kernel_rows.py, H100 80GB HBM3 at 700 W, the FMA
+// kernel in the same call): 0.180 ms per trained-product analyze() (win
+// 8: 0.097, win 4: 0.083) against 1.293 for the FMA kernel and 0.187 for
+// its skip, qkv and proj F.linear calls (cuBLAS float32).
 #include <algorithm>
 #include <cmath>
 
 #include "common.cuh"
 #include "tc.cuh"
 #include "tc_gemm.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -170,66 +211,6 @@ window_attn_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
   });
 }
 
-// 2×2 max-pool of a window-major (win × win, row stride ld) map into
-// (win/2)² rows.
-__device__ void pool2x2(const float* src, int ld, float* dst, int win, int c) {
-  const int m = win / 2;
-  for (int e = threadIdx.x; e < m * m * c; e += kThreads) {
-    int p = e / c, ch = e % c;
-    int i = 2 * (p / m), j = 2 * (p % m);
-    const float* a = src + (size_t)(i * win + j) * ld + ch;
-    float v = fmaxf(fmaxf(a[0], a[ld]), fmaxf(a[win * ld], a[(win + 1) * ld]));
-    dst[(size_t)p * c + ch] = v;
-  }
-  __syncthreads();
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-qpool_attn_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
-                  const float* __restrict__ ln_b, const T* __restrict__ wskip,
-                  const T* __restrict__ bskip, const T* __restrict__ wqkv,
-                  const T* __restrict__ bqkv, const T* __restrict__ wproj,
-                  const T* __restrict__ bproj, T* __restrict__ out, int win,
-                  int c_in, int c_out, int heads, float scale, float eps) {
-  extern __shared__ float smem[];
-  const int t = win * win, tq = t / 4;
-  float* xn = smem;                   // t × c_in, later tq × c_out attn out
-  float* kv = xn + t * c_in;          // t × 2c_out (scratch for skip and q)
-  float* skp = kv + 2 * t * c_out;    // tq × c_out pooled shortcut
-  float* qp = skp + tq * c_out;       // tq × c_out pooled q
-  float* s = qp + tq * c_out;         // tq × t
-  float* ws = s + tq * t;
-  const T* xb = x + (size_t)blockIdx.x * t * c_in;
-
-  for (int e = threadIdx.x; e < t * c_in; e += kThreads) kv[e] = to_f(xb[e]);
-  __syncthreads();
-  layernorm_rows<T>(kv, xn, t, c_in, ln_s, ln_b, eps);
-  // shortcut, then q: full resolution into kv, pooled out of it
-  rows_gemm<T>(xn, c_in, t, c_in, wskip, c_in, c_out, ws,
-               [&](int r, int n, float v) {
-                 kv[r * c_out + n] = rnd<T>(v + to_f(bskip[n]));
-               });
-  pool2x2(kv, c_out, skp, win, c_out);
-  rows_gemm<T>(xn, c_in, t, c_in, wqkv, c_in, c_out, ws,
-               [&](int r, int n, float v) {
-                 kv[r * c_out + n] = rnd<T>(v + to_f(bqkv[n]));
-               });
-  pool2x2(kv, c_out, qp, win, c_out);
-  rows_gemm<T>(xn, c_in, t, c_in, wqkv + (size_t)c_out * c_in, c_in,
-               2 * c_out, ws, [&](int r, int n, float v) {
-                 kv[r * 2 * c_out + n] = rnd<T>(v + to_f(bqkv[c_out + n]));
-               });
-  window_attention<T>(qp, c_out, kv, 2 * c_out, kv + c_out, 2 * c_out, xn,
-                      c_out, s, tq, t, heads, c_out / heads, scale);
-  T* ob = out + (size_t)blockIdx.x * tq * c_out;
-  rows_gemm<T>(xn, c_out, tq, c_out, wproj, c_out, c_out, ws,
-               [&](int r, int n, float v) {
-                 float proj = rnd<T>(v + to_f(bproj[n]));
-                 ob[r * c_out + n] = from_f<T>(skp[r * c_out + n] + proj);
-               });
-}
-
 // Softmax scale from the head width, 1/sqrt(c / heads).
 float head_scale(int c, int heads) {
   return (float)(1.0 / std::sqrt((double)(c / heads)));
@@ -238,12 +219,6 @@ float head_scale(int c, int heads) {
 size_t window_smem(int t, int c) {
   return sizeof(float) *
          (std::max((size_t)t * c, (size_t)t * t) + (size_t)3 * t * c + kWs);
-}
-
-size_t qpool_smem(int win, int c_in, int c_out) {
-  size_t t = (size_t)win * win, tq = t / 4;
-  return sizeof(float) *
-         (t * c_in + 2 * t * c_out + 2 * tq * c_out + tq * t + kWs);
 }
 
 template <typename T>
@@ -261,26 +236,6 @@ cudaError_t launch_window(const void* x, const void* ln_s, const void* ln_b,
       (const T*)x, (const float*)ln_s, (const float*)ln_b, (const T*)wqkv,
       (const T*)bqkv, (const T*)wproj, (const T*)bproj, (T*)out, t, c, heads,
       head_scale(c, heads), eps);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_qpool(const void* x, const void* ln_s, const void* ln_b,
-                         const void* wskip, const void* bskip,
-                         const void* wqkv, const void* bqkv,
-                         const void* wproj, const void* bproj, void* out,
-                         int n_win, int win, int c_in, int c_out, int heads,
-                         float eps, cudaStream_t stream) {
-  size_t smem = qpool_smem(win, c_in, c_out);
-  cudaError_t err = cudaFuncSetAttribute(
-      qpool_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  qpool_attn_kernel<T><<<n_win, kThreads, smem, stream>>>(
-      (const T*)x, (const float*)ln_s, (const float*)ln_b, (const T*)wskip,
-      (const T*)bskip, (const T*)wqkv, (const T*)bqkv, (const T*)wproj,
-      (const T*)bproj, (T*)out, win, c_in, c_out, heads,
-      head_scale(c_out, heads), eps);
   return cudaGetLastError();
 }
 
@@ -944,6 +899,302 @@ cudaError_t launch_qpool_bf16(const void* x, const void* ln_s, const void* ln_b,
   }
 }
 
+// ------------------------------------------------------------- float32
+constexpr int kQpF32Unit = 64;  // input rows (keys) behind one 16-row pooled query tile
+
+// Epilogue of the q-pool block's input GEMM (tf32.cuh) over [skip | q |
+// k | v] (4·c_out columns): each 8-column tile lies in one section. Skip
+// and q are pooled in the accumulators, the bias added first as the plain
+// version adds it before its pool: an m16 tile of window-major rows holds
+// whole pool partners at both window sizes — win 4: the 16 rows are one
+// window, row 4i + j, the partners of row g rows g ^ 1 (lane ^ 4) and
+// g ^ 4 (lane ^ 16); win 8: two window rows, the partners of row g row
+// g ^ 1 (lane ^ 4) and the thread's own g + 8 — and its pooled rows are
+// row0 / 4 + 0 .. 3. k and v are stored at full resolution.
+struct PoolF32 {
+  const float* bskip;
+  const float* bqkv;
+  float* skip;  // (rows / 4) × c_out
+  float* q;     // (rows / 4) × c_out
+  float* kv;    // rows × 2·c_out: k | v
+  int c_out, win;
+  static constexpr bool kFrag = true;
+  __device__ void frag(int row0, int col, const float (&a)[4], int m, int n) const {
+    const int lane = threadIdx.x % 32, g = lane / 4, t2 = 2 * (lane % 4);
+    const int base = col - t2;  // the tile's first column, the same for the warp
+    if (row0 >= m || base >= n) return;
+    const int sec = base / c_out;
+    const float2 b = *reinterpret_cast<const float2*>(sec == 0 ? bskip + col
+                                                               : bqkv + (col - c_out));
+    float v[4] = {a[0] + b.x, a[1] + b.y, a[2] + b.x, a[3] + b.y};
+    if (sec >= 2) {  // k, v = xn·Wkvᵀ + b
+      float* dst = kv + (col - 2 * c_out);
+      const size_t ld = 2 * (size_t)c_out;
+      *reinterpret_cast<float2*>(dst + (row0 + g) * ld) = make_float2(v[0], v[1]);
+      *reinterpret_cast<float2*>(dst + (row0 + g + 8) * ld) = make_float2(v[2], v[3]);
+      return;
+    }
+    float* dst = (sec == 0 ? skip + col : q + (col - c_out)) + (size_t)(row0 / 4) * c_out;
+    if (win == 4) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float p0 = v[2 * hr], p1 = v[2 * hr + 1];
+        p0 = fmaxf(p0, __shfl_xor_sync(0xffffffffu, p0, 4));
+        p1 = fmaxf(p1, __shfl_xor_sync(0xffffffffu, p1, 4));
+        p0 = fmaxf(p0, __shfl_xor_sync(0xffffffffu, p0, 16));
+        p1 = fmaxf(p1, __shfl_xor_sync(0xffffffffu, p1, 16));
+        if ((g & 5) == 0)  // g ∈ {0, 2}: pooled rows g / 2 and 2 + g / 2
+          *reinterpret_cast<float2*>(dst + (size_t)(g / 2 + 2 * hr) * c_out) =
+              make_float2(p0, p1);
+      }
+    } else {
+      float p0 = fmaxf(v[0], v[2]), p1 = fmaxf(v[1], v[3]);
+      p0 = fmaxf(p0, __shfl_xor_sync(0xffffffffu, p0, 4));
+      p1 = fmaxf(p1, __shfl_xor_sync(0xffffffffu, p1, 4));
+      if ((g & 1) == 0)  // even g: pooled row g / 2
+        *reinterpret_cast<float2*>(dst + (size_t)(g / 2) * c_out) = make_float2(p0, p1);
+    }
+  }
+};
+
+// Epilogue of the projection: out = skip + (acc + bias), the plain
+// version's order; two() as in mlp_block.cu's epilogues.
+struct ProjF32 {
+  const float* bias;
+  const float* skip;
+  float* out;
+  int n_cols;
+  static constexpr bool kFrag = false;
+  __device__ void one(int r, int c, float v) const {
+    const size_t at = (size_t)r * n_cols + c;
+    out[at] = skip[at] + (v + bias[c]);
+  }
+  __device__ void two(int r, int c, float v0, float v1) const {
+    const size_t at = (size_t)r * n_cols + c;
+    const float2 b = *reinterpret_cast<const float2*>(bias + c);
+    const float2 s = *reinterpret_cast<const float2*>(skip + at);
+    *reinterpret_cast<float2*>(out + at) = make_float2(s.x + (v0 + b.x), s.y + (v1 + b.y));
+  }
+  bool aligned8() const {
+    return tf32::aligned8(bias) && tf32::aligned8(skip) && tf32::aligned8(out);
+  }
+};
+
+// Attention of the q-pool block in float32, 3×TF32: one block of four
+// warps per (unit, head), a unit the 16 pooled query rows 16u .. 16u + 15
+// against the 64 key rows 64u .. 64u + 63 (one window of win 8; four of
+// win 4 under a block-diagonal mask, query row r seeing keys j with r / 4
+// == j / 16). q (out_rows × c_out), kv (rows × 2·c_out: k | v), o
+// (out_rows × c_out); head h's columns h·hd .. of each. The head's k and
+// v come into shared memory by cp.async, v while S is computed, and its q
+// fragments from L2 straight into registers (rows past the last window
+// zero, never stored); warp w takes keys 16w .. 16w + 15 of S = q·kᵀ, the
+// row max and sum go through shared memory, P (normalised in f32, as
+// window_attention computes it) is stored over k, and warp w takes the
+// 8-column tiles w, w + 4, w + 8 of O = P·V. 52 KB at head width 96, so
+// four blocks share an SM. Row strides keep ldmatrix rows in distinct
+// bank groups (≡ 4 mod 32 floats) and V's scalar fragment loads
+// conflict-free (≡ 8 mod 32). NT: the head width in 8-column tiles.
+template <int NT>
+struct QpAttnF32 {
+  static constexpr int hd = 8 * NT;
+  static constexpr int ldk = hd + (36 - hd % 32) % 32;
+  static constexpr int ldv = hd + (40 - hd % 32) % 32;
+  static constexpr int ldp = kQpF32Unit + 4;  // P, over k once S is done
+  static_assert(16 * ldp <= kQpF32Unit * ldk, "P fits over k");
+  static constexpr int kFloats = kQpF32Unit * (ldk + ldv) + 2 * 4 * 16;
+  static constexpr size_t smem() { return sizeof(float) * kFloats; }
+};
+
+template <int NT>
+__global__ void __launch_bounds__(128)
+qpool_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ kv,
+                      float* __restrict__ o, int rows, int heads, int c_out, int win,
+                      float scale) {
+  using L = QpAttnF32<NT>;
+  constexpr int hd = L::hd, ldk = L::ldk, ldv = L::ldv, ldp = L::ldp, chunks = hd / 4;
+  extern __shared__ __align__(16) float asm_f[];
+  float* sk = asm_f;                        // 64 × ldk
+  float* sp = sk;                           // 16 × ldp: P, once S is done
+  float* sv = sk + kQpF32Unit * ldk;        // 64 × ldv
+  float* red_max = sv + kQpF32Unit * ldv;   // 4 warps × 16 rows
+  float* red_sum = red_max + 4 * 16;
+  const int u = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int out_rows = rows / 4, qr = 16 * u, kr = kQpF32Unit * u;
+  const size_t ldkv = 2 * (size_t)c_out;
+  const bool q0 = qr + g < out_rows, q1 = qr + g + 8 < out_rows;
+  float qa[NT][4];  // q's A fragments: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+  {
+    const float* kb = kv + kr * ldkv + h * hd;
+    for (int e = tid; e < kQpF32Unit * chunks; e += 128) {
+      const int r = e / chunks, c = 4 * (e % chunks);
+      const bool in = kr + r < rows;
+      tc::cp_async16(sk + r * ldk + c, in ? kb + r * ldkv + c : kv, in);
+    }
+    tc::cp_async_commit();
+    for (int e = tid; e < kQpF32Unit * chunks; e += 128) {  // v lands while S is computed
+      const int r = e / chunks, c = 4 * (e % chunks);
+      const bool in = kr + r < rows;
+      tc::cp_async16(sv + r * ldv + c, in ? kb + r * ldkv + c_out + c : kv, in);
+    }
+    tc::cp_async_commit();
+    const float* qb = q + (size_t)(qr + g) * c_out + h * hd + t;
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      qa[ks][0] = q0 ? __ldg(qb + 8 * ks) : 0.f;
+      qa[ks][1] = q1 ? __ldg(qb + 8 * c_out + 8 * ks) : 0.f;
+      qa[ks][2] = q0 ? __ldg(qb + 8 * ks + 4) : 0.f;
+      qa[ks][3] = q1 ? __ldg(qb + 8 * c_out + 8 * ks + 4) : 0.f;
+    }
+    tc::cp_async_wait<1>();
+    __syncthreads();
+  }
+
+  // S for keys 16w + 8j + 2t + (e & 1), rows g (e < 2) and g + 8
+  float s[2][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < NT; ++ks) {
+    uint32_t r[4], ah[4], al[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tf32::split(qa[ks][e], ah[e], al[e]);
+    tc::ldsm_x4(r, sk + (16 * warp + lane % 8 + (lane / 16) * 8) * ldk + 8 * ks +
+                       ((lane / 8) % 2) * 4);
+    uint32_t bh[4], bl[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tf32::split(__uint_as_float(r[e]), bh[e], bl[e]);
+    tf32::mma3(s[0], ah, al, bh[0], bh[1], bl[0], bl[1]);
+    tf32::mma3(s[1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+  }
+  // the exact softmax in f32: scale, mask, max and sum over the quad and
+  // the four warps
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] *= scale;
+      if (win == 4 && (g + 8 * (e >> 1)) / 4 != (16 * warp + 8 * j + 2 * t + (e & 1)) / 16)
+        s[j][e] = -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    if (t == 0) red_max[16 * warp + g + 8 * r] = mx[r];
+  }
+  __syncthreads();  // ... and every warp's S is done: k is free for P
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    mx[r] = fmaxf(fmaxf(red_max[g + 8 * r], red_max[16 + g + 8 * r]),
+                  fmaxf(red_max[32 + g + 8 * r], red_max[48 + g + 8 * r]));
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = expf(s[j][e] - mx[e >> 1]);
+      sum[e >> 1] += s[j][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    if (t == 0) red_sum[16 * warp + g + 8 * r] = sum[r];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    sum[r] = (red_sum[g + 8 * r] + red_sum[16 + g + 8 * r]) +
+             (red_sum[32 + g + 8 * r] + red_sum[48 + g + 8 * r]);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float* pr = sp + g * ldp + 16 * warp + 8 * j + 2 * t;
+    *reinterpret_cast<float2*>(pr) = make_float2(s[j][0] / sum[0], s[j][1] / sum[0]);
+    *reinterpret_cast<float2*>(pr + 8 * ldp) = make_float2(s[j][2] / sum[1], s[j][3] / sum[1]);
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+  // O = P·V over the 64 keys in 8-deep steps, 8-column tiles warp + 4i
+  constexpr int kTiles = (NT + 3) / 4;
+  float acc[kTiles][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < kQpF32Unit / 8; ++kk) {
+    uint32_t r[4], ah[4], al[4];
+    tc::ldsm_x4(r, sp + (lane % 16) * ldp + 8 * kk + (lane / 16) * 4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tf32::split(__uint_as_float(r[e]), ah[e], al[e]);
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i) {
+      const int d = warp + 4 * i;
+      if (d >= NT) break;
+      const float* vv = sv + (8 * kk + t) * ldv + 8 * d + g;
+      uint32_t bh0, bl0, bh1, bl1;
+      tf32::split(vv[0], bh0, bl0);
+      tf32::split(vv[4 * ldv], bh1, bl1);
+      tf32::mma3(acc[i], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+  float* ob = o + (size_t)qr * c_out + h * hd + 2 * t;
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) {
+    const int d = warp + 4 * i;
+    if (d >= NT) break;
+    if (q0) *reinterpret_cast<float2*>(ob + (size_t)g * c_out + 8 * d) =
+        make_float2(acc[i][0], acc[i][1]);
+    if (q1) *reinterpret_cast<float2*>(ob + (size_t)(g + 8) * c_out + 8 * d) =
+        make_float2(acc[i][2], acc[i][3]);
+  }
+}
+
+// The float32 q-pool block: LN pre-pass, input GEMM with the pooling
+// epilogue, attention, projection (see the header). ws holds, in float32
+// and in this order: xn (rows × c_in), pooled skip and pooled q (rows/4 ×
+// c_out each), k | v (rows × 2·c_out), o (rows/4 × c_out) and the
+// projection's partial sums (splits_proj · rows/4 × c_out) where its
+// depth is split. win ∈ {4, 8}; c_in a multiple of 4, every pointer
+// 16-byte aligned; head width 56, 72 or 96. splits_proj from the
+// wrapper's plan (ops/cuda/window_attn.py qpool_plan_f32).
+cudaError_t launch_qpool_f32(const float* x, const float* ln_s, const float* ln_b,
+                             const float* wskip, const float* bskip, const float* wqkv,
+                             const float* bqkv, const float* wproj, const float* bproj,
+                             float* out, float* ws, int n_win, int win, int c_in, int c_out,
+                             int heads, float eps, int splits_proj, cudaStream_t stream) {
+  if ((win != 4 && win != 8) || n_win < 1 || c_in < 4 || c_in % 4 || heads < 1 ||
+      c_out % heads)
+    return cudaErrorInvalidValue;
+  const int rows = n_win * win * win, out_rows = rows / 4;
+  float* xn = ws;
+  float* skip = xn + (size_t)rows * c_in;
+  float* qp = skip + (size_t)out_rows * c_out;
+  float* kvp = qp + (size_t)out_rows * c_out;
+  float* o = kvp + (size_t)rows * 2 * c_out;
+  float* partial = o + (size_t)out_rows * c_out;
+  cudaError_t err = tf32::launch_ln_rows(x, ln_s, ln_b, xn, rows, c_in, eps, stream);
+  if (err != cudaSuccess) return err;
+  auto attend = [&](auto kernel, size_t smem) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    const int blocks = (rows + kQpF32Unit - 1) / kQpF32Unit * heads;
+    kernel<<<blocks, 128, smem, stream>>>(qp, kvp, o, rows, heads, c_out, win,
+                                          head_scale(c_out, heads));
+    return cudaGetLastError();
+  };
+  const int hd = c_out / heads;
+  if (hd != 56 && hd != 72 && hd != 96) return cudaErrorInvalidValue;  // Hiera-b+, -L, -t/-s
+  err = tf32::launch_gemm(1, xn, wskip, wqkv, c_out, rows, 4 * c_out, c_in, nullptr,
+                          PoolF32{bskip, bqkv, skip, qp, kvp, c_out, win}, stream);
+  if (err != cudaSuccess) return err;
+  err = hd == 56   ? attend(qpool_attn_f32_kernel<7>, QpAttnF32<7>::smem())
+        : hd == 72 ? attend(qpool_attn_f32_kernel<9>, QpAttnF32<9>::smem())
+                   : attend(qpool_attn_f32_kernel<12>, QpAttnF32<12>::smem());
+  if (err != cudaSuccess) return err;
+  return tf32::launch_gemm(splits_proj, o, wproj, wproj, c_out, out_rows, c_out, c_out,
+                           partial, ProjF32{bproj, skip, out, c_out}, stream);
+}
+
 }  // namespace
 
 // Shared-memory bytes a launch needs (the wrappers refuse shapes above
@@ -951,8 +1202,17 @@ cudaError_t launch_qpool_bf16(const void* x, const void* ln_s, const void* ln_b,
 extern "C" long long cv_window_attn_smem(int t, int c, int dtype) {
   return (long long)(dtype == 1 ? window_tc_smem(c) : window_smem(t, c));
 }
+// The float32 q-pool's largest block is its GEMM's, whatever the shape
+// (its attention blocks take less, below).
 extern "C" long long cv_qpool_attn_smem(int win, int c_in, int c_out, int dtype) {
-  return (long long)(dtype == 1 ? qpool_tc_smem(c_in, c_out) : qpool_smem(win, c_in, c_out));
+  return (long long)(dtype == 1 ? qpool_tc_smem(c_in, c_out) : tf32::kGemmSmem);
+}
+// Shared-memory bytes of the float32 q-pool's attention block at head
+// width hd (56, 72 or 96; 0 for any other).
+extern "C" long long cv_qpool_f32_attn_smem(int hd) {
+  return (long long)(hd == 56 ? QpAttnF32<7>::smem()
+                     : hd == 72 ? QpAttnF32<9>::smem()
+                     : hd == 96 ? QpAttnF32<12>::smem() : 0);
 }
 
 // dtype: 0 = float32 (window_attn_kernel, FMA loops), 1 = bfloat16
@@ -979,14 +1239,18 @@ extern "C" int cv_window_attn(const void* x, const void* ln_s,
 
 // x is (n_win·win², c_in) window-major rows; out (n_win·win²/4, c_out).
 // wskip (c_out, c_in), wqkv (3·c_out, c_in), wproj (c_out, c_out); ln_s
-// and ln_b float32. float32 on the FMA units (qpool_attn_kernel).
+// and ln_b float32. float32 on the tensor cores (3×TF32,
+// launch_qpool_f32: its shapes, the workspace ws and the plan).
 extern "C" int cv_qpool_attn_f32(const void* x, const void* ln_s, const void* ln_b,
                                  const void* wskip, const void* bskip, const void* wqkv,
                                  const void* bqkv, const void* wproj, const void* bproj,
-                                 void* out, int n_win, int win, int c_in, int c_out, int heads,
-                                 float eps, void* stream) {
-  return (int)launch_qpool<float>(x, ln_s, ln_b, wskip, bskip, wqkv, bqkv, wproj, bproj, out,
-                                  n_win, win, c_in, c_out, heads, eps, (cudaStream_t)stream);
+                                 void* out, void* ws, int n_win, int win, int c_in, int c_out,
+                                 int heads, float eps, int splits_proj, void* stream) {
+  return (int)launch_qpool_f32((const float*)x, (const float*)ln_s, (const float*)ln_b,
+                               (const float*)wskip, (const float*)bskip, (const float*)wqkv,
+                               (const float*)bqkv, (const float*)wproj, (const float*)bproj,
+                               (float*)out, (float*)ws, n_win, win, c_in, c_out, heads, eps,
+                               splits_proj, (cudaStream_t)stream);
 }
 
 // bfloat16 on the tensor cores: the same function and layouts, the

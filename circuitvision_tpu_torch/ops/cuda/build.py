@@ -40,19 +40,18 @@ _F = ctypes.c_float
 #: C signatures of the exported launchers
 SIGNATURES = {
     "mlp_block": {
-        "cv_mlp_block_f32": [_P] * 9 + [_I] * 4 + [_F, _P],
+        "cv_mlp_block_f32": [_P] * 9 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
         "cv_mlp_block_bf16": [_P] * 10 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
-        "cv_mlp_block_smem": [_I],
         "cv_mlp_ln_smem": [_I],
         "cv_mlp_gemm_smem": [_I],
-        "cv_mlp_block_splits": [_I, _I, _I],
     },
     "window_attn": {
         "cv_window_attn": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
-        "cv_qpool_attn_f32": [_P] * 10 + [_I] * 5 + [_F, _P],
+        "cv_qpool_attn_f32": [_P] * 11 + [_I] * 5 + [_F] + [_I] + [_P],
         "cv_qpool_attn_bf16": [_P] * 11 + [_I] * 5 + [_F, _P],
         "cv_window_attn_smem": [_I, _I, _I],
         "cv_qpool_attn_smem": [_I] * 4,
+        "cv_qpool_f32_attn_smem": [_I],
     },
     "refinement": {
         "cv_refinement": [_P] * 12 + [_I] * 4 + [_P],

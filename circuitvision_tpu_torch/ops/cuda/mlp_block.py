@@ -4,8 +4,10 @@ Replaces the JAX package's Pallas kernel `mlp_block`
 (circuitvision_tpu/ops/pallas/mlp_block.py); the CUDA source is
 csrc/mlp_block.cu, whose header note says what bounds it on the H100 and
 how the design answers that: bfloat16 as an LN pre-pass and two wgmma
-GEMMs with h in a bf16 workspace (`mlp_plan` picks their block rows),
-float32 on the FMA units. `mlp_block_plain` is the same
+GEMMs with h in a bf16 workspace (`mlp_plan` picks their block rows);
+float32 as the same three launches with h in an f32 workspace and every
+product 3×TF32 on mma.sync (csrc/tf32.cuh; `mlp_plan_f32` picks the
+depth splits). `mlp_block_plain` is the same
 function in plain PyTorch, with the kernel's numerics: LayerNorm
 statistics in f32, products accumulated in f32, the LN output and the
 hidden activation rounded to the compute dtype where the kernel stores
@@ -33,6 +35,18 @@ GEMM_BN, GEMM_BK, GEMM_STAGES = 128, 64, 3
 LN_ROWS = 8
 #: SMs of an H100 SXM, for plans made without a card
 H100_SMS = 132
+#: the float32 GEMM (csrc/tf32.cuh gemm_kernel): a block's output tile
+#: (rows, columns; a warp per 32 × 32), the depth of a staged tile (32
+#: floats, a 128-byte row), stages of the cp.async ring, and the staged
+#: rows' stride in floats (padded by 4, so the eight rows one ldmatrix
+#: reads fall in distinct bank groups)
+F32_GEMM_BM, F32_GEMM_BN = 64, 64
+F32_GEMM_BK, F32_GEMM_STAGES, F32_GEMM_LD = 32, 3, 36
+#: shared-memory bytes of one block: the cp.async ring of A and B tiles,
+#: 144 bytes a row (csrc/tf32.cuh kGemmSmem)
+F32_GEMM_SMEM = 4 * F32_GEMM_STAGES * (F32_GEMM_BM + F32_GEMM_BN) * F32_GEMM_LD
+#: staged tiles one split of a GEMM's depth keeps at least
+F32_MIN_SPLIT_TILES = 4
 
 
 def gemm_smem(bm: int) -> int:
@@ -84,6 +98,50 @@ def mlp_plan(t: int, c: int, hidden: int, sms: int = H100_SMS) -> MlpPlan:
                           f"hidden={hidden}")
     return MlpPlan(-(-t // LN_ROWS), ln_smem(c), gemm_tile(t, hidden, sms),
                    gemm_tile(t, c, sms), t * (c + hidden))
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Gemm:
+    """One float32 GEMM: depth splits and blocks (splits included)."""
+
+    splits: int
+    blocks: int
+
+
+def f32_gemm_plan(m: int, n: int, k: int, sms: int = H100_SMS, split: bool = True) -> F32Gemm:
+    """The blocks of an (m × n) output, F32_GEMM_BM × F32_GEMM_BN each.
+    Where they would not fill every SM once, the depth k is split across
+    blocks (`split`), enough for about two blocks per SM while each split
+    keeps at least F32_MIN_SPLIT_TILES staged tiles; the kernel adds the
+    partial sums in split order. The count is one the kernel's whole-tile
+    split gives (csrc/tf32.cuh split_len)."""
+    blocks = -(-m // F32_GEMM_BM) * -(-n // F32_GEMM_BN)
+    splits = 1
+    if split and blocks < sms:
+        tiles = -(-k // F32_GEMM_BK)
+        want = min(-(-2 * sms // blocks), max(1, tiles // F32_MIN_SPLIT_TILES))
+        splits = -(-tiles // -(-tiles // want))
+    return F32Gemm(splits, blocks * splits)
+
+
+@dataclasses.dataclass(frozen=True)
+class MlpPlanF32:
+    """Launch plan of the float32 path: h = GELU(xn·W0ᵀ + b0), then out =
+    x + b1 + h·W1ᵀ, with xn, h and the split GEMMs' partial sums in one
+    f32 workspace of `workspace` elements, each part on a 16-byte
+    boundary."""
+
+    gemm1: F32Gemm
+    gemm2: F32Gemm
+    workspace: int
+
+
+@functools.lru_cache(maxsize=64)
+def mlp_plan_f32(t: int, c: int, hidden: int, sms: int = H100_SMS) -> MlpPlanF32:
+    g1, g2 = f32_gemm_plan(t, hidden, c, sms), f32_gemm_plan(t, c, hidden, sms)
+    partial = max(g1.splits * t * hidden if g1.splits > 1 else 0,
+                  g2.splits * t * c if g2.splits > 1 else 0)
+    return MlpPlanF32(g1, g2, -(-t * c // 4) * 4 + -(-t * hidden // 4) * 4 + partial)
 
 
 def layernorm_f32(x: torch.Tensor, scale, bias, eps: float,
@@ -142,18 +200,12 @@ def mlp_block(x, ln_scale, ln_bias, w0, b0, w1, b1, eps=1e-6, ln_width=None):
             stream_ptr(x),
         )
     else:
-        if lib.cv_mlp_block_smem(c) > MAX_SMEM:
-            raise KernelError(f"mlp_block: width {c} exceeds the kernel's shared memory")
-        # row tiles alone leave most SMs idle at small T: the launcher says
-        # how many blocks share each tile's hidden dimension
-        splits = lib.cv_mlp_block_splits(t, hidden, sms)
-        partial = (torch.empty((splits, t, c), dtype=torch.float32, device=x.device)
-                   if splits > 1 else None)
+        plan = mlp_plan_f32(t, c, hidden, sms)
+        ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
         err = lib.cv_mlp_block_f32(
             x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w0.data_ptr(),
-            b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(),
-            None if partial is None else partial.data_ptr(),
-            t, c, hidden, splits, eps, stream_ptr(x),
+            b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            t, c, hidden, eps, plan.gemm1.splits, plan.gemm2.splits, stream_ptr(x),
         )
     check(err, "mlp_block")
     mlp_block.launches += 1

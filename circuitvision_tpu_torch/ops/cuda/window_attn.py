@@ -19,17 +19,21 @@ of T ∈ {16, 32, 64}); `qpool_attn_block` as an LN pre-pass into a bf16
 workspace and a block owning 128 rows (eight windows of win 4 or two of
 win 8) that runs its input-side products on wgmma with xn in registers,
 pools skip and q in the accumulators and takes its heads two at a time.
-In float32, f32 FMA loops with one window a block. The plain versions
-beside them compute the same functions with the kernels' numerics: f32
-LayerNorm statistics, f32 scores and softmax scaled by 1/sqrt(head
-width), products accumulated in f32, and values rounded to the compute
-dtype where the kernel stores them.
+In float32, `window_attn_block` runs f32 FMA loops with one window a
+block; `qpool_attn_block` an LN pre-pass, one GEMM for skip, q, k and v
+with skip and q pooled in the accumulators, attention per (16 pooled
+queries, head) and the projection GEMM, every product 3×TF32 on mma.sync
+(csrc/tf32.cuh; `qpool_plan_f32` picks the projection's depth splits).
+The plain versions beside them compute the same functions with the
+kernels' numerics: f32 LayerNorm statistics, f32 scores and softmax
+scaled by 1/sqrt(head width), products accumulated in f32, and values
+rounded to the compute dtype where the kernel stores them.
 
 A window that does not fit the one-block kernel (`window_route`: its
-shared memory in the dtype, and in bfloat16 the shapes and head widths
-the kernels are built for; the Hiera-L stage-3 and stage-4 windows and
-its last q-pool transition, in float32 its first as well, and in
-bfloat16 every head width outside TC_HEAD_WIDTHS) takes the tiled route
+shared memory in the dtype, and the shapes and head widths the kernels
+are built for: the bf16 kernels and the float32 q-pool block take head
+widths of TC_HEAD_WIDTHS; the Hiera-L stage-3 and stage-4 windows and its
+last q-pool transition) takes the tiled route
 instead, which computes the same function with three kernels batched
 over the windows: `ln_qkv`, `flash_attn` and `attn_proj_residual`
 (ops/cuda/global_attn.py, ops/cuda/flash_attn.py), rounding q/k/v, the
@@ -44,16 +48,19 @@ padded width and cut back to C after the residual.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from .build import (
     MAX_SMEM, KernelError, check, check_aligned, check_ln_params, check_no_grad, check_operands,
-    dtype_code, library, stream_ptr,
+    dtype_code, library, sm_count, stream_ptr,
 )
 from .flash_attn import flash_attn
 from .global_attn import attn_proj_residual, ln_qkv, pool2x2_windows
-from .mlp_block import layernorm_f32
+from .mlp_block import F32_GEMM_SMEM, H100_SMS, F32Gemm, f32_gemm_plan, layernorm_f32
 
 #: floats of one staged weight tile of the f32 kernels (common.cuh:
 #: kTileK × (kTileN + 1))
@@ -76,20 +83,36 @@ TC_QPOOL_TOKENS = (16, 64)
 TC_QPOOL_ROWS, TC_QPOOL_OUT, TC_QPOOL_GROUP = 128, 32, 2 * 96
 TC_QPOOL_BN, TC_QPOOL_STAGES, TC_QPOOL_PROJ_K = 32, 3, 32
 TC_QPOOL_WIDTHS_IN, TC_QPOOL_MAX_OUT = (96, 144, 192, 288), 576
+#: the float32 q-pool block (csrc/window_attn.cu launch_qpool_f32): the
+#: input rows (keys) behind one 16-row tile of pooled queries, an
+#: attention block each (with one head)
+QPOOL_F32_UNIT = 64
+
+
+def qpool_attn_f32_smem(hd: int) -> int:
+    """Shared-memory bytes of the float32 q-pool's attention block at head
+    width hd (csrc/window_attn.cu QpAttnF32): the head's 64 k rows at a
+    stride ≡ 4 (mod 32) floats (P over them once S is done), its 64 v rows
+    at one ≡ 8, and the four warps' row maxima and sums."""
+    ldk, ldv = hd + (36 - hd % 32) % 32, hd + (40 - hd % 32) % 32
+    return 4 * (QPOOL_F32_UNIT * (ldk + ldv) + 2 * 4 * 16)
+
 
 def window_smem(kind: str, tokens: int, c_in: int, c_out: int,
                 dtype: torch.dtype = torch.float32) -> int:
     """Shared-memory bytes of the one-block kernel for a `tokens`-token
     window ("window": width c_in == c_out; "qpool": c_in → c_out) in
-    `dtype`, as csrc/window_attn.cu's window_smem, window_tc_smem,
-    qpool_smem and qpool_tc_smem compute them. The bf16 kernels hold 64
+    `dtype`, as csrc/window_attn.cu's window_smem, window_tc_smem and
+    qpool_tc_smem compute them. The bf16 kernels hold 64
     (window) or 128 (q-pool) rows whatever the window size, in bf16, each
     row padded by 16 bytes: the window kernel xn, q|k|v and two staged
     weight tiles; the q-pool kernel its attention output and three
     staged weight tiles and its biases, beside them xn (from its LN
     pre-pass) until the warps hold it in registers, then one head group's
     pooled q and k|v, and at the end three staged Wproj tiles over tiles
-    and group."""
+    and group. The float32 q-pool block's largest block is its 3×TF32
+    GEMM's, whatever the shape (`qpool_attn_f32_smem` for its attention
+    blocks)."""
     t = tokens
     if dtype == torch.bfloat16 and kind == "window":
         return 2 * ((TC_ROWS + 2 * TC_BN) * (c_in + 8) + TC_ROWS * (3 * c_in + 8))
@@ -100,14 +123,11 @@ def window_smem(kind: str, tokens: int, c_in: int, c_out: int,
         proj = 2 * TC_QPOOL_STAGES * c_out * (TC_QPOOL_PROJ_K + 8)
         keep = 2 * (TC_QPOOL_OUT * (c_out + 8) + 4 * c_out)
         return keep + 1024 + max(ring + group, proj)
-    if kind == "window":
-        floats = max(t * c_in, t * t) + 3 * t * c_in
-    elif kind == "qpool":
-        tq = t // 4
-        floats = t * c_in + 2 * t * c_out + 2 * tq * c_out + tq * t
-    else:
+    if kind == "qpool":
+        return F32_GEMM_SMEM
+    if kind != "window":
         raise ValueError(f"unknown window kind {kind!r}")
-    return 4 * (floats + _WEIGHT_TILE)
+    return 4 * (max(t * c_in, t * t) + 3 * t * c_in + _WEIGHT_TILE)
 
 
 def block_heads(kind: str, c_out: int, heads: int) -> bool:
@@ -125,8 +145,11 @@ def window_route(kind: str, tokens: int, c_in: int, c_out: int, heads: int,
     memory in `dtype` and, for the bf16 kernels, a share of their 64 rows
     (window: T ∈ {16, 32, 64}; q-pool: win 4 or 8, C_in one of
     TC_QPOOL_WIDTHS_IN, C_out ≤ 576) and a head layout they are built for
-    (`block_heads`) — else "tiled". The tiled route's kernels take any
-    head width that is a multiple of 8 up to 256 (flash_attn pads it to
+    (`block_heads`); for the float32 q-pool block win 4 or 8, C_in a
+    multiple of 4 and a head width of TC_HEAD_WIDTHS (its attention
+    kernel's instances, any number of heads) — else "tiled". The tiled
+    route's kernels take any head width that is a multiple of 8 up to
+    256 (flash_attn pads it to
     TC_WIDTHS, attn_proj_residual reads it through a runtime-width layout
     outside PROJ_HEAD_WIDTHS); in bfloat16 a width off a multiple of 8
     runs padded (`pad_heads`), up to flash_attn's widest, 256."""
@@ -137,7 +160,37 @@ def window_route(kind: str, tokens: int, c_in: int, c_out: int, heads: int,
                                      or c_out > TC_QPOOL_MAX_OUT))
             or not block_heads(kind, c_out, heads)):
         return "tiled"
+    if dtype == torch.float32 and kind == "qpool" and (
+            tokens not in TC_QPOOL_TOKENS or c_in % 4 or c_out % heads
+            or c_out // heads not in TC_HEAD_WIDTHS):
+        return "tiled"
     return "block" if window_smem(kind, tokens, c_in, c_out, dtype) <= MAX_SMEM else "tiled"
+
+
+@dataclasses.dataclass(frozen=True)
+class QpoolPlanF32:
+    """Launch plan of the float32 q-pool block over `rows` input rows: the
+    input GEMM (skip, q, k and v; no split, its epilogue pools whole
+    fragments), the projection GEMM over the rows / 4 pooled rows, the
+    attention blocks' shared memory, and the f32 workspace's elements —
+    xn, pooled skip, pooled q, k | v, the attention output, the
+    projection's partial sums (csrc/window_attn.cu launch_qpool_f32)."""
+
+    gemm_in: F32Gemm
+    gemm_proj: F32Gemm
+    attn_smem: int
+    workspace: int
+
+
+@functools.lru_cache(maxsize=64)
+def qpool_plan_f32(rows: int, c_in: int, c_out: int, heads: int,
+                   sms: int = H100_SMS) -> QpoolPlanF32:
+    out_rows = rows // 4
+    g_in = f32_gemm_plan(rows, 4 * c_out, c_in, sms, split=False)
+    g_p = f32_gemm_plan(out_rows, c_out, c_out, sms)
+    partial = g_p.splits * out_rows * c_out if g_p.splits > 1 else 0
+    return QpoolPlanF32(g_in, g_p, qpool_attn_f32_smem(c_out // heads),
+                        rows * c_in + 3 * out_rows * c_out + 2 * rows * c_out + partial)
 
 
 def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dt) -> torch.Tensor:
@@ -299,8 +352,9 @@ def qpool_attn_block(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj,
         qpool_attn_block.tiled += 1
         return qpool_attn_block_tiled(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv,
                                       wproj, bproj, heads, win, eps)
-    if x.dtype == torch.bfloat16:
-        check_aligned("qpool_attn_block", x, wskip, wqkv, wproj)
+    check_aligned("qpool_attn_block", x, wskip, wqkv, wproj)
+    if x.dtype == torch.float32:  # the biases are read in pairs
+        check_aligned("qpool_attn_block", bskip, bqkv, bproj, align=8)
     lib = library("window_attn")
     out = torch.empty((rows // 4, c_out), dtype=x.dtype, device=x.device)
     args = (x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wskip.data_ptr(),
@@ -311,8 +365,10 @@ def qpool_attn_block(x, ln_scale, ln_bias, wskip, bskip, wqkv, bqkv, wproj,
         err = lib.cv_qpool_attn_bf16(*args, xn.data_ptr(), rows // t, win, c_in, c_out, heads,
                                      eps, stream_ptr(x))
     else:
-        err = lib.cv_qpool_attn_f32(*args, rows // t, win, c_in, c_out, heads, eps,
-                                    stream_ptr(x))
+        plan = qpool_plan_f32(rows, c_in, c_out, heads, sm_count(x))
+        ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
+        err = lib.cv_qpool_attn_f32(*args, ws.data_ptr(), rows // t, win, c_in, c_out, heads,
+                                    eps, plan.gemm_proj.splits, stream_ptr(x))
     check(err, "qpool_attn_block")
     qpool_attn_block.launches += 1
     return out

@@ -12,8 +12,9 @@ LayerNorm widths for the LayerNorms, the fine-tune's global shapes
 kernels — each against its plain version on
 the card, in bfloat16 and float32, with device times (CUDA-graph replay),
 eager times, bound and library time, and prints chip_smoke.py's
-per-shape JSON rows, then per path the sums over the path's launches,
-and the launch-floor row. It builds only what those kernels need, so a
+per-shape JSON rows, then per path the sums over the path's launches
+(bfloat16, and the float32 instances' under "f32"), and the launch-floor
+row. It builds only what those kernels need, so a
 kernel change can be measured without the whole smoke run. With --tree
 the kernels, wrappers and build are OTHER_TREE's (another checkout, e.g.
 the parent's from `git archive`), timed by this tree's harness — the
@@ -70,8 +71,9 @@ def main() -> int:
                     if only in (None, p)})
     for path in paths:
         summary = chip_smoke.run_kernels(torch, path, ({}, {}) if path == "batch" else None)
-        print(json.dumps({path: {k: {f: v[f] for f in fields} for k, v in summary.items()}}),
-              flush=True)
+        print(json.dumps({path: {k: {**{f: v[f] for f in fields},
+                                         **({"f32": v["f32"]} if "f32" in v else {})}
+                                 for k, v in summary.items()}}), flush=True)
     if tree is None:
         chip_smoke.launch_floor(smi)
     return 0

@@ -76,6 +76,56 @@ def test_mlp_block_kernel(gen, dt, t, c):
     assert mb.mlp_block.launches == before + 1
 
 
+@pytest.mark.parametrize("t,c", [(16384, 96), (4096, 192), (1024, 384), (256, 768), (1001, 192),
+                                 (37, 33)])
+def test_mlp_block_f32_tensor_core_shapes(gen, t, c):
+    """The float32 kernel (3×TF32 on the tensor cores) at Hiera-t@512's
+    four shapes, the trained product's, whole — their depth splits
+    included — a ragged T, and an odd width (4-byte copies, single
+    stores); one launch counted per call."""
+    dt = torch.float32
+    args = (_rnd(gen, dt, t, c), 1 + _rnd(gen, F32, c, scale=0.1), _rnd(gen, F32, c, scale=0.1),
+            _rnd(gen, dt, 4 * c, c, scale=c ** -0.5), _rnd(gen, dt, 4 * c, scale=0.02),
+            _rnd(gen, dt, c, 4 * c, scale=(4 * c) ** -0.5), _rnd(gen, dt, c, scale=0.02))
+    before = mb.mlp_block.launches
+    _close(mb.mlp_block(*args), mb.mlp_block_plain(*args))
+    assert mb.mlp_block.launches == before + 1
+
+
+@pytest.mark.parametrize("nw,win,ci,co,heads", [(256, 8, 96, 192, 2), (256, 4, 192, 384, 4),
+                                                (7, 4, 192, 384, 4), (3, 8, 144, 288, 4),
+                                                (5, 4, 112, 224, 4)])
+def test_qpool_attn_f32_tensor_core_shapes(gen, nw, win, ci, co, heads):
+    """The float32 q-pool block (3×TF32) at Hiera-t@512's two transitions
+    whole, at win 4 with a window count that leaves the last 64-row
+    attention tile part empty, and at head widths 72 and 56; the block
+    route, one launch counted per call and no tiled call."""
+    dt = torch.float32
+    args = (_rnd(gen, dt, nw * win * win, ci), 1 + _rnd(gen, F32, ci, scale=0.1),
+            _rnd(gen, F32, ci, scale=0.1), _rnd(gen, dt, co, ci, scale=ci ** -0.5),
+            _rnd(gen, dt, co, scale=0.02), _rnd(gen, dt, 3 * co, ci, scale=ci ** -0.5),
+            _rnd(gen, dt, 3 * co, scale=0.02), _rnd(gen, dt, co, co, scale=co ** -0.5),
+            _rnd(gen, dt, co, scale=0.02))
+    assert wa.window_route("qpool", win * win, ci, co, heads, dt) == "block"
+    before, tiled = wa.qpool_attn_block.launches, wa.qpool_attn_block.tiled
+    _close(wa.qpool_attn_block(*args, heads=heads, win=win),
+           wa.qpool_attn_block_plain(*args, heads=heads, win=win))
+    assert wa.qpool_attn_block.launches == before + 1
+    assert wa.qpool_attn_block.tiled == tiled
+
+
+def test_f32_plans_match_kernel_smem(gen):
+    """The float32 GEMM's shared memory (that of the float32 q-pool's
+    largest block, as window_smem gives it) and the float32 q-pool's
+    attention blocks' are the kernels' own."""
+    lib = build.library("window_attn")
+    for win, ci, co in [(8, 96, 192), (4, 192, 384)]:
+        assert lib.cv_qpool_attn_smem(win, ci, co, 0) == \
+            wa.window_smem("qpool", win * win, ci, co, torch.float32) == mb.F32_GEMM_SMEM
+    for hd in wa.TC_HEAD_WIDTHS:
+        assert lib.cv_qpool_f32_attn_smem(hd) == wa.qpool_attn_f32_smem(hd)
+
+
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("nw,t,c,heads", [(8, 64, 96, 1), (8, 16, 192, 2), (32, 64, 144, 2),
                                           (64, 16, 288, 4), (5, 32, 112, 2), (7, 16, 288, 4)])
@@ -97,9 +147,8 @@ def test_window_attn_kernel(gen, dt, nw, t, c, heads):
                                                 (3, 8, 144, 288, 4)])
 def test_qpool_attn_kernel(gen, dt, nw, win, ci, co, heads):
     """The t@512 shapes and the Hiera-L@1024 64-row shapes (win 4 288 →
-    576 with 8 heads, win 8 144 → 288 with 4; the latter tiled in float32)
-    with fewer windows, and at win 4 a window count that leaves the last
-    64-row block part empty."""
+    576 with 8 heads, win 8 144 → 288 with 4) with fewer windows, and at
+    win 4 a window count that leaves the last 64-row block part empty."""
     args = (_rnd(gen, dt, nw * win * win, ci), 1 + _rnd(gen, F32, ci, scale=0.1),
             _rnd(gen, F32, ci, scale=0.1), _rnd(gen, dt, co, ci, scale=ci ** -0.5),
             _rnd(gen, dt, co, scale=0.02), _rnd(gen, dt, 3 * co, ci, scale=ci ** -0.5),

@@ -461,7 +461,8 @@ def test_qpool_route_rule_bf16():
     assert twin.window_smem("qpool", 16, 96, 720, bf) <= build.MAX_SMEM
     assert twin.window_route("qpool", 16, 96, 720, 10, bf) == "tiled"
     assert twin.window_route("qpool", 36, 96, 192, 2, bf) == "tiled"
-    assert twin.window_route("qpool", 36, 96, 192, 2) == "block"
+    # win 6 in float32 too: the 3×TF32 block pools whole m16 tiles (win 4, 8)
+    assert twin.window_route("qpool", 36, 96, 192, 2) == "tiled"
     assert twin.window_route("qpool", 16, 576, 1152, 16, bf) == "tiled"
     assert twin.window_smem("qpool", 16, 112, 224, bf) <= build.MAX_SMEM
     assert twin.window_route("qpool", 16, 112, 224, 4, bf) == "tiled"
@@ -486,7 +487,9 @@ def test_block_route_by_head_width(hd, heads):
     """In bfloat16 a window (two heads, 16 tokens) or q-pool transition
     (win 4 and 8) whose head width has no block-kernel instance takes the
     tiled route, though its shape alone fits the block kernel; in float32
-    the head width does not route."""
+    the head width does not route a window, and routes a q-pool
+    transition as in bfloat16 (the 3×TF32 attention kernel's instances)
+    but for the pairing of heads."""
     bf, f32 = torch.bfloat16, torch.float32
     c, c_out = 2 * hd, hd * heads
     block = hd in twin.TC_HEAD_WIDTHS
@@ -496,11 +499,12 @@ def test_block_route_by_head_width(hd, heads):
     for tokens, c_in in ((16, 192), (64, 96)):
         assert twin.window_route("qpool", tokens, c_in, c_out, heads, bf) == \
             ("block" if block else "tiled")
-        fits = twin.window_smem("qpool", tokens, c_in, c_out, f32) <= build.MAX_SMEM
+        assert twin.window_smem("qpool", tokens, c_in, c_out, f32) <= build.MAX_SMEM
         assert twin.window_route("qpool", tokens, c_in, c_out, heads, f32) == \
-            ("block" if fits else "tiled")
+            ("block" if block else "tiled")
     # an odd number of heads at a preset width: the q-pool kernel takes two at a time
     assert twin.window_route("qpool", 16, 192, 3 * 96, 3, bf) == "tiled"
+    assert twin.window_route("qpool", 16, 192, 3 * 96, 3, f32) == "block"
 
 
 @pytest.mark.parametrize("hd,heads", HEAD_WIDTHS)

@@ -20,13 +20,15 @@ Phases, in order; any failure raises and the process exits non-zero:
      timed between events, divided by the calls — and beside it
      `eager_ms`, 20 eager calls between events, which holds each call's
      Python dispatch; library and `F.linear` times are device times, the
-     plain version's eager. The float32 rows of mlp_block and
-     qpool_attn_block, whose products run as three TF32 products on the
-     tensor cores, take 3 × ops ÷ 495 TFLOP/s as their bound ("3xTF32
-     operations", `fma_bound_ms` the FMA units' bound beside it) and the
-     sum of their products' cuBLAS float32 `F.linear` calls as
-     `library_ms`; a `kernels_t512_f32` line sums the float32 rows over
-     the trained product's launches;
+     plain version's eager. The float32 rows of mlp_block,
+     window_attn_block and qpool_attn_block, whose products run as three
+     TF32 products on the tensor cores, take 3 × ops ÷ 495 TFLOP/s as
+     their bound ("3xTF32 operations", `fma_bound_ms` the FMA units'
+     bound beside it) and the sum of their products' cuBLAS float32
+     `F.linear` calls as `library_ms` (the window block's with
+     F.scaled_dot_product_attention on the same q, k, v); a
+     `kernels_t512_f32` line sums the float32 rows over the trained
+     product's launches;
   4. main path at t@512 — CircuitAnalyzerTorch.analyze() at YOLOv11-s@640
      + SAM2 Hiera-t@512 (shapes and SAM2's dtype from ckpt/*/meta.json,
      seeded weights) on a drawn ~1000×750 schematic: one warm-up, three
@@ -245,7 +247,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 #: the float32 kernels that run every product as three TF32 products on
 #: the tensor cores (csrc/tf32.cuh): their bound is 3 × ops ÷ the tf32
 #: peak, the FMA bound (ops ÷ the f32 peak) printed beside it
-TF32X3_KERNELS = ("mlp_block", "qpool_attn_block")
+TF32X3_KERNELS = ("mlp_block", "window_attn_block", "qpool_attn_block")
 #: the trained product's SAM2 stage (analyzer StageTimings)
 SAM2_STAGE = "SAM2 Segmentation on YOLO-Cropped Image"
 #: the off-preset head-width check: SAM2.1-L's
@@ -486,14 +488,13 @@ def case_builders(torch):
     def size(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    def linears(dt, calls):
+    def linears(dt, calls, note="sum of its products' F.linear calls (cuBLAS float32, TF32 off)"):
         """The float32 rows' yardstick: cuBLAS's float32 products (TF32
         off) of the kernel's function, one F.linear each, their device
         times summed."""
         if dt != torch.float32:
             return {}
-        return dict(linears=calls, library_note="sum of its products' F.linear calls "
-                                                "(cuBLAS float32, TF32 off)")
+        return dict(linears=calls, library_note=note)
 
     def mlp(t, c):
         def make(dt, gen):
@@ -516,10 +517,20 @@ def case_builders(torch):
                     rnd(gen, dt, 3 * c, c, scale=c ** -0.5), rnd(gen, dt, 3 * c, scale=0.02),
                     rnd(gen, dt, c, c, scale=c ** -0.5), rnd(gen, dt, c, scale=0.02))
             flops = nw * (2 * t * c * 3 * c + 4 * t * t * c + 2 * t * c * c)
+            xn = mb.layernorm_f32(*args[:3], 1e-6).to(dt)
+            q, k, v = (a.contiguous() for a in F.linear(xn, args[3], args[4]).view(
+                nw, t, 3, heads, c // heads).permute(2, 0, 3, 1, 4))
+            o = rnd(gen, dt, nw, t, c)  # the attention output's shape
             return dict(kernel=lambda: wa.window_attn_block(*args, heads=heads),
                         plain=lambda: wa.window_attn_block_plain(*args, heads=heads),
                         tiled=lambda: wa.window_attn_block_tiled(*args, heads=heads),
-                        bytes=size(*args, args[0]), flops=flops, math_dt=dt)
+                        bytes=size(*args, args[0]), flops=flops, math_dt=dt,
+                        **linears(dt, [lambda: F.linear(xn, args[3], args[4]),
+                                       lambda: F.scaled_dot_product_attention(q, k, v),
+                                       lambda: F.linear(o, args[5], args[6])],
+                                  note="sum of its q|k|v and proj F.linear calls and "
+                                       "F.scaled_dot_product_attention on the same q, k, v "
+                                       "(float32, TF32 off)"))
         return make
 
     def qpool(nw, win, ci, co, heads):
@@ -910,15 +921,18 @@ def run_routes(torch):
     block; and the route rule against the kernels' own sizes."""
     from circuitvision_tpu_torch.ops.cuda.build import library
     from circuitvision_tpu_torch.ops.cuda.window_attn import (
-        TC_HEAD_WIDTHS, qpool_attn_f32_smem, window_route, window_smem,
+        TC_HEAD_WIDTHS, qpool_attn_f32_smem, window_attn_f32_smem, window_route, window_smem,
     )
 
     check_plans(torch)
     lib = library("window_attn")
-    # the float32 q-pool's attention blocks (its GEMM's below, as window_smem)
+    # the float32 window and q-pool blocks' attention blocks (their GEMM's
+    # below, as window_smem)
     for hd in TC_HEAD_WIDTHS:
         if lib.cv_qpool_f32_attn_smem(hd) != qpool_attn_f32_smem(hd):
             raise AssertionError(f"qpool_attn_f32_smem disagrees with the kernel at head width {hd}")
+        if lib.cv_window_f32_attn_smem(hd) != window_attn_f32_smem(hd):
+            raise AssertionError(f"window_attn_f32_smem disagrees with the kernel at head width {hd}")
     for t, c in [(64, 96), (16, 192)] + [(t, c) for _nw, t, c, _h in L_WINDOWS]:
         for code, dt in enumerate((torch.float32, torch.bfloat16)):
             if lib.cv_window_attn_smem(t, c, code) != window_smem("window", t, c, c, dt):

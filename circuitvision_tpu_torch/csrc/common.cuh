@@ -1,7 +1,7 @@
 // Device helpers shared by the Hiera block kernels (mlp_block.cu,
-// window_attn.cu): dtype conversion, a row-tile LayerNorm, a block-wide
-// tiled product against a weight in torch Linear layout, and in-window
-// softmax attention. Everything a block computes lives in shared memory
+// window_attn.cu, global_attn.cu): dtype conversion, a row-tile
+// LayerNorm and a block-wide tiled product against a weight in torch
+// Linear layout. Everything a block computes lives in shared memory
 // as float32; values that the JAX kernels store in the compute dtype are
 // rounded to it (`rnd`) at the same points, so bf16 results round where
 // the reference's do.
@@ -129,64 +129,6 @@ __device__ void block_gemm(const float* A, int lda, int rows, int k_dim,
     }
   }
   __syncthreads();
-}
-
-// Product over row groups of kRows: the whole (rows × n_cols) output.
-template <typename T, typename Epi>
-__device__ void rows_gemm(const float* A, int lda, int rows, int k_dim,
-                          const T* W, int ldw, int n_cols, float* ws,
-                          Epi epi) {
-  for (int r0 = 0; r0 < rows; r0 += kRows) {
-    block_gemm<T>(A + (size_t)r0 * lda, lda, min(kRows, rows - r0), k_dim, W,
-                  ldw, n_cols, ws,
-                  [&](int r, int n, float v) { epi(r0 + r, n, v); });
-  }
-}
-
-// Softmax attention of nq queries over nk keys for every head, with f32
-// scores (scaled by `scale`), f32 softmax, probabilities rounded to T,
-// and p·v accumulated in f32 then rounded to T. q, k, v rows have
-// strides ldq, ldk, ldv; head h uses columns [h·hd, (h+1)·hd). The
-// result goes to o (row stride ldo); s holds nq·nk floats.
-template <typename T>
-__device__ void window_attention(const float* q, int ldq, const float* k,
-                                 int ldk, const float* v, int ldv, float* o,
-                                 int ldo, float* s, int nq, int nk, int heads,
-                                 int hd, float scale) {
-  const int tid = threadIdx.x;
-  for (int h = 0; h < heads; ++h) {
-    const int off = h * hd;
-    for (int e = tid; e < nq * nk; e += kThreads) {
-      int i = e / nk, j = e % nk;
-      const float* qi = q + (size_t)i * ldq + off;
-      const float* kj = k + (size_t)j * ldk + off;
-      float acc = 0.f;
-      for (int d = 0; d < hd; ++d) acc += qi[d] * kj[d];
-      s[e] = acc * scale;
-    }
-    __syncthreads();
-    for (int i = tid; i < nq; i += kThreads) {
-      float* row = s + (size_t)i * nk;
-      float m = -INFINITY;
-      for (int j = 0; j < nk; ++j) m = fmaxf(m, row[j]);
-      float sum = 0.f;
-      for (int j = 0; j < nk; ++j) {
-        float e = expf(row[j] - m);
-        row[j] = e;
-        sum += e;
-      }
-      for (int j = 0; j < nk; ++j) row[j] = rnd<T>(row[j] / sum);
-    }
-    __syncthreads();
-    for (int e = tid; e < nq * hd; e += kThreads) {
-      int i = e / hd, d = e % hd;
-      const float* p = s + (size_t)i * nk;
-      float acc = 0.f;
-      for (int j = 0; j < nk; ++j) acc += p[j] * v[(size_t)j * ldv + off + d];
-      o[(size_t)i * ldo + off + d] = rnd<T>(acc);
-    }
-    __syncthreads();
-  }
 }
 
 }  // namespace cvk

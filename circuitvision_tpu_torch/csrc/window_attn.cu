@@ -115,23 +115,48 @@
 // After this, no bf16 Hiera kernel of the port multiplies on the FMA
 // units.
 //
-// window_attn_block, float32 — window_attn_kernel, one block per window,
-// f32 FMA loops: the whole window (≤ 64 tokens) — its LN output, q/k/v
-// and scores — in shared memory as float32, so each activation is read
-// once and written once (the residual re-reads the input tile from L2),
-// as in the Pallas kernel, without its 128-row window packing and
-// block-diagonal masks. Buffers are reused (scores in the LN buffer, each
-// head's output over its q columns) so a 64-token, 96-wide window needs
-// 107 KB and two blocks share an SM. The products run as staged-tile f32
-// FMA loops (common.cuh block_gemm).
+// window_attn_block, float32 — four launches, every product 3×TF32 on
+// the tensor cores (tf32.cuh, below), at t ∈ {16, 32, 64} and head widths
+// 56, 72 and 96:
+//   1. the LN pre-pass (tf32::ln_rows_kernel: xn = LN1(x) through
+//      layernorm_rows<float>) into an f32 workspace;
+//   2. q | k | v = xn·Wqkvᵀ + b as one GEMM (tf32.cuh gemm_kernel, BiasF32)
+//      into the workspace;
+//   3. attention per (16 query rows, head), one warp each, a block of four
+//      warps per (64 rows, head) (window_attn_f32_kernel): the head's k and
+//      v for the block's rows in shared memory by cp.async, v landing while
+//      S is computed, q's fragments from L2 into registers; each warp
+//      against only its own window's t keys — at t = 16 one m16 tile of 16
+//      keys, not a three-quarters-masked 64 × 64 one — f32 scores × scale,
+//      the exact softmax over the quad, P normalised in f32 as the plain
+//      version computes it, then O = P·V with P's accumulators read as the
+//      A fragments in place (keys permuted within each 8-deep step, V's
+//      rows read in the same order);
+//   4. out = x + (o·Wprojᵀ + b) (ProjF32, skip = x), the depth split where
+//      the plan says so (partial sums added in split order).
+// What bounds it: the products, 3 × ops ÷ 495 TFLOP/s — 0.017 ms per
+// trained-product analyze() (2 launches, 2.87 GFLOP) against 0.043 at the
+// FMA units' 67 TFLOP/s; the workspace round trips (xn, q|k|v, o: 5·rows·C
+// floats written and read, 47 MB per analyze(), mostly in L2) come on top.
+// Why not one block kernel: in float32 a block's xn, q|k|v and weight
+// tiles pass 227 KB at C = 192 with 64 rows, and a 64-row block streams
+// all of Wqkv and Wproj (4·C² floats) from L2 for those rows. The FMA
+// design it replaces held one window a block: staged-tile f32 FMA loops
+// with 4 accumulators a thread, all the weights from L2 for each window
+// (38 and 151 MB a launch at t@512), the attention scalar. Other float32
+// shapes (t = 256, other head widths) take the tiled route. Measured
+// (scripts/kernel_rows.py, H100 80GB HBM3 at 700 W, the FMA kernel in the
+// same call): 0.118–0.120 ms per trained-product analyze() (t = 64: 0.067,
+// t = 16: 0.052) against 0.831 for the FMA kernel and 0.147 for its q|k|v
+// and proj F.linear calls with F.scaled_dot_product_attention (cuBLAS and
+// SDPA, float32); at L@1024 0.373 and 0.261 ms a launch (FMA: 4.20, 1.61).
 //
 // qpool_attn_block, float32 — four launches, every product 3×TF32 on the
 // tensor cores (tf32.cuh: each operand split into hi and lo in
 // registers, lo·hi + hi·lo + hi·hi on mma.sync m16n8k8 .tf32, float32
 // accumulators), at win 4 and 8 and head widths 56, 72 and 96:
 //   1. the LN pre-pass (tf32::ln_rows_kernel: xn = LN1(x) through
-//      layernorm_rows<float>, bit for bit the FMA kernel's) into an f32
-//      workspace;
+//      layernorm_rows<float>) into an f32 workspace;
 //   2. [skip | q | k | v] = xn·[Wskip; Wqkv]ᵀ + b as one GEMM (tf32.cuh
 //      gemm_kernel, Wskip's rows then Wqkv's) on 64 × 64 blocks — a
 //      64-token window of win 8, four of win 4. Skip and q are pooled in
@@ -144,7 +169,7 @@
 //      into registers; S = q·kᵀ against the tile's 64 keys, 16 a warp —
 //      at win 4 four windows under a block-diagonal mask, exact since a
 //      masked score's exp is 0 — f32 scores × scale, max, exp and sum
-//      across the warps, P normalised in f32 as window_attention computes
+//      across the warps, P normalised in f32 as the plain version computes
 //      it, then O = P·V, a third of the head's columns a warp;
 //   4. out = skip + (o·Wprojᵀ + b) (ProjF32) over the pooled rows, a
 //      quarter of the input's, the depth split where the row tiles leave
@@ -177,66 +202,9 @@ namespace {
 
 using namespace cvk;
 
-constexpr int kWs = kTileK * (kTileN + 1);
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-window_attn_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
-                   const float* __restrict__ ln_b, const T* __restrict__ wqkv,
-                   const T* __restrict__ bqkv, const T* __restrict__ wproj,
-                   const T* __restrict__ bproj, T* __restrict__ out, int t,
-                   int c, int heads, float scale, float eps) {
-  extern __shared__ float smem[];
-  // xn: LN1 output, then one head's scores (t·t ≤ t·c floats).
-  // qkv: the input first, then q|k|v; each head's attention output
-  // overwrites that head's q columns once its scores exist.
-  float* xn = smem;
-  float* qkv = xn + max(t * c, t * t);  // t × 3c
-  float* ws = qkv + 3 * t * c;
-  const size_t base = (size_t)blockIdx.x * t * c;
-  const T* xb = x + base;
-
-  for (int e = threadIdx.x; e < t * c; e += kThreads) qkv[e] = to_f(xb[e]);
-  __syncthreads();
-  layernorm_rows<T>(qkv, xn, t, c, ln_s, ln_b, eps);
-  rows_gemm<T>(xn, c, t, c, wqkv, c, 3 * c, ws, [&](int r, int n, float v) {
-    qkv[r * 3 * c + n] = rnd<T>(v + to_f(bqkv[n]));
-  });
-  window_attention<T>(qkv, 3 * c, qkv + c, 3 * c, qkv + 2 * c, 3 * c, qkv,
-                      3 * c, xn, t, t, heads, c / heads, scale);
-  T* ob = out + base;
-  rows_gemm<T>(qkv, 3 * c, t, c, wproj, c, c, ws, [&](int r, int n, float v) {
-    float proj = rnd<T>(v + to_f(bproj[n]));
-    ob[r * c + n] = from_f<T>(to_f(xb[r * c + n]) + proj);
-  });
-}
-
 // Softmax scale from the head width, 1/sqrt(c / heads).
 float head_scale(int c, int heads) {
   return (float)(1.0 / std::sqrt((double)(c / heads)));
-}
-
-size_t window_smem(int t, int c) {
-  return sizeof(float) *
-         (std::max((size_t)t * c, (size_t)t * t) + (size_t)3 * t * c + kWs);
-}
-
-template <typename T>
-cudaError_t launch_window(const void* x, const void* ln_s, const void* ln_b,
-                          const void* wqkv, const void* bqkv,
-                          const void* wproj, const void* bproj, void* out,
-                          int n_win, int t, int c, int heads, float eps,
-                          cudaStream_t stream) {
-  size_t smem = window_smem(t, c);
-  cudaError_t err = cudaFuncSetAttribute(
-      window_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  window_attn_kernel<T><<<n_win, kThreads, smem, stream>>>(
-      (const T*)x, (const float*)ln_s, (const float*)ln_b, (const T*)wqkv,
-      (const T*)bqkv, (const T*)wproj, (const T*)bproj, (T*)out, t, c, heads,
-      head_scale(c, heads), eps);
-  return cudaGetLastError();
 }
 
 
@@ -957,8 +925,25 @@ struct PoolF32 {
   }
 };
 
+// Epilogue of the window block's q|k|v GEMM: qkv = acc + bias.
+struct BiasF32 {
+  const float* bias;
+  float* out;
+  int n_cols;
+  static constexpr bool kFrag = false;
+  __device__ void one(int r, int c, float v) const {
+    out[(size_t)r * n_cols + c] = v + bias[c];
+  }
+  __device__ void two(int r, int c, float v0, float v1) const {
+    const float2 b = *reinterpret_cast<const float2*>(bias + c);
+    *reinterpret_cast<float2*>(out + (size_t)r * n_cols + c) = make_float2(v0 + b.x, v1 + b.y);
+  }
+  bool aligned8() const { return tf32::aligned8(bias) && tf32::aligned8(out); }
+};
+
 // Epilogue of the projection: out = skip + (acc + bias), the plain
-// version's order; two() as in mlp_block.cu's epilogues.
+// version's order; two() as in mlp_block.cu's epilogues. The window
+// block's skip is its input x.
 struct ProjF32 {
   const float* bias;
   const float* skip;
@@ -990,7 +975,7 @@ struct ProjF32 {
 // fragments from L2 straight into registers (rows past the last window
 // zero, never stored); warp w takes keys 16w .. 16w + 15 of S = q·kᵀ, the
 // row max and sum go through shared memory, P (normalised in f32, as
-// window_attention computes it) is stored over k, and warp w takes the
+// the plain version computes it) is stored over k, and warp w takes the
 // 8-column tiles w, w + 4, w + 8 of O = P·V. 52 KB at head width 96, so
 // four blocks share an SM. Row strides keep ldmatrix rows in distinct
 // bank groups (≡ 4 mod 32 floats) and V's scalar fragment loads
@@ -1195,12 +1180,220 @@ cudaError_t launch_qpool_f32(const float* x, const float* ln_s, const float* ln_
                            partial, ProjF32{bproj, skip, out, c_out}, stream);
 }
 
+constexpr int kWinF32Rows = 64;  // rows of one window-attention block: 64 / t windows, 16 a warp
+
+// Attention of the window block in float32, 3×TF32: one block of four
+// warps per (64 rows, head), warp w the 16 query rows 16w .. 16w + 15
+// against only its own window's t keys (t ∈ {16, 32, 64}; a 64-row block
+// holds whole windows). qkv (rows × 3c: q | k | v), o (rows × c); head
+// h's columns h·hd .. of each section. The head's k and v for the block's
+// rows come into shared memory by cp.async, v while S is computed, and
+// the warp's q fragments from L2 straight into registers. S = q·kᵀ in the
+// accumulators (keys 8n + 2t' + (e & 1) of tile n for lane 4g + t'), the
+// exact softmax over the quad — f32 scores × scale, max, exp, sum — and P
+// normalised in f32 as the plain version computes it; then O = P·V with
+// P's accumulators as the A fragments as they stand: the k slots t' and
+// t' + 4 of an 8-deep step are taken as keys 2t' and 2t' + 1, so V's
+// rows are read in that order and P never goes through shared memory.
+// Rows past the last window (a ragged last block) are zero in shared
+// memory and never computed or stored. k and v rows at a stride ≡ 4 (mod
+// 32) floats: ldmatrix's eight rows fall in distinct bank groups, and V's
+// scalar reads (rows 2t', 2t' + 1, column g) in distinct banks. 51,200
+// bytes at head width 96 or 72, so four blocks share an SM. NT: the head
+// width in 8-column tiles.
+template <int NT>
+struct WinAttnF32 {
+  static constexpr int hd = 8 * NT;
+  static constexpr int ld = hd + (36 - hd % 32) % 32;
+  static constexpr size_t smem() { return sizeof(float) * 2 * kWinF32Rows * ld; }
+};
+
+template <int NT>
+__global__ void __launch_bounds__(128)
+window_attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ o, int rows, int t,
+                       int heads, int c, float scale) {
+  using L = WinAttnF32<NT>;
+  constexpr int hd = L::hd, ld = L::ld, chunks = hd / 4;
+  extern __shared__ __align__(16) float wsm_f[];
+  float* sk = wsm_f;                   // 64 × ld
+  float* sv = sk + kWinF32Rows * ld;   // 64 × ld
+  const int u = blockIdx.x / heads, h = blockIdx.x % heads;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, tq = lane % 4;
+  const int r0 = kWinF32Rows * u, qr = 16 * warp;
+  const size_t ldq = 3 * (size_t)c;
+  const bool live = r0 + qr < rows;  // whole slabs: rows is a multiple of t ≥ 16
+  const int key0 = qr / t * t;       // the slab's window's first row in the block
+  float qa[NT][4];  // q's A fragments: (g, t'), (g + 8, t'), (g, t' + 4), (g + 8, t' + 4)
+  {
+    const float* kb = qkv + (size_t)r0 * ldq + c + h * hd;
+    for (int e = tid; e < kWinF32Rows * chunks; e += 128) {
+      const int r = e / chunks, cc = 4 * (e % chunks);
+      const bool in = r0 + r < rows;
+      tc::cp_async16(sk + r * ld + cc, in ? kb + r * ldq + cc : qkv, in);
+    }
+    tc::cp_async_commit();
+    for (int e = tid; e < kWinF32Rows * chunks; e += 128) {  // v lands while S is computed
+      const int r = e / chunks, cc = 4 * (e % chunks);
+      const bool in = r0 + r < rows;
+      tc::cp_async16(sv + r * ld + cc, in ? kb + r * ldq + c + cc : qkv, in);
+    }
+    tc::cp_async_commit();
+    const float* qb = qkv + (size_t)(r0 + qr + g) * ldq + h * hd + tq;
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      qa[ks][0] = live ? __ldg(qb + 8 * ks) : 0.f;
+      qa[ks][1] = live ? __ldg(qb + 8 * ldq + 8 * ks) : 0.f;
+      qa[ks][2] = live ? __ldg(qb + 8 * ks + 4) : 0.f;
+      qa[ks][3] = live ? __ldg(qb + 8 * ldq + 8 * ks + 4) : 0.f;
+    }
+    tc::cp_async_wait<1>();
+    __syncthreads();
+  }
+
+  // S over the window's t keys, 16 an ldmatrix
+  float s[8][4] = {};
+  if (live) {
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tf32::split(qa[ks][e], ah[e], al[e]);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (16 * jj >= t) break;
+        uint32_t r[4], bh[4], bl[4];
+        tc::ldsm_x4(r, sk + (key0 + 16 * jj + lane % 8 + (lane / 16) * 8) * ld + 8 * ks +
+                           ((lane / 8) % 2) * 4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tf32::split(__uint_as_float(r[e]), bh[e], bl[e]);
+        tf32::mma3(s[2 * jj], ah, al, bh[0], bh[1], bl[0], bl[1]);
+        tf32::mma3(s[2 * jj + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+      }
+    }
+    // the exact softmax in f32: rows g (e < 2) and g + 8, the four lanes
+    // of a quad holding a row's keys
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      if (8 * n < t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] *= scale;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      if (8 * n < t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = expf(s[n][e] - mx[e >> 1]);
+          sum[e >> 1] += s[n][e];
+        }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] /= sum[e >> 1];
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();  // v has landed
+  if (!live) return;
+
+  // O = P·V in 8-deep steps over the keys: P's accumulators as A (slot t'
+  // ↔ key 2t', slot t' + 4 ↔ key 2t' + 1), V's rows in the same order
+  float acc[NT][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (8 * kk >= t) break;
+    uint32_t ah[4], al[4];
+    tf32::split(s[kk][0], ah[0], al[0]);
+    tf32::split(s[kk][2], ah[1], al[1]);
+    tf32::split(s[kk][1], ah[2], al[2]);
+    tf32::split(s[kk][3], ah[3], al[3]);
+    const float* vr = sv + (key0 + 8 * kk + 2 * tq) * ld + g;
+#pragma unroll
+    for (int d = 0; d < NT; ++d) {
+      uint32_t bh0, bl0, bh1, bl1;
+      tf32::split(vr[8 * d], bh0, bl0);
+      tf32::split(vr[ld + 8 * d], bh1, bl1);
+      tf32::mma3(acc[d], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+  float* ob = o + (size_t)(r0 + qr + g) * c + h * hd + 2 * tq;
+#pragma unroll
+  for (int d = 0; d < NT; ++d) {
+    *reinterpret_cast<float2*>(ob + 8 * d) = make_float2(acc[d][0], acc[d][1]);
+    *reinterpret_cast<float2*>(ob + 8 * (size_t)c + 8 * d) = make_float2(acc[d][2], acc[d][3]);
+  }
+}
+
+// The float32 window block: LN pre-pass, q|k|v GEMM with its bias,
+// attention, projection with the residual (see the header). ws holds, in
+// float32 and in this order: xn (rows × c), q | k | v (rows × 3c), o (rows
+// × c) and the GEMMs' partial sums where a depth is split (the larger of
+// splits_qkv · rows × 3c and splits_proj · rows × c; the two GEMMs run
+// one after the other). t ∈ {16, 32, 64}; head width 56, 72 or 96 (so c
+// a multiple of 8). splits_qkv and splits_proj from the wrapper's plan
+// (ops/cuda/window_attn.py window_plan_f32).
+cudaError_t launch_window_f32(const float* x, const float* ln_s, const float* ln_b,
+                              const float* wqkv, const float* bqkv, const float* wproj,
+                              const float* bproj, float* out, float* ws, int n_win, int t, int c,
+                              int heads, float eps, int splits_qkv, int splits_proj,
+                              cudaStream_t stream) {
+  if ((t != 16 && t != 32 && t != 64) || n_win < 1 || heads < 1 || c < heads || c % heads)
+    return cudaErrorInvalidValue;
+  const int hd = c / heads;
+  if (hd != 56 && hd != 72 && hd != 96) return cudaErrorInvalidValue;  // Hiera-b+, -L, -t/-s
+  const int rows = n_win * t;
+  float* xn = ws;
+  float* qkv = xn + (size_t)rows * c;
+  float* o = qkv + (size_t)rows * 3 * c;
+  float* partial = o + (size_t)rows * c;
+  cudaError_t err = tf32::launch_ln_rows(x, ln_s, ln_b, xn, rows, c, eps, stream);
+  if (err != cudaSuccess) return err;
+  err = tf32::launch_gemm(splits_qkv, xn, wqkv, wqkv, 3 * c, rows, 3 * c, c, partial,
+                          BiasF32{bqkv, qkv, 3 * c}, stream);
+  if (err != cudaSuccess) return err;
+  auto attend = [&](auto kernel, size_t smem) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    const int blocks = (rows + kWinF32Rows - 1) / kWinF32Rows * heads;
+    kernel<<<blocks, 128, smem, stream>>>(qkv, o, rows, t, heads, c, head_scale(c, heads));
+    return cudaGetLastError();
+  };
+  err = hd == 56   ? attend(window_attn_f32_kernel<7>, WinAttnF32<7>::smem())
+        : hd == 72 ? attend(window_attn_f32_kernel<9>, WinAttnF32<9>::smem())
+                   : attend(window_attn_f32_kernel<12>, WinAttnF32<12>::smem());
+  if (err != cudaSuccess) return err;
+  return tf32::launch_gemm(splits_proj, o, wproj, wproj, c, rows, c, c, partial,
+                           ProjF32{bproj, x, out, c}, stream);
+}
+
 }  // namespace
 
 // Shared-memory bytes a launch needs (the wrappers refuse shapes above
-// the 227 KB a block can hold).
+// the 227 KB a block can hold). The float32 window block's largest block
+// is its GEMM's, whatever the shape (its attention blocks take less,
+// below).
 extern "C" long long cv_window_attn_smem(int t, int c, int dtype) {
-  return (long long)(dtype == 1 ? window_tc_smem(c) : window_smem(t, c));
+  return (long long)(dtype == 1 ? window_tc_smem(c) : tf32::kGemmSmem);
+}
+// Shared-memory bytes of the float32 window block's attention block at
+// head width hd (56, 72 or 96; 0 for any other).
+extern "C" long long cv_window_f32_attn_smem(int hd) {
+  return (long long)(hd == 56 ? WinAttnF32<7>::smem()
+                     : hd == 72 ? WinAttnF32<9>::smem()
+                     : hd == 96 ? WinAttnF32<12>::smem() : 0);
 }
 // The float32 q-pool's largest block is its GEMM's, whatever the shape
 // (its attention blocks take less, below).
@@ -1215,26 +1408,30 @@ extern "C" long long cv_qpool_f32_attn_smem(int hd) {
                      : hd == 96 ? QpAttnF32<12>::smem() : 0);
 }
 
-// dtype: 0 = float32 (window_attn_kernel, FMA loops), 1 = bfloat16
-// (window_tc_kernel, tensor cores; t ∈ {16, 32, 64}, c a multiple of 16,
-// head width 56, 72 or 96, every bf16 pointer 16-byte aligned). x is
-// (n_win, t, c); weights in torch Linear layout: wqkv (3c, c), wproj
+// x is (n_win, t, c); weights in torch Linear layout: wqkv (3c, c), wproj
 // (c, c); ln_s and ln_b float32 for either dtype (here and in
-// cv_qpool_attn).
-extern "C" int cv_window_attn(const void* x, const void* ln_s,
-                              const void* ln_b, const void* wqkv,
-                              const void* bqkv, const void* wproj,
-                              const void* bproj, void* out, int n_win, int t,
-                              int c, int heads, float eps, int dtype,
-                              void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_window<float>(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, out,
-                                n_win, t, c, heads, eps, s);
-  if (dtype == 1)
-    return (int)launch_window_bf16(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, out, n_win, t, c,
-                                   heads, eps, s);
-  return (int)cudaErrorInvalidValue;
+// cv_qpool_attn_*). float32 on the tensor cores (3×TF32,
+// launch_window_f32: its shapes, the workspace ws and the plan).
+extern "C" int cv_window_attn_f32(const void* x, const void* ln_s, const void* ln_b,
+                                  const void* wqkv, const void* bqkv, const void* wproj,
+                                  const void* bproj, void* out, void* ws, int n_win, int t, int c,
+                                  int heads, float eps, int splits_qkv, int splits_proj,
+                                  void* stream) {
+  return (int)launch_window_f32((const float*)x, (const float*)ln_s, (const float*)ln_b,
+                                (const float*)wqkv, (const float*)bqkv, (const float*)wproj,
+                                (const float*)bproj, (float*)out, (float*)ws, n_win, t, c, heads,
+                                eps, splits_qkv, splits_proj, (cudaStream_t)stream);
+}
+
+// bfloat16 on the tensor cores (window_tc_kernel; t ∈ {16, 32, 64}, c a
+// multiple of 16, head width 56, 72 or 96, every bf16 pointer 16-byte
+// aligned): the same function and layouts.
+extern "C" int cv_window_attn_bf16(const void* x, const void* ln_s, const void* ln_b,
+                                   const void* wqkv, const void* bqkv, const void* wproj,
+                                   const void* bproj, void* out, int n_win, int t, int c,
+                                   int heads, float eps, void* stream) {
+  return (int)launch_window_bf16(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, out, n_win, t, c,
+                                 heads, eps, (cudaStream_t)stream);
 }
 
 // x is (n_win·win², c_in) window-major rows; out (n_win·win²/4, c_out).

@@ -46,10 +46,12 @@ SIGNATURES = {
         "cv_mlp_gemm_smem": [_I],
     },
     "window_attn": {
-        "cv_window_attn": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+        "cv_window_attn_f32": [_P] * 9 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
+        "cv_window_attn_bf16": [_P] * 8 + [_I] * 4 + [_F, _P],
         "cv_qpool_attn_f32": [_P] * 11 + [_I] * 5 + [_F] + [_I] + [_P],
         "cv_qpool_attn_bf16": [_P] * 11 + [_I] * 5 + [_F, _P],
         "cv_window_attn_smem": [_I, _I, _I],
+        "cv_window_f32_attn_smem": [_I],
         "cv_qpool_attn_smem": [_I] * 4,
         "cv_qpool_f32_attn_smem": [_I],
     },

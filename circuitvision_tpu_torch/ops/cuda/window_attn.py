@@ -1,5 +1,6 @@
-"""Hiera windowed-attention halves as kernels, one block per window or,
-in bfloat16, per 64 or 128 rows of windows.
+"""Hiera windowed-attention halves as kernels: in bfloat16 one block per
+64 or 128 rows of windows, in float32 an LN pre-pass, GEMMs and an
+attention kernel over a workspace.
 
 Replaces two Pallas kernels of the JAX package
 (circuitvision_tpu/ops/pallas/window_attn.py):
@@ -19,11 +20,13 @@ of T ∈ {16, 32, 64}); `qpool_attn_block` as an LN pre-pass into a bf16
 workspace and a block owning 128 rows (eight windows of win 4 or two of
 win 8) that runs its input-side products on wgmma with xn in registers,
 pools skip and q in the accumulators and takes its heads two at a time.
-In float32, `window_attn_block` runs f32 FMA loops with one window a
-block; `qpool_attn_block` an LN pre-pass, one GEMM for skip, q, k and v
-with skip and q pooled in the accumulators, attention per (16 pooled
-queries, head) and the projection GEMM, every product 3×TF32 on mma.sync
-(csrc/tf32.cuh; `qpool_plan_f32` picks the projection's depth splits).
+In float32 both run as four launches with every product 3×TF32 on
+mma.sync (csrc/tf32.cuh): an LN pre-pass into an f32 workspace, one GEMM
+for q, k and v (for `qpool_attn_block` with skip, skip and q pooled in
+the accumulators), attention per (16 query rows, head) — for
+`window_attn_block` against the rows' own window only — and the
+projection GEMM with the residual (`window_plan_f32` and
+`qpool_plan_f32` pick the GEMMs' depth splits).
 The plain versions beside them compute the same functions with the
 kernels' numerics: f32 LayerNorm statistics, f32 scores and softmax
 scaled by 1/sqrt(head width), products accumulated in f32, and values
@@ -31,8 +34,8 @@ rounded to the compute dtype where the kernel stores them.
 
 A window that does not fit the one-block kernel (`window_route`: its
 shared memory in the dtype, and the shapes and head widths the kernels
-are built for: the bf16 kernels and the float32 q-pool block take head
-widths of TC_HEAD_WIDTHS; the Hiera-L stage-3 and stage-4 windows and its
+are built for: the bf16 kernels and the float32 blocks take head widths
+of TC_HEAD_WIDTHS; the Hiera-L stage-3 and stage-4 windows and its
 last q-pool transition) takes the tiled route
 instead, which computes the same function with three kernels batched
 over the windows: `ln_qkv`, `flash_attn` and `attn_proj_residual`
@@ -56,15 +59,12 @@ import torch.nn.functional as F
 
 from .build import (
     MAX_SMEM, KernelError, check, check_aligned, check_ln_params, check_no_grad, check_operands,
-    dtype_code, library, sm_count, stream_ptr,
+    library, sm_count, stream_ptr,
 )
 from .flash_attn import flash_attn
 from .global_attn import attn_proj_residual, ln_qkv, pool2x2_windows
 from .mlp_block import F32_GEMM_SMEM, H100_SMS, F32Gemm, f32_gemm_plan, layernorm_f32
 
-#: floats of one staged weight tile of the f32 kernels (common.cuh:
-#: kTileK × (kTileN + 1))
-_WEIGHT_TILE = 32 * 65
 #: the bf16 window kernel (csrc/window_attn.cu window_tc_kernel): rows a
 #: block owns, weight rows a staged tile holds, the window sizes it packs
 #: into its rows, and the head widths it is built for (Hiera-b+, -L and
@@ -87,6 +87,23 @@ TC_QPOOL_WIDTHS_IN, TC_QPOOL_MAX_OUT = (96, 144, 192, 288), 576
 #: input rows (keys) behind one 16-row tile of pooled queries, an
 #: attention block each (with one head)
 QPOOL_F32_UNIT = 64
+#: the float32 window block (launch_window_f32): the rows behind one
+#: attention block (whole windows of TC_TOKENS, 16 query rows a warp),
+#: one head each
+WINDOW_F32_ROWS = 64
+
+
+def _ld4(hd: int) -> int:
+    """A head's row stride in floats, ≡ 4 (mod 32): the eight rows one
+    ldmatrix reads fall in distinct bank groups."""
+    return hd + (36 - hd % 32) % 32
+
+
+def window_attn_f32_smem(hd: int) -> int:
+    """Shared-memory bytes of the float32 window block's attention block
+    at head width hd (csrc/window_attn.cu WinAttnF32): the head's k and v
+    rows of its 64 rows, each at a stride ≡ 4 (mod 32) floats."""
+    return 4 * 2 * WINDOW_F32_ROWS * _ld4(hd)
 
 
 def qpool_attn_f32_smem(hd: int) -> int:
@@ -94,7 +111,7 @@ def qpool_attn_f32_smem(hd: int) -> int:
     width hd (csrc/window_attn.cu QpAttnF32): the head's 64 k rows at a
     stride ≡ 4 (mod 32) floats (P over them once S is done), its 64 v rows
     at one ≡ 8, and the four warps' row maxima and sums."""
-    ldk, ldv = hd + (36 - hd % 32) % 32, hd + (40 - hd % 32) % 32
+    ldk, ldv = _ld4(hd), hd + (40 - hd % 32) % 32
     return 4 * (QPOOL_F32_UNIT * (ldk + ldv) + 2 * 4 * 16)
 
 
@@ -102,18 +119,17 @@ def window_smem(kind: str, tokens: int, c_in: int, c_out: int,
                 dtype: torch.dtype = torch.float32) -> int:
     """Shared-memory bytes of the one-block kernel for a `tokens`-token
     window ("window": width c_in == c_out; "qpool": c_in → c_out) in
-    `dtype`, as csrc/window_attn.cu's window_smem, window_tc_smem and
-    qpool_tc_smem compute them. The bf16 kernels hold 64
+    `dtype`, as csrc/window_attn.cu's cv_window_attn_smem and
+    cv_qpool_attn_smem give them. The bf16 kernels hold 64
     (window) or 128 (q-pool) rows whatever the window size, in bf16, each
     row padded by 16 bytes: the window kernel xn, q|k|v and two staged
     weight tiles; the q-pool kernel its attention output and three
     staged weight tiles and its biases, beside them xn (from its LN
     pre-pass) until the warps hold it in registers, then one head group's
     pooled q and k|v, and at the end three staged Wproj tiles over tiles
-    and group. The float32 q-pool block's largest block is its 3×TF32
-    GEMM's, whatever the shape (`qpool_attn_f32_smem` for its attention
-    blocks)."""
-    t = tokens
+    and group. The float32 blocks' largest block is their 3×TF32 GEMM's,
+    whatever the shape (`window_attn_f32_smem` and `qpool_attn_f32_smem`
+    for their attention blocks)."""
     if dtype == torch.bfloat16 and kind == "window":
         return 2 * ((TC_ROWS + 2 * TC_BN) * (c_in + 8) + TC_ROWS * (3 * c_in + 8))
     if dtype == torch.bfloat16 and kind == "qpool":
@@ -123,11 +139,9 @@ def window_smem(kind: str, tokens: int, c_in: int, c_out: int,
         proj = 2 * TC_QPOOL_STAGES * c_out * (TC_QPOOL_PROJ_K + 8)
         keep = 2 * (TC_QPOOL_OUT * (c_out + 8) + 4 * c_out)
         return keep + 1024 + max(ring + group, proj)
-    if kind == "qpool":
-        return F32_GEMM_SMEM
-    if kind != "window":
+    if kind not in ("window", "qpool"):
         raise ValueError(f"unknown window kind {kind!r}")
-    return 4 * (max(t * c_in, t * t) + 3 * t * c_in + _WEIGHT_TILE)
+    return F32_GEMM_SMEM
 
 
 def block_heads(kind: str, c_out: int, heads: int) -> bool:
@@ -145,9 +159,10 @@ def window_route(kind: str, tokens: int, c_in: int, c_out: int, heads: int,
     memory in `dtype` and, for the bf16 kernels, a share of their 64 rows
     (window: T ∈ {16, 32, 64}; q-pool: win 4 or 8, C_in one of
     TC_QPOOL_WIDTHS_IN, C_out ≤ 576) and a head layout they are built for
-    (`block_heads`); for the float32 q-pool block win 4 or 8, C_in a
-    multiple of 4 and a head width of TC_HEAD_WIDTHS (its attention
-    kernel's instances, any number of heads) — else "tiled". The tiled
+    (`block_heads`); for the float32 blocks the window block's T or the
+    q-pool block's win 4 or 8 (C_in a multiple of 4) and a head width of
+    TC_HEAD_WIDTHS (their attention kernels' instances, any number of
+    heads) — else "tiled". The tiled
     route's kernels take any head width that is a multiple of 8 up to
     256 (flash_attn pads it to
     TC_WIDTHS, attn_proj_residual reads it through a runtime-width layout
@@ -160,9 +175,10 @@ def window_route(kind: str, tokens: int, c_in: int, c_out: int, heads: int,
                                      or c_out > TC_QPOOL_MAX_OUT))
             or not block_heads(kind, c_out, heads)):
         return "tiled"
-    if dtype == torch.float32 and kind == "qpool" and (
-            tokens not in TC_QPOOL_TOKENS or c_in % 4 or c_out % heads
-            or c_out // heads not in TC_HEAD_WIDTHS):
+    if dtype == torch.float32 and (
+            (kind == "window" and tokens not in TC_TOKENS)
+            or (kind == "qpool" and (tokens not in TC_QPOOL_TOKENS or c_in % 4))
+            or c_out % heads or c_out // heads not in TC_HEAD_WIDTHS):
         return "tiled"
     return "block" if window_smem(kind, tokens, c_in, c_out, dtype) <= MAX_SMEM else "tiled"
 
@@ -193,6 +209,29 @@ def qpool_plan_f32(rows: int, c_in: int, c_out: int, heads: int,
                         rows * c_in + 3 * out_rows * c_out + 2 * rows * c_out + partial)
 
 
+@dataclasses.dataclass(frozen=True)
+class WindowPlanF32:
+    """Launch plan of the float32 window block over `rows` rows of width
+    C: the q|k|v GEMM, the projection GEMM, the attention blocks' shared
+    memory, and the f32 workspace's elements — xn, q|k|v, the attention
+    output, the larger of the two GEMMs' partial sums
+    (csrc/window_attn.cu launch_window_f32)."""
+
+    gemm_qkv: F32Gemm
+    gemm_proj: F32Gemm
+    attn_smem: int
+    workspace: int
+
+
+@functools.lru_cache(maxsize=64)
+def window_plan_f32(rows: int, c: int, heads: int, sms: int = H100_SMS) -> WindowPlanF32:
+    g_qkv = f32_gemm_plan(rows, 3 * c, c, sms)
+    g_p = f32_gemm_plan(rows, c, c, sms)
+    partial = max(g.splits * rows * n if g.splits > 1 else 0
+                  for g, n in ((g_qkv, 3 * c), (g_p, c)))
+    return WindowPlanF32(g_qkv, g_p, window_attn_f32_smem(c // heads), 5 * rows * c + partial)
+
+
 def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dt) -> torch.Tensor:
     """x·wᵀ + b accumulated in f32, rounded to dt."""
     return (x.float() @ w.float().t() + b.float()).to(dt)
@@ -220,8 +259,11 @@ def window_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                       heads, eps=1e-6, ln_width=None):
     """x (n_windows, T, C); wqkv (3C, C), wproj (C, C) in torch Linear
     layout. CPU tensors take the plain version; CUDA tensors launch the
-    one-block kernel or, where a window does not fit it, take the tiled
-    route (counted in `window_attn_block.tiled`). Rows zero-padded past
+    block kernels — bfloat16: one block per 64 rows; float32: the LN
+    pre-pass, the q|k|v GEMM, the window attention and the projection
+    GEMM, 3×TF32, over a workspace (`window_plan_f32`), counted as one
+    launch — or, where the route rule gives no block kernel, take the
+    tiled route (counted in `window_attn_block.tiled`). Rows zero-padded past
     their true width `ln_width` (a bfloat16 block off a multiple of 8,
     hiera.pad_block; wqkv's columns and the LN parameters padded with
     them, wproj at the true width) take the tiled route on both devices,
@@ -243,15 +285,18 @@ def window_attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
         window_attn_block.tiled += 1
         return window_attn_block_tiled(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                                        heads, eps)
-    if x.dtype == torch.bfloat16:
-        check_aligned("window_attn_block", x, wqkv, wproj)
     lib = library("window_attn")
     out = torch.empty_like(x)
-    err = lib.cv_window_attn(
-        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wqkv.data_ptr(),
-        bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(), out.data_ptr(),
-        nw, t, c, heads, eps, dtype_code(x), stream_ptr(x),
-    )
+    args = (x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wqkv.data_ptr(),
+            bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(), out.data_ptr())
+    if x.dtype == torch.bfloat16:
+        check_aligned("window_attn_block", x, wqkv, wproj)
+        err = lib.cv_window_attn_bf16(*args, nw, t, c, heads, eps, stream_ptr(x))
+    else:
+        plan = window_plan_f32(nw * t, c, heads, sm_count(x))
+        ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
+        err = lib.cv_window_attn_f32(*args, ws.data_ptr(), nw, t, c, heads, eps,
+                                     plan.gemm_qkv.splits, plan.gemm_proj.splits, stream_ptr(x))
     check(err, "window_attn_block")
     window_attn_block.launches += 1
     return out

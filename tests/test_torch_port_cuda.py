@@ -115,15 +115,19 @@ def test_qpool_attn_f32_tensor_core_shapes(gen, nw, win, ci, co, heads):
 
 
 def test_f32_plans_match_kernel_smem(gen):
-    """The float32 GEMM's shared memory (that of the float32 q-pool's
-    largest block, as window_smem gives it) and the float32 q-pool's
+    """The float32 GEMM's shared memory (that of the float32 window and
+    q-pool blocks' largest block, as window_smem gives it) and their
     attention blocks' are the kernels' own."""
     lib = build.library("window_attn")
     for win, ci, co in [(8, 96, 192), (4, 192, 384)]:
         assert lib.cv_qpool_attn_smem(win, ci, co, 0) == \
             wa.window_smem("qpool", win * win, ci, co, torch.float32) == mb.F32_GEMM_SMEM
+    for t, c in [(64, 96), (16, 192)]:
+        assert lib.cv_window_attn_smem(t, c, 0) == \
+            wa.window_smem("window", t, c, c, torch.float32) == mb.F32_GEMM_SMEM
     for hd in wa.TC_HEAD_WIDTHS:
         assert lib.cv_qpool_f32_attn_smem(hd) == wa.qpool_attn_f32_smem(hd)
+        assert lib.cv_window_f32_attn_smem(hd) == wa.window_attn_f32_smem(hd)
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -131,14 +135,17 @@ def test_f32_plans_match_kernel_smem(gen):
                                           (64, 16, 288, 4), (5, 32, 112, 2), (7, 16, 288, 4)])
 def test_window_attn_kernel(gen, dt, nw, t, c, heads):
     """The t@512 and Hiera-L@1024 one-block shapes with fewer windows (head
-    widths 96 and 72), and in bfloat16 a 32-token window of head width 56
-    and window counts that leave the last 64-row block part empty."""
-    before = wa.window_attn_block.launches
+    widths 96 and 72), a 32-token window of head width 56 and window
+    counts that leave the last 64-row block part empty (in float32 the
+    attention kernel's 64-row blocks, and at (7, 16, 288, 4) both GEMMs'
+    depth split); one launch counted per call, no tiled call."""
+    before, tiled = wa.window_attn_block.launches, wa.window_attn_block.tiled
     args = (_rnd(gen, dt, nw, t, c), 1 + _rnd(gen, F32, c, scale=0.1), _rnd(gen, F32, c, scale=0.1),
             _rnd(gen, dt, 3 * c, c, scale=c ** -0.5), _rnd(gen, dt, 3 * c, scale=0.02),
             _rnd(gen, dt, c, c, scale=c ** -0.5), _rnd(gen, dt, c, scale=0.02))
     _close(wa.window_attn_block(*args, heads=heads), wa.window_attn_block_plain(*args, heads=heads))
     assert wa.window_attn_block.launches == before + 1
+    assert wa.window_attn_block.tiled == tiled
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -267,9 +274,11 @@ def test_attn_proj_residual_kernel(gen, dt, b, n, c, heads, pool_win, round_proj
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("nw,t,c,heads", [(16, 256, 576, 8), (16, 64, 1152, 16), (64, 64, 144, 2)])
+@pytest.mark.parametrize("nw,t,c,heads", [(16, 256, 576, 8), (16, 64, 1152, 16), (64, 64, 144, 2),
+                                          (8, 64, 128, 2), (8, 16, 128, 4)])
 def test_window_attn_tiled_route(gen, dt, nw, t, c, heads):
-    """Where a window does not fit one block, the wrapper takes the tiled
+    """Where a window does not fit one block, or its head width (64, 32)
+    has no block instance in either dtype, the wrapper takes the tiled
     route; where it does, the tiled route computes the same function."""
     args = (_rnd(gen, dt, nw, t, c), 1 + _rnd(gen, F32, c, scale=0.1), _rnd(gen, F32, c, scale=0.1),
             _rnd(gen, dt, 3 * c, c, scale=c ** -0.5), _rnd(gen, dt, 3 * c, scale=0.02),

@@ -487,15 +487,15 @@ def test_block_route_by_head_width(hd, heads):
     """In bfloat16 a window (two heads, 16 tokens) or q-pool transition
     (win 4 and 8) whose head width has no block-kernel instance takes the
     tiled route, though its shape alone fits the block kernel; in float32
-    the head width does not route a window, and routes a q-pool
-    transition as in bfloat16 (the 3×TF32 attention kernel's instances)
-    but for the pairing of heads."""
+    the head width routes a window as in bfloat16 and a q-pool transition
+    as in bfloat16 but for the pairing of heads (the 3×TF32 attention
+    kernels' instances)."""
     bf, f32 = torch.bfloat16, torch.float32
     c, c_out = 2 * hd, hd * heads
     block = hd in twin.TC_HEAD_WIDTHS
     assert twin.window_route("window", 16, c, c, 2, bf) == ("block" if block else "tiled")
     assert twin.block_heads("window", c, 2) == block
-    assert twin.window_route("window", 16, c, c, 2, f32) == "block"
+    assert twin.window_route("window", 16, c, c, 2, f32) == ("block" if block else "tiled")
     for tokens, c_in in ((16, 192), (64, 96)):
         assert twin.window_route("qpool", tokens, c_in, c_out, heads, bf) == \
             ("block" if block else "tiled")

@@ -149,20 +149,20 @@ def _kernel_blocks(cfg):
 #: (kind, tokens, c_in, c_out) → (shared-memory bytes in float32 and in
 #: bfloat16, route in float32 and in bfloat16); the bf16 kernels own 64
 #: (window) or 128 (q-pool) rows in bf16 (csrc/window_attn.cu
-#: window_tc_smem, qpool_tc_smem); the float32 q-pool block's largest
-#: block is its 3×TF32 GEMM's (csrc/tf32.cuh kGemmSmem)
+#: window_tc_smem, qpool_tc_smem); the float32 window and q-pool blocks'
+#: largest block is their 3×TF32 GEMM's (csrc/tf32.cuh kGemmSmem)
 ROUTES = {
-    "t@512": {("window", 64, 96, 96): (106624, 71168, "block", "block"),
+    "t@512": {("window", 64, 96, 96): (55296, 71168, "block", "block"),
               ("qpool", 64, 96, 192): (55296, 153088, "block", "block"),
-              ("window", 16, 192, 192): (57472, 138752, "block", "block"),
+              ("window", 16, 192, 192): (55296, 138752, "block", "block"),
               ("qpool", 16, 192, 384): (55296, 179200, "block", "block")},
-    "l@1024": {("window", 64, 144, 144): (155776, 104960, "block", "block"),
+    "l@1024": {("window", 64, 144, 144): (55296, 104960, "block", "block"),
                ("qpool", 64, 144, 288): (55296, 172288, "block", "block"),
-               ("window", 16, 288, 288): (82048, 206336, "block", "block"),
+               ("window", 16, 288, 288): (55296, 206336, "block", "block"),
                ("qpool", 16, 288, 576): (55296, 217600, "block", "block"),
-               ("window", 256, 576, 576): (2367616, 409088, "tiled", "tiled"),
+               ("window", 256, 576, 576): (55296, 409088, "tiled", "tiled"),
                ("qpool", 256, 576, 1152): (55296, 360960, "tiled", "tiled"),
-               ("window", 64, 1152, 1152): (1187968, 814592, "tiled", "tiled")},
+               ("window", 64, 1152, 1152): (55296, 814592, "block", "tiled")},
 }
 
 
@@ -172,8 +172,10 @@ def test_window_route_at_every_block_shape(name, dtype):
     """Every window and q-pool block shape of the two configs, its
     shared-memory size in the dtype and its route in that dtype: the
     256-token windows do not fit the bf16 kernels' 64 rows, the 1152-wide
-    window not the bf16 window kernel's shared memory; the float32 q-pool
-    block takes win 4 and 8 at either config's head width, not win 16."""
+    window not the bf16 window kernel's shared memory; the float32 window
+    block takes windows of 16 and 64 tokens at either config's head
+    width, the 1152-wide one included, not 256, and the float32 q-pool
+    block win 4 and 8, not win 16."""
     size, res = name.split("@")
     cfg = tconfig.sam2_hiera_preset(size, resolution=int(res))
     table = ROUTES[name]

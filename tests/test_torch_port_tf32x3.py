@@ -1,5 +1,5 @@
-"""The float32 `mlp_block` and `qpool_attn_block` kernels' arithmetic,
-emulated on the CPU, and their launch plans.
+"""The float32 `mlp_block`, `window_attn_block` and `qpool_attn_block`
+kernels' arithmetic, emulated on the CPU, and their launch plans.
 
 The kernels (csrc/tf32.cuh) take every float32 product as three TF32
 products: x split into hi = tf32(x), rounded to nearest (ties away, as
@@ -13,8 +13,9 @@ misses the float32 kernel gate — 1e-4 · max(1, max |plain|), as
 chip_smoke.tolerance("float32") — and the three hold it; and, at small
 shapes, that the emulated kernels hold the JAX package's Pallas kernels
 (interpret mode) within the gates of tests/test_torch_port_kernels.py.
-The launch plans, the q-pool route and its shared memory are checked
-against the values the wrappers' rules give, written down here.
+The launch plans, the float32 window and q-pool routes and their shared
+memory are checked against the values the wrappers' rules give, written
+down here.
 """
 import jax
 import jax.numpy as jnp
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 
 from circuitvision_tpu.ops.pallas.mlp_block import mlp_block as pallas_mlp
 from circuitvision_tpu.ops.pallas.window_attn import qpool_attn_block as pallas_qpool
+from circuitvision_tpu.ops.pallas.window_attn import window_attn_block as pallas_window
 from circuitvision_tpu_torch.ops.cuda import build
 from circuitvision_tpu_torch.ops.cuda import mlp_block as tmlp
 from circuitvision_tpu_torch.ops.cuda import window_attn as twin
@@ -35,6 +37,9 @@ GATE = 1e-4
 #: (T, C) of the four mlp_block shapes of Hiera-t@512 (stages at 128²,
 #: 64², 32², 16² tokens)
 T512_MLP = [(16384, 96), (4096, 192), (1024, 384), (256, 768)]
+#: (windows, T, C, heads) of its two window-attention shapes (stage 1 at
+#: 128², windows of 8 × 8; stage 2 at 64², windows of 4 × 4)
+T512_WINDOW = [(256, 64, 96, 1), (256, 16, 192, 2)]
 #: (windows, win, C_in, C_out, heads) of its two q-pool transitions
 T512_QPOOL = [(256, 8, 96, 192, 2), (256, 4, 192, 384, 4)]
 
@@ -78,6 +83,20 @@ def mlp_emulated(x, lns, lnb, w0, b0, w1, b1, terms):
     return x + b1 + matmul(h, w1.t(), terms)
 
 
+def window_emulated(x, lns, lnb, wqkv, bqkv, wp, bp, heads, terms):
+    """The float32 window block as launch_window_f32 computes it: q|k|v
+    with its bias, attention over each window with f32 scores and
+    softmax, x + (o·Wprojᵀ + b)."""
+    nw, t, c = x.shape
+    hd = c // heads
+    xn = tmlp.layernorm_f32(x, lns, lnb, 1e-6)
+    qkv = linear(xn, wqkv, bqkv, terms).view(nw, t, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    p = torch.softmax(matmul(q, k.transpose(-1, -2), terms) * hd ** -0.5, dim=-1)
+    o = matmul(p, v, terms).transpose(1, 2).reshape(nw, t, c)
+    return x + linear(o, wp, bp, terms)
+
+
 def qpool_emulated(x, lns, lnb, wsk, bsk, wqkv, bqkv, wp, bp, heads, win, terms):
     """The float32 q-pool block as launch_qpool_f32 computes it: skip and
     q pooled after their bias, attention with f32 scores and softmax, the
@@ -105,6 +124,12 @@ def _mlp_args(rng, t, c):
     return (_rnd(rng, t, c), 1 + _rnd(rng, c, scale=0.1), _rnd(rng, c, scale=0.1),
             _rnd(rng, h, c, scale=c ** -0.5), _rnd(rng, h, scale=0.02),
             _rnd(rng, c, h, scale=h ** -0.5), _rnd(rng, c, scale=0.02))
+
+
+def _window_args(rng, nw, t, c):
+    return (_rnd(rng, nw, t, c), 1 + _rnd(rng, c, scale=0.1), _rnd(rng, c, scale=0.1),
+            _rnd(rng, 3 * c, c, scale=c ** -0.5), _rnd(rng, 3 * c, scale=0.02),
+            _rnd(rng, c, c, scale=c ** -0.5), _rnd(rng, c, scale=0.02))
 
 
 def _qpool_args(rng, nw, win, ci, co):
@@ -142,6 +167,14 @@ def test_mlp_one_tf32_misses_three_hold(t, c):
     assert _rel_err(mlp_emulated(*args, terms=3), ref) <= GATE / 100
 
 
+@pytest.mark.parametrize("nw,t,c,heads", T512_WINDOW)
+def test_window_one_tf32_misses_three_hold(nw, t, c, heads):
+    args = _window_args(np.random.default_rng(0), nw, t, c)
+    ref = twin.window_attn_block_plain(*args, heads=heads)
+    assert _rel_err(window_emulated(*args, heads, terms=1), ref) > GATE
+    assert _rel_err(window_emulated(*args, heads, terms=3), ref) <= GATE / 100
+
+
 @pytest.mark.parametrize("nw,win,ci,co,heads", T512_QPOOL)
 def test_qpool_one_tf32_misses_three_hold(nw, win, ci, co, heads):
     args = _qpool_args(np.random.default_rng(0), nw, win, ci, co)
@@ -166,6 +199,20 @@ def test_mlp_emulated_matches_pallas():
     ref = np.asarray(pallas_mlp(*map(jnp.asarray, (x, lns, lnb, w0.T, b0, w1.T, b1)),
                                 row_tile=32, hidden_chunk=192, interpret=True))
     got = mlp_emulated(*args, terms=3).numpy()
+    assert np.abs(got - ref).max() <= GATE * max(1.0, np.abs(ref).max())
+
+
+@pytest.mark.usefixtures("_exact_matmuls")
+@pytest.mark.parametrize("nw,t,c,heads", [(4, 16, 192, 2), (2, 64, 144, 2)])
+def test_window_emulated_matches_pallas(nw, t, c, heads):
+    """The kernel's 3×TF32 window block against the Pallas
+    window_attn_block (Flax layout) at T = 16, head width 96, and T = 64,
+    head width 72."""
+    args = _window_args(np.random.default_rng(3), nw, t, c)
+    x, lns, lnb, wqkv, bqkv, wp, bp = (a.numpy() for a in args)
+    ref = np.asarray(pallas_window(*map(jnp.asarray, (x, lns, lnb, wqkv.T, bqkv, wp.T, bp)),
+                                   heads=heads, gw=nw // 2, interpret=True))
+    got = window_emulated(*args, heads, terms=3).numpy()
     assert np.abs(got - ref).max() <= GATE * max(1.0, np.abs(ref).max())
 
 
@@ -207,6 +254,32 @@ def test_mlp_plan_f32(t, c):
     assert (plan.gemm2.splits, plan.gemm2.blocks) == g2
     assert plan.workspace == ws
     assert tmlp.F32_GEMM_SMEM == 55296 <= build.MAX_SMEM
+
+
+#: (rows, C, heads) → (q|k|v GEMM (splits, blocks), projection GEMM,
+#: attention blocks' shared memory, workspace floats) on 132 SMs: t@512,
+#: the float32 L@1024 window shapes (phase 6) and the card tests' ragged
+#: (5, 32, 112, 2) and (7, 16, 288, 4), the last with both depths split
+WINDOW_PLANS = {
+    (16384, 96, 1): ((1, 1280), (1, 512), 51200, 7864320),
+    (4096, 192, 2): ((1, 576), (1, 192), 51200, 3932160),
+    (65536, 144, 2): ((1, 7168), (1, 3072), 51200, 47185920),
+    (16384, 288, 4): ((1, 3584), (1, 1280), 51200, 23592960),
+    (1024, 1152, 16): ((1, 864), (1, 288), 51200, 5898240),
+    (160, 112, 2): ((1, 18), (1, 6), 34816, 89600),
+    (112, 288, 4): ((2, 56), (2, 20), 51200, 354816),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(WINDOW_PLANS))
+def test_window_plan_f32(shape):
+    plan = twin.window_plan_f32(*shape, 132)
+    g_qkv, g_p, attn_smem, ws = WINDOW_PLANS[shape]
+    assert (plan.gemm_qkv.splits, plan.gemm_qkv.blocks) == g_qkv
+    assert (plan.gemm_proj.splits, plan.gemm_proj.blocks) == g_p
+    assert (plan.attn_smem, plan.workspace) == (attn_smem, ws)
+    # four attention blocks share an SM's 228 KB (1 KB of it reserved a block)
+    assert 4 * (plan.attn_smem + 1024) <= 228 * 1024
 
 
 #: (rows, C_in, C_out, heads) → (input GEMM (splits, blocks), projection
@@ -258,6 +331,30 @@ QPOOL_ROUTES_F32 = {
     (16, 192, 256, 4): "tiled",     # head width 64: no attention instance
     (16, 190, 384, 4): "tiled",     # C_in off a multiple of 4
 }
+
+
+#: (tokens, C, heads) → float32 window route; the block's shared memory
+#: is its GEMM's whatever the shape
+WINDOW_ROUTES_F32 = {
+    (64, 96, 1): "block",      # t@512 stage 1
+    (16, 192, 2): "block",     # t@512 stage 2
+    (64, 144, 2): "block",     # L@1024 stage 1, head width 72
+    (16, 288, 4): "block",     # L@1024 stage 2
+    (64, 1152, 16): "block",   # L@1024 stage 4
+    (32, 112, 2): "block",     # head width 56
+    (256, 576, 8): "tiled",    # L@1024 stage 3: 256 tokens
+    (36, 96, 1): "tiled",      # windows of 6 × 6
+    (16, 128, 2): "tiled",     # head width 64: no attention instance
+    (64, 100, 1): "tiled",     # head width 100
+}
+
+
+@pytest.mark.parametrize("shape", sorted(WINDOW_ROUTES_F32))
+def test_window_route_f32(shape):
+    tokens, c, heads = shape
+    assert twin.window_smem("window", tokens, c, c, torch.float32) == tmlp.F32_GEMM_SMEM
+    assert twin.window_route("window", tokens, c, c, heads, torch.float32) == \
+        WINDOW_ROUTES_F32[shape]
 
 
 @pytest.mark.parametrize("shape", sorted(QPOOL_ROUTES_F32))

@@ -131,7 +131,21 @@ Phases, in order; any failure raises and the process exits non-zero:
      whole-tree step at batch 1 and 4 (its global heads of width 96 on
      FlashAttention's 96 instances); then the shipped ckpt/sam2 (t@512
      float32) trained whole-tree on eval_data through the port's folder
-     dataset in batches of 8 (path C), which launches no kernel.
+     dataset in batches of 8 (path C), which launches no kernel;
+ 13. training the detector and the reader — a 128-item pool rendered by
+     eval/pool.write_pool (handdrawn 0.25, degrade 0.40; host ms per item
+     by kind and degrade tier; the sha256 of pinned items against the
+     JAX package's renders, POOL_ITEM_DIGESTS) and letterboxed to 640 by
+     load_pool; YOLOv11-s@640, 64 classes, float32, from seeded random
+     weights through train/yolo_train.train_detector (batch 16, 40 steps,
+     warm-up 5, 32 held out: ms per step, peak memory, losses, fg,
+     skipped, mAP@50 before and after); the detector's step card against
+     CPU at batch 2 (loss, assignment, every leaf's gradient, the
+     BatchNorm statistics included); the reader (ReaderConfig(), batch
+     256, 60 steps) on generate_reader_dataset of 64 circuits through
+     train/reader.train_reader, evaluate_product on 16 held-out circuits,
+     and its step's gradients card against CPU. No kernel lies on this
+     path: every count must stay 0.
 
 It prints one JSON line per kernel shape and route check, the launch
 floor, one line per fine-tune path, a `kernels` summary line (every
@@ -140,7 +154,8 @@ runs it; FlashAttention's three at L@1024, and again at t@1024 on a
 `kernels_train_t1024` line before it), the card's
 `nvidia-smi` name/power line, and as its
 last line {"ok": true, "device": {...}}. It reads ckpt/ and eval_data/
-and writes only the package's build/ directory. Without a CUDA device it
+and writes only the package's build/ directory and phase 13's pool, in a
+temporary directory it removes. Without a CUDA device it
 exits 1 and prints no result.
 """
 from __future__ import annotations
@@ -2129,8 +2144,7 @@ def run_training(torch, smi):
     _l, _m, ref = ts.loss_and_grads(cpu, params_of(cpu), images.cpu(), masks.cpu(),
                                     selective=False)
     cpu_s = time.perf_counter() - t0
-    worst = max(((float((got[n].cpu() - r).abs().max()), float(r.abs().max()), n)
-                 for n, r in ref.items()), key=lambda e: e[0] / max(1.0, e[1]))
+    worst = _worst_leaf(got, ref)
     print(json.dumps({"train_lcut_f32_card_vs_cpu": {
         "leaves": len(ref), "worst_leaf": worst[2], "max_abs_err": worst[0],
         "max_abs_cpu": worst[1], "tol": TRAIN_RTOL * max(1.0, worst[1]),
@@ -2348,6 +2362,277 @@ def run_batched_path(torch, smi):
     return {**counts, "enhance_lines_fused": runs["card_on"][1]}, (drawn_shapes, seeded_shapes)
 
 
+#: sha256 (pool_item_digest) of pool items as the JAX package's
+#: scripts/gen_pool.py renders them (handdrawn 0.25, degrade 0.40):
+#: schematic, jpeg, wobble, handdrawn, blur, shadow and perspective items.
+#: tests/test_torch_port_eval.py holds them to the JAX renders.
+POOL_ITEM_DIGESTS = {
+    100000: "fa1d3bd854e773ca10acf704cc3b3899bcaab6781fbb6a138fed3b8e8da90025",
+    100001: "3f1f8434b9dab6ead870629d9e86a9139d6357028bf3813c749686cc6be83ec1",
+    100002: "e9aefe868d49eb4ab32fe33e9eddb87dd942dc6608da643c3ffd1d29a4ee61e9",
+    100003: "736a13e7fa00ae28d8a80770f6fa28e075926371c4eafe44ba83ef94577be50a",
+    100004: "61945d5173653f688888461afb0768e5b0b9c0015b9c7623d43b81439452c413",
+    100016: "9708efcc424d5f2ed4083ddebd68f57dbf1f0f64ed7d589aa94f7623624b14f2",
+    100021: "84823f5aef34ecc1094934b735150250a97521753590bf28c982841d9d572880",
+    100025: "2822ee7844cbaea45bbaf65d933bf24e762f535142fdf5e1191620be7e0373ef",
+}
+POOL_SEED0, POOL_ITEMS, POOL_VAL = 100000, 128, 32
+DET_STEPS, DET_BATCH, DET_WARMUP, DET_LR = 40, 16, 5, 2e-3
+READER_CIRCUITS, READER_STEPS, READER_BATCH, READER_LR, READER_VAL = 64, 60, 256, 3e-4, 16
+#: card against CPU gradients of the trainers' steps: 1e-3 × max(1, max |cpu|)
+#: per leaf, as the L_CUT fine-tune's (TRAIN_RTOL); the loss within 1e-4
+TRAINER_LOSS_RTOL = 1e-4
+
+
+def pool_item_digest(item, hashlib) -> str:
+    """sha256 over a pool item's arrays in key order (name, dtype, shape,
+    bytes)."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in sorted(item):
+        a = np.asarray(item[k])
+        h.update(k.encode())
+        h.update(str(a.dtype).encode())
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _worst_leaf(got, ref):
+    """(max |card − cpu|, max |cpu|, leaf) of the leaf worst against its
+    bound 1e-3 · max(1, max |cpu|)."""
+    return max(((float((got[n].cpu() - r).abs().max()), float(r.abs().max()), n)
+                for n, r in ref.items()), key=lambda e: e[0] / max(1.0, e[1]))
+
+
+def step_split(torch, model, params, tx, opt_state, loss_of_heads, x, steps=5):
+    """Where a trainer's step goes: host ms (synchronised, median of
+    `steps`) of the forward, the loss (with the assignment), the backward
+    and the optimizer's update with its apply, on one batch."""
+    import statistics
+
+    from circuitvision_tpu_torch.train import optim
+
+    parts = {"forward": [], "loss": [], "backward": [], "update": []}
+    for _ in range(steps + 1):
+        leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+        heads = torch.func.functional_call(model, leaves, (x,))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        loss = loss_of_heads(heads)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        names = list(leaves)
+        grads = dict(zip(names, torch.autograd.grad(loss, [leaves[n] for n in names],
+                                                    allow_unused=True)))
+        grads = {n: g if g is not None else torch.zeros_like(params[n]) for n, g in grads.items()}
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        updates, _state = tx.update(grads, opt_state, params)
+        optim.apply_updates(params, updates)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for k, a, b in zip(parts, marks, marks[1:]):
+            parts[k].append(1e3 * (b - a))
+    return {f"{k}_ms": statistics.median(v[1:]) for k, v in parts.items()}
+
+
+def run_trainers(torch, smi):
+    """Phase 13: the pool, the detector's and the reader's training (see
+    the module docstring). Raises on any gate."""
+    import hashlib
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from circuitvision_tpu_torch.core.taxonomy import TRAIN_CLASSES
+    from circuitvision_tpu_torch.eval import pool
+    from circuitvision_tpu_torch.models.reader import ReaderConfig
+    from circuitvision_tpu_torch.train import reader as rt
+    from circuitvision_tpu_torch.train import yolo_loss as yl
+    from circuitvision_tpu_torch.train import yolo_train as yt
+
+    reset, read = counters()
+    reset()
+    print(f"   numpy {np.__version__}")
+    # (1) the pool
+    timings: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pool.write_pool(tmp, POOL_ITEMS, seed0=POOL_SEED0, log_every=0, timings=timings)
+        write_s = time.perf_counter() - t0
+        bad = []
+        for seed, want in POOL_ITEM_DIGESTS.items():
+            with np.load(Path(tmp) / f"{seed - POOL_SEED0:06d}.npz") as z:
+                item = {k: z[k] for k in z.files}
+            got = pool_item_digest(item, hashlib)
+            if got != want:
+                bad.append((seed, str(item["tier"]), got))
+        t0 = time.perf_counter()
+        images, boxes, tiers = pool.load_pool(tmp, 640)
+        load_s = time.perf_counter() - t0
+    print(json.dumps({"pool": {
+        "items": POOL_ITEMS, "write_s": write_s, "letterbox_s": load_s,
+        "host_ms_per_item": {k: {"n": len(v), "median": 1e3 * statistics.median(v),
+                                 "max": 1e3 * max(v)} for k, v in sorted(timings.items())},
+        "digests_checked": len(POOL_ITEM_DIGESTS), "digest_mismatches": bad,
+        "card": smi}}), flush=True)
+    if bad:
+        raise AssertionError(f"pool items differ from the JAX package's renders: {bad}")
+
+    # (2) the detector from random weights
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = yt.train_detector(images, boxes, tiers, scale="s", img_size=640, steps=DET_STEPS,
+                            batch=DET_BATCH, lr=DET_LR, warmup_steps=DET_WARMUP,
+                            val_n=POOL_VAL, log_every=1, eval_every=0, device="cuda",
+                            report=lambda line: print("   " + line, flush=True))
+    wall = time.perf_counter() - t0
+    hist = out["history"]
+    step_ms = [1e3 * (b["seconds"] - a["seconds"]) for a, b in zip(hist, hist[1:])]
+    losses = [h["loss"] for h in hist]
+    report = {"name": "YOLOv11-s@640 f32 from scratch", "batch": DET_BATCH, "steps": DET_STEPS,
+              "ms_per_step": statistics.median(step_ms[2:]), "step_ms": step_ms,
+              "images_per_s": DET_BATCH / (statistics.median(step_ms[2:]) * 1e-3),
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "allocated_before_gib": base / 2 ** 30, "wall_s": wall,
+              "history": hist, "map50": out["map"], "card": smi}
+    print(json.dumps({"train_detector": report}), flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"detector: a loss is not finite: {losses}")
+    if any(h["skipped"] for h in hist) or not all(h["fg"] > 0 for h in hist):
+        raise AssertionError(f"detector: skipped steps or no foreground: {hist}")
+    if not all(x < losses[0] for x in losses[-5:]):
+        raise AssertionError(f"detector: the last 5 losses are not below the first: {losses}")
+
+    model, params = out["model"], out["params"]
+    det_cfg = yl.YOLOLossConfig(num_classes=len(TRAIN_CLASSES), img_size=640)
+    tx = yt.make_yolo_optimizer(DET_LR, warmup_steps=DET_WARMUP, total_steps=DET_STEPS)
+    gt = [t.cuda() for t in yt.targets_from_boxes(boxes[:DET_BATCH], max_gt=96)]
+    x = torch.from_numpy(images[:DET_BATCH]).cuda().float() / 255.0
+    split = step_split(torch, model, params, tx, out["opt_state"],
+                       lambda heads: yl.yolo_detection_loss(heads, *gt, det_cfg)[0], x)
+    print(json.dumps({"train_detector_split": {**split, "card": smi}}), flush=True)
+
+    # (3) the detector's step, card against CPU, batch 2, float32, TF32 off
+    gb, gc, gv = yt.targets_from_boxes(boxes[:2], max_gt=96)
+    x = torch.from_numpy(images[:2]).float() / 255.0
+    cpu_model = type(model)(num_classes=len(TRAIN_CLASSES), scale="s", reg_max=16)
+    cpu_params = {n: p.cpu() for n, p in params.items()}
+    side = {}
+    for dev, m, p in (("cuda", model, params), ("cpu", cpu_model, cpu_params)):
+        t0 = time.perf_counter()
+        xs, gbs, gcs, gvs = (t.to(dev) for t in (x, gb, gc, gv))
+        metrics, grads = yt.yolo_loss_and_grads(m, p, xs, gbs, gcs, gvs, det_cfg)
+        with torch.no_grad():
+            heads = torch.func.functional_call(m, p, (xs,))
+            _d, logits, pboxes, anchors, _s = yl.decode_heads(heads, det_cfg)
+            scores = torch.sigmoid(logits)
+            fg, assigned, _t = yl.task_aligned_assign(scores, pboxes, anchors, gbs, gcs, gvs,
+                                                      det_cfg)
+        side[dev] = dict(loss=float(metrics["loss"]), grads=grads, fg=fg.cpu(),
+                         assigned=assigned.cpu(), scores=scores.cpu(), boxes=pboxes.cpu(),
+                         seconds=time.perf_counter() - t0)
+    card, cpu = side["cuda"], side["cpu"]
+    worst = _worst_leaf(card["grads"], cpu["grads"])
+    diff = (card["fg"] != cpu["fg"]) | (card["assigned"] != cpu["assigned"])
+    differing = []
+    for b, a in diff.nonzero().tolist()[:8]:
+        # the anchor's alignment with its CPU-assigned gt on each side
+        g = int(cpu["assigned"][b, a])
+        cls = int(gc[b, g])
+        align = {}
+        for name, sd in side.items():
+            iou = yl.iou_matrix_xyxy(gb[b:b + 1, g:g + 1], sd["boxes"][b:b + 1, a:a + 1])
+            align[name] = float(sd["scores"][b, a, cls] ** 0.5 * iou.clamp(min=0) ** 6.0)
+        differing.append({"image": b, "anchor": a, "fg": [bool(card["fg"][b, a]),
+                                                           bool(cpu["fg"][b, a])],
+                          "assigned": [int(card["assigned"][b, a]), int(cpu["assigned"][b, a])],
+                          "align": align})
+    row = {"loss": [card["loss"], cpu["loss"]],
+           "loss_tol": TRAINER_LOSS_RTOL * max(1.0, abs(cpu["loss"])),
+           "fg": int(cpu["fg"].sum()), "assignment_differences": int(diff.sum()),
+           "differing": differing, "leaves": len(cpu["grads"]), "worst_leaf": worst[2],
+           "max_abs_err": worst[0], "max_abs_cpu": worst[1],
+           "tol": TRAIN_RTOL * max(1.0, worst[1]), "cpu_seconds": cpu["seconds"], "card": smi}
+    print(json.dumps({"train_detector_card_vs_cpu": row}), flush=True)
+    if abs(card["loss"] - cpu["loss"]) > row["loss_tol"] or diff.any():
+        raise AssertionError(f"detector step: loss or assignment differ card vs CPU: {row}")
+    if not all(bool(torch.isfinite(g).all()) for g in card["grads"].values()) \
+            or worst[0] > TRAIN_RTOL * max(1.0, worst[1]):
+        raise AssertionError(f"detector step: card gradients differ from the CPU's: {worst}")
+    del out, model, params, side, card, cpu
+    torch.cuda.empty_cache()
+
+    # (4) the reader from random weights
+    t0 = time.perf_counter()
+    data = rt.generate_reader_dataset(READER_CIRCUITS, seed0=50_000)
+    data_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = rt.train_reader(data, steps=READER_STEPS, batch=READER_BATCH, lr=READER_LR,
+                          log_every=1, device="cuda",
+                          report=lambda line: print("   " + line, flush=True))
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    step_ms = [1e3 * (b["seconds"] - a["seconds"]) for a, b in zip(hist, hist[1:])]
+    t0 = time.perf_counter()
+    product = rt.evaluate_product(out["params"], READER_VAL, seed0=990_000, device="cuda")
+    eval_s = time.perf_counter() - t0
+    losses = [h["loss"] for h in hist]
+    print(json.dumps({"train_reader": {
+        "name": "reader ReaderConfig() f32 from scratch", "crops": int(len(data["crops"])),
+        "dataset_s": data_s, "batch": READER_BATCH, "steps": READER_STEPS,
+        "ms_per_step": statistics.median(step_ms[2:]), "step_ms": step_ms,
+        "crops_per_s": READER_BATCH / (statistics.median(step_ms[2:]) * 1e-3),
+        "peak_memory_gib": peak / 2 ** 30, "allocated_before_gib": base / 2 ** 30,
+        "history": hist, "evaluate_product": product, "evaluate_s": eval_s,
+        "card": smi}}), flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"reader: a loss is not finite: {losses}")
+
+    model = out["model"]
+    dev_batch = [torch.from_numpy(np.ascontiguousarray(data[k][:READER_BATCH])).cuda()
+                 for k in ("crops", "cls", "val", "dir", "val_w")]
+
+    split = step_split(torch, model, out["params"], rt.make_reader_optimizer(READER_LR,
+                                                                             READER_STEPS),
+                       out["opt_state"], lambda heads: rt.heads_loss(heads, *dev_batch[1:])[0],
+                       dev_batch[0])
+    print(json.dumps({"train_reader_split": {**split, "card": smi}}), flush=True)
+
+    # (5) the reader's step, card against CPU, on the first 64 crops
+    cpu_model = type(model)(ReaderConfig())
+    sel = slice(0, 64)
+    batch = [torch.from_numpy(np.ascontiguousarray(data[k][sel]))
+             for k in ("crops", "cls", "val", "dir", "val_w")]
+    side = {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        p = {n: t.to(dev) for n, t in out["params"].items()}
+        metrics, grads = rt.reader_loss_and_grads(m, p, *(t.to(dev) for t in batch))
+        side[dev] = (float(metrics["loss"]), grads)
+    worst = _worst_leaf(side["cuda"][1], side["cpu"][1])
+    row = {"loss": [side["cuda"][0], side["cpu"][0]], "leaves": len(side["cpu"][1]),
+           "worst_leaf": worst[2], "max_abs_err": worst[0], "max_abs_cpu": worst[1],
+           "tol": TRAIN_RTOL * max(1.0, worst[1]), "card": smi}
+    print(json.dumps({"train_reader_card_vs_cpu": row}), flush=True)
+    if abs(side["cuda"][0] - side["cpu"][0]) > TRAINER_LOSS_RTOL * max(1.0, abs(side["cpu"][0])) \
+            or worst[0] > TRAIN_RTOL * max(1.0, worst[1]):
+        raise AssertionError(f"reader step: card differs from the CPU: {row}")
+    counts = read()
+    if any(counts.values()):
+        raise AssertionError(f"the trainers launched kernels: {counts}")
+    del out, model, side
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2438,6 +2723,10 @@ def main() -> int:
                "t@1024, path C")
     launches["train"], launches["train-t"] = run_training(torch, smi)
     done(t0, "fine-tune")
+
+    t0 = phase("training the detector and the reader: pool, YOLOv11-s@640, reader")
+    run_trainers(torch, smi)
+    done(t0, "training the detector and the reader")
 
     def entry(name, s, counts):
         return {"launches": counts[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],

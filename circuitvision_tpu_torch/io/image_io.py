@@ -93,10 +93,64 @@ def _jpeg_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=1)
+def _jpeg_encoder() -> ctypes.CDLL:
+    lib = build_library(_NATIVE / "jpeg_enc.cpp", "cvjpegenc")
+    lib.cv_jpeg_encode_bound.restype = ctypes.c_size_t
+    lib.cv_jpeg_encode_bound.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.cv_jpeg_encode.restype = ctypes.c_size_t
+    lib.cv_jpeg_encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p]
+    return lib
+
+
 def load_native() -> None:
-    """Build (at first use) and load both host decoders."""
+    """Build (at first use) and load the host decoders and the JPEG encoder."""
     _png_library()
     _jpeg_library()
+    _jpeg_encoder()
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 75) -> bytes:
+    """Baseline JPEG of an (H, W, 3) uint8 RGB array: the bytes of PIL's
+    `Image.fromarray(rgb).save(buf, format="JPEG", quality=quality)`
+    (libjpeg-turbo's defaults: JFIF, 4:2:0, ISLOW DCT, standard Huffman
+    tables), from native/jpeg_enc.cpp."""
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes (H, W, 3) uint8, got {rgb.shape} {rgb.dtype}")
+    lib = _jpeg_encoder()
+    h, w = rgb.shape[:2]
+    out = np.empty(lib.cv_jpeg_encode_bound(w, h), np.uint8)
+    n = lib.cv_jpeg_encode(rgb.ctypes.data, w, h, int(quality), out.ctypes.data)
+    if n == 0:
+        raise ValueError(f"encode_jpeg: a JPEG cannot hold {w} x {h} pixels")
+    return out[:n].tobytes()
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def encode_png(arr: np.ndarray, exif_orientation: Optional[int] = None, level: int = 6) -> bytes:
+    """An 8-bit PNG of an (H, W) grey or (H, W, 3) RGB uint8 array, filter
+    0 on every row, zlib at `level`. With `exif_orientation`, an `eXIf`
+    chunk (little-endian TIFF, one IFD entry: tag 0x0112) after IHDR, as
+    PIL writes `save(..., exif=exif)`; this module's reader and PIL's
+    `getexif()` read it back as that orientation."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype != np.uint8 or arr.ndim not in (2, 3) or (arr.ndim == 3 and arr.shape[2] != 3):
+        raise ValueError(f"encode_png takes (H, W) or (H, W, 3) uint8, got {arr.shape} {arr.dtype}")
+    h, w = arr.shape[:2]
+    colour, ch = (0, 1) if arr.ndim == 2 else (2, 3)
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * ch)], axis=1)
+    out = PNG_SIGNATURE + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+    if exif_orientation is not None:
+        tiff = (b"II*\x00" + struct.pack("<IH", 8, 1)
+                + struct.pack("<HHII", ORIENTATION_TAG, 3, 1, int(exif_orientation))
+                + struct.pack("<I", 0))
+        out += _png_chunk(b"eXIf", tiff)
+    return out + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _png_chunk(b"IEND", b"")
 
 
 def _format_name(data: bytes) -> str:

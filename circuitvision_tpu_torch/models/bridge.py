@@ -177,6 +177,23 @@ def train_state_from_jax(params: Mapping, opt_state, ema=None, trainable=None,
     return port_params, state, leaves_in_jax_order(params, trainable, ema, device)
 
 
+def optax_state_from_jax(state, device=None, tree=None):
+    """An optax state (numpy leaves) of the transforms in `train/optim.py`
+    → the port's state of the same transforms: each optax state
+    NamedTuple a dict of its fields (EmptyState {}), a chain's tuple a
+    tuple, the moments `mu`/`nu` through `tree` (default `port_tree`: a
+    variable tree {"params": ...} → {port name: tensor}), the counters
+    and flags tensors of their dtype."""
+    tree = tree or port_tree
+    if hasattr(state, "_fields"):
+        return {f: tree(getattr(state, f), device) if f in ("mu", "nu")
+                else optax_state_from_jax(getattr(state, f), device, tree)
+                for f in state._fields}
+    if isinstance(state, tuple):
+        return tuple(optax_state_from_jax(s, device, tree) for s in state)
+    return tensor_from_numpy(state, device)
+
+
 def leaves_in_jax_order(tree: Mapping, names, leaves, device=None) -> dict[str, torch.Tensor]:
     """A list of leaves shaped like the leaves of JAX variable `tree` whose
     port names are in `names`, in JAX's leaf order (dict keys sorted at

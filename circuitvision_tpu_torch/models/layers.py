@@ -27,7 +27,10 @@ class FrozenBatchNorm(nn.Module):
     as XLA computes a bfloat16 rsqrt (PyTorch's bfloat16 rsqrt on the CPU
     may differ from it by one ulp). The per-channel factor
     rsqrt(var + eps)·scale is computed once for each version of the
-    variance and scale tensors."""
+    variance and scale tensors, except under autograd when either requires
+    grad: the detector's trainer differentiates the statistics as well
+    (the JAX trainer differentiates and updates the whole variable tree,
+    `batch_stats` included), so the factor is then part of the graph."""
 
     def __init__(self, c: int, eps: float = 1e-3):
         super().__init__()
@@ -39,6 +42,10 @@ class FrozenBatchNorm(nn.Module):
         self._factor = (None, None)
 
     def factor(self) -> torch.Tensor:
+        if torch.is_grad_enabled() and (self.running_var.requires_grad
+                                        or self.weight.requires_grad):
+            var = self.running_var + self.eps
+            return (torch.rsqrt(var.float()).to(var.dtype) * self.weight)[:, None, None]
         key = tuple((t.data_ptr(), t._version, t.dtype) for t in (self.running_var, self.weight))
         if self._factor[0] != key:
             with torch.no_grad():

@@ -184,3 +184,71 @@ def resize_linear_u8(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
     b0, b1 = b0.astype(np.int32)[:, None, None], b1.astype(np.int32)[:, None, None]
     out = (((rows[y0] * b0) >> 16) + ((rows[y1] * b1) >> 16) + 2) >> 2
     return np.clip(out, 0, 255).astype(np.uint8).reshape((out_h, out_w) + img.shape[2:])
+
+
+#: PIL's Resample.c fixed point: coefficients carry 22 fractional bits
+_PIL_PRECISION_BITS = 32 - 8 - 2
+
+
+def _pil_bilinear_coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray, int]:
+    """Resample.c precompute_coeffs + normalize_coeffs_8bpc for the
+    bilinear filter over the box (0, in_size): (first source index per
+    output, (out_size, ksize) int64 coefficients, zero past each bound,
+    the end of the last output's bound)."""
+    scale = float(np.float32(in_size)) / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    coeffs = np.zeros((out_size, ksize), np.int64)
+    one = float(1 << _PIL_PRECISION_BITS)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = [max(0.0, 1.0 - abs((x + xmin - center + 0.5) / filterscale)) for x in range(xmax)]
+        ww = 0.0
+        for v in w:
+            ww += v
+        for x, v in enumerate(w):
+            v = v / ww if ww != 0.0 else v
+            coeffs[xx, x] = int(-0.5 + v * one) if v < 0 else int(0.5 + v * one)
+        first[xx] = xmin
+    return first, coeffs, xmin + xmax
+
+
+def _pil_pass(img: np.ndarray, first: np.ndarray, coeffs: np.ndarray, axis: int) -> np.ndarray:
+    """One Resample.c pass along `axis` (0 rows, 1 columns) on int64
+    samples, rounded and clipped to uint8 as clip8 does."""
+    n = img.shape[axis]
+    acc = np.full(img.shape[:axis] + (len(first),) + img.shape[axis + 1:],
+                  1 << (_PIL_PRECISION_BITS - 1), np.int64)
+    shape = [1] * img.ndim
+    shape[axis] = len(first)
+    for k in range(coeffs.shape[1]):
+        idx = np.minimum(first + k, n - 1)
+        acc += np.take(img, idx, axis=axis) * coeffs[:, k].reshape(shape)
+    return np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.int64)
+
+
+def resize_pil_bilinear_u8(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
+    """PIL's `Image.fromarray(img).resize((w, h), Image.BILINEAR)` on a
+    uint8 (H, W[, C]) host array, byte for byte: Resample.c's triangle
+    filter with its support widened by the scale on a downscale,
+    coefficients in 22-bit fixed point, a horizontal pass over only the
+    rows the vertical pass reads, then the vertical pass, each rounded
+    and clipped to uint8 (ImagingResampleInner). Not `resize_linear_u8`,
+    which is cv2's INTER_LINEAR."""
+    img = np.asarray(img)
+    out_h, out_w = out_hw
+    h, w = img.shape[:2]
+    x_first, x_coeffs, _ = _pil_bilinear_coeffs(w, out_w)
+    y_first, y_coeffs, y_end = _pil_bilinear_coeffs(h, out_h)
+    out = img.astype(np.int64)
+    if out_w != w:
+        row0 = int(y_first[0])
+        out = _pil_pass(out[row0:y_end], x_first, x_coeffs, axis=1)
+        y_first = y_first - row0
+    if out_h != h:
+        out = _pil_pass(out, y_first, y_coeffs, axis=0)
+    return out.astype(np.uint8)

@@ -38,6 +38,7 @@ from ..core.config import TrainConfig
 from ..models.bridge import flax_names
 from ..ops.cuda.build import KernelError
 from .losses import combined_loss
+from .optim import apply_updates
 
 #: flax param-path regexes matching the reference LoRA target surface
 #: (src/circuit_analyzer.py:156-199) plus the wrapper's own parameters;
@@ -182,13 +183,6 @@ class Optimizer:
         inner = {k: state[k] for k in ("count", "mu", "nu", "schedule_count") if k in state}
         new.update(inner, gradient_step=state["gradient_step"], acc_grads=acc)
         return {n: torch.zeros_like(a) for n, a in acc.items()}, new
-
-
-def apply_updates(params: Mapping[str, torch.Tensor],
-                  updates: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """optax.apply_updates: p + u in p's dtype; leaves without an update
-    (the frozen ones) are the same tensors."""
-    return {n: (p + updates[n]).to(p.dtype) if n in updates else p for n, p in params.items()}
 
 
 def make_optimizer(model: torch.nn.Module, cfg: TrainConfig | None = None,

@@ -11,7 +11,7 @@ netlist is editable; "Get Final Netlist" runs the VLM value pass; "Run
 SPICE Analysis" detects DC or AC (app.py:839-874).
 
 Differences from the JAX package:
-  * images in the JSON are PNGs encoded here with stdlib zlib (`png_bytes`):
+  * images in the JSON are PNGs encoded by `io/image_io.encode_png`:
     they decode to the pixels PIL's encoding would, the bytes differ;
   * the debug images are drawn without cv2 (core/viz.py), byte-equal to
     the JAX package's;
@@ -32,38 +32,26 @@ import argparse
 import base64
 import html
 import json
-import struct
 import threading
-import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from .io.image_io import encode_png
+
 _STATE: dict = {"analyzer": None, "result": None, "lock": threading.Lock()}
-
-
-def png_bytes(arr: np.ndarray) -> bytes:
-    """An 8-bit RGB PNG of an (H, W, 3) or (H, W) uint8 array (grey
-    copied to three channels, as the JAX webapp sends it), filter 0 on
-    every row, zlib at level 1: a response carries up to ten images, and
-    level 6 took ~2x the time for files ~1.7x smaller on the eval set."""
-    if arr.ndim == 2:
-        arr = np.stack([arr] * 3, axis=-1)
-    arr = np.ascontiguousarray(arr.astype(np.uint8))
-    h, w = arr.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * 3)], axis=1)
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body)))
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
 
 
 def _png_b64(arr) -> str:
     if arr is None:
         return ""
-    return base64.b64encode(png_bytes(np.asarray(arr))).decode()
+    # an 8-bit RGB PNG (grey copied to three channels, as the JAX webapp
+    # sends it), zlib at level 1: a response carries up to ten images, and
+    # level 6 took ~2x the time for files ~1.7x smaller on the eval set
+    arr = np.asarray(arr).astype(np.uint8)
+    if arr.ndim == 2:
+        arr = np.stack([arr] * 3, axis=-1)
+    return base64.b64encode(encode_png(arr, level=1)).decode()
 
 
 _PAGE = """<!doctype html><html><head><title>CircuitVision</title>

@@ -218,6 +218,30 @@ lopt = lora.make_lora_optimizer(tcfg)
 lora.make_lora_train_step(model, lopt, tcfg)(params, tstate, lopt.init(lora.flat_names(tstate)),
                                              images, masks)
 checkpoint.save_train_state({str(tmp_path / "ckpt")!r}, 1, params, state)
+# the data harness and the detector's and reader's trainers
+from circuitvision_tpu_torch.eval import degrade, pool, synth
+from circuitvision_tpu_torch.models.yolo.model import YOLOv11
+from circuitvision_tpu_torch.train import reader as reader_train
+from circuitvision_tpu_torch.train import yolo_loss, yolo_train
+item = pool.render_item(100001, 0.25, 0.40)
+assert item["tier"] == "jpeg"
+img, _b, _m = degrade.degrade(item["image"], "jpeg", 3)
+synth.write_eval_set({str(tmp_path / "eval")!r}, synth.make_circuits()[:1])
+lb, boxes = pool.letterbox_item(item["image"], item["boxes"], item["classes"], 64)
+det = YOLOv11(num_classes=64, scale="n")
+yparams = yolo_train.init_detect_biases(yolo_train.yolo_params(det), 64, 64)
+ytx = yolo_train.make_yolo_optimizer(1e-3, warmup_steps=2)
+ystep = yolo_train.make_yolo_train_step(det, ytx, yolo_loss.YOLOLossConfig(num_classes=64,
+                                                                          img_size=64))
+gt = yolo_train.targets_from_boxes([boxes], max_gt=32)
+ystep(yparams, ytx.init(yparams), torch.from_numpy(lb[None]).float() / 255, *gt)
+data = reader_train.generate_reader_dataset(1, 50000)
+rmodel = reader_train.CropReader()
+rparams = reader_train.reader_params(rmodel)
+rtx = reader_train.make_reader_optimizer(3e-4, 10)
+reader_train.make_reader_train_step(rmodel, rtx)(
+    rparams, rtx.init(rparams), *(torch.from_numpy(data[k][:4])
+                                  for k in ("crops", "cls", "val", "dir", "val_w")))
 print(json.dumps(sorted(sys.modules)))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -230,7 +254,10 @@ print(json.dumps(sorted(sys.modules)))
               "eval.metrics", "train.losses", "train.train_step", "train.lora",
               "train.checkpoint", "train.data", "cli", "pipeline.server", "netlist.values",
               "sim.engine", "sim.mna", "sim.netlist_parse", "sim.native_backend",
-              "webapp", "models.flops", "core.draw", "core.hershey", "core.viz"):
+              "webapp", "models.flops", "core.draw", "core.hershey", "core.viz",
+              "eval.randomized", "eval.glyphs", "eval.aileron", "eval.handdrawn",
+              "eval.degrade", "eval.synth", "eval.pool", "train.optim", "train.yolo_loss",
+              "train.yolo_train", "train.reader"):
         assert "circuitvision_tpu_torch." + m in mods
     bad = [m for m in mods if m in FORBIDDEN or m.startswith(tuple(f + "." for f in FORBIDDEN))]
     assert not bad, bad

@@ -53,6 +53,27 @@ Phases, in order; any failure raises and the process exits non-zero:
      (the default SAM2Config, bfloat16, seeded weights): one warm-up,
      three timed runs with exact launch counts, then SAM2's logits in
      float32 on the card against the CPU at the full 48-block depth;
+  6b. the reference deployment from the reference's checkpoints —
+     seeded YOLOv11-l@640 (62 classes) and SAM2.1-L@1024 weights saved
+     as flat state dicts in the reference's naming (an ultralytics-nested
+     `model.model.*` .pt with the DFL arange and a num_batches_tracked a
+     BatchNorm, not ultralytics' pickled DetectionModel; a PEFT-wrapped
+     SAM2.1 .pth with seeded rank-4 adapters on all 36
+     REFERENCE_LORA_TARGETS and video-memory entries), their keys held to
+     the frozen inventories of tests/fixtures; converted by the port's
+     command line (`python -m circuitvision_tpu_torch.models.checkpoint
+     convert-yolo|convert-sam2`) in processes, read back by the port's
+     reader and held leaf for leaf to the seeded weights with the same
+     numpy fold; then the default PipelineConfig() (bfloat16) from the
+     read-back weights: one warm-up, three timed runs with exact launch
+     counts (L@1024's), boxes, nodes and netlist equal to an analyzer
+     handed the expected weights in memory, YOLO heads and SAM2 logits
+     within F32_PATH_RTOL of it; the CLI's `analyze` on the converted
+     directories in a process, its detections and netlist the
+     in-process ones (the netlist is empty at seeded weights, so the
+     detections and the heads carry that check); YOLOv11-l float32 heads
+     on the card against the CPU; s to convert and to write (as the
+     converter prints them), s to read back, bytes written;
   7. batched path — analyze_batch (BatchedPipeline.analyze_many) at
      s@640 + t@512 with use_fused_morphology on, over 16 drawings in
      chunks of 8: exact launch counts (the line enhancement once per
@@ -144,8 +165,11 @@ Phases, in order; any failure raises and the process exits non-zero:
      BatchNorm statistics included); the reader (ReaderConfig(), batch
      256, 60 steps) on generate_reader_dataset of 64 circuits through
      train/reader.train_reader, evaluate_product on 16 held-out circuits,
-     and its step's gradients card against CPU. No kernel lies on this
-     path: every count must stay 0.
+     and its step's gradients card against CPU; the trained detector and
+     reader written as the JAX trainers write them (orbax + meta.json; a
+     bare orbax directory), read back equal leaf for leaf, and the
+     written detector's heads those of the in-memory parameters. No
+     kernel lies on this path: every count must stay 0.
 
 It prints one JSON line per kernel shape and route check, the launch
 floor, one line per fine-tune path, a `kernels` summary line (every
@@ -153,16 +177,18 @@ ported kernel with its launches, device and eager times on the path that
 runs it; FlashAttention's three at L@1024, and again at t@1024 on a
 `kernels_train_t1024` line before it), the card's
 `nvidia-smi` name/power line, and as its
-last line {"ok": true, "device": {...}}. It reads ckpt/ and eval_data/
-and writes only the package's build/ directory and phase 13's pool, in a
-temporary directory it removes. Without a CUDA device it
-exits 1 and prints no result.
+last line {"ok": true, "device": {...}}. It reads ckpt/, eval_data/ and
+tests/fixtures/ and writes only the package's build/ directory and, in
+temporary directories it removes, phase 6b's checkpoints and phase 13's
+pool and saved models. Without a CUDA device it exits 1 and prints no
+result.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -193,6 +219,9 @@ EXPECTED = {
                "window_attn_block.tiled": 35, "qpool_attn_block.tiled": 1,
                **{k: 0 for k in TRAIN_KERNELS}},
 }
+#: the reference deployment (PipelineConfig(): YOLOv11-l@640 + SAM2.1-L@1024,
+#: bf16) launches what L@1024 launches: YOLO has no kernel
+EXPECTED["reference"] = EXPECTED["l@1024"]
 #: the batched path at s@640 + t@512: BATCH_IMAGES drawings in chunks of
 #: BATCH_SIZE; the Hiera kernels launch once per chunk (the chunk's crops
 #: are one batch), the line enhancement once per image with a mask
@@ -343,8 +372,10 @@ SERVE_CLIENTS, SERVE_ROUNDS = 8, 5
 #: f32 trunk by up to 1.8 % of max |ref| and 1.3 % rms at this layout
 #: (hd 64 and 32, resolution 256)
 OFF_PRESET_MAX, OFF_PRESET_RMS = 2.0 ** -4, 2.0 ** -5
-#: ms of each timed analyze() by path (timed_runs), for the FLOP rates
+#: ms of each timed analyze() by path (timed_runs), for the FLOP rates,
+#: and each run's stage split
 ANALYZE_MS: dict = {}
+ANALYZE_STAGES: dict = {}
 #: the web UI phase: timed rounds of POSTs of every upload after a warm-up
 WEB_ROUNDS = 2
 #: float32 card vs float32 CPU: share of SAM2 mask pixels that must agree
@@ -1045,6 +1076,7 @@ def timed_runs(torch, analyzer, image, path):
         counts = read()
         ANALYZE_MS.setdefault(path, []).append(total_ms)
         stages = {k: round(v * 1e3, 3) for k, v in res.timings.timings.items()}
+        ANALYZE_STAGES.setdefault(path, []).append(stages)
         print(json.dumps({"path": path, "analyze_run": run, "total_ms": total_ms,
                           "stages_ms": stages, "launches": counts,
                           "boxes": len(res.bboxes_orig_nms), "nodes": len(res.nodes)}), flush=True)
@@ -1196,6 +1228,247 @@ def run_l_path(torch):
     print(json.dumps({"f32_card_vs_cpu_l1024": {
         "sam2_logits": path_err(torch, "SAM2-L logits", got, ref),
         "shape": list(ref.shape)}}), flush=True)
+    return launches
+
+
+#: the reference deployment's checkpoints: the PEFT adapters' alpha (the
+#: reference fine-tune's), the standard deviation of their seeded A and B
+#: (small enough that a fold moves a weight by a few per cent), and
+#: video-memory entries of a real SAM2.1 checkpoint, which the image path
+#: never reads
+REF_LORA_ALPHA, REF_LORA_STD = 16.0, 0.01
+REF_VIDEO_KEYS = {
+    "sam2_model.base_model.model.memory_attention.layers.0.self_attn.q_proj.weight": (256, 256),
+    "sam2_model.base_model.model.maskmem_tpos_enc": (7, 1, 1, 64),
+    "sam2_model.base_model.model.no_mem_embed": (1, 1, 256),
+}
+REF_SEEDS = {"yolo": 20, "sam2": 21, "lora": 22}
+
+
+def peft_reference(np, plain, inventory):
+    """A torch-named SAM2 state dict as the reference fine-tune saves it
+    (PEFT + SAM2ImageWrapper): the keys of `inventory`
+    (`sam2_convert.reference_checkpoint_inventory`), each base or wrapper
+    key holding its weight of `plain` and each `lora_A/lora_B.default` a
+    seeded array, plus REF_VIDEO_KEYS. Returns the checkpoint and the
+    plain dict with each target's W + (alpha/r)·B·A folded here in numpy
+    float32, apart from the converter's fold."""
+    from circuitvision_tpu_torch.models.sam2.convert import REFERENCE_LORA_TARGETS
+
+    rng = np.random.default_rng(REF_SEEDS["lora"])
+    prefix = "sam2_model.base_model.model."
+    ckpt = {}
+    for key, shape in inventory.items():
+        if ".lora_" in key:
+            ckpt[key] = (rng.standard_normal(shape) * REF_LORA_STD).astype(np.float32)
+        else:
+            ckpt[key] = plain[key.removeprefix(prefix).replace(".base_layer.", ".")]
+    folded = dict(plain)
+    for mod in REFERENCE_LORA_TARGETS:
+        a = ckpt[f"{prefix}{mod}.lora_A.default.weight"]
+        b = ckpt[f"{prefix}{mod}.lora_B.default.weight"]
+        w, r = plain[f"{mod}.weight"], a.shape[0]
+        scale = REF_LORA_ALPHA / r
+        delta = scale * (b @ a) if w.ndim == 2 else \
+            scale * np.einsum("or,rikl->oikl", b.reshape(w.shape[0], r), a)
+        folded[f"{mod}.weight"] = w + delta.astype(w.dtype)
+    for key, shape in REF_VIDEO_KEYS.items():
+        ckpt[key] = np.zeros(shape, np.float32)
+    return ckpt, folded
+
+
+def _same_tree(np, what, got, want):
+    """Leaf for leaf, dtype, shape and bytes, or AssertionError."""
+    from circuitvision_tpu_torch.models.bridge import flatten
+
+    got, want = dict(flatten(got)), dict(flatten(want))
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: leaves differ: {sorted(set(got) ^ set(want))[:8]}")
+    bad = [k for k, w in want.items()
+           if (got[k].dtype, got[k].shape) != (w.dtype, w.shape) or not np.array_equal(got[k], w)]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} leaves differ, e.g. {bad[:4]}")
+    return len(want)
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def run_reference_deployment(torch, smi):
+    """Phase 6b: the reference deployment from the reference's
+    checkpoints (see the module docstring). Returns the launches of each
+    kernel in one analyze()."""
+    import os
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from circuitvision_tpu_torch.core.config import PipelineConfig
+    from circuitvision_tpu_torch.io.image_io import encode_png
+    from circuitvision_tpu_torch.models import bridge
+    from circuitvision_tpu_torch.models.checkpoint import load_model_checkpoint
+    from circuitvision_tpu_torch.models.sam2 import convert as sam2_convert
+    from circuitvision_tpu_torch.models.sam2.wrapper import SAM2ImageSegmenter
+    from circuitvision_tpu_torch.models.yolo import convert as yolo_convert
+    from circuitvision_tpu_torch.models.yolo.decode import STRIDES
+    from circuitvision_tpu_torch.models.yolo.model import YOLOv11
+    from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
+
+    cfg = PipelineConfig()
+    describe(cfg)
+    det = cfg.detector
+    ymeta = {"detector": {"scale": det.scale, "img_size": det.img_size,
+                          "num_classes": det.num_classes, "reg_max": det.reg_max}}
+    with torch.device("meta"):
+        ymodel = YOLOv11(det.num_classes, det.scale, det.reg_max)
+        smodel = SAM2ImageSegmenter(cfg.sam2)
+    t0 = time.perf_counter()
+    yvars = bridge.variables_from_state_dict(bridge.seeded_state("yolo", ymeta, REF_SEEDS["yolo"]),
+                                             ymodel)
+    svars = bridge.variables_from_state_dict(bridge.seeded_state("sam2", {}, REF_SEEDS["sam2"]),
+                                             smodel)
+    # state dicts in the reference's naming: ultralytics-nested YOLO with the
+    # DFL arange and one num_batches_tracked a BatchNorm; PEFT-wrapped SAM2.1-L
+    yref = {f"model.{k}": v for k, v in yolo_convert.export_torch_state(yvars).items()}
+    for k in [k for k in yref if k.endswith(".bn.weight")]:
+        yref[k[:-len("weight")] + "num_batches_tracked"] = np.zeros((), np.int64)
+    yref["model.model.23.dfl.conv.weight"] = np.arange(
+        det.reg_max, dtype=np.float32).reshape(1, det.reg_max, 1, 1)
+    sref, folded = peft_reference(np, sam2_convert.export_torch_state(svars),
+                                  sam2_convert.reference_checkpoint_inventory(
+                                      bridge.variables_template(smodel)))
+    expected = {"yolo": yvars, "sam2": sam2_convert.convert_state_dict(
+        folded, bridge.variables_template(smodel))}
+    seeded = dict(bridge.flatten(svars))
+    moved = sum(not np.array_equal(w, seeded[k]) for k, w in bridge.flatten(expected["sam2"]))
+    del folded
+    # every key of the frozen inventories (the YOLO one without the
+    # ultralytics nesting, as load_ultralytics_checkpoint returns it)
+    inventory = {}
+    for kind, ref, extra in (("yolo", {k.removeprefix("model."): v for k, v in yref.items()}, {}),
+                             ("sam2", sref, REF_VIDEO_KEYS)):
+        with open(REPO / "tests" / "fixtures" / f"{kind}_l_reference_checkpoint_keys.json") as f:
+            frozen = {k: tuple(v) for k, v in json.load(f).items()}
+        have = {k: tuple(np.shape(v)) for k, v in ref.items() if k not in extra}
+        if have != frozen:
+            raise AssertionError(f"{kind}: the built checkpoint is not the frozen inventory: "
+                                 f"{sorted(set(have.items()) ^ set(frozen.items()))[:6]}")
+        inventory[kind] = len(frozen)
+    if moved != len(sam2_convert.REFERENCE_LORA_TARGETS):
+        raise AssertionError(f"{moved} SAM2 leaves moved by the fold, expected "
+                             f"{len(sam2_convert.REFERENCE_LORA_TARGETS)}")
+    build_s = time.perf_counter() - t0
+
+    image, _boxes = draw_schematic(0)
+    row = {"inventory_keys": inventory, "lora_targets_folded": moved, "build_s": build_s}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        files = {"yolo": tmp / "best.pt", "sam2": tmp / "best_miou_model_SAM_latest.pth"}
+        for kind, ref in (("yolo", yref), ("sam2", sref)):
+            torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in ref.items()},
+                       files[kind])
+        del yref, sref
+        # (1) the port's converter command line, (2) its reader, (3) leaf
+        # for leaf against the expected folded weights
+        readback = {}
+        for kind in ("yolo", "sam2"):
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "-m", "circuitvision_tpu_torch.models.checkpoint",
+                                  f"convert-{kind}", str(files[kind]), str(tmp / kind)],
+                                 cwd=REPO, capture_output=True, text=True, timeout=600)
+            process_s = time.perf_counter() - t0
+            said = re.search(r"converted .*: ([\d.]+) s to read and convert, ([\d.]+) s to write",
+                             run.stdout)
+            if run.returncode or not said:
+                raise AssertionError(f"convert-{kind} failed ({run.returncode}):\n"
+                                     f"{run.stdout}\n{run.stderr}")
+            t0 = time.perf_counter()
+            readback[kind], meta = load_model_checkpoint(str(tmp / kind))
+            read_s = time.perf_counter() - t0
+            leaves = _same_tree(np, f"{kind} read back", readback[kind], expected[kind])
+            row[kind] = {"source_bytes": files[kind].stat().st_size, "process_s": process_s,
+                         "convert_s": float(said[1]), "write_s": float(said[2]),
+                         "bytes_written": _dir_bytes(tmp / kind),
+                         "read_s": read_s, "leaves": leaves, "meta": meta}
+        print(json.dumps({"reference_checkpoints": {**row, "card": smi}}), flush=True)
+
+        # (4) the default PipelineConfig() from the read-back weights
+        states = {k: bridge.state_dict_from_variables(v) for k, v in readback.items()}
+        del readback
+        conv = CircuitAnalyzerTorch(cfg, states["yolo"], states["sam2"], device="cuda")
+        launches = timed_runs(torch, conv, image, "reference")
+        ms = ANALYZE_MS["reference"]
+        stages = {k: statistics.median(run[k] for run in ANALYZE_STAGES["reference"])
+                  for k in ANALYZE_STAGES["reference"][0]}
+        got = conv.analyze(image)
+        mem = CircuitAnalyzerTorch(cfg, bridge.state_dict_from_variables(expected["yolo"]),
+                                   bridge.state_dict_from_variables(expected["sam2"]),
+                                   device="cuda")
+        want = mem.analyze(image)
+        diffs = {}
+        for (s, g), r in zip(zip(STRIDES, conv.yolo_heads(image)[0]), mem.yolo_heads(image)[0]):
+            diffs[f"yolo_head_stride{s}"] = (g, r)
+        diffs["sam2_logits"] = (conv.segment_logits(image), mem.segment_logits(image))
+        equal = {}
+        for name, (g, r) in diffs.items():
+            g, r = g.float(), r.float()
+            err, tol = float((g - r).abs().max()), F32_PATH_RTOL * max(1.0, float(r.abs().max()))
+            equal[name] = {"max_abs_err": err, "tol": tol}
+            if not torch.isfinite(g).all() or err > tol:
+                raise AssertionError(f"{name}: converted vs in-memory weights {err:.3e} > "
+                                     f"{tol:.3e}")
+        del mem
+
+        # (5) the CLI on the converted directories, in a process
+        png = tmp / "schematic.png"
+        png.write_bytes(encode_png(image))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "circuitvision_tpu_torch.cli", "analyze",
+                              str(png), "--yolo-checkpoint", str(tmp / "yolo"),
+                              "--sam2-checkpoint", str(tmp / "sam2"),
+                              "--netlist", str(tmp / "cli.cir")],
+                             cwd=REPO, capture_output=True, text=True, timeout=600,
+                             env={**os.environ, "CIRCUITVISION_VLM": ""})
+        cli_s = time.perf_counter() - t0
+        if run.returncode:
+            raise AssertionError(f"cli analyze failed ({run.returncode}):\n{run.stderr[-3000:]}")
+        cli_text = (tmp / "cli.cir").read_text()
+    # the detections and node count the CLI printed, as cli.py prints them
+    printed = run.stdout.split("=== detections ===\n", 1)[-1].split("=== netlist ===", 1)[0]
+    want_printed = "".join(f"  {b.class_name:28s} conf={b.confidence:.2f} "
+                           f"[{b.xmin},{b.ymin},{b.xmax},{b.ymax}]\n"
+                           for b in got.bboxes_orig_nms) + f"=== nodes: {len(got.nodes)} ===\n"
+    # (6) the temporary directory is gone; YOLO-l float32 card against CPU
+    cfg32 = dataclasses.replace(cfg, detector=dataclasses.replace(det, dtype="float32"),
+                                use_sam2=False)
+    card32 = CircuitAnalyzerTorch(cfg32, states["yolo"], None, device="cuda")
+    cpu32 = CircuitAnalyzerTorch(cfg32, states["yolo"], None, device="cpu")
+    t0 = time.perf_counter()
+    c_heads = cpu32.yolo_heads(image)[0]
+    cpu_s = time.perf_counter() - t0
+    f32 = {f"yolo_l_head_stride{s}": path_err(torch, f"YOLO-l head, stride {s}", g, c)
+           for s, g, c in zip(STRIDES, card32.yolo_heads(image)[0], c_heads)}
+    print(json.dumps({"reference_deployment": {
+        "config": "PipelineConfig(): YOLOv11-l@640 (62 classes) + SAM2.1-L@1024, bfloat16",
+        "analyze_ms_median": statistics.median(ms), "analyze_ms_min": min(ms),
+        "analyze_ms_max": max(ms), "analyze_ms": ms, "stages_ms_median": stages,
+        "launches_per_analyze": launches, "boxes": len(got.bboxes_orig_nms),
+        "nodes": len(got.nodes), "netlist_lines": len(got.netlist_text.splitlines()),
+        "converted_vs_in_memory": equal, "cli_s": cli_s,
+        "cli_netlist_equal": cli_text == got.netlist_text + "\n",
+        "cli_detections_equal": printed == want_printed,
+        "f32_card_vs_cpu": f32, "cpu_f32_yolo_l_s": cpu_s, "card": smi}}), flush=True)
+    if _box_keys(got) != _box_keys(want) or len(got.nodes) != len(want.nodes) \
+            or got.netlist_text != want.netlist_text:
+        raise AssertionError(f"converted and in-memory weights differ: boxes {_box_keys(got)} "
+                             f"vs {_box_keys(want)}, nodes {len(got.nodes)} vs "
+                             f"{len(want.nodes)}, netlists\n{got.netlist_text}\n--\n"
+                             f"{want.netlist_text}")
+    if cli_text != got.netlist_text + "\n" or printed != want_printed:
+        raise AssertionError(f"the CLI's result differs:\n{printed}{cli_text}\n--\n"
+                             f"{want_printed}{got.netlist_text}")
     return launches
 
 
@@ -1956,24 +2229,26 @@ def run_web_ui(torch, smi, product):
 def run_flops(torch, smi):
     """The FLOP count (models/flops.py, FlopCounterMode over the module
     path on the meta device) of one trained-product analyze() (YOLOv11-s@640
-    + SAM2 Hiera-t@512) and one L@1024 analyze() (YOLOv11-s@640 + the
-    default SAM2Config), and the rate each implies at this run's analyze()
-    times against the card's peak (flops.device_peak_flops)."""
+    + SAM2 Hiera-t@512), one L@1024 analyze() (YOLOv11-s@640 + the
+    default SAM2Config) and one reference-deployment analyze()
+    (PipelineConfig(): YOLOv11-l@640 + the default SAM2Config), and the
+    rate each implies at this run's analyze() times against the card's
+    peak (flops.device_peak_flops)."""
     import statistics
 
-    from circuitvision_tpu_torch.core.config import SAM2Config
+    from circuitvision_tpu_torch.core.config import DetectorConfig, SAM2Config
     from circuitvision_tpu_torch.models import flops
     from circuitvision_tpu_torch.models.bridge import detector_config, sam2_config
 
     ymeta = json.loads((REPO / "ckpt" / "yolo" / "meta.json").read_text())
     smeta = json.loads((REPO / "ckpt" / "sam2" / "meta.json").read_text())
     det = detector_config(ymeta)
-    yolo = flops.yolo_forward_flops(det)
     rows = {}
-    for name, scfg, path, dtype in (
-            ("trained_product", sam2_config(smeta), "trained-product", torch.float32),
-            ("l@1024", SAM2Config(), "l@1024", torch.bfloat16)):
-        sam2 = flops.sam2_forward_flops(scfg)
+    for name, dcfg, scfg, path, dtype in (
+            ("trained_product", det, sam2_config(smeta), "trained-product", torch.float32),
+            ("l@1024", det, SAM2Config(), "l@1024", torch.bfloat16),
+            ("reference", DetectorConfig(), SAM2Config(), "reference", torch.bfloat16)):
+        yolo, sam2 = flops.yolo_forward_flops(dcfg), flops.sam2_forward_flops(scfg)
         ms = statistics.median(ANALYZE_MS[path])
         peak = flops.device_peak_flops("cuda", dtype)
         rows[name] = {"yolo_flops": yolo, "sam2_flops": sam2, "total_flops": yolo + sam2,
@@ -2440,6 +2715,57 @@ def step_split(torch, model, params, tx, opt_state, loss_of_heads, x, steps=5):
     return {f"{k}_ms": statistics.median(v[1:]) for k, v in parts.items()}
 
 
+def saved_trained_model(torch, smi, kind, out, image=None):
+    """A trained detector or reader written as the JAX trainers write it
+    (yolo_train.save_detector: orbax + meta.json; reader.save_reader: a
+    bare orbax directory), read back by load_model_checkpoint, equal leaf
+    for leaf to the in-memory weights; for the detector, an analyzer from
+    the written checkpoint gives `image` the heads of one from the
+    in-memory parameters."""
+    import tempfile
+
+    import numpy as np
+
+    from circuitvision_tpu_torch.core.config import PipelineConfig
+    from circuitvision_tpu_torch.models import bridge
+    from circuitvision_tpu_torch.models.checkpoint import load_model_checkpoint
+    from circuitvision_tpu_torch.models.yolo.decode import STRIDES
+    from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
+    from circuitvision_tpu_torch.train import reader as rt
+    from circuitvision_tpu_torch.train import yolo_train as yt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/{kind}"
+        t0 = time.perf_counter()
+        if kind == "detector":
+            yt.save_detector(path, out, scale="s", img_size=640, steps=DET_STEPS,
+                             batch=DET_BATCH, pool="chip_smoke_pool")
+        else:
+            rt.save_reader(path, out)
+        write_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(path)
+        t0 = time.perf_counter()
+        got, meta = load_model_checkpoint(path)
+        read_s = time.perf_counter() - t0
+    leaves = _same_tree(np, f"the written {kind}", got,
+                        bridge.variables_from_state_dict(out["params"], out["model"]))
+    row = {"kind": kind, "write_s": write_s, "bytes_written": nbytes, "read_s": read_s,
+           "leaves": leaves, "meta": meta}
+    if kind == "detector":
+        det = dataclasses.replace(bridge.detector_config(meta), dtype="float32")
+        cfg = PipelineConfig(detector=det, use_sam2=False)
+        heads = [CircuitAnalyzerTorch(cfg, state, None, device="cuda").yolo_heads(image)[0]
+                 for state in (bridge.state_dict_from_variables(got),
+                               {n: t.detach() for n, t in out["params"].items()})]
+        row["heads_written_vs_in_memory"] = {
+            f"stride{s}": path_err(torch, f"written detector head, stride {s}", g, r.cpu())
+            for s, g, r in zip(STRIDES, *heads)}
+        if meta["detector"] != {"scale": "s", "img_size": 640, "num_classes": det.num_classes,
+                                "reg_max": 16} or meta["kind"] != "yolo":
+            raise AssertionError(f"the written detector's meta: {meta}")
+    print(json.dumps({"trained_model_written": {**row, "card": smi}}), flush=True)
+
+
 def run_trainers(torch, smi):
     """Phase 13: the pool, the detector's and the reader's training (see
     the module docstring). Raises on any gate."""
@@ -2510,6 +2836,7 @@ def run_trainers(torch, smi):
         raise AssertionError(f"detector: skipped steps or no foreground: {hist}")
     if not all(x < losses[0] for x in losses[-5:]):
         raise AssertionError(f"detector: the last 5 losses are not below the first: {losses}")
+    saved_trained_model(torch, smi, "detector", out, images[0])
 
     model, params = out["model"], out["params"]
     det_cfg = yl.YOLOLossConfig(num_classes=len(TRAIN_CLASSES), img_size=640)
@@ -2597,6 +2924,7 @@ def run_trainers(torch, smi):
         "card": smi}}), flush=True)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"reader: a loss is not finite: {losses}")
+    saved_trained_model(torch, smi, "reader", out)
 
     model = out["model"]
     dev_batch = [torch.from_numpy(np.ascontiguousarray(data[k][:READER_BATCH])).cuda()
@@ -2680,6 +3008,11 @@ def main() -> int:
     launches["l@1024"] = run_l_path(torch)
     done(t0, "main path at L@1024")
 
+    t0 = phase("the reference deployment from the reference's checkpoints: YOLOv11-l@640 + "
+               "SAM2.1-L@1024, LoRA folded")
+    launches["reference"] = run_reference_deployment(torch, smi)
+    done(t0, "the reference deployment")
+
     t0 = phase("batched path at s@640 + t@512 (analyze_many, fused morphology)")
     launches["batch"], raster_shapes = run_batched_path(torch, smi)
     done(t0, "batched path")
@@ -2753,6 +3086,7 @@ def main() -> int:
     kernels = [{"name": n, "route": "cuda", "source": SOURCES[n], "replaces": REPLACES[n],
                 "path": path, **entry(n, s, launches[path]),
                 "launches_t512": launches["t@512"][n],
+                "launches_reference": launches["reference"][n],
                 "launches_trained_product": launches["product"][n],
                 "launches_trained_product_batch": launches["product-batch"][n],
                 "launches_served": launches["served"][n],

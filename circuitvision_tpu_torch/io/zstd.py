@@ -1,4 +1,5 @@
-"""zstd frame decoding through the system's libzstd, bound with ctypes.
+"""zstd frames decoded and encoded through the system's libzstd, bound
+with ctypes.
 
 The orbax checkpoints compress twice with zstd: OCDBT compresses its
 manifests and b-tree nodes, and every zarr chunk names the zstd
@@ -6,13 +7,16 @@ compressor (models/checkpoint.py). About 164 MB of the three shipped
 checkpoints sit in compressed blocks, far too much for a decoder in
 Python. The machines the port runs on carry the system libzstd.so.1
 (1.5.5 beside the H100), so the port decodes through it and has no
-other path: without the library, `decompress` raises and names it.
+other path: without the library, `decompress` raises and names it. The
+checkpoint writer (models/checkpoint_writer.py) encodes through the same
+library with `compress`.
 """
 from __future__ import annotations
 
 import ctypes
 import ctypes.util
 import functools
+import os
 
 #: output bytes drawn at a time
 _STEP = 1 << 20
@@ -32,12 +36,18 @@ class _OutBuffer(ctypes.Structure):
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """The system libzstd, its functions typed."""
+    """The system libzstd, its functions typed. It is bound to its own
+    symbols first (RTLD_DEEPBIND): libzstd calls its public functions
+    through the PLT, so another zstd in the process's global scope — the
+    one TensorFlow's framework library exports once `import tensorflow`
+    has loaded it globally — would otherwise take those calls with its
+    own struct layouts (a frame that states its content size then fails,
+    "Src size is incorrect")."""
     path = ctypes.util.find_library("zstd")
     if path is None:
         raise ZstdError("libzstd (libzstd.so.1) is not installed; the checkpoint reader "
                         "decodes zstd frames through it")
-    lib = ctypes.CDLL(path)
+    lib = ctypes.CDLL(path, mode=ctypes.RTLD_LOCAL | os.RTLD_DEEPBIND)
     size_t, ptr = ctypes.c_size_t, ctypes.c_void_p
     lib.ZSTD_createDCtx.restype = ptr
     lib.ZSTD_createDCtx.argtypes = []
@@ -52,6 +62,10 @@ def library() -> ctypes.CDLL:
     lib.ZSTD_getErrorName.argtypes = [size_t]
     lib.ZSTD_versionNumber.restype = ctypes.c_uint
     lib.ZSTD_versionNumber.argtypes = []
+    lib.ZSTD_compressBound.restype = size_t
+    lib.ZSTD_compressBound.argtypes = [size_t]
+    lib.ZSTD_compress.restype = size_t
+    lib.ZSTD_compress.argtypes = [ptr, size_t, ptr, size_t, ctypes.c_int]
     return lib
 
 
@@ -88,3 +102,15 @@ def decompress(data: bytes) -> bytes:
         return b"".join(chunks)
     finally:
         lib.ZSTD_freeDCtx(dctx)
+
+
+def compress(data: bytes, level: int = 1) -> bytes:
+    """`data` as one zstd frame that states its content size, at
+    compression `level` (orbax's zarr chunks use 1)."""
+    lib = library()
+    data = bytes(data)
+    cap = lib.ZSTD_compressBound(len(data))
+    src = ctypes.create_string_buffer(data, len(data))
+    out = ctypes.create_string_buffer(cap)
+    n = _check(lib, lib.ZSTD_compress(out, cap, src, len(data), level), "compress")
+    return out.raw[:n]

@@ -18,10 +18,14 @@ map is by name; only layouts change:
 Loading the result with `strict=True` checks that every name and shape
 lines up. `seeded_state` builds full-shape weights from a numpy seed for
 a run that has no checkpoint the machine can read. `flax_names` maps the
-other way (the fine-tune's trainable surface is written in flax paths),
-and `train_state_from_jax` / `lora_state_from_jax` carry the JAX
-package's train state — optax's Adam and MultiSteps state, the EMA, the
-LoRA adapters — into the port's, leaf for leaf.
+other way (the fine-tune's trainable surface is written in flax paths);
+`variables_from_state_dict` takes a port state dict back to the JAX
+variable tree, exactly (what the checkpoint writer saves), and
+`variables_template` gives that tree's paths and shapes from a model on
+the meta device (what the converters fill); and `train_state_from_jax`
+/ `lora_state_from_jax` carry the JAX package's train state — optax's
+Adam and MultiSteps state, the EMA, the LoRA adapters — into the port's,
+leaf for leaf.
 """
 from __future__ import annotations
 
@@ -33,12 +37,14 @@ import torch
 from ..core.config import DetectorConfig, SAM2Config, sam2_hiera_preset
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
+_STAT_OF = {v: k for k, v in _STATS.items()}
 
 
-def _flatten(tree: Mapping, prefix=()):
+def flatten(tree: Mapping, prefix=()):
+    """(path, leaf) of each leaf of nested dicts, the keys as strings."""
     for k, v in tree.items():
         if isinstance(v, Mapping):
-            yield from _flatten(v, prefix + (str(k),))
+            yield from flatten(v, prefix + (str(k),))
         else:
             yield prefix + (str(k),), v
 
@@ -73,7 +79,7 @@ def state_dict_from_variables(variables: Mapping) -> dict[str, torch.Tensor]:
     """JAX variables {"params": ..., "batch_stats": ...} → port state dict
     (float32 tensors)."""
     out: dict[str, torch.Tensor] = {}
-    for path, leaf in _flatten(variables):
+    for path, leaf in flatten(variables):
         key, arr = port_leaf(path, np.asarray(leaf, np.float32))
         if key in out:
             raise KeyError(f"two variables map to {key}")
@@ -81,12 +87,23 @@ def state_dict_from_variables(variables: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+def _norm_modules(model: torch.nn.Module) -> set[str]:
+    """Names of the modules whose `weight` is a flax norm's "scale": the
+    LayerNorms (float32_params, torch's own, the reader's channel norm)
+    and YOLO's BatchNorm."""
+    from .layers import FrozenBatchNorm
+    from .reader import ChannelLayerNorm
+
+    return {n for n, m in model.named_modules()
+            if getattr(m, "float32_params", False)
+            or isinstance(m, (torch.nn.LayerNorm, FrozenBatchNorm, ChannelLayerNorm))}
+
+
 def flax_names(model: torch.nn.Module) -> dict[str, str]:
     """The name map the other way: each parameter of a port model → its
     path in the JAX package's variable tree, "params/<modules>/<leaf>"
-    (a Linear or Conv weight is a flax "kernel", a LayerNorm's a "scale")."""
-    norms = {n for n, m in model.named_modules()
-             if getattr(m, "float32_params", False) or isinstance(m, torch.nn.LayerNorm)}
+    (a Linear or Conv weight is a flax "kernel", a norm's a "scale")."""
+    norms = _norm_modules(model)
     out = {}
     for name, _ in model.named_parameters():
         mod, _, leaf = name.rpartition(".")
@@ -94,6 +111,81 @@ def flax_names(model: torch.nn.Module) -> dict[str, str]:
             leaf = "scale" if mod in norms else "kernel"
         out[name] = "/".join(["params", *(mod.split(".") if mod else []), leaf])
     return out
+
+
+def _jax_path(key: str, names: Mapping[str, str]) -> tuple[str, ...]:
+    """The JAX variable path of the port's state-dict `key` (port_key's
+    inverse): a parameter by `flax_names`, a BatchNorm statistic in
+    "batch_stats"."""
+    if key in names:
+        return tuple(names[key].split("/"))
+    mod, _, leaf = key.rpartition(".")
+    stat = _STAT_OF.get(leaf)
+    if stat is None:
+        raise KeyError(f"{key} is neither a parameter nor a BatchNorm statistic")
+    return ("batch_stats", *mod.split("."), stat)
+
+
+def _jax_layout(path: tuple[str, ...], t: torch.Tensor) -> torch.Tensor:
+    """A port tensor in the JAX layout of the variable at `path`
+    (port_leaf's inverse; torch ops, so a meta tensor gives the shape)."""
+    mods, leaf_name = path[1:-1], path[-1]
+    if leaf_name == "kernel" and t.ndim == 2:
+        return t.T
+    if leaf_name == "kernel" and mods[-1].startswith("output_upscaling"):
+        return t.permute(2, 3, 0, 1).flip(0, 1)
+    if leaf_name == "kernel":
+        return t.permute(2, 3, 1, 0)
+    return t
+
+
+def nest(items) -> dict:
+    """Nested dicts of (path, leaf) pairs: `flatten`'s inverse."""
+    tree: dict = {}
+    for path, leaf in items:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        if path[-1] in node:
+            raise KeyError(f"two tensors map to {'/'.join(path)}")
+        node[path[-1]] = leaf
+    return tree
+
+
+def variables_from_state_dict(state: Mapping[str, torch.Tensor],
+                              model: torch.nn.Module) -> dict:
+    """The port's state dict of `model` (any device; `model` may lie on
+    the meta device) → the JAX variable tree {"params": ...,
+    "batch_stats": ...} as nested dicts of float32 numpy arrays: the
+    exact inverse of `state_dict_from_variables`."""
+    names = flax_names(model)
+    items = []
+    for key, t in state.items():
+        path = _jax_path(key, names)
+        arr = _jax_layout(path, t.detach().to("cpu", torch.float32)).contiguous().numpy()
+        items.append((path, arr))
+    return nest(items)
+
+
+def variables_template(model: torch.nn.Module) -> dict:
+    """The JAX variable tree of `model` as `variables_from_state_dict`
+    gives it, each leaf a read-only float32 zero array of the leaf's
+    shape that holds no memory (a broadcast scalar): what a converter
+    fills, at any size. Build `model` under `torch.device("meta")`."""
+    names = flax_names(model)
+    zero = np.zeros((), np.float32)
+    items = []
+    for key, t in model.state_dict().items():
+        path = _jax_path(key, names)
+        items.append((path, np.broadcast_to(zero, tuple(_jax_layout(path, t).shape))))
+    return nest(items)
+
+
+def as_numpy(v) -> np.ndarray:
+    """A tensor (any device) or array-like as a numpy array."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
 
 
 def tensor_from_numpy(arr, device=None) -> torch.Tensor:
@@ -121,7 +213,7 @@ def port_tree(tree: Mapping, device=None) -> dict[str, torch.Tensor]:
     """A params-shaped JAX tree (MaskedNode where a leaf is not owned) →
     {port name: tensor in the port's layout}."""
     out = {}
-    for path, leaf in _flatten(tree):
+    for path, leaf in flatten(tree):
         if _masked(leaf):
             continue
         key, arr = port_leaf(path, np.asarray(leaf))
@@ -200,7 +292,7 @@ def leaves_in_jax_order(tree: Mapping, names, leaves, device=None) -> dict[str, 
     every level; an EMA list, an optimizer's moments) → {port name:
     tensor in the port's layout}."""
     names = set(names)
-    paths = [path for path, _ in sorted(_flatten(tree), key=lambda item: item[0])
+    paths = [path for path, _ in sorted(flatten(tree), key=lambda item: item[0])
              if port_key(path) in names]
     if len(paths) != len(leaves):
         raise ValueError(f"{len(leaves)} leaves for {len(paths)} trainable parameters")
@@ -219,10 +311,14 @@ def sam2_config(meta: Mapping, dtype: str | None = None) -> SAM2Config:
     """SAM2Config of a checkpoint's meta.json ("sam2" section: a Hiera
     preset plus overrides). The compute dtype is `dtype` when given, else
     the one the checkpoint was trained in ("sam2_config"/"dtype"), else
-    the config's default."""
-    s = meta["sam2"]
+    the config's default. A checkpoint without a "sam2" section (a bare
+    orbax directory, as `convert_sam2_checkpoint` writes) is the default
+    SAM2Config(), as the JAX CLI loads one."""
     dtype = dtype or meta.get("sam2_config", {}).get("dtype")
     extra = {"dtype": dtype} if dtype else {}
+    if "sam2" not in meta:
+        return SAM2Config(**extra)
+    s = meta["sam2"]
     return sam2_hiera_preset(s["preset"], **{**s.get("overrides", {}), **extra})
 
 

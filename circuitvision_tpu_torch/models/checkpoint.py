@@ -1,8 +1,13 @@
-"""Orbax checkpoints read with numpy, ctypes and the standard library.
+"""Orbax checkpoints read with numpy, ctypes and the standard library,
+and the converters from the reference's torch checkpoints (USAGE below).
 
 Counterpart of the JAX package's `models/checkpoint.py`
-`load_variables` (:31) and `load_model_checkpoint` (:72), which read
-through orbax and tensorstore; the card's machine has neither. An orbax
+`load_variables` (:31), `load_model_checkpoint` (:72) and its converter
+entry points (:89-168) and `main` (:184), which read and write through
+orbax and tensorstore; the card's machine has neither. The writer is
+`models/checkpoint_writer.py`; a converter writes a bare orbax directory
+(no meta.json), as the JAX package's does, which the port's CLI loads
+at the flags' detector and the default SAM2Config(). An orbax
 PyTree checkpoint, as the repo's `ckpt/` holds them, is:
 
   * `_METADATA` (JSON): the tree, one entry a leaf with its key path;
@@ -36,6 +41,8 @@ from __future__ import annotations
 import json
 import os
 import struct
+import sys
+import time
 from typing import Mapping
 
 import numpy as np
@@ -356,3 +363,112 @@ def load_model_checkpoint(path: str) -> tuple[dict, dict]:
     if not os.path.isdir(var_path):
         var_path = path
     return load_variables(var_path), meta
+
+
+def yolo_variables_from_checkpoint(torch_path: str, scale: str = "l", num_classes: int = 62,
+                                   img_size: int = 640) -> dict:
+    """Ultralytics .pt → the YOLOv11 variable tree (`img_size` changes no
+    shape; it is taken for the JAX signature)."""
+    import torch
+
+    from . import bridge
+    from .yolo.convert import convert_state_dict, load_ultralytics_checkpoint
+    from .yolo.model import YOLOv11
+
+    state = load_ultralytics_checkpoint(torch_path)
+    with torch.device("meta"):
+        model = YOLOv11(num_classes, scale)
+    return convert_state_dict(state, bridge.variables_template(model))
+
+
+def sam2_variables_from_checkpoint(torch_path: str, lora_alpha: float = 16.0) -> dict:
+    """Fine-tuned SAM2 .pth (PEFT + wrapper) → the variable tree at the
+    default SAM2Config(), the LoRA deltas folded. The file is unpickled
+    (torch.load with weights_only=False, as the JAX package loads it):
+    convert only files you trust."""
+    import torch
+
+    from ..core.config import SAM2Config
+    from . import bridge
+    from .sam2.convert import convert_state_dict
+    from .sam2.wrapper import SAM2ImageSegmenter
+
+    obj = torch.load(torch_path, map_location="cpu", weights_only=False)
+    state = obj.get("state_dict", obj) if isinstance(obj, dict) else obj.state_dict()
+    with torch.device("meta"):
+        model = SAM2ImageSegmenter(SAM2Config())
+    return convert_state_dict(state, bridge.variables_template(model), lora_alpha=lora_alpha)
+
+
+def convert_yolo_checkpoint(torch_path: str, out_path: str, scale: str = "l",
+                            num_classes: int = 62, img_size: int = 640) -> None:
+    """Ultralytics .pt → orbax checkpoint of the YOLOv11 variable tree."""
+    from .checkpoint_writer import save_variables
+
+    save_variables(out_path, yolo_variables_from_checkpoint(torch_path, scale, num_classes,
+                                                            img_size))
+
+
+def convert_sam2_checkpoint(torch_path: str, out_path: str, lora_alpha: float = 16.0) -> None:
+    """Fine-tuned SAM2 .pth → orbax checkpoint (see
+    `sam2_variables_from_checkpoint`)."""
+    from .checkpoint_writer import save_variables
+
+    save_variables(out_path, sam2_variables_from_checkpoint(torch_path, lora_alpha))
+
+
+USAGE = """\
+  python -m circuitvision_tpu_torch.models.checkpoint convert-yolo best.pt out/
+      [--scale n|s|m|l|x] [--num-classes N] [--img-size S]
+  python -m circuitvision_tpu_torch.models.checkpoint convert-sam2 best.pth out/
+      [--lora-alpha A]
+(convert-paligemma is not ported: ROADMAP Queue A 12)"""
+
+#: --flag → (converter kwarg, parser) per command; every documented
+#: converter kwarg is reachable from the CLI.
+_CLI_FLAGS = {
+    "convert-yolo": {
+        "--scale": ("scale", str),
+        "--num-classes": ("num_classes", int),
+        "--img-size": ("img_size", int),
+    },
+    "convert-sam2": {"--lora-alpha": ("lora_alpha", float)},
+}
+
+
+def main(argv=None) -> int:
+    argv = argv if argv is not None else sys.argv[1:]
+    commands = {"convert-yolo": yolo_variables_from_checkpoint,
+                "convert-sam2": sam2_variables_from_checkpoint}
+    if argv and argv[0] == "convert-paligemma":
+        print("convert-paligemma: the PaliGemma VLM head is not ported (ROADMAP Queue A 12)",
+              file=sys.stderr)
+        return 2
+    if len(argv) < 3 or argv[0] not in commands:
+        print(USAGE)
+        return 1
+    cmd, src, dst = argv[0], argv[1], argv[2]
+    flags = _CLI_FLAGS[cmd]
+    kwargs = {}
+    rest = argv[3:]
+    while rest:
+        flag = rest[0]
+        if flag not in flags or len(rest) < 2:
+            print(f"unknown argument {flag!r} for {cmd}; flags: {' '.join(sorted(flags))}")
+            return 1
+        name, parse = flags[flag]
+        kwargs[name] = parse(rest[1])
+        rest = rest[2:]
+    from .checkpoint_writer import save_variables
+
+    t0 = time.perf_counter()
+    tree = commands[cmd](src, **kwargs)
+    t1 = time.perf_counter()
+    save_variables(dst, tree)
+    print(f"converted {src} -> {dst}: {t1 - t0:.3f} s to read and convert, "
+          f"{time.perf_counter() - t1:.3f} s to write")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

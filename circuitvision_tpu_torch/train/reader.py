@@ -6,7 +6,8 @@ of `scripts/train_reader_demo.py` (`evaluate_product`, the loop), over
 the port's `models/reader.CropReader`, `make_crop` (cv2-exact resize)
 and `make_value_window`. Parameters are the reader's state dict
 ({port name: tensor}); the optimizer is `train/optim.adamw` with optax's
-warmup-cosine schedule.
+warmup-cosine schedule. `save_reader` writes the trained reader as the
+JAX script does: a bare orbax checkpoint of its variable tree.
 """
 from __future__ import annotations
 
@@ -227,3 +228,14 @@ def train_reader(data: dict, *, steps: int = 4000, batch: int = 256, lr: float =
             report(f"step {i:5d}  loss {row['loss']:.4f}  cls {row['cls']:.3f}  "
                    f"val {row['val']:.3f}  dir {row['dir']:.3f}  ({row['seconds']:.1f}s)")
     return {"params": params, "opt_state": opt, "history": history, "model": model}
+
+
+def save_reader(path: str, out: dict) -> None:
+    """`train_reader`'s result `out` as scripts/train_reader_demo.py:191-194
+    saves the reader: its variable tree {"params": ...}
+    (`bridge.variables_from_state_dict`) as a bare orbax checkpoint,
+    which `enrich/trained_reader` of either package loads."""
+    from ..models.bridge import variables_from_state_dict
+    from ..models.checkpoint_writer import save_variables
+
+    save_variables(path, variables_from_state_dict(out["params"], out["model"]))

@@ -12,9 +12,9 @@ statistics (flax `use_running_average=True`), the statistics take
 gradients through it, and AdamW's decay acts on them too — which is what
 the JAX trainer does, and so what the port does.
 
-The trainer saves resumable state with `train/checkpoint.save_train_state`;
-the JAX script's final orbax model checkpoint has no writer in the port
-yet.
+The trainer saves resumable state with `train/checkpoint.save_train_state`,
+and `save_detector` the trained model as the JAX script's final orbax
+model checkpoint, which the analyzer of either package loads.
 """
 from __future__ import annotations
 
@@ -254,3 +254,24 @@ def train_detector(images: np.ndarray, boxes_all, tiers, *, scale: str = "s",
     run_eval("final")
     return {"params": params, "opt_state": opt, "history": history, "map": maps,
             "model": model}
+
+
+def save_detector(path: str, out: dict, *, scale: str, img_size: int, steps: int, batch: int,
+                  pool: str) -> None:
+    """`train_detector`'s result `out` as the JAX trainer saves its model
+    (scripts/train_detector.py:258-279): the variable tree through
+    `bridge.variables_from_state_dict` and save_model_checkpoint, with
+    the meta "kind", "detector" (scale, img_size, num_classes, reg_max)
+    and "train" (steps, batch, the pool's name, the final held-out
+    mAP@50)."""
+    from ..models.bridge import variables_from_state_dict
+    from ..models.checkpoint_writer import save_model_checkpoint
+
+    model = out["model"]
+    save_model_checkpoint(path, variables_from_state_dict(out["params"], model), meta={
+        "kind": "yolo",
+        "detector": {"scale": scale, "img_size": img_size, "num_classes": model.num_classes,
+                     "reg_max": model.reg_max},
+        "train": {"steps": steps, "batch": batch, "pool": pool,
+                  "map50_holdout": float(out["map"]["final"]["all"])},
+    })

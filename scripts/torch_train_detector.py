@@ -3,9 +3,10 @@ PyTorch port (`circuitvision_tpu_torch.train.yolo_train.train_detector`),
 the flags and defaults of scripts/train_detector.py. The pool is
 letterboxed once (`eval/pool.load_pool`, cached in the pool directory)
 and held on the device; resumable state goes to --ckpt-dir
-(`train/checkpoint.save_train_state`). The port has no orbax writer yet:
-the final model is saved as that resumable state (--save names its
-directory), not as an orbax checkpoint.
+(`train/checkpoint.save_train_state`). --save writes the final model as
+the JAX script does (`yolo_train.save_detector`): an orbax checkpoint
+with its meta.json, which `--yolo-checkpoint` of either package's CLI
+loads.
 
 Usage: python scripts/torch_train_detector.py --pool .train_cache/pool_v1
            [--steps 12000 --batch 16 --device cuda]
@@ -32,15 +33,14 @@ def main(argv=None) -> int:
     ap.add_argument("--eval-every", type=int, default=2000)
     ap.add_argument("--limit", type=int, default=0, help="pool size cap")
     ap.add_argument("--save", default=".train_cache/yolo_final",
-                    help="directory of the final train state (resumable format)")
+                    help="directory of the final model checkpoint (orbax + meta.json)")
     ap.add_argument("--ckpt-dir", default=".train_cache/yolo_run")
     ap.add_argument("--save-every", type=int, default=1000)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     from circuitvision_tpu_torch.eval.pool import load_pool
-    from circuitvision_tpu_torch.train.checkpoint import save_train_state
-    from circuitvision_tpu_torch.train.yolo_train import train_detector
+    from circuitvision_tpu_torch.train.yolo_train import save_detector, train_detector
 
     images, boxes, tiers = load_pool(args.pool, args.img_size, args.limit)
     out = train_detector(images, boxes, tiers, scale=args.scale, img_size=args.img_size,
@@ -50,8 +50,10 @@ def main(argv=None) -> int:
                          ckpt_dir=args.ckpt_dir or None, save_every=args.save_every,
                          device=args.device)
     if args.save:
-        path = save_train_state(args.save, args.steps, out["params"], out["opt_state"])
-        print(f"saved the final train state to {path} "
+        save_detector(os.path.abspath(args.save), out, scale=args.scale, img_size=args.img_size,
+                      steps=args.steps, batch=args.batch,
+                      pool=os.path.basename(args.pool.rstrip("/")))
+        print(f"saved model checkpoint to {args.save} "
               f"(mAP@50 {out['map']['final']['all']:.4f})")
     return 0
 

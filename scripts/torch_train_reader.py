@@ -2,9 +2,9 @@
 the PyTorch port (`circuitvision_tpu_torch.train.reader.train_reader`),
 the flags and defaults of scripts/train_reader_demo.py: crops from
 rendered circuits, held on the device, then the held-out product metrics
-through the serving client. The port has no orbax writer yet: --out
-saves the trained parameters as resumable train state
-(`train/checkpoint.save_train_state`).
+through the serving client. --out writes the trained reader as the JAX
+script does (`reader.save_reader`): a bare orbax checkpoint of its
+variables, which CIRCUITVISION_VLM=reader:<dir> loads in either package.
 
 Usage: python scripts/torch_train_reader.py [--steps 4000 --device cuda]
 """
@@ -25,13 +25,13 @@ def main(argv=None) -> int:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--log-every", type=int, default=100)
     ap.add_argument("--out", default=None,
-                    help="save the trained reader here (resumable train state)")
+                    help="save the trained reader here (orbax checkpoint)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    from circuitvision_tpu_torch.train.checkpoint import save_train_state
     from circuitvision_tpu_torch.train.reader import (evaluate_product,
-                                                      generate_reader_dataset, train_reader)
+                                                      generate_reader_dataset, save_reader,
+                                                      train_reader)
 
     t0 = time.time()
     data = generate_reader_dataset(args.train_circuits, seed0=50_000)
@@ -46,7 +46,8 @@ def main(argv=None) -> int:
     print("held-out product metrics:", {k: (round(v, 4) if isinstance(v, float) else v)
                                         for k, v in report.items()})
     if args.out:
-        print(f"saved the reader to {save_train_state(args.out, args.steps, out['params'], {})}")
+        save_reader(args.out, out)
+        print(f"saved reader checkpoint to {args.out}")
     losses = [h["loss"] for h in out["history"]]
     if args.steps >= 1000:
         assert losses[-1] < losses[0], "loss did not decrease"

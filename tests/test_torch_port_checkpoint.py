@@ -10,6 +10,8 @@ and the refusals.
 import ctypes.util
 import json
 import shutil
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -195,3 +197,28 @@ def test_missing_libzstd_raises_naming_it(monkeypatch):
     finally:
         monkeypatch.undo()
         zstd.library.cache_clear()
+
+
+def test_zstd_ignores_another_zstd_in_the_global_scope(tmp_path):
+    """In a process where another libzstd sits in the global symbol scope
+    (as TensorFlow's framework library does once imported; here Pillow's
+    bundled copy, loaded RTLD_GLOBAL), a frame that states its content
+    size still round-trips: the system libzstd is bound to its own
+    symbols (failed with "Src size is incorrect" before)."""
+    import PIL
+
+    foreign = sorted(Path(PIL.__file__).parent.parent.glob("pillow.libs/libzstd*.so*"))
+    assert foreign, "Pillow's bundled libzstd"
+    script = tmp_path / "foreign_zstd.py"
+    script.write_text(
+        "import ctypes, sys\n"
+        f"ctypes.CDLL({str(foreign[0])!r}, mode=ctypes.RTLD_GLOBAL)\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "from circuitvision_tpu_torch.io import zstd\n"
+        "data = b'circuit' * 100\n"
+        "frame = zstd.compress(data)\n"
+        "assert frame[4] & 0x20, 'a single-segment frame with its content size'\n"
+        "assert zstd.decompress(frame) == data\n")
+    run = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                         timeout=120)
+    assert run.returncode == 0, run.stderr[-2000:]

@@ -71,7 +71,12 @@ Phases, in order; any failure raises and the process exits non-zero:
      within F32_PATH_RTOL of it; the CLI's `analyze` on the converted
      directories in a process, its detections and netlist the
      in-process ones (the netlist is empty at seeded weights, so the
-     detections and the heads carry that check); YOLOv11-l float32 heads
+     detections and the heads carry that check); both analyzers again
+     with the drawing's eight component bodies injected as the
+     detections (as --oracle-boxes injects them), once with SAM2's mask
+     (seeded, it marks nearly the whole page: one node, an empty
+     netlist) and once with the classical mask: the netlists equal
+     across the weights, the classical one not empty; YOLOv11-l float32 heads
      on the card against the CPU; s to convert and to write (as the
      converter prints them), s to read back, bytes written;
   7. batched path — analyze_batch (BatchedPipeline.analyze_many) at
@@ -123,6 +128,25 @@ Phases, in order; any failure raises and the process exits non-zero:
      counts per request, request ms beside analyze() ms; and the FLOP
      count (models/flops.py) of one trained-product analyze() and one
      L@1024 analyze(), with the rate it implies at this run's times;
+  8e. the black-box VLM value pass on the trained product's YOLOv11-s@640
+     and SAM2 t@512 (ckpt/yolo, ckpt/sam2, no reader): a stub HTTP
+     server on 127.0.0.1, in a thread, answers Gemini's generateContent
+     and OpenRouter's chat/completions from eval_data/labels (the
+     values of the image being read; a direction by the prompt's kind,
+     from the label file's first voltage or diode class); analyze() +
+     generate_final_netlist over the 16 eval PNGs with GeminiVLMClient,
+     with OpenRouterVLMClient and with a FakeVLMClient giving the same
+     answers: the HTTP clients' netlists the fake's, every PNG the stub
+     received the drawn enumeration image, that image the one
+     enumerate_components draws again from the result, exact launch
+     counts per analyze(); ms per image of the drawing, of each round
+     trip and of analyze() + final netlist, netlist exact match against
+     eval_data/netlists; analyze_many(finalize=True) in chunks of 8 with
+     a fake that replays each image's values (by its enumeration
+     image), equal to the serial path, exact launch counts; then
+     scripts/torch_eval_pipeline.py as a process over the 63 eval images
+     with the shipped checkpoints and label replay, its report on a line
+     of its own;
   9. off-preset head widths — bf16 Hiera trunks on the card against
      their float32 forward on the CPU, with exact launch counts: head
      width 64 (OFF_PRESET: every window and q-pool block on the tiled
@@ -168,7 +192,10 @@ Phases, in order; any failure raises and the process exits non-zero:
      and its step's gradients card against CPU; the trained detector and
      reader written as the JAX trainers write them (orbax + meta.json; a
      bare orbax directory), read back equal leaf for leaf, and the
-     written detector's heads those of the in-memory parameters. No
+     written detector's heads those of the in-memory parameters, and
+     scripts/torch_eval_detector.py as a process on the pool's held-out
+     tail for the written detector and for the shipped ckpt/yolo, their
+     AP@50 tables printed. No
      kernel lies on this path: every count must stay 0.
 
 It prints one JSON line per kernel shape and route check, the launch
@@ -1306,6 +1333,7 @@ def run_reference_deployment(torch, smi):
     import numpy as np
 
     from circuitvision_tpu_torch.core.config import PipelineConfig
+    from circuitvision_tpu_torch.core.types import BBox
     from circuitvision_tpu_torch.io.image_io import encode_png
     from circuitvision_tpu_torch.models import bridge
     from circuitvision_tpu_torch.models.checkpoint import load_model_checkpoint
@@ -1361,7 +1389,7 @@ def run_reference_deployment(torch, smi):
                              f"{len(sam2_convert.REFERENCE_LORA_TARGETS)}")
     build_s = time.perf_counter() - t0
 
-    image, _boxes = draw_schematic(0)
+    image, bodies = draw_schematic(0)
     row = {"inventory_keys": inventory, "lora_targets_folded": moved, "build_s": build_s}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -1419,6 +1447,18 @@ def run_reference_deployment(torch, smi):
             if not torch.isfinite(g).all() or err > tol:
                 raise AssertionError(f"{name}: converted vs in-memory weights {err:.3e} > "
                                      f"{tol:.3e}")
+        # the drawing's component bodies as the detections (--oracle-boxes),
+        # with SAM2's mask and with the classical one: seeded SAM2.1-L
+        # marks 99.7 % of the page foreground, so its mask leaves one node
+        # and an empty netlist (PERF.md §6)
+        oracle = {}
+        for name, a in (("converted", conv), ("in_memory", mem)):
+            a.bboxes = lambda img: [BBox("resistor", 1.0, *b, class_id=10) for b in bodies]
+            oracle[f"{name}_sam2"] = a.analyze(image)
+            a.sam2, sam2 = None, a.sam2
+            oracle[f"{name}_classical"] = a.analyze(image)
+            a.sam2 = sam2
+            del a.bboxes
         del mem
 
         # (5) the CLI on the converted directories, in a process
@@ -1457,6 +1497,9 @@ def run_reference_deployment(torch, smi):
         "launches_per_analyze": launches, "boxes": len(got.bboxes_orig_nms),
         "nodes": len(got.nodes), "netlist_lines": len(got.netlist_text.splitlines()),
         "converted_vs_in_memory": equal, "cli_s": cli_s,
+        "oracle_boxes": {k: {"nodes": len(r.nodes), "netlist": r.netlist_text,
+                             "mask_foreground": float((r.sam_mask > 0).mean())}
+                         for k, r in oracle.items()},
         "cli_netlist_equal": cli_text == got.netlist_text + "\n",
         "cli_detections_equal": printed == want_printed,
         "f32_card_vs_cpu": f32, "cpu_f32_yolo_l_s": cpu_s, "card": smi}}), flush=True)
@@ -1469,6 +1512,11 @@ def run_reference_deployment(torch, smi):
     if cli_text != got.netlist_text + "\n" or printed != want_printed:
         raise AssertionError(f"the CLI's result differs:\n{printed}{cli_text}\n--\n"
                              f"{want_printed}{got.netlist_text}")
+    texts = {k: r.netlist_text for k, r in oracle.items()}
+    if texts["converted_sam2"] != texts["in_memory_sam2"] or not texts["converted_classical"] \
+            or texts["converted_classical"] != texts["in_memory_classical"]:
+        raise AssertionError(f"oracle-box netlists differ across converted and in-memory "
+                             f"weights, or the classical one is empty: {texts}")
     return launches
 
 
@@ -2226,6 +2274,267 @@ def run_web_ui(torch, smi, product):
     return counts
 
 
+#: the black-box VLM value pass: the trained product's first VLM_IMAGES
+#: eval images, chunks of VLM_BATCH for analyze_many
+VLM_IMAGES, VLM_BATCH = 16, 8
+
+
+def replayed_directions(canned):
+    """What a stub that replays an eval label file's directions answers
+    by the prompt it is sent — the first voltage class's direction for
+    the voltage prompt, the first diode class's for the diode prompt — and
+    the FakeVLMClient directions that give the same answers."""
+    from circuitvision_tpu_torch.core import taxonomy
+
+    answers = {}
+    for kind, classes in (("voltage", taxonomy.VOLTAGE_CLASSES),
+                          ("diode", taxonomy.DIODE_CLASSES)):
+        answers[kind] = next((tuple(v) for k, v in canned.get("directions", {}).items()
+                              if k in classes), ("UNKNOWN", "UNKNOWN"))
+    fake = {c: answers["voltage"] for c in taxonomy.VOLTAGE_CLASSES}
+    fake.update({c: answers["diode"] for c in taxonomy.DIODE_CLASSES})
+    return answers, fake
+
+
+def vlm_stub():
+    """A Gemini and OpenRouter stand-in on 127.0.0.1, served from a
+    thread: it answers the labels of `stub.canned` (the label file of the
+    image being read) and directions by the prompt's kind, and records
+    each request's path, body and seconds to answer."""
+    import http.server
+    import threading
+
+    from circuitvision_tpu_torch.enrich import prompts
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        disable_nagle_algorithm = True  # headers and body in two writes: no delayed-ACK stall
+
+        def do_POST(self):
+            body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+            canned = server.canned
+            if self.path.endswith("/chat/completions"):
+                out = {"choices": [{"index": 0, "message": {
+                    "role": "assistant", "content": json.dumps(canned["labels"])}}]}
+            else:
+                parts = body["contents"][0]["parts"]
+                if parts[-1] == {"text": prompts.LABELS_PROMPT}:
+                    text = json.dumps(canned["labels"])
+                else:
+                    kind = ("voltage" if parts[0]["text"] == prompts.VOLTAGE_DIRECTION_PROMPT
+                            else "diode")
+                    direction, reason = replayed_directions(canned)[0][kind]
+                    text = json.dumps({"direction": direction, "reason": reason})
+                out = {"candidates": [{"content": {"parts": [{"text": text}], "role": "model"}}]}
+            data = json.dumps(out).encode()
+            server.requests.append((self.path, body))
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def log_message(self, *args):
+            pass
+
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    server.canned, server.requests = None, []
+    server.url = f"http://127.0.0.1:{server.server_address[1]}"
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server
+
+
+def run_value_pass(torch, smi):
+    """Phase 8e: the black-box VLM value pass on the trained product (see
+    the module docstring). Returns the launches of one analyze()."""
+    import base64
+    import hashlib
+    import statistics
+    import tempfile
+
+    from circuitvision_tpu_torch.enrich.client import (
+        FakeVLMClient, GeminiVLMClient, OpenRouterVLMClient,
+    )
+    from circuitvision_tpu_torch.eval.metrics import netlist_exact_match
+    from circuitvision_tpu_torch.io.image_io import decode_image, load_image
+    from circuitvision_tpu_torch.models.bridge import state_dict_from_variables
+    from circuitvision_tpu_torch.models.checkpoint import load_model_checkpoint
+    from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
+    from circuitvision_tpu_torch.topology.enumerate_components import enumerate_components
+
+    (yv, ymeta), (sv, smeta) = (load_model_checkpoint(str(REPO / "ckpt" / k))
+                                for k in ("yolo", "sam2"))
+    ystate, sstate = state_dict_from_variables(yv), state_dict_from_variables(sv)
+    cfg = product_config(ymeta, smeta)
+    data = REPO / "eval_data"
+    paths = sorted((data / "images").glob("*.png"))[:VLM_IMAGES]
+    images = [load_image(str(p)) for p in paths]
+    canned = [json.loads((data / "labels" / f"{p.stem}.json").read_text()) for p in paths]
+    reset, read = counters()
+    stub = vlm_stub()
+    analyzer = CircuitAnalyzerTorch(cfg, ystate, sstate, device="cuda",
+                                    vlm_client=FakeVLMClient())
+
+    def run(client_of, reads=None):
+        """analyze() + generate_final_netlist of every image with the
+        client `client_of(i)`: results, ms per image, launches of each."""
+        results, ms = [], []
+        for i, img in enumerate(images):
+            analyzer.vlm_client, stub.canned = client_of(i), canned[i]
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = analyzer.generate_final_netlist(analyzer.analyze(img))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            counts = read()
+            if counts != EXPECTED["t@512"]:
+                raise AssertionError(f"value pass, {paths[i].stem}: launches per analyze "
+                                     f"{counts} != {EXPECTED['t@512']}")
+            results.append(r)
+        return results, ms, counts
+
+    run(lambda i: FakeVLMClient(canned[i]["labels"], replayed_directions(canned[i])[1]))  # warm-up
+    gemini = GeminiVLMClient(api_key="stub", endpoint=stub.url)
+    openrouter = OpenRouterVLMClient(api_key="stub", endpoint=stub.url + "/api/v1")
+    rows, gates = {}, {}
+    for name, client, fake_dirs in (("gemini", gemini, True), ("openrouter", openrouter, False)):
+        fakes, fake_ms, _ = run(lambda i: FakeVLMClient(
+            canned[i]["labels"], replayed_directions(canned[i])[1] if fake_dirs else {}))
+        stub.requests = []
+        got, got_ms, launches = run(lambda i: client)
+        sent = [b for p, b in stub.requests if p.endswith("/chat/completions")
+                or p.endswith(f"/{gemini.labels_model}:generateContent")]
+        pngs = [b["messages"][0]["content"][1]["image_url"]["url"].split(",", 1)[1]
+                if "messages" in b else b["contents"][0]["parts"][0]["inlineData"]["data"]
+                for b in sent]
+        decode = base64.b64decode if name == "openrouter" else base64.urlsafe_b64decode
+        drawn = [r for r in got if r.enum_image is not None]
+        stub_png_equal = len(pngs) == len(drawn) and all(
+            decode_image(decode(b)).tobytes() == r.enum_image.tobytes()
+            for b, r in zip(pngs, drawn))
+        redrawn_equal = True
+        draw_ms = []
+        for r in drawn:
+            t0 = time.perf_counter()
+            again, ids = enumerate_components(r.image_for_analysis, r.bboxes)
+            draw_ms.append((time.perf_counter() - t0) * 1e3)
+            redrawn_equal &= (again.tobytes() == r.enum_image.tobytes() and
+                              [b.to_dict() for b in ids] == [b.to_dict() for b in r.enum_bboxes])
+        labels_ms = []
+        for r, c in zip(got, canned):
+            if r.enum_image is not None:
+                stub.canned = c
+                t0 = time.perf_counter()
+                client.get_labels(r.enum_image)
+                labels_ms.append((time.perf_counter() - t0) * 1e3)
+        direction_ms = []
+        for r in got:
+            for b in r.bboxes:
+                crop = r.vlm_direction_crops.get(b.persistent_uid)
+                if crop is not None and name == "gemini":
+                    t0 = time.perf_counter()
+                    client.get_direction(crop, b.class_name)
+                    direction_ms.append((time.perf_counter() - t0) * 1e3)
+        refs = [(data / "netlists" / f"{p.stem}.cir") for p in paths]
+        have = [i for i, f in enumerate(refs) if f.exists()]
+        netlists_equal = [f.netlist_text == g.netlist_text for f, g in zip(fakes, got)]
+        rows[name] = {
+            "analyze_final_ms_per_image": {"median": statistics.median(got_ms), "min": min(got_ms),
+                                           "max": max(got_ms)},
+            "fake_analyze_final_ms_per_image": statistics.median(fake_ms),
+            "enumeration_draw_ms_per_image": {"median": statistics.median(draw_ms),
+                                              "max": max(draw_ms), "images": len(draw_ms)},
+            "labels_round_trip_ms": {"median": statistics.median(labels_ms),
+                                     "max": max(labels_ms)},
+            "direction_round_trip_ms": ({"median": statistics.median(direction_ms),
+                                         "max": max(direction_ms), "calls": len(direction_ms)}
+                                        if direction_ms else None),
+            "requests": len(stub.requests), "launches_per_analyze": launches,
+            "netlists_equal_fake": sum(netlists_equal), "stub_png_equal": stub_png_equal,
+            "enumeration_redrawn_equal": redrawn_equal,
+            "netlist_exact_match": netlist_exact_match([got[i].netlist_text for i in have],
+                                                       [refs[i].read_text() for i in have]),
+            "netlists_compared": len(have)}
+        gates[name] = all(netlists_equal) and stub_png_equal and redrawn_equal and bool(drawn)
+        print(json.dumps({f"vlm_value_pass_{name}": {**rows[name], "card": smi}}), flush=True)
+
+    # analyze_many(finalize=True): a fake replaying each image's values,
+    # found by its enumeration image, and one set of directions
+    directions = {}
+    for c in canned:
+        directions.update({k: v for k, v in replayed_directions(c)[1].items()
+                           if k not in directions})
+
+    class ReplayByImage(FakeVLMClient):
+        def __init__(self, by_image):
+            super().__init__(None, directions)
+            self.by_image = by_image
+
+        def get_labels(self, enum_image):
+            self.label_calls += 1
+            return list(self.by_image[hashlib.sha256(enum_image.tobytes()).hexdigest()])
+
+        def get_labels_batch(self, enum_images):
+            self.label_batch_calls += 1
+            return [self.get_labels(e) for e in enum_images]
+
+    serial, _, _ = run(lambda i: FakeVLMClient(canned[i]["labels"], directions))
+    by_image = {hashlib.sha256(r.enum_image.tobytes()).hexdigest(): c["labels"]
+                for r, c in zip(serial, canned) if r.enum_image is not None}
+    analyzer.vlm_client = ReplayByImage(by_image)
+    analyzer.analyze_batch(images[:VLM_BATCH], batch_size=VLM_BATCH, finalize=True)  # warm-up
+    analyzer.vlm_client = client = ReplayByImage(by_image)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = analyzer.analyze_batch(images, batch_size=VLM_BATCH, finalize=True)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    batch_counts = read()
+    chunks = -(-len(images) // VLM_BATCH)
+    want = {k: v * chunks for k, v in EXPECTED["t@512"].items()}
+    batch_differ = [p.stem for p, b, r in zip(paths, batched, serial)
+                    if b.netlist_text != r.netlist_text or (b.enum_image is None) != (
+                        r.enum_image is None) or (b.enum_image is not None and
+                                                 b.enum_image.tobytes() != r.enum_image.tobytes())]
+    print(json.dumps({"vlm_value_pass_batched": {
+        "images_per_s": len(images) / batch_s, "batch_size": VLM_BATCH,
+        "label_batch_calls": client.label_batch_calls, "launches": batch_counts,
+        "differing_from_serial": batch_differ, "card": smi}}), flush=True)
+
+    # the eval script over the whole eval set, in a process
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "scripts/torch_eval_pipeline.py", "--data",
+                               "eval_data", "--yolo-checkpoint", "ckpt/yolo",
+                               "--sam2-checkpoint", "ckpt/sam2", "--out", f"{tmp}/report.json"],
+                              cwd=REPO, capture_output=True, text=True, timeout=600)
+        eval_s = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"torch_eval_pipeline.py failed ({proc.returncode}):\n"
+                                 f"{proc.stderr[-3000:]}")
+        report = json.loads(Path(f"{tmp}/report.json").read_text())
+    print(json.dumps({"torch_eval_pipeline": {
+        "mode": "full model, ckpt/yolo + ckpt/sam2 (float32), eval_data/labels replayed",
+        "seconds": eval_s, "report": report, "card": smi}}), flush=True)
+    stub.shutdown()
+    stub.server_close()
+
+    ms = {k: rows[k]["analyze_final_ms_per_image"]["median"] for k in rows}
+    print(f"   value pass on {smi}: analyze()+final {ms['gemini']:.1f} ms/image with Gemini, "
+          f"{ms['openrouter']:.1f} with OpenRouter (stub on 127.0.0.1); eval script "
+          f"{eval_s:.1f} s over {report['images']} images", flush=True)
+    if not all(gates.values()):
+        raise AssertionError(f"value pass: HTTP netlists, the stub's PNGs or the redrawn "
+                             f"enumeration differ: {rows}")
+    if batch_counts != want or batch_differ:
+        raise AssertionError(f"value pass batched: launches {batch_counts} != {want}, or "
+                             f"netlists differ from serial on {batch_differ}")
+    if report.get("images") != 63 or "netlist_exact_match" not in report:
+        raise AssertionError(f"torch_eval_pipeline.py's report: {report}")
+    return launches
+
+
 def run_flops(torch, smi):
     """The FLOP count (models/flops.py, FlopCounterMode over the module
     path on the meta device) of one trained-product analyze() (YOLOv11-s@640
@@ -2766,6 +3075,31 @@ def saved_trained_model(torch, smi, kind, out, image=None):
     print(json.dumps({"trained_model_written": {**row, "card": smi}}), flush=True)
 
 
+def eval_detector_table(smi, pool_dir, out):
+    """scripts/torch_eval_detector.py as a process on the pool's held-out
+    tail, for the trained detector (written as the JAX trainer writes it;
+    its table beside the trainer's own held-out mAP@50) and for the
+    shipped ckpt/yolo."""
+    from circuitvision_tpu_torch.train import yolo_train as yt
+
+    det = f"{pool_dir}/_detector"
+    yt.save_detector(det, out, scale="s", img_size=640, steps=DET_STEPS, batch=DET_BATCH,
+                     pool="chip_smoke_pool")
+    for name, ckpt in (("trained here", det), ("ckpt/yolo", str(REPO / "ckpt" / "yolo"))):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "scripts/torch_eval_detector.py", "--ckpt", ckpt,
+                              "--pool", pool_dir, "--val-n", str(POOL_VAL)],
+                             cwd=REPO, capture_output=True, text=True, timeout=600)
+        table = run.stdout.splitlines()
+        print(json.dumps({"torch_eval_detector": {
+            "detector": name, "seconds": time.perf_counter() - t0, "table": table,
+            **({"trainer_map50_holdout": out["map"]["final"]["all"]} if ckpt == det else {}),
+            "card": smi}}), flush=True)
+        if run.returncode or not any(line.startswith("mAP@50 all:") for line in table):
+            raise AssertionError(f"torch_eval_detector.py on {name} failed ({run.returncode}):\n"
+                                 f"{run.stdout[-2000:]}{run.stderr[-3000:]}")
+
+
 def run_trainers(torch, smi):
     """Phase 13: the pool, the detector's and the reader's training (see
     the module docstring). Raises on any gate."""
@@ -2785,22 +3119,23 @@ def run_trainers(torch, smi):
     reset, read = counters()
     reset()
     print(f"   numpy {np.__version__}")
-    # (1) the pool
+    # (1) the pool, kept until the detector is scored on its held-out tail
     timings: dict = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        pool.write_pool(tmp, POOL_ITEMS, seed0=POOL_SEED0, log_every=0, timings=timings)
-        write_s = time.perf_counter() - t0
-        bad = []
-        for seed, want in POOL_ITEM_DIGESTS.items():
-            with np.load(Path(tmp) / f"{seed - POOL_SEED0:06d}.npz") as z:
-                item = {k: z[k] for k in z.files}
-            got = pool_item_digest(item, hashlib)
-            if got != want:
-                bad.append((seed, str(item["tier"]), got))
-        t0 = time.perf_counter()
-        images, boxes, tiers = pool.load_pool(tmp, 640)
-        load_s = time.perf_counter() - t0
+    pool_dir = tempfile.TemporaryDirectory()  # removed at exit if a gate fails first
+    tmp = pool_dir.name
+    t0 = time.perf_counter()
+    pool.write_pool(tmp, POOL_ITEMS, seed0=POOL_SEED0, log_every=0, timings=timings)
+    write_s = time.perf_counter() - t0
+    bad = []
+    for seed, want in POOL_ITEM_DIGESTS.items():
+        with np.load(Path(tmp) / f"{seed - POOL_SEED0:06d}.npz") as z:
+            item = {k: z[k] for k in z.files}
+        got = pool_item_digest(item, hashlib)
+        if got != want:
+            bad.append((seed, str(item["tier"]), got))
+    t0 = time.perf_counter()
+    images, boxes, tiers = pool.load_pool(tmp, 640)
+    load_s = time.perf_counter() - t0
     print(json.dumps({"pool": {
         "items": POOL_ITEMS, "write_s": write_s, "letterbox_s": load_s,
         "host_ms_per_item": {k: {"n": len(v), "median": 1e3 * statistics.median(v),
@@ -2837,6 +3172,10 @@ def run_trainers(torch, smi):
     if not all(x < losses[0] for x in losses[-5:]):
         raise AssertionError(f"detector: the last 5 losses are not below the first: {losses}")
     saved_trained_model(torch, smi, "detector", out, images[0])
+    try:
+        eval_detector_table(smi, tmp, out)
+    finally:
+        pool_dir.cleanup()
 
     model, params = out["model"], out["params"]
     det_cfg = yl.YOLOLossConfig(num_classes=len(TRAIN_CLASSES), img_size=640)
@@ -3035,6 +3374,11 @@ def main() -> int:
     run_flops(torch, smi)
     done(t0, "image input, the web UI and the FLOP count")
 
+    t0 = phase("the black-box VLM value pass on the trained product: Gemini and OpenRouter "
+               "against a stub, the enumeration image, the eval script")
+    launches["vlm"] = run_value_pass(torch, smi)
+    done(t0, "the black-box VLM value pass")
+
     t0 = phase("off-preset head widths: bf16 Hiera at head widths 64, 60 and 136")
     for name, config, seed in (("off-preset", OFF_PRESET, 3), ("off-preset-60", OFF_PRESET_60, 4),
                                ("off-preset-136", OFF_PRESET_136, 6)):
@@ -3090,7 +3434,8 @@ def main() -> int:
                 "launches_trained_product": launches["product"][n],
                 "launches_trained_product_batch": launches["product-batch"][n],
                 "launches_served": launches["served"][n],
-                "launches_web_ui": launches["web"][n]}
+                "launches_web_ui": launches["web"][n],
+                "launches_vlm": launches["vlm"][n]}
                for path in ("l@1024", "batch", "trunk-ln", "train")
                for n, s in summary[path].items()]
     print(json.dumps({"launch_floor": floor}))

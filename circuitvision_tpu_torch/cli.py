@@ -16,8 +16,10 @@ meta.json gives its model config (`models/bridge.detector_config`,
 `sam2_config`); without a YOLO checkpoint the detector gets seeded random
 weights at `--scale` (and `--det-size`), as the JAX CLI initialises
 random ones. The directions and, with `--final`, the values come from the
-client CIRCUITVISION_VLM names (`enrich/client.default_client`;
-`reader:ckpt/reader` is the trained crop reader). Images are PNG or JPEG
+client the environment names (`enrich/client.default_client`):
+CIRCUITVISION_VLM=reader:ckpt/reader is the trained crop reader;
+otherwise GEMINI_API_KEY or OPENROUTER_API_KEY gives that service's
+client, which reads the drawn enumeration image. Images are PNG or JPEG
 (`io/image_io`); BMP and WebP are refused, naming ROADMAP Queue A 9, and
 `analyze-batch` skips them and says which it skipped. `serve` is the web
 UI (webapp.py), `serve-batch` the micro-batching endpoint; both print

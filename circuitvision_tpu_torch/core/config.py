@@ -186,11 +186,18 @@ class NMSConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EnrichConfig:
-    """Polarity/value enrichment (JAX core/config.py:196): the padding
-    of the direction crops. The JAX config's other fields configure the
-    HTTP clients, which are not ported (ROADMAP Queue A 6)."""
+    """Polarity/value enrichment (JAX core/config.py:196-205): the padding
+    of the direction crops, the HTTP clients' models and direction-call
+    generation parameters (enrich/client.default_client), and the
+    workers of the per-crop direction reads (enrich/directions.py)."""
 
     crop_padding: int = 15  # src/circuit_analyzer.py:2176
+    direction_model: str = "gemini-2.5-flash-lite-preview-06-17"
+    labels_model: str = "google/gemini-2.5-flash-preview"
+    temperature: float = 0.1
+    top_p: float = 0.98
+    max_output_tokens: int = 1024
+    max_concurrency: int = 8  # reference loops serially; the port reads on a pool
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,7 +12,8 @@ drawings make, on uint8 images in place, at the LINE_8 line type:
     cv2 5.0.0 adds: a line thicker than 1 is clipped to the image
     widened by the thickness before it is drawn;
   * `put_text` and `get_text_size` — FONT_HERSHEY_SIMPLEX at the sizes
-    core/hershey.py holds: glyph coverage maps blended one after another,
+    core/hershey.py holds, and digits at the sizes of the enumeration
+    image (core/hershey_digits.py): glyph coverage maps blended one after another,
     (dst·(255 − a) + colour·a + 127) // 255, at integer advances; nothing
     is drawn when the origin lies right of the image, as in cv2.
 
@@ -26,7 +27,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import hershey
+from . import hershey, hershey_digits
 from .native import build_library
 
 _SRC = Path(__file__).resolve().parent / "cpp" / "draw.cpp"
@@ -112,28 +113,38 @@ def draw_contours(img: np.ndarray, contours, color, thickness: int = 1) -> np.nd
     return img
 
 
+def _font(scale: float, thickness: int) -> tuple[dict, int]:
+    """(glyphs, getTextSize height) at a size: core/hershey.py's printable
+    ASCII at the drawings' sizes, else core/hershey_digits.py's digits."""
+    if (scale, thickness) in hershey.TEXT_HEIGHT:
+        return hershey.glyphs(scale, thickness), hershey.TEXT_HEIGHT[(scale, thickness)]
+    return (hershey_digits.glyphs(scale, thickness),
+            hershey_digits.text_height(scale, thickness))
+
+
 def get_text_size(text: str, scale: float, thickness: int) -> tuple[tuple[int, int], int]:
     """cv2.getTextSize(text, FONT_HERSHEY_SIMPLEX, scale, thickness):
     ((width, height), baseline) — the advances plus one, the size's
     height, and the deepest glyph's reach below the baseline."""
     if not text:
         return (0, 0), 0
-    g = hershey.glyphs(scale, thickness)
+    g, height = _font(scale, thickness)
     width = sum(g[c][0] for c in text) + 1
     below = max([dy + cov.shape[0] for c in text for _a, _dx, dy, cov in (g[c],) if cov.size]
                 or [0])
-    return (width, hershey.TEXT_HEIGHT[(scale, thickness)]), max(0, below)
+    return (width, height), max(0, below)
 
 
 def put_text(img: np.ndarray, text: str, org, scale: float, color,
              thickness: int = 1) -> np.ndarray:
     """cv2.putText(img, text, org, FONT_HERSHEY_SIMPLEX, scale, color,
-    thickness) at a size core/hershey.py holds; printable ASCII only."""
+    thickness) at a size core/hershey.py holds (printable ASCII) or, for
+    digits, core/hershey_digits.py."""
     x, y = map(int, org)
     h, w = img.shape[:2]
     if x >= w:
         return img
-    g = hershey.glyphs(scale, thickness)
+    g = _font(scale, thickness)[0]
     col = _color(img, color).astype(np.int32)
     for c in text:
         adv, dx, dy, cov = g[c]

@@ -4,16 +4,17 @@ Counterpart of the JAX package's `enrich/directions.py`
 (`_collect_jobs`, `enrich_directions`, `enrich_directions_many`;
 reference src/circuit_analyzer.py:2145-2215): each component of a
 direction class gets its box padded by `EnrichConfig.crop_padding` cut
-from the analysis image, and the client reads every such crop of an
-image, or of a chunk, in one `get_directions_batch` call. The JAX
-package's per-crop `get_direction` dispatch on a thread pool serves only
-the HTTP clients, which are not ported (ROADMAP Queue A 6); a client
-without `get_directions_batch` raises. A failed read is logged and gives
-UNKNOWN, as in JAX — except a kernel fault or a CUDA, cuDNN or cuBLAS
-error, which raises.
+from the analysis image. A client with `get_directions_batch` (the
+trained crop reader) reads every such crop of an image, or of a chunk,
+in one call; any other client (the HTTP clients, the fake) reads one
+crop a `get_direction` call, the calls of an image on a thread pool of
+`EnrichConfig.max_concurrency` workers, and a chunk goes image by image.
+A failed read gives UNKNOWN, as in JAX (the batch path logs it) —
+except a kernel fault or a CUDA, cuDNN or cuBLAS error, which raises.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import logging
 from typing import Optional, Sequence
@@ -64,14 +65,44 @@ def _read_batch(client, crops: list, classes: list) -> list[tuple[str, str]]:
         return [_UNKNOWN] * len(crops)
 
 
+def _read_each(client, jobs: list, cfg: EnrichConfig) -> list[tuple[str, str]]:
+    """One get_direction call a crop, on a pool of at most
+    cfg.max_concurrency threads (JAX :98-110); a call that raises reads
+    UNKNOWN."""
+    def run(job):
+        _i, crop, cls = job
+        try:
+            return client.get_direction(crop, cls)
+        except Exception as exc:
+            if is_device_fault(exc):
+                raise
+            return _UNKNOWN
+
+    workers = max(1, min(cfg.max_concurrency, len(jobs)))
+    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(run, jobs))
+
+
 def enrich_directions(image_rgb: np.ndarray, bboxes: Sequence[BBox],
                       client: Optional[VLMClient], cfg: Optional[EnrichConfig] = None,
                       debug_store: Optional[dict] = None) -> list[BBox]:
     """New boxes with semantic_direction/reason filled (None for classes
     without a direction; left unset by no client). `debug_store`
     receives each read crop under its component's persistent_uid."""
-    return enrich_directions_many([image_rgb], [bboxes], client, cfg,
-                                  [debug_store] if debug_store is not None else None)[0]
+    cfg = cfg or EnrichConfig()
+    out = [dataclasses.replace(b) for b in bboxes]
+    if client is None:
+        return out
+    jobs = _collect_jobs(image_rgb, out, cfg, debug_store)
+    if not jobs:
+        return out
+    if getattr(client, "get_directions_batch", None) is not None:
+        answers = _read_batch(client, [c for _, c, _ in jobs], [k for _, _, k in jobs])
+    else:
+        answers = _read_each(client, jobs, cfg)
+    for (i, _, _), (direction, reason) in zip(jobs, answers):
+        out[i].semantic_direction, out[i].semantic_reason = direction, reason
+    return out
 
 
 def enrich_directions_many(images: Sequence[np.ndarray], boxes_lists: Sequence[Sequence[BBox]],
@@ -79,12 +110,14 @@ def enrich_directions_many(images: Sequence[np.ndarray], boxes_lists: Sequence[S
                            debug_stores: Optional[Sequence[Optional[dict]]] = None
                            ) -> list[list[BBox]]:
     """Stage [4] over a chunk: every eligible crop of every image in one
-    get_directions_batch call."""
+    get_directions_batch call; a client without it goes image by image
+    (JAX :134-138)."""
     cfg = cfg or EnrichConfig()
     stores = debug_stores if debug_stores is not None else [None] * len(images)
+    if client is None or getattr(client, "get_directions_batch", None) is None:
+        return [enrich_directions(img, bl, client, cfg, ds)
+                for img, bl, ds in zip(images, boxes_lists, stores)]
     outs = [[dataclasses.replace(b) for b in bl] for bl in boxes_lists]
-    if client is None:
-        return outs
     jobs = [(k, i, crop, cls)
             for k, (img, out, ds) in enumerate(zip(images, outs, stores))
             for i, crop, cls in _collect_jobs(img, out, cfg, ds)]

@@ -12,21 +12,25 @@ Counterpart of `CircuitAnalyzerTPU.analyze()` in the JAX package
                       logits resized back like jax.image.resize linear
   [3] reclassify    — terminal→source reclassification (classical mask)
   [4] enrich        — component polarities from the VLM client (the
-                      trained crop reader, enrich/trained_reader.py);
-                      without a client directions stay unset
+                      trained crop reader in one batch, or an HTTP
+                      client a crop at a time on a thread pool); without
+                      a client directions stay unset
   [5] nodes         — stage A on the device, contours on the host, and
                       the three debug images drawn as cv2 draws them
                       (core/viz.py; the batched path skips them)
-  [6] netlist       — valueless netlist text and visual ids
+  [6] netlist       — valueless netlist text, visual ids and the
+                      enumeration image
   [7] final netlist — the client's {id, class, value} rows merged in
                       (fix_netlist), by generate_final_netlist
 
-The client must be box-driven (`enrich.client.VLMClient`): it is handed
-the analysis image and the id'd boxes (`get_labels_batch_boxes`), and
-the direction crops in one batch (`get_directions_batch`). The cv2-drawn
-enumeration image and the per-crop reads of the black-box VLMs are not
-ported (ROADMAP Queue A 6), so a client without both hooks is refused
-when the analyzer is built.
+A client (`enrich.client.VLMClient`) reads values either box-driven —
+handed the undrawn analysis image and the id'd boxes
+(`get_labels_batch_boxes`, the trained crop reader) — or from the whole
+image with the ids drawn beside the components (`get_labels`, the HTTP
+clients; topology/enumerate_components.py draws it as cv2 does), and
+directions in one batch (`get_directions_batch`) or a crop a call
+(`get_direction`). A client with no way to read labels or none to read
+directions is refused when the analyzer is built.
 
 Degradation ladders stay for failures that come from the data: a
 reclassification or node-analysis error is logged and the pipeline goes
@@ -67,7 +71,7 @@ from ..ops.cuda.build import KernelError, is_device_fault
 from ..ops.image import letterbox, resize_linear, sam2_preprocess
 from ..sim.engine import perform_ac_analysis, perform_ac_analysis_text, perform_dc_analysis
 from ..topology.crop import crop_image_and_adjust_bboxes
-from ..topology.enumerate_components import assign_visual_ids
+from ..topology.enumerate_components import assign_visual_ids, enumerate_components
 from ..topology.nodes import extract_nodes
 from ..topology.reclassify import reclassify_terminals, segment_classical
 
@@ -107,16 +111,14 @@ class CircuitAnalyzerTorch:
         self.cfg = config or PipelineConfig()
         self.device = resolve_device(device, "CircuitAnalyzerTorch")
         self.vlm_client = vlm_client if vlm_client is not None \
-            else default_client(self.device)
-        missing = [hook for hook in ("get_labels_batch_boxes", "get_directions_batch")
+            else default_client(self.cfg.enrich, self.device)
+        missing = [" or ".join(hooks) for hooks in (("get_labels", "get_labels_batch_boxes"),
+                                                     ("get_direction", "get_directions_batch"))
                    if self.vlm_client is not None
-                   and getattr(self.vlm_client, hook, None) is None]
+                   and all(getattr(self.vlm_client, h, None) is None for h in hooks)]
         if missing:
-            raise NotImplementedError(
-                f"{type(self.vlm_client).__name__} has no {' or '.join(missing)}: a client "
-                f"that reads whole images or one crop at a time needs the cv2-drawn "
-                f"enumeration image and the per-crop dispatch, which are not ported "
-                f"(ROADMAP Queue A 6)")
+            raise TypeError(f"{type(self.vlm_client).__name__} is not a VLM client: it has "
+                            f"no {' and no '.join(missing)}")
         scfg, sam2_dtype = self.cfg.sam2, compute_dtype(self.cfg.sam2.dtype)
         if sam2_state is not None and self.cfg.use_sam2 and self.device.type == "cuda" \
                 and sam2_dtype == torch.bfloat16:
@@ -283,10 +285,10 @@ class CircuitAnalyzerTorch:
 
     def netlist_stage(self, result: AnalysisResult) -> None:
         """Stage [6]: initial netlist, the no-VLM-direction comparison
-        netlist (:280-292), visual ids, and the components-only fallback
-        (:310-323). With a client, the value pass's input is the analysis
-        image itself and the id'd boxes (:376-392: a box-driven reader
-        gets no drawn enumeration)."""
+        netlist (:280-292), visual ids and the enumeration image, and the
+        components-only fallback (:310-323). A box-driven client's input
+        is the undrawn analysis image and the id'd boxes; any other
+        client, or none, gets the ids drawn on a copy (:376-392)."""
         if result.nodes:
             result.netlist = generate_netlist_from_nodes(result.nodes)
             result.valueless_netlist_text = stringify_netlist(result.netlist)
@@ -300,9 +302,12 @@ class CircuitAnalyzerTorch:
             result.valueless_netlist_text_no_vlm_dir = stringify_netlist(
                 generate_netlist_from_nodes(nodes_unknown)
             )
-            result.enum_bboxes = assign_visual_ids(result.bboxes)
-            if self.vlm_client is not None:
+            if getattr(self.vlm_client, "get_labels_batch_boxes", None) is not None:
                 result.enum_image = np.asarray(result.image_for_analysis)
+                result.enum_bboxes = assign_visual_ids(result.bboxes)
+            else:
+                result.enum_image, result.enum_bboxes = enumerate_components(
+                    result.image_for_analysis, result.bboxes)
         else:
             logger.warning("no nodes; generating components-only fallback netlist")
             result.netlist = generate_fallback_netlist(result.bboxes)
@@ -328,9 +333,12 @@ class CircuitAnalyzerTorch:
         if self.vlm_client is None or result.enum_image is None:
             logger.warning("no VLM client or enum image; keeping valueless netlist")
             return result
+        boxes_fn = getattr(self.vlm_client, "get_labels_batch_boxes", None)
         try:
-            rows = self.vlm_client.get_labels_batch_boxes([result.enum_image],
-                                                          [result.enum_bboxes])[0]
+            if boxes_fn is not None and result.enum_bboxes is not None:
+                rows = boxes_fn([result.enum_image], [result.enum_bboxes])[0]
+            else:
+                rows = self.vlm_client.get_labels(result.enum_image)
         except Exception as exc:
             if is_device_fault(exc):
                 raise
@@ -343,10 +351,14 @@ class CircuitAnalyzerTorch:
     def finalize_netlists(self, results: Sequence[AnalysisResult],
                           chunk_size: Optional[int] = None) -> list[AnalysisResult]:
         """Stage [7] over many results (JAX :441-498): the value reads of
-        `chunk_size` images (default 8) in one client call, then the merge
-        image by image, with generate_final_netlist's ladder per image."""
+        `chunk_size` images (default 8) in one client call
+        (get_labels_batch_boxes, else get_labels_batch), then the merge
+        image by image, with generate_final_netlist's ladder per image; a
+        client with neither hook goes image by image."""
         results = list(results)
-        if self.vlm_client is None:
+        boxes_fn = getattr(self.vlm_client, "get_labels_batch_boxes", None)
+        batch_fn = getattr(self.vlm_client, "get_labels_batch", None)
+        if boxes_fn is None and batch_fn is None:
             return [self.generate_final_netlist(r) for r in results]
         chunk = chunk_size or 8
         idx = [i for i, r in enumerate(results) if r.enum_image is not None]
@@ -357,8 +369,11 @@ class CircuitAnalyzerTorch:
             sel = idx[base:base + chunk]
             t0 = time.time()
             try:
-                outs = self.vlm_client.get_labels_batch_boxes(
-                    [results[i].enum_image for i in sel], [results[i].enum_bboxes for i in sel])
+                if boxes_fn is not None:
+                    outs = boxes_fn([results[i].enum_image for i in sel],
+                                    [results[i].enum_bboxes for i in sel])
+                else:
+                    outs = batch_fn([results[i].enum_image for i in sel])
             except Exception as exc:
                 if is_device_fault(exc):
                     raise

@@ -7,9 +7,11 @@ semantics (reference ordering src/analysis_pipeline.py:97-326):
   detect (YOLO per image, one fetch per chunk) → host confidence-NMS
   and cluster crop → SAM2 on the CROPS (one batch) → per-crop logit
   resize + threshold + bit-pack → topology stage A per image → host
-  reclassify / direction reads (one client call a chunk) / node
-  extraction / netlist → with `finalize=True`, the value reads of the
-  chunk in one client call and the merge.
+  reclassify / direction reads (one client call a chunk; a client that
+  reads one crop a call goes image by image on its thread pool) / node
+  extraction / netlist and enumeration image → with `finalize=True`,
+  the value reads of the chunk in one client call (image by image for
+  a client with no batch read) and the merge.
 
 Design on the card:
   * images upload once as uint8; letterboxing, crop slicing and SAM2
@@ -196,7 +198,7 @@ class BatchedPipeline:
 
     def _enrich_chunk(self, results: Sequence[AnalysisResult]) -> None:
         """Stage [4] for a chunk (JAX batch.py:542-562): every eligible
-        crop of every image in one client call."""
+        crop of every image in one client call, or a crop a call."""
         try:
             enriched = enrich_directions_many(
                 [r.image_for_analysis for r in results], [r.bboxes for r in results],

@@ -48,7 +48,8 @@ TINY_DET = dict(scale="n", img_size=128, num_classes=64, dtype="float32")
 #: between the packages (15× the largest logit difference seen)
 LOGIT_FLIP_BOUND = 1e-3
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "cv2", "PIL",
-             "safetensors", "transformers", "matplotlib", "circuitvision_tpu")
+             "safetensors", "transformers", "matplotlib", "circuitvision_tpu", "google",
+             "openai", "httpx", "requests")
 
 
 @pytest.fixture(autouse=True)
@@ -154,12 +155,18 @@ def test_tiny_analyze_imports_no_jax_cv2_or_reference_package(tmp_path):
     fused-morphology switch on, finalize=True), simulate(), the serving
     executor and HTTP server, the CLI's simulate, a selective and a LoRA
     fine-tune step on a batch of the folder dataset and a train
-    checkpoint, and find no module named
-    exactly jax, flax, optax, orbax, tensorstore, cv2, PIL, matplotlib, ... or the JAX
+    checkpoint, the black-box value pass (a fake whole-image client's
+    final netlist on the drawn enumeration image, and the Gemini and
+    OpenRouter clients against a stub server on 127.0.0.1), and find no
+    module named exactly jax, flax, optax, orbax, tensorstore, cv2, PIL,
+    matplotlib, google, openai, httpx, requests, ... or the JAX
     package, nor any submodule of them (names compared exactly, since
-    circuitvision_tpu is a prefix of circuitvision_tpu_torch)."""
+    circuitvision_tpu is a prefix of circuitvision_tpu_torch). Modules the
+    interpreter holds before the first import are not counted: a
+    namespace package's .pth file can put `google` there at start-up."""
     code = f"""
 import sys, json
+startup = set(sys.modules)
 sys.path.insert(0, {str(ROOT)!r})
 import numpy as np
 import circuitvision_tpu_torch
@@ -242,7 +249,37 @@ rtx = reader_train.make_reader_optimizer(3e-4, 10)
 reader_train.make_reader_train_step(rmodel, rtx)(
     rparams, rtx.init(rparams), *(torch.from_numpy(data[k][:4])
                                   for k in ("crops", "cls", "val", "dir", "val_w")))
-print(json.dumps(sorted(sys.modules)))
+# the black-box value pass: the enumeration image, the fake and the HTTP clients
+import http.server, threading
+from circuitvision_tpu_torch.enrich.client import (FakeVLMClient, GeminiVLMClient,
+                                                    OpenRouterVLMClient)
+from circuitvision_tpu_torch.core.types import BBox
+from circuitvision_tpu_torch.topology.enumerate_components import enumerate_components
+img = load_image({str(ROOT / "eval_data" / "images" / "ac_rc.png")!r})
+enum_img, _ = enumerate_components(img, [BBox("resistor", 1.0, 10, 10, 40, 30)])
+rows = [{{"id": "1", "class": "resistor", "value": "3"}}]
+a.vlm_client = FakeVLMClient(rows, {{"voltage.ac": ("UP", "SIGN")}})
+a.generate_final_netlist(a.analyze(img))
+class Stub(http.server.BaseHTTPRequestHandler):
+    def do_POST(self):
+        self.rfile.read(int(self.headers["Content-Length"]))
+        text = json.dumps(rows)
+        out = json.dumps({{"candidates": [{{"content": {{"parts": [{{"text": text}}]}}}}],
+                          "choices": [{{"message": {{"content": text}}}}]}}).encode()
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(out)))
+        self.end_headers()
+        self.wfile.write(out)
+    def log_message(self, *args):
+        pass
+srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Stub)
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+url = f"http://127.0.0.1:{{srv.server_address[1]}}"
+for client in (GeminiVLMClient(api_key="k", endpoint=url),
+               OpenRouterVLMClient(api_key="k", endpoint=url)):
+    assert client.get_labels(enum_img) == rows
+srv.shutdown()
+print(json.dumps(sorted(set(sys.modules) - startup)))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=tmp_path, env={**os.environ, "PYTHONPATH": ""}, timeout=300)
@@ -257,7 +294,8 @@ print(json.dumps(sorted(sys.modules)))
               "webapp", "models.flops", "core.draw", "core.hershey", "core.viz",
               "eval.randomized", "eval.glyphs", "eval.aileron", "eval.handdrawn",
               "eval.degrade", "eval.synth", "eval.pool", "train.optim", "train.yolo_loss",
-              "train.yolo_train", "train.reader"):
+              "train.yolo_train", "train.reader", "enrich.prompts", "core.hershey_digits",
+              "topology.enumerate_components"):
         assert "circuitvision_tpu_torch." + m in mods
     bad = [m for m in mods if m in FORBIDDEN or m.startswith(tuple(f + "." for f in FORBIDDEN))]
     assert not bad, bad
@@ -266,9 +304,9 @@ print(json.dumps(sorted(sys.modules)))
 def test_port_sources_name_no_jax_or_reference_import():
     pat = re.compile(r"import jax|from circuitvision_tpu\.|import circuitvision_tpu\b|cpp_extension"
                      r"|import (flax|optax|orbax|tensorstore|cv2|PIL|safetensors|transformers"
-                     r"|matplotlib)\b"
+                     r"|matplotlib|google|openai|httpx|requests)\b"
                      r"|from (jax|flax|optax|orbax|tensorstore|cv2|PIL|safetensors|transformers"
-                     r"|matplotlib)\b")
+                     r"|matplotlib|google|openai|httpx|requests)\b")
     files = list((ROOT / "circuitvision_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)

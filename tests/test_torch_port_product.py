@@ -7,14 +7,17 @@ trained crop reader ckpt/reader as the VLM client of each. Eval images
 are decoded by each package's own image reader. `analyze()` followed by
 `generate_final_netlist`, and `analyze_many(finalize=True)`, must give
 byte-equal final netlists (with values), valueless netlists, boxes,
-directions and stage-2 rows."""
+directions and stage-2 rows; and with FakeVLMClient, the black-box value
+pass's drawn enumeration image and final netlists."""
 import dataclasses
+import json
 import logging
 from pathlib import Path
 
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import Mesh
 
 from circuitvision_tpu.core.config import DetectorConfig as JDet
@@ -35,6 +38,17 @@ from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
 ROOT = Path(__file__).resolve().parents[1]
 #: two basic circuits and an EXIF-rotated one
 NAMES = ("ac_rc", "series_rl", "exif_0")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's tests, restored after: the
+    suite runs six workers on eight cores, where torch's oversubscribed
+    thread pools make these tests several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -156,39 +170,136 @@ def test_value_pass_ladders_keep_the_valueless_netlist(product, monkeypatch, cap
 
 
 def test_whole_image_clients_are_refused(product):
-    """A client that reads whole images, or one that reads the direction
-    crops one at a time, is refused: the drawn enumeration image and the
-    per-crop dispatch serve only the HTTP clients, which are not ported."""
-    _ja, ta = product
+    """Kept under its old name: a client that reads whole images, and
+    one that reads the direction crops one at a time, build and run as
+    they do in the JAX package — the drawn enumeration image and the
+    per-crop pool are ported. Each gives the JAX analyzer's final netlist
+    with the same client; a client with no labels or no direction hook
+    is refused."""
+    ja, ta = product
+    rows = [{"id": "1", "class": "voltage.ac", "value": "7"}]
 
     class WholeImage:
+        def __init__(self):
+            self.images = []
+
         def get_labels(self, enum_image):
-            return []
+            self.images.append(enum_image)
+            return list(rows)
 
         def get_directions_batch(self, crops, classes):
-            return [("UNKNOWN", "UNKNOWN")] * len(crops)
+            return [("UP", "SIGN")] * len(crops)
 
     class PerCrop:
         def get_labels_batch_boxes(self, images, boxes):
-            return [[] for _ in images]
+            return [list(rows) for _ in images]
 
         def get_direction(self, crop, cls):
-            return "UNKNOWN", "UNKNOWN"
+            return "DOWN", "ARROW"
 
-    for client, hook in ((WholeImage(), "get_labels_batch_boxes"),
-                         (PerCrop(), "get_directions_batch")):
-        with pytest.raises(NotImplementedError, match=f"no {hook}: .*enumeration image"):
-            CircuitAnalyzerTorch(ta.cfg, ta.yolo.state_dict(), None, device="cpu",
-                                 vlm_client=client)
+    jclient, img = ja.vlm_client, load_image(_path("ac_rc"))
+    try:
+        for make in (WholeImage, PerCrop):
+            client, jc = make(), make()
+            a = CircuitAnalyzerTorch(ta.cfg, ta.yolo.state_dict(), ta.sam2.state_dict(),
+                                     device="cpu", vlm_client=client)
+            ja.vlm_client = jc
+            got = a.generate_final_netlist(a.analyze(img))
+            want = ja.generate_final_netlist(ja.analyze(jax_load_image(_path("ac_rc"))))
+            got_s, want_s = _summary(got), _summary(want)
+            assert got_s == want_s and got.enum_image.tobytes() == want.enum_image.tobytes()
+            assert got.vlm_stage2_output == rows
+            if make is WholeImage:
+                assert client.images[0] is got.enum_image
+                assert got.enum_image.tobytes() != got.image_for_analysis.tobytes()
+    finally:
+        ja.vlm_client = jclient
+    labels_only = type("LabelsOnly", (), {"get_labels": WholeImage.get_labels})()
+    with pytest.raises(TypeError, match="no get_direction or get_directions_batch"):
+        CircuitAnalyzerTorch(ta.cfg, ta.yolo.state_dict(), None, device="cpu",
+                             vlm_client=labels_only)
 
 
 @pytest.mark.parametrize("key", ["GEMINI_API_KEY", "OPENROUTER_API_KEY"])
 def test_analyzer_builds_with_an_http_key_set(product, monkeypatch, key):
-    """The HTTP clients' keys, which users of the JAX package have set,
-    name clients the port does not have: without vlm_client= the
-    analyzer builds with no client, and runs the valueless path."""
+    """Kept under its old name: without vlm_client= an HTTP key gives its
+    client, built from the config's EnrichConfig as the JAX
+    default_client builds it (JAX enrich/client.py:300-318)."""
+    from circuitvision_tpu_torch.enrich.client import GeminiVLMClient, OpenRouterVLMClient
+
     _ja, ta = product
     monkeypatch.delenv("CIRCUITVISION_VLM", raising=False)
+    for k in ("GEMINI_API_KEY", "OPENROUTER_API_KEY"):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv(key, "k")
-    a = CircuitAnalyzerTorch(ta.cfg, ta.yolo.state_dict(), None, device="cpu")
-    assert a.vlm_client is None
+    enrich = dataclasses.replace(ta.cfg.enrich, direction_model="dm", labels_model="lm",
+                                 temperature=0.2, top_p=0.9, max_output_tokens=64)
+    a = CircuitAnalyzerTorch(dataclasses.replace(ta.cfg, enrich=enrich), ta.yolo.state_dict(),
+                             None, device="cpu")
+    c = a.vlm_client
+    if key == "GEMINI_API_KEY":
+        assert isinstance(c, GeminiVLMClient)
+        assert (c.direction_model, c.temperature, c.top_p, c.max_output_tokens) == \
+            ("dm", 0.2, 0.9, 64)
+        assert c.labels_model == "gemini-2.5-pro-exp-03-25"
+    else:
+        assert isinstance(c, OpenRouterVLMClient) and c.model == "lm"
+    assert c.api_key == "k"
+
+
+def _fakes(name):
+    """The JAX and port FakeVLMClient primed with an eval label file."""
+    from circuitvision_tpu.enrich.client import FakeVLMClient as JFake
+    from circuitvision_tpu_torch.enrich.client import FakeVLMClient
+
+    canned = json.loads((ROOT / "eval_data" / "labels" / f"{name}.json").read_text())
+    dirs = {k: tuple(v) for k, v in canned.get("directions", {}).items()}
+    return JFake(labels=canned["labels"], directions=dirs), FakeVLMClient(canned["labels"], dirs)
+
+
+@pytest.fixture
+def fake_clients(product):
+    """Each analyzer's client swapped for a fake for one test, restored
+    after."""
+    ja, ta = product
+    saved = ja.vlm_client, ta.vlm_client
+    yield
+    ja.vlm_client, ta.vlm_client = saved
+
+
+def _drawn(r):
+    return {**_summary(r), "enum_image": r.enum_image.tobytes()}
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_fake_client_final_netlist_equals_jax(product, fake_clients, name):
+    """The black-box value pass with FakeVLMClient: the drawn enumeration
+    image, the per-crop directions and the final netlist equal JAX's."""
+    ja, ta = product
+    (ja.vlm_client, ta.vlm_client) = jf, tf = _fakes(name)
+    want = ja.generate_final_netlist(ja.analyze(jax_load_image(_path(name))))
+    got = ta.generate_final_netlist(ta.analyze(load_image(_path(name))))
+    assert _drawn(got) == _drawn(want)
+    assert got.nodes and got.vlm_stage2_output
+    assert got.enum_image.tobytes() != got.image_for_analysis.tobytes()
+    assert (tf.label_calls, sorted(tf.direction_calls)) == (jf.label_calls,
+                                                            sorted(jf.direction_calls)) == \
+        (1, sorted(b.class_name for b in got.bboxes if b.semantic_direction is not None))
+
+
+def test_fake_client_analyze_many_finalize_equals_jax_and_serial(product, fake_clients):
+    """Four images in chunks of two with one fake client: the value pass
+    through get_labels_batch, against the JAX BatchedPipeline and the
+    port's own serial path."""
+    ja, ta = product
+    names = NAMES + ("golden",)
+    (ja.vlm_client, ta.vlm_client) = jf, tf = _fakes("ac_rc")
+    mesh = Mesh(np.asarray(jax.devices("cpu")[:1]).reshape(1, 1), ("data", "model"))
+    want = ja.analyze_batch([jax_load_image(_path(n)) for n in names], mesh=mesh, batch_size=2,
+                            finalize=True)
+    got = ta.analyze_batch([load_image(_path(n)) for n in names], batch_size=2, finalize=True)
+    assert [_drawn(g) for g in got] == [_drawn(w) for w in want]
+    assert tf.label_batch_calls == jf.label_batch_calls == 2 and tf.label_calls == 0
+    for n, g in zip(names, got):
+        serial = ta.generate_final_netlist(ta.analyze(load_image(_path(n))))
+        assert _drawn(serial) == _drawn(g), n

@@ -212,15 +212,22 @@ def test_direction_ladder_unknown_on_data_errors_raises_on_device_faults(caplog)
 
 
 def test_enrich_directions_refuses_a_client_without_the_batched_read():
-    """The JAX package's per-crop get_direction dispatch serves only its
-    HTTP clients, which are not ported: a client without
-    get_directions_batch raises instead of reading UNKNOWN everywhere."""
+    """Kept under its old name: a client without get_directions_batch is
+    read a crop at a time, as the JAX package's per-crop dispatch reads
+    it, image by image across a chunk."""
     class PerCrop:
         def get_direction(self, crop, cls):
-            return "UP", "SIGN"
+            return "UP", cls.upper()
 
-    with pytest.raises(AttributeError, match="get_directions_batch"):
-        tdirections.enrich_directions(_image("ac_rc"), _gt("ac_rc"), PerCrop())
+    image, boxes = _image("ac_rc"), _gt("ac_rc")
+    jboxes = _gt("ac_rc", JBox)
+    want = jdirections.enrich_directions(image, jboxes, PerCrop())
+    for got in (tdirections.enrich_directions(image, boxes, PerCrop()),
+                tdirections.enrich_directions_many([image, image], [boxes, boxes],
+                                                   PerCrop())[1]):
+        assert [(b.semantic_direction, b.semantic_reason) for b in got] == \
+            [(b.semantic_direction, b.semantic_reason) for b in want]
+    assert any(b.semantic_direction == "UP" for b in want)
 
 
 @pytest.mark.parametrize("exc,fault", [
@@ -268,8 +275,9 @@ def test_default_client(monkeypatch, tmp_path, caplog):
     monkeypatch.delenv("CIRCUITVISION_VLM")
     monkeypatch.setenv("GEMINI_API_KEY", "k")
     caplog.set_level(logging.WARNING)
-    assert tclient.default_client(device="cpu") is None
-    assert "GEMINI_API_KEY" in caplog.text and "Queue A 6" in caplog.text
+    client = tclient.default_client(device="cpu")
+    assert isinstance(client, tclient.GeminiVLMClient) and client.api_key == "k"
+    assert "not ported" not in caplog.text
 
 
 # --------------------------------------------------------------- fix_netlist

@@ -196,7 +196,25 @@ Phases, in order; any failure raises and the process exits non-zero:
      scripts/torch_eval_detector.py as a process on the pool's held-out
      tail for the written detector and for the shipped ckpt/yolo, their
      AP@50 tables printed. No
-     kernel lies on this path: every count must stay 0.
+     kernel lies on this path: every count must stay 0;
+ 14. data parallel (torch.distributed; each rank a process of this
+     script, `chip_smoke.py --rank MODE`, started with torchrun's
+     environment and a timeout; any rank's non-zero exit fails the run) —
+     (a) `cli analyze-batch --distributed --final --backend gloo` with
+     the shipped checkpoints and the reader over the trained product's
+     16 eval PNGs, as one rank and as two ranks sharing the card: every
+     .cir the trained product's serial netlist, the ranks' launch counts
+     summed equal to one process's, images/s of each; (b) the same with
+     `--backend nccl` as one rank (NCCL's init, its two gathers and the
+     barrier on the card), and two NCCL ranks naming one card refused by
+     the port; (c) the distributed fine-tune at SAM2.1 Hiera-t@1024,
+     seeded, whole tree, a global batch of 4: two ranks at 2 against one
+     process at 4 in float32 with TF32 off (the loss and every leaf's
+     change), the model axis (1 × 2, the leaves of 2^16 elements or more
+     split) against the same, and in bf16 ms per step, peak memory and
+     exact launches per rank; which collectives gloo takes CUDA tensors
+     for; (d) scripts/torch_train_demo.py --distributed as two ranks,
+     equal losses on both.
 
 It prints one JSON line per kernel shape and route check, the launch
 floor, one line per fine-tune path, a `kernels` summary line (every
@@ -3300,6 +3318,469 @@ def run_trainers(torch, smi):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------ phase 14: data parallel
+#: seconds a rank process of phase 14 may take, its start and rendezvous
+#: included; past it the phase fails
+RANK_TIMEOUT_S = 300
+#: the distributed fine-tune: SAM2.1 Hiera-t@1024 (phase 12's seed 5),
+#: whole tree, a global batch of DIST_BATCH on DIST_RANKS ranks sharing
+#: the card (gloo), against one process at the whole batch
+DIST_RANKS, DIST_BATCH = 2, 4
+#: float32, TF32 off, two ranks at 2 against one process at 4: the loss
+#: within DIST_LOSS_RTOL_F32 (a mean of two means against one mean over
+#: the same per-sample values: float32 rounding, ~1e-7); each trainable
+#: element's change within DIST_STEP_TOL · lr of the single step's where
+#: √ν is above DIST_ROUNDOFF of its largest, at most DIST_MAX_DROPPED of
+#: the elements dropped (tests/test_torch_port_train.py:_check_moves: an
+#: Adam first step moves an element by ≈ lr · sign(g), so only elements
+#: whose gradient sits at round-off can move otherwise)
+DIST_LOSS_RTOL_F32, DIST_STEP_TOL, DIST_ROUNDOFF, DIST_MAX_DROPPED = 1e-5, 1e-2, 1e-6, 0.1
+#: bfloat16: the first step's loss within DIST_LOSS_RTOL_BF16 of one
+#: process's at the whole batch (the forward runs at batch 2 against 4:
+#: cuDNN and cuBLAS may pick other algorithms by batch, and bf16 keeps 8
+#: bits, ~4e-3 a rounding, over ~200 layers; phase 12's losses carry the
+#: same roundings); the ranks' parameters bit-equal after every step (the
+#: same averaged gradient, the same update)
+DIST_LOSS_RTOL_BF16 = 2e-2
+#: the fine-tune demo's steps in phase 14 (scripts/torch_train_demo.py)
+DEMO_STEPS = 3
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(argv, world: int, env=None, expect_ok: bool = True):
+    """Start `world` ranks of argv(rank) with torchrun's environment for one
+    host on 127.0.0.1 and wait for all: [(returncode, stdout + stderr,
+    seconds)]. A rank past RANK_TIMEOUT_S is killed, with the others, and
+    fails the phase; with expect_ok any non-zero exit fails it."""
+    import os
+
+    port = _free_port()
+    base = {**os.environ, **(env or {}), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+            "WORLD_SIZE": str(world), "LOCAL_WORLD_SIZE": str(world)}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv(r), cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              env={**base, "RANK": str(r), "LOCAL_RANK": str(r)})
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append((p.communicate(timeout=RANK_TIMEOUT_S)[0],
+                         time.perf_counter() - t0))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"a rank of {argv(0)} ran past {RANK_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = [(p.returncode, out, s) for p, (out, s) in zip(procs, outs)]
+    if expect_ok:
+        for r, (rc, out, _s) in enumerate(res):
+            if rc != 0:
+                raise AssertionError(f"rank {r} of {argv(r)[2:5]} exited {rc}:\n{out[-6000:]}")
+    return res
+
+
+def _rank_result(out: str) -> dict:
+    lines = [ln for ln in out.splitlines() if ln.startswith("RANK_RESULT ")]
+    if len(lines) != 1:
+        raise AssertionError(f"a rank printed {len(lines)} results:\n{out[-4000:]}")
+    return json.loads(lines[0][len("RANK_RESULT "):])
+
+
+def _rate(out: str) -> float:
+    m = re.search(r"\(([0-9.]+) images/s incl\. decode and set-up\)", out)
+    if not m:
+        raise AssertionError(f"rank 0 printed no rate:\n{out[-3000:]}")
+    return float(m.group(1))
+
+
+def rank_main(argv) -> int:
+    """One rank of phase 14, started by run_ranks as `chip_smoke.py --rank
+    MODE ...`: "cli" and "cli-cold" run the CLI's main in this process
+    (cli after a warm-up of the same analyzer on two of its images, the
+    launch counts reset after it), "train" the distributed fine-tune."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mode, rest = argv[0], argv[1:]
+    if mode in ("cli", "cli-cold"):
+        from circuitvision_tpu_torch import cli
+        from circuitvision_tpu_torch.io.image_io import load_image
+
+        args = cli._parser().parse_args(rest)
+        if mode == "cli":
+            warm = cli._analyzer(args)
+            warm.analyze_batch([load_image(p) for p in args.images[:2]], finalize=args.final)
+            del warm
+            torch.cuda.synchronize()
+        reset, read = counters()
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        rc = cli.main(rest)
+        torch.cuda.synchronize()
+        print("RANK_RESULT " + json.dumps({
+            "rc": rc, "launches": read(),
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}), flush=True)
+        return rc
+    if mode == "train":
+        return rank_train(torch, Path(rest[0]))
+    raise SystemExit(f"unknown rank mode {mode}")
+
+
+def _digest(params) -> str:
+    """SHA-256 over every leaf's bytes, in name order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for n in sorted(params):
+        h.update(params[n].detach().contiguous().cpu().view(-1).view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def gloo_cuda_probe(torch, world: int) -> dict:
+    """Which collectives the gloo backend takes CUDA tensors for, in this
+    torch: each called once on a small CUDA tensor ("ok", or the error's
+    first words). The port's ranks sharing a card call all_reduce (in the
+    gradients' dtype, bf16 included) and all_gather with CUDA tensors;
+    rank_train's steps fail if gloo refuses them."""
+    import warnings
+
+    import torch.distributed as dist
+
+    t = torch.ones(world * 2, device="cuda")
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(t.clone()),
+        "all_reduce_bf16": lambda: dist.all_reduce(t.to(torch.bfloat16)),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(world)], t),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(world * t.numel(), device="cuda"), t),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(2, device="cuda"), t),
+        "barrier": lambda: dist.barrier(),
+    }
+    out = {}
+    for name, fn in calls.items():
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as exc:  # noqa: BLE001 — the probe reports, it does not gate
+            out[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+    return out
+
+
+def rank_train(torch, out_dir: Path) -> int:
+    """A rank of the distributed fine-tune (phase 14 c): gloo on the shared
+    card. (A) float32, the data axis: one step at DIST_BATCH / ranks; (B)
+    float32, the model axis (1 × ranks): one step at the whole batch with
+    the leaves of at least 2^16 elements split; rank 0 writes both steps'
+    whole parameters. (C) bfloat16, the data axis: a warm-up and
+    TRAIN_STEPS timed steps, launches per step, peak memory."""
+    import statistics
+
+    from circuitvision_tpu_torch.core.config import MeshConfig, TrainConfig
+    from circuitvision_tpu_torch.models.bridge import seeded_state
+    from circuitvision_tpu_torch.parallel import multihost
+    from circuitvision_tpu_torch.parallel.mesh import shard_batch
+    from circuitvision_tpu_torch.train import distributed as dt
+    from circuitvision_tpu_torch.train import train_step as ts
+
+    multihost.initialize(backend="gloo", device="cuda:0", timeout_s=RANK_TIMEOUT_S)
+    rank, world = multihost.process_index(), multihost.process_count()
+    report = {"rank": rank, "gloo_cuda_tensors": gloo_cuda_probe(torch, world)}
+    meta = {"sam2": {"preset": "t", "overrides": {"resolution": 1024}}}
+    state = seeded_state("sam2", meta, 5)
+    images, masks = train_inputs(torch, DIST_BATCH, 1024, seed=3)
+    cfg = TrainConfig()
+
+    def one_step(model, mesh_cfg):
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        tx, mask = ts.make_optimizer(model, cfg, {n: True for n in params})
+        mesh = multihost.global_mesh(mesh_cfg)
+        dims = dt.shard_dims(params, mesh)
+        step = dt.make_distributed_train_step(model, tx, mesh, dims, cfg, mask, selective=False)
+        p, o, metrics = step(dt.shard_params(params, dims, mesh),
+                             dt.shard_opt_state(tx.init(params), dims, mesh),
+                             shard_batch(images, mesh), shard_batch(masks, mesh))
+        return mesh, dims, step, p, o, metrics, tx
+
+    model = train_model(torch, meta, state, "cuda", torch.float32)
+    for tag, mesh_cfg in (("data_f32", MeshConfig()),
+                          ("model_f32", MeshConfig(model_parallel=world))):
+        mesh, dims, _step, p, _o, metrics, _tx = one_step(model, mesh_cfg)
+        whole = dt.gather_params(p, dims, mesh)
+        report[tag] = {"mesh": list(mesh.shape), "loss": float(metrics["loss"]),
+                       "digest": _digest(whole),
+                       "sharded_leaves": sum(d is not None for d in dims.values())}
+        if rank == 0:
+            torch.save({n: t.cpu() for n, t in whole.items()}, out_dir / f"{tag}.pt")
+        del whole, p, _o, _step
+    del model
+    torch.cuda.empty_cache()
+
+    model = train_model(torch, meta, state, "cuda", torch.bfloat16)
+    mesh, dims, step, p, o, metrics, tx = one_step(model, MeshConfig())
+    losses, times, counts = [float(metrics["loss"])], [], None
+    reset, read = counters()
+    x, m = shard_batch(images, mesh), shard_batch(masks, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        if i == 0:
+            reset()
+        multihost.sync("step")  # the ranks start each timed step together
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, metrics = step(p, o, x, m)
+        losses.append(float(metrics["loss"]))  # reads back: the step has ended
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            counts = read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # where a step goes: the forward and backward, the gradient average
+    # (gloo, CUDA tensors), the update; synchronised, median of 3
+    from circuitvision_tpu_torch.parallel.mesh import all_reduce_mean
+
+    split: dict = {"grads_ms": [], "average_ms": [], "update_ms": []}
+    for _ in range(3):
+        multihost.sync("split")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _l, _m, grads = ts.loss_and_grads(model, p, x, m, cfg, selective=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        names = sorted(grads)
+        mean = dict(zip(names, all_reduce_mean([grads[n] for n in names], mesh.data_group)))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        tx.update(mean, o)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, a, b in (("grads_ms", t0, t1), ("average_ms", t1, t2), ("update_ms", t2, t3)):
+            split[k].append((b - a) * 1e3)
+        del grads, mean
+    report["bf16"] = {"batch_per_rank": int(x.shape[0]), "ms_per_step": statistics.median(times),
+                      "step_ms": times, "losses": losses, "launches": counts,
+                      "peak_memory_gib": peak,
+                      "split_ms": {k: statistics.median(v) for k, v in split.items()},
+                      "digest": _digest(dt.gather_params(p, dims, mesh))}
+    print("RANK_RESULT " + json.dumps(report), flush=True)
+    multihost.shutdown()
+    return 0
+
+
+def _moves(before, after, ref_after, nu, lr):
+    """(worst |Δ − Δref| over the compared elements, elements dropped at
+    round-off, elements): DIST_* rule."""
+    import numpy as np
+
+    rms = {n: np.sqrt(nu[n].double().numpy()) for n in nu}
+    top = max(float(r.max()) for r in rms.values())
+    worst, dropped, total = 0.0, 0, 0
+    for n, r in rms.items():
+        live = r > DIST_ROUNDOFF * top
+        d = (after[n].double() - before[n].double()).numpy()
+        ref = (ref_after[n].double() - before[n].double()).numpy()
+        worst = max(worst, float(np.abs(d - ref)[live].max(initial=0.0)))
+        dropped, total = dropped + int((~live).sum()), total + live.size
+    return worst, dropped, total
+
+
+def run_data_parallel(torch, smi, serial):
+    """Phase 14: data parallelism with torch.distributed on the one card.
+    (a) `cli analyze-batch --distributed --final --backend gloo` over the
+    trained product's 16 eval PNGs (ckpt/yolo, ckpt/sam2, the reader) as
+    one rank and as two ranks sharing the card: every .cir the trained
+    product phase's serial netlist, the ranks' launches summed equal to
+    one rank's and to two chunks of t@512's, images/s of each; (b) the
+    same with `--backend nccl` as one rank (NCCL's init, both gathers and
+    the barrier on the card), and two NCCL ranks naming cuda:0 refused by
+    the port's own check; (c) the distributed fine-tune (rank_train)
+    against one process; (d) scripts/torch_train_demo.py --distributed as
+    two ranks, equal losses on both. Returns the launches of the two-rank
+    CLI run (summed) and of one bf16 step (per rank)."""
+    import tempfile
+
+    ckpt = REPO / "ckpt"
+    paths = [str(p) for p, _net in serial]
+    env = {"CIRCUITVISION_VLM": f"reader:{ckpt / 'reader'}"}
+    me = [sys.executable, str(REPO / "chip_smoke.py"), "--rank"]
+    want_counts = {k: v * -(-len(paths) // PRODUCT_BATCH) for k, v in EXPECTED["t@512"].items()}
+    report = {"card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        def cli_run(tag, world, backend, device, mode="cli", expect_ok=True):
+            out_dir = tmp / tag
+            res = run_ranks(lambda r: me + [mode, "analyze-batch", *paths,
+                                            "--yolo-checkpoint", str(ckpt / "yolo"),
+                                            "--sam2-checkpoint", str(ckpt / "sam2"), "--final",
+                                            "--distributed", "--backend", backend,
+                                            "--device", device, "--out-dir", str(out_dir)],
+                            world, env, expect_ok)
+            return out_dir, res
+
+        def check_netlists(tag, out_dir):
+            for p, net in serial:
+                got = (out_dir / f"{Path(p).stem}.cir").read_text()
+                if got != net + "\n":
+                    raise AssertionError(f"{tag}: {Path(p).stem}.cir differs from the serial "
+                                         f"netlist:\n{got}\n--\n{net}")
+
+        runs = {}
+        for world in (1, DIST_RANKS):
+            tag = f"gloo_{world}"
+            out_dir, res = cli_run(tag, world, "gloo", "cuda:0")
+            check_netlists(tag, out_dir)
+            results = [_rank_result(out) for _rc, out, _s in res]
+            summed = {k: sum(r["launches"][k] for r in results) for k in want_counts}
+            runs[tag] = {"ranks": world, "images_per_s": _rate(res[0][1]),
+                         "launches_per_rank": [r["launches"] for r in results],
+                         "launches_summed": summed,
+                         "peak_memory_gib_per_rank": [r["peak_memory_gib"] for r in results],
+                         "process_s": [s for _rc, _out, s in res]}
+            if summed != want_counts:
+                raise AssertionError(f"{tag}: launches summed over the ranks {summed} != "
+                                     f"{want_counts}")
+        report["cli_gloo"] = runs
+        out_dir, res = cli_run("nccl_1", 1, "nccl", "cuda")
+        check_netlists("nccl_1", out_dir)
+        result = _rank_result(res[0][1])
+        if result["launches"] != want_counts:
+            raise AssertionError(f"nccl: launches {result['launches']} != {want_counts}")
+        report["cli_nccl"] = {"ranks": 1, "images_per_s": _rate(res[0][1]),
+                              "launches": result["launches"]}
+        _out, res = cli_run("nccl_shared", 2, "nccl", "cuda:0", mode="cli-cold",
+                            expect_ok=False)
+        refused = [rc != 0 and "NCCL takes one rank per card" in out for rc, out, _s in res]
+        report["nccl_two_ranks_one_card_refused"] = refused
+        if not all(refused):
+            raise AssertionError("two NCCL ranks on one card were not refused by the port:\n"
+                                 + "\n--\n".join(out[-2000:] for _rc, out, _s in res))
+        print(json.dumps({"distributed_cli": report}), flush=True)
+        print(f"   analyze-batch --distributed on {smi}: 1 rank "
+              f"{runs['gloo_1']['images_per_s']:.2f} images/s, {DIST_RANKS} ranks on one card "
+              f"{runs[f'gloo_{DIST_RANKS}']['images_per_s']:.2f}", flush=True)
+
+        train = run_distributed_training(torch, smi, tmp, me)
+
+    # (d) the demo
+    t0 = time.perf_counter()
+    res = run_ranks(lambda r: [sys.executable, str(REPO / "scripts" / "torch_train_demo.py"),
+                               "--distributed", "--backend", "gloo", "--device", "cuda:0",
+                               "--steps", str(DEMO_STEPS), "--log-every", "1"], DIST_RANKS)
+    losses = [re.findall(r"^step +\d+ +loss (\S+)", out, re.M) for _rc, out, _s in res]
+    demo = {"ranks": DIST_RANKS, "steps": DEMO_STEPS, "losses": losses,
+            "seconds": time.perf_counter() - t0, "card": smi}
+    print(json.dumps({"distributed_demo": demo}), flush=True)
+    if len(losses[0]) != DEMO_STEPS or any(ls != losses[0] for ls in losses) \
+            or not all("TRAIN DEMO OK" in out for _rc, out, _s in res):
+        raise AssertionError(f"the demo's ranks disagree or did not finish: {losses}")
+    return runs[f"gloo_{DIST_RANKS}"]["launches_summed"], train
+
+
+def run_distributed_training(torch, smi, tmp: Path, me):
+    """Phase 14 (c): one process's float32 whole-tree step at the whole
+    batch (TF32 off), and its bf16 first-step loss, then DIST_RANKS ranks
+    of rank_train, held to them."""
+    from circuitvision_tpu_torch.core.config import TrainConfig
+    from circuitvision_tpu_torch.models.bridge import seeded_state
+    from circuitvision_tpu_torch.train import train_step as ts
+
+    meta = {"sam2": {"preset": "t", "overrides": {"resolution": 1024}}}
+    state = seeded_state("sam2", meta, 5)
+    images, masks = train_inputs(torch, DIST_BATCH, 1024, seed=3)
+    cfg = TrainConfig()
+    ref = {}
+    model = train_model(torch, meta, state, "cuda", torch.float32)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    tx, mask = ts.make_optimizer(model, cfg, {n: True for n in params})
+    after, opt, metrics = ts.make_train_step(model, tx, cfg, mask, selective=False)(
+        params, tx.init(params), images, masks)
+    ref[torch.float32] = float(metrics["loss"])
+    before = {n: t.cpu() for n, t in params.items()}
+    ref_after = {n: t.cpu() for n, t in after.items()}
+    nu = {n: t.cpu() for n, t in opt["nu"].items()}
+    del model, params, after, opt
+    torch.cuda.empty_cache()
+    # one process at the whole batch in bf16, timed as the ranks' steps are
+    model = train_model(torch, meta, state, "cuda", torch.bfloat16)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    tx, mask = ts.make_optimizer(model, cfg, {n: True for n in params})
+    train_step = ts.make_train_step(model, tx, cfg, mask, selective=False)
+
+    def step(carry, x, m):
+        p, o, metrics = train_step(*carry, x, m)
+        return (p, o), metrics
+
+    single, _counts = run_steps(torch, smi, "t@1024 whole-tree bf16, one process at batch 4 "
+                                "(phase 14's reference)", step, (params, tx.init(params)),
+                                (images, masks), TRAIN_STEPS, "train-whole")
+    ref[torch.bfloat16] = single["losses"][0]
+    del model, params, step, train_step
+    torch.cuda.empty_cache()
+    res = run_ranks(lambda r: me + ["train", str(tmp)], DIST_RANKS)
+    ranks = [_rank_result(out) for _rc, out, _s in res]
+    row = {"config": "SAM2.1 Hiera-t@1024 seeded, whole tree", "ranks": DIST_RANKS,
+           "global_batch": DIST_BATCH, "card": smi,
+           "gloo_cuda_tensors": ranks[0]["gloo_cuda_tensors"]}
+    for tag in ("data_f32", "model_f32"):
+        got = torch.load(tmp / f"{tag}.pt", weights_only=True)
+        worst, dropped, total = _moves(before, got, ref_after, nu, cfg.learning_rate)
+        losses = [r[tag]["loss"] for r in ranks]
+        row[tag] = {"mesh": ranks[0][tag]["mesh"], "losses": losses, "single_loss": ref[torch.float32],
+                    "worst_change_err": worst, "tol": DIST_STEP_TOL * cfg.learning_rate,
+                    "dropped": dropped, "elements": total,
+                    "sharded_leaves": ranks[0][tag]["sharded_leaves"],
+                    "ranks_equal": len({r[tag]["digest"] for r in ranks}) == 1}
+        if abs(losses[0] - ref[torch.float32]) > DIST_LOSS_RTOL_F32 * abs(ref[torch.float32]) \
+                or worst > DIST_STEP_TOL * cfg.learning_rate \
+                or dropped > DIST_MAX_DROPPED * total or not row[tag]["ranks_equal"] \
+                or len(set(losses)) != 1:
+            raise AssertionError(f"distributed fine-tune {tag} differs from one process: "
+                                 f"{row[tag]}")
+    bf16 = [r["bf16"] for r in ranks]
+    row["bf16"] = {"per_rank": bf16, "single_first_loss": ref[torch.bfloat16],
+                   "single_ms_per_step": single["ms_per_step"],
+                   "single_peak_memory_gib": single["peak_memory_gib"],
+                   "loss_rtol": DIST_LOSS_RTOL_BF16}
+    print(json.dumps({"distributed_train": row}), flush=True)
+    for b in bf16:
+        if b["launches"] != EXPECTED["train-whole"]:
+            raise AssertionError(f"distributed bf16 step: launches {b['launches']} != "
+                                 f"{EXPECTED['train-whole']}")
+        if not all(math.isfinite(x) for x in b["losses"]) or b["losses"] != bf16[0]["losses"]:
+            raise AssertionError(f"distributed bf16 step: losses {[x['losses'] for x in bf16]}")
+    if len({b["digest"] for b in bf16}) != 1:
+        raise AssertionError("distributed bf16 step: the ranks' parameters differ")
+    if abs(bf16[0]["losses"][0] - ref[torch.bfloat16]) > \
+            DIST_LOSS_RTOL_BF16 * abs(ref[torch.bfloat16]):
+        raise AssertionError(f"distributed bf16 first loss {bf16[0]['losses'][0]} against one "
+                             f"process's {ref[torch.bfloat16]}")
+    print(f"   distributed fine-tune on {smi}: bf16 {bf16[0]['ms_per_step']:.1f} ms a step at "
+          f"{bf16[0]['batch_per_rank']} a rank x {DIST_RANKS} ranks on one card (one process "
+          f"at {DIST_BATCH}: {single['ms_per_step']:.1f}), peak "
+          f"{max(b['peak_memory_gib'] for b in bf16):.2f} GiB a rank", flush=True)
+    return bf16[0]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -3370,6 +3851,9 @@ def main() -> int:
 
     t0 = phase("image input and the web UI on the trained product; the FLOP count")
     launches["web"] = run_web_ui(torch, smi, product)
+    # phase 14's reference: each eval PNG's serial netlist, as analyze-batch writes it
+    serial = [(p, r.netlist_text or r.valueless_netlist_text or "")
+              for p, r in zip(product["paths"], product["serial"])]
     del product
     run_flops(torch, smi)
     done(t0, "image input, the web UI and the FLOP count")
@@ -3405,6 +3889,12 @@ def main() -> int:
     run_trainers(torch, smi)
     done(t0, "training the detector and the reader")
 
+    t0 = phase("data parallel: analyze-batch --distributed (gloo, 1 and 2 ranks on the card; "
+               "nccl), the distributed fine-tune, the demo")
+    launches["distributed-cli"], launches["distributed-train"] = run_data_parallel(
+        torch, smi, serial)
+    done(t0, "data parallel")
+
     def entry(name, s, counts):
         return {"launches": counts[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "eager_ms": s["eager_ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -3435,7 +3925,9 @@ def main() -> int:
                 "launches_trained_product_batch": launches["product-batch"][n],
                 "launches_served": launches["served"][n],
                 "launches_web_ui": launches["web"][n],
-                "launches_vlm": launches["vlm"][n]}
+                "launches_vlm": launches["vlm"][n],
+                "launches_distributed_cli": launches["distributed-cli"][n],
+                "launches_distributed_train": launches["distributed-train"][n]}
                for path in ("l@1024", "batch", "trunk-ln", "train")
                for n, s in summary[path].items()]
     print(json.dumps({"launch_floor": floor}))
@@ -3448,4 +3940,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"] else main())

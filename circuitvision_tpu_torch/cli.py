@@ -27,8 +27,21 @@ UI (webapp.py), `serve-batch` the micro-batching endpoint; both print
 
 `--device` (default cuda) takes the place of the JAX CLI's `--platform`:
 every command but `simulate` (host only) runs on the card unless `--device
-cpu` is given, and fails without one. Not ported, and refused with a
-non-zero exit: `analyze-batch --distributed` (Queue A 13) and a PaliGemma
+cpu` is given, and fails without one; `cuda:K` names card K.
+
+`analyze-batch --distributed` is one rank of a torch.distributed run (one
+process per rank, started by torchrun or with its environment:
+MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK, LOCAL_WORLD_SIZE;
+parallel/multihost.py). Each rank decodes and analyzes its share of the
+images on its own device — cuda:LOCAL_RANK, or the card `--device cuda:K`
+names — and rank 0 writes every netlist. `--backend` picks the collective
+library: nccl (the default on the card; one rank per card) or gloo (the
+CPU, and ranks that share one card):
+
+    torchrun --nproc-per-node 2 -m circuitvision_tpu_torch.cli analyze-batch \\
+        --distributed --device cpu imgs/ --out-dir netlists/
+
+Not ported, and refused with a non-zero exit: a PaliGemma
 CIRCUITVISION_VLM (Queue A 12).
 """
 from __future__ import annotations
@@ -126,18 +139,12 @@ def _print_sim(sim) -> None:
     print(json.dumps(sim.branch_currents, indent=2, ensure_ascii=False))
 
 
-def _cmd_analyze_batch(args) -> int:
-    """Batched multi-image analysis (pipeline/batch.py), the throughput
-    path, with per-image netlist output."""
-    from .io.image_io import ImageFormatError, load_image
-
-    if args.distributed:
-        print("analyze-batch --distributed: analysis across processes and cards is not "
-              "ported (ROADMAP Queue A 13)", file=sys.stderr)
-        return 2
+def _image_paths(args_images) -> list:
+    """The image files of the arguments: files as given, a directory's
+    images sorted by name."""
     exts = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
     paths = []
-    for p in args.images:
+    for p in args_images:
         if os.path.isdir(p):
             paths.extend(sorted(
                 os.path.join(p, f) for f in os.listdir(p)
@@ -145,6 +152,25 @@ def _cmd_analyze_batch(args) -> int:
             ))
         else:
             paths.append(p)
+    return paths
+
+
+def _cmd_analyze_batch(args) -> int:
+    """Batched multi-image analysis (pipeline/batch.py), the throughput
+    path, with per-image netlist output."""
+    from .io.image_io import ImageFormatError, load_image
+
+    if args.distributed:
+        # before any CUDA work: the rank's device and the process group
+        from .parallel import multihost
+
+        if multihost.initialize(backend=args.backend, device=args.device):
+            args.device = str(multihost.device())
+        try:
+            return _run_distributed(args, _image_paths(args.images))
+        finally:
+            multihost.shutdown()
+    paths = _image_paths(args.images)
     if not paths:
         print("no images found", file=sys.stderr)
         return 1
@@ -179,6 +205,61 @@ def _cmd_analyze_batch(args) -> int:
                 f.write((res.netlist_text or "") + "\n")
     print(f"{len(images)} images in {dt:.2f}s ({len(images) / dt:.2f} images/s, "
           f"first-call set-up included)")
+    return 0
+
+
+class _LazyImages:
+    """A len/getitem view over image paths that decodes on access, so each
+    rank of a distributed run decodes only its own span."""
+
+    def __init__(self, paths):
+        from .io.image_io import load_image
+
+        self._paths = paths
+        self._load = load_image
+
+    def __len__(self):
+        return len(self._paths)
+
+    def __getitem__(self, i):
+        return self._load(self._paths[i])
+
+
+def _run_distributed(args, paths) -> int:
+    """analyze-batch over ranks: each analyzes its balanced span of the
+    image list on its own device; rank 0 writes the gathered netlists and
+    prints images/s. Without a launcher's environment it is one rank over
+    every image. An image kind the reader refuses fails its rank."""
+    from .parallel import multihost
+
+    if not paths:
+        print("no images found", file=sys.stderr)
+        return 1
+    analyzer = _analyzer(args)
+    multihost.sync("analyze-batch")  # every rank starts the clock together
+    t0 = time.time()
+    local_results, netlists = multihost.analyze_many_distributed(
+        analyzer, _LazyImages(paths), batch_size=args.batch_size, final=args.final)
+    dt = time.time() - t0
+
+    pid, nproc = multihost.process_index(), multihost.process_count()
+    span = multihost.balanced_span(len(paths))
+    print(f"[rank {pid}] images {span.start}:{span.stop} of {len(paths)} on {args.device}")
+    for gi, res in zip(span, local_results):
+        name = os.path.splitext(os.path.basename(paths[gi]))[0]
+        print(f"[rank {pid}] {name}: {len(res.bboxes_orig_nms)} detections, "
+              f"{len(res.nodes)} nodes")
+    if pid == 0:
+        if args.out_dir:
+            os.makedirs(args.out_dir, exist_ok=True)
+            for path, net in zip(paths, netlists):
+                name = os.path.splitext(os.path.basename(path))[0]
+                with open(os.path.join(args.out_dir, f"{name}.cir"), "w") as f:
+                    f.write((net["netlist"] or net["valueless"] or "") + "\n")
+        # the window holds each rank's decoding of its span and its first
+        # call's set-up
+        print(f"{len(paths)} images over {nproc} rank(s) in {dt:.2f}s "
+              f"({len(paths) / dt:.2f} images/s incl. decode and set-up)")
     return 0
 
 
@@ -220,11 +301,19 @@ def _cmd_simulate(args) -> int:
     return 0 if sim.ok else 1
 
 
+def _device_arg(value: str) -> str:
+    """cuda, cuda:K or cpu."""
+    kind, _, index = value.partition(":")
+    if value not in ("cuda", "cpu") and not (kind == "cuda" and index.isdigit()):
+        raise argparse.ArgumentTypeError(f"{value!r}: expected cuda, cuda:K or cpu")
+    return value
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="circuitvision_tpu_torch")
     device = argparse.ArgumentParser(add_help=False)
-    device.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                        help="where the models run (default: the CUDA card)")
+    device.add_argument("--device", type=_device_arg, default="cuda",
+                        help="where the models run: cuda (default: the card), cuda:K or cpu")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     pa = sub.add_parser("analyze", parents=[device], help="image → netlist (± simulation)")
@@ -255,7 +344,13 @@ def _parser() -> argparse.ArgumentParser:
     pb.add_argument("--sam2-checkpoint")
     pb.add_argument("--force-sam2", action="store_true")
     pb.add_argument("--distributed", action="store_true",
-                    help="not ported (ROADMAP Queue A 13): exits non-zero")
+                    help="one rank of a torch.distributed run (torchrun's environment: "
+                    "MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK/LOCAL_RANK/LOCAL_WORLD_SIZE): "
+                    "split the image list across ranks (parallel/multihost.py); rank 0 "
+                    "writes the netlists")
+    pb.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                    help="with --distributed: nccl (the default on the card, one rank per "
+                    "card) or gloo (the CPU, and ranks that share one card)")
 
     ps = sub.add_parser("simulate", help="simulate an existing netlist file")
     ps.add_argument("netlist")

@@ -1,6 +1,7 @@
 """Typed configuration tree of the PyTorch port: the JAX package's
-`core/config.py` without JAX and without the sections and fields the
-ported slices never read (mesh, MXU channel padding).
+`core/config.py` without JAX and without the fields the port never reads
+(MXU channel padding). `MeshConfig` lays the ranks of a
+torch.distributed run out as a (data, model) grid (parallel/mesh.py).
 
 Every magic number that is inlined in the reference implementation
 (src/circuit_analyzer.py and src/analysis_pipeline.py of the reference
@@ -174,9 +175,22 @@ class TopologyConfig:
     use_fused_morphology: bool = False
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The (data, model) grid of ranks for batched inference and training
+    (JAX core/config.py:222-231); one rank holds one device."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1  # -1: all ranks
+    model_parallel: int = 1
+    #: images per chunk of the batched path when the caller names none
+    batch_per_device: int = 8
+
+
 #: images per chunk of the batched path when the caller names none (the
 #: JAX package's MeshConfig.batch_per_device, on one card)
-BATCH_PER_DEVICE = 8
+BATCH_PER_DEVICE = MeshConfig().batch_per_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,6 +289,7 @@ class PipelineConfig:
     nms: NMSConfig = dataclasses.field(default_factory=NMSConfig)
     enrich: EnrichConfig = dataclasses.field(default_factory=EnrichConfig)
     sim: SimConfig = dataclasses.field(default_factory=SimConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     use_sam2: bool = True
 
 

@@ -27,8 +27,10 @@ Design on the card:
     same stages in order on one thread (PERF.md §6); threads wait for a
     CUDA graph of YOLO (ROADMAP Queue A 4).
 
-Deliberate differences from the JAX path: no mesh and no shard_map (data
-parallelism over cards is ROADMAP Queue A 13), no padding of a partial
+Deliberate differences from the JAX path: no mesh and no shard_map —
+one pipeline runs on one device, and data parallelism is one pipeline per
+torch.distributed rank, each over its share of the images
+(parallel/multihost.analyze_many_distributed) — no padding of a partial
 last chunk (it existed for XLA's fixed-shape programs), no `run_batch`
 (queued). As in `analyze()`, a SAM2 failure raises instead of switching
 to the classical mask; the node-stage ladder falls back per image, and

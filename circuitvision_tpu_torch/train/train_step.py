@@ -23,8 +23,11 @@ correction in float32 cast to the moment's dtype — hard-frozen off the
 mask (no update, no moment buffers: the multi_transform + set_to_zero the
 JAX package uses, never optax.masked, which would pass frozen gradients
 through as updates), with optax.MultiSteps' gradient accumulation and
-optax's schedules (counted in updates). `multichip` is not ported (ROADMAP
-Queue A 13).
+optax's schedules (counted in updates). `multichip=True` is the JAX flag:
+the module path and einsum attention everywhere. The data- and
+model-parallel step over torch.distributed ranks is `train/distributed.py`,
+which wraps this step and keeps its kernels (a rank runs them on whole
+tensors).
 """
 from __future__ import annotations
 
@@ -238,25 +241,29 @@ def model_loss(model: torch.nn.Module, params: Mapping[str, torch.Tensor], image
 
 def loss_and_grads(model, params: Mapping[str, torch.Tensor], images, masks,
                    cfg: TrainConfig | None = None, mask: Mapping[str, bool] | None = None,
-                   selective: bool = True):
+                   selective: bool = True, multichip: bool = False):
     """(loss, metrics, grads) with grads for every leaf of `params`.
 
     Whole-tree (selective=False): every leaf requires grad, every kernel
     site on the module path. Selective: only the leaves of `mask` (default
     trainable_mask) require grad; trunk blocks before the earliest
     trainable one keep their kernels and build no graph; frozen leaves get
-    zero gradients, as in the JAX package."""
+    zero gradients, as in the JAX package. `multichip`: the module path
+    and einsum attention everywhere (make_train_step)."""
+    import contextlib
+
     from ..models.sam2 import hiera
 
     cfg = cfg or TrainConfig()
     if selective:
         mask = trainable_mask(model) if mask is None else mask
         train = [n for n in params if mask[n]]
-        cutoff = _trunk_diff_cutoff(mask)
+        cutoff = False if multichip else _trunk_diff_cutoff(mask)
     else:
         train, cutoff = list(params), False
     leaves = {n: p.detach().requires_grad_(n in train) for n, p in params.items()}
-    with hiera.force_fused(cutoff):
+    flash = hiera.force_flash(False) if multichip else contextlib.nullcontext()
+    with hiera.force_fused(cutoff), flash:
         loss, metrics = model_loss(model, leaves, images, masks, cfg)
         got = torch.autograd.grad(loss, [leaves[n] for n in train], allow_unused=True)
     grads = dict(zip(train, got))
@@ -287,20 +294,31 @@ def check_flash_widths(model: torch.nn.Module, start: int) -> None:
 
 
 def make_train_step(model: torch.nn.Module, tx: Optimizer, cfg: TrainConfig | None = None,
-                    mask: Mapping[str, bool] | None = None, selective: bool = True):
+                    mask: Mapping[str, bool] | None = None, selective: bool = True,
+                    multichip: bool = False):
     """Returns train_step(params, opt_state, images, masks) → (params,
     opt_state, metrics): loss_and_grads, then tx.update and apply_updates.
     `mask` must match the optimizer's (make_optimizer returns it);
     selective=False differentiates the whole tree. A model on the card
     whose differentiated blocks FlashAttention's kernels cannot take
-    raises KernelError here (`check_flash_widths`)."""
+    raises KernelError here (`check_flash_widths`).
+
+    multichip=True is the JAX package's flag: the module path (no fused
+    kernel) and einsum attention (no flash) for the whole forward. Under
+    JAX's multi-device jit with FSDP-sharded parameters, Mosaic custom
+    calls cannot be partitioned by XLA's SPMD pass ("Mosaic kernels cannot
+    be automatically partitioned"), while the module path partitions like
+    any XLA program. The port's distributed step (train/distributed.py)
+    does not need it: each rank gathers its leaves whole and runs the
+    kernels on whole tensors."""
     cfg = cfg or TrainConfig()
-    check_flash_widths(model, _trunk_diff_cutoff(trainable_mask(model) if mask is None else mask)
-                       if selective else 0)
+    if not multichip:
+        check_flash_widths(model, _trunk_diff_cutoff(trainable_mask(model) if mask is None
+                                                     else mask) if selective else 0)
 
     def train_step(params, opt_state, images, masks):
         _loss, metrics, grads = loss_and_grads(model, params, images, masks, cfg, mask,
-                                               selective)
+                                               selective, multichip)
         updates, opt_state = tx.update(grads, opt_state)
         return apply_updates(params, updates), opt_state, metrics
 

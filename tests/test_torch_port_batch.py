@@ -18,6 +18,7 @@ import cv2
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import Mesh
 
 from circuitvision_tpu.core.config import DetectorConfig as JDet
@@ -45,6 +46,17 @@ TINY_SAM2 = dict(resolution=128, embed_dim=16, num_heads=1, stages=(1, 2, 3, 1),
 TINY_DET = dict(scale="n", img_size=128, num_classes=64, dtype="float32")
 #: seconds a stage error may take to reach the caller
 RAISE_WITHIN_S = 120
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's tests, restored after: the
+    suite runs six workers on eight cores, where torch's oversubscribed
+    thread pools make these tests several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -45,6 +45,17 @@ from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
 ROOT = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's tests, restored after: the
+    suite runs six workers on eight cores, where torch's oversubscribed
+    thread pools make these tests several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf(rng, *shape, scale=1.0):
     """float32 array of bf16 values."""
     a = (rng.standard_normal(shape) * scale).astype(np.float32)

@@ -32,6 +32,17 @@ from circuitvision_tpu_torch.ops.cuda import flash_attn as fa
 RTOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's tests, restored after: the
+    suite runs six workers on eight cores, where torch's oversubscribed
+    thread pools make these tests several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _exact_matmuls():
     with jax.default_matmul_precision("highest"):

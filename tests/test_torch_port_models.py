@@ -44,6 +44,17 @@ TINY_SAM2 = dict(resolution=128, embed_dim=16, num_heads=1, stages=(1, 2, 3, 1),
                  iou_head_hidden_dim=32, dtype="float32")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's tests, restored after: the
+    suite runs six workers on eight cores, where torch's oversubscribed
+    thread pools make these tests several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _exact_matmuls():
     with jax.default_matmul_precision("highest"):

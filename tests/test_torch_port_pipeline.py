@@ -52,6 +52,17 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "cv2", "P
              "openai", "httpx", "requests")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's tests, restored after: the
+    suite runs six workers on eight cores, where torch's oversubscribed
+    thread pools make these tests several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _exact_matmuls():
     with jax.default_matmul_precision("highest"):
@@ -157,7 +168,8 @@ def test_tiny_analyze_imports_no_jax_cv2_or_reference_package(tmp_path):
     fine-tune step on a batch of the folder dataset and a train
     checkpoint, the black-box value pass (a fake whole-image client's
     final netlist on the drawn enumeration image, and the Gemini and
-    OpenRouter clients against a stub server on 127.0.0.1), and find no
+    OpenRouter clients against a stub server on 127.0.0.1), the parallel
+    helpers and the distributed train step in one process, and find no
     module named exactly jax, flax, optax, orbax, tensorstore, cv2, PIL,
     matplotlib, google, openai, httpx, requests, ... or the JAX
     package, nor any submodule of them (names compared exactly, since
@@ -279,6 +291,15 @@ for client in (GeminiVLMClient(api_key="k", endpoint=url),
                OpenRouterVLMClient(api_key="k", endpoint=url)):
     assert client.get_labels(enum_img) == rows
 srv.shutdown()
+# parallelism in one process: the helpers degrade, the distributed step runs
+from circuitvision_tpu_torch.parallel import multihost
+from circuitvision_tpu_torch.train import distributed
+assert multihost.initialize() is False
+assert len(multihost.analyze_many_distributed(a, [img], batch_size=1)[1]) == 1
+mesh = multihost.global_mesh()
+dims = distributed.shard_dims(params, mesh)
+distributed.make_distributed_train_step(model, opt, mesh, dims, tcfg, mask)(params, state,
+                                                                          images, masks)
 print(json.dumps(sorted(set(sys.modules) - startup)))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -295,7 +316,8 @@ print(json.dumps(sorted(set(sys.modules) - startup)))
               "eval.randomized", "eval.glyphs", "eval.aileron", "eval.handdrawn",
               "eval.degrade", "eval.synth", "eval.pool", "train.optim", "train.yolo_loss",
               "train.yolo_train", "train.reader", "enrich.prompts", "core.hershey_digits",
-              "topology.enumerate_components"):
+              "topology.enumerate_components", "parallel.mesh", "parallel.multihost",
+              "train.distributed"):
         assert "circuitvision_tpu_torch." + m in mods
     bad = [m for m in mods if m in FORBIDDEN or m.startswith(tuple(f + "." for f in FORBIDDEN))]
     assert not bad, bad
@@ -308,7 +330,8 @@ def test_port_sources_name_no_jax_or_reference_import():
                      r"|from (jax|flax|optax|orbax|tensorstore|cv2|PIL|safetensors|transformers"
                      r"|matplotlib|google|openai|httpx|requests)\b")
     files = list((ROOT / "circuitvision_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    files += sorted((ROOT / "scripts").glob("torch_*.py"))
+    assert len(files) > 20 and ROOT / "scripts" / "torch_train_demo.py" in files
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.search(line)]
     assert not hits, hits

@@ -54,6 +54,17 @@ SMALL = dict(resolution=64, embed_dim=48, num_heads=2, stages=(1, 2, 4, 1),
              backbone_channel_list=(384, 192, 96, 48), decoder_mlp_dim=256, dtype="float32")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's tests, restored after: the
+    suite runs six workers on eight cores, where torch's oversubscribed
+    thread pools make these tests several times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _exact_matmuls():
     with jax.default_matmul_precision("highest"):

@@ -214,7 +214,27 @@ Phases, in order; any failure raises and the process exits non-zero:
      split) against the same, and in bf16 ms per step, peak memory and
      exact launches per rank; which collectives gloo takes CUDA tensors
      for; (d) scripts/torch_train_demo.py --distributed as two ranks,
-     equal losses on both.
+     equal losses on both;
+ 15. PaliGemma (models/paligemma; plain torch, no kernel: every count
+     must stay 0) — (a) PaliGemma-3B-pt-224's widths with 2 SigLIP and 2
+     Gemma layers, seeded, float32: the card against the CPU at batch 2
+     on the 305-token LABELS_TASK prompt (vision features, prefill
+     logits, 8 decode steps along the CPU's tokens, within 1e-3 ×
+     max(1, max |cpu|); free-running tokens and lengths equal but where
+     the CPU's top-2 margin is under that, those steps printed), int8
+     quantized on the card bit for bit numpy's, its logits against
+     float's (PG_INT8_RMS_BOUND); (b) the full head (27 + 18 layers,
+     2.92 B parameters) seeded on the card in bf16, and quantized int8
+     with bf16 compute: generate() at batches 1, 4, 8 with 32 new tokens
+     (scripts/torch_profile_paligemma.measure: ms per call, prefill ms,
+     decode ms per step, images/s, tokens/s, peak memory); (c) the bf16
+     reader as the trained product's VLM client: analyze() + final
+     netlist on 2 eval PNGs and analyze_many(finalize=True) on 8, each
+     netlist the one a FakeVLMClient gives replaying the reader's
+     answers, one generate call a chunk for labels and one for
+     directions; (d) (a)'s weights as HF safetensors shards (this
+     script's writer) through convert_paligemma_checkpoint and back, the
+     leaves equal and the logits (a)'s bit for bit.
 
 It prints one JSON line per kernel shape and route check, the launch
 floor, one line per fine-tune path, a `kernels` summary line (every
@@ -3781,6 +3801,501 @@ def run_distributed_training(torch, smi, tmp: Path, me):
     return bf16[0]["launches"]
 
 
+# ------------------------------------------------ phase 15: PaliGemma
+#: (a) PaliGemma-3B-pt-224's widths with depth cut to 2 SigLIP + 2 Gemma
+#: layers, float32, card against CPU at batch 2 on the LABELS_TASK prompt
+PG_CUT_DEPTH = (2, 2)
+PG_SEED = 15
+PG_BATCH = 2
+PG_DECODE_STEPS = 8
+#: card against CPU: 1e-3 × max(1, max |cpu|)
+PG_REL_TOL = 1e-3
+#: the int8 prefill logits against the float logits of the same weights:
+#: rms |int8 − float| ≤ PG_INT8_RMS_BOUND × rms |float| (per-channel int8
+#: holds each weight to 0.4 % of its channel's largest, ~0.2 % rms)
+PG_INT8_RMS_BOUND = 0.05
+#: (b) the full head: generate() batches, new tokens, timed calls
+PG_BATCHES = (1, 4, 8)
+PG_NEW = 32
+PG_RUNS = 3
+#: (c) eval PNGs through analyze() + generate_final_netlist and through
+#: analyze_many(finalize=True) in one chunk
+PG_SERIAL_IMAGES, PG_MANY_IMAGES = 2, 8
+#: (d) safetensors shards of the depth-cut HF state
+PG_SHARDS = 2
+#: safetensors dtype names of the numpy dtypes the writer takes (the HF state is float32)
+ST_DTYPES = {"float32": "F32"}
+
+
+def hf_state_from_variables(variables, tied_head: bool = True) -> dict:
+    """The JAX package's PaliGemma variable tree → the state dict of HF's
+    PaliGemmaForConditionalGeneration (the nested layout), numpy arrays:
+    `convert_hf_state`'s inverse. HF's own save_pretrained leaves the tied
+    lm_head.weight out; `tied_head` writes it."""
+    import numpy as np
+
+    p = variables["params"]
+    out = {}
+
+    def linear(prefix, node):
+        out[f"{prefix}.weight"] = np.ascontiguousarray(np.asarray(node["kernel"]).T)
+        if "bias" in node:
+            out[f"{prefix}.bias"] = np.asarray(node["bias"])
+
+    def layernorm(prefix, node):
+        out[f"{prefix}.weight"], out[f"{prefix}.bias"] = node["scale"], node["bias"]
+
+    vt, v = "model.vision_tower.vision_model", p["vision_tower"]
+    out[f"{vt}.embeddings.patch_embedding.weight"] = np.ascontiguousarray(
+        np.transpose(v["patch_embedding"]["kernel"], (3, 2, 0, 1)))
+    out[f"{vt}.embeddings.patch_embedding.bias"] = v["patch_embedding"]["bias"]
+    out[f"{vt}.embeddings.position_embedding.weight"] = v["position_embedding"]
+    layernorm(f"{vt}.post_layernorm", v["post_layernorm"])
+    for i in range(sum(k.startswith("layer_") for k in v)):
+        lp, layer = f"{vt}.encoder.layers.{i}", v[f"layer_{i}"]
+        layernorm(f"{lp}.layer_norm1", layer["layer_norm1"])
+        layernorm(f"{lp}.layer_norm2", layer["layer_norm2"])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            linear(f"{lp}.self_attn.{name}", layer["self_attn"][name])
+        linear(f"{lp}.mlp.fc1", layer["fc1"])
+        linear(f"{lp}.mlp.fc2", layer["fc2"])
+    linear("model.multi_modal_projector.linear", p["projector"])
+    lm, d = "model.language_model", p["decoder"]
+    out[f"{lm}.embed_tokens.weight"] = p["embed_tokens"]["embedding"]
+    if tied_head:
+        out["lm_head.weight"] = p["embed_tokens"]["embedding"]
+    out[f"{lm}.norm.weight"] = d["norm"]["weight"]
+    for i in range(sum(k.startswith("layer_") for k in d)):
+        lp, layer = f"{lm}.layers.{i}", d[f"layer_{i}"]
+        out[f"{lp}.input_layernorm.weight"] = layer["input_layernorm"]["weight"]
+        out[f"{lp}.post_attention_layernorm.weight"] = layer["post_attention_layernorm"]["weight"]
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            linear(f"{lp}.self_attn.{name}", layer["self_attn"][name])
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            linear(f"{lp}.mlp.{name}", layer[name])
+    return out
+
+
+def write_safetensors_shards(state, out_dir, shards: int) -> list:
+    """`state` (name → numpy array) as `shards` safetensors files in
+    `out_dir`, names in sorted order split by bytes: an 8-byte
+    little-endian header length, the JSON header padded with spaces to 8
+    bytes, then each tensor's little-endian C-order bytes."""
+    import numpy as np
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    names = sorted(state)
+    total = sum(np.asarray(state[n]).nbytes for n in names)
+    groups, acc = [[] for _ in range(shards)], 0
+    for n in names:
+        groups[min(shards - 1, acc * shards // max(total, 1))].append(n)
+        acc += np.asarray(state[n]).nbytes
+    paths = []
+    for i, group in enumerate(groups):
+        header, offset = {"__metadata__": {"format": "pt"}}, 0
+        arrays = []
+        for n in group:
+            a = np.ascontiguousarray(state[n])
+            a = a.astype(a.dtype.newbyteorder("<"), copy=False)
+            header[n] = {"dtype": ST_DTYPES[a.dtype.name], "shape": list(a.shape),
+                         "data_offsets": [offset, offset + a.nbytes]}
+            offset += a.nbytes
+            arrays.append(a)
+        raw = json.dumps(header, separators=(",", ":")).encode()
+        raw += b" " * (-len(raw) % 8)
+        path = out_dir / f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        with open(path, "wb") as f:
+            f.write(len(raw).to_bytes(8, "little"))
+            f.write(raw)
+            for a in arrays:
+                f.write(a.tobytes())
+        paths.append(path)
+    return paths
+
+
+class PaliGemmaRecorder:
+    """The reader behind the pipeline, recording each hook call: the kind,
+    the sha256 of each image it was given, and what it answered (a
+    labels read that fails to parse: its ValueError); and the generate
+    calls by task."""
+
+    def __init__(self, reader):
+        self.reader, self.log, self.generates = reader, [], []
+        real = reader.generate
+
+        def generate(images, task, **kw):
+            self.generates.append((task, len(images)))
+            return real(images, task, **kw)
+
+        reader.generate = generate
+
+    @staticmethod
+    def digests(images):
+        import hashlib
+
+        return [hashlib.sha256(memoryview(i.tobytes())).hexdigest() for i in images]
+
+    def get_labels(self, image):
+        try:
+            rows = self.reader.get_labels(image)
+        except ValueError as exc:
+            # the message, not the exception: its traceback holds the reader
+            self.log.append(("labels", self.digests([image]), ValueError(str(exc))))
+            raise
+        self.log.append(("labels", self.digests([image]), rows))
+        return rows
+
+    def get_labels_batch(self, images):
+        out = self.reader.get_labels_batch(images)
+        self.log.append(("labels_batch", self.digests(images), out))
+        return out
+
+    def get_direction(self, crop, component_class):
+        raise AssertionError("the pipeline reads a batched client's directions in batches")
+
+    def get_directions_batch(self, crops, classes):
+        out = self.reader.get_directions_batch(crops, classes)
+        self.log.append(("directions", self.digests(crops), out))
+        return out
+
+
+def replay_client(log):
+    """A FakeVLMClient that gives, call by call, what a PaliGemmaRecorder
+    recorded, after checking that each call reads the same images."""
+    from circuitvision_tpu_torch.enrich.client import FakeVLMClient
+
+    class Replay(FakeVLMClient):
+        def __init__(self):
+            super().__init__()
+            self.pending = list(log)
+
+        def _next(self, kind, images):
+            want_kind, digests, out = self.pending.pop(0)
+            if want_kind != kind or digests != PaliGemmaRecorder.digests(images):
+                raise AssertionError(f"replay: {kind} call on other images than the "
+                                     f"reader's {want_kind} call")
+            return out
+
+        def get_labels(self, image):
+            self.label_calls += 1
+            out = self._next("labels", [image])
+            if isinstance(out, ValueError):
+                raise ValueError(str(out))
+            return out
+
+        def get_labels_batch(self, images):
+            self.label_batch_calls += 1
+            return self._next("labels_batch", images)
+
+        def get_directions_batch(self, crops, classes):
+            return self._next("directions", crops)
+
+    return Replay()
+
+
+def run_paligemma(torch, smi, device="cuda"):
+    """Phase 15: the PaliGemma VLM head (models/paligemma). (a)
+    PaliGemma-3B-pt-224's widths at depth 2 + 2, seeded, float32: card
+    against CPU on the vision features, the prefill logits, decode steps
+    along the CPU's tokens and free-running tokens; on-device int8
+    quantization bit-equal to numpy's, the int8 logits against float;
+    (b) the full 2.92 B-parameter head seeded on the card in bf16 and as
+    int8 with bf16 compute: generate() at batches 1, 4, 8 with 32 new
+    tokens (scripts/torch_profile_paligemma.measure); (c) the bf16 reader
+    as the trained product's VLM client: analyze() + final netlist and
+    analyze_many(finalize=True), each netlist a replaying fake's; (d) the
+    depth-cut HF state written as safetensors shards, converted by
+    convert_paligemma_checkpoint and read back. No kernel lies on this
+    path: every launch count must stay 0. Returns the counts. `device`
+    is the card's; a rehearsal on the CPU passes "cpu"."""
+    import copy
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from circuitvision_tpu_torch.models.checkpoint import (
+        convert_paligemma_checkpoint, load_model_checkpoint, load_variables,
+    )
+    from circuitvision_tpu_torch.models.bridge import flatten, state_dict_from_variables
+    from circuitvision_tpu_torch.models.paligemma import model as pm
+    from circuitvision_tpu_torch.models.paligemma import quant
+    from circuitvision_tpu_torch.models.paligemma import reader as pr
+    from circuitvision_tpu_torch.models.paligemma.config import PaliGemmaConfig
+    from circuitvision_tpu_torch.models.paligemma.gemma import make_kv_cache
+    from circuitvision_tpu_torch.io.image_io import load_image
+    from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    import torch_profile_paligemma as profile
+
+    reset, read = counters()
+    launches = {}
+
+    def zero(part):
+        counts = read()
+        launches[part] = counts
+        if any(counts.values()):
+            raise AssertionError(f"PaliGemma {part}: kernels launched {counts}")
+
+    full = PaliGemmaConfig()
+    cut = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, num_hidden_layers=PG_CUT_DEPTH[0]),
+        text=dataclasses.replace(full.text, num_hidden_layers=PG_CUT_DEPTH[1]))
+    cut_q = dataclasses.replace(cut, text=dataclasses.replace(cut.text, quant_int8=True))
+    row = {}
+
+    # (a) depth-cut, float32: the card against the CPU
+    t0 = time.perf_counter()
+    cpu = pm.seeded_model(cut, PG_SEED, torch.float32, "cpu")
+    card = copy.deepcopy(cpu).to(device)
+    ids = torch.tensor([profile.prompt_ids(cut)] * PG_BATCH)
+    b, s = ids.shape
+    gen = torch.Generator().manual_seed(PG_SEED + 1)
+    size = cut.vision.image_size
+    pixels = torch.rand((b, size, size, 3), generator=gen) * 2 - 1
+    mask = torch.ones((b, s), dtype=torch.int32)
+
+    def prefill(model, steps=PG_DECODE_STEPS):
+        dev = model.device
+        kc, vc = make_kv_cache(model.cfg.text, b, s + steps, torch.float32, dev)
+        with torch.no_grad():
+            logits, kc, vc = model.prefill(ids.to(dev), mask.to(dev), kc, vc, pixels.to(dev))
+        return logits, kc, vc
+
+    def err(name, got, ref):
+        e = float((got.float().cpu() - ref.float()).abs().max())
+        tol = PG_REL_TOL * max(1.0, float(ref.abs().max()))
+        row[name] = {"max_abs_err": e, "tol": tol}
+        if not e <= tol:
+            raise AssertionError(f"PaliGemma (a) {name}: card vs CPU {e} > {tol}")
+
+    reset()
+    with torch.no_grad():
+        err("vision_features", card.vision_tower(pixels.to(device)), cpu.vision_tower(pixels))
+    card_logits, ck, cv = prefill(card)
+    cpu_logits, pk, pv = prefill(cpu)
+    err("prefill_logits", card_logits, cpu_logits)
+    tok, margins = cpu_logits[:, -1].argmax(-1), []
+    cpu_tokens = [tok]
+    top2 = cpu_logits[:, -1].topk(2, -1).values
+    margins.append(top2[:, 0] - top2[:, 1])
+    for i in range(PG_DECODE_STEPS):
+        with torch.no_grad():
+            cl, pk, pv = cpu.decode_step(tok, s + i, mask, pk, pv)
+            gl, ck, cv = card.decode_step(tok.to(device), s + i, mask.to(device), ck, cv)
+        err(f"decode_step_{i}", gl, cl)
+        top2 = cl.topk(2, -1).values
+        margins.append(top2[:, 0] - top2[:, 1])
+        tok = cl.argmax(-1)
+        cpu_tokens.append(tok)
+    cpu_tokens = torch.stack(cpu_tokens, 1)[:, :PG_DECODE_STEPS]
+    margins = torch.stack(margins, 1)[:, :PG_DECODE_STEPS]
+    valid = torch.ones((b,), dtype=torch.bool)
+    free_cpu = pm.greedy_generate(cpu, ids, pixels, valid, PG_DECODE_STEPS)
+    free_card = pm.greedy_generate(card, ids.to(device), pixels.to(device), valid.to(device),
+                                   PG_DECODE_STEPS)
+    tol = PG_REL_TOL * max(1.0, float(cpu_logits.abs().max()))
+    near_ties = []
+    for r in range(b):
+        got, want = free_card.tokens[r].cpu(), free_cpu.tokens[r]
+        differ = (got != want).nonzero()
+        if len(differ):
+            k = int(differ[0])
+            near_ties.append({"row": r, "step": k, "cpu_margin": float(margins[r, k])})
+            if not float(margins[r, k]) < tol:
+                raise AssertionError(f"PaliGemma (a): free-running tokens of row {r} part at "
+                                     f"step {k} with a CPU top-2 margin {margins[r, k]} ≥ {tol}")
+        elif int(free_card.lengths[r]) != int(free_cpu.lengths[r]):
+            raise AssertionError(f"PaliGemma (a): lengths of row {r} differ")
+    row["free_running"] = {"tokens_equal": not near_ties, "near_ties": near_ties,
+                           "cpu_tokens_equal_forced": bool(
+                               (free_cpu.tokens.long() == cpu_tokens).all()),
+                           "min_cpu_margin": float(margins.min())}
+    # int8: quantized on the card, bit for bit numpy's; logits against float
+    host_tree = pm.variables_from_state_dict(cpu.state_dict())
+    want_q = quant.quantize_variables(host_tree)
+    got_q = quant.quantize_variables_on_device(pm.variables_of(card))
+    flat_want = dict(flatten(want_q))
+    flat_got = dict(flatten(got_q))
+    bit_equal = sorted(flat_got) == sorted(flat_want) and all(
+        np.array_equal(flat_got[k].cpu().numpy(), flat_want[k]) and
+        flat_got[k].cpu().numpy().dtype == flat_want[k].dtype for k in flat_want)
+    card_q = pm.from_variables(cut_q, got_q, torch.float32, device)
+    del got_q, flat_got
+    q_logits, _, _ = prefill(card_q)
+    rms = float((q_logits - card_logits).pow(2).mean().sqrt() / card_logits.pow(2).mean().sqrt())
+    row["int8"] = {"quantize_on_device_bit_equal": bit_equal, "rms_ratio": rms,
+                   "rms_bound": PG_INT8_RMS_BOUND,
+                   "max_abs_over_mean_abs": float((q_logits - card_logits).abs().max()
+                                                  / card_logits.abs().mean())}
+    del card_q, q_logits
+    zero("a")
+    row["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"paligemma_depth_cut_card_vs_cpu": {
+        "config": f"PaliGemma-3B-pt-224 widths, {PG_CUT_DEPTH[0]} SigLIP + {PG_CUT_DEPTH[1]} "
+                  f"Gemma layers, float32, TF32 off, seed {PG_SEED}",
+        "batch": b, "prompt_tokens": s, **row, "launches": launches["a"], "card": smi}}),
+        flush=True)
+    if not bit_equal:
+        raise AssertionError("PaliGemma (a): quantize_variables_on_device differs from numpy's")
+    if not rms <= PG_INT8_RMS_BOUND:
+        raise AssertionError(f"PaliGemma (a): int8 logits rms ratio {rms} > {PG_INT8_RMS_BOUND}")
+    # (b)'s peak memory holds the full head alone: (a)'s card tensors leave
+    card_logits = card_logits.cpu()
+    del cpu, cpu_logits, pk, pv, card, ck, cv
+    gc.collect()
+
+    # (b) the full head, bf16 and int8 with bf16 compute
+    t0 = time.perf_counter()
+    reset()
+    base = torch.cuda.memory_allocated()  # what earlier phases left on the card
+    seeded = pm.seeded_model(full, PG_SEED + 2, torch.bfloat16, device)
+    params = pm.param_count(seeded)
+    # the reader is built from the seeded tree as a user's is from theirs,
+    # and keeps the one copy: (b) times its model, (c) runs it
+    reader = pr.PaliGemmaValueReader(cfg=full, variables=pm.variables_of(seeded),
+                                     dtype=torch.bfloat16, device=device)
+    del seeded
+    gc.collect()
+    timings = {"bfloat16": [profile.measure(reader.model, n, PG_NEW, PG_RUNS)
+                            for n in PG_BATCHES]}
+    zero("b-bf16")
+    b_seconds = time.perf_counter() - t0
+
+    # (c) through the pipeline: the bf16 reader as the trained product's client
+    t0 = time.perf_counter()
+    (yv, ymeta), (sv, smeta) = (load_model_checkpoint(str(REPO / "ckpt" / k))
+                                for k in ("yolo", "sam2"))
+    paths = sorted((REPO / "eval_data" / "images").glob("*.png"))[:PG_MANY_IMAGES]
+    images = [load_image(str(p)) for p in paths]
+    recorder = PaliGemmaRecorder(reader)
+    analyzer = CircuitAnalyzerTorch(product_config(ymeta, smeta), state_dict_from_variables(yv),
+                                    state_dict_from_variables(sv), device=device,
+                                    vlm_client=recorder)
+    reset()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    serial = [analyzer.generate_final_netlist(analyzer.analyze(img))
+              for img in images[:PG_SERIAL_IMAGES]]
+    torch.cuda.synchronize()
+    serial_ms = (time.perf_counter() - t1) * 1e3 / PG_SERIAL_IMAGES
+    serial_generates, recorder.generates = recorder.generates, []
+    counts_serial = read()
+    serial_log, recorder.log = recorder.log, []
+    reset()
+    t1 = time.perf_counter()
+    many = analyzer.analyze_batch(images, batch_size=PG_MANY_IMAGES, finalize=True)
+    torch.cuda.synchronize()
+    many_s = time.perf_counter() - t1
+    many_generates = recorder.generates
+    counts_many = read()
+    many_log = recorder.log
+    analyzer.vlm_client = replay_client(serial_log)
+    replay_serial = [analyzer.generate_final_netlist(analyzer.analyze(img))
+                     for img in images[:PG_SERIAL_IMAGES]]
+    analyzer.vlm_client = replay_client(many_log)
+    replay_many = analyzer.analyze_batch(images, batch_size=PG_MANY_IMAGES, finalize=True)
+    # what the reader launched: the counts beyond analyze()'s own
+    want = {"serial": {k: v * PG_SERIAL_IMAGES for k, v in EXPECTED["t@512"].items()},
+            "many": EXPECTED["t@512"]}
+    launches["c"] = {k: counts_serial[k] - want["serial"][k] + counts_many[k] - want["many"][k]
+                     for k in counts_serial}
+    tasks = [t for t, _ in many_generates]
+    parsed = [o for k, _, o in serial_log if k == "labels" and not isinstance(o, ValueError)]
+    parsed += [r for k, _, o in many_log if k == "labels_batch" for r in o if r is not None]
+    pipeline = {
+        "analyze_final_ms_per_image": serial_ms,
+        "analyze_many_finalize_images_per_s": len(images) / many_s,
+        "serial_netlists_equal_replay": [g.netlist_text == r.netlist_text
+                                         for g, r in zip(serial, replay_serial)],
+        "many_netlists_equal_replay": [g.netlist_text == r.netlist_text
+                                       for g, r in zip(many, replay_many)],
+        "labels_parsed": len(parsed),
+        "generate_calls_serial": serial_generates, "generate_calls_many": many_generates,
+        "kernel_launches_serial": counts_serial, "kernel_launches_many": counts_many,
+        "reader_launches": launches["c"], "seconds": time.perf_counter() - t0}
+    print(json.dumps({"paligemma_pipeline": {
+        "config": "trained product (ckpt/yolo YOLOv11-s@640 bf16 + ckpt/sam2 Hiera-t@512 f32) "
+                  "with PaliGemma-3B-pt-224 bf16 (seeded) as the VLM client",
+        "images": [p.stem for p in paths], **pipeline, "card": smi}}), flush=True)
+    if not all(pipeline["serial_netlists_equal_replay"] + pipeline["many_netlists_equal_replay"]):
+        raise AssertionError(f"PaliGemma (c): netlists differ from the replaying fake's: "
+                             f"{pipeline}")
+    direction_reads = sum(k == "directions" for k, _, _ in many_log)
+    if tasks.count(pr.LABELS_TASK) != 1 or tasks.count(pr.DIRECTION_TASK) != direction_reads \
+            or direction_reads > 1:
+        raise AssertionError(f"PaliGemma (c): analyze_many's generate calls {many_generates}: "
+                             f"one a chunk for labels and one for directions expected")
+    if any(launches["c"].values()):
+        raise AssertionError(f"PaliGemma (c): launches {counts_serial} and {counts_many} are not "
+                             f"those of {PG_SERIAL_IMAGES} analyze() and one chunk: {want}")
+    model = reader.model
+    del analyzer, recorder, reader
+    gc.collect()  # the recorder's wrapper and the reader refer to each other
+
+    t0 = time.perf_counter()
+    reset()
+    model = profile.quantized(model)
+    quantize_s = time.perf_counter() - t0
+    timings["int8"] = [profile.measure(model, n, PG_NEW, PG_RUNS) for n in PG_BATCHES]
+    zero("b-int8")
+    del model
+    b_seconds += time.perf_counter() - t0
+    for rows in timings.values():
+        for r in rows:
+            r["head_peak_memory_gb"] = r["peak_memory_gb"] - base / 1e9
+    print(json.dumps({"paligemma_full_head": {
+        "config": "PaliGemma-3B-pt-224 (27 SigLIP + 18 Gemma layers), seeded on the card",
+        "params": params, "resident_before_gb": base / 1e9, "quantize_on_device_s": quantize_s,
+        "timings": timings,
+        "launches": {"bf16": launches["b-bf16"], "int8": launches["b-int8"]},
+        "seconds": b_seconds, "card": smi}}), flush=True)
+    for dt, rows in timings.items():
+        for r in rows:
+            print(f"   PaliGemma-3B {dt} batch {r['batch']}: {r['ms_per_call']:.1f} ms/call "
+                  f"(prefill {r['prefill_ms']:.1f}, decode {r['decode_ms_per_step']:.2f} ms/step; "
+                  f"device {r['device_decode_ms_per_step']:.2f} ms/step, idle share "
+                  f"{r['idle_share']:.3f}), {r['images_per_s']:.2f} images/s, "
+                  f"{r['tokens_per_s']:.1f} tokens/s, peak {r['head_peak_memory_gb']:.2f} GB over "
+                  f"the phase's start on {smi}", flush=True)
+
+    # (d) weights in: the depth-cut HF state → safetensors → convert → orbax
+    t0 = time.perf_counter()
+    reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        state = hf_state_from_variables(host_tree, tied_head=False)
+        t1 = time.perf_counter()
+        shards = write_safetensors_shards(state, Path(tmp) / "hf", PG_SHARDS)
+        write_s = time.perf_counter() - t1
+        del state
+        t1 = time.perf_counter()
+        convert_paligemma_checkpoint(str(Path(tmp) / "hf"), str(Path(tmp) / "orbax"), cfg=cut)
+        convert_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        back = load_variables(str(Path(tmp) / "orbax"))
+        load_s = time.perf_counter() - t1
+        flat_back, flat_host = dict(flatten(back)), dict(flatten(host_tree))
+        leaves_equal = sorted(flat_back) == sorted(flat_host) and all(
+            np.array_equal(flat_back[k], flat_host[k]) for k in flat_host)
+        from_file = pm.from_variables(cut, back, torch.float32, device)
+        del back, flat_back
+        file_logits, _, _ = prefill(from_file)
+        logits_bit_equal = bool(torch.equal(file_logits.cpu(), card_logits))
+        weights = {"safetensors_bytes": sum(p.stat().st_size for p in shards),
+                   "orbax_bytes": _dir_bytes(Path(tmp) / "orbax"),
+                   "write_safetensors_s": write_s, "convert_s": convert_s, "load_orbax_s": load_s,
+                   "leaves": len(flat_host), "leaves_equal": leaves_equal,
+                   "logits_bit_equal_card": logits_bit_equal}
+    zero("d")
+    weights["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"paligemma_weights_in": {**weights, "card": smi}}), flush=True)
+    if not (leaves_equal and logits_bit_equal):
+        raise AssertionError(f"PaliGemma (d): the converted weights differ: {weights}")
+    return {k: sum(part[k] for part in launches.values()) for k in launches["a"]}
+
+
 def main() -> int:
     import torch
 
@@ -3895,6 +4410,11 @@ def main() -> int:
         torch, smi, serial)
     done(t0, "data parallel")
 
+    t0 = phase("PaliGemma: PaliGemma-3B-pt-224 widths at depth 2 + 2 card vs CPU, the full "
+               "head in bf16 and int8, the reader in the pipeline, safetensors → orbax")
+    launches["paligemma"] = run_paligemma(torch, smi)
+    done(t0, "PaliGemma")
+
     def entry(name, s, counts):
         return {"launches": counts[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "eager_ms": s["eager_ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -3927,7 +4447,8 @@ def main() -> int:
                 "launches_web_ui": launches["web"][n],
                 "launches_vlm": launches["vlm"][n],
                 "launches_distributed_cli": launches["distributed-cli"][n],
-                "launches_distributed_train": launches["distributed-train"][n]}
+                "launches_distributed_train": launches["distributed-train"][n],
+                "launches_paligemma": launches["paligemma"][n]}
                for path in ("l@1024", "batch", "trunk-ln", "train")
                for n, s in summary[path].items()]
     print(json.dumps({"launch_floor": floor}))

@@ -40,9 +40,6 @@ CPU, and ranks that share one card):
 
     torchrun --nproc-per-node 2 -m circuitvision_tpu_torch.cli analyze-batch \\
         --distributed --device cpu imgs/ --out-dir netlists/
-
-Not ported, and refused with a non-zero exit: a PaliGemma
-CIRCUITVISION_VLM (Queue A 12).
 """
 from __future__ import annotations
 
@@ -392,9 +389,8 @@ def main(argv=None) -> int:
                 "serve-batch": _cmd_serve_batch}
     try:
         return commands[args.cmd](args)
-    except (NotImplementedError, ImageFormatError) as exc:
-        # not ported: a PaliGemma CIRCUITVISION_VLM (Queue A 12); an image
-        # kind the reader refuses (Queue A 9)
+    except ImageFormatError as exc:
+        # an image kind the reader refuses (Queue A 9)
         print(f"{args.cmd}: {exc}", file=sys.stderr)
         return 2
 

@@ -20,13 +20,15 @@ SDK's chat/completions), with images as base64 PNG
 by default. Their error ladders are the JAX ones: a failed direction
 read, or a class with no direction, gives UNKNOWN; a failed labels read
 raises to the analyzer, which keeps the valueless netlist. Where the JAX
-package logs a failed `reader:` load and carries on without a client,
-the port raises — the same deliberate difference it keeps for SAM2.
+package logs a failed `reader:` or `paligemma:` load and carries on
+without a client, the port raises — the same deliberate difference it
+keeps for SAM2.
 """
 from __future__ import annotations
 
 import ast
 import base64
+import dataclasses
 import functools
 import json
 import os
@@ -283,9 +285,13 @@ def default_client(enrich=None, device="cuda") -> Optional[VLMClient]:
     GEMINI_API_KEY, src/circuit_analyzer.py:133-147).
 
     CIRCUITVISION_VLM=reader:<orbax dir> loads the trained crop reader
-    (enrich/trained_reader.py) on `device`; a failed load raises. A
-    `paligemma:` spec raises NotImplementedError: that head is not ported.
-    Otherwise GEMINI_API_KEY gives GeminiVLMClient and
+    (enrich/trained_reader.py) on `device`; a failed load raises.
+    CIRCUITVISION_VLM=paligemma:<orbax dir> loads the PaliGemma head
+    (models/paligemma, at PaliGemmaConfig()) on `device`, weights converted
+    by `python -m circuitvision_tpu_torch.models.checkpoint
+    convert-paligemma`; a trailing ':int8' (paligemma:<dir>:int8)
+    quantizes the decode path weight-only at load, on the device
+    (models/paligemma/quant.py); a failed load raises. Otherwise GEMINI_API_KEY gives GeminiVLMClient and
     OPENROUTER_API_KEY OpenRouterVLMClient, built from `enrich`
     (core.config.EnrichConfig: the direction model and generation
     parameters, the OpenRouter model; None keeps the reference
@@ -296,8 +302,21 @@ def default_client(enrich=None, device="cuda") -> Optional[VLMClient]:
 
         return load_trained_reader(spec.split(":", 1)[1], device=device)
     if spec.startswith("paligemma:"):
-        raise NotImplementedError(f"CIRCUITVISION_VLM={spec}: the PaliGemma head is not "
-                                  f"ported (ROADMAP Queue A 12)")
+        from ..core.config import resolve_device
+        from ..models import paligemma
+        from ..models.checkpoint import load_variables
+        from ..models.paligemma.quant import quantize_variables_on_device
+
+        rest = spec.split(":", 1)[1]
+        quant = rest.endswith(":int8")
+        ckpt = rest[: -len(":int8")] if quant else rest
+        device = resolve_device(device, "default_client")
+        cfg = paligemma.PaliGemmaConfig()
+        variables = load_variables(ckpt)
+        if quant:
+            cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, quant_int8=True))
+            variables = quantize_variables_on_device(variables, device)
+        return paligemma.PaliGemmaValueReader(cfg=cfg, variables=variables, device=device)
     if os.getenv("GEMINI_API_KEY"):
         if enrich is not None:
             return GeminiVLMClient(direction_model=enrich.direction_model,

@@ -1,5 +1,6 @@
 """Orbax checkpoints read with numpy, ctypes and the standard library,
-and the converters from the reference's torch checkpoints (USAGE below).
+and the converters from the reference's torch checkpoints and from HF
+PaliGemma checkpoints (USAGE below).
 
 Counterpart of the JAX package's `models/checkpoint.py`
 `load_variables` (:31), `load_model_checkpoint` (:72) and its converter
@@ -417,12 +418,58 @@ def convert_sam2_checkpoint(torch_path: str, out_path: str, lora_alpha: float = 
     save_variables(out_path, sam2_variables_from_checkpoint(torch_path, lora_alpha))
 
 
+def paligemma_variables_from_checkpoint(src: str, cfg=None) -> dict:
+    """HF PaliGemma checkpoint → the variable tree at `cfg` (default the
+    full PaliGemmaConfig()). `src` is a directory of `.safetensors` shards
+    (read by `io/safetensors.py`; BF16 tensors become float32 leaves of
+    the same values, where the JAX converter keeps them in bfloat16), else a directory's `pytorch_model*` /
+    `model*` `.bin` weight shards (HF fine-tune directories also hold
+    training_args.bin and the like, which are not state dicts), or one
+    torch file. Torch files are unpickled (weights_only=False, as the JAX
+    package loads them): convert only files you trust."""
+    from .paligemma.config import PaliGemmaConfig
+    from .paligemma.convert import convert_hf_state
+
+    state: dict = {}
+    if os.path.isdir(src):
+        names = sorted(os.listdir(src))
+        shards = [n for n in names if n.endswith(".safetensors")]
+        if shards:
+            from ..io.safetensors import load_file
+
+            for shard in shards:
+                state.update(load_file(os.path.join(src, shard)))
+        else:
+            import torch
+
+            for n in names:
+                if n.endswith(".bin") and (n.startswith("pytorch_model") or n.startswith("model")):
+                    state.update(torch.load(os.path.join(src, n), map_location="cpu",
+                                            weights_only=False))
+    else:
+        import torch
+
+        obj = torch.load(src, map_location="cpu", weights_only=False)
+        state = obj.get("state_dict", obj) if isinstance(obj, dict) else obj.state_dict()
+    if not state:
+        raise FileNotFoundError(f"no checkpoint tensors found at {src}")
+    return convert_hf_state(state, cfg or PaliGemmaConfig())
+
+
+def convert_paligemma_checkpoint(src: str, out_path: str, cfg=None) -> None:
+    """HF PaliGemma checkpoint → orbax checkpoint of the variable tree (see
+    `paligemma_variables_from_checkpoint`)."""
+    from .checkpoint_writer import save_variables
+
+    save_variables(out_path, paligemma_variables_from_checkpoint(src, cfg))
+
+
 USAGE = """\
   python -m circuitvision_tpu_torch.models.checkpoint convert-yolo best.pt out/
       [--scale n|s|m|l|x] [--num-classes N] [--img-size S]
   python -m circuitvision_tpu_torch.models.checkpoint convert-sam2 best.pth out/
       [--lora-alpha A]
-(convert-paligemma is not ported: ROADMAP Queue A 12)"""
+  python -m circuitvision_tpu_torch.models.checkpoint convert-paligemma hf_dir_or_file out/"""
 
 #: --flag → (converter kwarg, parser) per command; every documented
 #: converter kwarg is reachable from the CLI.
@@ -433,17 +480,15 @@ _CLI_FLAGS = {
         "--img-size": ("img_size", int),
     },
     "convert-sam2": {"--lora-alpha": ("lora_alpha", float)},
+    "convert-paligemma": {},
 }
 
 
 def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     commands = {"convert-yolo": yolo_variables_from_checkpoint,
-                "convert-sam2": sam2_variables_from_checkpoint}
-    if argv and argv[0] == "convert-paligemma":
-        print("convert-paligemma: the PaliGemma VLM head is not ported (ROADMAP Queue A 12)",
-              file=sys.stderr)
-        return 2
+                "convert-sam2": sam2_variables_from_checkpoint,
+                "convert-paligemma": paligemma_variables_from_checkpoint}
     if len(argv) < 3 or argv[0] not in commands:
         print(USAGE)
         return 1

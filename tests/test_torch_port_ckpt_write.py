@@ -237,9 +237,9 @@ def test_cli_refusals(converted, capsys):
     assert "unknown argument '--depth'" in capsys.readouterr().out
     assert pc.main(["convert-sam2", "only-one"]) == 1
     assert "convert-yolo" in capsys.readouterr().out
-    assert pc.main(["convert-paligemma", str(d), str(d / "p")]) == 2
-    err = capsys.readouterr()
-    assert "ROADMAP Queue A 12" in err.err and "converted" not in err.out
+    with pytest.raises(FileNotFoundError, match="no checkpoint tensors found at"):
+        pc.main(["convert-paligemma", str(d), str(d / "p")])
+    assert "converted" not in capsys.readouterr().out
     assert not (d / "x").exists() and not (d / "p").exists()
 
 

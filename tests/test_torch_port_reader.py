@@ -269,8 +269,8 @@ def test_default_client(monkeypatch, tmp_path, caplog):
     monkeypatch.setenv("CIRCUITVISION_VLM", f"reader:{tmp_path}")  # no checkpoint there
     with pytest.raises(FileNotFoundError):
         tclient.default_client(device="cpu")
-    monkeypatch.setenv("CIRCUITVISION_VLM", "paligemma:/x")
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
+    monkeypatch.setenv("CIRCUITVISION_VLM", "paligemma:/x")  # no checkpoint there
+    with pytest.raises(FileNotFoundError):
         tclient.default_client(device="cpu")
     monkeypatch.delenv("CIRCUITVISION_VLM")
     monkeypatch.setenv("GEMINI_API_KEY", "k")

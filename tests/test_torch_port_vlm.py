@@ -331,7 +331,7 @@ def test_openrouter_request_holds_jax_messages(stub, monkeypatch, content):
 
 
 def test_default_client_branches(monkeypatch, tmp_path):
-    """reader: loads the crop reader; paligemma: is refused; a Gemini key
+    """reader: loads the crop reader; paligemma: with no checkpoint raises; a Gemini key
     gives the Gemini client with EnrichConfig's direction model and
     generation parameters (JAX :300-311), an OpenRouter key the
     OpenRouter client with its labels model (:312-318); Gemini first."""
@@ -344,8 +344,8 @@ def test_default_client_branches(monkeypatch, tmp_path):
     assert tclient.default_client(enrich, device="cpu") is None
     monkeypatch.setenv("CIRCUITVISION_VLM", f"reader:{ROOT / 'ckpt' / 'reader'}")
     assert isinstance(tclient.default_client(enrich, device="cpu"), TrainedReaderClient)
-    monkeypatch.setenv("CIRCUITVISION_VLM", "paligemma:/x")
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
+    monkeypatch.setenv("CIRCUITVISION_VLM", "paligemma:/x")  # no checkpoint there
+    with pytest.raises(FileNotFoundError):
         tclient.default_client(enrich, device="cpu")
     monkeypatch.delenv("CIRCUITVISION_VLM")
     monkeypatch.setenv("OPENROUTER_API_KEY", "ok")

@@ -117,15 +117,23 @@ Phases, in order; any failure raises and the process exits non-zero:
      netlist the serial analyze()'s;
   8d. image input and the web UI on the trained product — every fixture
      of eval_data/image_fixtures (JPEGs of each kind the reader takes,
-     PNG variants) decoded by the port and held to the SHA-256 of PIL's
-     decode (digests.json; the card has no PIL); decode ms per image for
-     the eval JPEGs, the photo-sized
-     JPEG and the eval PNGs; then the port's webapp (make_server on an
+     arithmetic, CMYK/YCCK, 4:1:1 and lossless ones included, PNG, BMP
+     and WebP variants) decoded by the port and held to the SHA-256 of
+     PIL's decode (digests.json; the card has no PIL); host decode ms per
+     image for the eval JPEGs, PNGs, lossless WebPs and 24-bit BMPs (the
+     BMPs written here by _bmp24), an eval drawing as lossy WebP, the
+     photo-sized JPEG and lossy WebP, and a CMYK, a 4:1:1 and an
+     arithmetic-coded JPEG; `cli analyze-batch` (trained product, in a
+     process of its own, as phase 14's ranks run it) over the 16 eval
+     PNGs, their lossless WebPs and their BMPs, a directory each and
+     batches of one kind: the WebP and BMP netlists the PNGs', the
+     launches t@512's per batch; then the port's webapp (make_server on an
      ephemeral port) POSTed each eval JPEG and each eval PNG: every
      netlist the analyzer's analyze() on the same decoded pixels, every
      debug image in the response decoding to the array core/viz draws
      (the annotated images drawn again from the result), exact launch
-     counts per request, request ms beside analyze() ms; and the FLOP
+     counts per request, request ms beside analyze() ms, one lossless WebP
+     POSTed whose netlist equals its PNG's; and the FLOP
      count (models/flops.py) of one trained-product analyze() and one
      L@1024 analyze(), with the rate it implies at this run's times;
   8e. the black-box VLM value pass on the trained product's YOLOv11-s@640
@@ -2182,6 +2190,66 @@ def run_width60_kernels(torch, smi):
                                                "card": smi}}), flush=True)
 
 
+def _bmp24(rgb) -> bytes:
+    """A 24-bit bottom-up BMP (BITMAPINFOHEADER) of an (H, W, 3) uint8
+    RGB array."""
+    import struct
+
+    import numpy as np
+
+    h, w = rgb.shape[:2]
+    stride = (3 * w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)
+    return (struct.pack("<2sIHHI", b"BM", 54 + rows.size, 0, 0, 54)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+            + rows.tobytes())
+
+
+def run_image_kinds_batch(smi, paths, webps, bmps) -> dict:
+    """Phase 8d: `cli analyze-batch` with the trained product, in a process
+    of its own (chip_smoke.py --rank cli-cold: the CLI's main, the launch
+    counters read after it), over three directories in turn: the eval
+    PNGs, their lossless WebPs and their BMPs. Each kind fills batches of
+    its own (16 images, batches of PRODUCT_BATCH), so the launches are
+    t@512's per batch for every kind; the WebP and BMP netlists equal the
+    PNG ones."""
+    import tempfile
+
+    ckpt = REPO / "ckpt"
+    me = [sys.executable, str(REPO / "chip_smoke.py"), "--rank", "cli-cold"]
+    kinds = {"png": [p.read_bytes() for p in paths], "webp": webps, "bmp": bmps}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for kind, blobs in kinds.items():
+            (tmp / kind).mkdir()
+            for p, b in zip(paths, blobs):
+                (tmp / kind / f"{p.stem}-{kind}.{kind}").write_bytes(b)
+        out = tmp / "out"
+        (rc, log, sec), = run_ranks(lambda r: me + [
+            "analyze-batch", *(str(tmp / k) for k in kinds), "--batch-size",
+            str(PRODUCT_BATCH), "--yolo-checkpoint", str(ckpt / "yolo"), "--sam2-checkpoint",
+            str(ckpt / "sam2"), "--device", "cuda", "--out-dir", str(out)], 1)
+        launches = _rank_result(log)["launches"]
+        nets = {(p.stem, k): (out / f"{p.stem}-{k}.cir").read_text() for p in paths for k in kinds}
+    batches = len(kinds) * -(-len(paths) // PRODUCT_BATCH)
+    want = {k: v * batches for k, v in EXPECTED["t@512"].items()}
+    bad = [f"{stem} {k}" for (stem, k), net in nets.items() if net != nets[(stem, "png")]]
+    row = {"images_per_kind": len(paths), "kinds": list(kinds), "batches": batches,
+           "launches": launches, "launches_expected": want, "process_s": sec,
+           "images_per_s": float(re.search(r"\(([0-9.]+) images/s", log)[1]),
+           "netlist_mismatches": bad, "card": smi}
+    print(json.dumps({"analyze_batch_image_kinds": row}), flush=True)
+    print(f"   analyze-batch on {smi}: {len(paths)} eval drawings as PNG, lossless WebP and "
+          f"BMP in {sec:.1f} s, netlists equal to the PNGs': {not bad}", flush=True)
+    if bad:
+        raise AssertionError(f"analyze-batch netlists of WebP/BMP differ from the PNG's: {bad}")
+    if launches != want:
+        raise AssertionError(f"analyze-batch over PNG, WebP and BMP: launches {launches} != "
+                             f"{batches} batches of t@512's {want}")
+    return row
+
+
 def run_web_ui(torch, smi, product):
     """Phase 8d: image input and the web UI on the trained product (the
     serial analyzer of run_trained_product). Returns the launches of one
@@ -2221,13 +2289,34 @@ def run_web_ui(torch, smi, product):
     paths = product["paths"]
     jpegs = [files[f"eval/{p.stem}.jpg"] for p in paths]
     pngs = [p.read_bytes() for p in paths]
+    webps = [files[f"eval/{p.stem}.webp"] for p in paths]
+    bmps = [_bmp24(decode_image(b)) for b in pngs]
+    for name in ("eval_lossy.webp", "photo.webp", "bmp_rgb.bmp"):
+        decode_image(files[name])  # builds the WebP library outside the timing
     inputs = {"eval_jpeg_ms_per_image": decode_ms(jpegs), "eval_png_ms_per_image": decode_ms(pngs),
+              "eval_webp_lossless_ms_per_image": decode_ms(webps),
+              "eval_bmp24_ms_per_image": decode_ms(bmps),
+              "eval_webp_lossy_ms": decode_ms([files["eval_lossy.webp"]]),
               "photo_jpeg_ms": decode_ms([files["photo.jpg"]]),
-              "photo_shape": digests["photo.jpg"]["shape"]}
+              "photo_webp_lossy_ms": decode_ms([files["photo.webp"]]),
+              "cmyk_jpeg_ms": decode_ms([files["cmyk_adobe.jpg"]]),
+              "jpeg_411_ms": decode_ms([files["sampling_411.jpg"]]),
+              "arithmetic_jpeg_ms": decode_ms([files["arith.jpg"]]),
+              "photo_shape": digests["photo.jpg"]["shape"],
+              "small_kinds_shape": digests["cmyk_adobe.jpg"]["shape"]}
     print(json.dumps({"image_input": {"fixtures": len(digests), "mismatches": bad, **inputs,
                                       "card": smi}}), flush=True)
+    print(f"   host decode on {smi}: eval JPEG {inputs['eval_jpeg_ms_per_image']:.2f} ms, PNG "
+          f"{inputs['eval_png_ms_per_image']:.2f}, lossless WebP "
+          f"{inputs['eval_webp_lossless_ms_per_image']:.2f}, BMP "
+          f"{inputs['eval_bmp24_ms_per_image']:.2f}, lossy WebP "
+          f"{inputs['eval_webp_lossy_ms']:.2f}; photo JPEG {inputs['photo_jpeg_ms']:.1f}, "
+          f"lossy WebP {inputs['photo_webp_lossy_ms']:.1f}; CMYK {inputs['cmyk_jpeg_ms']:.2f}, "
+          f"4:1:1 {inputs['jpeg_411_ms']:.2f}, arithmetic {inputs['arithmetic_jpeg_ms']:.2f}",
+          flush=True)
     if bad:
         raise AssertionError(f"image fixtures the port decodes otherwise than PIL: {bad}")
+    run_image_kinds_batch(smi, paths, webps, bmps)
 
     analyzer = product["serial_analyzer"]
     server = webapp.make_server(analyzer, port=0, host="127.0.0.1")
@@ -2277,6 +2366,16 @@ def run_web_ui(torch, smi, product):
                         mismatches.append(f"{name} {key}")
                 if payload["netlist_text"] != (want.netlist_text or ""):
                     mismatches.append(f"{name} netlist")
+        # a lossless WebP upload: the PNG's netlist, the PNG's launches
+        png_payload = _post(http, url, pngs[0])[1]
+        reset()
+        code, payload, _sec = _post(http, url, webps[0])
+        webp_counts = read()
+        if code != 200 or payload["netlist_text"] != png_payload["netlist_text"]:
+            mismatches.append(f"{paths[0].stem}.webp netlist")
+        if webp_counts != EXPECTED["t@512"]:
+            raise AssertionError(f"web UI WebP upload: launches {webp_counts} != "
+                                 f"{EXPECTED['t@512']}")
     finally:
         server.shutdown()
         server.server_close()
@@ -4322,8 +4421,8 @@ def main() -> int:
     contours.load_library()
     image_io.load_native()
     draw.load_library()
-    done(t0, "build (nvcc for every kernel; g++ for the contour tracer, the PNG and JPEG "
-             "decoders and the drawing rasteriser)")
+    done(t0, "build (nvcc for every kernel; g++ for the contour tracer, the PNG, JPEG and "
+             "WebP decoders and the drawing rasteriser)")
     floor = launch_floor(smi)
 
     t0 = phase("kernels at t@512")

@@ -19,9 +19,10 @@ random ones. The directions and, with `--final`, the values come from the
 client the environment names (`enrich/client.default_client`):
 CIRCUITVISION_VLM=reader:ckpt/reader is the trained crop reader;
 otherwise GEMINI_API_KEY or OPENROUTER_API_KEY gives that service's
-client, which reads the drawn enumeration image. Images are PNG or JPEG
-(`io/image_io`); BMP and WebP are refused, naming ROADMAP Queue A 9, and
-`analyze-batch` skips them and says which it skipped. `serve` is the web
+client, which reads the drawn enumeration image. Images are PNG, JPEG,
+BMP or WebP (`io/image_io`), decoded as the JAX package's PIL decodes
+them; a file the reader refuses (TIFF, GIF, ROADMAP Queue A 19) fails
+`analyze`, and `analyze-batch` skips it and says which it skipped. `serve` is the web
 UI (webapp.py), `serve-batch` the micro-batching endpoint; both print
 `serving on port N` (port 0: an ephemeral one).
 
@@ -390,7 +391,7 @@ def main(argv=None) -> int:
     try:
         return commands[args.cmd](args)
     except ImageFormatError as exc:
-        # an image kind the reader refuses (Queue A 9)
+        # an image kind the reader refuses (Queue A 19)
         print(f"{args.cmd}: {exc}", file=sys.stderr)
         return 2
 

@@ -1,11 +1,12 @@
-"""Host image ingest without PIL or cv2: PNG and JPEG decode + EXIF orientation.
+"""Host image ingest without PIL or cv2: PNG, JPEG, BMP and WebP decode + EXIF orientation.
 
 Counterpart of the JAX package's `io/image_io.py` (`decode_image`,
 `load_image`, `format_exif_data`, `format_exif_value`), which decodes
 through PIL: bytes → RGB uint8, rotated by the EXIF orientation (tag
 0x0112) as `ImageOps.exif_transpose` rotates. The card's machine has no
-PIL, so this module reads both formats itself and gives what PIL's
-`convert("RGB")` makes of them (Pillow 12.1.0, libjpeg-turbo 3.1.3):
+PIL, so this module reads the formats itself and gives what PIL's
+`convert("RGB")` makes of them (Pillow 12.1.0, libjpeg-turbo 3.1.3,
+libwebp 1.6.0), byte for byte:
 
   * PNG with zlib and numpy, the row unfilter in native/png.cpp (g++ at
     first use): every colour type (grey, RGB, palette with or without
@@ -13,23 +14,34 @@ PIL, so this module reads both formats itself and gives what PIL's
     (PIL keeps a 16-bit sample's high byte; 16-bit grey goes through
     PIL's I;16 → L, which clips at 255), Adam7 interlacing;
   * JPEG with native/jpeg.cpp (g++ at first use): baseline and
-    progressive Huffman, 8-bit, grey or YCbCr/RGB, sampling factors 1
-    or 2, restart intervals, libjpeg-turbo's ISLOW IDCT, fancy
-    upsampling, YCbCr tables and block smoothing of progressive scans
-    left short of full precision. Arithmetic coding, 12-bit and lossless
-    frames, CMYK/YCCK and other sampling factors raise `ImageFormatError`
-    naming them (ROADMAP Queue A 9);
+    progressive, Huffman or arithmetic coding (an arithmetic scan that
+    reads past the 65536-byte block Pillow hands libjpeg raises, as PIL
+    does), 8-bit, grey, YCbCr/RGB or CMYK/YCCK (Pillow reads four
+    components as Adobe's inverted CMYK, then `cmyk_to_rgb`), sampling
+    factors 1 to 4 in integral ratios (4:1:1 and the like replicated as
+    libjpeg's int_upsample), restart intervals, libjpeg-turbo's ISLOW
+    IDCT, fancy upsampling, YCbCr tables and block smoothing of
+    progressive scans left short of full precision; lossless (SOF3)
+    frames at sampling factors 1 with no colour conversion. 12-bit,
+    hierarchical and arithmetic lossless frames raise `ImageFormatError`
+    naming them;
+  * BMP with io/bmp.py (numpy) as PIL's BmpImagePlugin reads it: every
+    header version, palettes, 16/24/32-bit, BI_BITFIELDS, RLE4/RLE8;
+  * WebP with io/webp.py and native/webp.cpp: lossless (VP8L), lossy
+    (VP8) with its ALPH alpha, libwebp's fancy upsampling and YUV -> RGB,
+    and an animation's first frame on its canvas;
   * the orientation as `PIL.Image.getexif` finds it: the EXIF of a PNG
     `eXIf` chunk (or a `tEXt` "exif" chunk), else of a "Raw profile type
-    exif" text chunk (hex), or of a JPEG's first APP1 "Exif" segment;
-    where that holds no orientation tag, `tiff:Orientation` in the XMP
-    (PNG: the "XML:com.adobe.xmp" text chunk; JPEG: the APP1 segment
-    headed by the XMP namespace). Values 2-8 rotate; EXIF that does not
+    exif" text chunk (hex), of a JPEG's first APP1 "Exif" segment, or of
+    a WebP's EXIF chunk (a BMP has none); where that holds no orientation
+    tag, `tiff:Orientation` in the XMP (PNG: the "XML:com.adobe.xmp" text
+    chunk; JPEG: the APP1 segment headed by the XMP namespace; WebP: the
+    "XMP " chunk). Values 2-8 rotate; EXIF that does not
     parse leaves the image as it is, as the JAX package's
     `except Exception: pass` around PIL's reading does.
 
-Anything else — BMP, WebP or another format — raises `ImageFormatError`
-naming it. `read_png` gives an 8-bit grey, RGB or RGBA PNG's samples
+Anything else — TIFF, GIF or another format — raises `ImageFormatError`
+naming it (ROADMAP Queue A 19). `read_png` gives an 8-bit grey, RGB or RGBA PNG's samples
 without conversion, as `np.asarray(PIL.Image.open(path))` does for the
 eval masks.
 """
@@ -46,6 +58,8 @@ from typing import Optional
 import numpy as np
 
 from ..core.native import build_library
+from .bmp import decode_bmp
+from .webp import decode_webp
 
 ORIENTATION_TAG = 0x0112
 SOFTWARE_TAG = 0x0131
@@ -106,9 +120,12 @@ def _jpeg_encoder() -> ctypes.CDLL:
 
 def load_native() -> None:
     """Build (at first use) and load the host decoders and the JPEG encoder."""
+    from .webp import _library as webp_library
+
     _png_library()
     _jpeg_library()
     _jpeg_encoder()
+    webp_library()
 
 
 def encode_jpeg(rgb: np.ndarray, quality: int = 75) -> bytes:
@@ -367,6 +384,17 @@ def _jpeg_segments(data: bytes) -> dict:
     return info
 
 
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """What PIL makes of libjpeg's CMYK output: the "CMYK;I" raw mode
+    (every sample inverted, Adobe's convention, which Pillow assumes for
+    every four-component JPEG), then convert("RGB") (Convert.c cmyk2rgb:
+    nk - nk·c/255 per channel, nk = 255 - k, MULDIV255's rounding)."""
+    inv = 255 - cmyk.astype(np.int32)
+    nk = 255 - inv[..., 3:]
+    tmp = inv[..., :3] * nk + 128
+    return np.clip(nk - (((tmp >> 8) + tmp) >> 8), 0, 255).astype(np.uint8)
+
+
 def _decode_jpeg(data: bytes) -> np.ndarray:
     lib = _jpeg_library()
     dims = np.zeros(3, np.int32)
@@ -514,9 +542,15 @@ def _decode(data: bytes) -> tuple[np.ndarray, dict]:
         img = _decode_jpeg(data)
         if img.shape[2] == 1:
             img = np.repeat(img, 3, axis=2)
+        elif img.shape[2] == 4:
+            img = cmyk_to_rgb(img)
         return img, _jpeg_segments(data)
-    raise ImageFormatError(f"not a PNG or JPEG ({_format_name(data)}); BMP, WebP and other "
-                           f"formats are not read (ROADMAP Queue A 9)")
+    if data.startswith(b"BM"):
+        return decode_bmp(data), {}
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return decode_webp(data)
+    raise ImageFormatError(f"not a PNG, JPEG, BMP or WebP ({_format_name(data)}); TIFF, GIF "
+                           f"and other formats are not read (ROADMAP Queue A 19)")
 
 
 def read_png(path: str) -> np.ndarray:
@@ -534,7 +568,7 @@ def read_png(path: str) -> np.ndarray:
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """PNG or JPEG bytes → (H, W, 3) RGB uint8, EXIF-rotated."""
+    """PNG, JPEG, BMP or WebP bytes → (H, W, 3) RGB uint8, EXIF-rotated."""
     img, info = _decode(data)
     return np.ascontiguousarray(exif_transpose(img, _orientation(info)))
 

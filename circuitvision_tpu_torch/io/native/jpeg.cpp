@@ -2,27 +2,41 @@
 // image_io.py), held byte for byte to what PIL makes of a file with
 // libjpeg-turbo's defaults, then convert("RGB"):
 //
-//   * Huffman-coded baseline, extended-sequential and progressive frames of
-//     8-bit samples, 1 component (grey) or 3 (YCbCr; RGB where an Adobe
-//     APP14 marker says transform 0, or, with neither a JFIF nor an Adobe
-//     marker, the component ids are 'R', 'G', 'B'), each component sampled
-//     1 or 2 times on each axis relative to the largest; restart intervals;
-//     partial MCUs at the right and bottom edges;
+//   * Huffman- and arithmetic-coded (ITU T.81 Annex D and F, jdarith.c:
+//     the Qe table D.2, DAC conditioning) baseline, extended-sequential and
+//     progressive frames of 8-bit samples, 1 component (grey), 3 (YCbCr;
+//     RGB where an Adobe APP14 marker says transform 0, or, with neither a
+//     JFIF nor an Adobe marker, the component ids are 'R', 'G', 'B') or 4
+//     (CMYK; YCCK where an Adobe marker says a transform other than 0,
+//     converted to CMYK as jdcolor.c's ycck_cmyk_convert does), each
+//     component sampled 1 to 4 times on each axis, at most 10 blocks in an
+//     MCU; restart intervals; partial MCUs at the right and bottom edges;
+//   * lossless (SOF3) Huffman frames of 8-bit samples at sampling factors 1
+//     (jdlhuff.c, jdpred.c: predictors 1-7, the first row and column of a
+//     scan or restart interval, the point transform), as libjpeg-turbo 3
+//     reads them: no colour conversion, so a JFIF marker or an Adobe
+//     transform other than 0 is refused;
 //   * the integer inverse DCT (libjpeg's JDCT_ISLOW, jidctint.c) with its
 //     range-limit table, fancy upsampling (jdsample.c: h2v1, h1v2 and h2v2
 //     with their alternating rounding, the first and last rows replicated
-//     for context and the edge columns handled as libjpeg does), and
-//     jdcolor.c's fixed-point YCbCr -> RGB tables (SCALEBITS 16);
+//     for context and the edge columns handled as libjpeg does), other
+//     integral ratios replicated (int_upsample), and jdcolor.c's
+//     fixed-point YCbCr -> RGB tables (SCALEBITS 16);
 //   * block smoothing (jdcoefct.c decompress_smooth_data), which libjpeg
 //     applies to a progressive file whose scans leave one of the first nine
 //     AC coefficients short of full precision: those coefficients, and
 //     where no AC scan has arrived the DC too, estimated from the DC values
 //     of each block's 5 x 5 neighbourhood.
 //
-// Everything else is refused with a message that names it: arithmetic
-// coding, lossless and hierarchical frames, other sample precisions, four
-// components (CMYK/YCCK), other sampling factors. No system libjpeg is
-// loaded.
+// Pillow hands libjpeg a file 65536 bytes at a time and the arithmetic
+// decoder cannot suspend, so PIL fails ("broken data stream") on an
+// arithmetic-coded scan that reads past the block in hand when the scan
+// starts; such a scan is refused here too (kPilBlock).
+//
+// Everything else is refused with a message that names it: hierarchical
+// frames, lossless frames with arithmetic coding or subsampled components,
+// other sample precisions, 2 or more than 4 components, sampling ratios
+// that do not divide. No system libjpeg is loaded.
 #include <algorithm>
 #include <cstdint>
 #include <cstdio>
@@ -40,6 +54,54 @@ const int kZigzag[64 + 16] = {
     47, 55, 62, 63,
     // extra entries absorb a corrupt run past the end, as libjpeg's table does
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// ITU T.81 Table D.2 as jaricom.c packs it: Qe << 16, Next_Index_MPS << 8,
+// Switch_MPS << 7, Next_Index_LPS; entry 113 is the fixed 0.5 estimate
+#define V(i, qe, nl, nm, sw) (((int64_t)(qe) << 16) | ((nm) << 8) | ((sw) << 7) | (nl))
+const int64_t kAriTab[114] = {
+    V(0, 0x5a1d, 1, 1, 1), V(1, 0x2586, 14, 2, 0), V(2, 0x1114, 16, 3, 0),
+    V(3, 0x080b, 18, 4, 0), V(4, 0x03d8, 20, 5, 0), V(5, 0x01da, 23, 6, 0),
+    V(6, 0x00e5, 25, 7, 0), V(7, 0x006f, 28, 8, 0), V(8, 0x0036, 30, 9, 0),
+    V(9, 0x001a, 33, 10, 0), V(10, 0x000d, 35, 11, 0), V(11, 0x0006, 9, 12, 0),
+    V(12, 0x0003, 10, 13, 0), V(13, 0x0001, 12, 13, 0), V(14, 0x5a7f, 15, 15, 1),
+    V(15, 0x3f25, 36, 16, 0), V(16, 0x2cf2, 38, 17, 0), V(17, 0x207c, 39, 18, 0),
+    V(18, 0x17b9, 40, 19, 0), V(19, 0x1182, 42, 20, 0), V(20, 0x0cef, 43, 21, 0),
+    V(21, 0x09a1, 45, 22, 0), V(22, 0x072f, 46, 23, 0), V(23, 0x055c, 48, 24, 0),
+    V(24, 0x0406, 49, 25, 0), V(25, 0x0303, 51, 26, 0), V(26, 0x0240, 52, 27, 0),
+    V(27, 0x01b1, 54, 28, 0), V(28, 0x0144, 56, 29, 0), V(29, 0x00f5, 57, 30, 0),
+    V(30, 0x00b7, 59, 31, 0), V(31, 0x008a, 60, 32, 0), V(32, 0x0068, 62, 33, 0),
+    V(33, 0x004e, 63, 34, 0), V(34, 0x003b, 32, 35, 0), V(35, 0x002c, 33, 9, 0),
+    V(36, 0x5ae1, 37, 37, 1), V(37, 0x484c, 64, 38, 0), V(38, 0x3a0d, 65, 39, 0),
+    V(39, 0x2ef1, 67, 40, 0), V(40, 0x261f, 68, 41, 0), V(41, 0x1f33, 69, 42, 0),
+    V(42, 0x19a8, 70, 43, 0), V(43, 0x1518, 72, 44, 0), V(44, 0x1177, 73, 45, 0),
+    V(45, 0x0e74, 74, 46, 0), V(46, 0x0bfb, 75, 47, 0), V(47, 0x09f8, 77, 48, 0),
+    V(48, 0x0861, 78, 49, 0), V(49, 0x0706, 79, 50, 0), V(50, 0x05cd, 48, 51, 0),
+    V(51, 0x04de, 50, 52, 0), V(52, 0x040f, 50, 53, 0), V(53, 0x0363, 51, 54, 0),
+    V(54, 0x02d4, 52, 55, 0), V(55, 0x025c, 53, 56, 0), V(56, 0x01f8, 54, 57, 0),
+    V(57, 0x01a4, 55, 58, 0), V(58, 0x0160, 56, 59, 0), V(59, 0x0125, 57, 60, 0),
+    V(60, 0x00f6, 58, 61, 0), V(61, 0x00cb, 59, 62, 0), V(62, 0x00ab, 61, 63, 0),
+    V(63, 0x008f, 61, 32, 0), V(64, 0x5b12, 65, 65, 1), V(65, 0x4d04, 80, 66, 0),
+    V(66, 0x412c, 81, 67, 0), V(67, 0x37d8, 82, 68, 0), V(68, 0x2fe8, 83, 69, 0),
+    V(69, 0x293c, 84, 70, 0), V(70, 0x2379, 86, 71, 0), V(71, 0x1edf, 87, 72, 0),
+    V(72, 0x1aa9, 87, 73, 0), V(73, 0x174e, 72, 74, 0), V(74, 0x1424, 72, 75, 0),
+    V(75, 0x119c, 74, 76, 0), V(76, 0x0f6b, 74, 77, 0), V(77, 0x0d51, 75, 78, 0),
+    V(78, 0x0bb6, 77, 79, 0), V(79, 0x0a40, 77, 48, 0), V(80, 0x5832, 80, 81, 1),
+    V(81, 0x4d1c, 88, 82, 0), V(82, 0x438e, 89, 83, 0), V(83, 0x3bdd, 90, 84, 0),
+    V(84, 0x34ee, 91, 85, 0), V(85, 0x2eae, 92, 86, 0), V(86, 0x299a, 93, 87, 0),
+    V(87, 0x2516, 86, 71, 0), V(88, 0x5570, 88, 89, 1), V(89, 0x4ca9, 95, 90, 0),
+    V(90, 0x44d9, 96, 91, 0), V(91, 0x3e22, 97, 92, 0), V(92, 0x3824, 99, 93, 0),
+    V(93, 0x32b4, 99, 94, 0), V(94, 0x2e17, 93, 86, 0), V(95, 0x56a8, 95, 96, 1),
+    V(96, 0x4f46, 101, 97, 0), V(97, 0x47e5, 102, 98, 0), V(98, 0x41cf, 103, 99, 0),
+    V(99, 0x3c3d, 104, 100, 0), V(100, 0x375e, 99, 93, 0), V(101, 0x5231, 105, 102, 0),
+    V(102, 0x4c0f, 106, 103, 0), V(103, 0x4639, 107, 104, 0), V(104, 0x415e, 103, 99, 0),
+    V(105, 0x5627, 105, 106, 1), V(106, 0x50e7, 108, 107, 0), V(107, 0x4b85, 109, 103, 0),
+    V(108, 0x5597, 110, 109, 0), V(109, 0x504f, 111, 107, 0), V(110, 0x5a10, 110, 111, 1),
+    V(111, 0x5522, 112, 109, 0), V(112, 0x59eb, 112, 111, 1), V(113, 0x5a1d, 113, 113, 0),
+};
+#undef V
+
+// Pillow's ImageFile.decodermaxblock: the bytes handed to libjpeg per call
+const size_t kPilBlock = 65536;
 
 struct Error {
   std::string what;
@@ -90,15 +152,24 @@ struct Component {
   int bw = 0, bh = 0;         // blocks of the padded MCU grid
   int cw = 0, ch = 0;         // downsampled size in samples
   int dc_pred = 0;
+  int dc_context = 0;         // arithmetic DC conditioning category
   bool latched = false;       // quantisation table copied at its first scan
   uint16_t quant[64];
   std::vector<int16_t> coef;  // bh * bw blocks of 64, natural order
+  std::vector<int> diff;      // lossless: the differences, then the samples (lw x lh)
+  int lw = 0, lh = 0;
   int coef_bits[64];          // progressive: Al of the last scan per coefficient
 };
 
 class Decoder {
  public:
-  Decoder(const uint8_t* data, size_t n) : d_(data), n_(n) {}
+  Decoder(const uint8_t* data, size_t n) : d_(data), n_(n) {
+    for (int t = 0; t < 16; ++t) {
+      dc_L_[t] = 0;
+      dc_U_[t] = 1;
+      ac_K_[t] = 5;
+    }
+  }
 
   void header();   // through the first SOS
   void decode();   // all scans
@@ -106,7 +177,7 @@ class Decoder {
 
   int width() const { return width_; }
   int height() const { return height_; }
-  int channels() const { return ncomp_ == 1 ? 1 : 3; }
+  int channels() const { return ncomp_; }
 
  private:
   const uint8_t* d_;
@@ -115,6 +186,7 @@ class Decoder {
 
   int width_ = 0, height_ = 0, ncomp_ = 0;
   bool progressive_ = false, jfif_ = false, adobe_ = false, smooth_ = false;
+  bool arith_ = false, lossless_ = false;
   int adobe_transform_ = -1;
   int hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   int restart_ = 0;
@@ -122,10 +194,17 @@ class Decoder {
   uint16_t qt_[4][64];
   bool qt_defined_[4] = {false, false, false, false};
   Huffman dc_[4], ac_[4];
-  Component comp_[3];
+  Component comp_[4];
+  // arithmetic conditioning (DAC) and the decoder's state (jdarith.c)
+  int dc_L_[16], dc_U_[16], ac_K_[16];  // 0, 1 and 5 until a DAC segment says
+  uint8_t dc_stats_[16][64], ac_stats_[16][256], fixed_bin_ = 113;
+  int64_t ac_c_ = 0, ac_a_ = 0;
+  int ac_ct_ = -16, unread_marker_ = 0;
+  size_t arith_limit_ = 0;
+  size_t sos_end_ = 0;
 
   // current scan
-  int scomp_[3];
+  int scomp_[4];
   int sn_ = 0, ss_ = 0, se_ = 0, ah_ = 0, al_ = 0;
   int eobrun_ = 0;
   // bit reader
@@ -147,8 +226,15 @@ class Decoder {
   void read_dht(size_t end);
   void read_sos();
   void read_app(int marker, size_t end);
+  void read_dac(size_t end);
   int next_marker();
   void scan();
+  void scan_lossless();
+  int arith_byte();
+  int arith_decode(uint8_t* st);
+  void arith_restart();
+  void arith_block(Component& c, int16_t* blk);
+  int lossless_diff(const Huffman& h);
 
   // bits
   void reset_bits() {
@@ -213,22 +299,30 @@ class Decoder {
 };
 
 int Decoder::next_marker() {
-  // skip fill bytes and any stray data up to the next marker
-  while (pos_ < n_ && d_[pos_] != 0xFF) ++pos_;
-  while (pos_ < n_ && d_[pos_] == 0xFF) ++pos_;
-  if (pos_ >= n_) fail("JPEG: truncated before EOI");
-  return d_[pos_++];
+  // skip fill bytes and any stray data (stuffed FF 00 pairs too) up to the
+  // next marker, as jdmarker.c next_marker does
+  if (unread_marker_) {  // the arithmetic decoder read it already
+    const int m = unread_marker_;
+    unread_marker_ = 0;
+    return m;
+  }
+  for (;;) {
+    while (pos_ < n_ && d_[pos_] != 0xFF) ++pos_;
+    while (pos_ < n_ && d_[pos_] == 0xFF) ++pos_;
+    if (pos_ >= n_) fail("JPEG: truncated before EOI");
+    const int m = d_[pos_++];
+    if (m != 0) return m;
+  }
 }
 
 void Decoder::read_frame(int marker) {
   if (frame_) fail("JPEG: more than one frame");
-  if (marker == 0xC3 || marker == 0xC7 || marker == 0xCB || marker == 0xCF)
-    fail("JPEG: lossless frames are not read");
-  if (marker >= 0xC9 && marker != 0xCC)
-    fail("JPEG: arithmetic coding is not read");
-  if (marker == 0xC5 || marker == 0xC6)
+  if (marker == 0xC5 || marker == 0xC6 || marker == 0xC7 || marker >= 0xCD)
     fail("JPEG: hierarchical (differential) frames are not read");
-  progressive_ = marker == 0xC2;
+  if (marker == 0xCB) fail("JPEG: lossless frames with arithmetic coding are not read");
+  progressive_ = marker == 0xC2 || marker == 0xCA;
+  arith_ = marker >= 0xC9;
+  lossless_ = marker == 0xC3;
   const int precision = u8();
   if (precision != 8)
     fail("JPEG: " + std::to_string(precision) + "-bit samples are not read; only 8-bit");
@@ -236,9 +330,8 @@ void Decoder::read_frame(int marker) {
   width_ = u16();
   ncomp_ = u8();
   if (width_ < 1 || height_ < 1) fail("JPEG: image has no rows or columns");
-  if (ncomp_ == 4) fail("JPEG: four-component (CMYK/YCCK) images are not read");
-  if (ncomp_ != 1 && ncomp_ != 3)
-    fail("JPEG: " + std::to_string(ncomp_) + " components; only 1 or 3 are read");
+  if (ncomp_ != 1 && ncomp_ != 3 && ncomp_ != 4)
+    fail("JPEG: " + std::to_string(ncomp_) + " components; only 1, 3 or 4 are read");
   for (int i = 0; i < ncomp_; ++i) {
     Component& c = comp_[i];
     c.id = u8();
@@ -253,13 +346,24 @@ void Decoder::read_frame(int marker) {
   }
   for (int i = 0; i < ncomp_; ++i) {
     const Component& c = comp_[i];
-    if (c.h < 1 || c.h > 2 || c.v < 1 || c.v > 2 || (hmax_ % c.h) || (vmax_ % c.v))
+    if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4)
       fail("JPEG: sampling factors " + std::to_string(c.h) + "x" + std::to_string(c.v) +
-           " are not read; only 1 or 2 on each axis");
+           " are not valid; each is 1 to 4");
   }
+  if (ncomp_ > 1)
+    for (int i = 0; i < ncomp_; ++i) {
+      const Component& c = comp_[i];
+      if ((hmax_ % c.h) || (vmax_ % c.v))  // jdsample.c: JERR_FRACT_SAMPLE_NOTIMPL
+        fail("JPEG: sampling factors " + std::to_string(c.h) + "x" + std::to_string(c.v) +
+             " against " + std::to_string(hmax_) + "x" + std::to_string(vmax_) +
+             " are not an integral ratio, which libjpeg does not upsample");
+      if (lossless_ && (c.h != hmax_ || c.v != vmax_))
+        fail("JPEG: lossless frames with subsampled components are not read");
+    }
   if (ncomp_ == 1) hmax_ = vmax_ = comp_[0].h = comp_[0].v = 1;  // one component: no MCU
-  mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
-  mcuy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
+  const int unit = lossless_ ? 1 : 8;  // a lossless "block" is one sample
+  mcux_ = (width_ + unit * hmax_ - 1) / (unit * hmax_);
+  mcuy_ = (height_ + unit * vmax_ - 1) / (unit * vmax_);
   for (int i = 0; i < ncomp_; ++i) {
     Component& c = comp_[i];
     c.cw = (width_ * c.h + hmax_ - 1) / hmax_;
@@ -270,7 +374,7 @@ void Decoder::read_frame(int marker) {
       c.bw = (c.bw + c.sh - 1) / c.sh * c.sh;
       c.bh = (c.bh + c.sv - 1) / c.sv * c.sv;
     }
-    c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+    if (!lossless_) c.coef.assign((size_t)c.bw * c.bh * 64, 0);
     for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
   }
   frame_ = true;
@@ -311,6 +415,21 @@ void Decoder::read_app(int marker, size_t end) {
   pos_ = end;
 }
 
+void Decoder::read_dac(size_t end) {
+  while (pos_ < end) {
+    const int index = u8(), val = u8();
+    if (index >= 32) fail("JPEG: DAC table index out of range");
+    if (index >= 16) {
+      ac_K_[index - 16] = val;
+    } else {
+      dc_L_[index] = val & 15;
+      dc_U_[index] = val >> 4;
+      if (dc_L_[index] > dc_U_[index]) fail("JPEG: DAC lower bound above its upper bound");
+    }
+  }
+  if (pos_ != end) fail("JPEG: DAC segment length");
+}
+
 void Decoder::read_sos() {
   if (!frame_) fail("JPEG: scan before frame header");
   sn_ = u8();
@@ -324,13 +443,31 @@ void Decoder::read_sos() {
     scomp_[i] = ci;
     comp_[ci].td = t >> 4;
     comp_[ci].ta = t & 15;
-    if (comp_[ci].td > 3 || comp_[ci].ta > 3) fail("JPEG: Huffman table id out of range");
+    if (!arith_ && (comp_[ci].td > 3 || comp_[ci].ta > 3))
+      fail("JPEG: Huffman table id out of range");
   }
   ss_ = u8();
   se_ = u8();
   const int a = u8();
   ah_ = a >> 4;
   al_ = a & 15;
+  sos_end_ = pos_;
+  if (sn_ > 1) {
+    int blocks = 0;
+    for (int i = 0; i < sn_; ++i) blocks += comp_[scomp_[i]].h * comp_[scomp_[i]].v;
+    if (blocks > 10) fail("JPEG: more than 10 blocks in an MCU");
+  }
+  if (lossless_) {  // Ss is the predictor, Al the point transform
+    if (ss_ < 1 || ss_ > 7 || se_ != 0 || ah_ != 0 || al_ >= 8)
+      fail("JPEG: bad lossless scan parameters");
+    for (int i = 0; i < sn_; ++i) {
+      const Component& c = comp_[scomp_[i]];
+      if (!dc_[c.td].defined) fail("JPEG: scan uses an undefined DC table");
+    }
+    return;
+  }
+  if (progressive_ && arith_ && ah_ != 0 && al_ != ah_ - 1)
+    fail("JPEG: bad progressive scan parameters");
   if (progressive_) {
     if (ss_ > se_ || se_ > 63 || (ss_ == 0 && se_ != 0) || (ss_ > 0 && sn_ != 1) || al_ > 13)
       fail("JPEG: bad progressive scan parameters");
@@ -349,6 +486,7 @@ void Decoder::read_sos() {
     for (int k = ss_; k <= se_; ++k) c.coef_bits[k] = al_;
     const bool need_dc = ss_ == 0 && ah_ == 0;
     const bool need_ac = se_ > 0 || !progressive_;
+    if (arith_) continue;
     if (need_dc && !dc_[c.td].defined) fail("JPEG: scan uses an undefined DC table");
     if (need_ac && (!progressive_ || ss_ > 0) && !ac_[c.ta].defined)
       fail("JPEG: scan uses an undefined AC table");
@@ -446,10 +584,225 @@ void Decoder::decode_block(Component& c, int16_t* blk) {
   }
 }
 
+// ------------------------------------------------------ arithmetic decoding
+// jdarith.c get_byte within the block PIL has handed libjpeg (kPilBlock)
+int Decoder::arith_byte() {
+  if (pos_ >= arith_limit_) {
+    if (arith_limit_ >= n_) fail("JPEG: arithmetic-coded data runs past the end of the file");
+    fail("JPEG: an arithmetic-coded scan reads past the " + std::to_string(kPilBlock) +
+         "-byte block Pillow hands libjpeg, which cannot suspend there (PIL: broken data "
+         "stream)");
+  }
+  return d_[pos_++];
+}
+
+// jdarith.c arith_decode: one binary decision with the statistics bin st
+int Decoder::arith_decode(uint8_t* st) {
+  while (ac_a_ < 0x8000) {
+    if (--ac_ct_ < 0) {
+      int data;
+      if (unread_marker_) {
+        data = 0;
+      } else {
+        data = arith_byte();
+        if (data == 0xFF) {
+          do data = arith_byte();
+          while (data == 0xFF);
+          if (data == 0) {
+            data = 0xFF;
+          } else {
+            unread_marker_ = data;
+            data = 0;
+          }
+        }
+      }
+      ac_c_ = (ac_c_ << 8) | data;
+      if ((ac_ct_ += 8) < 0)
+        if (++ac_ct_ == 0) ac_a_ = 0x8000;
+    }
+    ac_a_ <<= 1;
+  }
+  int sv = *st;
+  int64_t qe = kAriTab[sv & 0x7F];
+  const uint8_t nl = (uint8_t)(qe & 0xFF);
+  qe >>= 8;
+  const uint8_t nm = (uint8_t)(qe & 0xFF);
+  qe >>= 8;
+  int64_t temp = ac_a_ - qe;
+  ac_a_ = temp;
+  temp <<= ac_ct_;
+  if (ac_c_ >= temp) {
+    ac_c_ -= temp;
+    if (ac_a_ < qe) {
+      ac_a_ = qe;
+      *st = (uint8_t)((sv & 0x80) ^ nm);
+    } else {
+      ac_a_ = qe;
+      *st = (uint8_t)((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    }
+  } else if (ac_a_ < 0x8000) {
+    if (ac_a_ < qe) {
+      *st = (uint8_t)((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    } else {
+      *st = (uint8_t)((sv & 0x80) ^ nm);
+    }
+  }
+  return sv >> 7;
+}
+
+// jdarith.c process_restart
+void Decoder::arith_restart() {
+  int m;
+  if (unread_marker_) {
+    m = unread_marker_;
+    unread_marker_ = 0;
+  } else {
+    m = next_marker();
+    if (pos_ > arith_limit_) arith_byte();  // the marker lies past PIL's block
+  }
+  if (m < 0xD0 || m > 0xD7) fail("JPEG: missing restart marker");
+  for (int i = 0; i < sn_; ++i) {
+    Component& c = comp_[scomp_[i]];
+    if (!progressive_ || (ss_ == 0 && ah_ == 0)) {
+      std::memset(dc_stats_[c.td], 0, 64);
+      c.dc_pred = 0;
+      c.dc_context = 0;
+    }
+    if (!progressive_ || ss_) std::memset(ac_stats_[c.ta], 0, 256);
+  }
+  ac_c_ = 0;
+  ac_a_ = 0;
+  ac_ct_ = -16;
+}
+
+void Decoder::arith_block(Component& c, int16_t* blk) {
+  if (progressive_ && ss_ == 0 && ah_ != 0) {  // DC refinement: the next bit
+    if (arith_decode(&fixed_bin_)) blk[0] = (int16_t)(blk[0] | (1 << al_));
+    return;
+  }
+  if (ac_ct_ == -1) return;  // a bad code stopped the scan: the rest stays as it is
+  if (!progressive_ || ss_ == 0) {
+    // Figures F.19-F.24: the DC difference
+    uint8_t* st = dc_stats_[c.td] + c.dc_context;
+    if (arith_decode(st) == 0) {
+      c.dc_context = 0;
+    } else {
+      const int sign = arith_decode(st + 1);
+      st += 2 + sign;
+      int m = arith_decode(st);
+      if (m != 0) {
+        st = dc_stats_[c.td] + 20;
+        while (arith_decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ac_ct_ = -1;
+            return;
+          }
+          st += 1;
+        }
+      }
+      if (m < (int)((1L << dc_L_[c.td]) >> 1)) c.dc_context = 0;
+      else if (m > (int)((1L << dc_U_[c.td]) >> 1)) c.dc_context = 12 + sign * 4;
+      else c.dc_context = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (arith_decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      c.dc_pred = (c.dc_pred + v) & 0xffff;
+    }
+    blk[0] = (int16_t)(uint16_t)((unsigned)c.dc_pred << (progressive_ ? al_ : 0));
+    if (progressive_) return;
+  }
+  const int start = progressive_ ? ss_ : 1, end = progressive_ ? se_ : 63;
+  uint8_t* const stats = ac_stats_[c.ta];
+  if (progressive_ && ah_ != 0) {  // AC refinement
+    const int p1 = 1 << al_, m1 = -1 * (1 << al_);
+    int kex;
+    for (kex = end; kex > 0; --kex)
+      if (blk[kZigzag[kex]]) break;
+    for (int k = start; k <= end; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && arith_decode(st)) break;
+      for (;;) {
+        int16_t* coef = blk + kZigzag[k];
+        if (*coef) {
+          if (arith_decode(st + 2)) *coef = (int16_t)(*coef < 0 ? *coef + m1 : *coef + p1);
+          break;
+        }
+        if (arith_decode(st + 1)) {
+          *coef = (int16_t)(arith_decode(&fixed_bin_) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > end) {
+          ac_ct_ = -1;
+          return;
+        }
+      }
+    }
+    return;
+  }
+  // Figure F.20 (first AC scan, or the sequential block's AC)
+  for (int k = start; k <= end; ++k) {
+    uint8_t* st = stats + 3 * (k - 1);
+    if (arith_decode(st)) break;  // EOB
+    while (arith_decode(st + 1) == 0) {
+      st += 3;
+      if (++k > end) {
+        ac_ct_ = -1;
+        return;
+      }
+    }
+    const int sign = arith_decode(&fixed_bin_);
+    st += 2;
+    int m = arith_decode(st);
+    if (m != 0 && arith_decode(st)) {
+      m <<= 1;
+      st = stats + (k <= ac_K_[c.ta] ? 189 : 217);
+      while (arith_decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ac_ct_ = -1;
+          return;
+        }
+        st += 1;
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    blk[kZigzag[k]] = (int16_t)((unsigned)v << (progressive_ ? al_ : 0));
+  }
+}
+
 void Decoder::scan() {
+  if (lossless_) {
+    scan_lossless();
+    return;
+  }
   reset_bits();
   eobrun_ = 0;
   for (int i = 0; i < ncomp_; ++i) comp_[i].dc_pred = 0;
+  if (arith_) {  // jdarith.c start_pass
+    for (int i = 0; i < sn_; ++i) {
+      Component& c = comp_[scomp_[i]];
+      if (!progressive_ || (ss_ == 0 && ah_ == 0)) {
+        std::memset(dc_stats_[c.td], 0, 64);
+        c.dc_context = 0;
+      }
+      if (!progressive_ || ss_) std::memset(ac_stats_[c.ta], 0, 256);
+    }
+    ac_c_ = 0;
+    ac_a_ = 0;
+    ac_ct_ = -16;
+    unread_marker_ = 0;
+    arith_limit_ = std::min(n_, (sos_end_ + kPilBlock - 1) / kPilBlock * kPilBlock);
+  }
   int units_x, units_y;
   const bool single = sn_ == 1;
   if (single) {  // a non-interleaved scan walks the component's own blocks
@@ -463,7 +816,10 @@ void Decoder::scan() {
   const int total = units_x * units_y;
   int todo = restart_;
   for (int u = 0; u < total; ++u) {
-    if (restart_ && todo == 0) {
+    if (restart_ && todo == 0 && arith_) {
+      arith_restart();
+      todo = restart_;
+    } else if (restart_ && todo == 0) {
       // byte-align, expect RSTn, reset predictors
       reset_bits();
       const int m = next_marker();
@@ -475,21 +831,108 @@ void Decoder::scan() {
     const int ux = u % units_x, uy = u / units_x;
     if (single) {
       Component& c = comp_[scomp_[0]];
-      decode_block(c, &c.coef[((size_t)uy * c.bw + ux) * 64]);
+      int16_t* blk = &c.coef[((size_t)uy * c.bw + ux) * 64];
+      if (arith_) arith_block(c, blk);
+      else decode_block(c, blk);
     } else {
       for (int i = 0; i < sn_; ++i) {
         Component& c = comp_[scomp_[i]];
         for (int by = 0; by < c.v; ++by)
           for (int bx = 0; bx < c.h; ++bx) {
             const size_t b = (size_t)(uy * c.v + by) * c.bw + (ux * c.h + bx);
-            decode_block(c, &c.coef[b * 64]);
+            if (arith_) arith_block(c, &c.coef[b * 64]);
+            else decode_block(c, &c.coef[b * 64]);
           }
       }
     }
     if (restart_) --todo;
   }
   // leave the reader at the marker that ends the scan
+  if (!arith_) reset_bits();
+}
+
+// ------------------------------------------------------------ lossless
+// jdlhuff.c: a difference's category, then its bits; category 16 is 32768
+int Decoder::lossless_diff(const Huffman& h) {
+  const int s = decode_huff(h);
+  if (s == 0) return 0;
+  if (s == 16) return 32768;
+  if (s > 16) fail("JPEG: corrupt lossless difference");
+  return extend(get_bits(s), s);
+}
+
+// A lossless scan: the differences of every sample, then jdpred.c's
+// undifferencing row by row into samples (value << Pt, kept to 8 bits).
+void Decoder::scan_lossless() {
   reset_bits();
+  const bool single = sn_ == 1;
+  for (int i = 0; i < sn_; ++i) {
+    Component& c = comp_[scomp_[i]];
+    c.lw = single ? c.cw : mcux_ * c.h;
+    c.lh = single ? c.ch : mcuy_ * c.v;
+    c.diff.assign((size_t)c.lw * c.lh, 0);
+  }
+  const int units_x = single ? comp_[scomp_[0]].cw : mcux_;
+  const int units_y = single ? comp_[scomp_[0]].ch : mcuy_;
+  if (restart_ && restart_ % units_x)
+    fail("JPEG: a lossless restart interval that is not a whole number of MCU rows");
+  std::vector<char> first_row(units_y, 0);
+  first_row[0] = 1;
+  int todo = restart_;
+  const size_t total = (size_t)units_x * units_y;
+  for (size_t u = 0; u < total; ++u) {
+    const int ux = (int)(u % units_x), uy = (int)(u / units_x);
+    if (restart_ && todo == 0) {
+      reset_bits();
+      const int m = next_marker();
+      if (m < 0xD0 || m > 0xD7) fail("JPEG: missing restart marker");
+      first_row[uy] = 1;
+      todo = restart_;
+    }
+    for (int i = 0; i < sn_; ++i) {
+      Component& c = comp_[scomp_[i]];
+      const int h = single ? 1 : c.h, v = single ? 1 : c.v;
+      for (int by = 0; by < v; ++by)
+        for (int bx = 0; bx < h; ++bx)
+          c.diff[(size_t)(uy * v + by) * c.lw + ux * h + bx] = lossless_diff(dc_[c.td]);
+    }
+    if (restart_) --todo;
+  }
+  reset_bits();
+  const int pt = al_;
+  for (int i = 0; i < sn_; ++i) {
+    Component& c = comp_[scomp_[i]];
+    const int rows_per = single ? 1 : c.v, w = c.lw;
+    std::vector<int> prev(w), cur(w);
+    for (int r = 0; r < c.lh; ++r) {
+      int* d = &c.diff[(size_t)r * w];
+      if (r % rows_per == 0 && first_row[r / rows_per]) {
+        int ra = (d[0] + (1 << (7 - pt))) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < w; ++x) cur[x] = ra = (d[x] + ra) & 0xFFFF;
+      } else {
+        int rb = prev[0], ra = (d[0] + rb) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < w; ++x) {
+          const int rc = rb;
+          rb = prev[x];
+          int p;
+          switch (ss_) {
+            case 1: p = ra; break;
+            case 2: p = rb; break;
+            case 3: p = rc; break;
+            case 4: p = ra + rb - rc; break;
+            case 5: p = ra + ((rb - rc) >> 1); break;
+            case 6: p = rb + ((ra - rc) >> 1); break;
+            default: p = (ra + rb) >> 1; break;
+          }
+          cur[x] = ra = (d[x] + p) & 0xFFFF;
+        }
+      }
+      for (int x = 0; x < w; ++x) d[x] = (uint8_t)(cur[x] << pt);
+      prev.swap(cur);
+    }
+  }
 }
 
 void Decoder::header() {
@@ -512,7 +955,7 @@ void Decoder::header() {
     } else if (m == 0xC4) {
       read_dht(end);
     } else if (m == 0xCC) {
-      fail("JPEG: arithmetic coding is not read");
+      read_dac(end);
     } else if (m == 0xDB) {
       read_dqt(end);
     } else if (m == 0xDD) {
@@ -546,7 +989,7 @@ void Decoder::decode() {
       if (m == 0xC4) read_dht(end);
       else if (m == 0xDB) read_dqt(end);
       else if (m == 0xDD) restart_ = u16();
-      else if (m == 0xCC) fail("JPEG: arithmetic coding is not read");
+      else if (m == 0xCC) read_dac(end);
       pos_ = end;
     }
     if (eoi_) break;
@@ -833,6 +1276,14 @@ void upsample(const uint8_t* plane, size_t ps, int cw, int ch, int fx, int fy, u
     }
     return;
   }
+  if (fx != 2 || fy != 2) {  // jdsample.c int_upsample: replicate
+    for (int y = 0; y < out_h; ++y) {
+      const uint8_t* in = row(y / fy);
+      uint8_t* o = out + (size_t)y * out_w;
+      for (int x = 0; x < out_w; ++x) o[x] = in[x / fx];
+    }
+    return;
+  }
   // fx == 2 && fy == 2
   for (int y = 0; y < out_h; ++y) {
     const int yi = y / 2;
@@ -865,6 +1316,22 @@ void upsample(const uint8_t* plane, size_t ps, int cw, int ch, int fx, int fy, u
 void Decoder::output(uint8_t* out) const {
   const int W = width_, H = height_;
   std::vector<std::vector<uint8_t>> full(ncomp_);
+  if (lossless_) {  // libjpeg-turbo converts no colours in lossless mode
+    if (ncomp_ == 3 && (jfif_ || (adobe_ && adobe_transform_ != 0)))
+      fail("JPEG: a lossless frame marked YCbCr (JFIF, or an Adobe transform other than 0) "
+           "would need a colour conversion, which libjpeg-turbo refuses in lossless mode");
+    if (ncomp_ == 4 && adobe_ && adobe_transform_ != 0)
+      fail("JPEG: a lossless YCCK frame would need a colour conversion, which libjpeg-turbo "
+           "refuses in lossless mode");
+    for (int i = 0; i < ncomp_; ++i)
+      if (comp_[i].diff.empty()) fail("JPEG: a component no scan covered");
+    for (size_t p = 0; p < (size_t)W * H; ++p) {
+      const int x = (int)(p % W), y = (int)(p / W);
+      for (int i = 0; i < ncomp_; ++i)
+        out[ncomp_ * p + i] = (uint8_t)comp_[i].diff[(size_t)y * comp_[i].lw + x];
+    }
+    return;
+  }
   for (int i = 0; i < ncomp_; ++i) {
     const Component& c = comp_[i];
     const size_t ps = (size_t)c.bw * 8;
@@ -889,14 +1356,15 @@ void Decoder::output(uint8_t* out) const {
     std::memcpy(out, full[0].data(), (size_t)W * H);
     return;
   }
-  bool rgb;
-  if (jfif_) rgb = false;
-  else if (adobe_) rgb = adobe_transform_ == 0;
-  else rgb = comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B';
+  bool plain;  // no colour conversion: RGB or CMYK
+  if (ncomp_ == 4) plain = !adobe_ || adobe_transform_ == 0;
+  else if (jfif_) plain = false;
+  else if (adobe_) plain = adobe_transform_ == 0;
+  else plain = comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B';
   const size_t npix = (size_t)W * H;
-  if (rgb) {
+  if (plain) {
     for (size_t p = 0; p < npix; ++p)
-      for (int k = 0; k < 3; ++k) out[3 * p + k] = full[k][p];
+      for (int k = 0; k < ncomp_; ++k) out[ncomp_ * p + k] = full[k][p];
     return;
   }
   // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert
@@ -915,6 +1383,16 @@ void Decoder::output(uint8_t* out) const {
     built = true;
   }
   auto clamp = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
+  if (ncomp_ == 4) {  // ycck_cmyk_convert: inverted YCbCr -> RGB, K as it is
+    for (size_t p = 0; p < npix; ++p) {
+      const int y = full[0][p], cb = full[1][p], cr = full[2][p];
+      out[4 * p] = clamp(255 - (y + cr_r[cr]));
+      out[4 * p + 1] = clamp(255 - (y + (int)((cb_g[cb] + cr_g[cr]) >> 16)));
+      out[4 * p + 2] = clamp(255 - (y + cb_b[cb]));
+      out[4 * p + 3] = full[3][p];
+    }
+    return;
+  }
   for (size_t p = 0; p < npix; ++p) {
     const int y = full[0][p], cb = full[1][p], cr = full[2][p];
     out[3 * p] = clamp(y + cr_r[cr]);
@@ -932,7 +1410,8 @@ void copy_error(const std::string& what, char* err, int errlen) {
 extern "C" {
 
 // Reads the headers of a JPEG (through its first scan's header): writes
-// width, height and channels (1 grey, 3 RGB) to dims. Returns 0, or 1 with
+// width, height and channels (1 grey, 3 RGB, 4 CMYK as libjpeg gives it)
+// to dims. Returns 0, or 1 with
 // the reason in err.
 int cv_jpeg_info(const uint8_t* data, size_t n, int* dims, char* err, int errlen) {
   try {

@@ -394,9 +394,9 @@ def make_server(
 
     ThreadingHTTPServer gives one thread per in-flight request; they all
     funnel into the executor's queue, which is where batching happens.
-    ``POST /analyze`` takes PNG or JPEG bytes (io/image_io.decode_image);
-    any failure, a body that is neither included, answers 500 with the
-    error.
+    ``POST /analyze`` takes PNG, JPEG, BMP or WebP bytes
+    (io/image_io.decode_image); any failure, a body of another kind
+    included, answers 500 with the error.
     """
 
     class Handler(BaseHTTPRequestHandler):

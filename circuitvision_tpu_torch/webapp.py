@@ -4,7 +4,8 @@
         --yolo-checkpoint ckpt/yolo --sam2-checkpoint ckpt/sam2
 
 Counterpart of the JAX package's `webapp.py`: the page, `/`, `/device`,
-`/analyze` (PNG or JPEG bytes), `/final`, `/mode` and `/simulate`, with
+`/analyze` (PNG, JPEG, BMP or WebP bytes, as a browser sends what its
+`accept="image/*"` form picks), `/final`, `/mode` and `/simulate`, with
 the same JSON field for field. Image upload runs the analysis; results
 render in four tabs (Components, Segmentation, Netlist, SPICE); the
 netlist is editable; "Get Final Netlist" runs the VLM value pass; "Run

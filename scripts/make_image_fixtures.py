@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Write the image-input fixtures of the PyTorch port: JPEG and PNG files
-of the kinds its reader (circuitvision_tpu_torch/io/image_io.py) takes,
-and the SHA-256 of what PIL makes of each.
+"""Write the image-input fixtures of the PyTorch port: JPEG, PNG, BMP and
+WebP files of the kinds its reader (circuitvision_tpu_torch/io/
+image_io.py) takes, and the SHA-256 of what PIL makes of each.
 
     python scripts/make_image_fixtures.py [--seed 0] [--out eval_data/image_fixtures]
 
-Needs PIL and cv2 (this script only; the port reads the files without
-them). From the eval images (eval_data/images, sorted) and a seeded
-generator it writes:
+Needs PIL and cv2, and g++ with the system's jpeglib.h (libjpeg-turbo
+built with arithmetic coding) and webp/encode.h, against which it builds
+scripts/image_fixture_writer.cpp into a temporary directory (this script
+only; the port reads the files without any of them). From the eval images
+(eval_data/images, sorted) and a seeded generator it writes:
 
   * eval/<name>.jpg — JPEG versions of the first 16 eval images
     (baseline, 4:2:0, quality 85), the web UI's uploads on the card;
@@ -24,6 +26,22 @@ generator it writes:
   * PNG variants: palette with and without tRNS, grey+alpha, grey at
     bit depths 1, 2, 4 and 16, 16-bit RGB, Adam7 interlacing, EXIF in a
     "Raw profile type exif" text chunk, orientation only in XMP;
+  * the JPEG kinds PIL reads beyond those: a CMYK file (PIL's, Adobe
+    inverted), YCCK, arithmetic coding sequential (SOF9, with restarts)
+    and progressive (SOF10), 4:2:0 at 4 x 2 (the writer), 4:1:1 (cv2),
+    and lossless SOF3 written here (predictor 7 with a point transform,
+    and predictor 4 in grey);
+  * eval/<name>.webp — lossless WebP versions of the first 16 eval
+    images, which the card runs analyze-batch over beside the PNGs;
+  * WebP (PIL): lossless, lossy (eval drawing and photo), lossy with
+    alpha, lossless with alpha, EXIF orientation 6 (an odd-length
+    chunk), XMP orientation 8; a two-frame animation built here whose
+    first frame sits at an offset on a larger canvas; and (the writer)
+    lossy files with the simple loop filter, sharpness, 4 and 8 token
+    partitions;
+  * BMP: PIL's 1-bit, grey, palette, RGB and RGBA files, and written
+    here: OS/2 (12-byte header), 4-bit, top-down 24-bit, BI_BITFIELDS
+    5-6-5 and 32-bit with a V5 header, RLE8 and RLE4;
   * digests.json — per file: the shape and SHA-256 of
     `np.asarray(ImageOps.exif_transpose(Image.open(f)).convert("RGB"))`
     (the JAX package's decode_image).
@@ -35,6 +53,8 @@ import hashlib
 import io
 import json
 import struct
+import subprocess
+import tempfile
 import zlib
 from pathlib import Path
 
@@ -220,6 +240,230 @@ def photo(rng: np.random.Generator, drawing: np.ndarray) -> np.ndarray:
     return np.clip(np.round(canvas), 0, 255).astype(np.uint8)
 
 
+# ------------------------------------------------- the JPEG and WebP writer
+class Writer:
+    """scripts/image_fixture_writer.cpp, built with g++ at first use."""
+
+    def __init__(self):
+        self._tmp = tempfile.TemporaryDirectory()
+        self.exe = Path(self._tmp.name) / "writer"
+        subprocess.run(["g++", "-O2", str(REPO / "scripts" / "image_fixture_writer.cpp"), "-o",
+                        str(self.exe), "-ljpeg", "-lwebp"], check=True)
+
+    def _run(self, args, pixels: np.ndarray) -> bytes:
+        return subprocess.run([str(self.exe), *map(str, args)],
+                              input=np.ascontiguousarray(pixels).tobytes(),
+                              capture_output=True, check=True).stdout
+
+    def jpeg(self, img, space="ycc", quality=90, arith=0, progressive=0, restart=0,
+             factors=()) -> bytes:
+        h, w, c = img.shape
+        return self._run(["jpeg", w, h, c, space, quality, arith, progressive, restart,
+                          *factors], img)
+
+    def webp(self, img, quality=75, method=4, filter_type=1, sharpness=0, strength=60,
+             segments=4, partitions=0, sns=50, alpha_filtering=1) -> bytes:
+        h, w, c = img.shape
+        return self._run(["webp", w, h, c, quality, method, filter_type, sharpness, strength,
+                          segments, partitions, sns, alpha_filtering], img)
+
+
+# ------------------------------------------------------------ lossless JPEG
+def _bit_writer():
+    """(put(value, nbits), flush() -> bytes) with JPEG's 0xFF stuffing."""
+    out, acc = bytearray(), [0, 0]
+
+    def put(v, n):
+        for i in range(n - 1, -1, -1):
+            acc[0], acc[1] = (acc[0] << 1) | ((v >> i) & 1), acc[1] + 1
+            if acc[1] == 8:
+                out.append(acc[0])
+                if acc[0] == 0xFF:
+                    out.append(0)
+                acc[:] = [0, 0]
+
+    def flush():
+        if acc[1]:
+            put((1 << (8 - acc[1])) - 1, 8 - acc[1])
+        return bytes(out)
+
+    return put, flush
+
+
+def _lossless_differences(x: np.ndarray, predictor: int, pt: int, first_rows) -> np.ndarray:
+    """ITU T.81 H.1.2.1: each point-transformed sample minus its prediction
+    (Ra left, Rb above, Rc above-left; the first row of a scan or restart
+    interval predicts from the left, its first sample 2^(7-Pt); the first
+    column from above), modulo 2^16."""
+    x = x.astype(np.int64) >> pt
+    h, w = x.shape
+    pred = np.zeros_like(x)
+    for y in range(h):
+        for c in range(w):
+            if y in first_rows:
+                pred[y, c] = (1 << (7 - pt)) if c == 0 else x[y, c - 1]
+            elif c == 0:
+                pred[y, c] = x[y - 1, c]
+            else:
+                ra, rb, rc = x[y, c - 1], x[y - 1, c], x[y - 1, c - 1]
+                pred[y, c] = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                              6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor]
+    return (x - pred) & 0xFFFF
+
+
+def lossless_jpeg(samples: np.ndarray, predictor: int = 1, pt: int = 0,
+                  restart_rows: int = 0) -> bytes:
+    """A lossless (SOF3) JPEG of (h, w, components) uint8 samples, one
+    interleaved scan, sampling factors 1, component ids 1.. (libjpeg-turbo
+    reads them as RGB in lossless mode), one Huffman table giving every
+    difference category 0-16 a 5-bit code."""
+    h, w, nc = samples.shape
+    first = set(range(0, h, restart_rows)) if restart_rows else {0}
+    diffs = [_lossless_differences(samples[:, :, c], predictor, pt, first) for c in range(nc)]
+    put, flush = _bit_writer()
+    segments = []
+    for y in range(h):
+        if restart_rows and y and y % restart_rows == 0:
+            segments.append(flush())
+            put, flush = _bit_writer()
+        for x in range(w):
+            for c in range(nc):
+                d = int(diffs[c][y, x])
+                if d == 32768:
+                    put(16, 5)
+                    continue
+                d = d - 65536 if d > 32768 else d
+                s = abs(d).bit_length()
+                put(s, 5)
+                if s:
+                    put(d if d > 0 else d - 1 + (1 << s), s)
+    segments.append(flush())
+    counts = bytes(4) + bytes([17]) + bytes(11)
+    out = b"\xff\xd8\xff\xc4" + struct.pack(">H", 2 + 1 + 16 + 17) + b"\x00" + counts + bytes(range(17))
+    sof = bytes([8]) + struct.pack(">HH", h, w) + bytes([nc]) + b"".join(
+        bytes([c + 1, 0x11, 0]) for c in range(nc))
+    out += b"\xff\xc3" + struct.pack(">H", 2 + len(sof)) + sof
+    if restart_rows:
+        out += b"\xff\xdd" + struct.pack(">HH", 4, restart_rows * w)
+    sos = bytes([nc]) + b"".join(bytes([c + 1, 0]) for c in range(nc)) + bytes([predictor, 0, pt])
+    out += b"\xff\xda" + struct.pack(">H", 2 + len(sos)) + sos
+    for i, seg in enumerate(segments):
+        out += (bytes([0xFF, 0xD0 + (i - 1) % 8]) if i else b"") + seg
+    return out + b"\xff\xd9"
+
+
+# --------------------------------------------------------------------- BMP
+def bmp_bytes(w: int, h: int, bits: int, rows: list, palette: bytes = b"", compression: int = 0,
+              header: int = 40, masks: bytes = b"", top_down: bool = False) -> bytes:
+    """A BMP of pixel rows as stored (bottom row first unless top_down),
+    with a BITMAPINFOHEADER (40), an OS/2 1.x header (12) or a V5 header
+    (124; masks inside it), BI_BITFIELDS masks after a 40-byte header."""
+    data = b"".join(rows)
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bits,
+                           compression, len(data), 2835, 2835, len(palette) // 4, 0)
+        if header > 40:
+            info += (masks + bytes(header - 40))[:header - 40]
+    extra = masks if header == 40 and compression == 3 else b""
+    offset = 14 + len(info) + len(extra) + len(palette)
+    return (b"BM" + struct.pack("<IHHI", offset + len(data), 0, 0, offset) + info + extra
+            + palette + data)
+
+
+def bmp_rows(samples: np.ndarray, bits: int) -> list:
+    """Rows of (h, w) indices or (h, w·bytes) bytes, packed at `bits` and
+    padded to 4 bytes, top row first."""
+    out = []
+    for r in samples:
+        if bits < 8:
+            packed = np.packbits(np.unpackbits(r.astype(np.uint8)[:, None], axis=1)[:, 8 - bits:])
+            raw = packed.tobytes()
+        else:
+            raw = r.astype(np.uint8).tobytes()
+        out.append(raw + bytes(-len(raw) % 4))
+    return out
+
+
+def rle_bytes(idx: np.ndarray, rle4: bool) -> bytes:
+    """RLE8 or RLE4 of (h, w) indices, bottom row first: runs of equal
+    pixels (RLE4: of an alternating pair), absolute runs elsewhere, a
+    delta escape over a blank stretch, end of line and end of bitmap."""
+    out = bytearray()
+    h, w = idx.shape
+    for y in range(h - 1, -1, -1):
+        row, x = idx[y], 0
+        while x < w:
+            n = 1
+            while x + n < w and n < 255 and row[x + n] == row[x]:
+                n += 1
+            if n >= 3 or w - x < 3:
+                out += bytes([n, (row[x] << 4 | row[x]) if rle4 else row[x]])
+                x += n
+                continue
+            n = min(w - x, 40)
+            if rle4:
+                n -= n % 2  # PIL reads n // 2 bytes of an absolute run: keep runs even
+                if n < 4:
+                    out += bytes([1, row[x] << 4])
+                    x += 1
+                    continue
+                vals = row[x:x + n]
+                out += bytes([0, n]) + bytes((vals[0::2] << 4) | vals[1::2])
+            else:
+                out += bytes([0, n]) + bytes(row[x:x + n])
+            if len(out) % 2:
+                out.append(0)
+            x += n
+        out += b"\x00\x00"
+    return bytes(out + b"\x00\x01")
+
+
+# -------------------------------------------------------------------- WebP
+def _riff_chunks(data: bytes) -> list:
+    out, pos = [], 12
+    while pos < len(data):
+        kind, (size,) = data[pos:pos + 4], struct.unpack("<I", data[pos + 4:pos + 8])
+        out.append((kind, data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def _riff_chunk(kind: bytes, body: bytes) -> bytes:
+    return kind + struct.pack("<I", len(body)) + body + (b"\x00" if len(body) % 2 else b"")
+
+
+def webp_pil(img: np.ndarray, **kw) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "WEBP", **kw)
+    return buf.getvalue()
+
+
+def webp_animation(first: np.ndarray, second: np.ndarray, canvas: tuple, at: tuple,
+                   lossless_first: bool = False) -> bytes:
+    """VP8X + ANIM + two ANMF frames: the first frame (lossy unless
+    lossless_first) at offset `at` on a (w, h) canvas, the second (the
+    other kind) at (0, 0)."""
+    w, h = canvas
+    vp8x = bytes([0x12, 0, 0, 0]) + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little")
+
+    def anmf(img, xy, frame_chunks, flags):
+        fh, fw = img.shape[:2]
+        head = ((xy[0] // 2).to_bytes(3, "little") + (xy[1] // 2).to_bytes(3, "little")
+                + (fw - 1).to_bytes(3, "little") + (fh - 1).to_bytes(3, "little")
+                + (100).to_bytes(3, "little") + bytes([flags]))
+        return _riff_chunk(b"ANMF", head + b"".join(_riff_chunk(k, p) for k, p in frame_chunks))
+
+    one = [c for c in _riff_chunks(webp_pil(first, quality=70, lossless=lossless_first))
+           if c[0] != b"VP8X"]
+    two = [c for c in _riff_chunks(webp_pil(second, quality=70, lossless=not lossless_first))
+           if c[0] != b"VP8X"]
+    body = (_riff_chunk(b"VP8X", vp8x) + _riff_chunk(b"ANIM", bytes(6)) + anmf(first, at, one, 0)
+            + anmf(second, (0, 0), two, 2))
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
 def make(seed: int) -> dict[str, bytes]:
     rng = np.random.default_rng(seed)
     names = sorted(p.stem for p in EVAL.glob("*.png"))
@@ -270,6 +514,95 @@ def make(seed: int) -> dict[str, bytes]:
     files["adam7.png"] = png_bytes(small, 8, 2, interlace=True)
     files["raw_exif_6.png"] = png_bytes(small, 8, 2, extra=raw_profile_exif(exif_blob(6)))
     files["xmp_8.png"] = png_bytes(small, 8, 2, extra=itxt(b"XML:com.adobe.xmp", xmp_packet(8)))
+    files.update(more_jpeg(rng, img))
+    files.update(webps(rng, names, base, img, small, pil_rgb(files["photo.jpg"])))
+    files.update(bmps(rng, small))
+    return files
+
+
+def more_jpeg(rng: np.random.Generator, img: np.ndarray) -> dict[str, bytes]:
+    """The JPEG kinds the reader took on after PNG and baseline JPEG."""
+    writer = Writer()
+    files = {}
+    h, w = img.shape[:2]
+    k = np.broadcast_to((np.arange(w) * 96 // w).astype(np.uint8), (h, w))[:, :, None]
+    cmyk = np.concatenate([255 - img, k], axis=2)
+    buf = io.BytesIO()
+    Image.fromarray(cmyk, "CMYK").save(buf, "JPEG", quality=90)
+    files["cmyk_adobe.jpg"] = buf.getvalue()
+    files["ycck.jpg"] = writer.jpeg(cmyk, space="ycck", factors=(2, 2, 1, 1, 1, 1, 2, 2))
+    files["arith.jpg"] = writer.jpeg(img, arith=1, restart=7)
+    files["arith_progressive.jpg"] = writer.jpeg(img, arith=1, progressive=1)
+    files["sampling_42.jpg"] = writer.jpeg(img, factors=(4, 2, 1, 1, 1, 1))
+    files["sampling_411.jpg"] = jpeg_cv2(img, cv2.IMWRITE_JPEG_QUALITY, 90,
+                                         cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                         cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411)
+    files["lossless.jpg"] = lossless_jpeg(img[:64, :96], predictor=7, pt=1, restart_rows=16)
+    grey = np.asarray(Image.fromarray(img[:48, :80]).convert("L"))[:, :, None]
+    files["lossless_grey.jpg"] = lossless_jpeg(grey, predictor=4)
+    return files
+
+
+def webps(rng: np.random.Generator, names: list, base: np.ndarray, img: np.ndarray,
+          small: np.ndarray, photo_rgb: np.ndarray) -> dict[str, bytes]:
+    writer = Writer()
+    files = {}
+    for name in names[:16]:
+        drawing = np.asarray(Image.open(EVAL / f"{name}.png").convert("RGB"))
+        files[f"eval/{name}.webp"] = webp_pil(drawing, lossless=True)
+    files["eval_lossy.webp"] = webp_pil(base, quality=80)
+    files["photo.webp"] = webp_pil(photo_rgb, quality=80)  # photo.jpg's pixels
+    files["lossless.webp"] = webp_pil(img, lossless=True)
+    files["lossy.webp"] = webp_pil(img, quality=75)
+    alpha = rng.integers(0, 256, small.shape[:2] + (1,), dtype=np.uint8)
+    rgba = np.concatenate([small, alpha], axis=2)
+    files["lossy_alpha.webp"] = webp_pil(rgba, quality=75)
+    files["lossless_alpha.webp"] = webp_pil(rgba, lossless=True, exact=True)
+    exif = exif_blob(6)  # 61 bytes: an odd-length chunk, padded
+    files["exif_6.webp"] = webp_pil(small, quality=80, exif=exif)
+    files["xmp_8.webp"] = webp_pil(small, lossless=True, xmp=xmp_packet(8))
+    files["animation.webp"] = webp_animation(rgba[:40, :60], small[:50, :70], (90, 70), (20, 12))
+    # a drawing over a colour ramp with noise, so that every block codes something
+    ramp = np.linspace(0, 120, small.shape[1])[None, :, None] * np.array([1.0, 0.5, -0.5])
+    noisy = small.astype(np.float64) * 0.6 + ramp + rng.normal(0, 10, small.shape) + 40
+    textured = np.clip(np.round(noisy), 0, 255).astype(np.uint8)
+    files["simple_filter.webp"] = writer.webp(textured, filter_type=0, sharpness=3, strength=80)
+    files["partitions.webp"] = writer.webp(textured, segments=2, partitions=2, sharpness=6)
+    files["partitions_8.webp"] = writer.webp(np.ascontiguousarray(np.tile(textured, (2, 2, 1))),
+                                             partitions=3, quality=60)
+    return files
+
+
+def bmps(rng: np.random.Generator, small: np.ndarray) -> dict[str, bytes]:
+    files = {}
+    for mode, name in (("1", "bmp_1bit"), ("L", "bmp_grey"), ("P", "bmp_palette"),
+                       ("RGB", "bmp_rgb"), ("RGBA", "bmp_rgba")):
+        im = Image.fromarray(small)
+        im = im.quantize(16) if mode == "P" else im.convert(mode)
+        buf = io.BytesIO()
+        im.save(buf, "BMP")
+        files[f"{name}.bmp"] = buf.getvalue()
+    h, w = small.shape[:2]
+    idx = rng.integers(0, 16, (h, w), dtype=np.uint8)
+    idx[:, w // 3:2 * w // 3] = idx[:, w // 3:w // 3 + 1]  # runs for RLE
+    pal16 = rng.integers(0, 256, 16 * 4, dtype=np.uint8).tobytes()
+    pal256 = rng.integers(0, 256, 256 * 4, dtype=np.uint8).tobytes()
+    files["bmp_4bit.bmp"] = bmp_bytes(w, h, 4, bmp_rows(idx, 4)[::-1], pal16)
+    files["bmp_os2.bmp"] = bmp_bytes(w, h, 8, bmp_rows(idx * 9, 8)[::-1],
+                                     bytes(b for i, b in enumerate(pal256) if i % 4 != 3),
+                                     header=12)
+    bgr = np.ascontiguousarray(small[:, :, ::-1]).reshape(h, -1)
+    files["bmp_topdown.bmp"] = bmp_bytes(w, h, 24, bmp_rows(bgr, 24), top_down=True)
+    v = small.astype(np.uint16)
+    p565 = ((v[..., 0] >> 3) << 11) | ((v[..., 1] >> 2) << 5) | (v[..., 2] >> 3)
+    files["bmp_565.bmp"] = bmp_bytes(w, h, 16, bmp_rows(p565.astype("<u2").view(np.uint8), 16)[::-1],
+                                     compression=3, masks=struct.pack("<3I", 0xF800, 0x7E0, 0x1F))
+    rgba = np.concatenate([small, rng.integers(0, 256, (h, w, 1), dtype=np.uint8)], axis=2)
+    files["bmp_v5_rgba.bmp"] = bmp_bytes(
+        w, h, 32, bmp_rows(np.ascontiguousarray(rgba).reshape(h, -1), 32)[::-1], compression=3,
+        header=124, masks=struct.pack("<4I", 0xFF, 0xFF00, 0xFF0000, 0xFF000000))
+    files["bmp_rle8.bmp"] = bmp_bytes(w, h, 8, [rle_bytes(idx * 9, False)], pal256, compression=1)
+    files["bmp_rle4.bmp"] = bmp_bytes(w, h, 4, [rle_bytes(idx, True)], pal16, compression=2)
     return files
 
 

@@ -1,9 +1,11 @@
 """The port's command line (`python -m circuitvision_tpu_torch.cli`) on the
 CPU: the cases of tests/test_cli.py (`simulate`, `analyze-batch`), plus
 `analyze` with checkpoint flags and the trained reader's value pass,
-each against the same call made in process, JPEG input beside a BMP
-that `analyze-batch` skips and names, and the refusals of what is not
-ported (a BMP, a PaliGemma CIRCUITVISION_VLM). The web UI's `serve` is
+each against the same call made in process, JPEG, BMP and WebP input
+(an eval drawing's netlist from its lossless WebP and its BMP equal to
+its PNG's with the shipped detector) beside a GIF that `analyze-batch`
+skips and names, and the refusals of what is not ported (a GIF, a
+PaliGemma CIRCUITVISION_VLM). The web UI's `serve` is
 tested in tests/test_torch_port_webapp.py, `analyze-batch --distributed`
 in tests/test_torch_port_parallel.py.
 """
@@ -161,15 +163,17 @@ class TestAnalyzeCommands:
 
 class TestRefusals:
     @pytest.mark.parametrize("argv,words", [
-        (["analyze", "{bmp}", "--device", "cpu", "--scale", "n"], "BMP.*Queue A 9"),
+        (["analyze", "{gif}", "--device", "cpu", "--scale", "n"], "GIF.*Queue A 19"),
     ])
     def test_not_ported_commands(self, tmp_path, capsys, argv, words):
-        """A BMP (the web UI, once refused here, is ported now)."""
+        """A GIF (BMP and WebP, once refused here, are read now)."""
         import re
 
-        bmp = tmp_path / "c.bmp"
-        cv2.imwrite(str(bmp), CIRCUITS[1][0])
-        assert cli.main([a.format(bmp=bmp) for a in argv]) != 0
+        from PIL import Image
+
+        gif = tmp_path / "c.gif"
+        Image.fromarray(CIRCUITS[1][0]).save(gif)
+        assert cli.main([a.format(gif=gif) for a in argv]) != 0
         assert re.search(words, capsys.readouterr().err)
 
     def test_paligemma_client(self, drawings, capsys, monkeypatch):
@@ -181,26 +185,56 @@ class TestRefusals:
             cli.main(["analyze", str(drawings / "loop.png"), "--device", "cpu", "--scale", "n"])
 
     def test_jpeg_input(self, tmp_path, capsys):
-        """analyze-batch over a directory of a JPEG and a BMP: the JPEG's
-        netlist is analyze_batch's on the decoded pixels, the BMP is
-        skipped and named."""
+        """analyze-batch over a directory of a JPEG, a BMP, a WebP and a
+        GIF named .webp: the JPEG's, BMP's and WebP's netlists are
+        analyze_batch's on the decoded pixels, the GIF is skipped and
+        named."""
+        from PIL import Image
+
         d = tmp_path / "imgs"
         d.mkdir()
         cv2.imwrite(str(d / "c.jpg"), CIRCUITS[1][0])
         cv2.imwrite(str(d / "d.bmp"), CIRCUITS[1][0])
+        Image.fromarray(CIRCUITS[0][0]).save(d / "e.webp", lossless=True)
+        Image.fromarray(CIRCUITS[0][0]).save(d / "f.webp", format="GIF")
         out_dir = tmp_path / "netlists"
         assert cli.main(["analyze-batch", str(d), "--device", "cpu", "--scale", "n",
                          "--det-size", "64", "--out-dir", str(out_dir)]) == 0
         err = capsys.readouterr().err
-        assert "skipped" in err and "d.bmp" in err and "Queue A 9" in err
+        assert "skipped" in err and "f.webp" in err and "GIF" in err and "Queue A 19" in err
+        assert "d.bmp" not in err and "e.webp" not in err
         cfg = tconfig.PipelineConfig(detector=tconfig.DetectorConfig(scale="n", img_size=64),
                                      use_sam2=False)
         state = bridge.seeded_state("yolo", {"detector": {
             "scale": "n", "img_size": 64, "num_classes": 62, "reg_max": 16}}, cli.SEED)
         analyzer = CircuitAnalyzerTorch(cfg, state, None, device="cpu")
-        (want,) = analyzer.analyze_batch([load_image(str(d / "c.jpg"))])
-        assert (out_dir / "c.cir").read_text() == want.netlist_text + "\n"
-        assert sorted(p.name for p in out_dir.iterdir()) == ["c.cir"]
+        names = ("c.jpg", "d.bmp", "e.webp")
+        want = analyzer.analyze_batch([load_image(str(d / n)) for n in names])
+        for name, res in zip(names, want):
+            assert (out_dir / (name[0] + ".cir")).read_text() == res.netlist_text + "\n"
+        assert sorted(p.name for p in out_dir.iterdir()) == ["c.cir", "d.cir", "e.cir"]
+
+    def test_webp_and_bmp_netlists_equal_the_png(self, tmp_path, capsys):
+        """An eval drawing as its PNG, its committed lossless WebP and a
+        24-bit BMP, through analyze-batch with the shipped detector
+        (classical mask): the three netlists are the same, and not
+        empty."""
+        from PIL import Image
+
+        name = "aspect_3"  # six netlist lines with the shipped detector
+        d = tmp_path / "imgs"
+        d.mkdir()
+        png = ROOT / "eval_data" / "images" / f"{name}.png"
+        (d / "a.png").write_bytes(png.read_bytes())
+        (d / "b.webp").write_bytes(
+            (ROOT / "eval_data" / "image_fixtures" / "eval" / f"{name}.webp").read_bytes())
+        Image.open(png).convert("RGB").save(d / "c.bmp")
+        out_dir = tmp_path / "netlists"
+        assert cli.main(["analyze-batch", str(d), "--device", "cpu", "--out-dir", str(out_dir),
+                         "--yolo-checkpoint", str(ROOT / "ckpt" / "yolo")]) == 0
+        texts = [(out_dir / f"{n}.cir").read_text() for n in "abc"]
+        assert texts[0].count("\n") >= 6
+        assert texts[1] == texts[0] and texts[2] == texts[0]
 
     def test_cuda_without_a_card(self, drawings):
         import torch

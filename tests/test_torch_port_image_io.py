@@ -162,19 +162,52 @@ def _sof_patched(data: bytes, marker: int = None, precision: int = None) -> byte
 _JPEG = _pil_bytes(Image.new("RGB", (8, 8), (10, 200, 30)), "JPEG")
 
 
+def _lossless_jfif() -> bytes:
+    """A lossless JPEG with a JFIF marker: YCbCr, which libjpeg-turbo
+    will not convert in lossless mode."""
+    data = fixtures.lossless_jpeg(np.full((4, 5, 3), 90, np.uint8))
+    jfif = b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
+    return data[:2] + jfif + data[2:]
+
+
 @pytest.mark.parametrize("make,match", [
-    (lambda: _sof_patched(_JPEG, marker=0xC9), "arithmetic coding"),
+    (lambda: _sof_patched(_JPEG, marker=0xC5), "hierarchical"),
     (lambda: _sof_patched(_JPEG, precision=12), "12-bit"),
-    (lambda: _pil_bytes(Image.new("CMYK", (8, 8), (1, 2, 3, 4)), "JPEG"), "CMYK"),
-    (lambda: _sof_patched(_JPEG, marker=0xC3), "lossless"),
-    (lambda: _pil_bytes(Image.new("RGB", (8, 8)), "BMP"), "BMP.*Queue A 9"),
-    (lambda: _pil_bytes(Image.new("RGB", (8, 8)), "WEBP"), "WebP"),
+    (lambda: _sof_patched(_JPEG, marker=0xCB), "lossless frames with arithmetic coding"),
+    (_lossless_jfif, "lossless.*colour conversion"),
+    (lambda: _pil_bytes(Image.new("RGB", (8, 8)), "GIF"), "GIF.*Queue A 19"),
+    (lambda: _pil_bytes(Image.new("RGB", (8, 8)), "TIFF"), "TIFF.*Queue A 19"),
 ])
 def test_other_formats_raise_naming_them(make, match):
-    """What the reader still refuses: JPEG kinds outside its decoder and
-    formats other than PNG and JPEG (ROADMAP Queue A 9)."""
+    """What the reader still refuses: 12-bit, hierarchical and arithmetic
+    lossless JPEG frames and a lossless frame that would need a colour
+    conversion, which PIL refuses too (the JAX decode_image raises on
+    each), and formats other than PNG, JPEG, BMP and WebP, which the JAX
+    server reads through PIL (ROADMAP Queue A 19)."""
+    data = make()
+    if data[:2] == b"\xff\xd8":
+        with pytest.raises(Exception):
+            jax_decode(data)
     with pytest.raises(pio.ImageFormatError, match=match):
-        pio.decode_image(make())
+        pio.decode_image(data)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: _pil_bytes(Image.new("CMYK", (8, 8), (1, 2, 3, 4)), "JPEG"),
+    lambda: (FIXTURES / "arith.jpg").read_bytes(),
+    lambda: (FIXTURES / "lossless.jpg").read_bytes(),
+    lambda: _pil_bytes(Image.fromarray(np.arange(8 * 9 * 3, dtype=np.uint8).reshape(8, 9, 3)),
+                       "BMP"),
+    lambda: _pil_bytes(Image.fromarray(np.arange(8 * 9 * 3, dtype=np.uint8).reshape(8, 9, 3)),
+                       "WEBP"),
+], ids=["cmyk", "arithmetic", "lossless", "bmp", "webp"])
+def test_formerly_refused_kinds_equal_jax(make):
+    """The kinds the reader refused until it read them (CMYK, arithmetic
+    and lossless JPEG, BMP, WebP): byte-equal to the JAX package's
+    decode_image on real files."""
+    data = make()
+    got, ref = pio.decode_image(data), jax_decode(data)
+    assert got.shape == ref.shape and got.tobytes() == ref.tobytes()
 
 
 def _interlaced() -> bytes:

@@ -12,6 +12,7 @@ error) breaks the executor and /healthz answers 503; SIGTERM to the
 CLI's `serve-batch` drains and exits 0.
 """
 import copy
+import io
 import json
 import os
 import queue
@@ -24,6 +25,7 @@ import urllib.error
 import urllib.request
 
 import cv2
+import numpy as np
 import pytest
 
 from circuitvision_tpu.core.types import BBox as JBBox
@@ -276,9 +278,12 @@ def test_http_roundtrip_stats_and_metrics(pipeline, reference):
 
 
 def test_jpeg_request_is_served_on_its_pixels(pipeline):
-    """POST /analyze with a JPEG: the served netlist is the executor's on
-    the pixels the port's reader decodes (PIL's, tests/test_torch_port_
-    jpeg.py), and a BMP answers 500 naming ROADMAP Queue A 9."""
+    """POST /analyze with a JPEG, a BMP and a lossless WebP: the served
+    netlist is the executor's on the pixels the port's reader decodes
+    (PIL's, tests/test_torch_port_jpeg.py, _bmp.py, _webp.py), and a TIFF
+    answers 500 naming ROADMAP Queue A 19."""
+    from PIL import Image
+
     ok, jpeg = cv2.imencode(".jpg", cv2.cvtColor(LOOP, cv2.COLOR_RGB2BGR),
                             [cv2.IMWRITE_JPEG_QUALITY, 95])
     assert ok
@@ -289,9 +294,17 @@ def test_jpeg_request_is_served_on_its_pixels(pipeline):
             want = ex.submit(pixels).result(timeout=WAIT_S)
             code, payload = _post(url, jpeg.tobytes())
             assert code == 200 and payload["netlist_text"] == want.netlist_text
-            ok, bmp = cv2.imencode(".bmp", LOOP)
-            code, payload = _post(url, bmp.tobytes())
-            assert code == 500 and "Queue A 9" in payload["error"]
+            ok, bmp = cv2.imencode(".bmp", cv2.cvtColor(LOOP, cv2.COLOR_RGB2BGR))
+            buf = io.BytesIO()
+            Image.fromarray(LOOP).save(buf, "WEBP", lossless=True)
+            want = ex.submit(LOOP).result(timeout=WAIT_S)
+            for body in (bmp.tobytes(), buf.getvalue()):
+                assert np.array_equal(decode_image(body), LOOP)
+                code, payload = _post(url, body)
+                assert code == 200 and payload["netlist_text"] == want.netlist_text
+            ok, tiff = cv2.imencode(".tiff", LOOP)
+            code, payload = _post(url, tiff.tobytes())
+            assert code == 500 and "TIFF" in payload["error"] and "Queue A 19" in payload["error"]
         finally:
             server.shutdown()
             t.join(timeout=30)

@@ -32,6 +32,7 @@ import json
 import re
 import sys
 import threading
+import time
 import types
 from pathlib import Path
 
@@ -455,10 +456,10 @@ def test_enumeration_refuses_images_past_the_table():
 # ----------------------------------------------------------- the direction pool
 class _Flaky:
     """Reads a direction from the crop's shape, fails on some crops, and
-    records the threads it was called on."""
+    records the most calls that were in flight at once."""
 
     def __init__(self, exc=RuntimeError("timed out")):
-        self.exc, self.threads, self.calls = exc, set(), 0
+        self.exc, self.calls, self.in_flight, self.most_in_flight = exc, 0, 0, 0
         self.lock = threading.Lock()
 
     def get_labels(self, img):
@@ -466,11 +467,17 @@ class _Flaky:
 
     def get_direction(self, crop, cls):
         with self.lock:
-            self.threads.add(threading.get_ident())
             self.calls += 1
-        if crop.shape[1] % 3 == 0:
-            raise self.exc
-        return ("UP", "SIGN") if crop.shape[0] % 2 else ("LEFT", cls.upper())
+            self.in_flight += 1
+            self.most_in_flight = max(self.most_in_flight, self.in_flight)
+        try:
+            time.sleep(0.001)  # hold the call open so that overlapping calls overlap
+            if crop.shape[1] % 3 == 0:
+                raise self.exc
+            return ("UP", "SIGN") if crop.shape[0] % 2 else ("LEFT", cls.upper())
+        finally:
+            with self.lock:
+                self.in_flight -= 1
 
 
 def _direction_page(seed):
@@ -499,7 +506,7 @@ def test_per_crop_direction_pool_equals_jax():
         want = [jdirections.enrich_directions(img, [JBox.from_dict(b.to_dict()) for b in bx],
                                               _Flaky(), jcfg) for img, bx in pages]
         assert [_dirs(g) for g in got] == [_dirs(w) for w in want]
-        assert len(client.threads) <= workers
+        assert 1 <= client.most_in_flight <= workers
         one = tdirections.enrich_directions(pages[0][0], pages[0][1], _Flaky(), cfg)
         assert _dirs(one) == _dirs(want[0])
     assert {d for g in got for _c, d, _r in _dirs(g)} >= {"UP", "LEFT", "UNKNOWN", None}

@@ -86,6 +86,16 @@ Phases, in order; any failure raises and the process exits non-zero:
      analyze() with masks agreeing on ≥ 99.9 %, the drawn topology with
      the switch on and off on the card and on the CPU, and images/s of
      analyze_many against serial analyze();
+  7b. the batched node stage's device connected-components route —
+     extract_nodes_batched(device_cc=True, pad_to=8) over the first 8
+     drawn-topology masks of phase 7 (fused morphology on): the stage-B
+     labels and statistics of the stack on the card equal to the CPU's
+     (ops/cc.py, iterations to converge per image), the route's nodes on
+     the card equal to its nodes on the CPU, how many drawings get the
+     host route's nodes (a finding), ms per chunk of both routes (median
+     of 5, synchronised host clock) and stage B's device time from
+     torch.profiler; exact launch counts (the line enhancement once per
+     image, no other kernel);
   8. the line-enhancement kernel, bit-exact, at every raster shape the
      batched path's drawn topology ran it at (its row in the `kernels`
      line: those launches and times), and as rows off the count at the
@@ -101,7 +111,13 @@ Phases, in order; any failure raises and the process exits non-zero:
      has wires, mask IoU), analyze_many(finalize=True) in chunks of 8
      with the line enhancement kernel on (timed, exact launch counts,
      each netlist the serial one), and netlist exact match against
-     eval_data/netlists, reported;
+     eval_data/netlists, reported; then (phase 8f, run before 8c)
+     BatchedPipeline.run_batch at YOLOv11-s@640 + t@512 from the shipped
+     checkpoints in float32, batch 8, two eval images: shapes, exact
+     launch counts of one call (one SAM2 forward), classes, valid and
+     letterbox scales and pads equal to the CPU's run_batch, boxes within
+     RUN_BATCH_BOX_ATOL, masks equal wherever the CPU logit lies farther
+     than RUN_BATCH_BAND from the threshold, ms per call;
   8c. serving, simulation and the CLI on the trained product — `serve`'s
      pieces (BatchedPipeline in chunks of 8 with the line enhancement
      kernel, BatchingExecutor(final=True), make_server on an ephemeral
@@ -117,9 +133,10 @@ Phases, in order; any failure raises and the process exits non-zero:
      netlist the serial analyze()'s;
   8d. image input and the web UI on the trained product — every fixture
      of eval_data/image_fixtures (JPEGs of each kind the reader takes,
-     arithmetic, CMYK/YCCK, 4:1:1 and lossless ones included, PNG, BMP
-     and WebP variants) decoded by the port and held to the SHA-256 of
-     PIL's decode (digests.json; the card has no PIL); host decode ms per
+     arithmetic, CMYK/YCCK, 4:1:1 and lossless ones included, PNG, BMP,
+     WebP, GIF, TIFF, PNM, ICO, CUR and TGA variants) decoded by the port
+     and held to the SHA-256 of PIL's decode (digests.json; the card has
+     no PIL); host decode ms of UPLOAD_KINDS_TIMED; host decode ms per
      image for the eval JPEGs, PNGs, lossless WebPs and 24-bit BMPs (the
      BMPs written here by _bmp24), an eval drawing as lossy WebP, the
      photo-sized JPEG and lossy WebP, and a CMYK, a 4:1:1 and an
@@ -132,8 +149,9 @@ Phases, in order; any failure raises and the process exits non-zero:
      netlist the analyzer's analyze() on the same decoded pixels, every
      debug image in the response decoding to the array core/viz draws
      (the annotated images drawn again from the result), exact launch
-     counts per request, request ms beside analyze() ms, one lossless WebP
-     POSTed whose netlist equals its PNG's; and the FLOP
+     counts per request, request ms beside analyze() ms, one lossless WebP,
+     one GIF and one LZW TIFF of the first eval drawing POSTed, each
+     netlist its PNG's, each request t@512's launches; and the FLOP
      count (models/flops.py) of one trained-product analyze() and one
      L@1024 analyze(), with the rate it implies at this run's times;
   8e. the black-box VLM value pass on the trained product's YOLOv11-s@640
@@ -1811,7 +1829,8 @@ def run_trained_product(torch, smi):
     if differ:
         raise AssertionError(f"trained product: batched netlists differ from serial on {differ}")
     product = {"paths": paths, "images": images, "batch": batch, "serial_analyzer": card,
-               "serial": serial, "batched": batched, "with_mask": with_mask}
+               "serial": serial, "batched": batched, "with_mask": with_mask,
+               "states": (ymeta, smeta, ystate, sstate)}
     return launches, batch_counts, product
 
 
@@ -2302,6 +2321,7 @@ def run_web_ui(torch, smi, product):
               "cmyk_jpeg_ms": decode_ms([files["cmyk_adobe.jpg"]]),
               "jpeg_411_ms": decode_ms([files["sampling_411.jpg"]]),
               "arithmetic_jpeg_ms": decode_ms([files["arith.jpg"]]),
+              **{f"{name}_ms": decode_ms([files[name]]) for name in UPLOAD_KINDS_TIMED},
               "photo_shape": digests["photo.jpg"]["shape"],
               "small_kinds_shape": digests["cmyk_adobe.jpg"]["shape"]}
     print(json.dumps({"image_input": {"fixtures": len(digests), "mismatches": bad, **inputs,
@@ -2312,8 +2332,8 @@ def run_web_ui(torch, smi, product):
           f"{inputs['eval_bmp24_ms_per_image']:.2f}, lossy WebP "
           f"{inputs['eval_webp_lossy_ms']:.2f}; photo JPEG {inputs['photo_jpeg_ms']:.1f}, "
           f"lossy WebP {inputs['photo_webp_lossy_ms']:.1f}; CMYK {inputs['cmyk_jpeg_ms']:.2f}, "
-          f"4:1:1 {inputs['jpeg_411_ms']:.2f}, arithmetic {inputs['arithmetic_jpeg_ms']:.2f}",
-          flush=True)
+          f"4:1:1 {inputs['jpeg_411_ms']:.2f}, arithmetic {inputs['arithmetic_jpeg_ms']:.2f}; "
+          + ", ".join(f"{n} {inputs[n + '_ms']:.2f}" for n in UPLOAD_KINDS_TIMED), flush=True)
     if bad:
         raise AssertionError(f"image fixtures the port decodes otherwise than PIL: {bad}")
     run_image_kinds_batch(smi, paths, webps, bmps)
@@ -2376,6 +2396,16 @@ def run_web_ui(torch, smi, product):
         if webp_counts != EXPECTED["t@512"]:
             raise AssertionError(f"web UI WebP upload: launches {webp_counts} != "
                                  f"{EXPECTED['t@512']}")
+        # a GIF and an LZW TIFF of the same drawing: the PNG's netlist and launches
+        for kind in ("gif", "tif"):
+            reset()
+            code, payload, _sec = _post(http, url, files[f"eval/{paths[0].stem}.{kind}"])
+            kind_counts = read()
+            if code != 200 or payload["netlist_text"] != png_payload["netlist_text"]:
+                mismatches.append(f"{paths[0].stem}.{kind} netlist")
+            if kind_counts != EXPECTED["t@512"]:
+                raise AssertionError(f"web UI {kind} upload: launches {kind_counts} != "
+                                     f"{EXPECTED['t@512']}")
     finally:
         server.shutdown()
         server.server_close()
@@ -2409,6 +2439,13 @@ def run_web_ui(torch, smi, product):
         raise AssertionError(f"web UI responses differ from analyze() / core.viz: {mismatches}")
     ANALYZE_MS["trained-product"] = analyze_ms
     return counts
+
+
+#: the upload kinds of the GIF, TIFF, PNM, ICO and TGA readers, and the
+#: subsampled lossless JPEG, timed in the image-input phase
+UPLOAD_KINDS_TIMED = ("eval/ac_rc.gif", "eval/ac_rc.tif", "tiff_rgba_deflate_tiles.tif",
+                      "tiff_rgb_lzw_predictor.tif", "pnm_p6.ppm", "pnm_p3_maxval_15.ppm",
+                      "ico_png.ico", "tga_pil_rle_rgba.tga", "lossless_420.jpg")
 
 
 #: the black-box VLM value pass: the trained product's first VLM_IMAGES
@@ -3081,6 +3118,228 @@ def run_batched_path(torch, smi):
     if runs["card_on"][1] != len(images) or runs["card_off"][1] or runs["cpu_on"][1]:
         raise AssertionError(f"drawn topology launches: {drawn['enhance_lines_fused_launches']}")
     return {**counts, "enhance_lines_fused": runs["card_on"][1]}, (drawn_shapes, seeded_shapes)
+
+
+#: the device connected-components route (phase 7b): iterations between
+#: convergence tests on the card are ops/cc._CHECK_EVERY_CUDA; timed runs
+#: of each route per chunk; the stack padded to this many rasters
+ROUTE_RUNS, ROUTE_PAD_TO = 5, 8
+#: centroids of a label of n pixels may differ from the CPU's by float32
+#: summation error (n - 1)·2**-24·|c| (tests/test_torch_port_cc.py); both
+#: sides sum in float64 here, so the check is exact in practice
+
+
+def _node_keys(result):
+    return [(n.id, n.centroid, n.area, n.label, [c.persistent_uid for c in n.components])
+            for n in result.nodes]
+
+
+def run_device_route(torch, smi):
+    """Phase 7b: the batched node stage's device connected-components route
+    (`extract_nodes_batched(device_cc=True, pad_to=ROUTE_PAD_TO)`) over a
+    chunk of the batched phase's drawn-topology masks (each drawing's
+    crop, its drawn boxes, the classical mask), use_fused_morphology on:
+    (a) the stage-B labels of the stack and their statistics on the card
+    equal to the CPU's on the same stack, with the iterations each raster
+    took; (b) the route's nodes on the card equal to the route's on the
+    CPU; (c) how many drawings get the host route's nodes from the device
+    route (a finding, not a gate: the device route is the pixel-based
+    formulation); (d) ms per chunk of each route, median of ROUTE_RUNS on
+    the synchronised host clock, and the device route's stage B device
+    time from the profiler with its six costliest kernels. Returns the
+    launches of one device-route call."""
+    import statistics
+
+    import numpy as np
+
+    from circuitvision_tpu_torch.core.config import PipelineConfig, TopologyConfig
+    from circuitvision_tpu_torch.core.types import BBox
+    from circuitvision_tpu_torch.ops import cc
+    from circuitvision_tpu_torch.topology import nodes as tnodes
+    from circuitvision_tpu_torch.topology.crop import crop_image_and_adjust_bboxes
+    from circuitvision_tpu_torch.topology.reclassify import segment_classical
+
+    topo = TopologyConfig(use_fused_morphology=True)
+    crop_cfg = PipelineConfig().crop
+    masks, boxes = [], []
+    for img, bxs in batch_drawings()[:BATCH_SIZE]:
+        gt = [BBox("resistor", 1.0, *bx, class_id=10) for bx in bxs]
+        crop, adjusted, _info = crop_image_and_adjust_bboxes(img, gt, crop_cfg)
+        masks.append(segment_classical(crop, topo, device="cuda"))
+        boxes.append(adjusted)
+    reset, read = counters()
+
+    # (a) stage B's labels and statistics, card against CPU on one stack
+    rasters = [tnodes._stage_a(m, b, topo, "cuda")[0] for m, b in zip(masks, boxes)]
+    pad_w = max((r.shape[1] + 127) // 128 * 128 for r in rasters)
+    stack = torch.zeros((ROUTE_PAD_TO, topo.resize_height, pad_w), device="cuda")
+    for i, r in enumerate(rasters):
+        stack[i, :, :r.shape[1]] = r
+    fg = stack > 0
+    labels, iters = cc.label_components_counted(fg, max_iters=256)
+    cpu_labels, cpu_iters = cc.label_components_counted(fg.cpu(), max_iters=256)
+    stats, cpu_stats = (cc.label_stats(lab, topo.max_labels) for lab in (labels, cpu_labels))
+    fields = ("labels", "valid", "area", "contour_area", "bbox", "boundary_count", "centroid")
+    stats_equal = {f: bool(torch.equal(getattr(stats, f).cpu(), getattr(cpu_stats, f)))
+                   for f in fields}
+    labels_equal = bool(torch.equal(labels.cpu(), cpu_labels))
+
+    # (b) the route's nodes, card against CPU; launches of one call
+    reset()
+    card = tnodes.extract_nodes_batched(masks, boxes, topo, pad_to=ROUTE_PAD_TO, device_cc=True)
+    torch.cuda.synchronize()
+    counts = read()
+    cpu = tnodes.extract_nodes_batched(masks, boxes, topo, pad_to=ROUTE_PAD_TO, device_cc=True,
+                                       device="cpu")
+    host = tnodes.extract_nodes_batched(masks, boxes, topo)
+    nodes_equal = [_node_keys(a) == _node_keys(b) for a, b in zip(card, cpu)]
+    same_as_host = sum(len(a.nodes) == len(h.nodes) and [
+        (n.id, [c.persistent_uid for c in n.components]) for n in a.nodes] == [
+        (n.id, [c.persistent_uid for c in n.components]) for n in h.nodes]
+        for a, h in zip(card, host))
+
+    # (d) ms per chunk of each route, and stage B's device time
+    def timed(fn):
+        out = []
+        for _ in range(ROUTE_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    device_ms = timed(lambda: tnodes.extract_nodes_batched(
+        masks, boxes, topo, pad_to=ROUTE_PAD_TO, device_cc=True))
+    host_ms = timed(lambda: tnodes.extract_nodes_batched(masks, boxes, topo))
+    widths = torch.full((ROUTE_PAD_TO,), float(pad_w), device="cuda")
+    cb = torch.zeros((ROUTE_PAD_TO, 32, 4), device="cuda")
+    ct = torch.zeros((ROUTE_PAD_TO, 32), device="cuda")
+    cv = torch.zeros((ROUTE_PAD_TO, 32), dtype=torch.bool, device="cuda")
+    stage_b_ms = timed(lambda: tnodes.stage_b_device(stack, widths, cb, ct, cv, topo))
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tnodes.stage_b_device(stack, widths, cb, ct, cv, topo)
+        torch.cuda.synchronize()
+    device_events = sorted((e for e in prof.key_averages()
+                            if e.device_type == torch.autograd.DeviceType.CUDA),
+                           key=lambda e: -e.self_device_time_total)
+    dev_us = sum(e.self_device_time_total for e in device_events)
+    top = [{"kernel": e.key[:80], "ms": e.self_device_time_total / 1e3, "calls": e.count}
+           for e in device_events[:6]]
+    row = {"images": len(masks), "pad_to": ROUTE_PAD_TO, "stack": list(stack.shape),
+           "labels_equal_card_cpu": labels_equal, "stats_equal_card_cpu": stats_equal,
+           "iterations": iters.tolist(), "iterations_cpu": cpu_iters.tolist(),
+           "check_every": cc._CHECK_EVERY_CUDA,
+           "nodes_equal_card_cpu": nodes_equal, "nodes": [len(r.nodes) for r in card],
+           "host_route_nodes": [len(r.nodes) for r in host],
+           "images_with_host_route_nodes": same_as_host,
+           "launches": counts,
+           "device_route_ms_per_chunk": {"median": statistics.median(device_ms), "runs": device_ms},
+           "host_route_ms_per_chunk": {"median": statistics.median(host_ms), "runs": host_ms},
+           "stage_b_ms_per_chunk": {"median": statistics.median(stage_b_ms), "runs": stage_b_ms},
+           "stage_b_device_ms_profiler": dev_us / 1e3 if dev_us else None,
+           "stage_b_top_device_kernels": top,
+           "card": smi}
+    print(json.dumps({"device_cc_route": row}), flush=True)
+    print(f"   device route on {smi}: {statistics.median(device_ms):.1f} ms/chunk of "
+          f"{len(masks)} (stage B {statistics.median(stage_b_ms):.1f}, device "
+          f"{row['stage_b_device_ms_profiler']}), host route {statistics.median(host_ms):.1f}; "
+          f"{same_as_host}/{len(masks)} drawings get the host route's nodes", flush=True)
+    if not labels_equal or not all(stats_equal.values()) or not all(nodes_equal) \
+            or iters.tolist() != cpu_iters.tolist():
+        raise AssertionError(f"device route: card and CPU differ: {row}")
+    if not any(row["nodes"]):
+        raise AssertionError(f"device route: no nodes on any drawing: {row}")
+    want = {**{k: 0 for k in EXPECTED["t@512"]}, "enhance_lines_fused": len(masks)}
+    if counts != want:
+        raise AssertionError(f"device route: launches {counts} != {want}")
+    return counts
+
+
+#: run_batch (phase 8f): masks card against CPU must agree on every pixel
+#: whose CPU logit lies farther than this from the threshold
+RUN_BATCH_BAND = 1e-2
+#: boxes (letterbox pixels) card against CPU in float32
+RUN_BATCH_BOX_ATOL = 1e-2
+
+
+def run_batch_step(torch, smi, product):
+    """Phase 8f: `BatchedPipeline.run_batch` at YOLOv11-s@640 + Hiera-t@512
+    from the shipped checkpoints in float32, batch PRODUCT_BATCH, two eval
+    images (the other rows from zero inputs): (a) shapes; (b) exact
+    launches of one call (one SAM2 forward: t@512's); (c) boxes within
+    RUN_BATCH_BOX_ATOL, classes and valid equal to the CPU's run_batch on
+    the same two images, masks equal wherever the CPU logit is farther
+    than RUN_BATCH_BAND from the threshold; (d) ms per call, median of
+    three. Returns the launches of one call."""
+    import statistics
+
+    import numpy as np
+
+    from circuitvision_tpu_torch.ops.image import sam2_preprocess
+    from circuitvision_tpu_torch.pipeline.analyzer import CircuitAnalyzerTorch
+    from circuitvision_tpu_torch.pipeline.batch import BatchedPipeline
+
+    ymeta, smeta, ystate, sstate = product["states"]
+    cfg = product_config(ymeta, smeta)
+    cfg = dataclasses.replace(cfg, detector=dataclasses.replace(cfg.detector, dtype="float32"))
+    images = product["images"][:2]
+    card = BatchedPipeline(CircuitAnalyzerTorch(cfg, ystate, sstate, device="cuda"),
+                           batch_size=PRODUCT_BATCH)
+    cpu = BatchedPipeline(CircuitAnalyzerTorch(cfg, ystate, sstate, device="cpu"),
+                          batch_size=2)
+    reset, read = counters()
+    card.run_batch(images)  # warm-up
+    reset()
+    got = card.run_batch(images)
+    counts = read()
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.run_batch(images)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ref = cpu.run_batch(images)
+    res, det = cfg.sam2.resolution, cfg.detector
+    shapes = {f: list(getattr(got, f).shape) for f in
+              ("boxes", "scores", "classes", "valid", "masks", "scales", "pads")}
+    want_shapes = {"boxes": [PRODUCT_BATCH, det.max_detections, 4],
+                   "scores": [PRODUCT_BATCH, det.max_detections],
+                   "classes": [PRODUCT_BATCH, det.max_detections],
+                   "valid": [PRODUCT_BATCH, det.max_detections],
+                   "masks": [PRODUCT_BATCH, res, res], "scales": [PRODUCT_BATCH],
+                   "pads": [PRODUCT_BATCH, 2]}
+    seg = torch.stack([sam2_preprocess(torch.from_numpy(img), res) for img in images])
+    with torch.no_grad():
+        logits = cpu.analyzer.sam2(seg)[0][..., 0].float().numpy()
+    far = np.abs(logits - cfg.sam2.mask_threshold) > RUN_BATCH_BAND
+    row = {"config": "YOLOv11-s@640 + SAM2 Hiera-t@512, float32 (ckpt/)",
+           "batch_size": PRODUCT_BATCH, "images": len(images), "shapes": shapes,
+           "launches": counts,
+           "classes_equal": bool(np.array_equal(got.classes[:2], ref.classes)),
+           "valid_equal": bool(np.array_equal(got.valid[:2], ref.valid)),
+           "valid_boxes": int(ref.valid.sum()),
+           "box_max_abs_diff": float(np.abs(got.boxes[:2] - ref.boxes)[ref.valid].max()),
+           "scales_pads_equal": bool(np.array_equal(got.scales[:2], ref.scales)
+                                     and np.array_equal(got.pads[:2], ref.pads)),
+           "mask_pixels_outside_band": float(far.mean()),
+           "masks_equal_outside_band": bool(np.array_equal(got.masks[:2][far], ref.masks[far])),
+           "mask_agreement": float(np.mean(got.masks[:2] == ref.masks)),
+           "zero_rows_masks_foreground": float(got.masks[2:].mean()),
+           "ms_per_call": {"median": statistics.median(ms), "runs": ms}, "card": smi}
+    print(json.dumps({"run_batch": row}), flush=True)
+    print(f"   run_batch on {smi}: {statistics.median(ms):.1f} ms per call of "
+          f"{PRODUCT_BATCH} rows", flush=True)
+    if shapes != want_shapes or counts != EXPECTED["t@512"]:
+        raise AssertionError(f"run_batch: shapes or launches differ: {row}")
+    if not (row["classes_equal"] and row["valid_equal"] and row["scales_pads_equal"]
+            and row["masks_equal_outside_band"] and row["valid_boxes"]) \
+            or row["box_max_abs_diff"] > RUN_BATCH_BOX_ATOL:
+        raise AssertionError(f"run_batch: card and CPU differ: {row}")
+    return counts
 
 
 #: sha256 (pool_item_digest) of pool items as the JAX package's
@@ -4451,6 +4710,11 @@ def main() -> int:
     launches["batch"], raster_shapes = run_batched_path(torch, smi)
     done(t0, "batched path")
 
+    t0 = phase("device connected-components route of the batched node stage "
+               "(extract_nodes_batched(device_cc=True))")
+    launches["device-cc"] = run_device_route(torch, smi)
+    done(t0, "device route")
+
     t0 = phase("kernel at the batched path's raster shapes")
     summary["batch"] = run_kernels(torch, "batch", raster_shapes)
     done(t0, "line-enhancement kernel")
@@ -4458,6 +4722,10 @@ def main() -> int:
     t0 = phase("trained product at s@640 + t@512 + reader")
     launches["product"], launches["product-batch"], product = run_trained_product(torch, smi)
     done(t0, "trained product")
+
+    t0 = phase("run_batch at s@640 + t@512 (float32, batch 8), card against CPU")
+    launches["run-batch"] = run_batch_step(torch, smi, product)
+    done(t0, "run_batch")
 
     t0 = phase("serving, simulation and the CLI on the trained product")
     launches["served"] = run_serving(torch, smi, product)

@@ -20,9 +20,11 @@ client the environment names (`enrich/client.default_client`):
 CIRCUITVISION_VLM=reader:ckpt/reader is the trained crop reader;
 otherwise GEMINI_API_KEY or OPENROUTER_API_KEY gives that service's
 client, which reads the drawn enumeration image. Images are PNG, JPEG,
-BMP or WebP (`io/image_io`), decoded as the JAX package's PIL decodes
-them; a file the reader refuses (TIFF, GIF, ROADMAP Queue A 19) fails
-`analyze`, and `analyze-batch` skips it and says which it skipped. `serve` is the web
+BMP, WebP, GIF, TIFF, PNM, ICO/CUR or TGA (`io/image_io`; `analyze-batch`
+takes the JAX CLI's five extensions), decoded as the JAX package's PIL
+decodes them; a file the reader refuses (JPEG 2000, AVIF, ROADMAP Queue
+A 19) fails `analyze`, and `analyze-batch` skips it and says which it
+skipped. `serve` is the web
 UI (webapp.py), `serve-batch` the micro-batching endpoint; both print
 `serving on port N` (port 0: an ephemeral one).
 

@@ -168,6 +168,9 @@ class TopologyConfig:
     # segment_circuit adaptive threshold (src/circuit_analyzer.py:313-319)
     adaptive_block: int = 31
     adaptive_c: int = 21
+    # connected-component labels carried through the device node stage
+    # (JAX core/config.py:184)
+    max_labels: int = 64
     # Run enhance_lines as the one-pass `enhance_lines_fused` kernel
     # (ops/cuda/morphology.py) at the default blur/morphology parameters
     # on a CUDA raster; off, or on the CPU, the reference enhance_lines

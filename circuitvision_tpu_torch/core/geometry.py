@@ -80,6 +80,19 @@ def nms_by_confidence(bboxes: Sequence[BBox], iou_threshold: float = 0.5) -> lis
     return [bboxes[order[i]] for i in kept_order]
 
 
+def nms_by_area(bboxes: Sequence[BBox], iou_threshold: float = 0.5) -> list[BBox]:
+    """Greedy NMS keeping the largest box (src/utils.py:330-344; JAX
+    core/geometry.py:83): boxes by area, largest first (stable on ties),
+    each dropping the later ones it overlaps at `iou_threshold` or more."""
+    remaining = sorted(bboxes, key=lambda b: b.area, reverse=True)
+    kept: list[BBox] = []
+    while remaining:
+        best = remaining.pop(0)
+        kept.append(best)
+        remaining = [b for b in remaining if iou(best, b) < iou_threshold]
+    return kept
+
+
 def boxes_overlap(a: BBox, b: BBox) -> bool:
     return not (a.xmax < b.xmin or a.xmin > b.xmax or a.ymax < b.ymin or a.ymin > b.ymax)
 

@@ -187,8 +187,35 @@ def _rle(data: bytes, pos: int, w: int, h: int, rle4: bool) -> bytes:
     return bytes(out[:dest])
 
 
-def decode_bmp(data: bytes) -> np.ndarray:
-    """BMP bytes → (H, W, 3) uint8 RGB as PIL's convert("RGB") gives it."""
+def decode_dib(data: bytes, pos: int) -> np.ndarray:
+    """The device-independent bitmap at `pos` of an icon or cursor file
+    (no file header) as PIL's DibImageFile reads it there for
+    IcoImagePlugin and CurImagePlugin: the pixels start after the info
+    header, its bitfield masks and its palette, and the image is the lower
+    half of the stored height (the upper half is the AND mask, which
+    convert("RGB") never shows). (H, W, 3) uint8 RGB."""
+    if len(data) < pos + 16:
+        raise _error("truncated header")
+    size = struct.unpack_from("<I", data, pos)[0]
+    if size not in _HEADERS:
+        raise _error(f"unsupported header type ({size})")
+    if size == 12:
+        bits, colors, comp, pad = struct.unpack_from("<H", data, pos + 10)[0], 0, 0, 3
+    else:
+        bits, comp = struct.unpack_from("<HI", data, pos + 14)
+        colors, pad = (struct.unpack_from("<I", data, pos + 32)[0]
+                       if len(data) >= pos + 36 else 0), 4
+    start = size + (12 if comp == 3 and size == 40 else 0)
+    if bits <= 8:
+        start += pad * (colors or 1 << bits)
+    bmp = b"BM" + struct.pack("<IHHI", 0, 0, 0, 14 + start) + data[pos:]
+    return decode_bmp(bmp, halve=True)
+
+
+def decode_bmp(data: bytes, halve: bool = False) -> np.ndarray:
+    """BMP bytes → (H, W, 3) uint8 RGB as PIL's convert("RGB") gives it;
+    with `halve`, the lower half of the stored rows, as PIL reads an icon's
+    bitmap."""
     f = _header(data)
     w, h, bits = f["width"], f["height"], f["bits"]
     layout = _raw_layout(f)
@@ -198,6 +225,8 @@ def decode_bmp(data: bytes) -> np.ndarray:
         raise _error(f"{w} x {h} pixels is over PIL's decompression-bomb limit")
     start = f["offset"] or f["pos"]
     stride = ((w * bits + 31) >> 3) & ~3
+    if halve:
+        h = f["height"] = h // 2
     if bits > 8:
         if layout == "rle":
             raise _error(f"RLE compression at {bits} bits (PIL has no P to RGB raw mode)")

@@ -1,4 +1,6 @@
-"""Host image ingest without PIL or cv2: PNG, JPEG, BMP and WebP decode + EXIF orientation.
+"""Host image ingest without PIL or cv2: every upload format the JAX
+package's server takes through PIL that users send (PNG, JPEG, BMP,
+WebP, GIF, TIFF, PNM, ICO, CUR, TGA) + EXIF orientation.
 
 Counterpart of the JAX package's `io/image_io.py` (`decode_image`,
 `load_image`, `format_exif_data`, `format_exif_value`), which decodes
@@ -22,7 +24,8 @@ libwebp 1.6.0), byte for byte:
     libjpeg's int_upsample), restart intervals, libjpeg-turbo's ISLOW
     IDCT, fancy upsampling, YCbCr tables and block smoothing of
     progressive scans left short of full precision; lossless (SOF3)
-    frames at sampling factors 1 with no colour conversion. 12-bit,
+    frames with no colour conversion, subsampled components replicated
+    (libjpeg-turbo has no fancy upsampling at a DCT size of 1). 12-bit,
     hierarchical and arithmetic lossless frames raise `ImageFormatError`
     naming them;
   * BMP with io/bmp.py (numpy) as PIL's BmpImagePlugin reads it: every
@@ -40,8 +43,17 @@ libwebp 1.6.0), byte for byte:
     parse leaves the image as it is, as the JAX package's
     `except Exception: pass` around PIL's reading does.
 
-Anything else — TIFF, GIF or another format — raises `ImageFormatError`
-naming it (ROADMAP Queue A 19). `read_png` gives an 8-bit grey, RGB or RGBA PNG's samples
+  * GIF (io/gif.py), TIFF (io/tiff.py), PNM (io/pnm.py), ICO and CUR
+    (io/ico.py) and TGA (io/tga.py), each as its Pillow plugin reads the
+    first image, with native/lzw.cpp for GIF's and TIFF's LZW and
+    PackBits and Python's zlib for TIFF's Deflate; a TIFF's Orientation
+    tag is applied by its reader;
+  * dispatch by magic bytes (a TGA, which has none, by PIL's header
+    checks, last).
+
+Anything else — JPEG 2000, AVIF, the kinds those modules list as unread,
+or another of Pillow's plugins — raises `ImageFormatError` naming it
+(ROADMAP Queue A 19). `read_png` gives an 8-bit grey, RGB or RGBA PNG's samples
 without conversion, as `np.asarray(PIL.Image.open(path))` does for the
 eval masks.
 """
@@ -59,6 +71,11 @@ import numpy as np
 
 from ..core.native import build_library
 from .bmp import decode_bmp
+from .gif import decode_gif
+from .ico import decode_cur, decode_ico
+from .pnm import decode_pnm
+from .tga import decode_tga, looks_like_tga
+from .tiff import decode_tiff
 from .webp import decode_webp
 
 ORIENTATION_TAG = 0x0112
@@ -120,12 +137,14 @@ def _jpeg_encoder() -> ctypes.CDLL:
 
 def load_native() -> None:
     """Build (at first use) and load the host decoders and the JPEG encoder."""
+    from .lzw import load_library as lzw_library
     from .webp import _library as webp_library
 
     _png_library()
     _jpeg_library()
     _jpeg_encoder()
     webp_library()
+    lzw_library()
 
 
 def encode_jpeg(rgb: np.ndarray, quality: int = 75) -> bytes:
@@ -170,15 +189,25 @@ def encode_png(arr: np.ndarray, exif_orientation: Optional[int] = None, level: i
     return out + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _png_chunk(b"IEND", b"")
 
 
+#: formats PIL reads that this reader does not, by their magic bytes
+_UNREAD = ((b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"), (b"\xff\x4f\xff\x51", "JPEG 2000"),
+           (b"qoif", "QOI"), (b"8BPS", "PSD"), (b"\x0a\x05\x01", "PCX"))
+
+
 def _format_name(data: bytes) -> str:
     if data.startswith(b"BM"):
         return "BMP"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
-    if data[:4] in (b"II*\x00", b"MM\x00*"):
+    if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
         return "TIFF"
     if data[:6] in (b"GIF87a", b"GIF89a"):
         return "GIF"
+    if data[4:12] in (b"ftypavif", b"ftypavis"):
+        return "AVIF"
+    for magic, name in _UNREAD:
+        if data.startswith(magic):
+            return name
     return f"bytes starting {data[:4]!r}"
 
 
@@ -549,8 +578,22 @@ def _decode(data: bytes) -> tuple[np.ndarray, dict]:
         return decode_bmp(data), {}
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return decode_webp(data)
-    raise ImageFormatError(f"not a PNG, JPEG, BMP or WebP ({_format_name(data)}); TIFF, GIF "
-                           f"and other formats are not read (ROADMAP Queue A 19)")
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return decode_gif(data), {}
+    if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
+        return decode_tiff(data), {}  # its orientation applied
+    if data[:1] == b"P" and data[1:2] and data[1] in b"0123456fy":
+        return decode_pnm(data), {}
+    if data[:4] == b"\x00\x00\x01\x00":
+        return decode_ico(data), {}
+    if data[:4] == b"\x00\x00\x02\x00" and len(data) >= 6 and data[4:6] != b"\x00\x00":
+        return decode_cur(data), {}  # with no entries PIL goes on, to TGA
+    name = _format_name(data)
+    if not name.startswith("bytes") or not looks_like_tga(data):
+        raise ImageFormatError(f"not a PNG, JPEG, BMP, WebP, GIF, TIFF, PNM, ICO, CUR or TGA "
+                               f"file ({name}); JPEG 2000, AVIF and Pillow's other plugins "
+                               f"are not read (ROADMAP Queue A 19)")
+    return decode_tga(data), {}
 
 
 def read_png(path: str) -> np.ndarray:
@@ -568,7 +611,8 @@ def read_png(path: str) -> np.ndarray:
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """PNG, JPEG, BMP or WebP bytes → (H, W, 3) RGB uint8, EXIF-rotated."""
+    """PNG, JPEG, BMP, WebP, GIF, TIFF, PNM, ICO, CUR or TGA bytes →
+    (H, W, 3) RGB uint8, EXIF-rotated (a TIFF by its Orientation tag)."""
     img, info = _decode(data)
     return np.ascontiguousarray(exif_transpose(img, _orientation(info)))
 

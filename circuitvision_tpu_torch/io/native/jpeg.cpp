@@ -11,11 +11,12 @@
 //     converted to CMYK as jdcolor.c's ycck_cmyk_convert does), each
 //     component sampled 1 to 4 times on each axis, at most 10 blocks in an
 //     MCU; restart intervals; partial MCUs at the right and bottom edges;
-//   * lossless (SOF3) Huffman frames of 8-bit samples at sampling factors 1
-//     (jdlhuff.c, jdpred.c: predictors 1-7, the first row and column of a
-//     scan or restart interval, the point transform), as libjpeg-turbo 3
-//     reads them: no colour conversion, so a JFIF marker or an Adobe
-//     transform other than 0 is refused;
+//   * lossless (SOF3) Huffman frames of 8-bit samples (jdlhuff.c,
+//     jdpred.c: predictors 1-7, the first row and column of a scan or
+//     restart interval, the point transform), as libjpeg-turbo 3 reads
+//     them: subsampled components upsampled by replication (no fancy
+//     upsampling at a DCT size of 1), no colour conversion, so a JFIF
+//     marker or an Adobe transform other than 0 is refused;
 //   * the integer inverse DCT (libjpeg's JDCT_ISLOW, jidctint.c) with its
 //     range-limit table, fancy upsampling (jdsample.c: h2v1, h1v2 and h2v2
 //     with their alternating rounding, the first and last rows replicated
@@ -34,7 +35,7 @@
 // starts; such a scan is refused here too (kPilBlock).
 //
 // Everything else is refused with a message that names it: hierarchical
-// frames, lossless frames with arithmetic coding or subsampled components,
+// frames, lossless frames with arithmetic coding,
 // other sample precisions, 2 or more than 4 components, sampling ratios
 // that do not divide. No system libjpeg is loaded.
 #include <algorithm>
@@ -357,8 +358,6 @@ void Decoder::read_frame(int marker) {
         fail("JPEG: sampling factors " + std::to_string(c.h) + "x" + std::to_string(c.v) +
              " against " + std::to_string(hmax_) + "x" + std::to_string(vmax_) +
              " are not an integral ratio, which libjpeg does not upsample");
-      if (lossless_ && (c.h != hmax_ || c.v != vmax_))
-        fail("JPEG: lossless frames with subsampled components are not read");
     }
   if (ncomp_ == 1) hmax_ = vmax_ = comp_[0].h = comp_[0].v = 1;  // one component: no MCU
   const int unit = lossless_ ? 1 : 8;  // a lossless "block" is one sample
@@ -1325,10 +1324,15 @@ void Decoder::output(uint8_t* out) const {
            "refuses in lossless mode");
     for (int i = 0; i < ncomp_; ++i)
       if (comp_[i].diff.empty()) fail("JPEG: a component no scan covered");
+    // a subsampled component is upsampled by replication: jdsample.c
+    // takes no fancy upsampling when min_DCT_scaled_size is 1
     for (size_t p = 0; p < (size_t)W * H; ++p) {
       const int x = (int)(p % W), y = (int)(p / W);
-      for (int i = 0; i < ncomp_; ++i)
-        out[ncomp_ * p + i] = (uint8_t)comp_[i].diff[(size_t)y * comp_[i].lw + x];
+      for (int i = 0; i < ncomp_; ++i) {
+        const Component& c = comp_[i];
+        const int fx = hmax_ / c.h, fy = vmax_ / c.v;
+        out[ncomp_ * p + i] = (uint8_t)c.diff[(size_t)(y / fy) * c.lw + x / fx];
+      }
     }
     return;
   }

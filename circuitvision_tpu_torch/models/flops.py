@@ -36,7 +36,9 @@ None.
 from __future__ import annotations
 
 import contextlib
+import json
 import math
+from pathlib import Path
 from typing import Optional
 
 import torch
@@ -47,6 +49,40 @@ from torch.utils.flop_counter import FlopCounterMode, conv_flop_count
 PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": {torch.bfloat16: 989e12, torch.float32: 67e12}}
 
 _aten = torch.ops.aten
+#: bump when the counting logic or a counted architecture changes: folded
+#: into every cache key, so stale counts on disk are never read
+FLOPS_COUNT_VERSION = 2
+
+
+def _cache_path() -> Path:
+    from ..core.native import BUILD_DIR
+
+    return BUILD_DIR / "flops_cache.json"
+
+
+def cached_flops(key: str, compute) -> float:
+    """Memoise an expensive count under `key` in the package's git-ignored
+    build/flops_cache.json (JAX models/flops.py:151, whose cache is
+    .jax_cache/flops_cache.json): a cached value is returned as a float,
+    else `compute()` is run and stored; a cache that cannot be read or
+    written is skipped."""
+    key = f"v{FLOPS_COUNT_VERSION}:{key}"
+    path = _cache_path()
+    cache = {}
+    try:
+        cache = json.loads(path.read_text())
+    except (OSError, ValueError):
+        pass
+    if key in cache:
+        return float(cache[key])
+    val = float(compute())
+    cache[key] = val
+    try:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(cache))
+    except OSError:
+        pass
+    return val
 
 
 def device_peak_flops(device=None, dtype: torch.dtype = torch.bfloat16) -> Optional[float]:

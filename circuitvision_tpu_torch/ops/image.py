@@ -87,6 +87,32 @@ def resize_bilinear(
     return resize_linear(img, tuple(out_hw) + tuple(img.shape[2:]), antialias)
 
 
+def resize_nearest(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """jax.image.resize(method="nearest") over the first two axes (JAX
+    ops/image.py:53): output index i takes source floor((i + 0.5)·in/out)
+    in float32, as XLA evaluates jax's (i + 0.5) * in / out: the division
+    by a constant folded into the constant factor, in·(1/out) rounded in
+    float32; an axis of unchanged size is left as it is; the dtype is
+    kept."""
+    out = img
+    for axis, n in enumerate(out_hw):
+        m = img.shape[axis]
+        if m == n:
+            continue
+        one = torch.ones((), dtype=torch.float32)
+        factor = (m * (one / n)).to(img.device)
+        src = torch.floor((torch.arange(n, dtype=torch.float32, device=img.device) + 0.5)
+                          * factor).to(torch.int64)
+        out = out.index_select(axis, src)
+    return out
+
+
+def keep_aspect_size(h: int, w: int, new_height: int) -> tuple[int, int]:
+    """Target size for resize-to-height keeping the aspect
+    (src/circuit_analyzer.py:799-803: new_width = int(new_height * w/h))."""
+    return new_height, int(new_height * (w / h))
+
+
 def adaptive_threshold_mean_inv(
     gray: torch.Tensor, block_size: int = 31, c: float = 21.0
 ) -> torch.Tensor:

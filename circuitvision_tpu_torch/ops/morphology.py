@@ -62,8 +62,9 @@ def enhance_lines(mask: torch.Tensor, blur_ksize: int = 5, blur_sigma: float = 1
 
 def boundary_mask(fg: torch.Tensor) -> torch.Tensor:
     """Foreground pixels with at least one 8-neighbour background pixel
-    (the image edge counts as background, as in cv2.findContours)."""
+    (the image edge counts as background, as in cv2.findContours), of an
+    (H, W) raster or of each raster of a (..., H, W) stack."""
     f = fg.to(torch.float32)
-    padded = F.pad(f[None, None], (1, 1, 1, 1), value=0.0)
-    interior = -F.max_pool2d(-padded, 3, 1)[0, 0]
+    padded = F.pad(f.reshape((-1, 1) + f.shape[-2:]), (1, 1, 1, 1), value=0.0)
+    interior = -F.max_pool2d(-padded, 3, 1).reshape(f.shape)
     return (f > 0) & (interior == 0)

@@ -30,11 +30,17 @@ Design on the card:
 Deliberate differences from the JAX path: no mesh and no shard_map —
 one pipeline runs on one device, and data parallelism is one pipeline per
 torch.distributed rank, each over its share of the images
-(parallel/multihost.analyze_many_distributed) — no padding of a partial
-last chunk (it existed for XLA's fixed-shape programs), no `run_batch`
-(queued). As in `analyze()`, a SAM2 failure raises instead of switching
+(parallel/multihost.analyze_many_distributed) — and no padding of a
+partial last chunk of `analyze_many` (it existed for XLA's fixed-shape
+programs). As in `analyze()`, a SAM2 failure raises instead of switching
 to the classical mask; the node-stage ladder falls back per image, and
 no ladder swallows a kernel fault or a CUDA error.
+
+`run_batch` is JAX's low-level step (:306-331): up to `batch_size` whole
+images, letterboxed YOLO with DFL decode and device NMS, SAM2 on the full
+images at its resolution thresholded to 0/1, `batch_size` rows whatever
+the count, the rows past the images computed from zero inputs as JAX's
+`_prepare` leaves them.
 """
 from __future__ import annotations
 
@@ -50,7 +56,7 @@ from ..core.config import BATCH_PER_DEVICE
 from ..core.types import AnalysisResult, BBox
 from ..enrich.directions import enrich_directions_many
 from ..models.yolo.decode import decode_predictions, postprocess, unletterbox_boxes
-from ..ops.image import crop_sam2_preprocess, letterbox, resize_linear
+from ..ops.image import crop_sam2_preprocess, letterbox, resize_linear, sam2_preprocess
 from ..topology.crop import crop_image_and_adjust_bboxes
 from ..topology.nodes import (
     PackedFetch, PackedRaster, extract_nodes, finish_from_packed, pack_bits,
@@ -61,6 +67,19 @@ from ..ops.cuda.build import is_device_fault
 from .analyzer import detections_to_bboxes
 
 logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class BatchOutputs:
+    """One `run_batch` step's outputs, on the host (JAX batch.py:106)."""
+
+    boxes: np.ndarray  # (B, MAX_DET, 4) float32 in letterbox pixels
+    scores: np.ndarray  # (B, MAX_DET) float32
+    classes: np.ndarray  # (B, MAX_DET) int32
+    valid: np.ndarray  # (B, MAX_DET) bool
+    masks: np.ndarray  # (B, S, S) uint8 0/1 at SAM2's resolution
+    scales: np.ndarray  # (B,) float32 letterbox scale per image
+    pads: np.ndarray  # (B, 2) float32 letterbox (pad_x, pad_y)
 
 
 @dataclasses.dataclass
@@ -90,6 +109,50 @@ class BatchedPipeline:
         self.batch_size = batch_size or BATCH_PER_DEVICE
         if self.batch_size < 1:
             raise ValueError(f"batch_size must be positive, got {self.batch_size}")
+
+    # -- the low-level step ------------------------------------------------
+    @torch.no_grad()
+    def run_batch(self, images: Sequence[np.ndarray]) -> BatchOutputs:
+        """Detect + segment up to `batch_size` whole images in one step
+        (JAX batch.py:245-331): each image uploaded once as uint8,
+        letterboxed and SAM2-preprocessed on the device; one YOLO forward,
+        DFL decode and device NMS over the batch; SAM2 on the full images,
+        its logits thresholded at cfg.sam2.mask_threshold (zeros without
+        SAM2); one fetch. No crop and no topology: `analyze_many` is the
+        full pipeline."""
+        if len(images) > self.batch_size:
+            raise ValueError(f"run_batch takes at most {self.batch_size} images, "
+                             f"got {len(images)}")
+        det = self.cfg.detector
+        res = self.cfg.sam2.resolution
+        b, dev = self.batch_size, self.device
+        sam2 = self.analyzer.sam2
+        det_batch = torch.zeros((b, det.img_size, det.img_size, 3), dtype=torch.float32,
+                                device=dev)
+        seg_batch = torch.zeros((b, res, res, 3), dtype=torch.float32, device=dev)
+        scales = np.ones(b, np.float32)
+        pads = np.zeros((b, 2), np.float32)
+        for i, img in enumerate(images):
+            img_dev = torch.as_tensor(np.ascontiguousarray(img), device=dev)
+            canvas, scale, pad = letterbox(img_dev, det.img_size)
+            det_batch[i] = canvas / 255.0
+            if sam2 is not None:
+                seg_batch[i] = sam2_preprocess(img_dev, res)
+            scales[i], pads[i] = scale, pad
+        boxes, scores = decode_predictions(self.analyzer.yolo(det_batch), det.reg_max,
+                                           det.num_classes)
+        dets = [postprocess(boxes[i], scores[i], max_detections=det.max_detections,
+                            conf_threshold=det.conf_threshold, iou_threshold=det.iou_threshold)
+                for i in range(b)]
+        if sam2 is not None:
+            high = sam2(seg_batch)[0][..., 0].to(torch.float32)
+            masks = (high > self.cfg.sam2.mask_threshold).to(torch.uint8)
+        else:
+            masks = torch.zeros((b, res, res), dtype=torch.uint8, device=dev)
+        out = [torch.stack(t) for t in zip(*dets)] + [masks]
+        boxes_h, scores_h, classes_h, valid_h, masks_h = (t.cpu().numpy() for t in out)
+        return BatchOutputs(boxes=boxes_h, scores=scores_h, classes=classes_h, valid=valid_h,
+                            masks=masks_h, scales=scales, pads=pads)
 
     # -- device stages ----------------------------------------------------
     @torch.no_grad()

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -22,6 +23,16 @@ from .mna import ACSolution, OperatingPoint, SimulationError, _node_index
 from .netlist_parse import parse_netlist
 
 _SRC = Path(__file__).resolve().parent / "native" / "solver.cpp"
+
+
+def native_available() -> bool:
+    """Whether the native solver can be used (JAX sim/native_backend.py:23):
+    here, whether it builds and loads (g++ at first use)."""
+    try:
+        load_library()
+    except (OSError, subprocess.CalledProcessError):
+        return False
+    return True
 
 
 @functools.lru_cache(maxsize=1)

@@ -1,9 +1,10 @@
 """Host topology stage: outer-contour trace → polygon area filter →
-vertex-walk touch matrix.
+vertex-walk touch matrix; and the pixel-based label/stats/touch stage.
 
 Counterpart of `contour_touch_stage_host` in the JAX package's
 `topology/host_cc.py`, the production node-stage backend of both
-packages. It reproduces the reference's get_contours + matching loop
+packages, and of its `label_touch_stage_host`, the host twin of the
+device route's label/stats/touch stage. The first reproduces the reference's get_contours + matching loop
 semantics exactly (src/circuit_analyzer.py:388-459, 1380-1446): the area
 filter uses the outer polygon area (holes included), components nested
 in another's hole are not contours, centroids are int-truncated polygon
@@ -13,6 +14,7 @@ vertices.
 from __future__ import annotations
 
 import numpy as np
+from scipy import ndimage
 
 from ..core.config import TopologyConfig
 from .contours import trace_contours
@@ -91,3 +93,162 @@ def contour_touch_stage_host(
         )
         touch[k, vc] = overlap & near.any(axis=0)
     return centroids, rel_area, touch, kept
+
+
+def label_touch_stage_host(
+    fg: np.ndarray,  # (H, W) bool analysis raster (enhanced, binarized)
+    width: float,  # true raster width (fg may carry right padding)
+    cfg: TopologyConfig,
+    comp_boxes: np.ndarray,  # (C, 4) float32 xmin,ymin,xmax,ymax
+    comp_thr: np.ndarray,  # (C,) float32
+    comp_valid: np.ndarray,  # (C,) bool
+):
+    """Returns (uniq, centroids, rel_area, keep, touch) with the same
+    shapes/dtypes/ordering as the device `_label_touch_stage` outputs
+    after compaction to K = cfg.max_labels."""
+    h, w = fg.shape
+    sentinel = h * w
+    K = cfg.max_labels
+
+    lab, n = ndimage.label(fg, structure=np.ones((3, 3), np.int32))
+
+    # Everything downstream is sparse: only foreground pixels carry
+    # information, and fg is a few % of the raster. Extracting coordinate
+    # lists once replaces every full-raster bincount/unique below (the
+    # round-2 formulation cost ~55 ms/img at 600×800; this runs in ~5).
+    fys, fxs = np.nonzero(fg)  # raster order
+    fl = lab[fys, fxs]
+
+    # Root (raster-first linear index) per scipy id 1..n. np.unique over
+    # the raster-ordered sparse labels gives each id's first occurrence.
+    ids, first_idx = np.unique(fl, return_index=True)
+    first = np.full(n + 1, sentinel, np.int64)
+    first[ids] = fys[first_idx].astype(np.int64) * w + fxs[first_idx]
+    # DESCENDING root order: cv2.findContours enumerates outer contours in
+    # reverse raster discovery order and the reference's node ids follow
+    # it (see ops/cc.py label_stats). Sentinel-rooted ids (absent) sort
+    # last either way because `first` defaults to sentinel.
+    order = np.argsort(-first[1:], kind="stable")
+    sel = order[: K]  # largest-K roots, matching the device compaction
+    sel_ids = sel + 1
+
+    uniq = np.full(K, sentinel, np.int32)
+    uniq[: len(sel)] = first[sel_ids]
+    valid = uniq != sentinel
+
+    area_all = np.bincount(fl, minlength=n + 1).astype(np.float64)
+    sx = np.bincount(fl, weights=fxs.astype(np.float64), minlength=n + 1)
+    sy = np.bincount(fl, weights=fys.astype(np.float64), minlength=n + 1)
+
+    # interior = erode3x3(fg) with the border as background (cv2
+    # semantics), via shifted ANDs — ~4x faster than scipy's general
+    # binary_erosion for this fixed structuring element.
+    interior = np.zeros_like(fg)
+    interior[1:-1, 1:-1] = (
+        fg[1:-1, 1:-1]
+        & fg[:-2, 1:-1] & fg[2:, 1:-1] & fg[1:-1, :-2] & fg[1:-1, 2:]
+        & fg[:-2, :-2] & fg[:-2, 2:] & fg[2:, :-2] & fg[2:, 2:]
+    )
+    # Boundary pixel coords filtered from the fg coords (no second
+    # full-raster nonzero scan).
+    is_bnd = ~interior[fys, fxs]
+    bys, bxs = fys[is_bnd], fxs[is_bnd]
+    blab = fl[is_bnd]
+    bcount_all = np.bincount(blab, minlength=n + 1).astype(np.float64)
+
+    area = np.zeros(K, np.float32)
+    centroids = np.zeros((K, 2), np.float32)
+    bcount = np.zeros(K, np.float32)
+    area[: len(sel)] = area_all[sel_ids]
+    safe = np.maximum(area_all[sel_ids], 1.0)
+    centroids[: len(sel), 0] = sx[sel_ids] / safe
+    centroids[: len(sel), 1] = sy[sel_ids] / safe
+    bcount[: len(sel)] = bcount_all[sel_ids]
+
+    contour_area = np.maximum(area - bcount / 2.0 - 1.0, 0.0)
+    rel_area = (contour_area / (float(h) * float(width))).astype(np.float32)
+    keep = valid & (rel_area > cfg.contour_area_threshold)
+
+    # Map each boundary pixel's scipy id to its compacted row (or -1).
+    nsel = len(sel)
+    id_to_row = np.full(n + 1, -1, np.int64)
+    id_to_row[sel_ids] = np.arange(nsel)
+    rows = id_to_row[blab]
+    m = rows >= 0
+    rows = rows[m]
+    ix = bxs[m]
+    iy = bys[m]
+
+    # Label bounding rects (inclusive), widened +1 on max like the device
+    # broad phase (cv2.boundingRect is max-exclusive). A label's extreme
+    # pixels are always boundary pixels (an interior pixel has fg on all 8
+    # sides), so the rects come from the sparse boundary coords.
+    lb = np.zeros((K, 4), np.float32)
+    if nsel and len(ix):
+        minx = np.full(nsel, w, np.int64)
+        miny = np.full(nsel, h, np.int64)
+        maxx = np.full(nsel, -1, np.int64)
+        maxy = np.full(nsel, -1, np.int64)
+        np.minimum.at(minx, rows, ix)
+        np.minimum.at(miny, rows, iy)
+        np.maximum.at(maxx, rows, ix)
+        np.maximum.at(maxy, rows, iy)
+        lb[:nsel, 0] = minx
+        lb[:nsel, 1] = miny
+        lb[:nsel, 2] = maxx + 1.0
+        lb[:nsel, 3] = maxy + 1.0
+
+    C = len(comp_boxes)
+    touch = np.zeros((K, C), bool)
+    vc = np.nonzero(comp_valid[:C])[0]
+    if nsel and len(vc) and len(ix):
+        bx0, by0, bx1, by1 = (comp_boxes[vc, i] for i in range(4))
+        t = comp_thr[vc]
+        # contact(row, c) = any boundary pixel of the row's component that
+        # is inside box c OR within t of any of its 4 infinite edge LINES
+        # (the reference's is_point_near_bbox quirk, :811-846).
+        #
+        # The strip tests depend only on the pixel's x (resp. y), so they
+        # factor: per-row presence histograms over columns/rows (K×W, K×H)
+        # contracted against per-component strip masks (W×C, H×C) — the
+        # strip masks use the identical float32 comparisons as the device
+        # path, so semantics stay bit-exact. The 2-D inside test runs on
+        # small integer bbox slices of a row-id raster. This replaces a
+        # (P×C) per-pixel near matrix (~15 ms/img at P≈25k).
+        xhist = np.zeros((nsel, w), np.float32)
+        yhist = np.zeros((nsel, h), np.float32)
+        xhist[rows, ix] = 1.0
+        yhist[rows, iy] = 1.0
+        colsf = np.arange(w, dtype=np.float32)[:, None]
+        rowsf = np.arange(h, dtype=np.float32)[:, None]
+        xstrip = (np.abs(colsf - bx0) <= t) | (np.abs(colsf - bx1) <= t)
+        ystrip = (np.abs(rowsf - by0) <= t) | (np.abs(rowsf - by1) <= t)
+        contact = xhist @ xstrip.astype(np.float32)
+        contact += yhist @ ystrip.astype(np.float32)
+
+        rowmap = np.full((h, w), -1, np.int32)
+        rowmap[iy, ix] = rows
+        x0i = np.clip(np.ceil(bx0.astype(np.float64)).astype(np.int64), 0, w)
+        x1i = np.clip(np.floor(bx1.astype(np.float64)).astype(np.int64) + 1, 0, w)
+        y0i = np.clip(np.ceil(by0.astype(np.float64)).astype(np.int64), 0, h)
+        y1i = np.clip(np.floor(by1.astype(np.float64)).astype(np.int64) + 1, 0, h)
+        for c in range(len(vc)):
+            if x0i[c] >= x1i[c] or y0i[c] >= y1i[c]:
+                continue
+            sub = rowmap[y0i[c] : y1i[c], x0i[c] : x1i[c]]
+            inside_rows = sub[sub >= 0]
+            if len(inside_rows):
+                contact[np.unique(inside_rows), c] += 1.0
+
+        # broad phase: component bbox overlaps widened label rect; the
+        # device path passes `keep` as touch_matrix's label_valid gate
+        overlap = ~(
+            (bx1[None, :] < lb[:nsel, 0:1])
+            | (bx0[None, :] > lb[:nsel, 2:3])
+            | (by1[None, :] < lb[:nsel, 1:2])
+            | (by0[None, :] > lb[:nsel, 3:4])
+        )
+        touch[np.ix_(np.arange(nsel), vc)] = (
+            (contact > 0) & overlap & keep[:nsel, None]
+        )
+    return uniq, centroids, rel_area, keep, touch

@@ -19,12 +19,19 @@ with the reference's exact tie-breaks:
     dropped unless >= 2 components (single-other-node
     exception preserved)                               (:1547-1582)
 
-The batched path (`extract_nodes_batched`, JAX nodes.py:451-596) runs
-the same stage A per image with the subtraction on the device and hands
-the host a bit-packed raster, fetched for a whole chunk at once. With
-`TopologyConfig.use_fused_morphology` on and the raster on the card,
-stage A's enhance_lines is the `enhance_lines_fused` kernel
-(ops/cuda/morphology.py), as JAX nodes.py:99-109 gates it.
+The batched path (`extract_nodes_batched`, JAX nodes.py:451-709) runs
+the same stage A per image with the subtraction on the device. Its
+default host route hands the host a bit-packed raster, fetched for a
+whole chunk at once. Its device route (`device_cc=True`) pads the
+chunk's enhanced rasters to one stack (widths to a multiple of 128, the
+count to `pad_to`) and runs stage B on the device — connected
+components, per-label statistics and the touch matrix (ops/cc.py,
+matching.touch_matrix_stack) — with one fetch for the chunk; its nodes
+follow that pixel-based formulation of the JAX device route, not the
+cv2-exact contours. With `TopologyConfig.use_fused_morphology` on and
+the raster on the card, stage A's enhance_lines is the
+`enhance_lines_fused` kernel (ops/cuda/morphology.py), as JAX
+nodes.py:99-109 gates it.
 
 With `fetch_viz` (the default, as in the JAX stage) the single-image
 path also returns the label image and the reference's three debug
@@ -46,11 +53,12 @@ from ..core import taxonomy
 from ..core.config import TopologyConfig, resolve_device
 from ..core.types import BBox, Node
 from ..core.viz import connection_points_viz, contour_viz, node_viz
-from ..ops.cc import label_components
+from ..ops.cc import label_components_counted, label_image, label_stats
 from ..ops.cuda.morphology import enhance_lines_fused
 from ..ops.image import resize_bilinear, resize_linear_u8
-from ..ops.morphology import enhance_lines
+from ..ops.morphology import boundary_mask, enhance_lines
 from .host_cc import contour_touch_stage_host
+from .matching import touch_matrix_stack
 
 
 def _cv2_resize_u8(img_f32: torch.Tensor, out_hw) -> torch.Tensor:
@@ -166,7 +174,7 @@ def extract_nodes(
 
     enhanced_u8 = enhanced.to(torch.uint8).cpu().numpy()
     fg = enhanced_u8 > 0
-    labels = label_components(fg) if fetch_viz else None
+    labels = label_image(fg) if fetch_viz else None
 
     centroids, rel_area, touch, contours = contour_touch_stage_host(
         fg, float(new_w), cfg, comp_boxes, comp_thr, comp_valid
@@ -317,15 +325,15 @@ def _renumber(valid_nodes: list[dict], ground_old_id: Optional[int]) -> list[Nod
     return nodes
 
 
-def _component_arrays(resized_bboxes, cfg: TopologyConfig):
-    """Electrical-component boxes padded to a bucket of sizes (32, 64, …),
-    as the JAX stage pads them."""
+def _component_arrays(resized_bboxes, cfg: TopologyConfig, bucket: Optional[int] = None):
+    """Electrical-component boxes padded to `bucket` rows, by default the
+    smallest of (32, 64, …) that holds them, as the JAX stage pads them."""
     comp_indices = [
         i
         for i, b in enumerate(resized_bboxes)
         if b.class_name not in taxonomy.NON_COMPONENTS
     ]
-    bucket = _comp_bucket(max(1, len(comp_indices)))
+    bucket = bucket or _comp_bucket(max(1, len(comp_indices)))
     comp_boxes = np.zeros((bucket, 4), np.float32)
     comp_thr = np.zeros(bucket, np.float32)
     comp_valid = np.zeros(bucket, bool)
@@ -382,13 +390,22 @@ class PackedFetch:
         return out
 
 
-def _subtract_arrays(bboxes: Sequence[BBox], h: int, w: int) -> list[tuple[int, int, int, int]]:
+def _subtract_arrays(bboxes: Sequence[BBox], h: int, w: int, bucket: Optional[int] = None
+                     ) -> tuple[np.ndarray, np.ndarray]:
     """Boxes to zero out of the mask (everything not mask-preserved),
-    clamped to the raster exactly as subtract_component_boxes clamps them
-    (JAX nodes.py:451-466)."""
+    clamped to the raster exactly as subtract_component_boxes clamps
+    them, padded to `bucket` rows (JAX nodes.py:385-400): (boxes (N, 4)
+    float32 x0, y0, x1, y1; valid (N,) bool)."""
     sub = [(max(0, int(b.xmin)), max(0, int(b.ymin)), min(w, int(b.xmax)), min(h, int(b.ymax)))
            for b in bboxes if b.class_name not in taxonomy.MASK_PRESERVE_CLASSES]
-    return [(x0, y0, x1, y1) for x0, y0, x1, y1 in sub if x0 < x1 and y0 < y1]
+    sub = [(x0, y0, x1, y1) for x0, y0, x1, y1 in sub if x0 < x1 and y0 < y1]
+    bucket = bucket or _comp_bucket(max(1, len(sub)))
+    boxes = np.zeros((bucket, 4), np.float32)
+    valid = np.zeros(bucket, bool)
+    for col, bb in enumerate(sub):
+        boxes[col] = bb
+        valid[col] = True
+    return boxes, valid
 
 
 @dataclasses.dataclass
@@ -404,6 +421,22 @@ class PackedRaster:
     new_w: int
 
 
+def _stage_a(mask, bboxes: Sequence[BBox], cfg: TopologyConfig, device
+             ) -> tuple[torch.Tensor, tuple[int, int]]:
+    """Stage A's raster for one image on `device` (JAX nodes.py:469-503):
+    component subtraction → cv2-exact resize → enhance chain. Returns the
+    float32 0..255 (new_h, new_w) raster and the input's (H, W)."""
+    if not isinstance(mask, torch.Tensor):
+        mask = torch.as_tensor(np.ascontiguousarray(mask), device=device)
+    in_h, in_w = mask.shape[:2]
+    new_h, new_w = cfg.resize_height, int(cfg.resize_height * (in_w / in_h))
+    emptied = mask.to(torch.float32, copy=True)
+    boxes, valid = _subtract_arrays(bboxes, in_h, in_w)
+    for x0, y0, x1, y1 in boxes[valid].astype(np.int64).tolist():
+        emptied[y0:y1, x0:x1] = 0.0
+    return enhance_chain(_cv2_resize_u8(emptied, (new_h, new_w)), cfg), (in_h, in_w)
+
+
 def prepare_packed_raster(mask, bboxes: Sequence[BBox], cfg: TopologyConfig,
                           device="cuda") -> PackedRaster:
     """Stage A for one image on the device (JAX nodes.py:470-503, 535-556):
@@ -415,15 +448,9 @@ def prepare_packed_raster(mask, bboxes: Sequence[BBox], cfg: TopologyConfig,
     mask-preserved, which reclassification never changes, so this may run
     before stage [3]; `finish_from_packed` takes the final boxes."""
     device = resolve_device(device, "prepare_packed_raster")
-    if not isinstance(mask, torch.Tensor):
-        mask = torch.as_tensor(np.ascontiguousarray(mask), device=device)
-    in_h, in_w = mask.shape[:2]
-    new_h, new_w = cfg.resize_height, int(cfg.resize_height * (in_w / in_h))
-    emptied = mask.to(torch.float32, copy=True)
-    for x0, y0, x1, y1 in _subtract_arrays(bboxes, in_h, in_w):
-        emptied[y0:y1, x0:x1] = 0.0
-    enhanced = enhance_chain(_cv2_resize_u8(emptied, (new_h, new_w)), cfg)
-    return PackedRaster(pack_bits(enhanced > 0), (in_h, in_w), new_h, new_w)
+    enhanced, in_shape = _stage_a(mask, bboxes, cfg, device)
+    new_h, new_w = enhanced.shape
+    return PackedRaster(pack_bits(enhanced > 0), in_shape, new_h, new_w)
 
 
 def finish_from_packed(packed_host: np.ndarray, pr: PackedRaster, bboxes: Sequence[BBox],
@@ -450,16 +477,106 @@ def finish_from_packed(packed_host: np.ndarray, pr: PackedRaster, bboxes: Sequen
     return NodeExtraction(nodes, None, None, None, resized_bboxes, raw_node_count=raw_count)
 
 
+def _label_touch_stage(fg: torch.Tensor, wid: torch.Tensor, cfg: TopologyConfig,
+                       comp_boxes: torch.Tensor, comp_thr: torch.Tensor,
+                       comp_valid: torch.Tensor):
+    """CC labelling → stats → touch matrix on a (B, H, W) stack of
+    binarized rasters (JAX nodes.py:128, under stage B's vmap). `wid` (B,)
+    holds each raster's true width: the rasters may carry background
+    padding on the right, which changes no label, stat or touch result,
+    but relative areas use the true extent. Returns (labels, stats,
+    rel_area, keep, touch, iterations)."""
+    new_h = fg.shape[1]
+    labels, iters = label_components_counted(fg, max_iters=256)
+    stats = label_stats(labels, max_labels=cfg.max_labels)
+    rel_area = stats.contour_area / (float(new_h) * wid[:, None])
+    keep = stats.valid & (rel_area > cfg.contour_area_threshold)
+    # cv2.boundingRect is max-exclusive; widen label boxes by 1 as the
+    # reference's broad phase does (:1391-1400)
+    broad = stats.bbox + torch.tensor([0.0, 0.0, 1.0, 1.0], device=fg.device)
+    touch = touch_matrix_stack(labels, boundary_mask(fg), stats.labels, broad, keep,
+                               comp_boxes, comp_thr, comp_valid)
+    return labels, stats, rel_area, keep, touch, iters
+
+
+def stage_b_device(enhanced: torch.Tensor, widths: torch.Tensor, comp_boxes: torch.Tensor,
+                   comp_thr: torch.Tensor, comp_valid: torch.Tensor, cfg: TopologyConfig):
+    """Stage B of the device route on a chunk (JAX nodes.py:505-521):
+    (B, H, W) enhanced rasters → (uniq, centroids, rel_area, keep, touch,
+    iterations), all on the rasters' device."""
+    _labels, stats, rel_area, keep, touch, iters = _label_touch_stage(
+        enhanced > 0, widths, cfg, comp_boxes, comp_thr, comp_valid)
+    return stats.labels, stats.centroid, rel_area, keep, touch, iters
+
+
+def _extract_nodes_device_cc(masks, bboxes_list, cfg: TopologyConfig, pad_to: Optional[int],
+                             device) -> list[NodeExtraction]:
+    """The device route (JAX nodes.py:627-709): stage A per image, the
+    stack padded to a width that is a multiple of 128 and to `pad_to`
+    rasters, stage B on the device, one fetch, then the host assembly."""
+    n = len(masks)
+    comp_bucket = max(
+        _comp_bucket(max(1, sum(1 for b in bbs if b.class_name not in taxonomy.NON_COMPONENTS)))
+        for bbs in bboxes_list)
+    enhanced, metas = [], []
+    for mask, bboxes in zip(masks, bboxes_list):
+        enh, (in_h, in_w) = _stage_a(mask, bboxes, cfg, device)
+        new_h, new_w = enh.shape
+        resized_bboxes = [b.scaled(new_w / in_w, new_h / in_h) for b in bboxes]
+        comp_indices, cb, ct, cv = _component_arrays(resized_bboxes, cfg, bucket=comp_bucket)
+        enhanced.append(enh)
+        metas.append((resized_bboxes, comp_indices, cb, ct, cv, new_w))
+    pad_w = max(((e.shape[1] + 127) // 128) * 128 for e in enhanced)
+    batch = max(pad_to or 0, n)
+    stack = torch.zeros((batch, cfg.resize_height, pad_w), dtype=torch.float32, device=device)
+    for i, e in enumerate(enhanced):
+        stack[i, :, :e.shape[1]] = e
+    # padding rasters are zeros with the first image's components, as in JAX
+    pad = [metas[0]] * (batch - n)
+    widths = torch.tensor([m[5] for m in metas] + [pad_w] * (batch - n), dtype=torch.float32)
+    cb, ct, cv = (torch.from_numpy(np.stack([m[j] for m in metas + pad])) for j in (2, 3, 4))
+    outs = stage_b_device(stack, widths.to(device), cb.to(device), ct.to(device),
+                          cv.to(device), cfg)[:5]
+    fetched = PackedFetch([t.contiguous().view(torch.uint8) if t.dtype != torch.bool
+                           else t.to(torch.uint8) for t in outs]).get()
+    uniq_b, centroids_b, rel_area_b, keep_b, touch_b = (
+        f.view(np.int32) if t.dtype == torch.int32 else f.view(np.float32)
+        if t.dtype == torch.float32 else f.astype(bool) for f, t in zip(fetched, outs))
+    results = []
+    for i, (resized_bboxes, comp_indices, _cb, _ct, _cv, _w) in enumerate(metas):
+        keep = keep_b[i]
+        touch = touch_b[i][:, : len(comp_indices)]
+        if not comp_indices or not keep.any():
+            results.append(NodeExtraction([], None, None, None, resized_bboxes))
+            continue
+        nodes, raw_count = _assemble_nodes(resized_bboxes, comp_indices, uniq_b[i],
+                                           centroids_b[i], rel_area_b[i], keep, touch)
+        results.append(NodeExtraction(nodes, None, None, None, resized_bboxes,
+                                      raw_node_count=raw_count))
+    return results
+
+
 def extract_nodes_batched(masks: Sequence, bboxes_list: Sequence[Sequence[BBox]],
-                          cfg: Optional[TopologyConfig] = None,
-                          device="cuda") -> list[NodeExtraction]:
-    """Node extraction over a batch (JAX nodes.py:596, its default
-    host-CC route): stage A per image on the device, one device-to-host
-    copy of every packed raster, then the host stage per image. Gives the
-    nodes of per-image `extract_nodes`; the visualisation fields stay
-    None. `masks` are tensors on their device or numpy arrays."""
+                          cfg: Optional[TopologyConfig] = None, pad_to: Optional[int] = None,
+                          device_cc: bool = False, device="cuda") -> list[NodeExtraction]:
+    """Node extraction over a batch (JAX nodes.py:596). `masks` are tensors
+    on their device or numpy arrays; the visualisation fields stay None.
+
+    device_cc=False (the default, as in JAX): stage A per image on the
+    device, one device-to-host copy of every packed raster, then the
+    cv2-exact host stage per image; gives the nodes of per-image
+    `extract_nodes`, and ignores `pad_to`.
+    device_cc=True: the device route — labelling, statistics and touch
+    matrix for the whole stack on the device (`stage_b_device`) and one
+    fetch for the chunk; `pad_to` pads the stack to that many rasters.
+    Its nodes follow the pixel-based formulation of the JAX device route,
+    which is not the cv2-exact one."""
     device = resolve_device(device, "extract_nodes_batched")
     cfg = cfg or TopologyConfig()
+    if not len(masks):
+        return []
+    if device_cc:
+        return _extract_nodes_device_cc(masks, bboxes_list, cfg, pad_to, device)
     prs = [prepare_packed_raster(m, bbs, cfg, device) for m, bbs in zip(masks, bboxes_list)]
     hosts = PackedFetch([pr.packed_dev for pr in prs]).get()
     return [finish_from_packed(ph, pr, bbs, cfg)

@@ -352,6 +352,47 @@ def lossless_jpeg(samples: np.ndarray, predictor: int = 1, pt: int = 0,
     return out + b"\xff\xd9"
 
 
+def lossless_jpeg_sampled(planes: list, factors: list, predictor: int = 1, pt: int = 0) -> bytes:
+    """A lossless (SOF3) JPEG of subsampled components, one interleaved
+    scan: `planes[i]` is component i at its own size, ceil(W·h_i / h_max)
+    by ceil(H·v_i / v_max) for the image's W × H (planes[0] at h_max,
+    v_max), `factors[i]` its (h, v). Each plane is padded by replicating
+    its last column and row to the MCUs' extent, as the MCUs cover it."""
+    hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+    h0, w0 = planes[0].shape
+    width, height = w0 * hmax // factors[0][0], h0 * vmax // factors[0][1]
+    mcux, mcuy = -(-width // hmax), -(-height // vmax)
+    diffs = []
+    for plane, (fh, fv) in zip(planes, factors):
+        lw, lh = mcux * fh, mcuy * fv
+        padded = np.pad(plane, ((0, lh - plane.shape[0]), (0, lw - plane.shape[1])), mode="edge")
+        diffs.append(_lossless_differences(padded, predictor, pt, {0}))
+    put, flush = _bit_writer()
+    for uy in range(mcuy):
+        for ux in range(mcux):
+            for d, (fh, fv) in zip(diffs, factors):
+                for by in range(fv):
+                    for bx in range(fh):
+                        v = int(d[uy * fv + by, ux * fh + bx])
+                        if v == 32768:
+                            put(16, 5)
+                            continue
+                        v = v - 65536 if v > 32768 else v
+                        size = abs(v).bit_length()
+                        put(size, 5)
+                        if size:
+                            put(v if v > 0 else v - 1 + (1 << size), size)
+    counts = bytes(4) + bytes([17]) + bytes(11)
+    out = b"\xff\xd8\xff\xc4" + struct.pack(">H", 2 + 1 + 16 + 17) + b"\x00" + counts + bytes(range(17))
+    nc = len(planes)
+    sof = bytes([8]) + struct.pack(">HH", height, width) + bytes([nc]) + b"".join(
+        bytes([c + 1, (fh << 4) | fv, 0]) for c, (fh, fv) in enumerate(factors))
+    out += b"\xff\xc3" + struct.pack(">H", 2 + len(sof)) + sof
+    sos = bytes([nc]) + b"".join(bytes([c + 1, 0]) for c in range(nc)) + bytes([predictor, 0, pt])
+    out += b"\xff\xda" + struct.pack(">H", 2 + len(sos)) + sos
+    return out + flush() + b"\xff\xd9"
+
+
 # --------------------------------------------------------------------- BMP
 def bmp_bytes(w: int, h: int, bits: int, rows: list, palette: bytes = b"", compression: int = 0,
               header: int = 40, masks: bytes = b"", top_down: bool = False) -> bytes:
@@ -464,6 +505,297 @@ def webp_animation(first: np.ndarray, second: np.ndarray, canvas: tuple, at: tup
     return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
 
 
+# ------------------------------------------- GIF, TIFF, PNM, ICO, CUR, TGA
+def gif_lzw_plain(idx, min_bits: int) -> bytes:
+    """GIF LZW of indices with a clear code before the table would widen
+    the codes: every code a literal, min_bits + 1 bits wide."""
+    clear = 1 << min_bits
+    per = clear - 2
+    codes = []
+    for i in range(0, len(idx), per):
+        codes.append(clear)
+        codes += [int(v) for v in idx[i:i + per]]
+    codes.append(clear + 1)
+    acc = nbits = 0
+    out = bytearray()
+    for c in codes:
+        acc |= c << nbits
+        nbits += min_bits + 1
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _gif_table(palette: bytes) -> tuple[int, bytes]:
+    """(size field, table padded to a power of two entries)."""
+    k = max(1, (len(palette) // 3 - 1).bit_length()) - 1
+    return k, palette + bytes((3 << (k + 1)) - len(palette))
+
+
+def gif_bytes(width: int, height: int, frame: tuple, idx: np.ndarray, gpal: bytes = None,
+              lpal: bytes = None, transparency: int = None, interlace: bool = False,
+              min_bits: int = 8, version: bytes = b"GIF89a", comment: bytes = b"") -> bytes:
+    """A one-frame GIF: `frame` (x, y, w, h) on a width × height screen,
+    (h, w) indices stored in row order (interlaced: in the four passes'
+    order), plain LZW in 255-byte sub-blocks."""
+    out = bytearray(version + struct.pack("<HH", width, height))
+    if gpal is not None:
+        k, table = _gif_table(gpal)
+        out += bytes([0x80 | k, 0, 0]) + table
+    else:
+        out += bytes(3)
+    if comment:
+        out += b"\x21\xfe" + bytes([len(comment)]) + comment + b"\x00"
+    if transparency is not None:
+        out += b"\x21\xf9\x04" + bytes([1, 0, 0, transparency, 0])
+    x, y, w, h = frame
+    rows = np.arange(h)
+    if interlace:
+        rows = np.concatenate([np.arange(a, h, b) for a, b in ((0, 8), (4, 8), (2, 4), (1, 2))])
+    flags, table = (0x40 if interlace else 0), b""
+    if lpal is not None:
+        k, table = _gif_table(lpal)
+        flags |= 0x80 | k
+    out += b"\x2c" + struct.pack("<HHHHB", x, y, w, h, flags) + table + bytes([min_bits])
+    data = gif_lzw_plain(np.asarray(idx)[rows].reshape(-1), min_bits)
+    for i in range(0, len(data), 255):
+        out += bytes([len(data[i:i + 255])]) + data[i:i + 255]
+    return bytes(out) + b"\x00;"
+
+
+def packbits_encode(raw: bytes) -> bytes:
+    """PackBits: runs of 3 or more equal bytes as repeats, the rest as
+    literals of up to 128 bytes."""
+    out, i, n = bytearray(), 0, len(raw)
+    while i < n:
+        j = i
+        while j + 1 < n and raw[j + 1] == raw[i] and j - i < 127:
+            j += 1
+        if j - i >= 2:
+            out += bytes([(1 - (j - i + 1)) & 255, raw[i]])
+            i = j + 1
+            continue
+        start = i
+        while i < n and i - start < 128 and not (i + 2 < n and raw[i] == raw[i + 1] == raw[i + 2]):
+            i += 1
+        out += bytes([i - start - 1]) + raw[start:i]
+    return bytes(out)
+
+
+def tiff_lzw_encode(raw: bytes) -> bytes:
+    """TIFF LZW (MSB first, codes 9-12 bits widened one code early, as
+    libtiff writes them), a clear code at the start and when the table
+    fills."""
+    out, acc, nbits = bytearray(), [0], [0]
+    width = [9]
+
+    def put(code):
+        acc[0] = (acc[0] << width[0]) | code
+        nbits[0] += width[0]
+        while nbits[0] >= 8:
+            out.append((acc[0] >> (nbits[0] - 8)) & 255)
+            nbits[0] -= 8
+        acc[0] &= (1 << nbits[0]) - 1
+
+    table = {bytes([i]): i for i in range(256)}
+    nxt = 258
+    put(256)
+    w = b""
+    for byte in raw:
+        wc = w + bytes([byte])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        table[wc] = nxt
+        nxt += 1
+        if nxt >= 1 << width[0] and width[0] < 12:  # the decoder widens a code later
+            width[0] += 1
+        if nxt >= 4093:
+            put(256)
+            table = {bytes([i]): i for i in range(256)}
+            nxt, width[0] = 258, 9
+        w = bytes([byte])
+    if w:
+        put(table[w])
+    put(257)
+    if nbits[0]:
+        out.append((acc[0] << (8 - nbits[0])) & 255)
+    return bytes(out)
+
+
+def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = 2, compression: int = 1,
+               predictor: int = 1, planar: int = 1, tile: tuple = None, rows_per_strip: int = None,
+               orientation: int = None, extra: tuple = (), colormap: np.ndarray = None,
+               big_endian: bool = False, fill_order: int = 1) -> bytes:
+    """A one-IFD TIFF of (h, w, samples) uint8 values (each below 2**bits),
+    strips of `rows_per_strip` rows or `tile` (tw, th) tiles, compressed
+    with 1 (none), 5 (LZW), 8 or 32946 (Deflate) or 32773 (PackBits)."""
+    bo = ">" if big_endian else "<"
+    h, w, spp = samples.shape
+    planes = [samples[:, :, i:i + 1] for i in range(spp)] if planar == 2 else [samples]
+    tw, th = tile if tile else (w, rows_per_strip or h)
+    chunks = []
+    for plane in planes:
+        n = plane.shape[2]
+        for ty in range(0, h, th):
+            for tx in range(0, w, tw):
+                block = plane[ty:ty + th, tx:tx + tw]
+                if tile:  # tiles are whole: pad with zeros
+                    block = np.pad(block, ((0, th - block.shape[0]), (0, tw - block.shape[1]),
+                                           (0, 0)))
+                block = block.astype(np.uint8)
+                if predictor == 2:
+                    d = block.astype(np.int16)
+                    d[:, 1:] -= block[:, :-1].astype(np.int16)
+                    block = (d & 255).astype(np.uint8)
+                rows_ = block.reshape(block.shape[0], -1)
+                if bits < 8:
+                    rows_ = np.packbits(np.unpackbits(rows_[:, :, None], axis=2)[:, :, 8 - bits:]
+                                        .reshape(rows_.shape[0], -1), axis=1)
+                raw = rows_.tobytes()
+                if compression == 5:
+                    raw = tiff_lzw_encode(raw)
+                elif compression in (8, 32946):
+                    raw = zlib.compress(raw, 6)
+                elif compression == 32773:
+                    raw = packbits_encode(raw)
+                if fill_order == 2:  # the stored bytes, least significant bit first
+                    raw = bytes(int(f"{b:08b}"[::-1], 2) for b in raw)
+                chunks.append(raw)
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
+               262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
+    if fill_order != 1:
+        entries[266] = (3, [fill_order])
+    if predictor != 1:
+        entries[317] = (3, [predictor])
+    if orientation:
+        entries[274] = (3, [orientation])
+    if extra:
+        entries[338] = (3, list(extra))
+    if colormap is not None:
+        entries[320] = (3, [int(v) for v in colormap.T.reshape(-1)])
+    header = 8
+    data = bytearray()
+    offsets = []
+    for c in chunks:
+        offsets.append(header + len(data))
+        data += c + (b"\x00" if len(c) % 2 else b"")
+    if tile:
+        entries.update({322: (3, [tw]), 323: (3, [th]), 324: (4, offsets),
+                        325: (4, [len(c) for c in chunks])})
+    else:
+        entries.update({273: (4, offsets), 278: (4, [th]), 279: (4, [len(c) for c in chunks])})
+    ifd_at = header + len(data)
+    ifd = struct.pack(bo + "H", len(entries))
+    values = bytearray()
+    values_at = ifd_at + 2 + 12 * len(entries) + 4
+    for tag in sorted(entries):
+        kind, vals = entries[tag]
+        code = "H" if kind == 3 else "I"
+        packed = struct.pack(bo + code * len(vals), *vals)
+        if len(packed) <= 4:
+            ifd += struct.pack(bo + "HHI", tag, kind, len(vals)) + packed.ljust(4, b"\x00")
+        else:
+            ifd += struct.pack(bo + "HHII", tag, kind, len(vals), values_at + len(values))
+            values += packed + (b"\x00" if len(packed) % 2 else b"")
+    ifd += struct.pack(bo + "I", 0)
+    magic = b"MM\x00*" if big_endian else b"II*\x00"
+    return magic + struct.pack(bo + "I", ifd_at) + bytes(data) + ifd + bytes(values)
+
+
+def pnm_bytes(kind: str, samples: np.ndarray, maxval: int = 255, comment: bytes = b"") -> bytes:
+    """P1-P6 of (h, w) or (h, w, 3) values; a comment line in the header
+    and, for the plain kinds, inside the data."""
+    h, w = samples.shape[:2]
+    head = f"{kind}\n".encode() + (b"# " + comment + b"\n" if comment else b"") + f"{w} {h}\n".encode()
+    if kind not in ("P1", "P4"):
+        head += f"{maxval}\n".encode()
+    flat = samples.reshape(h, -1)
+    if kind == "P1":
+        body = b"\n".join(b"".join(b"1" if v else b"0" for v in row) for row in flat)
+        return head + body[:len(body) // 2] + b"# " + comment + b"\n" + body[len(body) // 2:]
+    if kind in ("P2", "P3"):
+        lines = [b" ".join(str(int(v)).encode() for v in row) for row in flat]
+        return head + b"\n".join(lines[:1] + [b"# " + comment] + lines[1:]) + b"\n"
+    if kind == "P4":
+        return head + np.packbits(flat.astype(bool), axis=1).tobytes()
+    return head + flat.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
+def dib_bytes(idx: np.ndarray, bits: int, palette: bytes, mask: np.ndarray = None) -> bytes:
+    """An icon's DIB: BITMAPINFOHEADER with twice the height, the palette,
+    the pixel rows bottom-up, then the 1-bit AND mask rows (32-bit
+    aligned). `idx` is (h, w) indices, or (h, w, 4) BGRA at 32 bits."""
+    h, w = idx.shape[:2]
+    if bits == 32:
+        rows = bmp_rows(np.ascontiguousarray(idx).reshape(h, -1), 32)
+    else:
+        rows = bmp_rows(idx, bits)
+    mask = np.zeros((h, w), bool) if mask is None else mask
+    mstride = -(-w // 32) * 4
+    mrows = [np.packbits(m).tobytes().ljust(mstride, b"\x00") for m in mask]
+    head = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, bits, 0, 0, 0, 0,
+                       len(palette) // 4 if bits <= 8 else 0, 0)
+    return head + palette + b"".join(rows[::-1]) + b"".join(mrows[::-1])
+
+
+def icon_bytes(images: list, kind: int = 1, hotspots: list = None) -> bytes:
+    """An ICO (kind 1) or CUR (kind 2) of (w, h, bits, colours, data)
+    entries in the given order."""
+    out = struct.pack("<HHH", 0, kind, len(images))
+    at = 6 + 16 * len(images)
+    body = b""
+    for i, (w, h, bits, colours, data) in enumerate(images):
+        planes, bpp = (1, bits) if kind == 1 else (hotspots or [(0, 0)] * len(images))[i]
+        out += struct.pack("<BBBBHHII", w & 255, h & 255, colours, 0, planes, bpp, len(data),
+                           at + len(body))
+        body += data
+    return out + body
+
+
+def tga_rle(px: np.ndarray) -> bytes:
+    """TGA RLE of (n, bytes) pixels of one row: repeats of equal pixels,
+    else raw packets, each of up to 128 (PIL refuses a packet that runs
+    past its row)."""
+    out, i, n = bytearray(), 0, len(px)
+    rows = [bytes(p) for p in px]
+    while i < n:
+        j = i
+        while j + 1 < n and rows[j + 1] == rows[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([0x80 | (j - i)]) + rows[i]
+            i = j + 1
+            continue
+        start = i
+        while i < n and i - start < 128 and not (i + 1 < n and rows[i] == rows[i + 1]):
+            i += 1
+        out += bytes([i - start - 1]) + b"".join(rows[start:i])
+    return bytes(out)
+
+
+def tga_bytes(px: np.ndarray, kind: int, depth: int, cmap: bytes = b"", cmap_start: int = 0,
+              cmap_depth: int = 24, top: bool = False, right: bool = False,
+              ident: bytes = b"") -> bytes:
+    """A TGA of (h, w, bytes) stored pixel bytes (BGR order, as written),
+    rows bottom-up unless `top`, mirrored if `right`."""
+    h, w = px.shape[:2]
+    rows = px[::-1] if not top else px
+    rows = rows[:, ::-1] if right else rows
+    flat = np.ascontiguousarray(rows).reshape(h * w, -1)
+    ncmap = len(cmap) // (cmap_depth // 8) if cmap else 0
+    head = struct.pack("<BBBHHBHHHHBB", len(ident), 1 if cmap else 0, kind, cmap_start, ncmap,
+                       cmap_depth if cmap else 0, 0, 0, w, h, depth,
+                       (0x20 if top else 0) | (0x10 if right else 0))
+    body = b"".join(tga_rle(r) for r in flat.reshape(h, w, -1)) if kind & 8 else flat.tobytes()
+    return head + ident + cmap + body
+
+
 def make(seed: int) -> dict[str, bytes]:
     rng = np.random.default_rng(seed)
     names = sorted(p.stem for p in EVAL.glob("*.png"))
@@ -517,6 +849,7 @@ def make(seed: int) -> dict[str, bytes]:
     files.update(more_jpeg(rng, img))
     files.update(webps(rng, names, base, img, small, pil_rgb(files["photo.jpg"])))
     files.update(bmps(rng, small))
+    files.update(upload_kinds(rng, names, small, img))
     return files
 
 
@@ -603,6 +936,122 @@ def bmps(rng: np.random.Generator, small: np.ndarray) -> dict[str, bytes]:
         header=124, masks=struct.pack("<4I", 0xFF, 0xFF00, 0xFF0000, 0xFF000000))
     files["bmp_rle8.bmp"] = bmp_bytes(w, h, 8, [rle_bytes(idx * 9, False)], pal256, compression=1)
     files["bmp_rle4.bmp"] = bmp_bytes(w, h, 4, [rle_bytes(idx, True)], pal16, compression=2)
+    return files
+
+
+def pil_bytes(im: Image.Image, fmt: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    im.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def upload_kinds(rng: np.random.Generator, names: list, small: np.ndarray,
+                 img: np.ndarray) -> dict[str, bytes]:
+    """GIF, TIFF, PNM, ICO, CUR and TGA files, and lossless JPEGs with
+    subsampled components; a GIF and an LZW TIFF of the first eval
+    drawing, pixel for pixel its PNG's, for the web UI on the card."""
+    files = {}
+    drawing = np.asarray(Image.open(EVAL / f"{names[0]}.png").convert("RGB"))
+    # the drawing's own colours (103) as the palette: the GIF holds its pixels
+    colours, inverse = np.unique(drawing.reshape(-1, 3), axis=0, return_inverse=True)
+    exact = Image.fromarray(inverse.reshape(drawing.shape[:2]).astype(np.uint8), "P")
+    exact.putpalette(colours.reshape(-1).tolist())
+    files[f"eval/{names[0]}.gif"] = pil_bytes(exact, "GIF")
+    files[f"eval/{names[0]}.tif"] = pil_bytes(Image.fromarray(drawing), "TIFF",
+                                              compression="tiff_lzw")
+    h, w = small.shape[:2]
+    quant = Image.fromarray(small).quantize(32)
+    idx = np.asarray(quant)
+    pal = bytes(quant.getpalette()[:96])
+    grey = np.asarray(Image.fromarray(small).convert("L"))
+    # GIF: PIL's LZW; offsets, transparency, local tables, interlace (here)
+    files["gif_pil.gif"] = pil_bytes(quant, "GIF")
+    files["gif_offset_transparent.gif"] = gif_bytes(w + 20, h + 9, (13, 5, w, h), idx,
+                                                    gpal=pal, transparency=7, comment=b"fixture")
+    lpal = rng.integers(0, 256, 96, dtype=np.uint8).tobytes()
+    files["gif_local_interlaced.gif"] = gif_bytes(w, h, (0, 0, w, h), idx, gpal=pal, lpal=lpal,
+                                                  interlace=True, version=b"GIF87a")
+    files["gif_grey.gif"] = gif_bytes(w, h, (0, 0, w, h), grey >> 4, min_bits=4)
+    # TIFF
+    rgba = np.concatenate([small, rng.integers(0, 256, (h, w, 1), dtype=np.uint8)], axis=2)
+    premul = rgba.copy()
+    premul[:, :, :3] = (small.astype(np.int32) * rgba[:, :, 3:] // 255).astype(np.uint8)
+    cmyk = np.concatenate([255 - small, (np.arange(w) * 80 // w).astype(np.uint8)[None, :, None]
+                           .repeat(h, 0)], axis=2)
+    cmap = rng.integers(0, 65536, (16, 3))
+    files["tiff_pil_lzw.tif"] = pil_bytes(Image.fromarray(small), "TIFF", compression="tiff_lzw")
+    files["tiff_rgb_strips.tif"] = tiff_bytes(small, rows_per_strip=10)
+    files["tiff_rgb_lzw_predictor.tif"] = tiff_bytes(small, compression=5, predictor=2,
+                                                     rows_per_strip=16)
+    files["tiff_rgba_deflate_tiles.tif"] = tiff_bytes(rgba, compression=32946, predictor=2,
+                                                      tile=(32, 16), extra=(2,))
+    files["tiff_rgba_assoc_packbits_mm.tif"] = tiff_bytes(premul, compression=32773, extra=(1,),
+                                                          big_endian=True, rows_per_strip=7)
+    files["tiff_planar_lzw.tif"] = tiff_bytes(small, compression=5, planar=2, rows_per_strip=20)
+    files["tiff_planar_tiles_deflate8.tif"] = tiff_bytes(small, compression=8, planar=2,
+                                                         tile=(48, 32))
+    files["tiff_cmyk.tif"] = tiff_bytes(cmyk, photometric=5, compression=5)
+    files["tiff_palette4.tif"] = tiff_bytes((idx % 16)[:, :, None], bits=4, photometric=3,
+                                            colormap=cmap, compression=32773)
+    files["tiff_grey4_whiteiszero.tif"] = tiff_bytes((grey >> 4)[:, :, None], bits=4,
+                                                     photometric=0)
+    files["tiff_bilevel_packbits.tif"] = tiff_bytes((grey > 128)[:, :, None].astype(np.uint8),
+                                                    bits=1, photometric=1, compression=32773)
+    files["tiff_bilevel_fill2.tif"] = tiff_bytes((grey > 100)[:, :, None].astype(np.uint8),
+                                                 bits=1, photometric=0, fill_order=2)
+    files["tiff_grey_orientation_6.tif"] = tiff_bytes(grey[:, :, None], photometric=1,
+                                                      compression=8, orientation=6)
+    files["tiff_rgb_orientation_3_tiles.tif"] = tiff_bytes(small, tile=(16, 16), orientation=3)
+    # PNM
+    files["pnm_p1.pbm"] = pnm_bytes("P1", grey[:20, :30] > 128, comment=b"plain bitmap")
+    files["pnm_p2_maxval_1000.pgm"] = pnm_bytes("P2", grey[:20, :30].astype(np.int64) * 1000 // 255,
+                                                maxval=1000, comment=b"wide grey")
+    files["pnm_p3_maxval_15.ppm"] = pnm_bytes("P3", small[:20, :30] >> 4, maxval=15,
+                                              comment=b"plain pixmap")
+    files["pnm_p4.pbm"] = pil_bytes(Image.fromarray(grey > 128), "PPM")
+    files["pnm_p5.pgm"] = pil_bytes(Image.fromarray(grey), "PPM")
+    files["pnm_p5_16bit.pgm"] = pnm_bytes("P5", grey.astype(np.int64) * 257 // 2, maxval=65535)
+    files["pnm_p6.ppm"] = pil_bytes(Image.fromarray(small), "PPM")
+    files["pnm_p6_maxval_1023.ppm"] = pnm_bytes("P6", small.astype(np.int64) * 4 + 3, maxval=1023)
+    # ICO and CUR
+    files["ico_png.ico"] = pil_bytes(Image.fromarray(rgba[:64, :64]), "ICO",
+                                     sizes=[(16, 16), (32, 32), (64, 64)])
+    pal8 = rng.integers(0, 256, 256 * 4, dtype=np.uint8).tobytes()
+    pal16 = rng.integers(0, 256, 16 * 4, dtype=np.uint8).tobytes()
+    idx8 = rng.integers(0, 256, (48, 48), dtype=np.uint8)
+    mask = rng.random((48, 48)) < 0.3
+    files["ico_dib.ico"] = icon_bytes([
+        (32, 32, 4, 16, dib_bytes(idx8[:32, :32] % 16, 4, pal16)),
+        (48, 48, 8, 0, dib_bytes(idx8, 8, pal8, mask)),
+        (48, 48, 4, 16, dib_bytes(idx8 % 16, 4, pal16, mask))])
+    bgra = np.ascontiguousarray(rgba[:40, :40][:, :, [2, 1, 0, 3]])
+    files["ico_dib32.ico"] = icon_bytes([(40, 40, 32, 0, dib_bytes(bgra, 32, b""))])
+    files["cursor.cur"] = icon_bytes([(32, 32, 4, 16, dib_bytes(idx8[:32, :32] % 16, 4, pal16)),
+                                      (48, 48, 8, 0, dib_bytes(idx8, 8, pal8, mask))], kind=2,
+                                     hotspots=[(3, 4), (10, 12)])
+    # TGA
+    bgr = np.ascontiguousarray(small[:, :, ::-1])
+    files["tga_pil_rgb.tga"] = pil_bytes(Image.fromarray(small), "TGA")
+    files["tga_pil_rle_rgba.tga"] = pil_bytes(Image.fromarray(rgba), "TGA", rle=True)
+    files["tga_pil_palette.tga"] = pil_bytes(quant, "TGA")
+    files["tga_grey_rle.tga"] = tga_bytes(grey[:, :, None], 11, 8, top=True)
+    v = small.astype(np.uint16) >> 3
+    p15 = ((v[..., 0] << 10) | (v[..., 1] << 5) | v[..., 2] | 0x8000).astype("<u2")
+    files["tga_16bit_top_right.tga"] = tga_bytes(p15.view(np.uint8).reshape(h, w, 2), 2, 16,
+                                                 top=True, right=True, ident=b"tga fixture")
+    c16 = (rng.integers(0, 1 << 15, 40)).astype("<u2").tobytes()
+    files["tga_cmap16_rle.tga"] = tga_bytes((idx % 40 + 5)[:, :, None].astype(np.uint8), 9, 8,
+                                            cmap=c16, cmap_start=5, cmap_depth=16)
+    files["tga_bgra_right.tga"] = tga_bytes(np.ascontiguousarray(rgba[:, :, [2, 1, 0, 3]]), 2, 32,
+                                            right=True)
+    # lossless JPEG with subsampled components (libjpeg-turbo reads IDs 1-3
+    # as RGB in lossless mode and upsamples by replication)
+    planes = [img[:63, :97, 0], img[:63:2, :97:2, 1], img[:63:2, :97:2, 2]]
+    files["lossless_420.jpg"] = lossless_jpeg_sampled(
+        [np.ascontiguousarray(p) for p in planes], [(2, 2), (1, 1), (1, 1)], predictor=1)
+    planes = [img[:64, :96, 0], img[:64, :96:2, 1], img[:64, :96:2, 2]]
+    files["lossless_422.jpg"] = lossless_jpeg_sampled(
+        [np.ascontiguousarray(p) for p in planes], [(2, 1), (1, 1), (1, 1)], predictor=7, pt=2)
     return files
 
 

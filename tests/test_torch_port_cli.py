@@ -3,9 +3,9 @@ CPU: the cases of tests/test_cli.py (`simulate`, `analyze-batch`), plus
 `analyze` with checkpoint flags and the trained reader's value pass,
 each against the same call made in process, JPEG, BMP and WebP input
 (an eval drawing's netlist from its lossless WebP and its BMP equal to
-its PNG's with the shipped detector) beside a GIF that `analyze-batch`
-skips and names, and the refusals of what is not ported (a GIF, a
-PaliGemma CIRCUITVISION_VLM). The web UI's `serve` is
+its PNG's with the shipped detector) beside a JPEG 2000 file that
+`analyze-batch` skips and names, and the refusals of what is not ported
+(a JPEG 2000 file, a PaliGemma CIRCUITVISION_VLM). The web UI's `serve` is
 tested in tests/test_torch_port_webapp.py, `analyze-batch --distributed`
 in tests/test_torch_port_parallel.py.
 """
@@ -163,17 +163,18 @@ class TestAnalyzeCommands:
 
 class TestRefusals:
     @pytest.mark.parametrize("argv,words", [
-        (["analyze", "{gif}", "--device", "cpu", "--scale", "n"], "GIF.*Queue A 19"),
+        (["analyze", "{jp2}", "--device", "cpu", "--scale", "n"], "JPEG 2000.*Queue A 19"),
     ])
     def test_not_ported_commands(self, tmp_path, capsys, argv, words):
-        """A GIF (BMP and WebP, once refused here, are read now)."""
+        """A JPEG 2000 file (BMP, WebP, GIF and TIFF, once refused here,
+        are read now)."""
         import re
 
         from PIL import Image
 
-        gif = tmp_path / "c.gif"
-        Image.fromarray(CIRCUITS[1][0]).save(gif)
-        assert cli.main([a.format(gif=gif) for a in argv]) != 0
+        jp2 = tmp_path / "c.jp2"
+        Image.fromarray(CIRCUITS[1][0]).save(jp2)
+        assert cli.main([a.format(jp2=jp2) for a in argv]) != 0
         assert re.search(words, capsys.readouterr().err)
 
     def test_paligemma_client(self, drawings, capsys, monkeypatch):
@@ -186,9 +187,9 @@ class TestRefusals:
 
     def test_jpeg_input(self, tmp_path, capsys):
         """analyze-batch over a directory of a JPEG, a BMP, a WebP and a
-        GIF named .webp: the JPEG's, BMP's and WebP's netlists are
-        analyze_batch's on the decoded pixels, the GIF is skipped and
-        named."""
+        JPEG 2000 file named .webp: the JPEG's, BMP's and WebP's netlists
+        are analyze_batch's on the decoded pixels, the JPEG 2000 file is
+        skipped and named."""
         from PIL import Image
 
         d = tmp_path / "imgs"
@@ -196,12 +197,13 @@ class TestRefusals:
         cv2.imwrite(str(d / "c.jpg"), CIRCUITS[1][0])
         cv2.imwrite(str(d / "d.bmp"), CIRCUITS[1][0])
         Image.fromarray(CIRCUITS[0][0]).save(d / "e.webp", lossless=True)
-        Image.fromarray(CIRCUITS[0][0]).save(d / "f.webp", format="GIF")
+        Image.fromarray(CIRCUITS[0][0]).save(d / "f.webp", format="JPEG2000")
         out_dir = tmp_path / "netlists"
         assert cli.main(["analyze-batch", str(d), "--device", "cpu", "--scale", "n",
                          "--det-size", "64", "--out-dir", str(out_dir)]) == 0
         err = capsys.readouterr().err
-        assert "skipped" in err and "f.webp" in err and "GIF" in err and "Queue A 19" in err
+        assert "skipped" in err and "f.webp" in err and "JPEG 2000" in err \
+            and "Queue A 19" in err
         assert "d.bmp" not in err and "e.webp" not in err
         cfg = tconfig.PipelineConfig(detector=tconfig.DetectorConfig(scale="n", img_size=64),
                                      use_sam2=False)

@@ -175,15 +175,16 @@ def _lossless_jfif() -> bytes:
     (lambda: _sof_patched(_JPEG, precision=12), "12-bit"),
     (lambda: _sof_patched(_JPEG, marker=0xCB), "lossless frames with arithmetic coding"),
     (_lossless_jfif, "lossless.*colour conversion"),
-    (lambda: _pil_bytes(Image.new("RGB", (8, 8)), "GIF"), "GIF.*Queue A 19"),
-    (lambda: _pil_bytes(Image.new("RGB", (8, 8)), "TIFF"), "TIFF.*Queue A 19"),
+    (lambda: _pil_bytes(Image.new("RGB", (8, 8)), "JPEG2000"), "JPEG 2000.*Queue A 19"),
+    (lambda: _pil_bytes(Image.new("RGB", (8, 8)), "AVIF"), "AVIF.*Queue A 19"),
 ])
 def test_other_formats_raise_naming_them(make, match):
     """What the reader still refuses: 12-bit, hierarchical and arithmetic
     lossless JPEG frames and a lossless frame that would need a colour
     conversion, which PIL refuses too (the JAX decode_image raises on
-    each), and formats other than PNG, JPEG, BMP and WebP, which the JAX
-    server reads through PIL (ROADMAP Queue A 19)."""
+    each), and JPEG 2000 and AVIF, which the JAX server reads through PIL
+    (ROADMAP Queue A 19). GIF and TIFF, once refused here, are read now
+    (tests/test_torch_port_image_kinds.py)."""
     data = make()
     if data[:2] == b"\xff\xd8":
         with pytest.raises(Exception):

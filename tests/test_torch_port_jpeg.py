@@ -315,3 +315,23 @@ def test_lossless_sweep_equals_jax(h, w, predictor, pt, channels, restart_rows, 
     CMYK."""
     img = np.random.default_rng(seed).integers(0, 256, (h, w, channels), dtype=np.uint8)
     _equal(fixtures.lossless_jpeg(img, predictor=predictor, pt=pt, restart_rows=restart_rows))
+
+
+@settings(max_examples=40, derandomize=True, deadline=None)
+@given(h=st.integers(1, 21), w=st.integers(1, 23), predictor=st.integers(1, 7),
+       pt=st.integers(0, 3),
+       factors=st.sampled_from([((2, 2), (1, 1), (1, 1)), ((2, 1), (1, 1), (1, 1)),
+                                ((1, 2), (1, 1), (1, 1)), ((2, 2), (2, 1), (1, 2)),
+                                ((4, 1), (1, 1), (2, 1)), ((1, 1), (1, 1), (1, 1))]),
+       seed=st.integers(0, 2 ** 16))
+def test_lossless_subsampled_sweep_equals_jax(h, w, predictor, pt, factors, seed):
+    """Lossless (SOF3) frames with subsampled components (the fixture
+    script's lossless_jpeg_sampled; PIL's libjpeg-turbo upsamples them by
+    replication and converts no colours): every predictor, point
+    transforms, odd sizes whose MCUs run past the image. The first
+    component has the largest factors, so it is h x w."""
+    rng = np.random.default_rng(seed)
+    hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+    planes = [rng.integers(0, 256, (-(-h * fv // vmax), -(-w * fh // hmax)), dtype=np.uint8)
+              for fh, fv in factors]
+    _equal(fixtures.lossless_jpeg_sampled(planes, list(factors), predictor=predictor, pt=pt))

@@ -127,7 +127,7 @@ def test_gaussian_taps_identical():
 def test_label_components_identical(path):
     fg = cv2.imread(path, cv2.IMREAD_GRAYSCALE) < 128
     ref = np.asarray(jcc.label_components(jnp.asarray(fg), max_iters=256))
-    np.testing.assert_array_equal(tcc.label_components(fg), ref)
+    np.testing.assert_array_equal(tcc.label_image(fg), ref)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

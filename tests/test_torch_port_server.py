@@ -255,7 +255,7 @@ def test_http_roundtrip_stats_and_metrics(pipeline, reference):
             assert [(b["class"], b["xmin"], b["ymin"], b["xmax"], b["ymax"])
                     for b in payload["bboxes"]] == [
                 (b.class_name, b.xmin, b.ymin, b.xmax, b.ymax) for b in want.bboxes_orig_nms]
-            code, payload = _post(url, b"GIF89a not a png")
+            code, payload = _post(url, b"ABCD not an image")
             assert code == 500 and "not a PNG" in payload["error"]
             assert _post(url, _png(GOLDEN))[1]["netlist_text"] == \
                 reference[GOLDEN.shape].netlist_text
@@ -278,10 +278,11 @@ def test_http_roundtrip_stats_and_metrics(pipeline, reference):
 
 
 def test_jpeg_request_is_served_on_its_pixels(pipeline):
-    """POST /analyze with a JPEG, a BMP and a lossless WebP: the served
-    netlist is the executor's on the pixels the port's reader decodes
-    (PIL's, tests/test_torch_port_jpeg.py, _bmp.py, _webp.py), and a TIFF
-    answers 500 naming ROADMAP Queue A 19."""
+    """POST /analyze with a JPEG, a BMP, a lossless WebP and an LZW TIFF:
+    the served netlist is the executor's on the pixels the port's reader
+    decodes (PIL's, tests/test_torch_port_jpeg.py, _bmp.py, _webp.py,
+    _image_kinds.py), and a JPEG 2000 file answers 500 naming ROADMAP
+    Queue A 19."""
     from PIL import Image
 
     ok, jpeg = cv2.imencode(".jpg", cv2.cvtColor(LOOP, cv2.COLOR_RGB2BGR),
@@ -298,13 +299,16 @@ def test_jpeg_request_is_served_on_its_pixels(pipeline):
             buf = io.BytesIO()
             Image.fromarray(LOOP).save(buf, "WEBP", lossless=True)
             want = ex.submit(LOOP).result(timeout=WAIT_S)
-            for body in (bmp.tobytes(), buf.getvalue()):
+            ok, tiff = cv2.imencode(".tiff", cv2.cvtColor(LOOP, cv2.COLOR_RGB2BGR))
+            for body in (bmp.tobytes(), buf.getvalue(), tiff.tobytes()):
                 assert np.array_equal(decode_image(body), LOOP)
                 code, payload = _post(url, body)
                 assert code == 200 and payload["netlist_text"] == want.netlist_text
-            ok, tiff = cv2.imencode(".tiff", LOOP)
-            code, payload = _post(url, tiff.tobytes())
-            assert code == 500 and "TIFF" in payload["error"] and "Queue A 19" in payload["error"]
+            jp2 = io.BytesIO()
+            Image.fromarray(LOOP).save(jp2, "JPEG2000")
+            code, payload = _post(url, jp2.getvalue())
+            assert code == 500 and "JPEG 2000" in payload["error"] \
+                and "Queue A 19" in payload["error"]
         finally:
             server.shutdown()
             t.join(timeout=30)

@@ -183,6 +183,8 @@ _DEFAULT_DEVICE_CALLS = {
     "prepare_packed_raster": lambda **kw: tnodes.prepare_packed_raster(
         _MASK, [], tnodes.TopologyConfig(), **kw),
     "extract_nodes_batched": lambda **kw: tnodes.extract_nodes_batched([_MASK], [[]], **kw),
+    "extract_nodes_batched_device_cc": lambda **kw: tnodes.extract_nodes_batched(
+        [_MASK], [[]], pad_to=2, device_cc=True, **kw),
     "segment_classical": lambda **kw: treclass.segment_classical(_RGB, **kw),
     "reclassify_terminals": lambda **kw: treclass.reclassify_terminals(
         _RGB, [TBBox("terminal", 0.9, 5, 5, 15, 15)], **kw),

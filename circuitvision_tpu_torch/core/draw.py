@@ -12,8 +12,9 @@ drawings make, on uint8 images in place, at the LINE_8 line type:
     cv2 5.0.0 adds: a line thicker than 1 is clipped to the image
     widened by the thickness before it is drawn;
   * `put_text` and `get_text_size` — FONT_HERSHEY_SIMPLEX at the sizes
-    core/hershey.py holds, and digits at the sizes of the enumeration
-    image (core/hershey_digits.py): glyph coverage maps blended one after another,
+    core/hershey.py holds, and digits at any size, rasterised from the
+    outlines of core/rubik_digits.py as cv2 rasterises them (cpp/draw.cpp):
+    glyph coverage maps blended one after another,
     (dst·(255 − a) + colour·a + 127) // 255, at integer advances; nothing
     is drawn when the origin lies right of the image, as in cv2.
 
@@ -27,7 +28,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import hershey, hershey_digits
+from . import hershey, rubik_digits
 from .native import build_library
 
 _SRC = Path(__file__).resolve().parent / "cpp" / "draw.cpp"
@@ -40,7 +41,11 @@ def _library() -> ctypes.CDLL:
     lib.cv_draw_polyline.argtypes = [_P, _I, _I, _I, _P, _I, _I, _P, _I]
     lib.cv_draw_fill_convex.argtypes = [_P, _I, _I, _I, _P, _I, _P]
     lib.cv_draw_circle_filled.argtypes = [_P, _I, _I, _I, _L, _L, _L, _P]
-    for fn in (lib.cv_draw_polyline, lib.cv_draw_fill_convex, lib.cv_draw_circle_filled):
+    lib.cv_draw_coverage.argtypes = [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P]
+    lib.cv_glyph_box.argtypes = [_P, ctypes.c_float, _P]
+    lib.cv_glyph_coverage.argtypes = [_P, _I, _P, ctypes.c_float, _P]
+    for fn in (lib.cv_draw_polyline, lib.cv_draw_fill_convex, lib.cv_draw_circle_filled,
+               lib.cv_draw_coverage, lib.cv_glyph_box, lib.cv_glyph_coverage):
         fn.restype = None
     return lib
 
@@ -113,13 +118,41 @@ def draw_contours(img: np.ndarray, contours, color, thickness: int = 1) -> np.nd
     return img
 
 
+@functools.lru_cache(maxsize=32)
+def _digit_glyphs(size: int, bold: bool) -> dict:
+    """{digit: (advance, dx, dy, coverage)} at a pixel size and weight,
+    each coverage map cut to its inked box, as cv2 cuts it."""
+    weight = rubik_digits.WEIGHTS[bold]
+    scale = np.float32(size / rubik_digits.ASCENT)
+    # the advance to 1/64 pixel, then whole pixels
+    advance = int(np.floor(np.float32(rubik_digits.ADVANCE[weight]) * scale * np.float32(64)
+                           + np.float32(0.5))) >> 6
+    lib, out = _library(), {}
+    for digit, (box, verts) in rubik_digits.GLYPHS[weight].items():
+        b, v = np.asarray(box, np.int32), np.asarray(verts, np.int32)
+        dims = np.zeros(5, np.int32)
+        lib.cv_glyph_box(b.ctypes.data, scale, dims.ctypes.data)
+        x0, y0, w, h, pad = dims.tolist()
+        cov = np.empty((h + 2 * pad, w + 2 * pad), np.uint8)
+        lib.cv_glyph_coverage(v.ctypes.data, len(v) // 5, b.ctypes.data, scale, cov.ctypes.data)
+        ys, xs = np.nonzero(cov.any(axis=1))[0], np.nonzero(cov.any(axis=0))[0]
+        if len(ys):
+            cov = cov[ys[0]:ys[-1] + 1, xs[0]:xs[-1] + 1].copy()
+            x0, y0 = x0 - pad + int(xs[0]), y0 - pad + int(ys[0])
+        else:
+            cov = np.zeros((0, 0), np.uint8)
+        out[digit] = (advance, x0, y0, cov)
+    return out
+
+
 def _font(scale: float, thickness: int) -> tuple[dict, int]:
     """(glyphs, getTextSize height) at a size: core/hershey.py's printable
-    ASCII at the drawings' sizes, else core/hershey_digits.py's digits."""
+    ASCII at the drawings' sizes, else the digits of core/rubik_digits.py
+    at the pixel size the scale draws, which is getTextSize's height."""
     if (scale, thickness) in hershey.TEXT_HEIGHT:
         return hershey.glyphs(scale, thickness), hershey.TEXT_HEIGHT[(scale, thickness)]
-    return (hershey_digits.glyphs(scale, thickness),
-            hershey_digits.text_height(scale, thickness))
+    size, bold = rubik_digits.render_class(scale, thickness)
+    return _digit_glyphs(size, bold), size
 
 
 def get_text_size(text: str, scale: float, thickness: int) -> tuple[tuple[int, int], int]:
@@ -139,23 +172,16 @@ def put_text(img: np.ndarray, text: str, org, scale: float, color,
              thickness: int = 1) -> np.ndarray:
     """cv2.putText(img, text, org, FONT_HERSHEY_SIMPLEX, scale, color,
     thickness) at a size core/hershey.py holds (printable ASCII) or, for
-    digits, core/hershey_digits.py."""
+    digits, any size (core/rubik_digits.py)."""
     x, y = map(int, org)
-    h, w = img.shape[:2]
-    if x >= w:
+    if x >= img.shape[1]:
         return img
     g = _font(scale, thickness)[0]
-    col = _color(img, color).astype(np.int32)
+    col, target, lib = _color(img, color), _target(img), _library()
     for c in text:
         adv, dx, dy, cov = g[c]
-        x0, y0 = x + dx, y + dy
-        ya, yb = max(y0, 0), min(y0 + cov.shape[0], h)
-        xa, xb = max(x0, 0), min(x0 + cov.shape[1], w)
-        if cov.size and ya < yb and xa < xb:
-            a = cov[ya - y0:yb - y0, xa - x0:xb - x0].astype(np.int32)
-            if img.ndim == 3:
-                a = a[:, :, None]
-            dst = img[ya:yb, xa:xb].astype(np.int32)
-            img[ya:yb, xa:xb] = ((dst * (255 - a) + col * a + 127) // 255).astype(np.uint8)
+        if cov.size:
+            lib.cv_draw_coverage(*target, cov.ctypes.data, cov.shape[0], cov.shape[1], x + dx,
+                                 y + dy, col.ctypes.data)
         x += adv
     return img

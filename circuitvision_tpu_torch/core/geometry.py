@@ -121,3 +121,20 @@ def bboxes_proximal(a: BBox, b: BBox, threshold: int) -> bool:
         return True
     h, v = edge_distances(a, b)
     return h <= threshold and v <= threshold
+
+
+def near_box(px, py, x0, y0, x1, y1, threshold):
+    """The terminal-matching proximity (src/circuit_analyzer.py:811-846):
+    inside the box, or within `threshold` of any box edge LINE, measured
+    per axis without bounding the other axis. On numbers or broadcasting
+    tensors alike; topology/matching.py applies it to every boundary pixel
+    and component at once."""
+    inside = (px >= x0) & (px <= x1) & (py >= y0) & (py <= y1)
+    return (inside | (abs(px - x0) <= threshold) | (abs(px - x1) <= threshold)
+            | (abs(py - y0) <= threshold) | (abs(py - y1) <= threshold))
+
+
+def point_near_bbox(point: tuple[float, float], bbox: BBox, pixel_threshold: float) -> bool:
+    """`near_box` for one point and one box."""
+    px, py = point
+    return bool(near_box(px, py, bbox.xmin, bbox.ymin, bbox.xmax, bbox.ymax, pixel_threshold))

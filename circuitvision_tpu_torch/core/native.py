@@ -16,15 +16,19 @@ from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
-_lock = threading.Lock()
+_locks: dict[Path, threading.Lock] = {}
+_guard = threading.Lock()
 
 
 def build_library(src: Path, stem: str) -> ctypes.CDLL:
     """g++ `src` into build/lib<stem>-<hash>.so unless it is there, and
-    load it. The caller types the functions."""
-    with _lock:
-        digest = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode())
-        path = BUILD_DIR / f"lib{stem}-{digest.hexdigest()[:16]}.so"
+    load it. The caller types the functions. Builds of different sources
+    may run at once, from threads."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode())
+    path = BUILD_DIR / f"lib{stem}-{digest.hexdigest()[:16]}.so"
+    with _guard:
+        lock = _locks.setdefault(path, threading.Lock())
+    with lock:
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_suffix(f".{os.getpid()}.tmp")

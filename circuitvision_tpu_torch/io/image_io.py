@@ -73,7 +73,10 @@ from ..core.native import build_library
 from .bmp import decode_bmp
 from .gif import decode_gif
 from .ico import decode_cur, decode_ico
+from .pcx import decode_pcx, looks_like_pcx
 from .pnm import decode_pnm
+from .psd import decode_psd
+from .qoi import decode_qoi
 from .tga import decode_tga, looks_like_tga
 from .tiff import decode_tiff
 from .webp import decode_webp
@@ -136,15 +139,19 @@ def _jpeg_encoder() -> ctypes.CDLL:
 
 
 def load_native() -> None:
-    """Build (at first use) and load the host decoders and the JPEG encoder."""
+    """Build (at first use, one g++ a source, all at once) and load the
+    host decoders and the JPEG encoder."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .ccitt import load_library as ccitt_library
     from .lzw import load_library as lzw_library
     from .webp import _library as webp_library
 
-    _png_library()
-    _jpeg_library()
-    _jpeg_encoder()
-    webp_library()
-    lzw_library()
+    loaders = (_png_library, _jpeg_library, _jpeg_encoder, webp_library, lzw_library,
+               ccitt_library)
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        for job in [pool.submit(f) for f in loaders]:
+            job.result()
 
 
 def encode_jpeg(rgb: np.ndarray, quality: int = 75) -> bytes:
@@ -190,8 +197,7 @@ def encode_png(arr: np.ndarray, exif_orientation: Optional[int] = None, level: i
 
 
 #: formats PIL reads that this reader does not, by their magic bytes
-_UNREAD = ((b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"), (b"\xff\x4f\xff\x51", "JPEG 2000"),
-           (b"qoif", "QOI"), (b"8BPS", "PSD"), (b"\x0a\x05\x01", "PCX"))
+_UNREAD = ((b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"), (b"\xff\x4f\xff\x51", "JPEG 2000"))
 
 
 def _format_name(data: bytes) -> str:
@@ -588,6 +594,12 @@ def _decode(data: bytes) -> tuple[np.ndarray, dict]:
         return decode_ico(data), {}
     if data[:4] == b"\x00\x00\x02\x00" and len(data) >= 6 and data[4:6] != b"\x00\x00":
         return decode_cur(data), {}  # with no entries PIL goes on, to TGA
+    if looks_like_pcx(data):
+        return decode_pcx(data), {}
+    if data[:4] == b"qoif":
+        return decode_qoi(data), {}
+    if data[:4] == b"8BPS":
+        return decode_psd(data), {}
     name = _format_name(data)
     if not name.startswith("bytes") or not looks_like_tga(data):
         raise ImageFormatError(f"not a PNG, JPEG, BMP, WebP, GIF, TIFF, PNM, ICO, CUR or TGA "

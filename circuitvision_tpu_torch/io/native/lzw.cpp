@@ -198,4 +198,33 @@ int cv_packbits(const uint8_t *in, size_t n, uint8_t *out, size_t cap, size_t *w
     return 0;
 }
 
+// PCX run-length lines as Pillow's PcxDecode reads them: a byte with its
+// two high bits set repeats the next byte as often as its low six bits
+// say, any other byte is itself. Decodes up to `lines` lines of
+// `line_bytes` into out; returns the lines decoded (fewer when the data
+// ends), or -1 where a run reaches past the end of a line (Pillow's overrun,
+// which fails the image).
+int cv_pcx_rle(const uint8_t *in, size_t n, uint8_t *out, int line_bytes, int lines) {
+  size_t p = 0;
+  int x = 0, y = 0;
+  while (y < lines && p < n) {
+    uint8_t *line = out + (size_t)y * line_bytes;
+    if ((in[p] & 0xC0) == 0xC0) {
+      if (p + 1 >= n) break;
+      for (int k = in[p] & 0x3F; k > 0; --k) {
+        if (x >= line_bytes) return -1;
+        line[x++] = in[p + 1];
+      }
+      p += 2;
+    } else {
+      line[x++] = in[p++];
+    }
+    if (x >= line_bytes) {
+      x = 0;
+      ++y;
+    }
+  }
+  return y;
+}
+
 }  // extern "C"

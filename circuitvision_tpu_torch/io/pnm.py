@@ -10,7 +10,11 @@ convert("RGB").
     binary samples are two bytes, big-endian, past maxval 255;
   * the plain (ASCII) formats' tokens, "0"/"1" characters of P1 with or
     without whitespace, comments anywhere;
-  * PIL's own "Pf", "PyP", "PyRGBA", "PyCMYK" and "P0CMYK" raise.
+  * Pillow's own variants: "Pf" (32-bit float grey, little-endian when
+    the scale is negative, rows bottom-up; PIL's "F", clamped to 0-255
+    and truncated), "PyRGBA" (alpha dropped), "PyCMYK" and "P0CMYK"
+    (PIL's CMYK conversion), and "PyP", a palette image with no palette,
+    which PIL converts to black.
 
 A file PIL cannot read raises `ImageFormatError` naming the reason.
 """
@@ -21,7 +25,9 @@ import re
 import numpy as np
 
 _WHITESPACE = b" \t\n\x0b\x0c\r"
-_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB"}
+_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB",
+          b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P", b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
+_BANDS = {"RGB": 3, "RGBA": 4, "CMYK": 4}
 _MAX_PIXELS = 2 * int(1024 * 1024 * 1024 // 4 // 3)
 
 
@@ -79,8 +85,7 @@ def decode_pnm(data: bytes) -> np.ndarray:
             break
         magic += c
     if magic not in _MODES:
-        what = "PIL's own PNM variants are" if magic[:2] in (b"Pf", b"Py", b"P0") else "it is"
-        raise _error(f"{magic!r} is not read ({what} not a Netpbm P1-P6 file)")
+        raise _error(f"{magic!r} is not read (not a PPM file)")
     mode = _MODES[magic]
     token, pos = _token(data, pos)
     w = _int(token)
@@ -90,8 +95,10 @@ def decode_pnm(data: bytes) -> np.ndarray:
         raise _error(f"image has no pixels ({w} x {h})")
     if w * h > _MAX_PIXELS:
         raise _error(f"{w} x {h} pixels is over PIL's decompression-bomb limit")
-    bands = 3 if mode == "RGB" else 1
+    bands = _BANDS.get(mode, 1)
     plain = magic in (b"P1", b"P2", b"P3")
+    if mode == "F":
+        return _pfm(data, pos, w, h)
     if mode == "1":
         if plain:
             bits = bytes(b for b in _plain_body(data[pos:]) if b not in _WHITESPACE)
@@ -148,4 +155,26 @@ def decode_pnm(data: bytes) -> np.ndarray:
         if got < n:
             raise _error("not enough image data")
     samples = np.minimum(scaled, 255).astype(np.uint8).reshape(h, w, bands)
-    return samples if bands == 3 else np.repeat(samples, 3, axis=2)
+    if mode == "P":  # no palette in the file: PIL's conversion gives black
+        return np.zeros((h, w, 3), np.uint8)
+    if mode == "CMYK":
+        from .image_io import cmyk_to_rgb
+        return cmyk_to_rgb(255 - samples)
+    return samples[:, :, :3] if bands > 1 else np.repeat(samples, 3, axis=2)
+
+
+def _pfm(data: bytes, pos: int, w: int, h: int) -> np.ndarray:
+    """Pf: the scale token (its sign the byte order), float32 rows bottom-up."""
+    token, pos = _token(data, pos)
+    try:
+        scale = float(token)
+    except ValueError:
+        raise _error(f"header token {token!r} is not a number") from None
+    if scale == 0.0 or not np.isfinite(scale):
+        raise _error("scale must be finite and non-zero")
+    raw = data[pos:pos + 4 * w * h]
+    if len(raw) < 4 * w * h:
+        raise _error("image file is truncated")
+    v = np.frombuffer(raw, "<f4" if scale < 0 else ">f4").reshape(h, w)[::-1]
+    v = np.nan_to_num(v.astype(np.float64), nan=0.0, posinf=255.0, neginf=0.0)
+    return np.repeat(np.clip(v, 0, 255).astype(np.uint8)[:, :, None], 3, axis=2)

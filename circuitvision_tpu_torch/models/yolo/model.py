@@ -9,6 +9,8 @@ JAX package's NHWC layout; the convolutions run NCHW inside.
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Mapping, Union
 
 import torch
 import torch.nn as nn
@@ -124,3 +126,21 @@ class YOLOv11(nn.Module):
             cls = _conv_then_bias(m(f"cv3_{i}_2"), m(f"cv3_{i}_1_1")(m(f"cv3_{i}_1_0")(cls)))
             outs.append(torch.cat([box, cls], dim=1).float().permute(0, 2, 3, 1))
         return outs
+
+
+def param_count(module_or_state: Union[nn.Module, Mapping]) -> int:
+    """The number of values in a detector's variables, batch statistics
+    included, as the JAX package's `param_count` counts its variables
+    tree: a module's parameters and buffers, or every array leaf of a
+    state dict or nested variables mapping."""
+    if isinstance(module_or_state, nn.Module):
+        leaves = [*module_or_state.parameters(), *module_or_state.buffers()]
+    else:
+        leaves, todo = [], [module_or_state]
+        while todo:
+            node = todo.pop()
+            if isinstance(node, Mapping):
+                todo.extend(node.values())
+            else:
+                leaves.append(node)
+    return sum(math.prod(tuple(x.shape)) for x in leaves)

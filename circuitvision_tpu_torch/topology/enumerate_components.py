@@ -10,11 +10,12 @@ component itself, the other components, the static text boxes and the
 ids already drawn; the nearest permissible one wins, and a two-step
 fallback puts an id that fits nowhere near the component's top left or
 the image's. The digits are drawn as the JAX package's cv2.putText draws
-them (core/draw.put_text with core/hershey_digits.py's glyphs): a white
-halo at thickness + 2, then the digits in the reference's (0, 0, 255) —
-blue on the RGB image. The glyph table covers images up to
-`hershey_digits.MAX_ROWS` rows; a taller one raises EnumerationSizeError
-before anything is drawn.
+them (core/draw.put_text, which rasterises cv2's Rubik digit outlines,
+core/rubik_digits.py, as cv2 does): a white halo at thickness + 2, then
+the digits in the reference's (0, 0, 255) — blue on the RGB image. The
+drawing was checked against cv2's for images up to `rubik_digits.MAX_ROWS`
+(65500) rows; a taller one raises EnumerationSizeError before anything
+is drawn.
 """
 from __future__ import annotations
 
@@ -24,12 +25,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from ..core import draw, hershey_digits, taxonomy
+from ..core import draw, rubik_digits, taxonomy
 from ..core.types import BBox
 
 
 class EnumerationSizeError(ValueError):
-    """An image taller than the digit table's sizes cover."""
+    """An image taller than the digits' drawing was checked at."""
 
 
 def _overlap_area(a: tuple, b: tuple) -> int:
@@ -97,10 +98,11 @@ def enumerate_components(image: np.ndarray, bboxes: Sequence[BBox],
     """Draw visual ids next to the electrical components. Returns (the
     drawn copy of `image`, the boxes with their visual ids)."""
     h, w = np.shape(image)[:2]
-    if h > hershey_digits.MAX_ROWS:
+    if h > rubik_digits.MAX_ROWS:
         raise EnumerationSizeError(
-            f"enumerate_components draws ids on images up to {hershey_digits.MAX_ROWS} rows "
-            f"high (core/hershey_digits.py); this one has {h}")
+            f"enumerate_components draws ids on images up to {rubik_digits.MAX_ROWS} rows "
+            f"high, the tallest its digits were checked at (core/rubik_digits.py); "
+            f"this one has {h}")
     img = np.array(image, copy=True, order="C")
     excluded = excluded_labels if excluded_labels is not None else taxonomy.NON_COMPONENTS
 

@@ -6,9 +6,9 @@ Counterpart of the JAX package's `topology/matching.py`:
                 AND exists boundary pixel p of label k with
                     point_near_bbox(p, comp c bbox, thr_c)
 
-with the reference's `point_near_bbox` (src/circuit_analyzer.py:811-846):
-inside the box, or within the class threshold of any box edge LINE,
-measured per axis. JAX's existence test is one (K, HW) × (HW, C)
+with the reference's `point_near_bbox` (src/circuit_analyzer.py:811-846),
+core/geometry.near_box: inside the box, or within the class threshold of
+any box edge LINE, measured per axis. JAX's existence test is one (K, HW) × (HW, C)
 product; here it sums the near predicate over each boundary pixel's
 label row with a scatter-add, which counts pixels and so gives the same
 booleans in any order.
@@ -16,6 +16,8 @@ booleans in any order.
 from __future__ import annotations
 
 import torch
+
+from ..core.geometry import near_box
 
 
 def touch_matrix(labels, boundary, uniq_labels, label_bboxes, label_valid,
@@ -50,11 +52,7 @@ def touch_matrix_stack(labels, boundary, uniq_labels, label_bboxes, label_valid,
     out = []
     for i in range(b):
         bx0, by0, bx1, by1 = comp_boxes[i].unbind(1)
-        t = comp_thresholds[i]
-        inside = (px >= bx0) & (px <= bx1) & (py >= by0) & (py <= by1)
-        near_edge = ((px - bx0).abs() <= t) | ((px - bx1).abs() <= t) | \
-            ((py - by0).abs() <= t) | ((py - by1).abs() <= t)
-        near = (inside | near_edge) & comp_valid[i][None, :]
+        near = near_box(px, py, bx0, by0, bx1, by1, comp_thresholds[i]) & comp_valid[i][None, :]
         # each boundary pixel's row among the K labels, K for the others
         rowmap = torch.full((h * w + 1,), k, dtype=torch.int64, device=dev)
         rowmap.scatter_(0, uniq_labels[i].to(torch.int64), torch.arange(k, device=dev))

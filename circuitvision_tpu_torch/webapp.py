@@ -17,9 +17,9 @@ Differences from the JAX package:
   * the debug images are drawn without cv2 (core/viz.py), byte-equal to
     the JAX package's;
   * `/device` reports the device the analyzer runs on, from torch;
-  * the phasor plot is not ported (ROADMAP Queue A 7: it needs
-    matplotlib's axes), so `/simulate` sends `phasors: ""`, as the JAX
-    webapp does where matplotlib is absent;
+  * `/simulate` sends the phasor plot of an AC result as a PNG
+    (sim/plots.py, drawn without matplotlib), wherever the JAX webapp
+    sends one;
   * requests that touch the analyzer run one at a time under one lock,
     on the analyzer's device; a CUDA error answers 500 with its text and
     the next request runs on the card again, never on the CPU.
@@ -39,6 +39,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from .io.image_io import encode_png
+from .sim.plots import phasor_plot
 
 _STATE: dict = {"analyzer": None, "result": None, "lock": threading.Lock()}
 
@@ -324,9 +325,12 @@ class Handler(BaseHTTPRequestHandler):
                 text = self._body().decode()
                 with _STATE["lock"]:
                     sim = _STATE["analyzer"].simulate(text, frequency_hz=freq)
+                phasors = ""
+                if sim.ok and hasattr(sim.raw, "frequency_hz"):
+                    phasors = _png_b64(phasor_plot(sim.raw))
                 self._json({"ok": sim.ok, "node_voltages": sim.node_voltages,
                             "branch_currents": sim.branch_currents, "error": sim.error,
-                            "phasors": ""})
+                            "phasors": phasors})
             else:
                 self.send_error(404)
         except Exception as e:  # surface errors to the UI, CUDA ones included

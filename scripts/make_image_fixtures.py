@@ -631,16 +631,21 @@ def tiff_lzw_encode(raw: bytes) -> bytes:
 def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = 2, compression: int = 1,
                predictor: int = 1, planar: int = 1, tile: tuple = None, rows_per_strip: int = None,
                orientation: int = None, extra: tuple = (), colormap: np.ndarray = None,
-               big_endian: bool = False, fill_order: int = 1) -> bytes:
-    """A one-IFD TIFF of (h, w, samples) uint8 values (each below 2**bits),
-    strips of `rows_per_strip` rows or `tile` (tw, th) tiles, compressed
-    with 1 (none), 5 (LZW), 8 or 32946 (Deflate) or 32773 (PackBits)."""
+               big_endian: bool = False, fill_order: int = 1, sample_format: int = 1,
+               bigtiff: bool = False, chunks: list = None, more: dict = None) -> bytes:
+    """A one-IFD TIFF (or BigTIFF) of (h, w, samples) values, each below
+    2**bits (or signed, or float, by `sample_format` 2 or 3), strips of
+    `rows_per_strip` rows or `tile` (tw, th) tiles, compressed with 1
+    (none), 5 (LZW), 8 or 32946 (Deflate) or 32773 (PackBits) — or the
+    strips or tiles given as `chunks`, with `more` entries (tag: (type,
+    values), type 7 a bytes value)."""
     bo = ">" if big_endian else "<"
     h, w, spp = samples.shape
     planes = [samples[:, :, i:i + 1] for i in range(spp)] if planar == 2 else [samples]
     tw, th = tile if tile else (w, rows_per_strip or h)
-    chunks = []
-    for plane in planes:
+    wide = np.dtype(bo + {1: "u", 2: "i", 3: "f"}[sample_format] + str(max(bits, 8) // 8))
+    given, chunks = chunks, []
+    for plane in planes if given is None else []:
         n = plane.shape[2]
         for ty in range(0, h, th):
             for tx in range(0, w, tw):
@@ -648,14 +653,17 @@ def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = 2, compres
                 if tile:  # tiles are whole: pad with zeros
                     block = np.pad(block, ((0, th - block.shape[0]), (0, tw - block.shape[1]),
                                            (0, 0)))
-                block = block.astype(np.uint8)
-                if predictor == 2:
-                    d = block.astype(np.int16)
-                    d[:, 1:] -= block[:, :-1].astype(np.int16)
-                    block = (d & 255).astype(np.uint8)
+                block = (block.astype(np.uint8) if bits <= 8 else
+                         block.astype(np.int64) if bits == 12 else block.astype(wide))
+                if predictor == 2:  # differences of the samples' words, modulo their width
+                    d = block.view(np.uint8 if bits <= 8 else bo + f"u{bits // 8}").astype(np.int64)
+                    d[:, 1:] -= d[:, :-1].copy()
+                    block = (d & ((1 << max(bits, 8)) - 1)).astype(
+                        np.uint8 if bits <= 8 else bo + f"u{bits // 8}")
                 rows_ = block.reshape(block.shape[0], -1)
-                if bits < 8:
-                    rows_ = np.packbits(np.unpackbits(rows_[:, :, None], axis=2)[:, :, 8 - bits:]
+                if bits < 8 or bits == 12:  # packed, most significant bit first
+                    shifts = np.arange(bits - 1, -1, -1)
+                    rows_ = np.packbits(((rows_[:, :, None] >> shifts) & 1).astype(np.uint8)
                                         .reshape(rows_.shape[0], -1), axis=1)
                 raw = rows_.tobytes()
                 if compression == 5:
@@ -667,6 +675,8 @@ def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = 2, compres
                 if fill_order == 2:  # the stored bytes, least significant bit first
                     raw = bytes(int(f"{b:08b}"[::-1], 2) for b in raw)
                 chunks.append(raw)
+    chunks = given if given is not None else chunks
+    offset_kind = 16 if bigtiff else 4
     entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
                262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
     if fill_order != 1:
@@ -677,35 +687,46 @@ def tiff_bytes(samples: np.ndarray, bits: int = 8, photometric: int = 2, compres
         entries[274] = (3, [orientation])
     if extra:
         entries[338] = (3, list(extra))
+    if sample_format != 1:
+        entries[339] = (3, [sample_format] * spp)
     if colormap is not None:
         entries[320] = (3, [int(v) for v in colormap.T.reshape(-1)])
-    header = 8
+    entries.update(more or {})
+    header = 16 if bigtiff else 8
     data = bytearray()
     offsets = []
     for c in chunks:
         offsets.append(header + len(data))
         data += c + (b"\x00" if len(c) % 2 else b"")
     if tile:
-        entries.update({322: (3, [tw]), 323: (3, [th]), 324: (4, offsets),
+        entries.update({322: (3, [tw]), 323: (3, [th]), 324: (offset_kind, offsets),
                         325: (4, [len(c) for c in chunks])})
     else:
-        entries.update({273: (4, offsets), 278: (4, [th]), 279: (4, [len(c) for c in chunks])})
+        entries.update({273: (offset_kind, offsets), 278: (4, [th]),
+                        279: (4, [len(c) for c in chunks])})
     ifd_at = header + len(data)
-    ifd = struct.pack(bo + "H", len(entries))
+    count, entry, inline, off = ("Q", 20, 8, "Q") if bigtiff else ("H", 12, 4, "I")
+    ifd = struct.pack(bo + count, len(entries))
     values = bytearray()
-    values_at = ifd_at + 2 + 12 * len(entries) + 4
+    values_at = ifd_at + struct.calcsize(count) + entry * len(entries) + inline
     for tag in sorted(entries):
         kind, vals = entries[tag]
-        code = "H" if kind == 3 else "I"
-        packed = struct.pack(bo + code * len(vals), *vals)
-        if len(packed) <= 4:
-            ifd += struct.pack(bo + "HHI", tag, kind, len(vals)) + packed.ljust(4, b"\x00")
+        if kind == 7:
+            packed = bytes(vals)
         else:
-            ifd += struct.pack(bo + "HHII", tag, kind, len(vals), values_at + len(values))
+            packed = struct.pack(bo + {3: "H", 4: "I", 16: "Q"}[kind] * len(vals), *vals)
+        head = struct.pack(bo + "HH" + off, tag, kind, len(vals))
+        if len(packed) <= inline:
+            ifd += head + packed.ljust(inline, b"\x00")
+        else:
+            ifd += head + struct.pack(bo + off, values_at + len(values))
             values += packed + (b"\x00" if len(packed) % 2 else b"")
-    ifd += struct.pack(bo + "I", 0)
-    magic = b"MM\x00*" if big_endian else b"II*\x00"
-    return magic + struct.pack(bo + "I", ifd_at) + bytes(data) + ifd + bytes(values)
+    ifd += struct.pack(bo + off, 0)
+    if bigtiff:
+        magic = (b"MM\x00+" if big_endian else b"II+\x00") + struct.pack(bo + "HHQ", 8, 0, ifd_at)
+    else:
+        magic = (b"MM\x00*" if big_endian else b"II*\x00") + struct.pack(bo + "I", ifd_at)
+    return magic + bytes(data) + ifd + bytes(values)
 
 
 def pnm_bytes(kind: str, samples: np.ndarray, maxval: int = 255, comment: bytes = b"") -> bytes:
@@ -850,6 +871,7 @@ def make(seed: int) -> dict[str, bytes]:
     files.update(webps(rng, names, base, img, small, pil_rgb(files["photo.jpg"])))
     files.update(bmps(rng, small))
     files.update(upload_kinds(rng, names, small, img))
+    files.update(queue_19a_kinds(rng, names, small))
     return files
 
 
@@ -1052,6 +1074,233 @@ def upload_kinds(rng: np.random.Generator, names: list, small: np.ndarray,
     planes = [img[:64, :96, 0], img[:64, :96:2, 1], img[:64, :96:2, 2]]
     files["lossless_422.jpg"] = lossless_jpeg_sampled(
         [np.ascontiguousarray(p) for p in planes], [(2, 1), (1, 1), (1, 1)], predictor=7, pt=2)
+    return files
+
+
+def psd_bytes(mode: int, bits: int, planes: list, compression: int = 0, table: bytes = b"",
+              extra_channels: int = 0) -> bytes:
+    """A PSD of (h, w) uint8 planes (1-bit planes already packed, rows of
+    ceil(w / 8) bytes), raw or PackBits rows, no resources or layers."""
+    h = planes[0].shape[0]
+    w = planes[0].shape[1] * (8 if bits == 1 else 1)
+    planes = planes + [np.full_like(planes[0], 77)] * extra_channels
+    head = b"8BPS" + struct.pack(">H6sHIIHH", 1, bytes(6), len(planes), h, w, bits, mode)
+    head += struct.pack(">I", len(table)) + table + struct.pack(">II", 0, 0)
+    if compression == 0:
+        return head + struct.pack(">H", 0) + b"".join(p.tobytes() for p in planes)
+    rows = [packbits_encode(r.tobytes()) for p in planes for r in p]
+    return (head + struct.pack(">H", 1) + struct.pack(f">{len(rows)}H", *map(len, rows))
+            + b"".join(rows))
+
+
+def qoi_bytes(px: np.ndarray) -> bytes:
+    """QOI of (h, w, 3 or 4) uint8 pixels, every operation the format has."""
+    h, w, ch = px.shape
+    flat = np.concatenate([px.reshape(-1, ch), np.full((h * w, 4 - ch), 255, np.uint8)], 1)
+    out = bytearray(b"qoif" + struct.pack(">IIBB", w, h, ch, 0))
+    seen = [(0, 0, 0, 0)] * 64
+    prev, run = (0, 0, 0, 255), 0
+    for p in map(tuple, flat.tolist()):
+        if p == prev:
+            run += 1
+            if run == 62:
+                out.append(0xC0 | (run - 1))
+                run = 0
+            continue
+        if run:
+            out.append(0xC0 | (run - 1))
+            run = 0
+        k = (p[0] * 3 + p[1] * 5 + p[2] * 7 + p[3] * 11) % 64
+        dr, dg, db = ((p[i] - prev[i] + 128) % 256 - 128 for i in range(3))
+        if seen[k] == p:
+            out.append(k)
+        elif p[3] != prev[3]:
+            out += bytes((0xFF, *p))
+        elif -2 <= dr <= 1 and -2 <= dg <= 1 and -2 <= db <= 1:
+            out.append(0x40 | (dr + 2) << 4 | (dg + 2) << 2 | (db + 2))
+        elif -32 <= dg <= 31 and -8 <= dr - dg <= 7 and -8 <= db - dg <= 7:
+            out += bytes((0x80 | (dg + 32), (dr - dg + 8) << 4 | (db - dg + 8)))
+        else:
+            out += bytes((0xFE, *p[:3]))
+        seen[k] = p
+        prev = p
+    if run:
+        out.append(0xC0 | (run - 1))
+    return bytes(out) + bytes(7) + b"\x01"
+
+
+def pcx_bytes(lines: np.ndarray, w: int, bits: int, planes: int, palette: bytes = bytes(48),
+              tail: bytes = b"", version: int = 5, stride: int = None) -> bytes:
+    """A PCX of (h, planes · stride) line bytes, run-length coded (runs kept
+    inside each line)."""
+    h = lines.shape[0]
+    stride = stride or lines.shape[1] // planes
+    head = struct.pack("<BBBBHHHHHH", 10, version, 1, bits, 0, 0, w - 1, h - 1, 72, 72)
+    head += palette.ljust(48, b"\x00") + bytes([0, planes]) + struct.pack("<HH", stride, 1)
+    head = head.ljust(128, b"\x00")
+    body = bytearray()
+    for line in lines.tolist():
+        i = 0
+        while i < len(line):
+            j = i
+            while j < len(line) and j - i < 63 and line[j] == line[i]:
+                j += 1
+            if j - i > 1 or line[i] >= 0xC0:
+                body += bytes((0xC0 | (j - i), line[i]))
+            else:
+                body.append(line[i])
+            i = j
+    return head + bytes(body) + tail
+
+
+def jpeg_tiff_bytes(img: np.ndarray, rows_per_strip: int, quality: int = 85) -> bytes:
+    """A YCbCr (photometric 6, 4:2:0) JPEG-compressed TIFF: each strip a
+    JPEG stream of PIL's without its tables, which go into JPEGTables."""
+    h, w = img.shape[:2]
+    tables, chunks = None, []
+    for y in range(0, h, rows_per_strip):
+        jpg = jpeg_pil(np.ascontiguousarray(img[y:y + rows_per_strip]), quality=quality,
+                       subsampling=2)
+        segs, pos = [], 2
+        while jpg[pos + 1] != 0xDA:
+            (n,) = struct.unpack(">H", jpg[pos + 2:pos + 4])
+            segs.append((jpg[pos + 1], jpg[pos:pos + 2 + n]))
+            pos += 2 + n
+        tables = b"\xff\xd8" + b"".join(b for m, b in segs if m in (0xDB, 0xC4)) + b"\xff\xd9"
+        chunks.append(b"\xff\xd8" + b"".join(b for m, b in segs if m not in (0xDB, 0xC4, 0xE0))
+                      + jpg[pos:])
+    return tiff_bytes(img, photometric=6, compression=7, rows_per_strip=rows_per_strip,
+                      chunks=chunks, more={347: (7, tables), 530: (3, [2, 2])})
+
+
+def queue_19a_kinds(rng: np.random.Generator, names: list, small: np.ndarray) -> dict[str, bytes]:
+    """TIFFs of wide, signed and floating-point samples and BigTIFFs; a
+    16-bit RGB TIFF of the first eval drawing (each sample v · 257, so
+    its high bytes are the PNG's pixels) for the web UI on the card; QOI,
+    PCX, PSD and Pillow's own PNM variants."""
+    files = {}
+    drawing = np.asarray(Image.open(EVAL / f"{names[0]}.png").convert("RGB"))
+    files[f"eval/{names[0]}_16bit.tif"] = tiff_bytes(drawing.astype(np.uint16) * 257, bits=16,
+                                                     compression=8, predictor=2,
+                                                     rows_per_strip=64)
+    small = np.ascontiguousarray(small[:41, :59])  # the fixture set stays under 2 MB
+    h, w = small.shape[:2]
+    grey = np.asarray(Image.fromarray(small).convert("L")).astype(np.int64)
+    wide = grey * 300 + rng.integers(0, 300, (h, w))  # spans 0-76500: clamps above 255
+    files["tiff16_grey.tif"] = pil_bytes(Image.fromarray((wide // 2).astype(np.uint16), "I;16"),
+                                         "TIFF")
+    files["tiff16_grey_mm_lzw.tif"] = tiff_bytes((wide // 300)[:, :, None], bits=16,
+                                                 photometric=1, compression=5, predictor=2,
+                                                 big_endian=True, rows_per_strip=20)
+    files["tiff16_grey_whiteiszero.tif"] = tiff_bytes((wide // 600)[:, :, None], bits=16,
+                                                      photometric=0, compression=32773)
+    files["tiff16_rgb_deflate_tiles.tif"] = tiff_bytes(
+        small.astype(np.int64) * 257 + rng.integers(0, 257, small.shape), bits=16,
+        compression=32946, tile=(32, 16), predictor=2)
+    rgba16 = np.concatenate([small.astype(np.int64) * 257,
+                             rng.integers(0, 65536, (h, w, 1))], axis=2)
+    files["tiff16_rgba_mm.tif"] = tiff_bytes(rgba16, bits=16, extra=(2,), big_endian=True)
+    premul = rgba16.copy()
+    premul[:, :, :3] = premul[:, :, :3] * premul[:, :, 3:] // 65535
+    files["tiff16_rgba_assoc_lzw.tif"] = tiff_bytes(premul, bits=16, extra=(1,), compression=5)
+    files["tiff16_cmyk.tif"] = tiff_bytes(
+        np.concatenate([65535 - small.astype(np.int64) * 257, (wide % 65536)[:, :, None]], 2),
+        bits=16, photometric=5, rows_per_strip=30)
+    files["tiff16_rgb_planar_lzw.tif"] = tiff_bytes(small.astype(np.int64) * 251, bits=16,
+                                                    planar=2, compression=5)
+    files["tiff32_grey.tif"] = tiff_bytes((wide // 4)[:, :, None], bits=32, photometric=1,
+                                          compression=8)
+    files["tiff12_grey_lzw.tif"] = tiff_bytes((wide // 19)[:, :, None], bits=12, photometric=1,
+                                              compression=5, rows_per_strip=9)
+    files["tiff_int8.tif"] = tiff_bytes((grey - 128)[:, :, None], photometric=1, sample_format=2)
+    files["tiff_int16_mm.tif"] = tiff_bytes((wide - 20000)[:, :, None] // 2, bits=16,
+                                            photometric=1, sample_format=2, big_endian=True)
+    files["tiff_int32_lzw.tif"] = tiff_bytes((wide - 300)[:, :, None], bits=32, photometric=1,
+                                             sample_format=2, compression=5, predictor=2)
+    files["tiff_float32.tif"] = pil_bytes(
+        Image.fromarray((grey * 1.3 - 40 + rng.random((h, w))).astype(np.float32), "F"), "TIFF")
+    files["tiff_float32_mm_deflate.tif"] = tiff_bytes(
+        (grey * 1.3 - 40 + rng.random((h, w)))[:, :, None], bits=32, photometric=1,
+        sample_format=3, big_endian=True, compression=8, rows_per_strip=25)
+    files["bigtiff_rgb_lzw.tif"] = tiff_bytes(small, compression=5, rows_per_strip=16,
+                                              bigtiff=True)
+    files["bigtiff_grey16_tiles.tif"] = tiff_bytes((wide // 300)[:, :, None], bits=16,
+                                                   photometric=1, tile=(32, 32), bigtiff=True)
+    files["tiff_int16_mm_lzw.tif"] = tiff_bytes((wide - 20000)[:, :, None] // 2, bits=16,
+                                                photometric=1, sample_format=2,
+                                                big_endian=True, compression=5)
+    # CCITT: PIL's T.6 of the eval drawing's ink, T.4 2-D with fill bits, and
+    # (written here from PIL's strips) MH in min-is-white, T.6 in fill order 2
+    ink = np.asarray(Image.fromarray(drawing).convert("L")) < 128
+    files["tiff_ccitt_g4_drawing.tif"] = pil_bytes(Image.fromarray(ink), "TIFF",
+                                                   compression="group4")
+    files["tiff_ccitt_g3_2d_fill.tif"] = pil_bytes(Image.fromarray(ink), "TIFF",
+                                                   compression="group3",
+                                                   tiffinfo={292: 5, 278: 64})
+    for name, comp, scheme in (("tiff_ccitt_mh_whiteiszero.tif", "tiff_ccitt", 2),
+                               ("tiff_ccitt_g4_fill2.tif", "group4", 4)):
+        pil = pil_bytes(Image.fromarray(ink[:120, :200]), "TIFF", compression=comp)
+        tags = Image.open(io.BytesIO(pil)).tag_v2
+        strip = pil[tags[273][0]:tags[273][0] + tags[279][0]]
+        fill2 = scheme == 4
+        if fill2:
+            strip = bytes(int(f"{b:08b}"[::-1], 2) for b in strip)
+        files[name] = tiff_bytes(ink[:120, :200, None].astype(np.uint8), bits=1,
+                                 photometric=1 if fill2 else 0, compression=scheme,
+                                 chunks=[strip], fill_order=2 if fill2 else 1)
+    # JPEG compression: PIL's (RGB and grey through libtiff), YCbCr strips here
+    files["tiff_jpeg_pil_rgb.tif"] = pil_bytes(Image.fromarray(small), "TIFF",
+                                               compression="jpeg")
+    files["tiff_jpeg_pil_grey.tif"] = pil_bytes(Image.fromarray(small).convert("L"), "TIFF",
+                                                compression="jpeg", quality=60)
+    files["tiff_jpeg_ycbcr_strips.tif"] = jpeg_tiff_bytes(small, 32)
+    # QOI: PIL's writer, and every operation (written here)
+    rgba = np.concatenate([small, rng.integers(0, 256, (h, w, 1), dtype=np.uint8)], axis=2)
+    rgba[h // 2:, :, 3] = 255
+    files["qoi_pil_rgb.qoi"] = pil_bytes(Image.fromarray(small), "QOI")
+    files["qoi_rgba_every_op.qoi"] = qoi_bytes(rgba)
+    # PCX: PIL's writer for 1-bit, grey, palette and RGB; 1 bit in 2 and 4
+    # planes with the header palette, an odd width, an even stride given
+    quant = Image.fromarray(small).quantize(16)
+    g8 = np.asarray(Image.fromarray(small).convert("L"))
+    files["pcx_pil_1bit.pcx"] = pil_bytes(Image.fromarray(g8 > 128), "PCX")
+    files["pcx_pil_grey.pcx"] = pil_bytes(Image.fromarray(g8), "PCX")
+    files["pcx_pil_palette.pcx"] = pil_bytes(quant, "PCX")
+    files["pcx_pil_rgb.pcx"] = pil_bytes(Image.fromarray(small), "PCX")
+    idx = np.asarray(quant)
+    for planes in (2, 4):
+        s_ = (w + 7) // 8
+        line = np.concatenate([np.packbits((idx >> k) & 1, axis=1) for k in range(planes)], 1)
+        files[f"pcx_{planes}planes.pcx"] = pcx_bytes(
+            line, w, 1, planes, rng.integers(0, 256, 48, dtype=np.uint8).tobytes(), stride=s_)
+    odd = small[:, :w - (1 - w % 2)]  # an odd width: the stride rounds up to even
+    ow = odd.shape[1]
+    lines = np.concatenate([np.pad(odd[:, :, c], ((0, 0), (0, 1))) for c in range(3)], 1)
+    files["pcx_rgb_odd_width.pcx"] = pcx_bytes(lines, ow, 8, 3, stride=ow + 1)
+    # PSD: the merged image of every mode PIL reads, raw and PackBits
+    cmyk = np.concatenate([255 - small, g8[:, :, None] // 3], axis=2)
+    table = rng.integers(0, 256, 768, dtype=np.uint8).tobytes()
+    files["psd_rgb_raw.psd"] = psd_bytes(3, 8, [small[:, :, c] for c in range(3)])
+    files["psd_rgba_packbits.psd"] = psd_bytes(3, 8, [rgba[:, :, c] for c in range(4)],
+                                               compression=1)
+    files["psd_rgb_5channels_packbits.psd"] = psd_bytes(3, 8, [small[:, :, c] for c in range(3)],
+                                                        compression=1, extra_channels=2)
+    files["psd_cmyk_packbits.psd"] = psd_bytes(4, 8, [255 - cmyk[:, :, c] for c in range(4)],
+                                               compression=1)
+    files["psd_grey.psd"] = psd_bytes(1, 8, [g8])
+    files["psd_indexed.psd"] = psd_bytes(2, 8, [np.asarray(quant)], compression=1, table=table)
+    files["psd_bitmap.psd"] = psd_bytes(0, 1, [np.packbits(g8 > 100, axis=1)])
+    files["psd_duotone.psd"] = psd_bytes(8, 8, [g8], table=bytes(20))
+    # PNM: Pillow's own variants
+    fl = (g8.astype(np.float32) * 1.2 - 20 + rng.random((h, w)).astype(np.float32))
+    files["pnm_pf_le.pfm"] = f"Pf\n{w} {h}\n-1.0\n".encode() + fl[::-1].astype("<f4").tobytes()
+    files["pnm_pf_be.pfm"] = f"Pf\n{w} {h}\n2.5\n".encode() + fl[::-1].astype(">f4").tobytes()
+    files["pnm_pyrgba.pnm"] = f"PyRGBA\n{w} {h}\n255\n".encode() + rgba.tobytes()
+    files["pnm_pycmyk_maxval_1000.pnm"] = (f"PyCMYK\n{w} {h}\n1000\n".encode()
+                                           + (cmyk.astype(np.int64) * 1000 // 255)
+                                           .astype(">u2").tobytes())
+    files["pnm_p0cmyk.pnm"] = f"P0CMYK\n{w} {h}\n255\n".encode() + cmyk.tobytes()
+    files["pnm_pyp.pnm"] = f"PyP\n{w} {h}\n255\n".encode() + np.asarray(quant).tobytes()
     return files
 
 

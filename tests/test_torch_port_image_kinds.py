@@ -278,38 +278,55 @@ def test_icons_pick_the_entry_pil_loads():
 def test_unread_tiff_kinds_raise_naming_them(case):
     rng = np.random.default_rng(0)
     a = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
-    if case == "jpeg_compression":
-        data, match = _pil(Image.fromarray(a), "TIFF", compression="jpeg"), "JPEG compression"
-    elif case == "ccitt":
-        data = _pil(Image.fromarray(a[:, :, 0] > 128), "TIFF", compression="group4")
-        match = "CCITT G4"
-    elif case == "16bit":
-        data = _pil(Image.fromarray((a[:, :, 0].astype(np.uint16) * 200), "I;16"), "TIFF")
+    if case == "jpeg_compression":  # new-style JPEG is read now; old-style stays refused
+        data = fixtures.tiff_bytes(a, compression=6)
+        match = "old-style JPEG compression"
+    elif case == "ccitt":  # bilevel CCITT is read now; libtiff decodes no other depth
+        data = fixtures.tiff_bytes(a[:, :, :1], photometric=1, compression=4,
+                                   chunks=[bytes(40)])
+        match = "CCITT G4 compression of a grey image"
+    elif case == "16bit":  # 16-bit grey is read now; 16-bit grey + alpha PIL refuses
+        data = fixtures.tiff_bytes(a[:, :, :2].astype(np.int64) * 200, bits=16, photometric=1,
+                                   extra=(2,))
         match = "16-bit samples"
     elif case == "ycbcr":
         data, match = fixtures.tiff_bytes(a, photometric=6), "YCbCr"
-    elif case == "float":
-        data = _pil(Image.fromarray(a[:, :, 0].astype(np.float32)), "TIFF")
-        match = "floating point|32-bit"
-    elif case == "bigtiff":
-        data, match = b"II+\x00" + bytes(12), "BigTIFF"
+    elif case == "float":  # 32-bit float grey is read now; 64-bit PIL refuses
+        data = fixtures.tiff_bytes(a[:, :, :1] / 3.0, bits=64, photometric=1, sample_format=3)
+        match = "floating-point samples"
+    elif case == "bigtiff":  # little-endian BigTIFF is read now; PIL fails on big-endian
+        data, match = fixtures.tiff_bytes(a, big_endian=True, bigtiff=True), "BigTIFF"
     else:
         data = fixtures.tiff_bytes(a[:, :, :1] >> 4, bits=4, photometric=1, compression=5,
                                    predictor=2)
         match = "horizontal differencing"
     with pytest.raises(pio.ImageFormatError, match=f"TIFF.*({match})"):
         pio.decode_image(data)
+    if case in ("16bit", "float", "bigtiff", "ccitt", "jpeg_compression"):
+        with pytest.raises(Exception):
+            jax_decode(data)
 
 
 def test_other_plugins_raise_naming_them():
+    """JPEG 2000 and AVIF stay refused by name (ROADMAP Queue A 19b); PCX
+    and QOI, once refused here, are read (tests/test_torch_port_image_19a.py),
+    and what PIL cannot read of them, or of Pillow's own PNM variants,
+    raises naming the reader."""
     rng = np.random.default_rng(0)
     a = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
-    for fmt, name in (("JPEG2000", "JPEG 2000"), ("PCX", "PCX"), ("QOI", "QOI"),
-                      ("AVIF", "AVIF")):
+    for fmt, name in (("JPEG2000", "JPEG 2000"), ("AVIF", "AVIF")):
         with pytest.raises(pio.ImageFormatError, match=name):
             pio.decode_image(_pil(Image.fromarray(a), fmt))
-    for data in (b"Pf\n2 2\n-1\n" + bytes(16), b"PyP\n2 2\n" + bytes(4)):
-        with pytest.raises(pio.ImageFormatError, match="PNM"):
+    for fmt in ("PCX", "QOI"):
+        assert _same(_pil(Image.fromarray(a), fmt), fmt) is not None
+    pcx4 = bytearray(_pil(Image.fromarray(a), "PCX"))
+    pcx4[3], pcx4[65] = 4, 1  # 4 bits in one plane: unknown to PIL
+    qoi_cut = _pil(Image.fromarray(a), "QOI")[:20]
+    for data, name in ((b"Pf\n2 2\n0\n" + bytes(16), "PNM"), (b"PyP\n2 2\n" + bytes(4), "PNM"),
+                       (bytes(pcx4), "PCX"), (qoi_cut, "QOI")):
+        with pytest.raises(Exception):
+            jax_decode(data)
+        with pytest.raises(pio.ImageFormatError, match=name):
             pio.decode_image(data)
 
 

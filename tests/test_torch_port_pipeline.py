@@ -315,9 +315,10 @@ print(json.dumps(sorted(set(sys.modules) - startup)))
               "webapp", "models.flops", "core.draw", "core.hershey", "core.viz",
               "eval.randomized", "eval.glyphs", "eval.aileron", "eval.handdrawn",
               "eval.degrade", "eval.synth", "eval.pool", "train.optim", "train.yolo_loss",
-              "train.yolo_train", "train.reader", "enrich.prompts", "core.hershey_digits",
+              "train.yolo_train", "train.reader", "enrich.prompts", "core.rubik_digits",
               "topology.enumerate_components", "parallel.mesh", "parallel.multihost",
-              "train.distributed"):
+              "train.distributed", "sim.plots", "io.tiff", "io.ccitt", "io.qoi", "io.pcx",
+              "io.psd"):
         assert "circuitvision_tpu_torch." + m in mods
     bad = [m for m in mods if m in FORBIDDEN or m.startswith(tuple(f + "." for f in FORBIDDEN))]
     assert not bad, bad

@@ -15,8 +15,8 @@ package on the CPU:
   * enumerate_components byte-equal to the JAX package's cv2 drawing, with
     equal visual-id boxes: the 63 eval images with their ground-truth
     boxes, one drawing in every digit render class of heights 1-4096,
-    crowded pages that leave only the fallbacks, and the named error
-    above 4096 rows;
+    crowded pages that leave only the fallbacks, a drawing at 4097 rows
+    and the named error above 65500;
   * the per-crop direction pool with a client that fails on some crops;
   * the Gemini and OpenRouter clients through the analyzer at the
     shipped checkpoints against the stub, netlists equal to a fake
@@ -51,7 +51,7 @@ from circuitvision_tpu.enrich import directions as jdirections
 from circuitvision_tpu.enrich import prompts as jprompts
 from circuitvision_tpu.topology import enumerate_components as jenum
 from circuitvision_tpu_torch.core import config as tconfig
-from circuitvision_tpu_torch.core import hershey_digits
+from circuitvision_tpu_torch.core import rubik_digits
 from circuitvision_tpu_torch.core.types import BBox
 from circuitvision_tpu_torch.enrich import client as tclient
 from circuitvision_tpu_torch.enrich import directions as tdirections
@@ -387,13 +387,13 @@ def _sizes(rows):
 
 
 def _class_heights():
-    """The first image height whose digits, or their halo, draw in each
-    render class of core/hershey_digits.py."""
+    """The first image height up to 4096 rows whose digits, or their halo,
+    draw in each render class (pixel size, bold) of core/rubik_digits.py."""
     first = {}
-    for rows in range(1, hershey_digits.MAX_ROWS + 1):
+    for rows in range(1, 4097):
         scale, t = _sizes(rows)
         for tt in (t, t + 2):
-            first.setdefault(hershey_digits.render_class(scale, tt), rows)
+            first.setdefault(rubik_digits.render_class(scale, tt), rows)
     return first
 
 
@@ -401,7 +401,11 @@ CLASS_HEIGHTS = _class_heights()
 
 
 def test_every_render_class_is_drawn():
-    assert set(CLASS_HEIGHTS) == set(hershey_digits._DATA) and len(CLASS_HEIGHTS) == 139
+    """Heights 1-4096 draw 139 classes: pixel sizes 11-123 bold, and
+    11-36 regular (thickness 1, up to 1199 rows)."""
+    assert set(CLASS_HEIGHTS) == ({(s, True) for s in range(11, 124)}
+                                  | {(s, False) for s in range(11, 37)})
+    assert len(CLASS_HEIGHTS) == 139
 
 
 @pytest.mark.parametrize("key", sorted(CLASS_HEIGHTS),
@@ -446,11 +450,17 @@ def test_crowded_page_takes_both_fallbacks(rows, monkeypatch):
 
 
 def test_enumeration_refuses_images_past_the_table():
-    img = np.zeros((4097, 8, 3), np.uint8)
-    with pytest.raises(tenum.EnumerationSizeError, match="up to 4096 rows .* has 4097"):
-        tenum.enumerate_components(img, [BBox("resistor", 1.0, 1, 1, 4, 4)])
-    drawn, boxes = tenum.enumerate_components(img[:4096], [BBox("resistor", 1.0, 1, 1, 4, 4)])
-    assert boxes[0].visual_id == 1 and drawn.shape == (4096, 8, 3)
+    """The digits draw past the 4096 rows the old glyph table held, as the
+    JAX package draws them, up to the 65500 rows they were checked at;
+    one row more raises the named error."""
+    box = BBox("resistor", 1.0, 1, 1, 4, 4)
+    img = np.full((4097, 40, 3), 255, np.uint8)
+    drawn, boxes = _enum_pair(img, [box])
+    assert boxes[0].visual_id == 1 and drawn.shape == (4097, 40, 3)
+    assert (drawn != img).any()
+    assert rubik_digits.MAX_ROWS == 65500
+    with pytest.raises(tenum.EnumerationSizeError, match="up to 65500 rows .* has 65501"):
+        tenum.enumerate_components(np.zeros((65501, 8, 3), np.uint8), [box])
 
 
 # ----------------------------------------------------------- the direction pool

@@ -163,6 +163,14 @@ class TestWebApp:
         assert out["ok"] and out["phasors"] == ""
         assert out["node_voltages"]["2"] == "5.000V"
 
+    def test_simulate_sends_the_phasor_plot(self, server):
+        """An AC result carries the phasor plot as a PNG, as in the JAX
+        webapp: figsize 12 × 5 at 100 dpi, drawn by sim/plots.py."""
+        out = _post(server + "/simulate?freq=60", b"V1 1 0 0 AC 1 0\nR1 1 2 1k\nC1 2 0 1u")
+        assert out["ok"] and out["phasors"]
+        img = _decode(out["phasors"])
+        assert img.shape == (500, 1200, 3) and (img != 255).any()
+
     def test_simulate_error_surfaces(self, server):
         out = _post(server + "/simulate?freq=60", b"R1 1 0 None")
         assert not out["ok"] and "Error" in out["error"]

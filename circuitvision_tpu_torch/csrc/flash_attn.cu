@@ -18,7 +18,7 @@
 // divisor, and the result rounded once.
 //
 // The lse instances (flash_lse_kernel, flash_tc_lse_kernel at head widths
-// 72 and 96) are the forward of training's FlashAttention (jax's forward with
+// 72, 96 and 128) are the forward of training's FlashAttention (jax's forward with
 // save_residuals): the same bodies, which also write each row's
 // log-sum-exp of the scaled scores, m + log(l), in float32 — the residual
 // the backward kernels (flash_bwd.cu) recompute the probabilities from.
@@ -620,8 +620,8 @@ extern "C" int cv_flash_attn_bf16(const void* q, const void* k, const void* v, v
 
 // The forward of the training path (FlashAttention in ops/cuda/
 // flash_attn.py): as cv_flash_attn_bf16 without pool_win, at the
-// instances of width 72 (mt 1 or 2) and 96 (mt 1) only — hd a multiple of
-// 8 up to `width` — and also writing lse (bh, nq) float32, each row's
+// instances of width 72 (mt 1 or 2), 96 and 128 (mt 1) only — hd a
+// multiple of 8 up to `width` — and also writing lse (bh, nq) float32, each row's
 // log-sum-exp of the scaled scores, the residual the backward
 // (flash_bwd.cu) recomputes the probabilities from.
 extern "C" int cv_flash_attn_lse_bf16(const void* q, const void* k, const void* v, void* o,
@@ -641,6 +641,9 @@ extern "C" int cv_flash_attn_lse_bf16(const void* q, const void* k, const void* 
                                             scale_log2, s, (float*)lse);
   if (width == 96 && mt == 1)
     return (int)launch_flash_tc<12, 1, true>(q, k, v, o, bh, nq, nk, hd, 0, wpp, stages,
+                                             scale_log2, s, (float*)lse);
+  if (width == 128 && mt == 1)
+    return (int)launch_flash_tc<16, 1, true>(q, k, v, o, bh, nq, nk, hd, 0, wpp, stages,
                                              scale_log2, s, (float*)lse);
   return (int)cudaErrorInvalidValue;
 }

@@ -50,8 +50,14 @@
 //    dV += Pᵀ·dO and dK += dSᵀ·q, which read dO and q by ldmatrix.trans.
 //    dK and dV are accumulated in float32 registers over the q tiles.
 // Instances at head widths 72 (NT = 9) and 96 (NT = 12), which take every
-// SAM2.1 preset's global heads (L 72, b+ 56, t and s 96); a head takes the
-// narrowest that holds it, its extra columns zero. Budget (ptxas -v,
+// SAM2.1 preset's global heads (L 72, b+ 56, t and s 96), and 128 (NT =
+// 16) for heads of 97 to 128; a head takes the narrowest that holds it,
+// its extra columns zero (a head off a multiple of 8 arrives zero-padded
+// to the next one: ops/cuda/flash_attn.py FlashAttention). The 128
+// instance is the same kernel at the wider head, left as it is: its
+// shared memory is 105,472 bytes a block (one block an SM of either
+// kernel), and its dkv accumulators alone take 128 of the 255 registers a
+// thread may hold. Budget (ptxas -v,
 // sm_90a, CUDA 12.8): no local memory, 0 spill bytes in all four; dq 166
 // registers at either width, dkv 170 at 72 and 230 at 96; shared memory
 // 68,608 bytes a block at 72, 80,896 at 96. So an SM holds 3 dq blocks at
@@ -361,9 +367,10 @@ using tc::bf16;
 
 constexpr int kTcThreads = 128;  // 4 warps, one m16 tile of the 64 rows each
 // head widths of the bfloat16 instances (ops/cuda/flash_attn.py LSE_WIDTHS),
-// NT = 9 and 12 8-wide tiles
-constexpr int kBwdWidths[2] = {72, 96};
-static_assert(kBwdWidths[0] == 8 * 9 && kBwdWidths[1] == 8 * 12, "the launchers' NT");
+// NT = 9, 12 and 16 8-wide tiles
+constexpr int kBwdWidths[3] = {72, 96, 128};
+static_assert(kBwdWidths[0] == 8 * 9 && kBwdWidths[1] == 8 * 12 && kBwdWidths[2] == 8 * 16,
+              "the launchers' NT");
 
 // Shared-memory bytes of either bfloat16 kernel at instance width `width`:
 // six 64-row bf16 tiles — dq: q, dO and two stages of K and V; dkv: K, V
@@ -736,7 +743,7 @@ extern "C" long long cv_flash_bwd_bf16_smem(int hd) {
 
 // dQ and D. q, o, dout, dq (bh, nq, hd); k, v (bh, nk, hd); lse and delta
 // (bh, nq) float32; dtype 0 float32 (hd ≤ 128), 1 bfloat16 (hd a multiple
-// of 8 up to 96, every pointer 16-byte aligned); scale the softmax scale.
+// of 8 up to 128, every pointer 16-byte aligned); scale the softmax scale.
 extern "C" int cv_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                const void* lse, const void* dout, void* dq, void* delta, int bh,
                                int nq, int nk, int hd, float scale, int dtype, void* stream) {
@@ -746,7 +753,9 @@ extern "C" int cv_flash_bwd_dq(const void* q, const void* k, const void* v, cons
     return launch_dq<float, kDcF32>(q, k, v, o, lse, dout, dq, delta, bh, nq, nk, hd, scale, s);
   if (bwd_tc_width(hd) == kBwdWidths[0])
     return launch_dq_tc<9>(q, k, v, o, lse, dout, dq, delta, bh, nq, nk, hd, scale, s);
-  return launch_dq_tc<12>(q, k, v, o, lse, dout, dq, delta, bh, nq, nk, hd, scale, s);
+  if (bwd_tc_width(hd) == kBwdWidths[1])
+    return launch_dq_tc<12>(q, k, v, o, lse, dout, dq, delta, bh, nq, nk, hd, scale, s);
+  return launch_dq_tc<16>(q, k, v, o, lse, dout, dq, delta, bh, nq, nk, hd, scale, s);
 }
 
 // dK and dV, given D from cv_flash_bwd_dq (same stream, launched before).
@@ -760,5 +769,7 @@ extern "C" int cv_flash_bwd_dkv(const void* q, const void* k, const void* v, con
                                      s);
   if (bwd_tc_width(hd) == kBwdWidths[0])
     return launch_dkv_tc<9>(q, k, v, lse, delta, dout, dk, dv, bh, nq, nk, hd, scale, s);
-  return launch_dkv_tc<12>(q, k, v, lse, delta, dout, dk, dv, bh, nq, nk, hd, scale, s);
+  if (bwd_tc_width(hd) == kBwdWidths[1])
+    return launch_dkv_tc<12>(q, k, v, lse, delta, dout, dk, dv, bh, nq, nk, hd, scale, s);
+  return launch_dkv_tc<16>(q, k, v, lse, delta, dout, dk, dv, bh, nq, nk, hd, scale, s);
 }

@@ -1,6 +1,6 @@
 """Host image ingest without PIL or cv2: every upload format the JAX
 package's server takes through PIL that users send (PNG, JPEG, BMP,
-WebP, GIF, TIFF, PNM, ICO, CUR, TGA) + EXIF orientation.
+WebP, GIF, TIFF, PNM, ICO, CUR, TGA, JPEG 2000) + EXIF orientation.
 
 Counterpart of the JAX package's `io/image_io.py` (`decode_image`,
 `load_image`, `format_exif_data`, `format_exif_value`), which decodes
@@ -8,7 +8,7 @@ through PIL: bytes → RGB uint8, rotated by the EXIF orientation (tag
 0x0112) as `ImageOps.exif_transpose` rotates. The card's machine has no
 PIL, so this module reads the formats itself and gives what PIL's
 `convert("RGB")` makes of them (Pillow 12.1.0, libjpeg-turbo 3.1.3,
-libwebp 1.6.0), byte for byte:
+libwebp 1.6.0, OpenJPEG 2.5.4), byte for byte:
 
   * PNG with zlib and numpy, the row unfilter in native/png.cpp (g++ at
     first use): every colour type (grey, RGB, palette with or without
@@ -48,12 +48,18 @@ libwebp 1.6.0), byte for byte:
     first image, with native/lzw.cpp for GIF's and TIFF's LZW and
     PackBits and Python's zlib for TIFF's Deflate; a TIFF's Orientation
     tag is applied by its reader;
+  * JPEG 2000 (io/jpeg2000.py and native/j2k.cpp): JP2 files and raw
+    codestreams, every mode PIL gives them (L, LA, RGB, RGBA, CMYK,
+    I;16, P and PA from a palette box, sYCC), both wavelets, layers,
+    precincts, tiles and every progression; what PIL's encoder cannot
+    write (code-block styles, RGN, a POC that changes the order,
+    component subsampling, Part 2) raises naming it;
   * dispatch by magic bytes (a TGA, which has none, by PIL's header
     checks, last).
 
-Anything else — JPEG 2000, AVIF, the kinds those modules list as unread,
-or another of Pillow's plugins — raises `ImageFormatError` naming it
-(ROADMAP Queue A 19). `read_png` gives an 8-bit grey, RGB or RGBA PNG's samples
+Anything else — AVIF, the kinds those modules list as unread, or another
+of Pillow's plugins — raises `ImageFormatError` naming it (ROADMAP Queue
+A 19b, 19c). `read_png` gives an 8-bit grey, RGB or RGBA PNG's samples
 without conversion, as `np.asarray(PIL.Image.open(path))` does for the
 eval masks.
 """
@@ -73,6 +79,7 @@ from ..core.native import build_library
 from .bmp import decode_bmp
 from .gif import decode_gif
 from .ico import decode_cur, decode_ico
+from .jpeg2000 import J2K_SIGNATURE, JP2_SIGNATURE, decode_jpeg2000
 from .pcx import decode_pcx, looks_like_pcx
 from .pnm import decode_pnm
 from .psd import decode_psd
@@ -144,11 +151,12 @@ def load_native() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from .ccitt import load_library as ccitt_library
+    from .jpeg2000 import _library as jpeg2000_library
     from .lzw import load_library as lzw_library
     from .webp import _library as webp_library
 
     loaders = (_png_library, _jpeg_library, _jpeg_encoder, webp_library, lzw_library,
-               ccitt_library)
+               ccitt_library, jpeg2000_library)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for job in [pool.submit(f) for f in loaders]:
             job.result()
@@ -196,10 +204,6 @@ def encode_png(arr: np.ndarray, exif_orientation: Optional[int] = None, level: i
     return out + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _png_chunk(b"IEND", b"")
 
 
-#: formats PIL reads that this reader does not, by their magic bytes
-_UNREAD = ((b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"), (b"\xff\x4f\xff\x51", "JPEG 2000"))
-
-
 def _format_name(data: bytes) -> str:
     if data.startswith(b"BM"):
         return "BMP"
@@ -211,9 +215,8 @@ def _format_name(data: bytes) -> str:
         return "GIF"
     if data[4:12] in (b"ftypavif", b"ftypavis"):
         return "AVIF"
-    for magic, name in _UNREAD:
-        if data.startswith(magic):
-            return name
+    if data.startswith((JP2_SIGNATURE, J2K_SIGNATURE)):
+        return "JPEG 2000"
     return f"bytes starting {data[:4]!r}"
 
 
@@ -600,11 +603,13 @@ def _decode(data: bytes) -> tuple[np.ndarray, dict]:
         return decode_qoi(data), {}
     if data[:4] == b"8BPS":
         return decode_psd(data), {}
+    if data.startswith((JP2_SIGNATURE, J2K_SIGNATURE)):
+        return decode_jpeg2000(data), {}  # PIL finds no EXIF in it
     name = _format_name(data)
     if not name.startswith("bytes") or not looks_like_tga(data):
-        raise ImageFormatError(f"not a PNG, JPEG, BMP, WebP, GIF, TIFF, PNM, ICO, CUR or TGA "
-                               f"file ({name}); JPEG 2000, AVIF and Pillow's other plugins "
-                               f"are not read (ROADMAP Queue A 19)")
+        raise ImageFormatError(f"not a PNG, JPEG, BMP, WebP, GIF, TIFF, PNM, ICO, CUR, TGA or "
+                               f"JPEG 2000 file ({name}); AVIF and Pillow's other plugins "
+                               f"are not read (ROADMAP Queue A 19b, 19c)")
     return decode_tga(data), {}
 
 
@@ -623,7 +628,7 @@ def read_png(path: str) -> np.ndarray:
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """PNG, JPEG, BMP, WebP, GIF, TIFF, PNM, ICO, CUR or TGA bytes →
+    """PNG, JPEG, BMP, WebP, GIF, TIFF, PNM, ICO, CUR, TGA or JPEG 2000 bytes →
     (H, W, 3) RGB uint8, EXIF-rotated (a TIFF by its Orientation tag)."""
     img, info = _decode(data)
     return np.ascontiguousarray(exif_transpose(img, _orientation(info)))
@@ -652,7 +657,8 @@ def format_exif_data(path: str) -> Optional[dict]:
     APP1 EXIF, a PNG's eXIf chunk or "Raw profile type exif" text (PIL
     12.1.0 reads those for PNG too), merged with the Exif sub-IFD and,
     where the EXIF has no orientation, the XMP's; None when the file has
-    no EXIF, holds neither tag, or fails to parse."""
+    no EXIF, holds neither tag, or fails to parse — and for every JPEG
+    2000 file, whose PIL image class has no `_getexif`."""
     try:
         with open(path, "rb") as f:
             data = f.read()

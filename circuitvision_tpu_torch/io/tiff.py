@@ -225,6 +225,13 @@ def _samples(rows: np.ndarray, bits: int, n: int, width: int, fmt: int, bo: str)
     return flat.reshape(h, width, n)
 
 
+def grey_to_rgb(v: np.ndarray) -> np.ndarray:
+    """PIL's convert("RGB") of an I;16 or I image (H, W): through L, which
+    clips each value to [0, 255]."""
+    grey = np.clip(v, 0, 255).astype(np.uint8)
+    return np.repeat(grey[:, :, None], 3, axis=2)
+
+
 def _rgb(planes: list, mode: str, bps: tuple, photo: int, tags: dict, width: int, fmt: int,
          bo: str):
     """(H, W, 3) uint8 from (H, rowbytes) sample rows, one array for
@@ -241,8 +248,7 @@ def _rgb(planes: list, mode: str, bps: tuple, photo: int, tags: dict, width: int
             v = np.nan_to_num(v.astype(np.float64), nan=0.0, posinf=255.0, neginf=0.0)
         elif v.dtype == np.uint32:
             v = v.view(np.int32)  # PIL's "I" is signed
-        grey = np.clip(v, 0, 255).astype(np.uint8)
-        return np.repeat(grey[:, :, None], 3, axis=2)
+        return grey_to_rgb(v)
     if samples.dtype == np.int8:
         samples = samples.view(np.uint8)
     elif samples.dtype.itemsize == 2:  # PIL's ";16" unpackers keep the high byte

@@ -49,11 +49,10 @@ least FLASH_MIN_SEQ tokens goes through `FlashAttention` (the flash
 kernel with its backward kernels on the card, its plain version on the
 CPU), shorter sequences through `einsum_attention`, as the JAX module
 path takes flash or einsum (`flash_route`; `force_flash` overrides the
-choice). On the card FlashAttention takes float32 heads up to 128 but
-bfloat16 heads only a multiple of 8 up to 96 — every SAM2.1 preset's
-global heads (L 72, b+ 56, t and s 96) — and the training steps refuse a
-model past that before their first step (train/train_step.py
-`check_flash_widths`).
+choice). On the card FlashAttention takes heads up to 128 in float32 and
+in bfloat16, a bfloat16 head off a multiple of 8 zero-padded to the next
+one inside it (flash_attn.FlashAttention), as the JAX trunk pads its
+heads to 128 lanes.
 Every other kernel wrapper raises when an operand requires grad under
 grad mode, so a kernel can never cut a gradient silently.
 """
@@ -126,10 +125,9 @@ def flash_route(tokens: int, hd: int) -> bool:
     """Whether the module path's attention over `tokens` query tokens of
     head width hd goes through FlashAttention (else einsum_attention):
     from FLASH_MIN_SEQ tokens, at head widths up to MAX_HEAD_DIM. On the
-    card FlashAttention then takes every such float32 head but only
-    bfloat16 heads a multiple of 8 up to 96 (flash_attn.grad_head_width_ok)
-    and raises on any other; the training steps refuse such a model before
-    their first step (train/train_step.py `check_flash_widths`)."""
+    card FlashAttention then takes every such head in float32 and in
+    bfloat16 (flash_attn.grad_head_width_ok), a bfloat16 head off a
+    multiple of 8 on its padded route."""
     return tokens >= FLASH_MIN_SEQ and hd <= MAX_HEAD_DIM
 
 

@@ -23,7 +23,12 @@ writes each row's log-sum-exp), its backward the two kernels of
 csrc/flash_bwd.cu (`flash_attn_bwd_dq`, then `flash_attn_bwd_dkv`),
 which replace jax's `_flash_attention_bwd_dq` and `_bwd_dkv`;
 `flash_attn_bwd_plain` is their plain version. Every other kernel wrapper
-of the port raises under autograd (build.check_no_grad).
+of the port raises under autograd (build.check_no_grad). On the card a
+bfloat16 head off a multiple of 8 takes FlashAttention's padded route:
+q, k, v and dO zero-padded to the next multiple of 8, the kernels run
+with the softmax scale of the true width (`scale_width`), o, dQ, dK and
+dV cut back; the zero columns change no score, no probability and no
+row sum, so the route computes what the unpadded attention does.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .build import (
     MAX_SMEM, KernelError, check, check_aligned, check_no_grad, check_operands, dtype_code,
@@ -173,9 +179,10 @@ flash_attn.launches = 0
 #: lse forward (csrc/flash_attn.cu cv_flash_attn_lse_bf16) and the two
 #: backward kernels (csrc/flash_bwd.cu kBwdWidths). A head a multiple of
 #: 8 takes the narrowest that holds it, its extra columns zero (`grad_width`):
-#: 72 takes SAM2.1-L's and -b+'s global heads (72, 56), 96 Hiera-t's and -s's
-LSE_WIDTHS = (72, 96)
-#: the backward kernels' widest heads: bfloat16 96, float32 128
+#: 72 takes SAM2.1-L's and -b+'s global heads (72, 56), 96 Hiera-t's and
+#: -s's, 128 every head of 97 to 128
+LSE_WIDTHS = (72, 96, 128)
+#: the backward kernels' widest heads: bfloat16 and float32 128
 BWD_WIDEST = {torch.bfloat16: LSE_WIDTHS[-1], torch.float32: MAX_HEAD_DIM}
 #: q rows (dq) or keys (dkv) a block of the bfloat16 backward kernels,
 #: one m16 tile of them a warp; keys (dq) or q rows (dkv) a streamed tile
@@ -202,12 +209,28 @@ def flash_bwd_tc_smem(width: int) -> int:
 
 
 def grad_head_width_ok(hd: int, dtype: torch.dtype) -> bool:
-    """Whether FlashAttention's kernels take heads of width hd in dtype on
-    the card: float32 up to MAX_HEAD_DIM; bfloat16 a multiple of 8 up to
-    96 (the instances at LSE_WIDTHS). On the CPU the plain versions take
-    every width."""
+    """Whether FlashAttention takes heads of width hd in dtype on the
+    card: float32 and bfloat16 up to MAX_HEAD_DIM (a bfloat16 head off a
+    multiple of 8 on the padded route, `grad_pad_width`). On the CPU the
+    plain versions take every width."""
+    return dtype in (torch.bfloat16, torch.float32) and 0 < hd <= MAX_HEAD_DIM
+
+
+def grad_pad_width(hd: int, dtype: torch.dtype, device: torch.device) -> int:
+    """The head width FlashAttention hands its kernels: a bfloat16 head
+    on the card off a multiple of 8 (the kernels copy rows in 16-byte
+    pieces) is zero-padded to the next multiple; every other head is
+    taken as it is."""
+    if dtype == torch.bfloat16 and device.type == "cuda" and hd % 8:
+        return -(-hd // 8) * 8
+    return hd
+
+
+def _kernel_width_ok(hd: int, dtype: torch.dtype) -> bool:
+    """Whether the lse forward's kernel takes heads of width hd: float32
+    up to MAX_HEAD_DIM, bfloat16 a multiple of 8 up to LSE_WIDTHS[-1]."""
     if dtype == torch.bfloat16:
-        return 0 < hd <= LSE_WIDTHS[-1] and hd % 8 == 0
+        return 8 <= hd <= LSE_WIDTHS[-1] and hd % 8 == 0
     return dtype == torch.float32 and 0 < hd <= MAX_HEAD_DIM
 
 
@@ -241,7 +264,7 @@ def flash_attn_lse(q, k, v, scale_width=None):
     """The forward of FlashAttention: (o, lse) for q (B, H, Nq, D), k and
     v (B, H, Nk, D), lse (B, H, Nq) float32. CPU tensors take the plain
     version; CUDA tensors launch flash_attn's lse instance (bfloat16: D a
-    multiple of 8 up to 96, on the narrowest of LSE_WIDTHS that holds it;
+    multiple of 8 up to 128, on the narrowest of LSE_WIDTHS that holds it;
     float32: D ≤ 128)."""
     if q.device.type == "cpu":
         return flash_attn_lse_plain(q, k, v, scale_width)
@@ -250,7 +273,7 @@ def flash_attn_lse(q, k, v, scale_width=None):
     b, h, nq, hd = q.shape
     nk = k.shape[2]
     if k.shape != (b, h, nk, hd) or v.shape != k.shape or nk < 1 \
-            or not grad_head_width_ok(hd, q.dtype):
+            or not _kernel_width_ok(hd, q.dtype):
         raise KernelError(f"flash_attn_lse: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                           f"v {tuple(v.shape)} do not fit (heads: float32 up to "
                           f"{MAX_HEAD_DIM}, bfloat16 a multiple of 8 up to "
@@ -334,7 +357,7 @@ def flash_attn_bwd_dq(q, k, v, o, lse, do, scale_width=None):
     """(dq, delta): the gradient of q and delta = rowsum(do∘o) (B, H, Nq)
     float32, which flash_attn_bwd_dkv reads. CPU tensors take the plain
     version; CUDA tensors launch csrc/flash_bwd.cu's dq kernel (float32:
-    D ≤ 128; bfloat16: D a multiple of 8 up to 96, on the tensor cores)."""
+    D ≤ 128; bfloat16: D a multiple of 8 up to 128, on the tensor cores)."""
     if q.device.type == "cpu":
         acc = _acc_dtype(q.dtype)
         delta = (do.to(acc) * o.to(acc)).sum(-1)
@@ -380,6 +403,15 @@ def flash_attn_bwd_dkv(q, k, v, lse, delta, do, scale_width=None):
 flash_attn_bwd_dkv.launches = 0
 
 
+def _pad_head(t: torch.Tensor, width: int) -> torch.Tensor:
+    """t (…, D) contiguous, zero-padded to `width` columns where D < width."""
+    return F.pad(t, (0, width - t.shape[-1])) if width > t.shape[-1] else t.contiguous()
+
+
+def _cut_head(t: torch.Tensor, hd: int) -> torch.Tensor:
+    return t[..., :hd].contiguous() if t.shape[-1] > hd else t
+
+
 class FlashAttention(torch.autograd.Function):
     """softmax(q·kᵀ·scale_width^-0.5)·v over q (B, H, Nq, D), k and v
     (B, H, Nk, D), with a gradient: the counterpart of jax's TPU flash
@@ -388,24 +420,32 @@ class FlashAttention(torch.autograd.Function):
     calls flash_attn_bwd_dq, then flash_attn_bwd_dkv. On the CPU the three
     wrappers take their plain versions. The one kernel path that may run
     under autograd; a kernel failure raises. On the card it takes heads
-    of width up to 128 in float32 and bfloat16 heads a multiple of 8 up to
-    96 (`grad_head_width_ok`)."""
+    of width up to 128 in float32 and bfloat16 (`grad_head_width_ok`).
+    The kernels see heads of `grad_pad_width` (D but for a bfloat16 head
+    on the card off a multiple of 8): q, k, v and dO are zero-padded to
+    it, the scale stays the true width's (scale_width, default D), and o,
+    dQ, dK and dV are cut back to D — the padded route, which JAX's kernel
+    takes for every head (padded to 128 lanes,
+    circuitvision_tpu/models/sam2/hiera.py:262-272)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale_width=None):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        hd = q.shape[-1]
+        width = grad_pad_width(hd, q.dtype, q.device)
+        scale_width = scale_width or hd
+        q, k, v = (_pad_head(t, width) for t in (q, k, v))
         o, lse = flash_attn_lse(q, k, v, scale_width)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale_width = scale_width
-        return o
+        ctx.scale_width, ctx.hd = scale_width, hd
+        return _cut_head(o, hd)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
+        do = _pad_head(do, q.shape[-1])
         dq, delta = flash_attn_bwd_dq(q, k, v, o, lse, do, ctx.scale_width)
         dk, dv = flash_attn_bwd_dkv(q, k, v, lse, delta, do, ctx.scale_width)
-        return dq, dk, dv, None
+        return _cut_head(dq, ctx.hd), _cut_head(dk, ctx.hd), _cut_head(dv, ctx.hd), None
 
 
 def flash_attention(q, k, v, scale_width=None):

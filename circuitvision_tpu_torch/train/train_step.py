@@ -276,21 +276,22 @@ def check_flash_widths(model: torch.nn.Module, start: int) -> None:
     """Refuse, before any step, a model on the card whose differentiated
     trunk blocks (from `start` on) would hand FlashAttention heads its
     kernels do not take (hiera.flash_blocks, flash_attn.grad_head_width_ok):
-    in bfloat16, heads off a multiple of 8 or wider than 96 (the kernels'
-    instances are at widths 72 and 96: every SAM2.1 preset's global heads).
-    On the CPU the plain versions take every width."""
+    those of a dtype other than float32 and bfloat16. Every head the
+    module path gives FlashAttention is at most MAX_HEAD_DIM wide, and the
+    kernels take every such width in both dtypes (a bfloat16 head off a
+    multiple of 8 zero-padded to the next). On the CPU the plain versions
+    take every width and dtype."""
     from ..models.sam2 import hiera
-    from ..ops.cuda.flash_attn import LSE_WIDTHS, grad_head_width_ok
+    from ..ops.cuda.flash_attn import grad_head_width_ok
 
     weight = model.trunk.patch_embed_proj.weight
     if not weight.is_cuda:
         return
     for _i, _tokens, hd in hiera.flash_blocks(model.trunk, model.cfg.resolution, start):
         if not grad_head_width_ok(hd, weight.dtype):
-            raise KernelError(f"training on the card: FlashAttention's kernels take bfloat16 "
-                              f"heads a multiple of 8 up to {LSE_WIDTHS[-1]} (instances at "
-                              f"widths {', '.join(map(str, LSE_WIDTHS))}); this model's global "
-                              f"blocks give it heads of width {hd} ({weight.dtype})")
+            raise KernelError(f"training on the card: FlashAttention's kernels take float32 "
+                              f"and bfloat16 heads; this model's global blocks give it heads "
+                              f"of width {hd} in {weight.dtype}")
 
 
 def make_train_step(model: torch.nn.Module, tx: Optimizer, cfg: TrainConfig | None = None,

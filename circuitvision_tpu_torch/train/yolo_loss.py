@@ -95,6 +95,27 @@ def iou_matrix_xyxy(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
     return inter / (ga + pa - inter + 1e-9)
 
 
+def alignment_metric(pred_scores, pred_boxes, anchor_points, gt_boxes, gt_classes, gt_valid,
+                     cfg: YOLOLossConfig):
+    """(align, in_gt, iou), each (B, M, A): the task-aligned metric t =
+    score^alpha · IoU^beta of every anchor for every GT (0 outside it),
+    whether the anchor's centre lies inside the GT, and their IoU clamped
+    at 0 — the quantities task_aligned_assign ranks and resolves by."""
+    B, A, C = pred_scores.shape
+    M = gt_boxes.shape[1]
+    valid = gt_valid[..., None]
+    ax = anchor_points[None, None, :, 0]
+    ay = anchor_points[None, None, :, 1]
+    in_gt = ((ax > gt_boxes[..., 0:1]) & (ax < gt_boxes[..., 2:3])
+             & (ay > gt_boxes[..., 1:2]) & (ay < gt_boxes[..., 3:4])) & valid
+
+    iou = torch.clamp(iou_matrix_xyxy(gt_boxes, pred_boxes), min=0.0)
+    cls_idx = torch.clamp(gt_classes.long(), 0, C - 1)
+    score = torch.gather(pred_scores.transpose(1, 2), 1, cls_idx[:, :, None].expand(B, M, A))
+    align = (score ** cfg.alpha) * (iou ** cfg.beta)
+    return torch.where(in_gt, align, torch.zeros_like(align)), in_gt, iou
+
+
 def task_aligned_assign(pred_scores, pred_boxes, anchor_points, gt_boxes, gt_classes, gt_valid,
                         cfg: YOLOLossConfig):
     """Task-Aligned label assignment (TOOD/ultralytics).
@@ -109,17 +130,9 @@ def task_aligned_assign(pred_scores, pred_boxes, anchor_points, gt_boxes, gt_cla
     GT's class scaled by t / max_t(gt) · max_iou(gt)."""
     B, A, C = pred_scores.shape
     M = gt_boxes.shape[1]
-    valid = gt_valid[..., None]
-    ax = anchor_points[None, None, :, 0]
-    ay = anchor_points[None, None, :, 1]
-    in_gt = ((ax > gt_boxes[..., 0:1]) & (ax < gt_boxes[..., 2:3])
-             & (ay > gt_boxes[..., 1:2]) & (ay < gt_boxes[..., 3:4])) & valid
-
-    iou = torch.clamp(iou_matrix_xyxy(gt_boxes, pred_boxes), min=0.0)
+    align, in_gt, iou = alignment_metric(pred_scores, pred_boxes, anchor_points, gt_boxes,
+                                         gt_classes, gt_valid, cfg)
     cls_idx = torch.clamp(gt_classes.long(), 0, C - 1)
-    score = torch.gather(pred_scores.transpose(1, 2), 1, cls_idx[:, :, None].expand(B, M, A))
-    align = (score ** cfg.alpha) * (iou ** cfg.beta)
-    align = torch.where(in_gt, align, torch.zeros_like(align))
 
     # top-k candidates per gt, exact k (a `>= kth value` test would
     # over-select on exact ties); ties to the lower anchor index

@@ -8,8 +8,8 @@ Runs `chip_smoke.run_kernels` at every shape of the named kernels on the
 paths that launch them — L@1024 and t@512, the batched path's two
 off-path rasters (600×800, 600×1003, 1×1) for the line enhancement, the trunk
 LayerNorm widths for the LayerNorms, the fine-tune's global shapes
-(L@1024, heads of 72; t@1024, heads of 96) for FlashAttention's three
-kernels — each against its plain version on
+(L@1024, heads of 72; t@1024, heads of 96) and its bfloat16 widths 60
+(padded), 104 and 128 for FlashAttention's three kernels — each against its plain version on
 the card, in bfloat16 and float32, with device times (CUDA-graph replay),
 eager times, bound and library time, and prints chip_smoke.py's
 per-shape JSON rows, then per path the sums over the path's launches
@@ -38,8 +38,8 @@ import chip_smoke  # noqa: E402
 
 #: the paths whose shapes each kernel's rows come from
 PATHS = {"enhance_lines_fused": ("batch",), "fused_layernorm": ("trunk-ln",),
-         "fused_add_layernorm": ("trunk-ln",), "flash_attn_lse": ("train", "train-t"),
-         "flash_attn_bwd_dq": ("train", "train-t"), "flash_attn_bwd_dkv": ("train", "train-t")}
+         "fused_add_layernorm": ("trunk-ln",),
+         **{k: ("train", "train-t", "train-w") for k in chip_smoke.TRAIN_KERNELS}}
 
 
 def main() -> int:

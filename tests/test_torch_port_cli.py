@@ -163,18 +163,18 @@ class TestAnalyzeCommands:
 
 class TestRefusals:
     @pytest.mark.parametrize("argv,words", [
-        (["analyze", "{jp2}", "--device", "cpu", "--scale", "n"], "JPEG 2000.*Queue A 19"),
+        (["analyze", "{avif}", "--device", "cpu", "--scale", "n"], "AVIF.*Queue A 19"),
     ])
     def test_not_ported_commands(self, tmp_path, capsys, argv, words):
-        """A JPEG 2000 file (BMP, WebP, GIF and TIFF, once refused here,
-        are read now)."""
+        """An AVIF file (BMP, WebP, GIF, TIFF and JPEG 2000, once refused
+        here, are read now)."""
         import re
 
         from PIL import Image
 
-        jp2 = tmp_path / "c.jp2"
-        Image.fromarray(CIRCUITS[1][0]).save(jp2)
-        assert cli.main([a.format(jp2=jp2) for a in argv]) != 0
+        avif = tmp_path / "c.avif"
+        Image.fromarray(CIRCUITS[1][0]).save(avif)
+        assert cli.main([a.format(avif=avif) for a in argv]) != 0
         assert re.search(words, capsys.readouterr().err)
 
     def test_paligemma_client(self, drawings, capsys, monkeypatch):
@@ -186,10 +186,12 @@ class TestRefusals:
             cli.main(["analyze", str(drawings / "loop.png"), "--device", "cpu", "--scale", "n"])
 
     def test_jpeg_input(self, tmp_path, capsys):
-        """analyze-batch over a directory of a JPEG, a BMP, a WebP and a
-        JPEG 2000 file named .webp: the JPEG's, BMP's and WebP's netlists
-        are analyze_batch's on the decoded pixels, the JPEG 2000 file is
-        skipped and named."""
+        """analyze-batch over a directory of a JPEG, a BMP, a WebP, a JPEG
+        2000 file named .png (the CLI takes the JAX CLI's five extensions;
+        the reader goes by the bytes) and an AVIF file named .webp: the
+        JPEG's, BMP's, WebP's and JPEG 2000 file's netlists are
+        analyze_batch's on the decoded pixels, the AVIF file is skipped
+        and named."""
         from PIL import Image
 
         d = tmp_path / "imgs"
@@ -197,24 +199,25 @@ class TestRefusals:
         cv2.imwrite(str(d / "c.jpg"), CIRCUITS[1][0])
         cv2.imwrite(str(d / "d.bmp"), CIRCUITS[1][0])
         Image.fromarray(CIRCUITS[0][0]).save(d / "e.webp", lossless=True)
-        Image.fromarray(CIRCUITS[0][0]).save(d / "f.webp", format="JPEG2000")
+        Image.fromarray(CIRCUITS[0][0]).save(d / "f.webp", format="AVIF")
+        Image.fromarray(CIRCUITS[1][0]).save(d / "g.png", format="JPEG2000", irreversible=True)
         out_dir = tmp_path / "netlists"
         assert cli.main(["analyze-batch", str(d), "--device", "cpu", "--scale", "n",
                          "--det-size", "64", "--out-dir", str(out_dir)]) == 0
         err = capsys.readouterr().err
-        assert "skipped" in err and "f.webp" in err and "JPEG 2000" in err \
+        assert "skipped" in err and "f.webp" in err and "AVIF" in err \
             and "Queue A 19" in err
-        assert "d.bmp" not in err and "e.webp" not in err
+        assert "d.bmp" not in err and "e.webp" not in err and "g.png" not in err
         cfg = tconfig.PipelineConfig(detector=tconfig.DetectorConfig(scale="n", img_size=64),
                                      use_sam2=False)
         state = bridge.seeded_state("yolo", {"detector": {
             "scale": "n", "img_size": 64, "num_classes": 62, "reg_max": 16}}, cli.SEED)
         analyzer = CircuitAnalyzerTorch(cfg, state, None, device="cpu")
-        names = ("c.jpg", "d.bmp", "e.webp")
+        names = ("c.jpg", "d.bmp", "e.webp", "g.png")
         want = analyzer.analyze_batch([load_image(str(d / n)) for n in names])
         for name, res in zip(names, want):
             assert (out_dir / (name[0] + ".cir")).read_text() == res.netlist_text + "\n"
-        assert sorted(p.name for p in out_dir.iterdir()) == ["c.cir", "d.cir", "e.cir"]
+        assert sorted(p.name for p in out_dir.iterdir()) == ["c.cir", "d.cir", "e.cir", "g.cir"]
 
     def test_webp_and_bmp_netlists_equal_the_png(self, tmp_path, capsys):
         """An eval drawing as its PNG, its committed lossless WebP and a

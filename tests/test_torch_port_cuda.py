@@ -565,12 +565,12 @@ def test_width_60_bf16_blocks_launch_bf16_kernels(gen, monkeypatch, dim, dim_out
 # ------------------------------------------- flash attention with a gradient
 #: (B, H, Nq, Nk, D): SAM2.1-L's global blocks (1 × 8 heads × 4096, D 72)
 #: and Hiera-t@1024's (1 × 4 × 4096, D 96), rows and keys off the 64-row
-#: tiles, Nq ≠ Nk, narrower heads on the bf16 instances of widths 72 and
-#: 96 (64, 8; 88), and float32 widths up to 128
+#: tiles, Nq ≠ Nk, narrower heads on the bf16 instances of widths 72, 96
+#: and 128 (64, 8; 88; 104), width 128 itself, and float32 widths up to 128
 BWD_SHAPES = [(1, 8, 4096, 4096, 72), (2, 2, 100, 70, 72), (1, 3, 17, 257, 64),
               (2, 2, 65, 64, 8), (1, 4, 4096, 4096, 96), (2, 2, 100, 70, 96),
-              (1, 2, 300, 257, 88)]
-BWD_SHAPES_F32 = BWD_SHAPES + [(2, 2, 100, 70, 128), (1, 2, 33, 65, 20)]
+              (1, 2, 300, 257, 88), (2, 2, 100, 70, 104), (1, 4, 1024, 1000, 128)]
+BWD_SHAPES_F32 = BWD_SHAPES + [(1, 2, 33, 65, 20)]
 
 
 def _attn_case(gen, dt, b, h, nq, nk, d):
@@ -614,13 +614,37 @@ def test_flash_attn_bwd_kernels(gen, dt, shape):
 def test_flash_bwd_smem_matches_kernels(gen):
     """The bf16 backward's instance width and shared memory as the Python
     side works them out against the kernels' own (csrc/flash_bwd.cu
-    cv_flash_bwd_bf16_smem) at every head width a multiple of 8 up to 96,
-    and no instance past them."""
+    cv_flash_bwd_bf16_smem) at every head width a multiple of 8 up to 128,
+    and no instance off a multiple of 8 (the padded route's) or past 128."""
     lib = build.library("flash_bwd")
-    for hd in range(8, 97, 8):
+    for hd in range(8, 129, 8):
         assert lib.cv_flash_bwd_bf16_smem(hd) == fa.flash_bwd_tc_smem(fa.grad_width(hd)), hd
-    for hd in (4, 60, 104, 128):
+    assert fa.flash_bwd_tc_smem(128) <= build.MAX_SMEM
+    for hd in (4, 60, 136):
         assert lib.cv_flash_bwd_bf16_smem(hd) == 0, hd
+
+
+@pytest.mark.parametrize("hd", [60, 100])
+def test_flash_attention_padded_route_on_card(gen, hd):
+    """A bf16 head off a multiple of 8 under autograd on the card: one
+    launch of each kernel on heads zero-padded to the next multiple of 8,
+    o and the gradients of the true width, against the plain versions on
+    the unpadded operands."""
+    q, k, v, do = _attn_case(gen, torch.bfloat16, 1, 4, 1000, 1000, hd)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = (fa.flash_attn_lse.launches, fa.flash_attn_bwd_dq.launches,
+              fa.flash_attn_bwd_dkv.launches)
+    o = fa.flash_attention(q, k, v)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    assert (fa.flash_attn_lse.launches, fa.flash_attn_bwd_dq.launches,
+            fa.flash_attn_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    assert o.shape == q.shape and all(g.shape == q.shape for g in grads)
+    with torch.no_grad():
+        o_ref, lse = fa.flash_attn_lse_plain(q, k, v)
+        ref = fa.flash_attn_bwd_plain(q, k, v, o_ref, lse, do)
+    _close(o, o_ref)
+    for got, r in zip(grads, ref):
+        _close(got, r)
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -697,29 +721,30 @@ def test_kernel_wrappers_refuse_operands_that_require_grad(gen):
 
 
 def test_training_refuses_bf16_heads_flash_cannot_take(gen):
-    """A Hiera layout at 1024 whose global heads are 104 wide in bfloat16 —
-    past FlashAttention's widest bf16 instance, 96 — is refused with its
-    width named when the whole-tree step is made and before a LoRA step
-    runs; in float32 the same model is taken, and so is bfloat16
-    Hiera-t@1024 (global heads of 96)."""
+    """A Hiera layout at 1024 whose global heads are 104 wide — once past
+    FlashAttention's widest bf16 instance, 96 — is taken in bfloat16 (the
+    128 instances) and in float32 when the whole-tree step is made, and so
+    are heads of 60 (the padded route) and bfloat16 Hiera-t@1024 (96);
+    what is refused, with its width named, when the whole-tree step is
+    made and before a LoRA step runs, is a dtype no kernel takes
+    (float16)."""
     from circuitvision_tpu_torch.core.config import SAM2Config, TrainConfig
     from circuitvision_tpu_torch.models.sam2.wrapper import SAM2ImageSegmenter
     from circuitvision_tpu_torch.train import lora, train_step
 
     t = dict(resolution=1024, num_heads=1, stages=(1, 2, 7, 2), global_att_blocks=(5, 7, 9),
              window_spec=(8, 4, 14, 7))
-    model = SAM2ImageSegmenter(SAM2Config(embed_dim=104, **t)).to("cuda", torch.bfloat16)
-    opt, mask = train_step.make_optimizer(model, TrainConfig(), None)
-    all_true = {n: True for n in mask}
-    with pytest.raises(build.KernelError, match="width 104"):
+    for embed in (104, 60, 96):
+        model = SAM2ImageSegmenter(SAM2Config(embed_dim=embed, **t)).to("cuda", torch.bfloat16)
+        opt, mask = train_step.make_optimizer(model, TrainConfig(), None)
+        all_true = {n: True for n in mask}
+        train_step.make_train_step(model, opt, mask=all_true, selective=False)
+        train_step.make_train_step(model.float(), opt, mask=all_true, selective=False)
+    model = model.half()
+    with pytest.raises(build.KernelError, match="width 96 in torch.float16"):
         train_step.make_train_step(model, opt, mask=all_true, selective=False)
     train_step.make_train_step(model, opt, mask=mask)  # the surface: no trunk block trains
     tstate = lora.init_train_state(model, torch.Generator().manual_seed(0), n_trunk_blocks=12)
     step = lora.make_lora_train_step(model, lora.make_lora_optimizer())
-    with pytest.raises(build.KernelError, match="width 104"):
+    with pytest.raises(build.KernelError, match="width 96 in torch.float16"):
         step(dict(model.named_parameters()), tstate, None, None, None)
-    train_step.make_train_step(model.float(), opt, mask=all_true, selective=False)
-    tiny = SAM2ImageSegmenter(SAM2Config(embed_dim=96, **t)).to("cuda", torch.bfloat16)
-    train_step.make_train_step(tiny, train_step.make_optimizer(tiny, TrainConfig(), None)[0],
-                               mask={n: True for n, _ in tiny.named_parameters()},
-                               selective=False)

@@ -170,21 +170,31 @@ def _lossless_jfif() -> bytes:
     return data[:2] + jfif + data[2:]
 
 
+def _cblk_style(jp2: bytes) -> bytes:
+    """The JP2's codestream with its COD's code-block style set to BYPASS."""
+    # COD: the marker, Lcod 2, Scod, SGcod 4, then NL, xcb, ycb and the style
+    at = jp2.index(b"\xff\x52", jp2.index(b"\xff\x4f\xff\x51"))
+    return jp2[:at + 12] + b"\x01" + jp2[at + 13:]
+
+
 @pytest.mark.parametrize("make,match", [
     (lambda: _sof_patched(_JPEG, marker=0xC5), "hierarchical"),
     (lambda: _sof_patched(_JPEG, precision=12), "12-bit"),
     (lambda: _sof_patched(_JPEG, marker=0xCB), "lossless frames with arithmetic coding"),
     (_lossless_jfif, "lossless.*colour conversion"),
-    (lambda: _pil_bytes(Image.new("RGB", (8, 8)), "JPEG2000"), "JPEG 2000.*Queue A 19"),
+    (lambda: _cblk_style(_pil_bytes(Image.new("RGB", (8, 8)), "JPEG2000")),
+     "JPEG 2000.*BYPASS"),
     (lambda: _pil_bytes(Image.new("RGB", (8, 8)), "AVIF"), "AVIF.*Queue A 19"),
 ])
 def test_other_formats_raise_naming_them(make, match):
     """What the reader still refuses: 12-bit, hierarchical and arithmetic
     lossless JPEG frames and a lossless frame that would need a colour
     conversion, which PIL refuses too (the JAX decode_image raises on
-    each), and JPEG 2000 and AVIF, which the JAX server reads through PIL
-    (ROADMAP Queue A 19). GIF and TIFF, once refused here, are read now
-    (tests/test_torch_port_image_kinds.py)."""
+    each), AVIF, which the JAX server reads through PIL (ROADMAP Queue A
+    19b), and a JPEG 2000 codestream whose code-block style PIL's encoder
+    never writes (its COD patched to BYPASS). GIF, TIFF and JPEG 2000,
+    once refused here, are read now (tests/test_torch_port_image_kinds.py,
+    tests/test_torch_port_jpeg2000.py)."""
     data = make()
     if data[:2] == b"\xff\xd8":
         with pytest.raises(Exception):

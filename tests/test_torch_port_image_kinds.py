@@ -308,16 +308,16 @@ def test_unread_tiff_kinds_raise_naming_them(case):
 
 
 def test_other_plugins_raise_naming_them():
-    """JPEG 2000 and AVIF stay refused by name (ROADMAP Queue A 19b); PCX
-    and QOI, once refused here, are read (tests/test_torch_port_image_19a.py),
+    """AVIF stays refused by name (ROADMAP Queue A 19b); PCX, QOI and
+    JPEG 2000, once refused here, are read (tests/test_torch_port_image_19a.py,
+    tests/test_torch_port_jpeg2000.py),
     and what PIL cannot read of them, or of Pillow's own PNM variants,
     raises naming the reader."""
     rng = np.random.default_rng(0)
     a = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
-    for fmt, name in (("JPEG2000", "JPEG 2000"), ("AVIF", "AVIF")):
-        with pytest.raises(pio.ImageFormatError, match=name):
-            pio.decode_image(_pil(Image.fromarray(a), fmt))
-    for fmt in ("PCX", "QOI"):
+    with pytest.raises(pio.ImageFormatError, match="AVIF"):
+        pio.decode_image(_pil(Image.fromarray(a), "AVIF"))
+    for fmt in ("PCX", "QOI", "JPEG2000"):
         assert _same(_pil(Image.fromarray(a), fmt), fmt) is not None
     pcx4 = bytearray(_pil(Image.fromarray(a), "PCX"))
     pcx4[3], pcx4[65] = 4, 1  # 4 bits in one plane: unknown to PIL

@@ -341,10 +341,21 @@ def test_flash_bwd_width_and_smem(hd):
 @pytest.mark.parametrize("hd", [4, 60, 100, 104, 128])
 def test_flash_bwd_refuses_head_widths(hd):
     """bf16 rows are copied in 16-byte pieces and the widest instance is
-    96: other widths are refused, as the C side refuses them."""
+    128: the kernels' instances (grad_width) refuse a width off a
+    multiple of 8 and one past 128, as the C side refuses them; such a
+    head below 128 reaches them zero-padded to the next multiple of 8
+    (FlashAttention's padded route, grad_pad_width), so FlashAttention
+    takes every one of these widths."""
+    padded = tflash.grad_pad_width(hd, torch.bfloat16, torch.device("cuda"))
+    assert padded == -(-hd // 8) * 8
+    if hd % 8:
+        with pytest.raises(build.KernelError):
+            tflash.grad_width(hd)
+    assert tflash.grad_width(padded) == next(w for w in tflash.LSE_WIDTHS if w >= padded)
     with pytest.raises(build.KernelError):
-        tflash.grad_width(hd)
-    assert not tflash.grad_head_width_ok(hd, torch.bfloat16)
+        tflash.grad_width(padded + 128)
+    assert tflash.grad_head_width_ok(hd, torch.bfloat16)
+    assert not tflash.grad_head_width_ok(hd + 128, torch.bfloat16)
 
 
 def test_flash_grad_instances_match_the_sources():
@@ -353,7 +364,7 @@ def test_flash_grad_instances_match_the_sources():
     lse forward's instances in flash_attn.cu, and the instances' smem
     formula (bwd_tc_smem: six tiles and 4·kB floats)."""
     bwd = (build.CSRC / "flash_bwd.cu").read_text()
-    widths = re.search(r"constexpr int kBwdWidths\[2\] = \{(\d+), (\d+)\};", bwd)
+    widths = re.search(r"constexpr int kBwdWidths\[3\] = \{(\d+), (\d+), (\d+)\};", bwd)
     assert tuple(int(w) for w in widths.groups()) == tflash.LSE_WIDTHS
     assert re.search(r"constexpr int kB = (\d+);", bwd).group(1) == str(tflash.BWD_TILE)
     assert "sizeof(bf16) * 6 * kB * ld + sizeof(float) * 4 * kB" in bwd

@@ -550,13 +550,13 @@ def test_cli_a_failing_rank_fails_the_run(drawings, tmp_path):
         (d / f"c{k}.png").write_bytes((drawings / f"c{k}.png").read_bytes())
     from PIL import Image
 
-    # a JPEG 2000 file named as a BMP
-    Image.open(drawings / "c0.png").convert("RGB").save(d / "c2.bmp", format="JPEG2000")
+    # an AVIF file named as a BMP
+    Image.open(drawings / "c0.png").convert("RGB").save(d / "c2.bmp", format="AVIF")
     res = _run_ranks(lambda r, port: [sys.executable, "-m", "circuitvision_tpu_torch.cli",
                                       "analyze-batch", str(d), "--device", "cpu", "--scale",
                                       "n", "--det-size", "64", "--distributed"],
                      expect_ok=False)
-    assert res[1][0] != 0 and "JPEG 2000" in res[1][1]
+    assert res[1][0] != 0 and "AVIF" in res[1][1]
     assert res[0][0] != 0
 
 

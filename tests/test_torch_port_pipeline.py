@@ -168,7 +168,8 @@ def test_tiny_analyze_imports_no_jax_cv2_or_reference_package(tmp_path):
     fine-tune step on a batch of the folder dataset and a train
     checkpoint, the black-box value pass (a fake whole-image client's
     final netlist on the drawn enumeration image, and the Gemini and
-    OpenRouter clients against a stub server on 127.0.0.1), the parallel
+    OpenRouter clients against a stub server on 127.0.0.1), two JPEG 2000
+    uploads (io/jpeg2000.py), the parallel
     helpers and the distributed train step in one process, and find no
     module named exactly jax, flax, optax, orbax, tensorstore, cv2, PIL,
     matplotlib, google, openai, httpx, requests, ... or the JAX
@@ -217,6 +218,9 @@ from circuitvision_tpu_torch.models import flops
 webapp.make_server(a, port=0, host="127.0.0.1").server_close()
 json.dumps(webapp.analysis_json(r, img))
 load_image({str(ROOT / "eval_data" / "image_fixtures" / "progressive.jpg")!r})
+# JPEG 2000 (io/jpeg2000.py, native/j2k.cpp): a 9/7 JP2 and a PPT codestream
+load_image({str(ROOT / "eval_data" / "image_fixtures" / "jp2_97.jp2")!r})
+load_image({str(ROOT / "eval_data" / "image_fixtures" / "jp2_ppt.j2k")!r})
 assert flops.sam2_forward_flops(cfg.sam2) > 0
 # the fine-tune: dataset, a selective and a LoRA step, a checkpoint
 import torch
@@ -333,6 +337,7 @@ def test_port_sources_name_no_jax_or_reference_import():
     files = list((ROOT / "circuitvision_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     files += sorted((ROOT / "scripts").glob("torch_*.py"))
     assert len(files) > 20 and ROOT / "scripts" / "torch_train_demo.py" in files
+    assert ROOT / "circuitvision_tpu_torch" / "io" / "jpeg2000.py" in files
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.search(line)]
     assert not hits, hits

@@ -278,11 +278,11 @@ def test_http_roundtrip_stats_and_metrics(pipeline, reference):
 
 
 def test_jpeg_request_is_served_on_its_pixels(pipeline):
-    """POST /analyze with a JPEG, a BMP, a lossless WebP and an LZW TIFF:
-    the served netlist is the executor's on the pixels the port's reader
-    decodes (PIL's, tests/test_torch_port_jpeg.py, _bmp.py, _webp.py,
-    _image_kinds.py), and a JPEG 2000 file answers 500 naming ROADMAP
-    Queue A 19."""
+    """POST /analyze with a JPEG, a BMP, a lossless WebP, an LZW TIFF and
+    a lossless JPEG 2000 file: the served netlist is the executor's on the
+    pixels the port's reader decodes (PIL's, tests/test_torch_port_jpeg.py,
+    _bmp.py, _webp.py, _image_kinds.py, _jpeg2000.py), and an AVIF file
+    answers 500 naming ROADMAP Queue A 19."""
     from PIL import Image
 
     ok, jpeg = cv2.imencode(".jpg", cv2.cvtColor(LOOP, cv2.COLOR_RGB2BGR),
@@ -300,14 +300,16 @@ def test_jpeg_request_is_served_on_its_pixels(pipeline):
             Image.fromarray(LOOP).save(buf, "WEBP", lossless=True)
             want = ex.submit(LOOP).result(timeout=WAIT_S)
             ok, tiff = cv2.imencode(".tiff", cv2.cvtColor(LOOP, cv2.COLOR_RGB2BGR))
-            for body in (bmp.tobytes(), buf.getvalue(), tiff.tobytes()):
+            jp2 = io.BytesIO()
+            Image.fromarray(LOOP).save(jp2, "JPEG2000")
+            for body in (bmp.tobytes(), buf.getvalue(), tiff.tobytes(), jp2.getvalue()):
                 assert np.array_equal(decode_image(body), LOOP)
                 code, payload = _post(url, body)
                 assert code == 200 and payload["netlist_text"] == want.netlist_text
-            jp2 = io.BytesIO()
-            Image.fromarray(LOOP).save(jp2, "JPEG2000")
-            code, payload = _post(url, jp2.getvalue())
-            assert code == 500 and "JPEG 2000" in payload["error"] \
+            avif = io.BytesIO()
+            Image.fromarray(LOOP).save(avif, "AVIF")
+            code, payload = _post(url, avif.getvalue())
+            assert code == 500 and "AVIF" in payload["error"] \
                 and "Queue A 19" in payload["error"]
         finally:
             server.shutdown()

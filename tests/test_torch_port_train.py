@@ -640,20 +640,25 @@ def test_flash_route_walk_and_head_widths():
     ok = fa.grad_head_width_ok
     assert ok(72, torch.bfloat16) and ok(64, torch.bfloat16) and ok(96, torch.float32)
     assert ok(96, torch.bfloat16) and ok(88, torch.bfloat16)
-    assert not ok(60, torch.bfloat16) and not ok(104, torch.bfloat16)
-    assert not ok(136, torch.float32)
+    assert ok(60, torch.bfloat16) and ok(104, torch.bfloat16) and ok(128, torch.bfloat16)
+    assert not ok(136, torch.float32) and not ok(136, torch.bfloat16)
+    assert not ok(64, torch.float16)
+    assert [fa.grad_width(w) for w in (8, 72, 80, 96, 104, 128)] == [72, 72, 96, 96, 128, 128]
     with torch.device("meta"):
         wide = TSAM2(tconfig.SAM2Config(resolution=1024, **t)).to(torch.bfloat16)
     tts.check_flash_widths(wide, 0)
 
 
-def test_check_flash_widths_on_the_card_admits_t_at_1024_and_refuses_other_widths(monkeypatch):
+@pytest.mark.parametrize("embed", [60, 104, 128])
+def test_check_flash_widths_on_the_card_admits_t_at_1024_and_refuses_other_widths(
+        monkeypatch, embed):
     """check_flash_widths as it runs for a model on the card (the weight's
     is_cuda seen as true): bfloat16 Hiera-t@1024 (global heads of 96) is
-    admitted, and so is L@1024 (72); a layout whose global heads are 104
-    wide, or 60, is refused before any step with its width and the
-    kernels' instance widths named; in float32 the 104-wide model is
-    taken."""
+    admitted, and so is L@1024 (72), and a layout whose global heads are
+    `embed` wide, in bfloat16 (60 on the padded route, 104 and 128 on the
+    128 instance) and in float32; FlashAttention takes every bfloat16
+    width up to MAX_HEAD_DIM on the card, so what is refused before any
+    step is a dtype no kernel takes (float16), with its width named."""
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     t = dict(embed_dim=96, num_heads=1, stages=(1, 2, 7, 2), global_att_blocks=(5, 7, 9),
              window_spec=(8, 4, 14, 7))
@@ -664,10 +669,132 @@ def test_check_flash_widths_on_the_card_admits_t_at_1024_and_refuses_other_width
     tts.check_flash_widths(model(torch.bfloat16), 0)
     with torch.device("meta"):
         tts.check_flash_widths(TSAM2(tconfig.SAM2Config()).to(torch.bfloat16), 0)
-    for embed in (104, 60):
-        with pytest.raises(KernelError, match=f"widths 72, 96.*heads of width {embed} "):
-            tts.check_flash_widths(model(torch.bfloat16, embed_dim=embed), 0)
-    tts.check_flash_widths(model(torch.float32, embed_dim=104), 0)
+    tts.check_flash_widths(model(torch.bfloat16, embed_dim=embed), 0)
+    tts.check_flash_widths(model(torch.float32, embed_dim=embed), 0)
+    assert all(fa.grad_head_width_ok(w, torch.bfloat16) for w in range(1, fa.MAX_HEAD_DIM + 1))
+    with pytest.raises(KernelError, match=f"heads of width {embed} in torch.float16"):
+        tts.check_flash_widths(model(torch.float16, embed_dim=embed), 0)
+
+
+@pytest.mark.parametrize("hd", [60, 100])
+def test_padded_route_equals_the_unpadded_plain_versions(hd, monkeypatch):
+    """FlashAttention's padded route over the plain versions — q, k, v and
+    dO zero-padded to the next multiple of 8, the plain versions with the
+    true width's scale, o, dQ, dK and dV cut back — against the unpadded
+    plain versions, in float32: o, lse, dQ, dK and dV within float32
+    rounding (4 ulps of the largest magnitude: the padded products add
+    zeros, and only the order of the sums may differ)."""
+    rng = np.random.default_rng(hd)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, 2, 80, hd), np.float32))
+                   for _ in range(4))
+    width = fa.grad_pad_width(hd, torch.bfloat16, torch.device("cuda"))
+    assert width == -(-hd // 8) * 8 and fa.grad_pad_width(hd, torch.float32,
+                                                          torch.device("cuda")) == hd
+    assert fa.grad_pad_width(hd, torch.bfloat16, torch.device("cpu")) == hd
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (0, width - hd))
+
+    def near(got, ref, what):
+        bound = 4 * 2.0 ** -23 * max(1.0, float(ref.abs().max()))
+        err = float((got - ref).abs().max())
+        assert err <= bound, f"{what}: {err:.3e} > {bound:.3e}"
+
+    o, lse = fa.flash_attn_lse_plain(q, k, v)
+    op, lsep = fa.flash_attn_lse_plain(pad(q), pad(k), pad(v), scale_width=hd)
+    assert op.shape[-1] == width and float(op[..., hd:].abs().max()) == 0.0
+    near(op[..., :hd], o, "o")
+    near(lsep, lse, "lse")
+    grads = fa.flash_attn_bwd_plain(q, k, v, o, lse, do)
+    padded = fa.flash_attn_bwd_plain(pad(q), pad(k), pad(v), op, lsep, pad(do), scale_width=hd)
+    for name, g, gp in zip(("dq", "dk", "dv"), grads, padded):
+        assert float(gp[..., hd:].abs().max()) == 0.0, name
+        near(gp[..., :hd], g, name)
+    # the route as FlashAttention takes it under autograd, grad_pad_width
+    # forced to the card's padded width as the width-60 step test forces it
+    seen = []
+    real = fa.flash_attn_lse_plain
+    monkeypatch.setattr(fa, "grad_pad_width", lambda _hd, _dt, _dev: width)
+    monkeypatch.setattr(fa, "flash_attn_lse_plain", lambda q, k, v, scale_width=None: seen.append(
+        (q.shape[-1], scale_width)) or real(q, k, v, scale_width))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.FlashAttention.apply(*leaves)
+    assert seen == [(width, hd)] and out.shape == q.shape
+    near(out.detach(), o, "FlashAttention o")
+    for name, got, g in zip(("dq", "dk", "dv"), torch.autograd.grad(out, leaves, do), grads):
+        near(got, g, f"FlashAttention {name}")
+
+
+#: a Hiera whose every head is 60 wide (embed 60, one head, doubled with
+#: the width at each stage), its global block at stage 2
+HEADS60 = dict(resolution=64, embed_dim=60, num_heads=1, stages=(1, 1, 2, 1),
+               global_att_blocks=(3,), window_spec=(8, 4, 8, 4),
+               backbone_channel_list=(480, 240, 120, 60), decoder_mlp_dim=64,
+               dtype="bfloat16")
+#: bfloat16 port against bfloat16 JAX: per leaf max |port − jax| ≤
+#: BF16_STEP_RTOL · max |jax| over the whole gradient tree, the loss within
+#: BF16_STEP_RTOL of JAX's. Both sides keep 8 bits in every stored
+#: activation; a value that rounds the other way after a last-bit
+#: difference in an f32 sum moves what follows it by an ulp (2^-8), and a
+#: backward pass carries such moves through ~60 layers. Measured: 5.2e-2
+#: (the same with einsum attention in the port: the padded route adds
+#: nothing), 7.9e-7 at float32
+BF16_STEP_RTOL = 2.0 ** -4
+
+
+def test_bf16_step_with_60_wide_heads_matches_jax(monkeypatch):
+    """A tiny bfloat16 SAM2 whose heads are all 60 wide, whole-tree
+    gradients of one step: the port with every attention through
+    FlashAttention on its padded route (grad_pad_width forced to the
+    next multiple of 8 as on the card; the plain versions at width 64,
+    scale from 60) against the JAX module path (einsum attention on the
+    CPU), under jax.default_matmul_precision("highest"); and against the
+    port's own einsum attention within one bf16 ulp of the largest
+    gradient."""
+    from circuitvision_tpu.models.initialization import cast_float_params
+
+    jm = JSAM2(cfg=JSAM2Config(**HEADS60))
+    v = jax.tree.map(np.asarray, cast_float_params(jsam2_init(jm, jax.random.PRNGKey(3)),
+                                                   jnp.bfloat16))
+    rng = np.random.default_rng(2)
+    images = rng.random((1, 64, 64, 3), np.float32)
+    masks = (rng.random((1, 64, 64)) > 0.6).astype(np.float32)
+
+    def loss_fn(params):
+        high, _low, iou = jm.apply(params, jnp.asarray(images))
+        return jlosses.combined_loss(high[..., 0].astype(jnp.float32), iou.astype(jnp.float32),
+                                     jnp.asarray(masks), JTrainConfig())
+
+    with jhiera.force_fused(False):
+        (jloss, _m), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(v)
+    jgrads = _port(jax.tree.map(lambda g: np.asarray(g, np.float32), jgrads))
+
+    tm = TSAM2(tconfig.SAM2Config(**HEADS60))
+    tm.load_state_dict(bridge.state_dict_from_variables(
+        jax.tree.map(lambda x: np.asarray(x, np.float32), v)), strict=True)
+    tm = tm.to(torch.bfloat16)
+
+    def step(flash):
+        with thiera.force_flash(flash):
+            return tts.loss_and_grads(tm, _params(tm), torch.from_numpy(images),
+                                      torch.from_numpy(masks), selective=False)
+
+    plain_loss, _m, plain = step(False)
+    widths = []
+    real = fa.flash_attn_lse_plain
+    monkeypatch.setattr(fa, "grad_pad_width", lambda hd, dt, dev: -(-hd // 8) * 8)
+    monkeypatch.setattr(fa, "flash_attn_lse_plain", lambda q, k, v, scale_width=None: widths.append(
+        (q.shape[-1], scale_width)) or real(q, k, v, scale_width))
+    loss, _metrics, grads = step(True)
+    assert widths and set(widths) == {(64, 60)}, widths
+    top = max(float(np.abs(g).max()) for g in jgrads.values())
+    assert abs(float(loss) - float(jloss)) <= BF16_STEP_RTOL * max(1.0, abs(float(jloss)))
+    assert float(loss) == float(plain_loss)
+    assert set(grads) == set(jgrads)
+    for n, g in grads.items():
+        err = float(np.abs(g.float().numpy() - jgrads[n]).max())
+        assert err <= BF16_STEP_RTOL * top, f"{n}: {err:.3e} > {BF16_STEP_RTOL * top:.3e}"
+        assert float((g.float() - plain[n].float()).abs().max()) <= 2.0 ** -8 * top, n
 
 
 def test_restore_jax_train_state_defaults_to_the_card(monkeypatch, tmp_path):

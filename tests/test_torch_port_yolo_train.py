@@ -389,3 +389,97 @@ def test_yolo_steps_match_jax_after_state_carried_across(tiny, fault):
     # the statistics moved, as JAX moves them
     assert max(float((tp[n] - bridge.port_tree(jax.tree.map(np.asarray, v))[n]).abs().max())
                for n in stats) > 0.5 * STEP_LR
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_card_gate_takes_near_ties_and_rejects_real_differences(seed):
+    """chip_smoke.py phase 13's detector-step gate (`assignment_sides`,
+    `assignment_ties`) on constructed sides: one side's predictions as
+    decoded, the other's the same but for one anchor's score, moved so
+    that its metric t for one GT lands just past that GT's k-th best —
+    within float32 rounding (a few ulps, a near-tie: the top-k sets of
+    both sides differ, and each differing anchor's t lies at the k-th
+    best on one side: tied, no real difference) — or half as far again
+    (a real difference, which the gate reports)."""
+    cs = _chip_smoke()
+    cfg = tyl.YOLOLossConfig(**CFG)
+    scores, boxes, ap = (torch.from_numpy(np.array(a)) for a in _decoded(_heads(seed)))
+    # boxes large enough to hold more than k anchors' centres, one class each
+    gb = torch.tensor([[[2, 2, 62, 62], [4, 6, 40, 44], [24, 18, 62, 58]]] * 2, dtype=torch.float32)
+    gc = torch.tensor([[0, 1, 2], [3, 1, 4]], dtype=torch.int32)
+    gv = torch.ones((2, 3), dtype=torch.bool)
+    cpu = cs.assignment_sides(torch, tyl, scores, boxes, ap, gb, gc, gv, cfg)
+    k = cfg.topk
+    # the GT (unique class in its image) and first anchor past its top k
+    # whose t is nearest below the k-th best
+    best = None
+    for b in range(gb.shape[0]):
+        for g in range(gb.shape[1]):
+            if not gv[b, g] or int((gc[b][gv[b]] == gc[b, g]).sum()) > 1:
+                continue
+            order = torch.sort(cpu["align"][b, g], descending=True, stable=True)
+            a_n, t_n = int(order.indices[k]), float(order.values[k])
+            if t_n > 0 and (best is None or float(cpu["kth"][b, g]) / t_n < best[0]):
+                best = (float(cpu["kth"][b, g]) / t_n, b, g, a_n)
+    assert best is not None
+    ratio, b, g, a_n = best
+    cls = int(gc[b, g])
+    for push, want_real in ((1 + 8 * 2.0 ** -23, False), (1.5, True)):
+        moved = scores.clone()
+        # t ∝ score^0.5: squared ratios move t by `push` past the k-th best
+        moved[b, a_n, cls] = scores[b, a_n, cls] * (ratio * push) ** 2
+        card = cs.assignment_sides(torch, tyl, moved, boxes, ap, gb, gc, gv, cfg)
+        tied, real = cs.assignment_ties(torch, card, cpu)
+        diff = (card["fg"] != cpu["fg"]) | (card["assigned"] != cpu["assigned"])
+        assert bool((card["cand"] != cpu["cand"]).any())
+        assert len(tied) + len(real) == int(diff.sum())
+        if want_real:
+            assert real and any(e["anchor"] == a_n for e in real), (tied, real)
+        else:
+            assert tied and not real, (tied, real)
+            # the targets off the tie agree; the tied GT's anchors are left out
+            targets = cs.target_score_errors(torch, card, cpu, tied)
+            assert targets["n_over"] == 0 and targets["left_out"] > 1, targets
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_card_gate_holds_target_scores_off_the_ties(seed):
+    """Phase 13's target-score gate (`target_score_errors`): one side's
+    predictions as decoded, the other's the same but for the assigned
+    anchor of largest target that is well inside its GT's top k and not
+    its best, whose score moves by an ulp (the targets within float32
+    rounding: passes) or by 1e-2 (the assignment the same, its target off
+    by ~5e-3 of itself: rejected)."""
+    cs = _chip_smoke()
+    cfg = tyl.YOLOLossConfig(**CFG)
+    scores, boxes, ap = (torch.from_numpy(np.array(a)) for a in _decoded(_heads(seed)))
+    gb = torch.tensor([[[2, 2, 62, 62], [4, 6, 40, 44], [24, 18, 62, 58]]] * 2, dtype=torch.float32)
+    gc = torch.tensor([[0, 1, 2], [3, 1, 4]], dtype=torch.int32)
+    gv = torch.ones((2, 3), dtype=torch.bool)
+    cpu = cs.assignment_sides(torch, tyl, scores, boxes, ap, gb, gc, gv, cfg)
+    def inside(b, a):
+        g = int(cpu["assigned"][b, a])
+        t = cpu["align"][b, g]
+        best = float(t[cpu["fg"][b] & (cpu["assigned"][b] == g)].max())
+        return 1.01 * float(cpu["kth"][b, g]) <= float(t[a]) < best
+    b, a = max((ba for ba in cpu["fg"].nonzero().tolist() if inside(*ba)),
+               key=lambda ba: float(cpu["target"][ba[0], ba[1]].max()))
+    cls = int(gc[b, int(cpu["assigned"][b, a])])
+    for push, rejected in ((1 + 2.0 ** -23, False), (1 + 1e-2, True)):
+        moved = scores.clone()
+        moved[b, a, cls] = scores[b, a, cls] * push
+        card = cs.assignment_sides(torch, tyl, moved, boxes, ap, gb, gc, gv, cfg)
+        assert cs.assignment_ties(torch, card, cpu) == ([], [])
+        targets = cs.target_score_errors(torch, card, cpu, [])
+        assert (targets["n_over"] > 0) == rejected, targets
